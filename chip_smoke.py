@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: RepVGG-A0 chained int8.
+"""Smoke run of the PyTorch port on one CUDA card: RepVGG-A0 chained int8,
+then the two int8 GEMM tools.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   the int8 3x3 conv kernel from dlmc_quant_torch/ops/cuda/csrc
-             with nvcc (prints the build seconds and ptxas' report);
+  1. build   the three kernels from dlmc_quant_torch/ops/cuda/csrc (int8
+             3x3 conv, int8 GEMM, int8 MMA probe), one nvcc each, all at
+             once (prints the build seconds and ptxas' report);
   2. kernel  RepVGG-A0 deploy form at 224x224, full width, seeded random
              weights, calibrated on one seeded batch (FSPTQ W8A8 with
              AdaRound decisions) and prepared for integer execution.  At
@@ -18,7 +20,17 @@ Phases, each fatal on failure:
   3. serve   make_serving_fn(model, qmode="intc") answers 6 requests of
              256 random images; the logits must be finite, (256, 1000),
              agree with the same model run on the CPU (plain path) on 8
-             images, and the kernel must have launched 22 times a request.
+             images, and the kernel must have launched 22 times a request;
+  4. gemm    the GEMM-sweep tool's path (gemm_sweep.main: every shape at
+             every compiled tile, each result equal to torch._int_mm's),
+             which must launch the GEMM kernel; then at every sweep shape
+             (default tile) the kernel against its plain version and
+             torch._int_mm, tolerance 0 (integer results are exact).  Per
+             shape: kernel ms and library ms (the tool's CUDA-graph
+             medians), bound ms, plain ms (CUDA events, median of 3);
+  5. probe   the same for the MMA-rate probe's path (mma_probe.main) and
+             its shapes, the library call being torch._int_mm on the
+             concatenated operands.
 The last lines: one JSON line of kernel figures, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -28,7 +40,6 @@ from __future__ import annotations
 import copy
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -37,12 +48,18 @@ import torch.nn.functional as F
 
 from dlmc_quant_torch import (calibrate, get_model, make_serving_fn,
                               prepare_deploy, scheme_from_dict)
+from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda import int8_conv as K
+from dlmc_quant_torch.ops.cuda import int8_gemm as G
+from dlmc_quant_torch.ops.cuda import int8_mma_probe as P
 from dlmc_quant_torch.quant.chain import fold_params, qrelu
+from dlmc_quant_torch.tools import gemm_sweep, mma_probe
+from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
+                                              bound_by, card_line, event_ms)
 
 SIZE, CLASSES, SEED = 224, 1000, 0
 CAL_BATCH, SERVE_BATCH, REQUESTS, REPS = 32, 256, 6, 20
-PEAK_INT8_OPS, PEAK_BYTES = 1979e12, 3.35e12   # H100 SXM data sheet
+PLAIN_REPS = 3
 SCHEME = {
     "quantization_type": "FSPTQ",
     "weight": {"enable": True, "type": "minmax_channel",
@@ -53,31 +70,9 @@ SCHEME = {
 }
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
 def images(n: int, seed: int, device) -> torch.Tensor:
     g = torch.Generator().manual_seed(seed)
     return torch.rand((n, SIZE, SIZE, 3), generator=g).to(device)
-
-
-def event_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def conv_calls(model, x):
@@ -208,6 +203,85 @@ def serve_phase(model, device, card: str):
     return launches
 
 
+def tool_path(drive, wrapper, what: str):
+    """Run a tool's main path with ``wrapper``'s launch count set to 0;
+    returns the tool's rows and the launches of that run."""
+    wrapper.launches = 0
+    rows = drive()
+    torch.cuda.synchronize()
+    launches = wrapper.launches
+    if launches == 0:
+        raise RuntimeError(f"{what} never launched its kernel")
+    return rows, launches
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.long() - b.long()).abs().max())
+
+
+def gemm_calls(row, gen):
+    """(kernel, plain, library) calls on fresh operands of a sweep row."""
+    m, k, n = row["m"], row["k"], row["n"]
+    x, w = gemm_sweep.operands(m, k, n, gen)
+    wp = G.pack_b(w)
+    wc = gemm_sweep.col_major(wp, k)
+    return (lambda: G.int8_gemm(x, wp), lambda: G.int8_gemm_plain(x, wp),
+            lambda: torch._int_mm(x, wc))
+
+
+def probe_calls(row, gen):
+    """(kernel, plain, library) calls on fresh operands of a probe row."""
+    x, wp = mma_probe.operands(row["m"], row["k"], row["n"], gen)
+    rolls = row["rolls"]
+    xc, wc = mma_probe.concat_operands(x, wp, rolls)
+    return (lambda: P.int8_mma_probe(x, wp, rolls),
+            lambda: P.int8_mma_probe_plain(x, wp, rolls),
+            lambda: torch._int_mm(xc, wc))
+
+
+def exact_phase(what: str, rows, calls):
+    """Kernel vs plain vs torch._int_mm at each row's shape (tolerance 0);
+    returns totals of the tool's times, the bounds and the plain times."""
+    print(f"# {what} vs plain and torch._int_mm: (M,K,N) | max|d plain| "
+          "max|d _int_mm| | kernel_ms bound_ms (by) plain_ms library_ms")
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
+               library_ms=0.0, err=0)
+    for row in rows:
+        kernel, plain, library = calls(row)
+        got = kernel()
+        err_plain = max_abs(got, plain())
+        err_lib = max_abs(got, library())
+        plain_ms = event_ms(plain, PLAIN_REPS)
+        b_ms = max(row["ops_ms"], row["bytes_ms"])
+        print(f"({row['m']},{row['k']},{row['n']}) | {err_plain} {err_lib} | "
+              f"{row['ms']:.5f} {b_ms:.5f} "
+              f"({bound_by(row['ops_ms'], row['bytes_ms'])}) {plain_ms:.4f} "
+              f"{row['library_ms']:.5f}")
+        if err_plain or err_lib:
+            raise RuntimeError(f"{what} at ({row['m']},{row['k']},"
+                               f"{row['n']}): differs from plain by "
+                               f"{err_plain}, from torch._int_mm by {err_lib}")
+        for key, val in (("ms", row["ms"]), ("plain_ms", plain_ms),
+                         ("bound_ms", b_ms), ("ops_ms", row["ops_ms"]),
+                         ("bytes_ms", row["bytes_ms"]),
+                         ("library_ms", row["library_ms"])):
+            tot[key] += val
+    print(f"# {what} totals over {len(rows)} shapes: kernel {tot['ms']:.4f} "
+          f"ms, bound {tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
+          f"ms, torch._int_mm {tot['library_ms']:.4f} ms")
+    return tot
+
+
+def kernel_entry(name, replaces, launches, tot, library_ms):
+    return {"name": name, "route": "cuda",
+            "source": f"dlmc_quant_torch/ops/cuda/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": tot["err"], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": bound_by(tot["ops_ms"], tot["bytes_ms"]),
+            "library_ms": library_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -218,7 +292,7 @@ def main() -> int:
           f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
-    K.build(verbose=True)
+    build.build("int8_conv3x3", "int8_gemm", "int8_mma_probe", verbose=True)
     print(f"# build: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -233,17 +307,26 @@ def main() -> int:
     err8 = kernel_phase(model, 8, device)["err"]
     tot = kernel_phase(model, SERVE_BATCH, device)
     launches = serve_phase(model, device, card)
+    tot["err"] = max(err8, tot["err"])
 
-    print(json.dumps({"kernels": [{
-        "name": "int8_conv3x3", "route": "cuda",
-        "source": "dlmc_quant_torch/ops/cuda/csrc/int8_conv3x3.cu",
-        "replaces": "dlmc_quant_tpu/ops/pallas/rpconv.py:200",
-        "launches": launches, "max_abs_err": max(err8, tot["err"]),
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"],
-        "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
-                     else "bytes"),
-        "library_ms": None}]}))
+    gemm_rows, gemm_launches = tool_path(gemm_sweep.main, G.int8_gemm,
+                                         "gemm_sweep")
+    probe_rows, probe_launches = tool_path(lambda: mma_probe.main([]),
+                                           P.int8_mma_probe, "mma_probe")
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    gemm_tot = exact_phase(
+        "int8_gemm (default tile)", [r for r in gemm_rows if r["default"]],
+        lambda row: gemm_calls(row, gen))
+    probe_tot = exact_phase("int8_mma_probe", probe_rows,
+                            lambda row: probe_calls(row, gen))
+
+    print(json.dumps({"kernels": [
+        kernel_entry("int8_conv3x3", "dlmc_quant_tpu/ops/pallas/rpconv.py:200",
+                     launches, tot, None),
+        kernel_entry("int8_gemm", "tools/pallas_gemm_sweep.py:37",
+                     gemm_launches, gemm_tot, gemm_tot["library_ms"]),
+        kernel_entry("int8_mma_probe", "tools/vmem_gemm_probe.py:33",
+                     probe_launches, probe_tot, probe_tot["library_ms"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,9 @@ The port of ``dlmc_quant_tpu/ops/pallas/rpconv.py:200`` (``int8_conv3x3_rm``,
 body ``_rp_kernel`` at ``:142``), generalised to stride 2, any width and
 channel count, and the folded-boundary epilogue of the chained int8 path.
 The CUDA source is ``csrc/int8_conv3x3.cu`` (its header says what bounds
-it on an H100 and how it is laid out).  It is built with ``nvcc`` for
-``sm_90a`` at first use, into ``_build/`` beside this file, as a shared
-library with a plain C interface loaded through ``ctypes``.
+it on an H100 and how it is laid out).  :mod:`.build` compiles it with
+``nvcc`` for ``sm_90a`` at first use, into ``_build/`` beside this file, as
+a shared library with a plain C interface loaded through ``ctypes``.
 
 For input codes ``x`` (N, H, W, C) int8 and weights ``w`` (3, 3, C, O) int8
 (packed once by :func:`pack_weight`)::
@@ -25,23 +25,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from dlmc_quant_torch.ops.cuda import build
+
 KC = 16   # K words (4 input channels each) per step; the kernel's KC
 TO = 64   # output channels per block; the kernel's TO
 MODES = ("codes", "f32")
-
-_SRC = Path(__file__).resolve().parent / "csrc" / "int8_conv3x3.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -143,41 +135,12 @@ def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int, lo: int = -128,
     return y.contiguous()
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel library if this source has not been built yet.
-
-    The library's name carries a hash of the source, so an edited source
-    is never served by a stale build.  Returns the library's path; with
-    ``verbose`` the compiler's report (registers, spills) is printed.
-    """
-    src = _SRC.read_bytes()
-    lib = _BUILD_DIR / f"libint8_conv3x3_{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if lib.exists():
-        return lib
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the int8 conv kernel cannot be "
-                           "built on this machine")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, lib)
-    return lib
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = build.load("int8_conv3x3")
     lib.dlmcq_int8_conv3x3.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-    lib.dlmcq_cuda_error_string.restype = ctypes.c_char_p
-    lib.dlmcq_cuda_error_string.argtypes = [ctypes.c_int]
     for fn, want in ((lib.dlmcq_int8_conv3x3_kc, KC),
                      (lib.dlmcq_int8_conv3x3_to, TO)):
         fn.restype = ctypes.c_int
@@ -215,9 +178,7 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, lo: int = -128,
             out.data_ptr(), n, h, wd, c, o, w.shape[1], stride, pad, lo, hi,
             int(mode == "codes"), int(relu),
             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("int8_conv3x3 launch failed: "
-                           + lib.dlmcq_cuda_error_string(err).decode())
+    build.check_launch(lib, err, "int8_conv3x3")
     int8_conv3x3.launches += 1
     return out
 
