@@ -7,7 +7,9 @@ then the two int8 GEMM tools.
 Phases, each fatal on failure:
   1. build   the three kernels from dlmc_quant_torch/ops/cuda/csrc (int8
              3x3 conv, int8 GEMM, int8 MMA probe), one nvcc each, all at
-             once (prints the build seconds and ptxas' report);
+             once (prints the build seconds, ptxas' report of registers and
+             spills, and the dynamic shared memory of every GEMM tile and
+             of the probe's ring);
   2. kernel  RepVGG-A0 deploy form at 224x224, full width, seeded random
              weights, calibrated on one seeded batch (FSPTQ W8A8 with
              AdaRound decisions) and prepared for integer execution.  At
@@ -22,9 +24,10 @@ Phases, each fatal on failure:
              agree with the same model run on the CPU (plain path) on 8
              images, and the kernel must have launched 22 times a request;
   4. gemm    the GEMM-sweep tool's path (gemm_sweep.main: every shape at
-             every compiled tile, each result equal to torch._int_mm's),
-             which must launch the GEMM kernel; then at every sweep shape
-             (default tile) the kernel against its plain version and
+             every compiled tile, the default tile marked *,
+             each result equal to torch._int_mm's), which must launch the
+             GEMM kernel; then at every sweep shape (default tile, printed
+             per shape) the kernel against its plain version and
              torch._int_mm, tolerance 0 (integer results are exact).  Per
              shape: kernel ms and library ms (the tool's CUDA-graph
              medians), bound ms, plain ms (CUDA events, median of 3);
@@ -242,7 +245,7 @@ def probe_calls(row, gen):
 def exact_phase(what: str, rows, calls):
     """Kernel vs plain vs torch._int_mm at each row's shape (tolerance 0);
     returns totals of the tool's times, the bounds and the plain times."""
-    print(f"# {what} vs plain and torch._int_mm: (M,K,N) | max|d plain| "
+    print(f"# {what} vs plain and torch._int_mm: (M,K,N) plan | max|d plain| "
           "max|d _int_mm| | kernel_ms bound_ms (by) plain_ms library_ms")
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
                library_ms=0.0, err=0)
@@ -253,7 +256,10 @@ def exact_phase(what: str, rows, calls):
         err_lib = max_abs(got, library())
         plain_ms = event_ms(plain, PLAIN_REPS)
         b_ms = max(row["ops_ms"], row["bytes_ms"])
-        print(f"({row['m']},{row['k']},{row['n']}) | {err_plain} {err_lib} | "
+        plan = (f"tile {row['tile'][0]}x{row['tile'][1]}" if "tile" in row
+                else f"split {row['split']}")
+        print(f"({row['m']},{row['k']},{row['n']}) {plan} | {err_plain} "
+              f"{err_lib} | "
               f"{row['ms']:.5f} {b_ms:.5f} "
               f"({bound_by(row['ops_ms'], row['bytes_ms'])}) {plain_ms:.4f} "
               f"{row['library_ms']:.5f}")
@@ -294,6 +300,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build("int8_conv3x3", "int8_gemm", "int8_mma_probe", verbose=True)
     print(f"# build: {time.perf_counter() - t0:.2f} s")
+    print("# int8_gemm dynamic shared memory by tile (BM x BN: stages, "
+          "bytes): " + ", ".join(
+              f"{bm}x{bn}: {G.TILE_STAGES[bm, bn]}, "
+              f"{G.tile_smem_bytes((bm, bn))}" for bm, bn in G.TILES))
+    print(f"# int8_mma_probe dynamic shared memory: 3-4 stages of (rolls + "
+          f"nbufs) tiles of 8192 bytes, at most {P.MAX_TILES} tiles a stage, "
+          f"{G.MAX_SMEM} bytes a block")
 
     t0 = time.perf_counter()
     model = get_model("RepVGG_A0", device=device, num_classes=CLASSES,

@@ -1,4 +1,5 @@
-// Tiled int8 x int8 -> int32 GEMM on the tensor cores, for Hopper (sm_90a).
+// Tiled int8 x int8 -> int32 GEMM on the tensor cores, for Hopper (sm_90a):
+// wgmma from swizzled shared memory, fed by TMA.
 //
 // Replaces the TPU kernel tools/pallas_gemm_sweep.py:37 (make_pallas_gemm,
 // body gemm_kernel at :31): out (M, N) int32 = x (M, K) int8 @ w (K, N) int8.
@@ -9,85 +10,192 @@
 // Bound on an H100: max(2*M*N*K / 1979e12 int8 OP/s,
 // (M*K + K*N + 4*M*N) bytes / 3.35e12 B/s).  At 4096^3 that is operations;
 // at RepVGG's conv-as-GEMM shapes (N = 48..192) it is the bytes of x and of
-// the int32 output.
+// the int32 output, which is a third to a half of all bytes moved.
 //
-// Design (simple first; wgmma, TMA and a persistent grid come later): one
-// BM x BN output tile per block of 8 warps, each warp a (BM/WM) x (BN/WN)
-// sub-tile of mma.sync.m16n8k32 s8 products accumulated in registers.  K is
-// not resident (a 1024 x 4096 int8 tile would not fit a block's 227 KB): it
-// is walked in 64-byte chunks, double-buffered in shared memory by
-// cp.async, so the next chunk's copy overlaps this chunk's MMAs.  B comes
-// packed from the host as (N, Kp) int8, K contiguous per output column and
-// zero-padded to Kp = roundup(K, 32), because the MMA wants B column-major
-// and int8 has no ldmatrix.trans.  Rows past M or N and bytes past K are
-// zero-filled by cp.async itself, so the inner loop has no masks.
+// Design.  Only wgmma reaches the card's int8 rate, and it reads both
+// operands from shared memory by descriptor, so no thread loads a fragment.
+//  - Operands: w comes packed from the host as (N, Kp) int8, K contiguous
+//    per output column, zero past K: the K-major B that s8 wgmma wants.  x
+//    is K-major as it is.  Both are described to TMA by tensor maps made on
+//    the host at every launch and passed by value, so a captured launch
+//    keeps its own maps.
+//  - A ring of STAGES stages in dynamic shared memory, each a BM x 128-byte
+//    tile of x and a BN x 128-byte tile of w in the 128-byte swizzle
+//    (wgmma_s8.cuh).  One producer thread keeps TMA loads in flight, a full
+//    and an empty mbarrier per stage hand the stages back and forth.  TMA
+//    writes zeros for rows past M or N and bytes past K, so the inner loop
+//    has no masks and K = 432 simply ends in a partly empty stage.
+//  - BM / 64 consumer warpgroups, each 64 rows of the tile: per stage four
+//    wgmma m64nBNk32 on the 32-byte slices of the 128-byte rows, one commit
+//    group per stage, and a stage is handed back when the group after it has
+//    been queued and wait_group<1> says its own is done, so the tensor cores
+//    always have one group queued.
+//  - A persistent grid: as many blocks as fit the card at once (occupancy x
+//    SMs) walk the tiles, tile t + i * gridDim.x for block t, M fastest so
+//    that neighbours share a w tile in L2.  The producer runs ahead into the
+//    next tile while the consumers store this one, which hides the epilogue
+//    and, for the short-K shapes (K = 432: 4 stages a tile), the load
+//    latency.  Where M*N gives fewer tiles than SMs (M = 48 channel-major:
+//    128 tiles of 64 x 128) the grid is just the tiles; the default tile
+//    (int8_gemm.py) weighs waves against padding and operand re-reads.
+//    Measured on an H100 80GB HBM3 at 700 W (tools/gemm_sweep.py): 4096^3
+//    takes 103 us at 128 x 256 (512 tiles, 3.9 waves of 132 blocks) against
+//    117 us at 128 x 128 (1024 tiles on 264 blocks); (192, 1728) x
+//    (1728, 16384) takes 20.3 us as 128 tiles of 128 x 256, a quarter of
+//    their rows padding, against 21.2 us as 384 exact tiles of 64 x 128.
+//    What is not hidden: all blocks finish their tiles together, so at
+//    4096^3 the stores of a wave still meet idle tensor cores.
+//  - Tiles are as wide as the repo's N: 48, 96, 192 exactly (wgmma has
+//    those widths), 128 and 256 for wide outputs, 64-row tiles for M < 128.
+//  - The accumulator goes to global memory straight from registers: a quad
+//    of lanes writes 8 consecutive int32 of a row, one full 32-byte sector.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
-#include "mma_s8.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
 using namespace dlmcq;
 
-template <int BM, int BN, int WM, int WN>
-__global__ void __launch_bounds__(WM * WN * 32)
-int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 int32_t* __restrict__ out, int M, int N, int K, int Kp) {
-  constexpr int THREADS = WM * WN * 32;
-  constexpr int MI = BM / WM / 16;  // m16 tiles per warp
-  constexpr int NI = BN / WN / 8;   // n8 tiles per warp
-  __shared__ __align__(16) int8_t as[STAGES][BM * LDS];
-  __shared__ __align__(16) int8_t bs[STAGES][BN * LDS];
+template <int BM, int BN, int STAGES>
+struct Cfg {
+  static constexpr int WGS = BM / WGMMA_M;            // consumer warpgroups
+  static constexpr int THREADS = WGS * WG_THREADS + 32;  // + the producer warp
+  static constexpr int A_BYTES = BM * TILE_K;
+  static constexpr int B_BYTES = BN * TILE_K;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  // two blocks share an SM where their shared memory allows it
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= MAX_SMEM + 1024 ? 2 : 1;
+  static_assert(STAGE_BYTES % ATOM_BYTES == 0 && SMEM <= MAX_SMEM, "tile");
+};
 
+template <int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(Cfg<BM, BN, STAGES>::THREADS,
+                                  Cfg<BM, BN, STAGES>::MIN_BLOCKS)
+int8_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_w,
+                 int32_t* __restrict__ out, int M, int N, int K, int m_tiles,
+                 int tiles) {
+  using C = Cfg<BM, BN, STAGES>;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t base = smem_u32(smem);
+  if (base % ATOM_BYTES != 0) __trap();  // the swizzle needs the alignment
+  const uint32_t full = base + STAGES * C::STAGE_BYTES;
+  const uint32_t empty = full + STAGES * 8;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int wm = warp / WN;
-  const int wn = warp % WN;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-  const auto a_row = [&](int r) -> long long {
-    return m0 + r < M ? m0 + r : -1;
-  };
-  const auto b_row = [&](int r) -> long long {
-    return n0 + r < N ? n0 + r : -1;
-  };
-  const auto stage = [&](int kt) {
-    const int buf = kt % STAGES;
-    stage_tile<BM, THREADS>(as[buf], x, K, kt * BK, K, a_row);
-    stage_tile<BN, THREADS>(bs[buf], w, Kp, kt * BK, K, b_row);
-  };
+  const int k_chunks = (K + TILE_K - 1) / TILE_K;
 
-  int acc[MI][NI][4] = {};
-  k_loop((K + BK - 1) / BK, stage, [&](int kt) {
-    const int8_t* at = as[kt % STAGES];
-    const int8_t* bt = bs[kt % STAGES];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += MMA_K) {
-      uint32_t af[MI][4], bf[NI][2];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        load_a(af[i], at, (wm * MI + i) * 16, kk, lane);
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-        load_b(bf[j], bt, (wn * NI + j) * 8, kk, lane);
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], af[i], bf[j]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);             // the producer's expect_tx
+      mbar_init(empty + 8 * s, 4 * C::WGS);   // lane 0 of each consumer warp
     }
-  });
-  store_acc(out, acc, m0 + wm * MI * 16, n0 + wn * NI * 8, M, N, lane);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4 * C::WGS) {
+    // producer: one thread walks the same tiles and K chunks as the
+    // consumers and refills each stage as soon as it is handed back
+    if (lane != 0) return;
+    tma_prefetch_map(&map_x);
+    tma_prefetch_map(&map_w);
+    int stage = 0;
+    uint32_t parity = 1;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % m_tiles) * BM;
+      const int n0 = (tile / m_tiles) * BN;
+      for (int kc = 0; kc < k_chunks; ++kc) {
+        mbar_wait(empty + 8 * stage, parity);
+        mbar_arrive_expect_tx(full + 8 * stage, C::STAGE_BYTES);
+        const uint32_t a = base + stage * C::STAGE_BYTES;
+        tma_load_2d(a, &map_x, full + 8 * stage, kc * TILE_K, m0);
+        tma_load_2d(a + C::A_BYTES, &map_w, full + 8 * stage, kc * TILE_K,
+                    n0);
+        if (++stage == STAGES) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 * wg .. 64 * wg + 63 of the tile
+  const int wg = warp / 4;
+  int acc[BN / 2];
+  int stage = 0;
+  uint32_t parity = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long m0 = static_cast<long long>(tile % m_tiles) * BM;
+    const int n0 = (tile / m_tiles) * BN;
+    int prev = -1;
+    for (int kc = 0; kc < k_chunks; ++kc) {
+      mbar_wait(full + 8 * stage, parity);
+      const uint32_t a = base + stage * C::STAGE_BYTES;
+      const uint64_t da = smem_desc(a + wg * WGMMA_M * TILE_K);
+      const uint64_t db = smem_desc(a + C::A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TILE_K / WGMMA_K; ++kk)
+        Wgmma<BN>::mma(acc, da + kk * DESC_K_STEP, db + kk * DESC_K_STEP,
+                       (kc | kk) != 0);
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();  // the group before this one has read its stage
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      }
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    acc_fence(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+    store_acc<BN, false>(out, acc, m0 + wg * WGMMA_M, n0, M, N);
+  }
 }
 
-template <int BM, int BN, int WM, int WN>
-int launch(const int8_t* x, const int8_t* w, int32_t* out, int m, int n,
-           int k, int kp, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>((m + BM - 1) / BM),
-                  static_cast<unsigned>((n + BN - 1) / BN));
-  int8_gemm_kernel<BM, BN, WM, WN><<<grid, WM * WN * 32, 0, s>>>(
-      x, w, out, m, n, k, kp);
+template <int BM, int BN, int STAGES>
+int launch(const CUtensorMap& map_x, const CUtensorMap& map_w, int32_t* out,
+           int m, int n, int k, cudaStream_t s) {
+  using C = Cfg<BM, BN, STAGES>;
+  const auto kernel = int8_gemm_kernel<BM, BN, STAGES>;
+  // once per tile: opt in to the shared memory, ask how many blocks fit an SM
+  static const int per_sm = [&] {
+    int blocks = 0;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, kernel, C::THREADS, C::SMEM) != cudaSuccess)
+      return 0;
+    return blocks;
+  }();
+  int device = 0, sms = 0;
+  if (per_sm < 1 || cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess) {
+    const cudaError_t err = cudaGetLastError();
+    return static_cast<int>(err != cudaSuccess ? err
+                                               : cudaErrorLaunchOutOfResources);
+  }
+  const int m_tiles = (m + BM - 1) / BM;
+  const long long tiles =
+      static_cast<long long>(m_tiles) * ((n + BN - 1) / BN);
+  if (tiles > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  const unsigned grid = static_cast<unsigned>(tiles < resident ? tiles
+                                                               : resident);
+  kernel<<<grid, C::THREADS, C::SMEM, s>>>(map_x, map_w, out, m, n, k,
+                                           m_tiles, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -96,20 +204,29 @@ int launch(const int8_t* x, const int8_t* w, int32_t* out, int m, int n,
 extern "C" {
 
 // out (m, n) int32 = x (m, k) int8 @ w, with w packed as (n, kp) int8.
-// (bm, bn) is one of the compiled tiles: (128, 128), (128, 64), (64, 128).
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// (bm, bn) is one of the compiled tiles, listed below and in int8_gemm.py.
+// Launches on `stream`; returns cudaGetLastError() (0 on success), or the
+// error that refused the tensor maps or the tile.
 int dlmcq_int8_gemm(const void* x, const void* w, void* out, int m, int n,
                     int k, int kp, int bm, int bn, void* stream) {
-  const auto* xp = static_cast<const int8_t*>(x);
-  const auto* wp = static_cast<const int8_t*>(w);
   auto* op = static_cast<int32_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm == 128 && bn == 128)
-    return launch<128, 128, 2, 4>(xp, wp, op, m, n, k, kp, s);
-  if (bm == 128 && bn == 64)
-    return launch<128, 64, 4, 2>(xp, wp, op, m, n, k, kp, s);
-  if (bm == 64 && bn == 128)
-    return launch<64, 128, 2, 4>(xp, wp, op, m, n, k, kp, s);
+  if (bm != 64 && bm != 128) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w;
+  int err = encode_tile_map(&map_x, x, m, k, k, bm);
+  if (err == 0) err = encode_tile_map(&map_w, w, n, kp, kp, bn);
+  if (err != 0) return err;
+#define DLMCQ_TILE(BM, BN, STAGES) \
+  if (bm == BM && bn == BN)        \
+    return launch<BM, BN, STAGES>(map_x, map_w, op, m, n, k, s);
+  DLMCQ_TILE(128, 256, 4)   // 192 KB, one block an SM
+  DLMCQ_TILE(128, 192, 5)   // 200 KB, one block an SM
+  DLMCQ_TILE(128, 128, 3)   //  96 KB, two blocks an SM
+  DLMCQ_TILE(128, 96, 4)    // 112 KB, two
+  DLMCQ_TILE(128, 48, 5)    // 110 KB, two
+  DLMCQ_TILE(64, 128, 4)    //  96 KB, two
+  DLMCQ_TILE(64, 64, 4)     //  64 KB, three
+#undef DLMCQ_TILE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -2,9 +2,9 @@
 
 The port of ``tools/pallas_gemm_sweep.py:37`` (``make_pallas_gemm``, body
 ``gemm_kernel`` at ``:31``), the GEMM-sweep tool's kernel.  The CUDA source
-is ``csrc/int8_gemm.cu`` (its header says what bounds it on an H100 and how
-it is laid out); :mod:`.build` compiles it with ``nvcc`` for ``sm_90a`` at
-first use.  For ``x`` (M, K) int8 and ``w`` (K, N) int8, packed once by
+is ``csrc/int8_gemm.cu`` (``wgmma`` from swizzled shared memory, fed by TMA;
+its header says what bounds it on an H100 and how it is laid out);
+:mod:`.build` compiles it with ``nvcc`` for ``sm_90a`` at first use.  For ``x`` (M, K) int8 and ``w`` (K, N) int8, packed once by
 :func:`pack_b`::
 
     out[m, n] = Σ_k x[m, k] · w[k, n]      (int32, M × N)
@@ -23,13 +23,29 @@ import torch
 
 from dlmc_quant_torch.ops.cuda import build
 
-MMA_K = 32                                     # depth of one mma.sync
-TILES = ((128, 128), (128, 64), (64, 128))     # (BM, BN) compiled in
-INT32_SAFE_K = 2 ** 31 // 128 ** 2             # K·128² must stay < 2³¹
+MMA_K = 32                           # bytes of K one s8 wgmma consumes
+TILE_K = 128                         # bytes of K in a shared-memory tile row
+# (BM, BN) → stages of the shared-memory ring, as compiled into
+# csrc/int8_gemm.cu: N = 48, 96, 192 exactly (RepVGG-A0's widths), 128 and
+# 256 for wide outputs, 64-row tiles for M < 128.
+TILE_STAGES = {(128, 256): 4, (128, 192): 5, (128, 128): 3, (128, 96): 4,
+               (128, 48): 5, (64, 128): 4, (64, 64): 4}
+TILES = tuple(TILE_STAGES)
+MAX_SMEM = 232448                    # dynamic shared memory a block may use
+SMS = 132                            # SMs of an H100 SXM: plans made off the card
+INT32_SAFE_K = 2 ** 31 // 128 ** 2   # K·128² must stay < 2³¹
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def sm_count(device) -> int:
+    """SMs of a CUDA device; :data:`SMS` for any other (plans on the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def packed_k(k: int) -> int:
@@ -40,8 +56,8 @@ def packed_k(k: int) -> int:
 def pack_b(w: torch.Tensor) -> torch.Tensor:
     """(K, N) int8 → (N, Kp) int8: K contiguous per output column, zero past K.
 
-    This is the column-major B that ``mma.sync … .row.col`` reads; int8 has
-    no ``ldmatrix.trans``, so the transpose happens here, once.
+    This is the K-major B that ``wgmma`` takes for 8-bit types (it has no
+    transposing form for them), so the transpose happens here, once.
     """
     if w.dtype != torch.int8 or w.dim() != 2:
         raise ValueError(f"expected (K, N) int8, got {tuple(w.shape)} "
@@ -61,7 +77,8 @@ def check_operands(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
     """Raise unless ``x`` is (M, K) int8 and ``w`` a packed B of depth K.
 
     ``w`` is (…, N, roundup(K, 32)) int8; both contiguous, on one device.
-    K must be a multiple of 16: the kernels copy A in 16-byte chunks.  A
+    K must be a multiple of 16: TMA needs row pitches of whole 16 bytes and
+    ``cp.async`` copies 16-byte chunks.  A
     (K, N) weight that was never packed has the wrong shape unless N
     happens to equal roundup(K, 32).
     """
@@ -94,13 +111,39 @@ def int8_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.double() @ unpack_b(w, x.shape[1]).double()).to(torch.int32)
 
 
-def default_tile(m: int, n: int):
-    """The compiled tile that wastes least of a (M, N) output."""
-    if n <= 64:
-        return 128, 64
-    if m <= 64:
-        return 64, 128
-    return 128, 128
+def tile_smem_bytes(tile) -> int:
+    """Dynamic shared memory of a block at ``tile``: the ring's stages of a
+    BM × 128 and a BN × 128 byte tile, and a full and an empty barrier each."""
+    bm, bn = tile
+    stages = TILE_STAGES[tile]
+    return stages * (bm + bn) * TILE_K + 2 * stages * 8
+
+
+def tile_count(tile, m: int, n: int) -> int:
+    """Output tiles (M tiles × N tiles) of a (M, N) output at ``tile``."""
+    return _cdiv(m, tile[0]) * _cdiv(n, tile[1])
+
+
+def tile_cost(tile, m: int, n: int, sms: int = SMS) -> int:
+    """What the busiest SM does at ``tile``, per byte of K: waves × (the
+    tile's MACs + its operand bytes at 64 MACs a byte).
+
+    The persistent grid walks ``tile_count`` tiles on ``sms`` SMs, so
+    the busiest SM runs ceil(tiles / SMs) tiles, each BM·BN padded outputs
+    from BM + BN operand rows.  64 MACs a byte is about where an SM's
+    tensor cores outrun its share of the L2 bandwidth.  The measure charges
+    the padding of a tile that overhangs M or N, the idle SMs of a grid
+    with too few tiles, and the operand re-reads of a small tile.
+    """
+    bm, bn = tile
+    return _cdiv(tile_count(tile, m, n), sms) * (bm * bn + 64 * (bm + bn))
+
+
+def default_tile(m: int, n: int, sms: int = SMS):
+    """The compiled tile of least :func:`tile_cost` on ``sms`` SMs; ties go
+    to the larger tile, which reads its operands fewer times.  Every tile is
+    right at every shape; ``tools/gemm_sweep.py`` times them all."""
+    return min(TILES, key=lambda t: (tile_cost(t, m, n, sms), -t[0] * t[1]))
 
 
 @functools.cache
@@ -116,8 +159,9 @@ def int8_gemm(x: torch.Tensor, w: torch.Tensor, *, tile=None) -> torch.Tensor:
     """(M, K) int8 @ packed (N, Kp) int8 → (M, N) int32 (module docstring).
 
     CUDA tensors launch the kernel on the current stream with ``tile``
-    (one of :data:`TILES`; by default :func:`default_tile`) and count the
-    launch in ``int8_gemm.launches``; CPU tensors run the plain version.
+    (one of :data:`TILES`; by default :func:`default_tile` for the device's
+    SM count) and count the launch in ``int8_gemm.launches``; CPU tensors
+    run the plain version.
     Raises where K·128² ≥ 2³¹, where the kernel's int32 sum could wrap.
     """
     check_operands(x, w, "int8_gemm")
@@ -127,7 +171,8 @@ def int8_gemm(x: torch.Tensor, w: torch.Tensor, *, tile=None) -> torch.Tensor:
     n = w.shape[0]
     if k >= INT32_SAFE_K:
         raise ValueError(f"int8_gemm: K = {k} could overflow int32")
-    tile = tuple(tile) if tile is not None else default_tile(m, n)
+    tile = tuple(tile) if tile is not None else default_tile(
+        m, n, sm_count(x.device))
     if tile not in TILES:
         raise ValueError(f"int8_gemm: tile {tile} is not one of {TILES}")
     if x.device.type == "cpu":

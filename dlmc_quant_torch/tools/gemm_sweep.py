@@ -8,7 +8,8 @@ The port of ``tools/pallas_gemm_sweep.py``.  Shapes: the TPU tool's
 for C ∈ {96, 192}) and RepVGG-A0's 3×3 convs as GEMMs at the serving batch
 256 (stage1_1, stage2_1, stage3_1: (N·H·W, 9C)×(9C, C)).  The TPU tool's
 bm/bn were VMEM design points; here each shape runs at every tile the CUDA
-kernel is compiled with (``int8_gemm.TILES``).
+kernel is compiled with (each is right at every shape), the default tile
+marked ``*``.
 
 Per shape and tile it prints the kernel's µs and TOP/s, the bound (the
 larger of operations over 1979 TOP/s and bytes over 3.35 TB/s, H100 SXM
@@ -16,8 +17,10 @@ data sheet) and one ``torch._int_mm`` call's µs on the same operands.  The
 kernel's result must equal ``torch._int_mm``'s exactly.  Times are
 per-launch medians of CUDA-graph replays of back-to-back launches that
 rotate among enough operand copies to exceed the 50 MB L2, so each launch
-reads its operands from HBM as the bound assumes.  Operands come from a
-seeded ``torch.Generator`` on the card.
+reads its operands from HBM as the bound assumes.  The header line also
+gives the rate of a device-to-device copy, the practical memory rate to
+read the bytes-bound rows against.  Operands come from a seeded
+``torch.Generator`` on the card.
 """
 
 from __future__ import annotations
@@ -26,9 +29,10 @@ import torch
 
 from dlmc_quant_torch.device import resolve_device
 from dlmc_quant_torch.ops.cuda.int8_gemm import (TILES, default_tile,
-                                                 int8_gemm, pack_b)
-from dlmc_quant_torch.utils.profiling import (bound_by, card_line, graph_ms,
-                                              roof_ms)
+                                                 int8_gemm, pack_b, sm_count,
+                                                 tile_count)
+from dlmc_quant_torch.utils.profiling import (bound_by, card_line, copy_rate,
+                                              graph_ms, roof_ms)
 
 SHAPES = (   # (name, M, K, N)
     ("square-4096", 4096, 4096, 4096),
@@ -66,7 +70,8 @@ def cost(m: int, k: int, n: int):
 
 
 def sweep_shape(name, m, k, n, gen):
-    """Rows (dicts) of one shape at each tile; raises if a result differs."""
+    """Rows (dicts) of one shape at each compiled tile; raises if a result
+    differs."""
     ops, nbytes = cost(m, k, n)
     copies = max(1, min(LAUNCHES, -(-2 * L2_BYTES // (m * k + k * n))))
     xs, wps, wcs = [], [], []
@@ -80,6 +85,7 @@ def sweep_shape(name, m, k, n, gen):
                       LAUNCHES, REPS)
     ops_ms, bytes_ms = roof_ms(ops, nbytes)
     rows = []
+    default = default_tile(m, n, sm_count(gen.device))
     for tile in TILES:
         if not torch.equal(int8_gemm(xs[0], wps[0], tile=tile), ref):
             raise RuntimeError(f"{name} tile {tile}: int8_gemm differs from "
@@ -87,7 +93,7 @@ def sweep_shape(name, m, k, n, gen):
         ms = graph_ms(lambda i: int8_gemm(xs[i % copies], wps[i % copies],
                                           tile=tile), LAUNCHES, REPS)
         row = dict(name=name, m=m, k=k, n=n, tile=tile,
-                   default=tile == default_tile(m, n), ms=ms,
+                   default=tile == default, ms=ms,
                    library_ms=lib_ms, ops_ms=ops_ms, bytes_ms=bytes_ms)
         rows.append(row)
         print(f"{name:30s} ({m:6d},{k:5d})x({k:5d},{n:5d}) tile {tile[0]:3d}x"
@@ -96,7 +102,7 @@ def sweep_shape(name, m, k, n, gen):
               f"{max(ops_ms, bytes_ms) * 1e3:8.2f} us "
               f"({bound_by(ops_ms, bytes_ms)}) | _int_mm "
               f"{lib_ms * 1e3:9.2f} us {ops / lib_ms / 1e9:7.1f} TOP/s | "
-              f"{copies} copies", flush=True)
+              f"{tile_count(tile, m, n)} tiles, {copies} copies", flush=True)
     return rows
 
 
@@ -107,6 +113,9 @@ def main():
     print(f"# gemm_sweep on {card_line()}; torch {torch.__version__}; "
           f"times: per launch, median of {REPS} replays of a CUDA graph of "
           f"{LAUNCHES} back-to-back launches; * = default tile")
+    print(f"# a device-to-device copy of 256 MiB moves "
+          f"{copy_rate() / 1e12:.3f} TB/s on this card (the byte bounds "
+          f"assume the data sheet's 3.35)")
     rows = []
     for name, m, k, n in SHAPES:
         rows += sweep_shape(name, m, k, n, gen)

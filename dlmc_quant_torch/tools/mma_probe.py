@@ -14,7 +14,10 @@ SXM data sheet), with the bytes time beside it — and one ``torch._int_mm``
 call on the concatenated operands (X_cat (m, rolls·nbufs·k) of rolled
 copies of x, W_cat the matching stack of the w[j]): the same sum and the
 same MACs in one call, built once outside the timing.  The kernel's result
-must equal ``torch._int_mm``'s exactly.  Times are per-launch medians of
+must equal ``torch._int_mm``'s exactly.  ``grid`` is the kernel's block
+plan: 64 × 64 output tiles × the split of K (a split launch's time includes
+zeroing the output), with the time of the same launch without the split
+beside it.  Times are per-launch medians of
 CUDA-graph replays of back-to-back launches on the same operands, which
 stay in L2, as they stay in fast memory on the TPU.  Operands come from a
 seeded ``torch.Generator`` on the card.
@@ -27,8 +30,10 @@ import sys
 import torch
 
 from dlmc_quant_torch.device import resolve_device
-from dlmc_quant_torch.ops.cuda.int8_gemm import pack_b
-from dlmc_quant_torch.ops.cuda.int8_mma_probe import int8_mma_probe, roll_shift
+from dlmc_quant_torch.ops.cuda.int8_gemm import pack_b, sm_count
+from dlmc_quant_torch.ops.cuda.int8_mma_probe import (block_plan,
+                                                      int8_mma_probe,
+                                                      roll_shift)
 from dlmc_quant_torch.utils.profiling import card_line, graph_ms, roof_ms
 
 SHAPES = (
@@ -92,16 +97,22 @@ def probe_shape(m, k, n, gen):
         raise RuntimeError(f"({m},{k},{n}): int8_mma_probe differs from "
                            "torch._int_mm on the concatenated operands")
     ms = graph_ms(lambda i: int8_mma_probe(x, wp, rolls), LAUNCHES, REPS)
+    m_tiles, n_tiles, split = block_plan(m, n, k, sm_count(x.device))
+    unsplit_ms = ms if split == 1 else graph_ms(
+        lambda i: int8_mma_probe(x, wp, rolls, _split=1), LAUNCHES, REPS)
     lib_ms = graph_ms(lambda i: torch._int_mm(xc, wc), LAUNCHES, REPS)
     ops, nbytes = cost(m, k, n)
     ops_ms, bytes_ms = roof_ms(ops, nbytes)
     dots = nbufs * rolls
-    print(f"({m:5d},{k:5d})x({k:5d},{n:5d}) [{nbufs}w x {rolls}r] "
+    print(f"({m:5d},{k:5d})x({k:5d},{n:5d}) [{nbufs}w x {rolls}r] grid "
+          f"{m_tiles}x{n_tiles}x{split} (unsplit "
+          f"{unsplit_ms / dots * 1e3:.3f} us/dot) "
           f"{ms / dots * 1e3:8.3f} us/dot {ops / ms / 1e9:7.1f} TOP/s | "
           f"ops bound {ops_ms / dots * 1e3:7.3f} us/dot (bytes "
           f"{bytes_ms / dots * 1e3:.3f}) | _int_mm {lib_ms / dots * 1e3:8.3f} "
           f"us/dot {ops / lib_ms / 1e9:7.1f} TOP/s", flush=True)
-    return dict(m=m, k=k, n=n, nbufs=nbufs, rolls=rolls, ms=ms,
+    return dict(m=m, k=k, n=n, nbufs=nbufs, rolls=rolls, split=split, ms=ms,
+                unsplit_ms=unsplit_ms,
                 library_ms=lib_ms, ops_ms=ops_ms, bytes_ms=bytes_ms)
 
 

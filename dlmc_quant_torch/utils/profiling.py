@@ -5,7 +5,8 @@ The port of ``dlmc_quant_tpu/utils/profiling.py`` and, for timing, of
 ``torch.profiler`` trace; :class:`StepTimer` times host steps fenced by
 ``torch.cuda.synchronize()``; :func:`event_ms` and :func:`graph_ms` time
 device work with CUDA events; :func:`roofline` and :func:`roof_ms` hold a
-time against the card's published peaks.  Timing needs a CUDA card: with
+time against the card's published peaks, :func:`copy_rate` measures the
+memory rate a device copy reaches.  Timing needs a CUDA card: with
 none these raise, they never time the CPU instead.
 """
 
@@ -131,6 +132,15 @@ def graph_ms(fn: Callable[[int], object], launches: int = 32,
         times.append(start.elapsed_time(end) / launches)
     del graph
     return statistics.median(times)
+
+
+def copy_rate(nbytes: int = 2 ** 28, reps: int = 10) -> float:
+    """Bytes/s (read + written) of a device-to-device copy of ``nbytes``:
+    the memory rate a plain streaming kernel reaches on this card, to set
+    beside the data sheet's rate that the byte bounds use."""
+    src = torch.zeros(nbytes, dtype=torch.int8, device="cuda")
+    dst = torch.empty_like(src)
+    return 2 * nbytes / (event_ms(lambda: dst.copy_(src), reps) * 1e-3)
 
 
 def roof_ms(ops: float, nbytes: float):

@@ -147,7 +147,7 @@ class TestGemmWrapper:
             x = torch.zeros((1, 2 ** 17), dtype=torch.int8)
             wp = torch.zeros((8, 2 ** 17), dtype=torch.int8)
         elif bad == "tile":
-            kw["tile"] = (64, 64)
+            kw["tile"] = (32, 32)
         with pytest.raises(ValueError):
             int8_gemm(x, wp, **kw)
 
@@ -182,7 +182,7 @@ class TestProbeWrapper:
         elif bad == "overflow":     # 8 · 8 · 2048 · 128² = 2³¹
             x = torch.zeros((1, 2048), dtype=torch.int8)
             w, rolls = torch.zeros((8, 1, 2048), dtype=torch.int8), 8
-        elif bad == "tiles":        # 20 + 3 operand tiles > 22
+        elif bad == "tiles":        # 20 + 3 operand tiles > MAX_TILES = 9
             w, rolls = torch.zeros((3, 16, 32), dtype=torch.int8), 20
         elif bad == "x_dtype":
             x = x.to(torch.uint8)
@@ -280,8 +280,8 @@ class TestProfilingAndBuild:
         csrc.mkdir()
         for f in build.CSRC.iterdir():
             (csrc / f.name).write_bytes(f.read_bytes())
-        (csrc / "mma_s8.cuh").write_bytes(
-            (csrc / "mma_s8.cuh").read_bytes() + b"\n// edited\n")
+        (csrc / "wgmma_s8.cuh").write_bytes(
+            (csrc / "wgmma_s8.cuh").read_bytes() + b"\n// edited\n")
         monkeypatch.setattr(build, "CSRC", csrc)
         assert build.library_path("int8_gemm").name != before.name
         assert build.library_path("int8_conv3x3").name in names
@@ -301,10 +301,18 @@ def card():
     return torch.device("cuda")
 
 
+EDGE_SHAPES = [(m, k, n) for k in (16, 48, 432) for m in (3, 63, 65, 200)
+               for n in (1, 8, 48, 96, 192, 200)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(48, 432, 200), (1000, 64, 48),
-                                   (130, 1024, 130), (3, 16, 1)])
+                                   (130, 1024, 130), (3, 16, 1),
+                                   (300, 2048, 520)] + EDGE_SHAPES)
 def test_gemm_kernel_matches_plain_on_card(card, m, k, n):
+    """Every compiled tile at ragged M, N and K: K below one 128-byte
+    stage, K = 432 with a partly empty last stage, M and N around the
+    64-row and 8-column granules, and enough K to wrap every ring."""
     rng = np.random.default_rng(m)
     x = torch.from_numpy(_codes(rng, (m, k))).to(card)
     wp = pack_b(torch.from_numpy(_codes(rng, (k, n))).to(card))
@@ -316,15 +324,26 @@ def test_gemm_kernel_matches_plain_on_card(card, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,nbufs,rolls", [(192, 96, 64, 2, 3),
-                                               (100, 48, 72, 2, 4),
-                                               (256, 1728, 192, 8, 1)])
+@pytest.mark.parametrize("m,k,n,nbufs,rolls", [
+    (192, 96, 64, 2, 3), (100, 48, 72, 2, 4), (256, 1728, 192, 8, 1),
+    (64, 432, 48, 3, 1), (64, 432, 48, 3, 2), (64, 432, 48, 3, 3),
+    (192, 432, 200, 2, 1), (192, 432, 200, 2, 2), (192, 432, 200, 2, 3),
+    (256, 1024, 96, 1, 1), (256, 1024, 96, 1, 2), (256, 1024, 96, 1, 3),
+    (3, 16, 1, 1, 2), (65, 48, 8, 6, 3),
+    # the most tiles a stage holds, on the shallowest ring, over many chunks
+    (130, 1024, 72, 8, 1), (130, 640, 72, 1, 8), (200, 1728, 64, 4, 5)])
 def test_probe_kernel_matches_plain_on_card(card, m, k, n, nbufs, rolls):
+    """M = 64, 192, 256 with rolls 1-3 (identity, partial and full wrap), a
+    wrap in the middle of a swizzle atom (M = 100), rolls + nbufs at its
+    most with K of 5 to 14 chunks, every split of K."""
     x, _, wp = _probe_operands(m, m, k, n, nbufs)
     x, wp = torch.from_numpy(x).to(card), wp.to(card)
-    got = int8_mma_probe(x, wp, rolls)
-    torch.cuda.synchronize()
-    assert torch.equal(got, int8_mma_probe_plain(x, wp, rolls))
+    want = int8_mma_probe_plain(x, wp, rolls)
+    chunks = -(-k // 128)
+    for split in (None, *sorted({1, min(2, chunks), chunks})):
+        got = int8_mma_probe(x, wp, rolls, _split=split)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), split
 
 
 @pytest.mark.cuda
