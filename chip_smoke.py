@@ -9,7 +9,9 @@ Phases, each fatal on failure:
              3x3 conv, int8 GEMM, int8 MMA probe), one nvcc each, all at
              once (prints the build seconds, ptxas' report of registers and
              spills, and the dynamic shared memory of every GEMM tile and
-             of the probe's ring);
+             of the probe's ring); then the conv's card tests at ragged
+             shapes (tests/test_torch_int8_conv.py -m cuda), before any
+             timing;
   2. kernel  RepVGG-A0 deploy form at 224x224, full width, seeded random
              weights, calibrated on one seeded batch (FSPTQ W8A8 with
              AdaRound decisions) and prepared for integer execution.  At
@@ -17,12 +19,17 @@ Phases, each fatal on failure:
              runs through the kernel and through its plain PyTorch version
              on the same input codes; codes and f32 outputs must be equal
              (tolerance 0: both compute an exact int32 accumulator and the
-             same two f32 ops).  Per conv: shape, max |diff|, kernel ms
-             (CUDA events, median of 20), bound ms, plain ms;
+             same two f32 ops).  Per conv: shape, tile plan, max |diff|,
+             kernel ms (per launch of a CUDA graph of 16, median of 5
+             replays: a conv takes about as long as its launch from Python),
+             bound ms, kernel / bound, plain ms;
   3. serve   make_serving_fn(model, qmode="intc") answers 6 requests of
              256 random images; the logits must be finite, (256, 1000),
              agree with the same model run on the CPU (plain path) on 8
              images, and the kernel must have launched 22 times a request;
+             then the device time of the request's three parts (input
+             quantize, the 22 convs, pool + head; CUDA graphs) and what is
+             left of the request: host and gaps;
   4. gemm    the GEMM-sweep tool's path (gemm_sweep.main: every shape at
              every compiled tile, the default tile marked *,
              each result equal to torch._int_mm's), which must launch the
@@ -42,7 +49,9 @@ from __future__ import annotations
 
 import copy
 import json
+import pathlib
 import statistics
+import subprocess
 import sys
 import time
 
@@ -55,14 +64,16 @@ from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda import int8_conv as K
 from dlmc_quant_torch.ops.cuda import int8_gemm as G
 from dlmc_quant_torch.ops.cuda import int8_mma_probe as P
-from dlmc_quant_torch.quant.chain import fold_params, qrelu
+from dlmc_quant_torch.quant.chain import fold_params, materialize, qrelu
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
 from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
-                                              bound_by, card_line, event_ms)
+                                              bound_by, card_line, event_ms,
+                                              graph_ms)
 
 SIZE, CLASSES, SEED = 224, 1000, 0
 CAL_BATCH, SERVE_BATCH, REQUESTS, REPS = 32, 256, 6, 20
 PLAIN_REPS = 3
+GRAPH_LAUNCHES = 16
 SCHEME = {
     "quantization_type": "FSPTQ",
     "weight": {"enable": True, "type": "minmax_channel",
@@ -76,6 +87,21 @@ SCHEME = {
 def images(n: int, seed: int, device) -> torch.Tensor:
     g = torch.Generator().manual_seed(seed)
     return torch.rand((n, SIZE, SIZE, 3), generator=g).to(device)
+
+
+def card_tests():
+    """The conv's card tests (ragged shapes, every compiled tile, both
+    modes), in a process of their own; fatal unless all pass."""
+    tests = pathlib.Path(__file__).resolve().parent / "tests"
+    run = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         "-p", "no:cacheprovider", str(tests / "test_torch_int8_conv.py")],
+        capture_output=True, text=True)
+    tail = run.stdout.strip().splitlines()[-1:] or [run.stderr.strip()[-300:]]
+    print(f"# card tests of int8_conv3x3: {tail[0]}")
+    if run.returncode != 0:
+        print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
+        raise RuntimeError("the conv's card tests failed")
 
 
 def conv_calls(model, x):
@@ -118,8 +144,9 @@ def bound(args, kw):
 
 def kernel_phase(model, batch: int, device):
     """Kernel vs plain on every conv of one forward; returns the totals."""
-    print(f"# kernel vs plain, batch {batch}: name in-shape C->O s | "
-          "max|dcode| max|df32| | kernel_ms bound_ms plain_ms "
+    print(f"# kernel vs plain, batch {batch}: name in-shape C->O s mode "
+          "plan(BN x rows, stages, weight) | max|dcode| max|df32| | "
+          "kernel_ms bound_ms(by) kernel/bound plain_ms "
           "bf16_conv_ms(context, not the same function)")
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                bytes_ms=0.0, err=0.0, context_ms=0.0)
@@ -139,9 +166,10 @@ def kernel_phase(model, batch: int, device):
             err_f = float((K.int8_conv3x3(*f32_args, **f32)
                            - K.int8_conv3x3_plain(*f32_args, **f32))
                           .abs().max())
-            ms = event_ms(lambda: K.int8_conv3x3(*args, **kw), REPS)
+            ms = graph_ms(lambda i: K.int8_conv3x3(*args, **kw),
+                          GRAPH_LAUNCHES)
             plain_ms = event_ms(lambda: K.int8_conv3x3_plain(*args, **kw),
-                                REPS)
+                                PLAIN_REPS)
             xb = x.permute(0, 3, 1, 2).to(torch.bfloat16) \
                 .contiguous(memory_format=torch.channels_last)
             wb = conv.weight.to(torch.bfloat16) \
@@ -150,10 +178,18 @@ def kernel_phase(model, batch: int, device):
                 lambda: F.conv2d(xb, wb, stride=kw["stride"], padding=1),
                 REPS)
             b_ms, t_ops, t_bytes = bound(args, kw)
+            got_hw = got.shape[1] * got.shape[2]
+            plan = K.tile_plan(x.shape[0] * got_hw, x.shape[-1],
+                               args[2].shape[0], kw["mode"],
+                               stride=kw["stride"], width=x.shape[2])
             print(f"{name:10s} {tuple(x.shape)} {x.shape[-1]}->"
-                  f"{args[2].shape[0]} s{kw['stride']} {kw['mode']:5s} | "
-                  f"{err:g} {err_f:g} | {ms:.4f} {b_ms:.4f} {plain_ms:.4f} "
-                  f"{context_ms:.4f}")
+                  f"{args[2].shape[0]} s{kw['stride']} {kw['mode']:5s} "
+                  f"{plan.bn}x128,{plan.stages},"
+                  f"{'resident' if plan.resident else 'streamed'},"
+                  f"halo{plan.halo_bufs} | "
+                  f"{err:g} {err_f:g} | {ms:.4f} {b_ms:.4f}"
+                  f"({bound_by(t_ops, t_bytes)}) {ms / b_ms:.2f} "
+                  f"{plain_ms:.4f} {context_ms:.4f}")
             if err != 0 or err_f != 0:
                 raise RuntimeError(f"{name}: kernel and plain version differ "
                                    f"(codes {err}, f32 {err_f})")
@@ -180,10 +216,11 @@ def serve_phase(model, device, card: str):
     x = images(SERVE_BATCH, SEED + 2, device)
     K.int8_conv3x3.launches = 0
     torch.cuda.synchronize()
-    times = []
+    times, enqueue = [], []
     for _ in range(REQUESTS):
         t0 = time.perf_counter()
         y = serve(x)
+        enqueue.append(time.perf_counter() - t0)   # the host's part
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = K.int8_conv3x3.launches
@@ -202,8 +239,35 @@ def serve_phase(model, device, card: str):
     steady = statistics.median(times[1:])
     print(f"# serve: batch {SERVE_BATCH} request {steady * 1e3:.3f} ms "
           f"median (first {times[0] * 1e3:.1f} ms); "
-          f"{SERVE_BATCH / steady:.1f} images/s on {card}")
+          f"{SERVE_BATCH / steady:.1f} images/s on {card}; the host has "
+          f"enqueued a request after {statistics.median(enqueue[1:]) * 1e3:.3f}"
+          f" ms")
+    split_phase(model, x, steady * 1e3)
     return launches
+
+
+def split_phase(model, x, request_ms: float):
+    """Device ms of the request's three parts, each as a CUDA graph (no
+    host gaps inside), and what the request takes beyond their sum."""
+    convs = [getattr(model, n).reparam for n in model.block_names]
+    with torch.inference_mode():
+        calls = conv_calls(model, x)
+
+        def run_convs(_):
+            for _, args, kw in calls:
+                out = K.int8_conv3x3(*args, **kw)
+            return out
+
+        feat = run_convs(0)
+        quant_ms = graph_ms(lambda i: convs[0]._input_codes(x), 4)
+        convs_ms = graph_ms(run_convs, 4)
+        head_ms = graph_ms(lambda i: materialize(model.linear(
+            feat.mean(dim=(1, 2)), qmode="intc")), 4)
+    rest = request_ms - quant_ms - convs_ms - head_ms
+    print(f"# serve split (device ms, CUDA graphs): input quantize "
+          f"{quant_ms:.4f}, 22 convs {convs_ms:.4f}, pool + head "
+          f"{head_ms:.4f}; request {request_ms:.4f} - their sum = host and "
+          f"gaps {rest:.4f} ({100 * rest / request_ms:.1f} % of the request)")
 
 
 def tool_path(drive, wrapper, what: str):
@@ -300,6 +364,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build("int8_conv3x3", "int8_gemm", "int8_mma_probe", verbose=True)
     print(f"# build: {time.perf_counter() - t0:.2f} s")
+    card_tests()
     print("# int8_gemm dynamic shared memory by tile (BM x BN: stages, "
           "bytes): " + ", ".join(
               f"{bm}x{bn}: {G.TILE_STAGES[bm, bn]}, "

@@ -1,4 +1,5 @@
-// Fused int8 3x3 convolution with a requantize epilogue, for Hopper (sm_90a).
+// Fused int8 3x3 convolution with a requantize epilogue, for Hopper (sm_90a):
+// an implicit GEMM on the tensor cores, wgmma from swizzled shared memory.
 //
 // Replaces the TPU kernel dlmc_quant_tpu/ops/pallas/rpconv.py:200
 // (int8_conv3x3_rm, body _rp_kernel at :142).  Same function, generalised:
@@ -10,220 +11,755 @@
 //   f32:   out = f32(acc)*a[o] + b[o], then max(., 0) if relu          -> f32
 //
 // The epilogue is written with __int2float_rn, __fmul_rn and __fadd_rn so
-// nvcc cannot contract it into an fma, and rounds with rintf (half to
-// even, as jnp.round and torch.round do).  The kernel then equals its
-// plain PyTorch version bit for bit.
+// nvcc cannot contract it into an fma, and rounds half to even as rintf,
+// jnp.round and torch.round do (__float2int_rn: rintf and the conversion
+// in one cvt).  The kernel then equals its plain PyTorch version
+// bit for bit.
 //
-// Bound on an H100: at 224x224 most RepVGG-A0 layers do more int8
-// operations per byte than the card's ratio, so the bound is
-// max(2*MACs / 1979e12, bytes / 3.35e12); the stem (C = 3) and the
-// narrow 112x112 layers sit nearest the byte bound.
+// As a GEMM: M = N*Ho*Wo output pixels, N = O, K = 3*Rp bytes ordered (dy,
+// dx, channel): the 3*C bytes that one row dy of the 3x3 window covers are
+// consecutive bytes of x (NHWC) and stay one run of K, padded to Rp =
+// roundup(3*C, 16).  With C % 16 == 0 nothing is padded, K = 9*C ordered
+// (tap, channel), and every 16-byte chunk of K lies inside one tap.
 //
-// Design (simple first; mma/wgmma, TMA and a persistent grid come later):
-// implicit GEMM over K = 9 taps x ceil(C/4) words of 4 channels.  A block
-// of 256 threads owns 64 output pixels x 64 output channels; each thread
-// accumulates 4 pixels x 4 channels with __dp4a.  K is walked in steps of
-// 16 words: the input patch words (64 x 16) and the weight words
-// (16 x 64) are staged in shared memory, then every thread reads its
-// operands conflict-free (pixels broadcast across a half-warp, channels
-// on consecutive banks).  The weight is packed once, on the host, to
-// (Kp, Op) int32 words: Kp = roundup(9*ceil(C/4), 16), Op = roundup(O, 64),
-// with zero rows and columns, so the channel tail of a word and the
-// padded K and O need no masks in the inner loop.  Input words are read
-// as int32 when C % 4 == 0 and byte by byte otherwise (the stem).
+// Bound on an H100: max(2*MACs / 1979e12, bytes / 3.35e12) with the input
+// and the output counted once.  RepVGG-A0's 112x112 and 56x56 layers and
+// its stem are bound by bytes, the 28x28 and 14x14 layers by operations.
+// What a block really pays for is neither.  Measured on an H100 80GB HBM3
+// at 700 W (tools/conv_plans.py, and cycle counters put into the kernel
+// while it was tuned), in the order in which they held a layer back:
+//  - issue slots.  A 16-byte chunk of an im2col tile costs its producer
+//    lane an address and a bounds test, an output code costs its consumer
+//    lane several issue slots, and a block has 12 warps on 4 schedulers.
+//    So a pixel's place in the image is worked out once per tile (two
+//    divisions by multiply and shift) into a table of flags, a chunk then
+//    takes one table read, one mask test, one 16-byte load and one store
+//    with addresses that only advance, and the epilogue rounds and converts
+//    in one cvt and packs two codes with one byte permute.
+//  - L2 traffic.  The im2col tile has 9 bytes of K for every input byte.
+//    Stride-1 layers with C % 16 == 0 fetch the run of input pixels a tile
+//    needs (its 128 pixels and a row and a pixel to either side) once, by
+//    one bulk copy, into a halo buffer, and build their tiles from shared
+//    memory: stage3_k 53 -> 41 us, stage2_k 90 -> 60 us.  The weight stays
+//    resident in shared memory where it fits (C = 3, 48, 96), what the TPU
+//    kernel's VMEM-resident weight is on this card; for C = 192 a stage
+//    holds a 128-byte K chunk of both operands, the weight's by TMA.
+//  - the epilogue, during which a block's tensor cores idle: both consumer
+//    warpgroups hold accumulators of the same tile.  This is what is left:
+//    a 14x14 layer takes 39 us where its wgmmas need 17.
+//
+// Design.  A block is two consumer warpgroups and four producer warps:
+//  - The producers fill a ring of >= 4 stages.  The A tile of a stage is
+//    128 output pixels x 128 bytes of K in the 128-byte swizzle
+//    (wgmma_s8.cuh).  Each producer warp owns every fourth stage of the
+//    block's sequence of (tile, K chunk) stages and fills it alone, so up to
+//    four stages are being filled at once (signalling a stage late, as the
+//    probe does, bought nothing here: the proxy fence waits for every copy
+//    its thread has in flight).  Lane l fills chunk l % 8 of rows l / 8 +
+//    4 j: the 8 lanes of a row read up to 128 consecutive bytes of K, which
+//    are consecutive bytes of x wherever the taps of one dy are.  A tap
+//    inside the image is 16 bytes from the halo buffer (stride 1) or one
+//    cp.async from x (stride 2); one outside is 16 copies of the pad code
+//    stored from registers (a copy's zero fill would give code 0).  Chunks
+//    past K and rows past M are left as they are: the weight is zero there,
+//    the rows are never stored.  Where C % 16 != 0 (the stem) a chunk is 16
+//    bytes of a window row's run, five aligned 32-bit loads funnel-shifted
+//    into place, with the pad code patched in where the window hangs over
+//    the left or right border.  A lane then waits for its copies, executes
+//    the proxy fence, and lane 0 arrives on the stage's full barrier.
+//  - The consumers each take 64 rows of the tile: per stage four wgmma
+//    m64nBNk32, one commit group per stage, a stage handed back after
+//    wait_group<1>.  All four 32-byte slices of a chunk are multiplied also
+//    where K ends inside it.
+//  - Epilogue from the accumulator's lane map, a[o] and b[o] staged in
+//    shared memory once per block.  Codes go to a staging tile in shared
+//    memory (row pitch padded against bank conflicts) and leave as 16-byte
+//    stores: a tile as wide as the layer is one contiguous run of NHWC
+//    bytes.  Each warp stages and stores its own 16 rows, so no barrier
+//    joins the warpgroup.  f32 leaves as float2 per lane, 32 bytes a quad.
+//  - A persistent grid: as many blocks as fit the card walk the tiles, M
+//    fastest, so that blocks running together share a weight tile in L2;
+//    the producers run ahead into the next tile during the epilogue.  The
+//    48-wide kernel is compiled for two blocks an SM (80 registers), which
+//    its layers' many small tiles want; the others for one.
+// The tile plan (width, stages, weight resident or not, halo buffers) is
+// made in int8_conv.py; this file checks that it fits.
 
+#include <climits>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include "wgmma_s8.cuh"
 
 namespace {
 
-constexpr int TP = 64;        // output pixels per block
-constexpr int TO = 64;        // output channels per block
-constexpr int KC = 16;        // K words staged per step
-constexpr int THREADS = 256;  // 16 channel lanes x 16 pixel lanes
+using namespace dlmcq;
 
-template <bool VEC, bool CODES>
-__global__ void __launch_bounds__(THREADS)
-int8_conv3x3_kernel(const int8_t* __restrict__ x,
-                    const int32_t* __restrict__ w,
-                    const float* __restrict__ a,
-                    const float* __restrict__ b,
-                    void* __restrict__ out,
-                    int H, int W, int C, int O, int Op, int Ho, int Wo,
-                    long long npix, int stride, int K, int C4,
-                    int pad, int lo, int hi, int relu) {
-  __shared__ int32_t xs[TP][KC];
-  __shared__ int32_t ws[KC][TO];
+constexpr int CONSUMER_WGS = 2;
+constexpr int CONSUMERS = CONSUMER_WGS * WG_THREADS;
+constexpr int PRODUCER_WARPS = 4;
+constexpr int THREADS = CONSUMERS + 32 * PRODUCER_WARPS;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // channel lane; also the K word this thread stages
-  const int ty = tid / 16;  // pixel lane
-  const long long p0 = static_cast<long long>(blockIdx.x) * TP;
-  const int o0 = blockIdx.y * TO;
+constexpr int MIN_STAGES = PRODUCER_WARPS;  // see the producer
+constexpr int MAX_STAGES = 8;
+constexpr int CHUNKS_16 = TILE_K / 16;  // 16-byte chunks in a tile row
+constexpr int ROW_LIVE = 1 << 6;        // table flag: an output pixel before M
 
-  // Geometry of the 4 pixels this thread stages (p0 + ty + 16*m).
-  long long img[4];
-  int ih0[4], iw0[4];
-  bool valid[4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const long long p = p0 + ty + 16 * m;
-    valid[m] = p < npix;
-    const long long pp = valid[m] ? p : 0;
-    const long long hw = static_cast<long long>(Ho) * Wo;
-    const long long n = pp / hw;
-    const int r = static_cast<int>(pp - n * hw);
-    const int oh = r / Wo;
-    const int ow = r - oh * Wo;
-    img[m] = n * H * W;
-    ih0[m] = oh * stride - 1;
-    iw0[m] = ow * stride - 1;
+// Division of a non-negative int below 2^31 by a divisor fixed at launch:
+// n / d = (n * mul) >> shift with mul = floor(2^shift / d) + 1 and
+// shift = 31 + ceil(log2 d), exact for every such n (the table of a tile
+// costs two divisions a pixel, and the hardware has no integer divider).
+struct FastDiv {
+  uint32_t mul;
+  int shift;
+  __device__ __forceinline__ int div(int n) const {
+    return static_cast<int>(
+        (static_cast<uint64_t>(static_cast<uint32_t>(n)) * mul) >> shift);
   }
-  const int32_t pad_word = static_cast<int32_t>(
-      static_cast<uint32_t>(static_cast<uint8_t>(pad)) * 0x01010101u);
+};
 
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+inline FastDiv make_fastdiv(int d) {
+  int l = 0;
+  while ((1LL << l) < d) ++l;
+  FastDiv f;
+  f.shift = 31 + l;
+  f.mul = static_cast<uint32_t>((1ULL << f.shift) /
+                                    static_cast<uint64_t>(d) + 1);
+  return f;
+}
 
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    // Stage input words: word k = tap * C4 + c4 of each of 64 pixels.
-    const int k = k0 + tx;
-    const bool kin = k < K;
-    int dy = 0, dx = 0, c4 = 0;
-    if (kin) {
-      const int tap = k / C4;
-      c4 = k - tap * C4;
-      dy = tap / 3;
-      dx = tap - 3 * dy;
+struct ConvArgs {
+  const int8_t* x;
+  const float* a;
+  const float* b;
+  void* out;
+  long long x_bytes;
+  int H, W, C, Rp, O, Ho, Wo, M, stride, Kp;
+  int pad, lo, hi, relu;
+  int m_tiles, n_tiles, tiles, k_chunks, stages, resident;
+  int halo_bufs, halo_bytes, pixels;  // halo_bufs 0: gather from x
+  FastDiv by_hw, by_wo, by_m_tiles;   // / (Ho Wo), / Wo, / m_tiles
+};
+
+template <int BN, bool CODES>
+struct Cfg {
+  static constexpr int BM = CONSUMER_WGS * WGMMA_M;  // rows of a tile
+  static constexpr int A_BYTES = BM * TILE_K;
+  static constexpr int B_BYTES = BN * TILE_K;
+  // staging row pitch: 16-byte aligned, and 8 rows 2 words wide on 8
+  // different bank pairs (BN = 48 is so as it is)
+  static constexpr int PITCH = BN == 48 ? 48 : BN + 16;
+  static constexpr int STAGING = CODES ? BM * PITCH : 0;
+  // two blocks an SM where the accumulator is small enough for 80 registers
+  static constexpr int MIN_BLOCKS = BN == 48 ? 2 : 1;
+  // rows a producer lane addresses and reads before it stores any: as many
+  // as the registers allow
+  static constexpr int BATCH = MIN_BLOCKS == 2 ? 4 : 16;
+  // chunks a lane gathers from x (any C) before it stores any
+  static constexpr int GATHER = MIN_BLOCKS == 2 ? 2 : 4;
+};
+
+// Byte offsets of a block's dynamic shared memory, from its 1024-byte
+// aligned base; int8_conv.py computes `total` the same way.
+struct Layout {
+  int stage_bytes, bres, staging, halo, ab, rows, bars, total;
+};
+
+template <class C>
+__host__ __device__ Layout make_layout(int stages, int resident, int k_chunks,
+                                       int n_tiles, int halo_total) {
+  Layout l;
+  l.stage_bytes = C::A_BYTES + (resident ? 0 : C::B_BYTES);
+  l.bres = stages * l.stage_bytes;
+  l.staging = l.bres + (resident ? k_chunks * C::B_BYTES : 0);
+  l.halo = l.staging + C::STAGING;
+  l.ab = l.halo + halo_total;
+  l.rows = l.ab + 2 * n_tiles * (C::B_BYTES / TILE_K) * 4;
+  l.bars = l.rows + PRODUCER_WARPS * C::BM * 8;
+  l.total = l.bars + (2 * MAX_STAGES + 1 + 4) * 8;
+  return l;
+}
+
+template <int BN, bool CODES>
+__global__ void __launch_bounds__(THREADS, Cfg<BN, CODES>::MIN_BLOCKS)
+int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
+                    const ConvArgs g) {
+  using C = Cfg<BN, CODES>;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t base = smem_u32(smem);
+  if (base % ATOM_BYTES != 0) __trap();  // the swizzle needs the alignment
+  const Layout L = make_layout<C>(g.stages, g.resident, g.k_chunks, g.n_tiles,
+                                  g.halo_bufs * g.halo_bytes);
+  const uint32_t full = base + L.bars;
+  const uint32_t empty = full + 8 * MAX_STAGES;
+  const uint32_t bfull = empty + 8 * MAX_STAGES;
+  const uint32_t hfull = bfull + 8;    // 2: a halo buffer has landed
+  const uint32_t hempty = hfull + 16;  // 2: every producer warp has left it
+  float* sa = reinterpret_cast<float*>(smem + L.ab);
+  float* sb = sa + g.n_tiles * BN;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  for (int i = threadIdx.x; i < g.n_tiles * BN; i += THREADS) {
+    sa[i] = i < g.O ? g.a[i] : 0.0f;
+    sb[i] = i < g.O ? g.b[i] : 0.0f;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      // lane 0 of the warp that fills it, and its expect_tx if B streams
+      mbar_init(full + 8 * s, g.resident ? 1 : 2);
+      mbar_init(empty + 8 * s, 4 * CONSUMER_WGS);  // lane 0 of each warp
     }
+    mbar_init(bfull, 1);
+    for (int h = 0; h < 2; ++h) {
+      mbar_init(hfull + 8 * h, 1);
+      mbar_init(hempty + 8 * h, PRODUCER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * CONSUMER_WGS) {
+    // --------------------------------------------------- producer warps
+    // Warp pw owns every PRODUCER_WARPS-th stage of the block's sequence of
+    // (tile, K chunk) stages and fills it alone, so as many stages are in
+    // flight as there are warps and free slots in the ring.  A barrier wait
+    // tells a phase only from the one before, so a warp must not come to
+    // wait for a slot's release while the release before that is still
+    // due: with stages >= PRODUCER_WARPS the slot's previous use is at or
+    // before this warp's own previous stage, whose slot it saw released.
+    const int pw = warp - 4 * CONSUMER_WGS;
+    if (pw == 0 && lane == 0) {
+      tma_prefetch_map(&map_w);
+      if (g.resident) {
+        mbar_arrive_expect_tx(bfull, g.k_chunks * C::B_BYTES);
+        for (int kc = 0; kc < g.k_chunks; ++kc)
+          tma_load_2d(base + L.bres + kc * C::B_BYTES, &map_w, bfull,
+                      kc * TILE_K, 0);
+      }
+    }
+    int2* rows = reinterpret_cast<int2*>(smem + L.rows) + pw * C::BM;
+    const int q = lane % CHUNKS_16;   // this lane's chunk of every row
+    const int r0 = lane / CHUNKS_16;  // its rows: r0 + 4 j
+    // where chunk q lies in its rows, by the swizzle: rows r0 + 4 j have
+    // row % 8 = r0 for even j and r0 + 4 for odd j
+    const uint32_t chunk_at[2] = {static_cast<uint32_t>(q ^ r0) << 4,
+                                  static_cast<uint32_t>(q ^ (r0 + 4)) << 4};
+    const uint32_t pad4 =
+        static_cast<uint32_t>(static_cast<uint8_t>(g.pad)) * 0x01010101u;
+    const bool vec = g.C % 16 == 0;
+    const bool words = reinterpret_cast<uintptr_t>(g.x) % 4 == 0;
+    const int hw = g.Ho * g.Wo;
+    int stage = 0, turn = 0, my_tile = -1, walked = 0;
+    uint32_t parity = 1;
+    for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x, ++walked) {
+      const int n_tile = g.by_m_tiles.div(tile);   // M fastest
+      const int m0 = (tile - n_tile * g.m_tiles) * C::BM;
+      const int n0 = n_tile * BN;
+      if (g.halo_bufs) {
+        // Stride 1: output pixel m reads input pixels m + (dy-1) W + (dx-1),
+        // so the tile reads one run of BM + 2 W + 2 pixels of x.  It is
+        // fetched once, by one bulk copy, into a halo buffer; the warps
+        // expand it into the im2col tiles from shared memory.  With two
+        // buffers the next tile's run is fetched a tile ahead.
+        const int nb = g.halo_bufs;
+        if (walked > 0) {   // this warp has left the halo of the tile before
+          __syncwarp();
+          if (lane == 0) mbar_arrive(hempty + 8 * ((walked - 1) % nb));
+        }
+        if (pw == 0 && lane == 0) {
+          for (int u = walked == 0 ? 0 : walked + nb - 1; u < walked + nb;
+               ++u) {
+            const long long next =
+                blockIdx.x + static_cast<long long>(u) * gridDim.x;
+            if (next >= g.tiles) break;
+            const int b = u % nb, use = u / nb;
+            if (use > 0) mbar_wait(hempty + 8 * b, (use - 1) & 1);
+            const int m_tile = static_cast<int>(next) -
+                               g.by_m_tiles.div(static_cast<int>(next)) *
+                                   g.m_tiles;
+            const int first = m_tile * C::BM - g.W - 1;
+            const int lo = first > 0 ? first : 0;
+            const int end = first + C::BM + 2 * g.W + 2;
+            const int hi = end < g.pixels ? end : g.pixels;
+            const uint32_t bytes = static_cast<uint32_t>(hi - lo) * g.C;
+            mbar_arrive_expect_tx(hfull + 8 * b, bytes);
+            bulk_load_1d(base + L.halo + b * g.halo_bytes + (lo - first) * g.C,
+                         g.x + static_cast<long long>(lo) * g.C, bytes,
+                         hfull + 8 * b);
+          }
+        }
+        mbar_wait(hfull + 8 * (walked % nb), (walked / nb) & 1);
+      }
+      const uint8_t* halo =
+          smem + L.halo +
+          (g.halo_bufs ? walked % g.halo_bufs : 0) * g.halo_bytes;
+      for (int kc = 0; kc < g.k_chunks; ++kc) {
+        const bool mine = turn == pw;
+        const int slot = stage;
+        const uint32_t slot_parity = parity;
+        if (++turn == PRODUCER_WARPS) turn = 0;
+        if (++stage == g.stages) {
+          stage = 0;
+          parity ^= 1;
+        }
+        if (!mine) continue;
+        if (tile != my_tile) {
+          // where each output pixel of the tile reads: once per tile and warp
+          my_tile = tile;
+          __syncwarp();   // every lane has read the table of the tile before
+          for (int r = lane; r < C::BM; r += 32) {
+            const int m = m0 + r;
+            // .x: pixel index of tap (0, 0); .y: bit dy set where window
+            // row dy lies inside the image, bit 3 + dx likewise for window
+            // column dx, bit 6 for a row before M (0: nothing to fill)
+            int2 e = make_int2(0, 0);
+            if (m < g.M) {
+              const int n = g.by_hw.div(m);
+              const int rem = m - n * hw;
+              const int oh = g.by_wo.div(rem);
+              const int ow = rem - oh * g.Wo;
+              const int ih0 = oh * g.stride - 1, iw0 = ow * g.stride - 1;
+              e.x = (n * g.H + ih0) * g.W + iw0;
+              e.y = ROW_LIVE;
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      int32_t v = 0;
-      if (kin && valid[m]) {
-        const int ih = ih0[m] + dy;
-        const int iw = iw0[m] + dx;
-        if (ih < 0 || ih >= H || iw < 0 || iw >= W) {
-          v = pad_word;
-        } else {
-          const int8_t* px =
-              x + (img[m] + static_cast<long long>(ih) * W + iw) * C;
-          if (VEC) {
-            v = *reinterpret_cast<const int32_t*>(px + 4 * c4);
-          } else {
-            uint32_t u = 0;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int c = 4 * c4 + j;
-              if (c < C)
-                u |= static_cast<uint32_t>(static_cast<uint8_t>(px[c]))
-                     << (8 * j);
+              for (int d = 0; d < 3; ++d) {
+                if (static_cast<unsigned>(ih0 + d) <
+                    static_cast<unsigned>(g.H))
+                  e.y |= 1 << d;
+                if (static_cast<unsigned>(iw0 + d) <
+                    static_cast<unsigned>(g.W))
+                  e.y |= 8 << d;
+              }
             }
-            v = static_cast<int32_t>(u);
+            rows[r] = e;
+          }
+          __syncwarp();
+        }
+        mbar_wait(empty + 8 * slot, slot_parity);
+        const uint32_t a_tile = base + slot * L.stage_bytes;
+        const uint32_t a_row0 = a_tile + r0 * TILE_K;  // its rows: + 512 j
+        if (!g.resident && lane == 0) {
+          mbar_arrive_expect_tx(full + 8 * slot, C::B_BYTES);
+          tma_load_2d(a_tile + C::A_BYTES, &map_w, full + 8 * slot,
+                      kc * TILE_K, n0);
+        }
+        if (g.halo_bufs) {
+          // from the halo: pixel (row + dy W + dx) of the run, 16 bytes
+          const int kbyte = kc * TILE_K + 16 * q;
+          if (kbyte < g.Kp) {
+            const int tap = kbyte / g.C;
+            const int coff = kbyte - tap * g.C;
+            const int dy = tap / 3;
+            const int dx = tap - 3 * dy;
+            const int need = (1 << dy) | (8 << dx);
+            const uint8_t* from =
+                halo + ((dy * g.W + dx + r0) * g.C + coff);
+            const int step = 4 * g.C;   // from one of its rows to the next
+            for (int j0 = 0; j0 < C::BM / 4; j0 += C::BATCH) {
+              uint4 v[C::BATCH];
+              uint32_t live = 0;
+#pragma unroll
+              for (int u = 0; u < C::BATCH; ++u) {
+                const int flags = rows[r0 + 4 * (j0 + u)].y;
+                live |= static_cast<uint32_t>(flags >> 6 & 1) << u;
+                v[u] = make_uint4(pad4, pad4, pad4, pad4);
+                if ((flags & need) == need)
+                  v[u] = *reinterpret_cast<const uint4*>(from +
+                                                         (j0 + u) * step);
+              }
+#pragma unroll
+              for (int u = 0; u < C::BATCH; ++u)
+                if (live >> u & 1)
+                  st_shared16(a_row0 + 4 * TILE_K * (j0 + u) + chunk_at[u & 1],
+                              v[u].x, v[u].y, v[u].z, v[u].w);
+            }
+          }
+        } else if (vec) {
+          // C % 16 == 0: a chunk lies inside one tap, K index = tap * C + c
+          const int kbyte = kc * TILE_K + 16 * q;
+          if (kbyte < g.Kp) {
+            const int tap = kbyte / g.C;
+            const int coff = kbyte - tap * g.C;
+            const int dy = tap / 3;
+            const int dx = tap - 3 * dy;
+            const int doff = dy * g.W + dx;
+            const int need = (1 << dy) | (8 << dx);
+            // BATCH rows at a time: first where each reads (table entries
+            // and address arithmetic, independent of one another), then the
+            // copies back to back; a copy issued between two table reads
+            // would put every row's latencies in a chain
+            for (int j0 = 0; j0 < C::BM / 4; j0 += C::BATCH) {
+              const int8_t* src[C::BATCH];
+              uint32_t copy = 0, fill = 0;  // bit u: row u is copied / padded
+#pragma unroll
+              for (int u = 0; u < C::BATCH; ++u) {
+                const int2 e = rows[r0 + 4 * (j0 + u)];
+                src[u] = g.x + static_cast<long long>(e.x + doff) * g.C + coff;
+                if ((e.y & need) == need)
+                  copy |= 1u << u;
+                else
+                  fill |= static_cast<uint32_t>(e.y >> 6 & 1) << u;
+              }
+#pragma unroll
+              for (int u = 0; u < C::BATCH; ++u) {
+                const uint32_t dst =
+                    a_row0 + 4 * TILE_K * (j0 + u) + chunk_at[u & 1];
+                if (copy >> u & 1)
+                  cp_async16(dst, src[u], true);
+                else if (fill >> u & 1)
+                  st_shared16(dst, pad4, pad4, pad4, pad4);
+              }
+            }
+          }
+          cp_async_commit();
+          cp_async_wait<0>();
+        } else {
+          // any C: chunk qq of the stage holds bytes roff .. roff + 15 of the
+          // 3 C bytes that row dy of the 3x3 window covers (contiguous in x);
+          // GATHER chunks are read before any is stored
+          const int left = (g.Kp - kc * TILE_K) / 16;
+          const int valid = left < CHUNKS_16 ? left : CHUNKS_16;
+          for (int first = lane; first < C::BM * valid;
+               first += 32 * C::GATHER) {
+            uint32_t w[C::GATHER][4];
+            uint32_t dst[C::GATHER];
+            uint32_t live = 0;   // bit u: chunk u is to be stored
+#pragma unroll
+            for (int u = 0; u < C::GATHER; ++u) {
+              const int idx = first + 32 * u;
+              if (idx >= C::BM * valid) continue;
+              const int row = idx % C::BM;
+              const int qq = idx / C::BM;
+              const int2 e = rows[row];
+              if (!(e.y & ROW_LIVE)) continue;
+              dst[u] = a_tile + swizzle128(row, 16 * qq);
+              live |= 1u << u;
+              const int kbyte = kc * TILE_K + 16 * qq;
+              const int dy = kbyte / g.Rp;
+              const int roff = kbyte - dy * g.Rp;
+              if (!(e.y >> dy & 1)) {   // window row dy is outside the image
+#pragma unroll
+                for (int i = 0; i < 4; ++i) w[u][i] = pad4;
+                continue;
+              }
+              const int run = 3 * g.C - roff;  // bytes of the run from roff on
+              const int nb = run < 16 ? run : 16;
+              const long long off =
+                  static_cast<long long>(e.x + dy * g.W) * g.C + roff;
+              const long long word0 = off & ~3LL;
+              const int last = roff + nb - 1;
+              const int dx_first = (roff >= g.C) + (roff >= 2 * g.C);
+              const int dx_last = (last >= g.C) + (last >= 2 * g.C);
+              const int cols = e.y >> 3;  // bit dx: window column dx is inside
+              if (words && word0 >= 0 && word0 + 20 <= g.x_bytes) {
+                // 5 aligned words, shifted into place; they are x's own
+                // bytes also where the window hangs over the left or right
+                // border (the pixel before or after in memory)
+                const uint32_t* src =
+                    reinterpret_cast<const uint32_t*>(g.x + word0);
+                const uint32_t shift = static_cast<uint32_t>(off & 3) * 8;
+                uint32_t v[5];
+#pragma unroll
+                for (int i = 0; i < 5; ++i) v[i] = __ldg(src + i);
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  w[u][i] = __funnelshift_r(v[i], v[i + 1], shift);
+                if (!((cols >> dx_first & 1) && (cols >> dx_last & 1))) {
+                  // ... and there the border's bytes become the pad code
+#pragma unroll
+                  for (int i = 0; i < 16; ++i) {
+                    const int r = roff + i;
+                    const int dx = (r >= g.C) + (r >= 2 * g.C);
+                    if (!(cols >> dx & 1))
+                      w[u][i / 4] = (w[u][i / 4] & ~(0xFFu << (8 * (i % 4)))) |
+                                    ((pad4 & 0xFFu) << (8 * (i % 4)));
+                  }
+                }
+              } else {
+                // the first or last bytes of x, or x not word aligned: byte
+                // by byte, pad code outside the image
+#pragma unroll
+                for (int i = 0; i < 4; ++i) w[u][i] = 0u;
+#pragma unroll
+                for (int i = 0; i < 16; ++i) {
+                  if (i >= nb) break;
+                  const int r = roff + i;
+                  const int dx = (r >= g.C) + (r >= 2 * g.C);
+                  const uint32_t v = cols >> dx & 1
+                                         ? static_cast<uint8_t>(g.x[off + i])
+                                         : static_cast<uint8_t>(g.pad);
+                  w[u][i / 4] |= v << (8 * (i % 4));
+                }
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < C::GATHER; ++u)
+              if (live >> u & 1)
+                st_shared16(dst[u], w[u][0], w[u][1], w[u][2], w[u][3]);
+          }
+        }
+        // this warp's copies and stores have landed: make them visible to
+        // wgmma and hand the stage over
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full + 8 * slot);
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------- consumer warpgroups
+  const int wg = warp / 4;
+  const int t = threadIdx.x % WG_THREADS;
+  int acc[BN / 2];
+  int stage = 0;
+  uint32_t parity = 0;
+  if (g.resident) mbar_wait(bfull, 0);
+  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
+    const int n_tile = g.by_m_tiles.div(tile);
+    const int m0 = (tile - n_tile * g.m_tiles) * C::BM + wg * WGMMA_M;
+    const int n0 = n_tile * BN;
+    int prev = -1;
+    for (int kc = 0; kc < g.k_chunks; ++kc) {
+      mbar_wait(full + 8 * stage, parity);
+      const uint32_t a_tile = base + stage * L.stage_bytes;
+      const uint64_t da = smem_desc(a_tile + wg * WGMMA_M * TILE_K);
+      const uint64_t db = smem_desc(
+          g.resident ? base + L.bres + kc * C::B_BYTES : a_tile + C::A_BYTES);
+      // all four 32-byte slices, also of a last chunk that K fills only
+      // partly: the weight is zero there, whatever the A tile holds
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TILE_K / WGMMA_K; ++kk) {
+        Wgmma<BN>::mma(acc, da + kk * DESC_K_STEP, db + kk * DESC_K_STEP,
+                       (kc | kk) != 0);
+      }
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();  // the group before this one has read its stage
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      }
+      prev = stage;
+      if (++stage == g.stages) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    acc_fence(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+
+    // Epilogue.  Lane map: d[4 i + 2 h + e] is row 16 (warp % 4) + lane / 4
+    // + 8 h, column 8 i + 2 (lane % 4) + e of a 64-row tile.
+    const int row_in = 16 * (t / 32) + (t % 32) / 4;
+    const int col_in = 2 * (t % 4);
+    if (CODES) {
+      uint8_t* stg = smem + L.staging + wg * WGMMA_M * C::PITCH;
+      // A warp holds 16 rows of each 64-row tile, stages them and reads
+      // them out itself: only its own lanes have to meet.
+      __syncwarp();   // its read-out of the tile before is over
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint8_t* srow = stg + (row_in + 8 * h) * C::PITCH;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const int col = 8 * i + col_in;
+          const float2 av = *reinterpret_cast<const float2*>(sa + n0 + col);
+          const float2 bv = *reinterpret_cast<const float2*>(sb + n0 + col);
+          int c[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float y = __fadd_rn(
+                __fmul_rn(__int2float_rn(acc[4 * i + 2 * h + e]),
+                          e ? av.y : av.x),
+                e ? bv.y : bv.x);
+            // rintf and the conversion in one cvt (cvt.rni rounds
+            // half to even as rintf does, and saturates), then the clamp
+            // on integers: the same code as clamp(rintf(y), lo, hi)
+            c[e] = min(max(__float2int_rn(y), g.lo), g.hi);
+          }
+          // the low bytes of both codes, side by side
+          *reinterpret_cast<uint16_t*>(srow + col) =
+              static_cast<uint16_t>(__byte_perm(c[0], c[1], 0x0040));
+        }
+      }
+      __syncwarp();
+      int8_t* out = static_cast<int8_t*>(g.out);
+      const int row0 = 16 * (t / 32);  // this warp's 16 rows
+      if (g.O % 16 == 0) {
+        constexpr int PER_ROW = BN / 16;
+        for (int j = lane; j < 16 * PER_ROW; j += 32) {
+          const int row = row0 + j / PER_ROW;
+          const int col = n0 + 16 * (j % PER_ROW);
+          if (m0 + row < g.M && col < g.O)
+            *reinterpret_cast<uint4*>(
+                out + static_cast<long long>(m0 + row) * g.O + col) =
+                *reinterpret_cast<const uint4*>(stg + row * C::PITCH +
+                                                16 * (j % PER_ROW));
+        }
+      } else {
+        for (int j = lane; j < 16 * BN; j += 32) {
+          const int row = row0 + j / BN;
+          const int col = n0 + j % BN;
+          if (m0 + row < g.M && col < g.O)
+            out[static_cast<long long>(m0 + row) * g.O + col] =
+                static_cast<int8_t>(stg[row * C::PITCH + j % BN]);
+        }
+      }
+    } else {
+      float* out = static_cast<float*>(g.out);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + row_in + 8 * h;
+        if (row >= g.M) continue;
+        float* orow = out + static_cast<long long>(row) * g.O;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const int col = n0 + 8 * i + col_in;
+          const float2 av = *reinterpret_cast<const float2*>(sa + col);
+          const float2 bv = *reinterpret_cast<const float2*>(sb + col);
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            y[e] = __fadd_rn(
+                __fmul_rn(__int2float_rn(acc[4 * i + 2 * h + e]),
+                          e ? av.y : av.x),
+                e ? bv.y : bv.x);
+            if (g.relu) y[e] = fmaxf(y[e], 0.0f);
+          }
+          if (g.O % 2 == 0 && col + 1 < g.O) {
+            *reinterpret_cast<float2*>(orow + col) = make_float2(y[0], y[1]);
+          } else {
+            if (col < g.O) orow[col] = y[0];
+            if (col + 1 < g.O) orow[col + 1] = y[1];
           }
         }
       }
-      xs[ty + 16 * m][tx] = v;
-    }
-    // Stage weight words: rows k0..k0+15 (all < Kp), columns o0..o0+63.
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int idx = tid + THREADS * m;
-      const int kk = idx / TO;
-      const int oo = idx - kk * TO;
-      ws[kk][oo] = w[static_cast<long long>(k0 + kk) * Op + o0 + oo];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      int xv[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = xs[ty + 16 * i][kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(xv[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: per-channel affine, then round and clamp (codes) or ReLU (f32).
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long p = p0 + ty + 16 * i;
-    if (p >= npix) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + tx + 16 * j;
-      if (o >= O) continue;
-      float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j]), a[o]), b[o]);
-      if (CODES) {
-        const float q = fminf(fmaxf(rintf(y), static_cast<float>(lo)),
-                              static_cast<float>(hi));
-        static_cast<int8_t*>(out)[p * O + o] =
-            static_cast<int8_t>(static_cast<int>(q));
-      } else {
-        if (relu) y = fmaxf(y, 0.0f);
-        static_cast<float*>(out)[p * O + o] = y;
-      }
     }
   }
 }
 
-template <bool VEC, bool CODES>
-void launch(dim3 grid, cudaStream_t s, const int8_t* x, const int32_t* w,
-            const float* a, const float* b, void* out, int H, int W, int C,
-            int O, int Op, int Ho, int Wo, long long npix, int stride, int K,
-            int C4, int pad, int lo, int hi, int relu) {
-  int8_conv3x3_kernel<VEC, CODES><<<grid, THREADS, 0, s>>>(
-      x, w, a, b, out, H, W, C, O, Op, Ho, Wo, npix, stride, K, C4, pad, lo,
-      hi, relu);
+template <int BN, bool CODES>
+int launch(const CUtensorMap& map_w, const ConvArgs& g, cudaStream_t s) {
+  using C = Cfg<BN, CODES>;
+  const auto kernel = int8_conv3x3_kernel<BN, CODES>;
+  const int smem =
+      make_layout<C>(g.stages, g.resident, g.k_chunks, g.n_tiles,
+                     g.halo_bufs * g.halo_bytes).total;
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  int per_sm = 0, device = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                    smem) != cudaSuccess ||
+      per_sm < 1 || cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess) {
+    const cudaError_t err = cudaGetLastError();
+    return static_cast<int>(err != cudaSuccess ? err
+                                               : cudaErrorLaunchOutOfResources);
+  }
+  const int resident_blocks = per_sm * sms;
+  const unsigned grid = static_cast<unsigned>(
+      g.tiles < resident_blocks ? g.tiles : resident_blocks);
+  kernel<<<grid, THREADS, smem, s>>>(map_w, g);
+  return static_cast<int>(cudaGetLastError());
 }
+
+// The compiled tile widths (a tile has 128 rows); listed in int8_conv.py too.
+#define DLMCQ_CONV_TILES(X) X(48) X(96) X(192) X(256)
 
 }  // namespace
 
 extern "C" {
 
-// Shape constants the host packs the weight for.
-int dlmcq_int8_conv3x3_kc() { return KC; }
-int dlmcq_int8_conv3x3_to() { return TO; }
+// Dynamic shared memory of a block at a plan, or -1 for a tile that is not
+// compiled; int8_conv.py holds its own sum against it.
+int dlmcq_int8_conv3x3_smem(int bn, int codes, int stages,
+                            int resident, int k_chunks, int n_tiles,
+                            int halo_total) {
+#define DLMCQ_SMEM(BN)                                                      \
+  if (bn == BN)                                                             \
+    return codes ? make_layout<Cfg<BN, true>>(stages, resident,             \
+                                                  k_chunks, n_tiles,         \
+                                                  halo_total).total        \
+                 : make_layout<Cfg<BN, false>>(stages, resident,            \
+                                                   k_chunks, n_tiles,       \
+                                                   halo_total).total;
+  DLMCQ_CONV_TILES(DLMCQ_SMEM)
+#undef DLMCQ_SMEM
+  return -1;
+}
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// x (n, h, wd, c) int8, w packed as (o, kp) int8 with kp = 3 *
+// roundup(3 c, 16), a and b (o,) float32, out (n, ho, wo, o) int8 (codes)
+// or float32.  The plan (bn, stages, resident, halo_bufs) comes from
+// int8_conv.py.  Launches on `stream`; returns cudaGetLastError() (0 on
+// success), or the error that refused the tensor map or the plan.
 int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
                        const void* b, void* out, int n, int h, int wd, int c,
-                       int o, int op, int stride, int pad, int lo, int hi,
-                       int codes, int relu, void* stream) {
-  const int ho = (h - 1) / stride + 1;
-  const int wo = (wd - 1) / stride + 1;
-  const int c4 = (c + 3) / 4;
-  const int k = 9 * c4;
-  const long long npix = static_cast<long long>(n) * ho * wo;
-  const dim3 grid(static_cast<unsigned>((npix + TP - 1) / TP),
-                  static_cast<unsigned>(op / TO));
+                       int o, int kp, int stride, int pad, int lo, int hi,
+                       int codes, int relu, int bn, int stages,
+                       int resident, int halo_bufs, void* stream) {
+  ConvArgs g;
+  g.x = static_cast<const int8_t*>(x);
+  g.a = static_cast<const float*>(a);
+  g.b = static_cast<const float*>(b);
+  g.out = out;
+  g.H = h;
+  g.W = wd;
+  g.C = c;
+  g.Rp = (3 * c + 15) / 16 * 16;
+  g.x_bytes = static_cast<long long>(n) * h * wd * c;
+  g.O = o;
+  g.Ho = (h - 1) / stride + 1;
+  g.Wo = (wd - 1) / stride + 1;
+  const long long m = static_cast<long long>(n) * g.Ho * g.Wo;
+  const long long pixels = static_cast<long long>(n) * h * wd;
+  if (m > INT_MAX - 1024 || pixels > INT_MAX - 1024 || h > 32766 ||
+      wd > 32766 || kp != 3 * g.Rp || stages < MIN_STAGES ||
+      stages > MAX_STAGES || bn < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.M = static_cast<int>(m);
+  g.stride = stride;
+  g.Kp = kp;
+  g.pad = pad;
+  g.lo = lo;
+  g.hi = hi;
+  g.relu = relu;
+  const int bm = CONSUMER_WGS * WGMMA_M;
+  g.m_tiles = (g.M + bm - 1) / bm;
+  g.n_tiles = (o + bn - 1) / bn;
+  const long long tiles = static_cast<long long>(g.m_tiles) * g.n_tiles;
+  if (tiles > INT_MAX || (resident && g.n_tiles != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.tiles = static_cast<int>(tiles);
+  g.k_chunks = (kp + TILE_K - 1) / TILE_K;
+  g.stages = stages;
+  g.resident = resident;
+  g.halo_bufs = halo_bufs;
+  g.by_hw = make_fastdiv(g.Ho * g.Wo);
+  g.by_wo = make_fastdiv(g.Wo);
+  g.by_m_tiles = make_fastdiv(g.m_tiles);
+  g.halo_bytes = (bm + 2 * wd + 2) * c;
+  g.pixels = static_cast<int>(pixels);
+  if (halo_bufs < 0 || halo_bufs > 2 ||
+      (halo_bufs && (stride != 1 || c % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_w;
+  const int err = encode_tile_map(&map_w, w, o, kp, kp, bn);
+  if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const int32_t* wp = static_cast<const int32_t*>(w);
-  const float* ap = static_cast<const float*>(a);
-  const float* bp = static_cast<const float*>(b);
-  const bool vec = c % 4 == 0;
-  if (vec && codes)
-    launch<true, true>(grid, s, xp, wp, ap, bp, out, h, wd, c, o, op, ho, wo,
-                       npix, stride, k, c4, pad, lo, hi, relu);
-  else if (vec)
-    launch<true, false>(grid, s, xp, wp, ap, bp, out, h, wd, c, o, op, ho, wo,
-                        npix, stride, k, c4, pad, lo, hi, relu);
-  else if (codes)
-    launch<false, true>(grid, s, xp, wp, ap, bp, out, h, wd, c, o, op, ho, wo,
-                        npix, stride, k, c4, pad, lo, hi, relu);
-  else
-    launch<false, false>(grid, s, xp, wp, ap, bp, out, h, wd, c, o, op, ho,
-                         wo, npix, stride, k, c4, pad, lo, hi, relu);
-  return static_cast<int>(cudaGetLastError());
+#define DLMCQ_LAUNCH(BN)                           \
+  if (bn == BN)                                    \
+    return codes ? launch<BN, true>(map_w, g, s)   \
+                 : launch<BN, false>(map_w, g, s);
+  DLMCQ_CONV_TILES(DLMCQ_LAUNCH)
+#undef DLMCQ_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* dlmcq_cuda_error_string(int err) {

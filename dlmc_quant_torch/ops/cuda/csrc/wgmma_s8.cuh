@@ -2,9 +2,10 @@
 // wgmma from shared memory: the 128-byte swizzle, the shared-memory matrix
 // descriptor, wgmma.mma_async s8 x s8 -> s32 at the widths this package
 // uses, its fences, the accumulator's lane map with a masked store,
-// mbarriers, the TMA tile load with its host-side tensor map, and the
-// cp.async pieces a producer needs to write the same swizzled layout by hand
-// (for a tile TMA cannot describe: rolled or gathered rows, a padded halo).
+// mbarriers, the TMA tile load with its host-side tensor map and the bulk
+// copy that needs none, and the cp.async and st.shared pieces a producer
+// needs to write the same swizzled layout by hand (for a tile TMA cannot
+// describe: rolled or gathered rows, a padded halo).
 //
 // One tile layout serves everything here.  A tile is ROWS x 128 bytes, K
 // contiguous within a row ("K-major"; for 8-bit types wgmma takes both
@@ -370,6 +371,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// Copies `bytes` consecutive bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory and reports them to `bar`: the
+// bulk copy that needs no tensor map.  Executed by one thread.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -450,6 +463,18 @@ __device__ __forceinline__ void cp_async_wait() {
 // landed and before it signals the barrier, each writing thread executes this.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16 bytes from registers to shared memory (address from smem_u32): how a
+// producer writes a chunk that no copy can fetch (a padded border, bytes
+// gathered one by one).  It goes through the generic proxy like cp.async,
+// so the same fence_proxy_async() before the barrier covers it.
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t w0,
+                                            uint32_t w1, uint32_t w2,
+                                            uint32_t w3) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(w0), "r"(w1), "r"(w2), "r"(w3)
+               : "memory");
 }
 
 }  // namespace dlmcq

@@ -3,8 +3,11 @@
 The port of ``dlmc_quant_tpu/ops/pallas/rpconv.py:200`` (``int8_conv3x3_rm``,
 body ``_rp_kernel`` at ``:142``), generalised to stride 2, any width and
 channel count, and the folded-boundary epilogue of the chained int8 path.
-The CUDA source is ``csrc/int8_conv3x3.cu`` (its header says what bounds
-it on an H100 and how it is laid out).  :mod:`.build` compiles it with
+The CUDA source is ``csrc/int8_conv3x3.cu``: an implicit GEMM on the tensor
+cores (``wgmma`` s8 from swizzled shared memory, on ``csrc/wgmma_s8.cuh``),
+whose im2col tiles a producer warpgroup gathers with ``cp.async`` and whose
+weight comes by TMA; its header says what bounds each layer class on an
+H100 and what the design does about it.  :mod:`.build` compiles it with
 ``nvcc`` for ``sm_90a`` at first use, into ``_build/`` beside this file, as
 a shared library with a plain C interface loaded through ``ctypes``.
 
@@ -16,6 +19,15 @@ For input codes ``x`` (N, H, W, C) int8 and weights ``w`` (3, 3, C, O) int8
     "codes": out = clamp(rint(f32(acc)·a[o] + b[o]), lo, hi) → int8 (N, Ho, Wo, O)
     "f32":   out = f32(acc)·a[o] + b[o], then max(·, 0) if relu → f32
 
+As a GEMM the conv has M = N·Ho·Wo rows, O columns and K = 3·Rp bytes,
+ordered (dy, dx, channel): the 3·C bytes that row dy of the window covers
+are consecutive in NHWC and stay one run of K, padded to
+``Rp = roundup(3·C, 16)`` (nothing is padded where C % 16 == 0).
+:func:`tile_plan` chooses the block's plan for a layer (output width of
+the tile, ring stages, weight resident in shared memory or streamed, halo
+buffers for stride 1); the kernel runs whatever plan it is given, so the
+plan is checked on the CPU.
+
 :func:`int8_conv3x3` launches the kernel for CUDA tensors and runs
 :func:`int8_conv3x3_plain` for CPU tensors; there is no fallback from one
 to the other.
@@ -23,6 +35,7 @@ to the other.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -31,18 +44,37 @@ import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda import build
 
-KC = 16   # K words (4 input channels each) per step; the kernel's KC
-TO = 64   # output channels per block; the kernel's TO
 MODES = ("codes", "f32")
+PRODUCER_WARPS = 4    # each fills every fourth stage of a block's sequence
+CHUNK = 16            # bytes of K that always lie inside one tap
+TILE_K = 128          # bytes of K in a shared-memory tile row
+# output widths of a tile as compiled into csrc/int8_conv3x3.cu: RepVGG-A0's
+# 48, 96 and 192 exactly, 256 for wide outputs; a tile has BM rows
+WIDTHS = (48, 96, 192, 256)
+BM = 128
+MIN_STAGES = PRODUCER_WARPS   # fewer and a warp could miss a slot's phase
+MAX_STAGES = 8
+MAX_SMEM = 232448     # dynamic shared memory a block may use
+HALF_SMEM = (MAX_SMEM + 1024) // 2 - 1024   # two blocks share an SM
+INT_LIMIT = 2 ** 31 - 1024   # output and input pixels are 32-bit in the kernel
+
+ConvPlan = collections.namedtuple(
+    "ConvPlan",
+    "bn stages resident halo_bufs m_tiles n_tiles k_chunks smem")
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def padded_run(c: int) -> int:
+    """Bytes of K of one window row (3 taps × C channels), in whole chunks."""
+    return _cdiv(3 * c, CHUNK) * CHUNK
+
+
 def packed_shape(c: int, o: int):
-    """(Kp, Op) of the packed weight for C input and O output channels."""
-    return _cdiv(9 * _cdiv(c, 4), KC) * KC, _cdiv(o, TO) * TO
+    """(O, Kp) of the packed weight for C input and O output channels."""
+    return o, 3 * padded_run(c)
 
 
 def out_hw(h: int, w: int, stride: int):
@@ -51,31 +83,122 @@ def out_hw(h: int, w: int, stride: int):
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, C, O) int8 HWIO → (Kp, Op) int32 words of 4 input channels.
+    """(3, 3, C, O) int8 HWIO → (O, Kp) int8, K contiguous per output channel.
 
-    Row ``k = (3·dy + dx)·ceil(C/4) + c4`` holds channels ``4·c4 .. 4·c4+3``
-    of tap (dy, dx), lowest channel in the lowest byte; the rows past
-    ``9·ceil(C/4)``, the columns past O and the bytes past C are zero.
+    Byte ``k = dy·Rp + dx·C + c`` of row ``o`` is ``w[dy, dx, c, o]``; the
+    bytes past ``3·C`` of every window row are zero.  This is the K-major B
+    that ``wgmma`` takes for 8-bit types; ``Kp = 3·Rp`` is the multiple of
+    16 that TMA's pitch needs, and where C % 16 == 0 every 16-byte chunk of
+    K lies inside one tap.
     """
     if w.dtype != torch.int8 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
         raise ValueError(f"expected (3, 3, C, O) int8 weights, got "
                          f"{tuple(w.shape)} {w.dtype}")
     _, _, c, o = w.shape
-    c4 = _cdiv(c, 4)
-    wp = torch.zeros((9, c4 * 4, o), dtype=torch.int8, device=w.device)
-    wp[:, :c] = w.reshape(9, c, o)
-    words = wp.reshape(9, c4, 4, o).permute(0, 1, 3, 2).contiguous()
-    words = words.view(torch.int32).reshape(9 * c4, o)
-    kp, op = packed_shape(c, o)
-    return F.pad(words, (0, op - o, 0, kp - 9 * c4)).contiguous()
+    wp = torch.zeros((o, 3, padded_run(c)), dtype=torch.int8, device=w.device)
+    wp[:, :, :3 * c] = w.reshape(3, 3 * c, o).permute(2, 0, 1)
+    return wp.reshape(packed_shape(c, o))
 
 
 def unpack_weight(wp: torch.Tensor, c: int, o: int) -> torch.Tensor:
     """Inverse of :func:`pack_weight` → (3, 3, C, O) int8."""
-    c4 = _cdiv(c, 4)
-    words = wp[:9 * c4, :o].reshape(9, c4, o).permute(0, 2, 1).contiguous()
-    codes = words.view(torch.int8).reshape(9, o, c4 * 4)[:, :, :c]
-    return codes.permute(0, 2, 1).reshape(3, 3, c, o).contiguous()
+    runs = wp.reshape(o, 3, padded_run(c))[:, :, :3 * c]
+    return runs.permute(1, 2, 0).reshape(3, 3, c, o).contiguous()
+
+
+def halo_bytes(width: int, c: int) -> int:
+    """Bytes of the run of input pixels a tile of a stride-1 conv reads:
+    its own BM pixels and a row and a pixel to either side."""
+    return (BM + 2 * width + 2) * c
+
+
+def plan_smem(bn: int, codes: bool, stages: int, resident: bool,
+              k_chunks: int, n_tiles: int, halo_total: int = 0) -> int:
+    """Dynamic shared memory of a block (``make_layout`` in the source):
+    the ring (a BM-row A tile and, unless the weight is resident, a
+    BN-row B tile a stage), the resident weight, the codes' staging tile
+    (row pitch padded against bank conflicts), the halo buffers, a and b,
+    a table per
+    producer warp of where its tile's pixels read, and the barriers."""
+    stage = (BM + (0 if resident else bn)) * TILE_K
+    pitch = bn if bn == 48 else bn + 16
+    return (stages * stage + (k_chunks * bn * TILE_K if resident else 0)
+            + (BM * pitch if codes else 0) + halo_total
+            + 2 * n_tiles * bn * 4 + PRODUCER_WARPS * BM * 8
+            + (2 * MAX_STAGES + 1 + 4) * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(m: int, c: int, o: int, mode: str = "codes", *, stride: int = 2,
+              width: int = 0, stages=None, resident=None,
+              halo_bufs=None) -> ConvPlan:
+    """The block plan of a conv with M output pixels, C → O channels.
+
+    The tile is as wide as the layer where that is a compiled width (48,
+    96, 192), else the smallest compiled width that covers O, else 256-wide
+    tiles side by side.  The weight stays resident in shared memory where
+    one tile covers O and it fits beside a ring of at least ``MIN_STAGES``
+    stages; the ring then holds only im2col tiles, up to 6 stages, or 4
+    where that lets two blocks of 48-wide tiles share an SM (the 48-wide
+    kernel is compiled for two).  A streamed weight gets up to 4 stages.
+    A stride-1 conv of ``width`` input columns with C % 16 == 0 fetches each
+    tile's input pixels once, into one or two halo buffers (two where they
+    fit beside the ring), and builds its im2col tiles from those; every
+    other conv gathers them from ``x``.  Codes 256 wide would leave no room
+    for their staging tile: they get 192-wide tiles.  ``stages``,
+    ``resident`` and ``halo_bufs`` override the choice (the kernel is right
+    at every plan that fits).  Raises where nothing fits.  The rules come
+    from ``tools/conv_plans.py``'s timings on an H100.
+    """
+    codes = mode == "codes"
+    k_chunks = _cdiv(3 * padded_run(c), TILE_K)
+    bn = next((w for w in WIDTHS if w >= o), WIDTHS[-1])
+    # 256-wide tiles of codes leave no room for their staging tile beside a
+    # ring of MIN_STAGES stages: such outputs get 192-wide tiles
+    if plan_smem(bn, codes, MIN_STAGES, False, k_chunks,
+                 _cdiv(o, bn)) > MAX_SMEM:
+        bn = WIDTHS[-2]
+    n_tiles = _cdiv(o, bn)
+
+    can_halo = stride == 1 and c % CHUNK == 0 and width > 0
+    if halo_bufs is None:
+        halos = (2, 1, 0) if can_halo else (0,)
+    elif halo_bufs in (0, 1, 2) and (can_halo or not halo_bufs):
+        halos = (halo_bufs,)
+    else:
+        raise ValueError(f"halo_bufs = {halo_bufs} does not fit this conv")
+    if resident and n_tiles != 1:
+        raise ValueError("a resident weight needs one tile to cover O")
+    if resident is None:
+        residents = (True, False) if n_tiles == 1 else (False,)
+    else:
+        residents = (bool(resident),)
+
+    def plan(stages, resident, halo_bufs, limit=MAX_SMEM):
+        """The plan, or None if it does not fit ``limit`` bytes."""
+        smem = plan_smem(bn, codes, stages, resident, k_chunks, n_tiles,
+                         halo_bufs * halo_bytes(width, c))
+        if smem > limit or not MIN_STAGES <= stages <= MAX_STAGES:
+            return None
+        return ConvPlan(bn, stages, resident, halo_bufs, _cdiv(m, BM),
+                        n_tiles, k_chunks, smem)
+
+    # in order of preference: more halo buffers, the weight resident, and
+    # the deepest ring; but first, for 48-wide tiles, two blocks an SM
+    options = [(h, r) for h in halos for r in residents]
+    found = None
+    if bn == WIDTHS[0] and stages is None:
+        found = next(filter(None, (plan(MIN_STAGES, r, h, HALF_SMEM)
+                                   for h, r in options if r)), None)
+    for h, r in options:
+        depths = (stages,) if stages is not None else \
+            range(6 if r else 4, MIN_STAGES - 1, -1)
+        found = found or next(filter(None, (plan(s, r, h) for s in depths)),
+                              None)
+    if found is None:
+        raise ValueError(f"no plan fits shared memory for C = {c}, O = {o} "
+                         f"(stages {stages}, resident {resident})")
+    return found
 
 
 def _check(x, w, a, b, stride, pad, lo, hi, mode, relu):
@@ -94,21 +217,23 @@ def _check(x, w, a, b, stride, pad, lo, hi, mode, relu):
     n, h, wd, c = x.shape
     if n * h * wd * c == 0:
         raise ValueError(f"x is empty: {tuple(x.shape)}")
+    if n * h * wd >= INT_LIMIT or max(h, wd) > 32766:
+        raise ValueError(f"x has too many pixels: {tuple(x.shape)}")
     if a.dtype != torch.float32 or b.dtype != torch.float32 \
             or a.dim() != 1 or a.shape != b.shape:
         raise ValueError("a and b must be (O,) float32")
     o = a.shape[0]
-    if w.dtype != torch.int32 or tuple(w.shape) != packed_shape(c, o):
+    if w.dtype != torch.int8 or tuple(w.shape) != packed_shape(c, o):
         raise ValueError(f"w must be pack_weight() output of shape "
-                         f"{packed_shape(c, o)} int32, got "
+                         f"{packed_shape(c, o)} int8, got "
                          f"{tuple(w.shape)} {w.dtype}")
     for name, t in (("x", x), ("w", w), ("a", a), ("b", b)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if c % 4 == 0 and x.data_ptr() % 4:
-        raise ValueError("x must be 4-byte aligned when C % 4 == 0")
+    if w.data_ptr() % 16 or (c % CHUNK == 0 and x.data_ptr() % 16):
+        raise ValueError("w, and x when C % 16 == 0, must be 16-byte aligned")
 
 
 def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int, lo: int = -128,
@@ -140,25 +265,32 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_conv3x3")
     lib.dlmcq_int8_conv3x3.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-    for fn, want in ((lib.dlmcq_int8_conv3x3_kc, KC),
-                     (lib.dlmcq_int8_conv3x3_to, TO)):
-        fn.restype = ctypes.c_int
-        if fn() != want:
-            raise RuntimeError(f"kernel tile {fn.__name__}={fn()} does not "
-                               f"match the packing constant {want}")
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+    lib.dlmcq_int8_conv3x3_smem.restype = ctypes.c_int
+    lib.dlmcq_int8_conv3x3_smem.argtypes = [ctypes.c_int] * 7
+    # the source lays shared memory out as plan_smem() counts it
+    for bn in WIDTHS:
+        for args in ((bn, 1, 5, 0, 7, 2, 0), (bn, 0, 4, 1, 4, 1, 4800)):
+            got, want = lib.dlmcq_int8_conv3x3_smem(*args), plan_smem(*args)
+            if got != want:
+                raise RuntimeError(f"kernel shared memory {got} at {args} "
+                                   f"does not match the plan's {want}")
     return lib
 
 
 def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, lo: int = -128,
-                 hi: int = 127, mode: str = "codes",
-                 relu: bool = False) -> torch.Tensor:
+                 hi: int = 127, mode: str = "codes", relu: bool = False,
+                 _plan=None) -> torch.Tensor:
     """Run the fused int8 3×3 conv (see the module docstring).
 
     ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight`, ``a``/``b`` (O,)
     float32, all contiguous and on one device.  CUDA tensors launch the
-    kernel on the current stream (and count the launch in
-    ``int8_conv3x3.launches``); CPU tensors run the plain version.
+    kernel on the current stream at :func:`tile_plan`'s plan (``_plan``: a
+    dict of its overrides, for the card tests and for timing plans against
+    each other) and count the launch in ``int8_conv3x3.launches``; CPU
+    tensors run the plain version.  On the card O is bounded by shared
+    memory (a and b of every output channel sit beside the ring: a few
+    thousand channels); ``tile_plan`` raises where nothing fits.
     """
     _check(x, w, a, b, stride, pad, lo, hi, mode, relu)
     if x.device.type == "cpu":
@@ -166,17 +298,20 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, lo: int = -128,
                                   hi=hi, mode=mode, relu=relu)
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv3x3 runs on cuda or cpu, not {x.device}")
-    lib = _library()
     n, h, wd, c = x.shape
     o = a.shape[0]
     ho, wo = out_hw(h, wd, stride)
+    plan = tile_plan(n * ho * wo, c, o, mode, stride=stride, width=wd,
+                     **(_plan or {}))   # cached: a conv costs about a launch
+    lib = _library()
     out = torch.empty((n, ho, wo, o), device=x.device,
                       dtype=torch.int8 if mode == "codes" else torch.float32)
     with torch.cuda.device(x.device):
         err = lib.dlmcq_int8_conv3x3(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), n, h, wd, c, o, w.shape[1], stride, pad, lo, hi,
-            int(mode == "codes"), int(relu),
+            int(mode == "codes"), int(relu), plan.bn, plan.stages,
+            int(plan.resident), plan.halo_bufs,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(lib, err, "int8_conv3x3")
     int8_conv3x3.launches += 1

@@ -41,7 +41,7 @@ from dlmc_quant_torch.ops.cuda.int8_conv import int8_conv3x3
 class PendingConv:
     """A padded int8 3×3 conv that has not run yet."""
     x: torch.Tensor          # (N, H, W, C) int8 codes
-    weight: torch.Tensor     # packed int32 (ops.cuda.int8_conv.pack_weight)
+    weight: torch.Tensor     # packed int8 (ops.cuda.int8_conv.pack_weight)
     stride: int
     pad: int                 # int8 code of real 0 on the input grid
 

@@ -284,7 +284,13 @@ class TestProfilingAndBuild:
             (csrc / "wgmma_s8.cuh").read_bytes() + b"\n// edited\n")
         monkeypatch.setattr(build, "CSRC", csrc)
         assert build.library_path("int8_gemm").name != before.name
-        assert build.library_path("int8_conv3x3").name in names
+        # the conv is built on the same header; an edit to one kernel's
+        # source leaves the other kernels' builds as they are
+        conv = build.library_path("int8_conv3x3").name
+        assert conv not in names
+        (csrc / "int8_gemm.cu").write_bytes(
+            (csrc / "int8_gemm.cu").read_bytes() + b"\n// edited\n")
+        assert build.library_path("int8_conv3x3").name == conv
 
     def test_build_raises_without_nvcc(self, tmp_path, monkeypatch):
         monkeypatch.setattr(build, "BUILD_DIR", tmp_path)

@@ -7,8 +7,9 @@ the ``tests/test_rpconv.py`` shapes) and of ``jax.lax.conv_general_dilated``
 with the pad code and the same epilogue (stride 2, C = 3, odd sizes,
 "f32" mode).  Tolerance: exact equality of codes and of f32 outputs, since
 both sides compute an exact int32 accumulator and the same two f32 ops.
-The kernel itself runs only on the card: the test marked ``cuda`` holds it
-against the plain version there and skips here.  JAX is imported inside
+The kernel itself runs only on the card: the tests marked ``cuda`` hold it
+against the plain version there (ragged shapes, every compiled tile, both
+modes, tolerance 0) and skip here.  JAX is imported inside
 the helpers that use it, so that test also runs where JAX is absent:
 ``python -m pytest tests/test_torch_int8_conv.py -m cuda``.
 """
@@ -176,3 +177,62 @@ def test_kernel_matches_plain_on_card():
             got = int8_conv3x3(x, w, a, b, **kw)
             torch.cuda.synchronize()
             assert torch.equal(got, int8_conv3x3_plain(x, w, a, b, **kw))
+
+
+# (n, h, w, c, o, stride, pad, lo, plan overrides): C in {3, 5, 16, 48, 96,
+# 192}, O in {8, 48, 70, 96, 192, 300, 1280}, 7x7, 15x9, 14x14 and 56x56, M a
+# multiple of 128 and not, pad codes -128, -3, 0, 5, lo folded (= pad) and
+# not; C = 192 is 14 K chunks, three and a half turns of a 4-stage ring.
+CARD_CASES = [
+    (2, 7, 7, 3, 8, 1, -128, -128, None),
+    (3, 15, 9, 3, 48, 2, -3, -3, None),
+    (2, 15, 9, 5, 70, 1, 5, -128, None),
+    (2, 14, 14, 16, 96, 1, 0, 0, None),
+    (8, 56, 56, 48, 48, 1, -3, -3, None),            # M = 196 * 128
+    (8, 56, 56, 48, 48, 1, -3, -3, dict(resident=False, stages=5)),
+    (3, 56, 56, 48, 96, 2, -128, -128, None),
+    (2, 14, 14, 96, 192, 1, 5, 5, None),
+    (2, 14, 14, 96, 96, 1, 5, -128, dict(stages=6)),
+    (4, 14, 14, 192, 192, 1, -3, -3, None),
+    (4, 14, 14, 96, 96, 1, -3, -3, dict(resident=False)),
+    (4, 14, 14, 96, 96, 1, -3, -3, dict(halo_bufs=0)),
+    (8, 56, 56, 48, 48, 1, 5, -128, dict(halo_bufs=1)),
+    (40, 14, 14, 96, 192, 1, 0, 0, dict(halo_bufs=2, resident=False)),
+    (32, 14, 14, 192, 192, 1, 0, -128, dict(stages=4)),  # M = 49 * 128
+    (32, 14, 14, 48, 48, 1, 0, -128, dict(stages=6, halo_bufs=2)),
+    (2, 14, 14, 192, 1280, 2, 0, 0, None),
+    (1, 7, 7, 192, 300, 1, -128, -128, None),
+    (2, 15, 9, 96, 300, 2, -3, -128, None),
+    (2, 9, 9, 16, 7, 1, 5, -128, None),              # odd O
+    # several tiles a block: the halo buffers and the ring turn over
+    (64, 56, 56, 48, 48, 1, -3, -3, None),           # 1568 tiles, 1 halo
+    (96, 28, 28, 96, 96, 1, 0, -128, None),          # 588 tiles, 2 halos
+    (300, 14, 14, 192, 192, 1, 5, 5, None),          # 460 tiles, last ragged
+    (300, 14, 14, 192, 192, 2, 5, 5, None),          # the same, gathered
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["codes", "f32"])
+@pytest.mark.parametrize(
+    "case", CARD_CASES,
+    ids=[f"{c[0]}x{c[1]}x{c[2]}x{c[3]}-{c[4]}-s{c[5]}-p{c[6]}"
+         + ("" if c[8] is None else "-" + "-".join(
+             f"{k}{int(v)}" for k, v in c[8].items())) for c in CARD_CASES])
+def test_kernel_matches_plain_at_ragged_shapes(case, mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    n, h, w, c, o, stride, pad, lo, plan = case
+    x, wk, a, b = (torch.from_numpy(t).cuda()
+                   for t in _inputs(7, n, h, w, c, o))
+    wp = pack_weight(wk)
+    kw = dict(stride=stride, pad=pad, mode=mode)
+    if mode == "codes":
+        kw.update(lo=lo, hi=127)
+    else:
+        kw.update(relu=lo == pad)
+    got = int8_conv3x3(x, wp, a, b, _plan=plan, **kw)
+    torch.cuda.synchronize()
+    want = int8_conv3x3_plain(x, wp, a, b, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want)

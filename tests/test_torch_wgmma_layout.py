@@ -1,7 +1,8 @@
 """The layout and block plans of the port's wgmma kernels, on the CPU.
 
 The kernels (dlmc_quant_torch/ops/cuda/csrc/int8_gemm.cu and
-int8_mma_probe.cu, on the header wgmma_s8.cuh) run only on the card; what
+int8_mma_probe.cu, on the header wgmma_s8.cuh; the conv on the same header
+has tests/test_torch_conv_plan.py) run only on the card; what
 surrounds their arithmetic is checked here with pure-torch copies:
 
 - the header's 128-byte swizzle address function: a bijection on a tile,
@@ -355,7 +356,17 @@ class TestSources:
             assert "mma_s8.cuh" not in text.replace("wgmma_s8.cuh", "")
             assert "mma.sync" not in text
 
-    @pytest.mark.parametrize("name", ["int8_gemm", "int8_mma_probe"])
+    def test_conv_is_a_wgmma_kernel_on_the_shared_header(self):
+        """Every MAC of the conv goes through the header's wgmma; the
+        CUDA-core body (__dp4a) is gone, not kept beside it."""
+        text = (build.CSRC / "int8_conv3x3.cu").read_text()
+        assert '#include "wgmma_s8.cuh"' in text
+        assert "Wgmma<BN>::mma(" in text
+        assert "__dp4a" not in text and "dp4a" not in text
+        assert "cudnn" not in text.lower()
+
+    @pytest.mark.parametrize("name", ["int8_gemm", "int8_mma_probe",
+                                      "int8_conv3x3"])
     def test_kernels_call_no_library(self, name):
         text = (build.CSRC / f"{name}.cu").read_text()
         assert "cublas" not in text.lower() and "cutlass" not in text.lower()
