@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: RepVGG-A0 chained int8,
-then the two int8 GEMM tools.
+FSPTQ reconstruction served through the conv kernel, then the two int8
+GEMM tools.
 
     python3 chip_smoke.py
 
@@ -30,6 +31,20 @@ Phases, each fatal on failure:
              then the device time of the request's three parts (input
              quantize, the 22 convs, pool + head; CUDA graphs) and what is
              left of the request: host and gaps;
+  recon    the flagship's main path: RepVGG-A0 in train form at full width
+           (seeded weights, BN statistics from a train-mode forward of the
+           first batch, then perturbed), repvgg_fuse, the
+           FSPTQ W8A8 scheme attached to a copy, calibrate with one observe
+           pass per batch over 256 images of the synthetic ImageNet
+           fallback (seed 123, training, batch 64), FSPTQTrainer with its
+           defaults but 40 iterations a block (per target: capture and
+           reconstruction ms, steps/s, held-out l2, kept or reverted; the
+           teacher agreement before and after, which may not drop; the
+           blocks kept with moved parameters); eval-mode logits on 8
+           images within relative L2 2e-2 of the same model on the CPU;
+           prepare_deploy, the 22 reconstructed convs kernel == plain
+           (tolerance 0, batch 8), and one make_serving_fn(qmode="intc")
+           request of 256 images with 22 launches;
   4. gemm    the GEMM-sweep tool's path (gemm_sweep.main: every shape at
              every compiled tile, the default tile marked *,
              each result equal to torch._int_mm's), which must launch the
@@ -58,13 +73,16 @@ import time
 import torch
 import torch.nn.functional as F
 
-from dlmc_quant_torch import (calibrate, get_model, make_serving_fn,
+from dlmc_quant_torch import (FSPTQTrainer, attach_scheme, calibrate,
+                              get_dataloader, get_model, make_serving_fn,
                               prepare_deploy, scheme_from_dict)
+from dlmc_quant_torch.models.fuse import repvgg_fuse
 from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda import int8_conv as K
 from dlmc_quant_torch.ops.cuda import int8_gemm as G
 from dlmc_quant_torch.ops.cuda import int8_mma_probe as P
 from dlmc_quant_torch.quant.chain import fold_params, materialize, qrelu
+from dlmc_quant_torch.quant.layers import full_f32
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
 from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
                                               bound_by, card_line, event_ms,
@@ -73,6 +91,7 @@ from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
 SIZE, CLASSES, SEED = 224, 1000, 0
 CAL_BATCH, SERVE_BATCH, REQUESTS, REPS = 32, 256, 6, 20
 PLAIN_REPS = 3
+RECON_SAMPLES, RECON_BATCH, RECON_SEED, RECON_ITERS = 256, 64, 123, 40
 GRAPH_LAUNCHES = 16
 SCHEME = {
     "quantization_type": "FSPTQ",
@@ -270,6 +289,100 @@ def split_phase(model, x, request_ms: float):
           f"gaps {rest:.4f} ({100 * rest / request_ms:.1f} % of the request)")
 
 
+def perturbed_a0(device, x):
+    """RepVGG-A0 in train form with seeded weights, BatchNorm statistics
+    taken from one train-mode forward of ``x`` (so that every branch's
+    output is normalized, as in a trained model) and then perturbed, and
+    BN affine parameters moved off their initial values."""
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_model("RepVGG_A0", device=device, num_classes=CLASSES,
+                      generator=gen)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    with torch.no_grad():
+        for bn in bns:
+            bn.momentum = 1.0
+        model.train()(x, qmode="fp")
+        model.eval()
+        for bn in bns:
+            bn.momentum = 0.1
+            for t in (bn.running_mean, bn.running_var, bn.weight, bn.bias):
+                t += 0.1 * torch.rand(t.shape, generator=gen).to(device)
+    return model
+
+
+def recon_phase(device, card: str):
+    """Calibrate with observe passes → reconstruct → deploy → serve; returns
+    the conv launches of the served request and the largest kernel-vs-plain
+    difference."""
+    t0 = time.perf_counter()
+    loader = get_dataloader("ImageNet", data_dir="data/imagenet",
+                            batch_size=RECON_BATCH, training=True,
+                            n_samples=RECON_SAMPLES, seed=RECON_SEED)
+    batches = [torch.from_numpy(x).to(device) for x, _ in loader]
+    teacher = repvgg_fuse(perturbed_a0(device, batches[0]))
+    student = attach_scheme(copy.deepcopy(teacher), scheme_from_dict(SCHEME))
+    t1 = time.perf_counter()
+    calibrate(student, batches, observe_passes=len(batches))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"# recon: A0 train form -> repvgg_fuse + {RECON_SAMPLES} synthetic "
+          f"images in {t1 - t0:.2f} s; calibrate ({len(batches)} observe "
+          f"passes + 1, batch {RECON_BATCH}) {1e3 * (t2 - t1):.1f} ms")
+    before = {k: v.clone() for k, v in student.state_dict().items()}
+    res = FSPTQTrainer(student, teacher, batches, iters=RECON_ITERS).train()
+    print(f"# recon: {len(res['blocks'])} targets, {RECON_ITERS} iterations "
+          f"each: block capture_ms recon_ms steps/s held-out-l2 kept")
+    for b in res["blocks"]:
+        print(f"{b['block']:10s} {b['capture_ms']:9.2f} {b['recon_ms']:9.2f} "
+              f"{RECON_ITERS / (b['recon_ms'] / 1e3):8.1f} {b['l2']:.6g} "
+              f"{'kept' if b['kept'] else 'REVERTED'}")
+    cap = sum(b["capture_ms"] for b in res["blocks"])
+    rec = sum(b["recon_ms"] for b in res["blocks"])
+    print(f"# recon: trainer {time.perf_counter() - t2:.2f} s (capture "
+          f"{cap / 1e3:.2f} s, reconstruction {rec / 1e3:.2f} s, "
+          f"{len(res['blocks']) * RECON_ITERS / (rec / 1e3):.1f} steps/s) on "
+          f"{card}; teacher agreement {res['agreement'][0]:.4f} -> "
+          f"{res['agreement'][1]:.4f}")
+    state = student.state_dict()
+    moved = [b["block"] for b in res["blocks"] if b["kept"] and any(
+        not torch.equal(state[k], before[k]) for k in state
+        if k.startswith(b["block"] + "."))]
+    print(f"# recon: kept and moved: {moved}")
+    agree0, agree1 = res["agreement"]
+    losses = torch.tensor([b["l2"] for b in res["blocks"]])
+    if not (any(b["kept"] for b in res["blocks"]) and agree1 >= agree0
+            and bool(torch.isfinite(losses).all())):
+        raise RuntimeError("reconstruction broke the gate's contract: "
+                           f"agreement {agree0} -> {agree1}, l2 {losses}")
+
+    x8 = batches[0][:8]
+    with torch.no_grad(), full_f32():
+        y = student(x8, qmode="eval")
+        ref = copy.deepcopy(student).cpu()(x8.cpu(), qmode="eval")
+    rel = float((y.cpu() - ref).norm() / (ref.norm() + 1e-9))
+    print(f"# recon: eval-mode logits, card vs CPU on 8 images: rel L2 "
+          f"{rel:.3e}")
+    if not rel < 2e-2:
+        raise RuntimeError(f"card and CPU eval logits differ: rel L2 {rel}")
+
+    prepare_deploy(student)
+    err = kernel_phase(student, 8, device)["err"]
+    serve = make_serving_fn(student, qmode="intc", device=device)
+    x = images(SERVE_BATCH, SEED + 3, device)
+    K.int8_conv3x3.launches = 0
+    y = serve(x)
+    torch.cuda.synchronize()
+    launches = K.int8_conv3x3.launches
+    if launches != 22:
+        raise RuntimeError(f"{launches} conv launches for one request of the "
+                           "reconstructed model, expected 22")
+    if y.shape != (SERVE_BATCH, CLASSES) or not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"bad logits: {tuple(y.shape)}")
+    print(f"# recon: served the reconstructed model: logits "
+          f"{tuple(y.shape)} finite, {launches} conv launches")
+    return launches, err
+
+
 def tool_path(drive, wrapper, what: str):
     """Run a tool's main path with ``wrapper``'s launch count set to 0;
     returns the tool's rows and the launches of that run."""
@@ -385,7 +498,9 @@ def main() -> int:
     err8 = kernel_phase(model, 8, device)["err"]
     tot = kernel_phase(model, SERVE_BATCH, device)
     launches = serve_phase(model, device, card)
-    tot["err"] = max(err8, tot["err"])
+    recon_launches, recon_err = recon_phase(device, card)
+    launches += recon_launches
+    tot["err"] = max(err8, tot["err"], recon_err)
 
     gemm_rows, gemm_launches = tool_path(gemm_sweep.main, G.int8_gemm,
                                          "gemm_sweep")

@@ -1,8 +1,8 @@
 """Device policy: the port runs on the caller's device, the card by default.
 
-There is no CPU fallback.  ``device=None`` means the first CUDA card and
-raises when there is none; the CPU runs only when the caller asks for it
-(``device="cpu"``), as the tests do.
+There is no CPU fallback.  ``device=None`` means the first CUDA card, and
+a CUDA device raises when there is no card; the CPU runs only when the
+caller asks for it (``device="cpu"``), as the tests do.
 """
 
 from __future__ import annotations
@@ -15,10 +15,9 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` → ``cuda`` (raises without a card); anything else as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` → ``cuda``; a CUDA device raises without a card."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run on the CPU")
+    return device

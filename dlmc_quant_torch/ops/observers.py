@@ -2,13 +2,14 @@
 
 Counterpart of ``dlmc_quant_tpu/ops/observers.py``.  This slice ports the
 two observers of the flagship scheme (per-channel weights, per-tensor
-activations).  Every other observer name of the JAX package raises
-``NotImplementedError`` until ROADMAP Queue A item 4 ports it.
+activations) and the streaming min/max state that multi-batch calibration
+folds activations into.  Every other observer name of the JAX package
+raises ``NotImplementedError`` until ROADMAP Queue A item 4 ports it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -83,3 +84,48 @@ def get_qparams_tensor(tensor, qtype: str, **kwargs) -> Tuple:
             f"unknown observer {qtype!r}; known: "
             f"{sorted(TENSOR_OBSERVERS)}") from None
     return fn(tensor, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Streaming state: min/max over many batches, for the 'observe' pass
+# ---------------------------------------------------------------------------
+
+class StreamingState(NamedTuple):
+    """Running activation min and max, and the number of batches folded."""
+    min: torch.Tensor
+    max: torch.Tensor
+    count: torch.Tensor
+
+
+def streaming_init(stat_shape=(), device=None) -> StreamingState:
+    return StreamingState(
+        min=torch.full(stat_shape, float("inf"), device=device),
+        max=torch.full(stat_shape, float("-inf"), device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def streaming_update(state: StreamingState, x) -> StreamingState:
+    """Fold one batch into the running per-tensor min/max.
+
+    The JAX package also sums a per-batch percentile here, which only its
+    ``percentile*`` finalize reads; that is not ported.
+    """
+    return StreamingState(min=torch.minimum(state.min, x.min()),
+                          max=torch.maximum(state.max, x.max()),
+                          count=state.count + 1)
+
+
+def streaming_finalize(state: StreamingState, qtype: str, n_bits: int,
+                       signed: bool):
+    """``(scale, offset)`` from the accumulated min/max (``minmax*``)."""
+    if qtype.startswith("percentile"):
+        raise NotImplementedError(
+            "streaming percentile observers are not ported yet "
+            "(ROADMAP Queue A item 4)")
+    if signed:
+        qmax = 2 ** (n_bits - 1) - 1
+        amax = torch.maximum(state.min.abs(), state.max.abs())
+        return torch.clamp_min(amax / qmax, _EPS), torch.zeros_like(amax)
+    qmax = 2 ** n_bits - 1
+    scale = (state.max - state.min) / qmax
+    return torch.clamp_min(scale, _EPS), state.min

@@ -8,20 +8,25 @@ per-channel weight axis is 0.
 * A layer is quantized when the model's :class:`QuantScheme` resolves a
   config for its ``named_modules()`` path; :func:`attach_scheme` does that
   once the model is built and creates the quantizer parameters.
-* FSPTQ quantizer state: ``in_scale`` (parameter) and ``in_offset``
-  (buffer, the integer zero-point) for the input; ``wt_scale`` (per
-  output channel) and, with AdaRound, ``alpha`` for the weight.
-* :func:`calibrate` is the explicit single-batch calibration pass: each
-  layer observes its input and weight, writes the results into its own
-  parameters (the JAX package's ``merge_calibration``) and quantizes as it
-  goes, so downstream layers calibrate against upstream quantization noise.
+* FSPTQ quantizer state: ``in_scale`` (parameter), ``in_offset`` (buffer,
+  the integer zero-point) and the streaming min/max ``in_stream_*``
+  (buffers) for the input; ``wt_scale`` (per output channel) and, with
+  AdaRound, ``alpha`` for the weight.
+* :func:`calibrate` is the explicit calibration pass: optional ``'observe'``
+  passes fold every batch's input min/max into the stream, then one
+  ``'calibrate'`` pass on the first batch makes each layer observe its
+  input (the stream where it has one) and weight, write the results into
+  its own parameters (the JAX package's ``merge_calibration``) and
+  quantize as it goes, so downstream layers calibrate against upstream
+  quantization noise.
 * ``qmode``: ``'fp'`` (no quantization), ``'eval'`` (fake quant with the
-  calibrated parameters), ``'calibrate'``, ``'int'`` and ``'intc'`` (real
-  integer execution after ``quant.deploy.prepare_deploy``).
+  calibrated parameters), ``'calibrate'``, ``'observe'`` (FP forward that
+  feeds the stream), ``'train'`` (fake quant with AdaRound's soft rounding
+  and straight-through gradients, for reconstruction), ``'int'`` and
+  ``'intc'`` (real integer execution after ``quant.deploy.prepare_deploy``).
 
 Not in this slice: the LSQ and RootQ families and ``QBlockOutput``
-(ROADMAP Queue A items 10-11), the ``'observe'`` pass and the soft-rounding
-``'train'`` mode (items 4 and 8).
+(ROADMAP Queue A items 10-11).
 """
 
 from __future__ import annotations
@@ -34,13 +39,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda.int8_conv import pack_weight
-from dlmc_quant_torch.ops.numerics import round_pass
-from dlmc_quant_torch.ops.observers import get_qparams_tensor, minmax_tensor
+from dlmc_quant_torch.ops.numerics import clip, round_pass
+from dlmc_quant_torch.ops.observers import (StreamingState, get_qparams_tensor,
+                                            minmax_tensor, streaming_finalize,
+                                            streaming_init, streaming_update)
 from dlmc_quant_torch.quant import deploy as dp
 from dlmc_quant_torch.quant.chain import (DeferredEpilogue, PendingConv,
                                           fold_quantize, materialize)
 
-QMODES = ("fp", "eval", "calibrate", "int", "intc")
+QMODES = ("fp", "eval", "calibrate", "observe", "train", "int", "intc")
 
 # AdaRound rectified-sigmoid constants (ref: FSPTQuant/base.py:62-63)
 ADAROUND_GAMMA, ADAROUND_ZETA = -0.1, 1.1
@@ -76,6 +83,9 @@ class QLayer(nn.Module):
         if self.cfg.input.enable:
             self.in_scale = nn.Parameter(torch.ones((), device=dev))
             self.register_buffer("in_offset", torch.zeros((), device=dev))
+            for field, t in zip(StreamingState._fields,
+                                streaming_init(device=dev)):
+                self.register_buffer(f"in_stream_{field}", t)
         wq = self.cfg.weight
         if wq.enable:
             if wq.per_pixel:
@@ -91,13 +101,25 @@ class QLayer(nn.Module):
 
     def _fsptq_input(self, x, aq, qmode: str):
         qmin, qmax = aq.qrange
+        stream = StreamingState(*(getattr(self, f"in_stream_{field}")
+                                  for field in StreamingState._fields))
+        if qmode == "observe":
+            for field, t in zip(StreamingState._fields,
+                                streaming_update(stream, x.detach())):
+                setattr(self, f"in_stream_{field}", t)
+            return x
         if qmode == "calibrate":
             xd = x.detach()
-            if aq.type.startswith("percentile"):
+            streamed = aq.type.startswith(("minmax", "percentile")) \
+                and int(stream.count) > 0
+            if streamed:
+                s, off_f = streaming_finalize(stream, aq.type, aq.n_bits,
+                                              aq.signed)
+            elif aq.type.startswith("percentile"):
                 raise NotImplementedError(
                     "percentile observers are not ported yet "
                     "(ROADMAP Queue A item 4)")
-            if aq.type.startswith("minmax"):
+            elif aq.type.startswith("minmax"):
                 s, off_f = minmax_tensor(xd, **aq.observer_kwargs)
             else:
                 s, off_f = get_qparams_tensor(xd, aq.type,
@@ -108,7 +130,7 @@ class QLayer(nn.Module):
             self.in_scale.data.copy_(s)
             self.in_offset.copy_(zp)
         s, zp = self.in_scale, self.in_offset
-        q = torch.clamp(round_pass(x / s) + zp, qmin, qmax)
+        q = clip(round_pass(x / s) + zp, qmin, qmax)
         return (q - zp) * s
 
     def _fsptq_weight(self, kernel, wq, qmode: str):
@@ -132,10 +154,17 @@ class QLayer(nn.Module):
                 self.alpha.data.copy_(a0)
         s_bc = _bshape(self.wt_scale, kernel.dim())
         if adaround:
-            q = torch.floor(kernel / s_bc) + (self.alpha >= 0).to(kernel.dtype)
+            if qmode == "train":
+                # AdaRound's soft target (ref: FSPTQuant/base.py:78-79)
+                rounding = clip(torch.sigmoid(self.alpha)
+                                * (ADAROUND_ZETA - ADAROUND_GAMMA)
+                                + ADAROUND_GAMMA, 0.0, 1.0)
+            else:
+                rounding = (self.alpha >= 0).to(kernel.dtype)
+            q = torch.floor(kernel / s_bc) + rounding
         else:
             q = round_pass(kernel / s_bc)
-        return torch.clamp(q, qmin, qmax) * s_bc
+        return clip(q, qmin, qmax) * s_bc
 
     def _quantize(self, x, qmode: str):
         """(input, weight) after the resolved quantizers."""
@@ -143,6 +172,8 @@ class QLayer(nn.Module):
             return x, self.weight
         x_q = (self._fsptq_input(x, self.cfg.input, qmode)
                if self.cfg.input.enable else x)
+        if qmode == "observe":
+            return x_q, self.weight    # FP forward while the stream fills
         w_q = (self._fsptq_weight(self.weight, self.cfg.weight, qmode)
                if self.cfg.weight.enable else self.weight)
         return x_q, w_q
@@ -327,6 +358,7 @@ class QDense(QLayer):
 
 def attach_scheme(model: nn.Module, scheme) -> nn.Module:
     """Configure every quantized layer from its ``named_modules()`` path."""
+    model.scheme = scheme
     for name, m in model.named_modules():
         if isinstance(m, QLayer):
             m.configure(name, scheme)
@@ -349,16 +381,16 @@ def full_f32():
 
 
 def calibrate(model: nn.Module, batches, observe_passes: int = 0):
-    """Explicit calibration: one ``'calibrate'`` pass on the first batch.
+    """Explicit calibration: ``'observe'`` passes over the first
+    ``observe_passes`` batches, then one ``'calibrate'`` pass on the first.
 
-    Every quantized layer writes its observed scales, zero-points and
-    AdaRound ``alpha`` into its own parameters.  Returns ``model``.
+    Every quantized layer writes its observed scales (from the streamed
+    min/max where there is one), zero-points and AdaRound ``alpha`` into its
+    own parameters.  Returns ``model``.
     """
-    if observe_passes:
-        raise NotImplementedError(
-            "multi-batch observe passes (streaming observers) are not "
-            "ported yet (ROADMAP Queue A item 4)")
     batches = list(batches)
     with torch.no_grad(), full_f32():
+        for b in batches[:observe_passes]:
+            model(b, qmode="observe")
         model(batches[0], qmode="calibrate")
     return model

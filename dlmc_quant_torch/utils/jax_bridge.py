@@ -14,8 +14,8 @@ module reads the subtree at its own ``named_modules()`` path:
   ``mean``/``var`` → ``running_mean``/``running_var``.
 
 Every ``params`` leaf must find its module; other ``qstate`` leaves
-(streaming observer state, ``org_weight``) belong to later slices and are
-not read.
+(``in_stream``, which the port's ``calibrate`` fills, and ``org_weight``)
+are not read.
 """
 
 from __future__ import annotations
