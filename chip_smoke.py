@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: RepVGG-A0 chained int8,
-FSPTQ reconstruction served through the conv kernel, then the two int8
-GEMM tools.
+FSPTQ reconstruction served through the conv kernel, chained int8
+cifar_resnet18 and BASELINE config #1's PTQ entry, then the two int8 GEMM
+tools.
 
     python3 chip_smoke.py
 
@@ -11,8 +12,10 @@ Phases, each fatal on failure:
              once (prints the build seconds, ptxas' report of registers and
              spills, and the dynamic shared memory of every GEMM tile and
              of the probe's ring); then the conv's card tests at ragged
-             shapes (tests/test_torch_int8_conv.py -m cuda), before any
-             timing;
+             shapes, the SAME stride-2 geometry, the residual epilogue and
+             the GEMM at the ResNet-18 shortcut shapes
+             (tests/test_torch_int8_conv.py and
+             tests/test_torch_resnet_conv.py, -m cuda), before any timing;
   2. kernel  RepVGG-A0 deploy form at 224x224, full width, seeded random
              weights, calibrated on one seeded batch (FSPTQ W8A8 with
              AdaRound decisions) and prepared for integer execution.  At
@@ -45,6 +48,28 @@ Phases, each fatal on failure:
            prepare_deploy, the 22 reconstructed convs kernel == plain
            (tolerance 0, batch 8), and one make_serving_fn(qmode="intc")
            request of 256 images with 22 launches;
+  resnet   cifar_resnet18 at full width (stem 3->64, stages 64/128/256/512,
+           10 classes), 32x32: train form with seeded weights and perturbed
+           BN statistics -> resnet_deploy -> config #1's scheme
+           (examples/configs/PTQ_resnet18_cifar10_w8a8.yaml) -> calibrate
+           on one seeded batch -> prepare_deploy.  At batch 8 and 256 every
+           conv and GEMM launch of one chained request (the stem in codes
+           and in f32, the SAME stride-2 convs, the residual epilogues with
+           int8, int32 and f32 shortcuts, the three 1x1 shortcut GEMMs) is
+           recorded and held against its plain version on the same inputs
+           (tolerance 0); per launch kernel us (CUDA graph of 16), bound us,
+           kernel / bound.  Then make_serving_fn(qmode="intc") answers 6
+           requests of 256 images: logits finite, (256, 10), within
+           relative L2 2e-2 of the CPU plain path on 8 images, 18 conv and
+           3 GEMM launches a request (the 512->10 head is torch._int_mm);
+           median request ms, images/s, and the request's split into input
+           quantize, the 21 kernels, pool + head (CUDA graphs) and the
+           rest (host, gaps and the small per-request ops);
+  ptq      python -m dlmc_quant_torch.examples.post_training_quantization
+           on config #1 with eval_int: true (nothing else changed): fp32,
+           fake-quant and integer metrics, which must be finite, the
+           integer loss within 5 % of the fake-quant one; both kernels
+           must have launched; wall time;
   4. gemm    the GEMM-sweep tool's path (gemm_sweep.main: every shape at
              every compiled tile, the default tile marked *,
              each result equal to torch._int_mm's), which must launch the
@@ -76,23 +101,31 @@ import torch.nn.functional as F
 from dlmc_quant_torch import (FSPTQTrainer, attach_scheme, calibrate,
                               get_dataloader, get_model, make_serving_fn,
                               prepare_deploy, scheme_from_dict)
-from dlmc_quant_torch.models.fuse import repvgg_fuse
+from dlmc_quant_torch.examples import post_training_quantization as ptq_entry
+from dlmc_quant_torch.models.fuse import repvgg_fuse, resnet_deploy
+from dlmc_quant_torch.models.resnet_cifar import BatchNorm
 from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda import int8_conv as K
 from dlmc_quant_torch.ops.cuda import int8_gemm as G
 from dlmc_quant_torch.ops.cuda import int8_mma_probe as P
+from dlmc_quant_torch.quant import chain, layers
 from dlmc_quant_torch.quant.chain import fold_params, materialize, qrelu
 from dlmc_quant_torch.quant.layers import full_f32
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
 from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
                                               bound_by, card_line, event_ms,
                                               graph_ms)
+from dlmc_quant_torch.utils.checkpoint import load_checkpoint
+from dlmc_quant_torch.utils.config import read_yaml, write_yaml
 
 SIZE, CLASSES, SEED = 224, 1000, 0
 CAL_BATCH, SERVE_BATCH, REQUESTS, REPS = 32, 256, 6, 20
 PLAIN_REPS = 3
 RECON_SAMPLES, RECON_BATCH, RECON_SEED, RECON_ITERS = 256, 64, 123, 40
 GRAPH_LAUNCHES = 16
+REPO = pathlib.Path(__file__).resolve().parent
+CONFIG_1 = REPO / "examples" / "configs" / "PTQ_resnet18_cifar10_w8a8.yaml"
+CIFAR_SIZE, CIFAR_CLASSES, RESNET_CONVS, RESNET_GEMMS = 32, 10, 18, 3
 SCHEME = {
     "quantization_type": "FSPTQ",
     "weight": {"enable": True, "type": "minmax_channel",
@@ -109,15 +142,17 @@ def images(n: int, seed: int, device) -> torch.Tensor:
 
 
 def card_tests():
-    """The conv's card tests (ragged shapes, every compiled tile, both
-    modes), in a process of their own; fatal unless all pass."""
-    tests = pathlib.Path(__file__).resolve().parent / "tests"
+    """The conv's and the ResNet path's card tests (ragged shapes, every
+    compiled tile, both modes, SAME stride 2, the residual epilogue, the
+    shortcut GEMMs), in a process of their own; fatal unless all pass."""
+    tests = REPO / "tests"
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
-         "-p", "no:cacheprovider", str(tests / "test_torch_int8_conv.py")],
+         "-p", "no:cacheprovider", str(tests / "test_torch_int8_conv.py"),
+         str(tests / "test_torch_resnet_conv.py")],
         capture_output=True, text=True)
     tail = run.stdout.strip().splitlines()[-1:] or [run.stderr.strip()[-300:]]
-    print(f"# card tests of int8_conv3x3: {tail[0]}")
+    print(f"# card tests of int8_conv3x3 and the ResNet path: {tail[0]}")
     if run.returncode != 0:
         print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
         raise RuntimeError("the conv's card tests failed")
@@ -383,6 +418,231 @@ def recon_phase(device, card: str):
     return launches, err
 
 
+def cifar_images(n: int, seed: int, device) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand((n, CIFAR_SIZE, CIFAR_SIZE, 3), generator=g).to(device)
+
+
+def resnet18_deployed(device):
+    """cifar_resnet18 train form (seeded weights, BN statistics and affine
+    perturbed) -> resnet_deploy -> config #1's scheme -> calibrate on one
+    seeded batch of 256 -> prepare_deploy."""
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_model("cifar_resnet18", device=device,
+                      num_classes=CIFAR_CLASSES, generator=gen)
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, BatchNorm):
+                for t, lo in ((bn.running_mean, -0.1), (bn.running_var, 0.7),
+                              (bn.weight, 0.8), (bn.bias, -0.1)):
+                    t.copy_(lo + 0.3 * torch.rand(t.shape, generator=gen))
+    scheme = scheme_from_dict(read_yaml(CONFIG_1)["quantization"])
+    deploy = attach_scheme(resnet_deploy(model), scheme)
+    calibrate(deploy, [cifar_images(SERVE_BATCH, SEED, device)])
+    return prepare_deploy(deploy)
+
+
+class LaunchRecorder:
+    """Records every conv and GEMM launch the port makes while it is
+    entered (arguments, keywords and the kernel's output), by wrapping the
+    wrappers where the chain and the layers call them; each wrapper still
+    counts its own launches."""
+
+    def __enter__(self):
+        self.calls = []
+        self._saved = (chain.int8_conv3x3, layers.int8_gemm)
+
+        def record(kind, fn):
+            def wrapped(*args, **kw):
+                out = fn(*args, **kw)
+                self.calls.append((kind, args, kw, out))
+                return out
+            return wrapped
+
+        chain.int8_conv3x3 = record("conv", self._saved[0])
+        layers.int8_gemm = record("gemm", self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        chain.int8_conv3x3, layers.int8_gemm = self._saved
+
+
+def launch_bound(kind, args, kw, out):
+    """(bound ms, ops ms, bytes ms) of one recorded launch: inputs read and
+    the output written once (a residual read once too)."""
+    if kind == "gemm":
+        x, w = args
+        m, k = x.shape
+        n = w.shape[0]
+        return bound_of(2 * m * n * k, m * k + n * k + 4 * m * n)
+    x, w, a, _ = args
+    n, h, wd, c = x.shape
+    o = a.shape[0]
+    m = out.numel() // o
+    nbytes = x.numel() + 9 * c * o + 8 * o + out.numel() * out.element_size()
+    if kw.get("residual") is not None:
+        r = kw["residual"][0]
+        nbytes += r.numel() * r.element_size() + 8 * o
+    return bound_of(2 * m * o * 9 * c, nbytes)
+
+
+def bound_of(ops: int, nbytes: int):
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), t_ops, t_bytes
+
+
+def launch_label(kind, args, kw) -> str:
+    x = args[0]
+    if kind == "gemm":
+        m, k = x.shape
+        return f"gemm ({m},{k})x({k},{args[1].shape[0]})"
+    r = kw.get("residual")
+    extra = f" +r {str(r[0].dtype).split('.')[-1]}" if r is not None else ""
+    return (f"conv {tuple(x.shape)}->{args[2].shape[0]} s{kw['stride']} "
+            f"pad_lo {kw.get('pad_lo', 1)} {kw['mode']}"
+            f"{' relu' if kw.get('relu') else ''}{extra}")
+
+
+def resnet_kernel_phase(model, batch: int, device):
+    """Every conv and GEMM launch of one chained request, kernel vs plain
+    (tolerance 0), timed per launch; returns the totals."""
+    x = cifar_images(batch, SEED + 1, device)
+    with torch.inference_mode():
+        with LaunchRecorder() as rec:
+            model(x, qmode="intc")
+        torch.cuda.synchronize()
+        kinds = [c[0] for c in rec.calls]
+        if (kinds.count("conv"), kinds.count("gemm")) != (RESNET_CONVS,
+                                                          RESNET_GEMMS):
+            raise RuntimeError(f"a request made {kinds.count('conv')} conv "
+                               f"and {kinds.count('gemm')} GEMM launches")
+        print(f"# resnet18 kernel vs plain, batch {batch}: launch | "
+              "max|diff| | kernel_us bound_us (by) kernel/bound")
+        tot = dict(ms=0.0, bound_ms=0.0, err=0.0)
+        for i, (kind, args, kw, out) in enumerate(rec.calls):
+            if kind == "conv":
+                plain = K.int8_conv3x3_plain(*args, **kw)
+                run = K.int8_conv3x3
+            else:
+                plain = G.int8_gemm_plain(*args)
+                run = G.int8_gemm
+            err = float((out.double() - plain.double()).abs().max())
+            ms = graph_ms(lambda _: run(*args, **kw), GRAPH_LAUNCHES)
+            b_ms, t_ops, t_bytes = launch_bound(kind, args, kw, out)
+            print(f"{i:2d} {launch_label(kind, args, kw):58s} | {err:g} | "
+                  f"{ms * 1e3:8.2f} {b_ms * 1e3:8.2f} "
+                  f"({bound_by(t_ops, t_bytes)}) {ms / b_ms:.2f}")
+            if err != 0:
+                raise RuntimeError(f"resnet18 launch {i} "
+                                   f"({launch_label(kind, args, kw)}): "
+                                   f"kernel and plain differ by {err}")
+            tot["ms"] += ms
+            tot["bound_ms"] += b_ms
+            tot["err"] = max(tot["err"], err)
+    print(f"# resnet18 batch {batch}: {len(rec.calls)} launches, kernels "
+          f"{tot['ms']:.4f} ms against a bound of {tot['bound_ms']:.4f} ms")
+    return tot
+
+
+def resnet_serve_phase(model, device, card: str):
+    """Chained int8 cifar_resnet18 through make_serving_fn; returns the
+    conv and GEMM launches."""
+    cpu_model = copy.deepcopy(model).cpu()
+    serve = make_serving_fn(model, qmode="intc", device=device)
+    x = cifar_images(SERVE_BATCH, SEED + 2, device)
+    K.int8_conv3x3.launches = G.int8_gemm.launches = 0
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REQUESTS):
+        t0 = time.perf_counter()
+        y = serve(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    convs, gemms = K.int8_conv3x3.launches, G.int8_gemm.launches
+    if (convs, gemms) != (RESNET_CONVS * REQUESTS, RESNET_GEMMS * REQUESTS):
+        raise RuntimeError(f"{convs} conv and {gemms} GEMM launches for "
+                           f"{REQUESTS} requests, expected "
+                           f"{RESNET_CONVS} and {RESNET_GEMMS} a request")
+    if y.shape != (SERVE_BATCH, CIFAR_CLASSES) \
+            or not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"bad logits: {tuple(y.shape)}")
+    with torch.inference_mode():
+        ref = cpu_model(x[:8].cpu(), qmode="intc")
+    rel = float((y[:8].cpu() - ref).norm() / (ref.norm() + 1e-9))
+    steady = statistics.median(times[1:])
+    print(f"# resnet18 serve: logits {tuple(y.shape)} finite; vs CPU plain "
+          f"path on 8 images: rel L2 {rel:.3e}; launches {convs} conv + "
+          f"{gemms} GEMM = ({RESNET_CONVS} + {RESNET_GEMMS}) x {REQUESTS}")
+    if not rel < 2e-2:
+        raise RuntimeError(f"GPU and CPU logits differ: rel L2 {rel}")
+    print(f"# resnet18 serve: batch {SERVE_BATCH} request {steady * 1e3:.3f} "
+          f"ms median of {REQUESTS - 1} (first {times[0] * 1e3:.1f} ms); "
+          f"{SERVE_BATCH / steady:.1f} images/s on {card}")
+
+    # the request's split: device parts as CUDA graphs, the rest is host,
+    # gaps and the small per-request ops (grid-adapted epilogues)
+    last = {}
+    hook = model.layer4_1.register_forward_hook(
+        lambda mod, args, out: last.__setitem__("out", out))
+    with torch.inference_mode():
+        with LaunchRecorder() as rec:
+            model(x, qmode="intc")
+        hook.remove()
+        calls = [(K.int8_conv3x3 if kind == "conv" else G.int8_gemm, a, kw)
+                 for kind, a, kw, _ in rec.calls]
+
+        def kernels(_):
+            for run, a, kw in calls:
+                run(*a, **kw)
+
+        feat = materialize(last["out"])
+        quant_ms = graph_ms(lambda _: model.conv1._input_codes(x), 4)
+        kernels_ms = graph_ms(kernels, 4)
+        head_ms = graph_ms(lambda _: materialize(model.linear(
+            feat.mean(dim=(1, 2)), qmode="intc")), 4)
+    request_ms = steady * 1e3
+    rest = request_ms - quant_ms - kernels_ms - head_ms
+    print(f"# resnet18 serve split (device ms, CUDA graphs): input quantize "
+          f"{quant_ms:.4f}, {len(calls)} kernels {kernels_ms:.4f}, pool + "
+          f"head {head_ms:.4f}; request {request_ms:.4f} - their sum = host, "
+          f"gaps and small ops {rest:.4f} ({100 * rest / request_ms:.1f} % "
+          f"of the request)")
+    return convs, gemms
+
+
+def ptq_phase():
+    """BASELINE config #1 through the PTQ entry, with eval_int: true;
+    returns the conv and GEMM launches of the run."""
+    cfg = read_yaml(CONFIG_1)
+    cfg["eval_int"] = True
+    run_dir = REPO / "saved" / "chip_smoke"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    cfg["save_dir"] = str(run_dir)
+    path = run_dir / "PTQ_resnet18_cifar10_w8a8_eval_int.yaml"
+    write_yaml(cfg, path)
+    print(f"# ptq: config #1 with eval_int: true, nothing cut (calibration "
+          f"{cfg['dataloaders']['calibration']['args']['n_samples']} images, "
+          f"eval the synthetic fallback's 2000)")
+    K.int8_conv3x3.launches = G.int8_gemm.launches = 0
+    t0 = time.perf_counter()
+    if ptq_entry.main(["-c", str(path)]) != 0:
+        raise RuntimeError("the PTQ entry failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    convs, gemms = K.int8_conv3x3.launches, G.int8_gemm.launches
+    (ckpt,) = sorted((run_dir / "models").glob("*/*/quantized_model"))[-1:]
+    _, meta = load_checkpoint(ckpt)
+    fp, quant, real = meta["fp32"], meta["quant"], meta["int"]
+    print(f"# ptq: fp32 {fp}; fake quant {quant}; int {real}; "
+          f"{convs} conv and {gemms} GEMM launches; wall {wall:.2f} s")
+    losses = torch.tensor([fp["loss"], quant["loss"], real["loss"]])
+    if not (bool(torch.isfinite(losses).all()) and convs and gemms
+            and abs(real["loss"] - quant["loss"]) < 0.05 * quant["loss"]):
+        raise RuntimeError("the PTQ entry's results are off")
+    return convs, gemms
+
+
 def tool_path(drive, wrapper, what: str):
     """Run a tool's main path with ``wrapper``'s launch count set to 0;
     returns the tool's rows and the launches of that run."""
@@ -500,10 +760,22 @@ def main() -> int:
     launches = serve_phase(model, device, card)
     recon_launches, recon_err = recon_phase(device, card)
     launches += recon_launches
-    tot["err"] = max(err8, tot["err"], recon_err)
+
+    t0 = time.perf_counter()
+    resnet = resnet18_deployed(device)
+    print(f"# resnet18: train form -> resnet_deploy -> config #1 scheme -> "
+          f"calibrate (batch {SERVE_BATCH}) + prepare_deploy in "
+          f"{time.perf_counter() - t0:.2f} s")
+    res_err = max(resnet_kernel_phase(resnet, b, device)["err"]
+                  for b in (8, SERVE_BATCH))
+    serve_convs, serve_gemms = resnet_serve_phase(resnet, device, card)
+    ptq_convs, ptq_gemms = ptq_phase()
+    launches += serve_convs + ptq_convs
+    tot["err"] = max(err8, tot["err"], recon_err, res_err)
 
     gemm_rows, gemm_launches = tool_path(gemm_sweep.main, G.int8_gemm,
                                          "gemm_sweep")
+    gemm_launches += serve_gemms + ptq_gemms
     probe_rows, probe_launches = tool_path(lambda: mma_probe.main([]),
                                            P.int8_mma_probe, "mma_probe")
     gen = torch.Generator(device=device).manual_seed(SEED + 3)

@@ -1,15 +1,17 @@
 """Numpy datasets and batch loaders, on the host.
 
-Counterpart of the ImageNet path of ``dlmc_quant_tpu/data/loaders.py``
-(a copy: that module is numpy-only, but importing it would import the JAX
-package).  With no ImageNet on disk, ``ImageNet`` falls back to seeded
-synthetic data, array for array the JAX package's.  Batches are numpy
+Counterpart of the ImageNet and CIFAR paths of
+``dlmc_quant_tpu/data/loaders.py`` (a copy: that module is numpy-only, but
+importing it would import the JAX package).  With no dataset on disk,
+``ImageNet``, ``CIFAR10`` and ``CIFAR100`` fall back to seeded synthetic
+data (the ``'easy'`` or ``'hard'`` profile), array for array the JAX
+package's, and batch for batch: the same numpy draws.  Batches are numpy
 (N, H, W, C) float32 and int32 labels; the caller moves them to its device.
 
-Not ported yet (ROADMAP Queue A item 14): the ImageNet folder reader and
-its JPEG decode, the native C++ batch assembly (the numpy path here draws
-the same randomness and gives the same arrays), MNIST, CIFAR and the
-benchmark's ``Synthetic`` loader.
+Not ported yet (ROADMAP Queue A, data left (item 10)): reading an ImageNet
+folder or CIFAR's pickles, the native C++ batch assembly (the numpy path
+here draws the same randomness and gives the same arrays), MNIST,
+``validation_split`` and the benchmark's ``Synthetic`` loader.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import numpy as np
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
+CIFAR_STD = np.array([0.2470, 0.2435, 0.2616], np.float32)
+DATA_ITEM = "ROADMAP Queue A, data left (item 10)"
 
 
 class ArrayDataset:
@@ -106,20 +111,51 @@ class DataLoader:
 
 
 def _synthetic_classification(n: int, image_size, num_classes: int,
-                              seed: int = 0, split: str = "train"):
-    """Learnable synthetic data: per-class mean patterns + noise (the JAX
-    package's ``'easy'`` profile).
+                              seed: int = 0, profile: str = "easy",
+                              split: str = "train"):
+    """Learnable synthetic data: per-class mean patterns + noise.
 
     The prototypes come from ``seed`` alone, so train and eval share them;
-    labels and noise come from a stream of their own per split.
+    labels and noise come from a stream of their own per split.  Profiles:
+    ``'easy'``, full-image iid prototypes and low noise (any model
+    saturates); ``'hard'``, class signal in a low-rank, low-frequency
+    subspace under strong noise, so that fp32 accuracy stays well below
+    100 % (the JAX package's accuracy protocol).
     """
     h, w, c = image_size
     rng = np.random.default_rng(seed)
     srng = np.random.default_rng((seed, 0 if split == "train" else 1))
     labels = srng.integers(0, num_classes, n)
-    protos = rng.normal(0.5, 0.25, (num_classes, h, w, c)).astype(np.float32)
-    images = protos[labels] + srng.normal(0, 0.25, (n, h, w, c))
+    if profile == "hard":
+        k, amp, sigma, base = 16, 1.5, 0.40, 8
+        lo = rng.normal(0.0, 1.0, (k, base, base, c)).astype(np.float32)
+        basis = lo[:, (np.arange(h) * base) // h][
+            :, :, (np.arange(w) * base) // w]
+        basis /= np.linalg.norm(basis.reshape(k, -1), axis=1).reshape(
+            k, 1, 1, 1)
+        coef = rng.normal(0.0, 1.0, (num_classes, k)).astype(np.float32)
+        protos = 0.5 + amp * np.einsum("mk,khwc->mhwc", coef, basis)
+        images = protos[labels] + srng.normal(0, sigma, (n, h, w, c))
+    elif profile == "easy":
+        protos = rng.normal(0.5, 0.25,
+                            (num_classes, h, w, c)).astype(np.float32)
+        images = protos[labels] + srng.normal(0, 0.25, (n, h, w, c))
+    else:
+        raise ValueError(f"unknown synthetic profile {profile!r}")
     return np.clip(images, 0, 1).astype(np.float32), labels
+
+
+def _subsample(images, labels, n_samples: Optional[int],
+               random_sample: bool, seed: int = 0):
+    """The first ``n_samples``, or as many drawn at random."""
+    if not n_samples or n_samples >= len(images):
+        return images, labels
+    if random_sample:
+        idx = np.random.default_rng(seed).choice(len(images), n_samples,
+                                                 replace=False)
+    else:
+        idx = np.arange(n_samples)
+    return images[idx], labels[idx]
 
 
 def ImageNet(data_dir: str, batch_size: int = 64, shuffle: bool = True,
@@ -138,8 +174,7 @@ def ImageNet(data_dir: str, batch_size: int = 64, shuffle: bool = True,
     if split_dir.is_dir():
         raise NotImplementedError(
             f"{split_dir}: reading an ImageNet folder is not ported yet "
-            "(ROADMAP Queue A item 14); without it the synthetic fallback "
-            "runs")
+            f"({DATA_ITEM}); without it the synthetic fallback runs")
     if not synthetic_fallback:
         raise FileNotFoundError(split_dir)
     images, labels = _synthetic_classification(
@@ -151,14 +186,49 @@ def ImageNet(data_dir: str, batch_size: int = 64, shuffle: bool = True,
                       drop_last=training, seed=seed)
 
 
-DATALOADERS = {"ImageNet": ImageNet}
-_NOT_PORTED = ("Mnist", "CIFAR10", "CIFAR100", "Synthetic")
+def CIFAR10(data_dir: str = "data", batch_size: int = 128,
+            shuffle: bool = True, training: bool = True,
+            n_samples: Optional[int] = None, random_sample: bool = False,
+            synthetic_fallback: bool = True, seed: int = 0,
+            synthetic_profile: str = "easy",
+            _n_classes: int = 10) -> DataLoader:
+    """CIFAR-10 (``_n_classes=100``: CIFAR-100) at 32², or with no
+    ``<data_dir>/cifar-10-batches-py`` folder the seeded synthetic fallback
+    (10000 training or 2000 eval images), then ``n_samples`` of them.  The
+    training loader shuffles, pad-crops and flips, and drops the last
+    partial batch."""
+    folder = Path(data_dir) / ("cifar-10-batches-py" if _n_classes == 10
+                               else "cifar-100-python")
+    if folder.is_dir():
+        raise NotImplementedError(
+            f"{folder}: reading CIFAR's pickles is not ported yet "
+            f"({DATA_ITEM}); without them the synthetic fallback runs")
+    if not synthetic_fallback:
+        raise FileNotFoundError(folder)
+    images, labels = _synthetic_classification(
+        10000 if training else 2000, (32, 32, 3), _n_classes, seed,
+        profile=synthetic_profile, split="train" if training else "eval")
+    images, labels = _subsample(images, labels, n_samples, random_sample,
+                                seed)
+    ds = ArrayDataset(images, labels, CIFAR_MEAN, CIFAR_STD,
+                      train_augment=training)
+    return DataLoader(ds, batch_size, shuffle and training,
+                      drop_last=training, seed=seed)
+
+
+def CIFAR100(**kw) -> DataLoader:
+    return CIFAR10(_n_classes=100, **kw)
+
+
+DATALOADERS = {"ImageNet": ImageNet, "CIFAR10": CIFAR10,
+               "CIFAR100": CIFAR100}
+_NOT_PORTED = ("Mnist", "Synthetic")
 
 
 def get_dataloader(name: str, **kwargs) -> DataLoader:
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"dataloader {name!r} is not ported yet (ROADMAP Queue A item 14)")
+            f"dataloader {name!r} is not ported yet ({DATA_ITEM})")
     try:
         return DATALOADERS[name](**kwargs)
     except KeyError:

@@ -42,8 +42,8 @@ def to_deploy(model, logger):
     if family not in FUSERS:
         raise NotImplementedError(
             f"{family}: only RepVGG has a deploy conversion in the port "
-            "(merge_bn and the other families: ROADMAP Queue A items 10 "
-            "and 12)")
+            "(merge_bn: ROADMAP Queue A, PTQ E2E (item 4); the other "
+            "families: rest of the zoo (item 7))")
     if model.deploy:
         return model
     logger.info("converted %s to deploy form", family)

@@ -1,4 +1,4 @@
-"""Model zoo (RepVGG-A0 in this slice) and reparameterization."""
+"""Model zoo (RepVGG-A0, the CIFAR ResNets) and reparameterization."""
 
 from dlmc_quant_torch.models.registry import get_model, register
 

@@ -1,9 +1,12 @@
 """Reparameterization: BN folding and RepVGG branch fusion.
 
-Counterpart of ``dlmc_quant_tpu/models/fuse.py:21-179``, on OIHW kernels.
-:func:`repvgg_fuse` turns a train-form RepVGG into its deploy form, one
-3×3 conv per block.  The deploy model's quantizer parameters are fresh:
-calibrate after fusing, as the JAX package does.
+Counterpart of ``dlmc_quant_tpu/models/fuse.py:21-179,193-278``, on OIHW
+kernels.  :func:`repvgg_fuse` turns a train-form RepVGG into its deploy
+form, one 3×3 conv per block; :func:`resnet_deploy` folds a train-form CIFAR
+ResNet's BatchNorms into its convs.  The deploy model's quantizer
+parameters are fresh: calibrate after fusing, as the JAX package does.
+``merge_bn`` (the fold in place, for other families) is not ported yet
+(ROADMAP Queue A, PTQ E2E (item 4)).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from dlmc_quant_torch.models.repvgg import RepVGG, RepVGGBlock
+from dlmc_quant_torch.quant.layers import QConv, QDense
 
 BN_EPS = 1e-5
 
@@ -82,4 +86,37 @@ def repvgg_fuse(model: RepVGG) -> RepVGG:
         prev = k.shape[0]
     deploy.linear.weight.copy_(model.linear.weight)
     deploy.linear.bias.copy_(model.linear.bias)
+    return deploy.train(model.training)
+
+
+# a ResNet conv's BatchNorm, by the zoo's fixed naming
+RESNET_BN_PARTNERS = {"conv1": "bn1", "conv2": "bn2",
+                      "downsample": "downsample_bn"}
+
+
+@torch.no_grad()
+def resnet_deploy(model):
+    """Train-form CIFAR ResNet → its BN-free deploy form on the same device.
+
+    Every conv absorbs its BatchNorm partner (``conv1↔bn1``,
+    ``conv2↔bn2``, ``downsample↔downsample_bn``) exactly as
+    :func:`fold_conv_bn` does; each block gains its ``out_q`` output
+    quantizer.  Calibrate (and ``prepare_deploy``) after conversion.
+    """
+    device = model.linear.weight.device
+    deploy = type(model)(**model.twin_args(), deploy=True,
+                         scheme=model.scheme).to(device)
+    for path, conv in deploy.named_modules():
+        if isinstance(conv, QConv):
+            parent, _, leaf = path.rpartition(".")
+            src = model.get_submodule(path)
+            bn = model.get_submodule(
+                ".".join(filter(None, (parent, RESNET_BN_PARTNERS[leaf]))))
+            k, b = fold_conv_bn(src.weight, src.bias, *_bn_args(bn), bn.eps)
+            conv.weight.copy_(k)
+            conv.bias.copy_(b)
+        elif isinstance(conv, QDense):
+            src = model.get_submodule(path)
+            conv.weight.copy_(src.weight)
+            conv.bias.copy_(src.bias)
     return deploy.train(model.training)

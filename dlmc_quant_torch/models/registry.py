@@ -26,7 +26,8 @@ def get_model(name: str, device: DeviceLike = None, **kwargs):
     """Build ``name`` on ``device`` (default ``cuda``; raises without a
     card), in eval mode like the JAX models' ``train=False`` default."""
     device = resolve_device(device)
-    from dlmc_quant_torch.models import repvgg  # noqa: F401  (registers)
+    from dlmc_quant_torch.models import (  # noqa: F401  (they register)
+        repvgg, resnet_cifar)
     folded = {k.lower(): k for k in _REGISTRY}
     if name.lower() not in folded:
         raise ValueError(

@@ -8,7 +8,8 @@ then ReLU.  Deploy form: one fused 3×3 conv per block, made by
 :func:`dlmc_quant_torch.models.fuse.repvgg_fuse`.
 
 Only RepVGG-A0 is registered in this slice; the SE variant (D2se) and the
-integer path of the grouped variants wait for ROADMAP Queue A item 12.
+integer path of the grouped variants wait for ROADMAP Queue A, rest of
+the zoo (item 7).
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ class RepVGG(nn.Module):
         if use_se:
             raise NotImplementedError(
                 "RepVGG SE blocks (D2se) are not ported yet "
-                "(ROADMAP Queue A item 12)")
+                "(ROADMAP Queue A, rest of the zoo (item 7))")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.num_blocks = tuple(num_blocks)
@@ -112,7 +113,7 @@ class RepVGG(nn.Module):
         if qmode in ("int", "intc") and self.override_groups_map:
             raise NotImplementedError(
                 "grouped RepVGG variants have no integer path yet "
-                "(ROADMAP Queue A item 12)")
+                "(ROADMAP Queue A, rest of the zoo (item 7))")
         for name in self.block_names:
             x = getattr(self, name)(x, qmode=qmode)
         x = materialize(x).mean(dim=(1, 2))

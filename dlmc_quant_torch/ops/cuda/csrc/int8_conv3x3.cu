@@ -5,10 +5,17 @@
 // (int8_conv3x3_rm, body _rp_kernel at :142).  Same function, generalised:
 // stride 1 or 2, any H, W, C >= 1 and O >= 1, NHWC int8 codes in and out,
 // borders padded with the input grid's code for real 0 (not with zero).
+// The top and left pad is 1, or 0 for the SAME geometry of a stride-2 conv
+// on an even map (the window of output p starts at row 2p, the bottom and
+// right border supply the pad); Ho = ceil(H / s) either way.
 //
 //   acc[n,p,q,o] = sum_{dy,dx,c} xpad[n, p*s+dy, q*s+dx, c] * w[dy,dx,c,o]   (int32)
 //   codes: out = clamp(rint(f32(acc)*a[o] + b[o]), lo, hi)              -> int8
 //   f32:   out = f32(acc)*a[o] + b[o], then max(., 0) if relu          -> f32
+//   codes with a residual r (N, Ho, Wo, O) of int8, int32 or f32 (a residual
+//   block's output, folded as chain.fold_sum_quantize orders it):
+//          out = clamp(rint((((qb + f32(acc)*a[o]) + b[o]) + f32(r)*ar[o])
+//                           + br[o]), lo, hi)                          -> int8
 //
 // The epilogue is written with __int2float_rn, __fmul_rn and __fadd_rn so
 // nvcc cannot contract it into an fma, and rounds half to even as rintf,
@@ -134,9 +141,13 @@ struct ConvArgs {
   const float* a;
   const float* b;
   void* out;
+  const void* r;      // residual, r_kind: 0 none, 1 int8, 2 int32, 3 f32
+  const float* ar;
+  const float* br;
+  float qb;
   long long x_bytes;
   int H, W, C, Rp, O, Ho, Wo, M, stride, Kp;
-  int pad, lo, hi, relu;
+  int pad, pad_lo, lo, hi, relu, r_kind;
   int m_tiles, n_tiles, tiles, k_chunks, stages, resident;
   int halo_bufs, halo_bytes, pixels;  // halo_bufs 0: gather from x
   FastDiv by_hw, by_wo, by_m_tiles;   // / (Ho Wo), / Wo, / m_tiles
@@ -181,7 +192,58 @@ __host__ __device__ Layout make_layout(int stages, int resident, int k_chunks,
   return l;
 }
 
-template <int BN, bool CODES>
+// The residual term of output row `row`, columns `col` and `col` + 1 (col
+// even), read straight from global memory by the read-only path (both
+// columns in one load where O is even and r aligned for it); zeros where
+// the row or a column lies outside the output.
+__device__ __forceinline__ void load_residual(const ConvArgs& g, int row,
+                                              int col, float rv[2],
+                                              float arv[2], float brv[2]) {
+  if (row >= g.M || col >= g.O) return;
+  const long long at = static_cast<long long>(row) * g.O + col;
+  const bool two = col + 1 < g.O;
+  if (g.r_kind == 1) {
+    const int8_t* r = static_cast<const int8_t*>(g.r) + at;
+    if (two && reinterpret_cast<uintptr_t>(r) % 2 == 0) {
+      const char2 v = __ldg(reinterpret_cast<const char2*>(r));
+      rv[0] = v.x;
+      rv[1] = v.y;
+    } else {
+      rv[0] = __ldg(r);
+      if (two) rv[1] = __ldg(r + 1);
+    }
+  } else if (g.r_kind == 2) {
+    const int* r = static_cast<const int*>(g.r) + at;
+    if (two && reinterpret_cast<uintptr_t>(r) % 8 == 0) {
+      const int2 v = __ldg(reinterpret_cast<const int2*>(r));
+      rv[0] = __int2float_rn(v.x);
+      rv[1] = __int2float_rn(v.y);
+    } else {
+      rv[0] = __int2float_rn(__ldg(r));
+      if (two) rv[1] = __int2float_rn(__ldg(r + 1));
+    }
+  } else {
+    const float* r = static_cast<const float*>(g.r) + at;
+    if (two && reinterpret_cast<uintptr_t>(r) % 8 == 0) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(r));
+      rv[0] = v.x;
+      rv[1] = v.y;
+    } else {
+      rv[0] = __ldg(r);
+      if (two) rv[1] = __ldg(r + 1);
+    }
+  }
+  arv[0] = __ldg(g.ar + col);
+  brv[0] = __ldg(g.br + col);
+  if (two) {
+    arv[1] = __ldg(g.ar + col + 1);
+    brv[1] = __ldg(g.br + col + 1);
+  }
+}
+
+// RESIDUAL (codes only) adds the residual term: an instantiation of its
+// own, so that the epilogue without one keeps its registers
+template <int BN, bool CODES, bool RESIDUAL>
 __global__ void __launch_bounds__(THREADS, Cfg<BN, CODES>::MIN_BLOCKS)
 int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
                     const ConvArgs g) {
@@ -320,7 +382,8 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
               const int rem = m - n * hw;
               const int oh = g.by_wo.div(rem);
               const int ow = rem - oh * g.Wo;
-              const int ih0 = oh * g.stride - 1, iw0 = ow * g.stride - 1;
+              const int ih0 = oh * g.stride - g.pad_lo;
+              const int iw0 = ow * g.stride - g.pad_lo;
               e.x = (n * g.H + ih0) * g.W + iw0;
               e.y = ROW_LIVE;
 #pragma unroll
@@ -568,13 +631,26 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
           const int col = 8 * i + col_in;
           const float2 av = *reinterpret_cast<const float2*>(sa + n0 + col);
           const float2 bv = *reinterpret_cast<const float2*>(sb + n0 + col);
+          // the residual term of both columns: r, ar and br, zero outside
+          // the output (those codes are not stored)
+          float rv[2] = {0.0f, 0.0f}, arv[2] = {0.0f, 0.0f},
+                brv[2] = {0.0f, 0.0f};
+          if constexpr (RESIDUAL)
+            load_residual(g, m0 + row_in + 8 * h, n0 + col, rv, arv, brv);
           int c[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float y = __fadd_rn(
+            const float prod =
                 __fmul_rn(__int2float_rn(acc[4 * i + 2 * h + e]),
-                          e ? av.y : av.x),
-                e ? bv.y : bv.x);
+                          e ? av.y : av.x);
+            float y;
+            if constexpr (!RESIDUAL) {
+              y = __fadd_rn(prod, e ? bv.y : bv.x);
+            } else {
+              // the residual sum, term by term: ((qb + acc a) + b) + r ar + br
+              y = __fadd_rn(__fadd_rn(g.qb, prod), e ? bv.y : bv.x);
+              y = __fadd_rn(__fadd_rn(y, __fmul_rn(rv[e], arv[e])), brv[e]);
+            }
             // rintf and the conversion in one cvt (cvt.rni rounds
             // half to even as rintf does, and saturates), then the clamp
             // on integers: the same code as clamp(rintf(y), lo, hi)
@@ -641,10 +717,10 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
   }
 }
 
-template <int BN, bool CODES>
+template <int BN, bool CODES, bool RESIDUAL = false>
 int launch(const CUtensorMap& map_w, const ConvArgs& g, cudaStream_t s) {
   using C = Cfg<BN, CODES>;
-  const auto kernel = int8_conv3x3_kernel<BN, CODES>;
+  const auto kernel = int8_conv3x3_kernel<BN, CODES, RESIDUAL>;
   const int smem =
       make_layout<C>(g.stages, g.resident, g.k_chunks, g.n_tiles,
                      g.halo_bufs * g.halo_bytes).total;
@@ -696,19 +772,33 @@ int dlmcq_int8_conv3x3_smem(int bn, int codes, int stages,
 
 // x (n, h, wd, c) int8, w packed as (o, kp) int8 with kp = 3 *
 // roundup(3 c, 16), a and b (o,) float32, out (n, ho, wo, o) int8 (codes)
-// or float32.  The plan (bn, stages, resident, halo_bufs) comes from
-// int8_conv.py.  Launches on `stream`; returns cudaGetLastError() (0 on
-// success), or the error that refused the tensor map or the plan.
+// or float32; pad_lo 1, or 0 at stride 2.  With r_kind 1, 2 or 3 (codes
+// only) r is (n, ho, wo, o) int8, int32 or float32, ar and br (o,) float32
+// and qb the grid's bias; with r_kind 0 they are not read.  The plan (bn,
+// stages, resident, halo_bufs) comes from int8_conv.py.  Launches on
+// `stream`; returns cudaGetLastError() (0 on success), or the error that
+// refused the tensor map or the plan.
 int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
-                       const void* b, void* out, int n, int h, int wd, int c,
-                       int o, int kp, int stride, int pad, int lo, int hi,
-                       int codes, int relu, int bn, int stages,
-                       int resident, int halo_bufs, void* stream) {
+                       const void* b, void* out, const void* r,
+                       const void* ar, const void* br, int n, int h, int wd,
+                       int c, int o, int kp, int stride, int pad, int pad_lo,
+                       int lo, int hi, int codes, int relu, int r_kind,
+                       int bn, int stages, int resident, int halo_bufs,
+                       float qb, void* stream) {
   ConvArgs g;
   g.x = static_cast<const int8_t*>(x);
   g.a = static_cast<const float*>(a);
   g.b = static_cast<const float*>(b);
   g.out = out;
+  g.r = r;
+  g.ar = static_cast<const float*>(ar);
+  g.br = static_cast<const float*>(br);
+  g.qb = qb;
+  g.r_kind = r_kind;
+  g.pad_lo = pad_lo;
+  if (pad_lo < 0 || pad_lo > 1 || (pad_lo == 0 && stride != 2) ||
+      r_kind < 0 || r_kind > 3 || (r_kind && !codes))
+    return static_cast<int>(cudaErrorInvalidValue);
   g.H = h;
   g.W = wd;
   g.C = c;
@@ -753,10 +843,11 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
   const int err = encode_tile_map(&map_w, w, o, kp, kp, bn);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DLMCQ_LAUNCH(BN)                           \
-  if (bn == BN)                                    \
-    return codes ? launch<BN, true>(map_w, g, s)   \
-                 : launch<BN, false>(map_w, g, s);
+#define DLMCQ_LAUNCH(BN)                                 \
+  if (bn == BN)                                          \
+    return !codes   ? launch<BN, false>(map_w, g, s)     \
+           : r_kind ? launch<BN, true, true>(map_w, g, s) \
+                    : launch<BN, true>(map_w, g, s);
   DLMCQ_CONV_TILES(DLMCQ_LAUNCH)
 #undef DLMCQ_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

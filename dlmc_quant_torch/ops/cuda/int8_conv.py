@@ -15,9 +15,21 @@ For input codes ``x`` (N, H, W, C) int8 and weights ``w`` (3, 3, C, O) int8
 (packed once by :func:`pack_weight`)::
 
     acc[n,p,q,o] = Σ_{dy,dx,c} xpad[n, p·s+dy, q·s+dx, c] · w[dy,dx,c,o]     (int32)
-    xpad         = x padded by 1 on each side with the int8 code ``pad``
+    xpad         = x padded with the int8 code ``pad``: ``pad_lo`` rows and
+                   columns at the top and left (1, or 0 for the SAME
+                   geometry of a stride-2 conv on an even map), as many at
+                   the bottom and right as the window needs; Ho = ⌈H/s⌉
     "codes": out = clamp(rint(f32(acc)·a[o] + b[o]), lo, hi) → int8 (N, Ho, Wo, O)
     "f32":   out = f32(acc)·a[o] + b[o], then max(·, 0) if relu → f32
+
+In ``"codes"`` mode a ``residual`` ``(r, ar, br)`` adds a residual block's
+shortcut to the sum before it is rounded, term by term in the order of
+``quant.chain.fold_sum_quantize``, with ``qb`` the output grid's bias::
+
+    out = clamp(rint((((qb + f32(acc)·a[o]) + b[o]) + f32(r)·ar[o]) + br[o]), lo, hi)
+
+``r`` is (N, Ho, Wo, O) int8 codes, int32 accumulators or float32 values;
+``ar`` and ``br`` are (O,) float32.
 
 As a GEMM the conv has M = N·Ho·Wo rows, O columns and K = 3·Rp bytes,
 ordered (dy, dx, channel): the 3·C bytes that row dy of the window covers
@@ -45,6 +57,8 @@ import torch.nn.functional as F
 from dlmc_quant_torch.ops.cuda import build
 
 MODES = ("codes", "f32")
+# residual dtypes, by the kernel's r_kind (0: no residual)
+RESIDUAL_KINDS = {torch.int8: 1, torch.int32: 2, torch.float32: 3}
 PRODUCER_WARPS = 4    # each fills every fourth stage of a block's sequence
 CHUNK = 16            # bytes of K that always lie inside one tap
 TILE_K = 128          # bytes of K in a shared-memory tile row
@@ -78,7 +92,7 @@ def packed_shape(c: int, o: int):
 
 
 def out_hw(h: int, w: int, stride: int):
-    """Output spatial size of the padded 3×3 conv."""
+    """Output spatial size of the padded 3×3 conv (either top/left pad)."""
     return (h - 1) // stride + 1, (w - 1) // stride + 1
 
 
@@ -201,13 +215,18 @@ def tile_plan(m: int, c: int, o: int, mode: str = "codes", *, stride: int = 2,
     return found
 
 
-def _check(x, w, a, b, stride, pad, lo, hi, mode, relu):
+def _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo=1,
+           residual=None, qb=0.0):
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "codes" and relu:
         raise ValueError("codes mode folds the ReLU into lo; relu is for f32")
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
+    if pad_lo not in (0, 1) or (pad_lo == 0 and stride != 2):
+        raise ValueError(f"pad_lo must be 1, or 0 at stride 2 (the SAME "
+                         f"geometry of an even map), got {pad_lo!r} at "
+                         f"stride {stride}")
     for name, v in (("pad", pad), ("lo", lo), ("hi", hi)):
         if not isinstance(v, int) or not -128 <= v <= 127:
             raise ValueError(f"{name} must be an int8 code, got {v!r}")
@@ -234,25 +253,59 @@ def _check(x, w, a, b, stride, pad, lo, hi, mode, relu):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if w.data_ptr() % 16 or (c % CHUNK == 0 and x.data_ptr() % 16):
         raise ValueError("w, and x when C % 16 == 0, must be 16-byte aligned")
+    if residual is None:
+        return
+    if mode != "codes":
+        raise ValueError("a residual is added in codes mode only")
+    if not isinstance(qb, float):
+        raise ValueError(f"qb must be a float, got {qb!r}")
+    r, ar, br = residual
+    ho, wo = out_hw(h, wd, stride)
+    if r.dtype not in RESIDUAL_KINDS or tuple(r.shape) != (n, ho, wo, o):
+        raise ValueError(f"the residual must be {(n, ho, wo, o)} int8, int32 "
+                         f"or float32, got {tuple(r.shape)} {r.dtype}")
+    for name, t in (("ar", ar), ("br", br)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (o,):
+            raise ValueError(f"{name} must be ({o},) float32")
+    for name, t in (("r", r), ("ar", ar), ("br", br)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int, lo: int = -128,
-                       hi: int = 127, mode: str = "codes",
-                       relu: bool = False) -> torch.Tensor:
+def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int,
+                       pad_lo: int = 1, lo: int = -128, hi: int = 127,
+                       mode: str = "codes", relu: bool = False,
+                       residual=None, qb: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same arguments, same result).
 
     ``acc`` is a float64 ``F.conv2d`` over the pad-code-padded input, exact
-    because |acc| ≤ 9·C·128² ≪ 2⁵³; the epilogue runs in float32 as two
+    because |acc| ≤ 9·C·128² ≪ 2⁵³; the epilogue runs in float32 as
     separate ops, so nothing fuses them into an fma.
     """
-    c, o = x.shape[-1], a.shape[0]
+    n, h, wd, c = x.shape
+    o = a.shape[0]
+    ho, wo = out_hw(h, wd, stride)
     wk = unpack_weight(w, c, o)
-    xp = F.pad(x.permute(0, 3, 1, 2).to(torch.float64), (1, 1, 1, 1),
+    # pad_lo at the top and left; at the bottom and right what the last
+    # window reaches past the map
+    pad_h = (ho - 1) * stride + 3 - h - pad_lo
+    pad_w = (wo - 1) * stride + 3 - wd - pad_lo
+    xp = F.pad(x.permute(0, 3, 1, 2).to(torch.float64),
+               (pad_lo, max(pad_w, 0), pad_lo, max(pad_h, 0)),
                value=float(pad))
     acc = F.conv2d(xp, wk.permute(3, 2, 0, 1).to(torch.float64),
                    stride=stride)
     y = acc.permute(0, 2, 3, 1).to(torch.float32) * a
-    y = y + b
+    if residual is not None:
+        r, ar, br = residual
+        y = y + qb
+        y = y + b
+        y = y + r.to(torch.float32) * ar
+        y = y + br
+    else:
+        y = y + b
     if mode == "codes":
         return torch.round(y).clamp_(lo, hi).to(torch.int8).contiguous()
     if relu:
@@ -265,7 +318,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_conv3x3")
     lib.dlmcq_int8_conv3x3.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 18
+        + [ctypes.c_float, ctypes.c_void_p])
     lib.dlmcq_int8_conv3x3_smem.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3_smem.argtypes = [ctypes.c_int] * 7
     # the source lays shared memory out as plan_smem() counts it
@@ -278,13 +332,15 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, lo: int = -128,
-                 hi: int = 127, mode: str = "codes", relu: bool = False,
+def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
+                 lo: int = -128, hi: int = 127, mode: str = "codes",
+                 relu: bool = False, residual=None, qb: float = 0.0,
                  _plan=None) -> torch.Tensor:
     """Run the fused int8 3×3 conv (see the module docstring).
 
     ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight`, ``a``/``b`` (O,)
-    float32, all contiguous and on one device.  CUDA tensors launch the
+    float32, ``residual`` ``(r, ar, br)`` or None, all contiguous and on
+    one device.  CUDA tensors launch the
     kernel on the current stream at :func:`tile_plan`'s plan (``_plan``: a
     dict of its overrides, for the card tests and for timing plans against
     each other) and count the launch in ``int8_conv3x3.launches``; CPU
@@ -292,10 +348,11 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, lo: int = -128,
     memory (a and b of every output channel sit beside the ring: a few
     thousand channels); ``tile_plan`` raises where nothing fits.
     """
-    _check(x, w, a, b, stride, pad, lo, hi, mode, relu)
+    _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo, residual, qb)
     if x.device.type == "cpu":
-        return int8_conv3x3_plain(x, w, a, b, stride=stride, pad=pad, lo=lo,
-                                  hi=hi, mode=mode, relu=relu)
+        return int8_conv3x3_plain(x, w, a, b, stride=stride, pad=pad,
+                                  pad_lo=pad_lo, lo=lo, hi=hi, mode=mode,
+                                  relu=relu, residual=residual, qb=qb)
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv3x3 runs on cuda or cpu, not {x.device}")
     n, h, wd, c = x.shape
@@ -306,12 +363,16 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, lo: int = -128,
     lib = _library()
     out = torch.empty((n, ho, wo, o), device=x.device,
                       dtype=torch.int8 if mode == "codes" else torch.float32)
+    r, ar, br = residual if residual is not None else (None, None, None)
     with torch.cuda.device(x.device):
         err = lib.dlmcq_int8_conv3x3(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), n, h, wd, c, o, w.shape[1], stride, pad, lo, hi,
-            int(mode == "codes"), int(relu), plan.bn, plan.stages,
-            int(plan.resident), plan.halo_bufs,
+            out.data_ptr(), *(t.data_ptr() if t is not None else None
+                              for t in (r, ar, br)),
+            n, h, wd, c, o, w.shape[1], stride, pad, pad_lo, lo, hi,
+            int(mode == "codes"), int(relu),
+            RESIDUAL_KINDS[r.dtype] if r is not None else 0, plan.bn,
+            plan.stages, int(plan.resident), plan.halo_bufs, qb,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(lib, err, "int8_conv3x3")
     int8_conv3x3.launches += 1

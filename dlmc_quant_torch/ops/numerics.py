@@ -1,14 +1,18 @@
-"""Affine quantization numerics and the FSPTQ family's gradients.
+"""Affine quantization numerics, the FSPTQ family's gradients and the
+plain/LSQ family's fake quantization.
 
 Counterpart of ``dlmc_quant_tpu/ops/numerics.py``.  ``round_pass`` and
 ``floor_pass`` are straight-through estimators (rounded forward, identity
 gradient) and :func:`clip` has ``jnp.clip``'s gradient, which FSPTQ
-reconstruction needs.  The LSQ and RootQ gradient forms (``uniform_q``,
-``lsq_q``, ``grad_scale``) are not ported yet (ROADMAP Queue A item 2).
+reconstruction needs.  :func:`lsq_fake_quant` is the LSQ layers' forward
+with its STE.  The custom-gradient estimators ``uniform_q`` and ``lsq_q``
+and the RootQ forms are not ported yet (ROADMAP Queue A, QAT + trainers
+(item 6)).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -63,3 +67,29 @@ def round_pass(x):
 def floor_pass(x):
     """Floor forward, identity gradient (STE)."""
     return x + (torch.floor(x) - x).detach()
+
+
+def grad_scale(x, g: float):
+    """Identity forward; gradient scaled by ``g`` (the LSQ trick)."""
+    return x * g + (x - x * g).detach()
+
+
+def lsq_fake_quant(x, scale, offset, qmin: int, qmax: int, g: float):
+    """LSQ fake quantization, ``round_pass(clip((x - offset)/s))·s + offset``
+    with ``s = grad_scale(scale, g)`` (clamped before the STE round, as in
+    the reference; ref: scalar/modules/base.py:96-102,131-133)."""
+    s = grad_scale(scale, g)
+    q = round_pass(clip((x - offset) / s, qmin, qmax))
+    return q * s + offset
+
+
+def lsq_grad_factor(numel: int, qmax: int) -> float:
+    """LSQ gradient scale ``1/sqrt(numel·qmax)``."""
+    return 1.0 / math.sqrt(float(numel) * float(max(qmax, 1)))
+
+
+def lsq_init_scale(x, qmax: int, dim=None):
+    """LSQ scale initialization ``2·mean|x|/sqrt(qmax)``, per tensor
+    (``dim=None``) or averaged over ``dim`` (per channel)."""
+    m = x.abs().mean() if dim is None else x.abs().mean(dim=dim)
+    return 2.0 * m / math.sqrt(float(max(qmax, 1)))

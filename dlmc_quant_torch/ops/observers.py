@@ -4,7 +4,8 @@ Counterpart of ``dlmc_quant_tpu/ops/observers.py``.  This slice ports the
 two observers of the flagship scheme (per-channel weights, per-tensor
 activations) and the streaming min/max state that multi-batch calibration
 folds activations into.  Every other observer name of the JAX package
-raises ``NotImplementedError`` until ROADMAP Queue A item 4 ports it.
+raises ``NotImplementedError`` until ROADMAP Queue A, observers left
+(item 9), ports it.
 """
 
 from __future__ import annotations
@@ -76,7 +77,8 @@ def get_qparams_tensor(tensor, qtype: str, **kwargs) -> Tuple:
     """String-dispatched tensor observer."""
     if qtype in _NOT_PORTED:
         raise NotImplementedError(
-            f"observer {qtype!r} is not ported yet (ROADMAP Queue A item 4)")
+            f"observer {qtype!r} is not ported yet (ROADMAP Queue A, "
+            "observers left (item 9))")
     try:
         fn = TENSOR_OBSERVERS[qtype]
     except KeyError:
@@ -121,7 +123,7 @@ def streaming_finalize(state: StreamingState, qtype: str, n_bits: int,
     if qtype.startswith("percentile"):
         raise NotImplementedError(
             "streaming percentile observers are not ported yet "
-            "(ROADMAP Queue A item 4)")
+            "(ROADMAP Queue A, observers left (item 9))")
     if signed:
         qmax = 2 ** (n_bits - 1) - 1
         amax = torch.maximum(state.min.abs(), state.max.abs())

@@ -16,8 +16,9 @@ per-channel weights w ≈ w_i8·s_w):
 so ``bias_eff = bias + (128·s_x + o_x)·s_w·colsum``, and borders are
 padded with the int8 code of real 0, which keeps the correction exact.
 
-Not in this slice: int4 weights (``pack_int4``, ROADMAP Queue A item 13),
-the space-to-depth stem, and weight-only quantization.
+Not ported yet: int4 weights (``pack_int4``; ROADMAP Queue A, W4 execution
+(item 8)), weight-only quantization (ROADMAP Queue A, weight-only integer
+execution (item 2)) and the space-to-depth stem.
 """
 
 from __future__ import annotations
@@ -34,17 +35,24 @@ def affine_from_quantizer(family: str, cfg, params: Dict, qstate: Dict,
     """Reduce a calibrated quantizer to a float affine ``(scale, offset)``
     such that the fake-quant grid is ``q*scale + offset``.
 
-    role ∈ {'weight', 'input'}.  Only the FSPTQ family is ported.
+    role ∈ {'weight', 'input'}.  FSPTQ stores an integer zero-point, the
+    plain/LSQ family a float offset; RootQ is not ported yet.
     """
-    if family != "fsptq":
+    if family == "fsptq":
+        if role == "input":
+            s = params["in_scale"]
+            zp = qstate.get("in_offset", torch.zeros_like(s))
+            return s, -zp * s
+        return params["wt_scale"], torch.zeros_like(params["wt_scale"])
+    if family != "lsq":
         raise NotImplementedError(
             f"{family!r} quantizers have no integer plan in the port yet "
-            "(LSQ and RootQ: ROADMAP Queue A item 11)")
+            "(RootQ: ROADMAP Queue A, QAT + trainers (item 6))")
     if role == "input":
         s = params["in_scale"]
-        zp = qstate.get("in_offset", torch.zeros_like(s))
-        return s, -zp * s
-    return params["wt_scale"], torch.zeros_like(params["wt_scale"])
+        return s, qstate.get("in_offset", torch.zeros_like(s))
+    s = params["wt_scale"]
+    return s, qstate.get("wt_offset", torch.zeros_like(s))
 
 
 def quantize_weight_int(kernel, scale, qmin: int, qmax: int,
@@ -90,16 +98,17 @@ def int8_pad_value(s_x, o_x, qmin: int, qmax: int):
 
 
 def prepare_deploy(model: torch.nn.Module) -> torch.nn.Module:
-    """Build the integer plan of every quantized layer (in place).
+    """Build the integer plan of every quantized layer and block output (in
+    place).
 
     The plan depends only on the calibrated parameters, so unlike the JAX
     package no sample input is needed.
     """
-    from dlmc_quant_torch.quant.layers import QLayer
+    from dlmc_quant_torch.quant.layers import QBlockOutput, QLayer
 
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, QLayer) and m.cfg is not None:
+            if isinstance(m, (QLayer, QBlockOutput)) and m.cfg is not None:
                 m.prepare_deploy()
     return model
 

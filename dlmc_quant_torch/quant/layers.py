@@ -1,4 +1,4 @@
-"""Quantized layers: QConv and QDense, FSPTQ family.
+"""Quantized layers: QConv, QDense and QBlockOutput; FSPTQ and LSQ families.
 
 Counterpart of ``dlmc_quant_tpu/quant/layers.py``.  Activations are NHWC
 at the public interface, as in the JAX package; weights are held in
@@ -8,10 +8,17 @@ per-channel weight axis is 0.
 * A layer is quantized when the model's :class:`QuantScheme` resolves a
   config for its ``named_modules()`` path; :func:`attach_scheme` does that
   once the model is built and creates the quantizer parameters.
+* Estimator families (``scheme.quantization_type``): ``'FSPTQ'`` and the
+  plain/LSQ family (``None`` or ``'LSQ'``); RootQ is not ported yet
+  (ROADMAP Queue A, QAT + trainers (item 6)).
 * FSPTQ quantizer state: ``in_scale`` (parameter), ``in_offset`` (buffer,
   the integer zero-point) and the streaming min/max ``in_stream_*``
   (buffers) for the input; ``wt_scale`` (per output channel) and, with
   AdaRound, ``alpha`` for the weight.
+* Plain/LSQ quantizer state: the same names, but ``in_offset`` is a float
+  offset (the grid is ``q·in_scale + in_offset``), and the weight has a
+  ``wt_offset`` buffer.  Observers: ``minmax_*`` and ``'LSQ'``
+  (``2·mean|x|/√qmax``).
 * :func:`calibrate` is the explicit calibration pass: optional ``'observe'``
   passes fold every batch's input min/max into the stream, then one
   ``'calibrate'`` pass on the first batch makes each layer observe its
@@ -24,9 +31,13 @@ per-channel weight axis is 0.
   feeds the stream), ``'train'`` (fake quant with AdaRound's soft rounding
   and straight-through gradients, for reconstruction), ``'int'`` and
   ``'intc'`` (real integer execution after ``quant.deploy.prepare_deploy``).
-
-Not in this slice: the LSQ and RootQ families and ``QBlockOutput``
-(ROADMAP Queue A items 10-11).
+* Integer convs: 3×3 (``ops.cuda.int8_conv``, SAME or pad-1 geometry) and
+  1×1 (``ops.cuda.int8_gemm`` on the subsampled codes); both take int8
+  codes on the layer's own grid or a :class:`QuantizedTensor` on a
+  producer's, whose epilogue is re-derived from the stored column sums.
+* :class:`QBlockOutput` closes a residual block: ``relu(y + r)`` in every
+  qmode but ``'intc'``, where the sum, the ReLU and the quantize run in the
+  epilogue of the block's last conv and give int8 codes.
 """
 
 from __future__ import annotations
@@ -39,18 +50,24 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda.int8_conv import pack_weight
-from dlmc_quant_torch.ops.numerics import clip, round_pass
+from dlmc_quant_torch.ops.cuda.int8_gemm import int8_gemm, pack_b
+from dlmc_quant_torch.ops.numerics import (clip, lsq_fake_quant,
+                                           lsq_grad_factor, lsq_init_scale,
+                                           round_pass)
 from dlmc_quant_torch.ops.observers import (StreamingState, get_qparams_tensor,
                                             minmax_tensor, streaming_finalize,
                                             streaming_init, streaming_update)
 from dlmc_quant_torch.quant import deploy as dp
 from dlmc_quant_torch.quant.chain import (DeferredEpilogue, PendingConv,
-                                          fold_quantize, materialize)
+                                          QuantizedTensor, fold_quantize,
+                                          fold_sum_quantize, materialize)
 
 QMODES = ("fp", "eval", "calibrate", "observe", "train", "int", "intc")
 
 # AdaRound rectified-sigmoid constants (ref: FSPTQuant/base.py:62-63)
 ADAROUND_GAMMA, ADAROUND_ZETA = -0.1, 1.1
+
+OBSERVERS_ITEM = "ROADMAP Queue A, observers left (item 9)"
 
 
 def _bshape(stat, ndim: int):
@@ -74,57 +91,120 @@ class QLayer(nn.Module):
         self.cfg = scheme.resolve(path) if scheme is not None else None
         if self.cfg is None:
             return
-        family = (scheme.quantization_type or "LSQ").lower()
-        if family != "fsptq":
+        self.family = (scheme.quantization_type or "LSQ").lower()
+        if self.family not in ("fsptq", "lsq"):
             raise NotImplementedError(
-                f"{path}: the {family!r} estimator family is not ported yet "
-                "(LSQ and RootQ: ROADMAP Queue A item 11)")
+                f"{path}: the {self.family!r} estimator family is not ported "
+                "yet (RootQ: ROADMAP Queue A, QAT + trainers (item 6))")
         dev = self.weight.device
-        if self.cfg.input.enable:
+        aq, wq = self.cfg.input, self.cfg.weight
+        if self.family == "lsq":
+            for role, q in (("input", aq), ("weight", wq)):
+                if q.enable and not (q.type == "LSQ"
+                                     or q.type.startswith("minmax")):
+                    raise NotImplementedError(
+                        f"{path}: the {role} observer {q.type!r} of the "
+                        f"plain/LSQ family is not ported yet "
+                        f"({OBSERVERS_ITEM})")
+            if aq.enable and aq.per_channel:
+                raise NotImplementedError(
+                    f"{path}: per-channel activation scales are not ported "
+                    f"yet ({OBSERVERS_ITEM})")
+        if aq.enable:
             self.in_scale = nn.Parameter(torch.ones((), device=dev))
             self.register_buffer("in_offset", torch.zeros((), device=dev))
             for field, t in zip(StreamingState._fields,
                                 streaming_init(device=dev)):
                 self.register_buffer(f"in_stream_{field}", t)
-        wq = self.cfg.weight
         if wq.enable:
             if wq.per_pixel:
                 raise NotImplementedError(
                     f"{path}: per-pixel weight scales are not ported yet "
-                    "(ROADMAP Queue A item 4)")
+                    f"({OBSERVERS_ITEM})")
             shape = (self.weight.shape[0],) if wq.per_channel else ()
             self.wt_scale = nn.Parameter(torch.ones(shape, device=dev))
-            if wq.recon_type == "adaround":
+            if self.family == "lsq":
+                self.register_buffer("wt_offset",
+                                     torch.zeros(shape, device=dev))
+            elif wq.recon_type == "adaround":
                 self.alpha = nn.Parameter(torch.ones_like(self.weight))
+
+    # --- input observers -----------------------------------------------
+
+    def _observe_stream(self, x) -> None:
+        """``'observe'``: fold ``x``'s min/max into the input stream."""
+        stream = StreamingState(*(getattr(self, f"in_stream_{field}")
+                                  for field in StreamingState._fields))
+        for field, t in zip(StreamingState._fields,
+                            streaming_update(stream, x.detach())):
+            setattr(self, f"in_stream_{field}", t)
+
+    def _observe_input(self, xd, aq):
+        """``(scale, offset)`` of a per-tensor input observer: from the
+        stream where observe passes filled it, else from this batch."""
+        stream = StreamingState(*(getattr(self, f"in_stream_{field}")
+                                  for field in StreamingState._fields))
+        if aq.type.startswith(("minmax", "percentile")) \
+                and int(stream.count) > 0:
+            return streaming_finalize(stream, aq.type, aq.n_bits, aq.signed)
+        if aq.type.startswith("percentile"):
+            raise NotImplementedError(
+                f"percentile observers are not ported yet ({OBSERVERS_ITEM})")
+        if aq.type.startswith("minmax"):
+            return minmax_tensor(xd, **aq.observer_kwargs)
+        s, off = get_qparams_tensor(xd, aq.type, **aq.observer_kwargs)
+        return s.reshape(()), off.reshape(())
+
+    # --- plain/LSQ fake quantization (ref: modules/base.py) --------------
+
+    def _lsq_input(self, x, aq, qmode: str):
+        qmin, qmax = aq.qrange
+        if qmode == "observe":
+            self._observe_stream(x)
+            return x
+        if qmode == "calibrate":
+            xd = x.detach()
+            if aq.type == "LSQ":
+                s, off = lsq_init_scale(xd, qmax), torch.zeros_like(
+                    self.in_offset)
+            else:
+                s, off = self._observe_input(xd, aq)
+            self.in_scale.data.copy_(s)
+            self.in_offset.copy_(off)
+        return lsq_fake_quant(x, self.in_scale, self.in_offset, qmin, qmax,
+                              lsq_grad_factor(x.numel(), qmax))
+
+    def _lsq_weight(self, kernel, wq, qmode: str):
+        qmin, qmax = wq.qrange
+        if qmode == "calibrate":
+            kd = kernel.detach()
+            if wq.type == "LSQ":
+                dims = tuple(range(1, kd.dim())) if wq.per_channel else None
+                s, off = lsq_init_scale(kd, qmax, dims), None
+            else:
+                kw = wq.observer_kwargs
+                if wq.per_channel:
+                    kw["ch_axis"] = 0
+                s, off = get_qparams_tensor(kd, wq.type, **kw)
+            self.wt_scale.data.copy_(s.reshape(self.wt_scale.shape))
+            if off is None:
+                self.wt_offset.zero_()
+            else:
+                self.wt_offset.copy_(off.reshape(self.wt_offset.shape))
+        return lsq_fake_quant(
+            kernel, _bshape(self.wt_scale, kernel.dim()),
+            _bshape(self.wt_offset, kernel.dim()), qmin, qmax,
+            lsq_grad_factor(kernel.numel(), qmax))
 
     # --- FSPTQ fake quantization ------------------------------------------
 
     def _fsptq_input(self, x, aq, qmode: str):
         qmin, qmax = aq.qrange
-        stream = StreamingState(*(getattr(self, f"in_stream_{field}")
-                                  for field in StreamingState._fields))
         if qmode == "observe":
-            for field, t in zip(StreamingState._fields,
-                                streaming_update(stream, x.detach())):
-                setattr(self, f"in_stream_{field}", t)
+            self._observe_stream(x)
             return x
         if qmode == "calibrate":
-            xd = x.detach()
-            streamed = aq.type.startswith(("minmax", "percentile")) \
-                and int(stream.count) > 0
-            if streamed:
-                s, off_f = streaming_finalize(stream, aq.type, aq.n_bits,
-                                              aq.signed)
-            elif aq.type.startswith("percentile"):
-                raise NotImplementedError(
-                    "percentile observers are not ported yet "
-                    "(ROADMAP Queue A item 4)")
-            elif aq.type.startswith("minmax"):
-                s, off_f = minmax_tensor(xd, **aq.observer_kwargs)
-            else:
-                s, off_f = get_qparams_tensor(xd, aq.type,
-                                              **aq.observer_kwargs)
-                s, off_f = s.reshape(()), off_f.reshape(())
+            s, off_f = self._observe_input(x.detach(), aq)
             # integer zero-point convention (dlmc_quant_tpu layers.py:316-319)
             zp = torch.clamp(torch.round(-off_f / s), qmin, qmax)
             self.in_scale.data.copy_(s)
@@ -170,13 +250,15 @@ class QLayer(nn.Module):
         """(input, weight) after the resolved quantizers."""
         if self.cfg is None or qmode == "fp":
             return x, self.weight
-        x_q = (self._fsptq_input(x, self.cfg.input, qmode)
-               if self.cfg.input.enable else x)
-        if qmode == "observe":
-            return x_q, self.weight    # FP forward while the stream fills
-        w_q = (self._fsptq_weight(self.weight, self.cfg.weight, qmode)
-               if self.cfg.weight.enable else self.weight)
-        return x_q, w_q
+        lsq = self.family == "lsq"
+        if self.cfg.input.enable:
+            x = (self._lsq_input if lsq else self._fsptq_input)(
+                x, self.cfg.input, qmode)
+        if qmode == "observe" or not self.cfg.weight.enable:
+            return x, self.weight    # FP weight while the stream fills
+        w_q = (self._lsq_weight if lsq else self._fsptq_weight)(
+            self.weight, self.cfg.weight, qmode)
+        return x, w_q
 
     # --- integer execution -------------------------------------------------
 
@@ -190,19 +272,27 @@ class QLayer(nn.Module):
         if wq.n_bits <= 4:
             raise NotImplementedError(
                 f"{self.path}: int4 weights are not ported yet "
-                "(ROADMAP Queue A item 13)")
+                "(ROADMAP Queue A, W4 execution (item 8))")
         if not aq.enable:
             raise NotImplementedError(
                 f"{self.path}: weight-only integer execution is not ported "
-                "yet (ROADMAP Queue A item 7)")
+                "yet (ROADMAP Queue A, weight-only integer execution "
+                "(item 2))")
         if aq.per_channel or aq.per_pixel:
             raise ValueError(f"{self.path}: integer path needs per-tensor "
                              "activation quantization")
         params = {"wt_scale": self.wt_scale.detach(),
                   "in_scale": self.in_scale.detach()}
-        qstate = {"in_offset": self.in_offset}
-        s_w, _ = dp.affine_from_quantizer("fsptq", wq, params, qstate,
-                                          "weight")
+        qstate = {name: getattr(self, name)
+                  for name in ("in_offset", "wt_offset")
+                  if hasattr(self, name)}
+        s_w, o_w = dp.affine_from_quantizer(self.family, wq, params, qstate,
+                                            "weight")
+        if bool((o_w != 0).any()):
+            # the o_w·Σx correction is not in the plan (ROADMAP hazard C1)
+            raise NotImplementedError(
+                f"{self.path}: a nonzero weight offset has no integer plan "
+                "yet (ROADMAP Queue A, QAT + trainers (item 6))")
         kernel = self.weight.detach()
         if wq.recon_type == "adaround" and hasattr(self, "alpha"):
             # learned rounding: floor + hard alpha decision
@@ -214,18 +304,23 @@ class QLayer(nn.Module):
             w_int = dp.quantize_weight_int(kernel, s_w, wq.qmin, wq.qmax)
         w_scale = s_w.to(torch.float32)
 
-        s_x, o_x = dp.affine_from_quantizer("fsptq", aq, params, qstate,
+        s_x, o_x = dp.affine_from_quantizer(self.family, aq, params, qstate,
                                             "input")
         aqmin, aqmax = aq.qrange
         shift = dp.act_shift(aqmax)
         colsum = w_int.to(torch.int32).sum(
             dim=tuple(range(1, w_int.dim()))).to(torch.float32)
         bias_eff = (shift * s_x + o_x) * w_scale * colsum
+        bias0 = (self.bias.detach().to(torch.float32) if self.bias is not None
+                 else torch.zeros_like(colsum))
         if self.bias is not None:
             bias_eff = bias_eff + self.bias.detach()
+        # colsum and bias0 let a consumer re-derive its epilogue for codes on
+        # a producer's grid (a QuantizedTensor input)
         tensors = {"w_int": w_int, "w_scale": w_scale,
                    "epi_scale": (s_x * w_scale).to(torch.float32),
-                   "bias_eff": bias_eff.to(torch.float32)}
+                   "bias_eff": bias_eff.to(torch.float32),
+                   "colsum": colsum, "bias0": bias0}
         scalars = {
             "in_scale": float(s_x),
             "in_inv_scale": float((1.0 / s_x).to(torch.float32)),
@@ -240,6 +335,20 @@ class QLayer(nn.Module):
         tensors, self.plan_scalars = self._build_int_plan()
         for name, t in tensors.items():
             self.register_buffer(name, t)
+
+    def _int_input(self, x):
+        """``(codes, epi_scale, bias_eff, pad)`` of an integer forward: a
+        :class:`QuantizedTensor` goes in as it is, on its own grid (the
+        epilogue re-derived from ``colsum`` and ``bias0``); anything else is
+        quantized onto this layer's grid."""
+        if isinstance(x, QuantizedTensor):
+            bias_eff = x.bias * self.w_scale * self.colsum + self.bias0
+            return x.q, x.scale * self.w_scale, bias_eff, x.zero_code()
+        if self.plan_scalars is None:
+            raise RuntimeError(f"{self.path}: run prepare_deploy() before "
+                               "an integer qmode")
+        return (self._input_codes(x), self.epi_scale, self.bias_eff,
+                self.plan_scalars["pad_val"])
 
     def _input_codes(self, x) -> torch.Tensor:
         """int8 codes of the input on this layer's grid: a folded boundary
@@ -273,10 +382,15 @@ def _init_weight(w, generator, fan_in: int, gain: float) -> None:
 
 
 class QConv(QLayer):
-    """Quantization-aware 2D convolution, NHWC activations, OIHW weight."""
+    """Quantization-aware 2D convolution, NHWC activations, OIHW weight.
+
+    ``padding`` is a number of pixels on every side, or ``"SAME"``: flax's
+    SAME, whose pads depend on the input size (a stride-2 3×3 conv on an
+    even map pads 0 at the top and left and 1 at the bottom and right).
+    """
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 stride: int = 1, padding: int = 1, groups: int = 1,
+                 stride: int = 1, padding=1, groups: int = 1,
                  use_bias: bool = True, generator=None):
         super().__init__()
         self.kernel_size, self.stride = kernel_size, stride
@@ -287,9 +401,26 @@ class QConv(QLayer):
                      kernel_size * kernel_size * in_features // groups, 2.0)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
+    def spatial_pads(self, h: int, w: int):
+        """``((top, bottom), (left, right))`` pads of an ``h``×``w`` input
+        (dlmc_quant_tpu/quant/layers.py:639-651 for SAME)."""
+        if self.padding != "SAME":
+            return ((self.padding,) * 2,) * 2
+        pads = []
+        for size in (h, w):
+            total = max((-(-size // self.stride) - 1) * self.stride
+                        + self.kernel_size - size, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+
     def _conv(self, x, w):
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, self.bias, self.stride,
-                     self.padding, groups=self.groups)
+        (top, bottom), (left, right) = self.spatial_pads(x.shape[1],
+                                                         x.shape[2])
+        xc = x.permute(0, 3, 1, 2)
+        pad = top
+        if not top == bottom == left == right:
+            xc, pad = F.pad(xc, (left, right, top, bottom)), 0
+        y = F.conv2d(xc, w, self.bias, self.stride, pad, groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
     def forward(self, x, qmode: str = "eval"):
@@ -297,40 +428,73 @@ class QConv(QLayer):
         if qmode in ("int", "intc"):
             if self.cfg is None or not self.cfg.weight.enable:
                 return self._conv(materialize(x), self.weight)
-            de = self.deferred(self._input_codes(x))
+            de = self.deferred(*self._int_input(x))
             return de if qmode == "intc" else materialize(de)
         x_q, w_q = self._quantize(x, qmode)
         return self._conv(x_q, w_q)
 
-    def deferred(self, x_i8: torch.Tensor) -> DeferredEpilogue:
-        """This layer's output on input codes ``x_i8``, with the conv and
-        its epilogue left to the consumer (see quant/chain.py)."""
-        if (self.kernel_size, self.padding, self.groups) != (3, 1, 1):
+    def deferred(self, x_i8: torch.Tensor, epi_scale=None, bias_eff=None,
+                 pad=None) -> DeferredEpilogue:
+        """This layer's output on input codes ``x_i8`` (on this layer's
+        grid unless an epilogue and pad code are given), with the 3×3 conv
+        and its epilogue left to the consumer (see quant/chain.py); a 1×1
+        conv runs here, as an int8 GEMM of the subsampled codes."""
+        if epi_scale is None:
+            epi_scale, bias_eff = self.epi_scale, self.bias_eff
+            pad = self.plan_scalars["pad_val"]
+        if self.groups != 1 or self.kernel_size not in (1, 3):
             raise NotImplementedError(
-                f"{self.path}: the integer path runs ungrouped 3x3 pad-1 "
-                "convs only (grouped: ROADMAP Queue A item 12)")
-        pending = PendingConv(x_i8.contiguous(), self.w_packed, self.stride,
-                              self.plan_scalars["pad_val"])
-        return DeferredEpilogue(pending, self.epi_scale, self.bias_eff)
+                f"{self.path}: the integer path runs ungrouped 3x3 and 1x1 "
+                "convs only (grouped: ROADMAP Queue A, rest of the zoo "
+                "(item 7); 7x7: residual int8 chain (item 5))")
+        n, h, w, _ = x_i8.shape
+        (top, bottom), (left, right) = self.spatial_pads(h, w)
+        s = self.stride
+        if self.kernel_size == 1:
+            if top or bottom or left or right:
+                raise NotImplementedError(
+                    f"{self.path}: a padded 1x1 conv has no integer path")
+            codes = x_i8[:, ::s, ::s, :].contiguous()
+            acc = int8_gemm(codes.reshape(-1, codes.shape[-1]), self.w_gemm)
+            return DeferredEpilogue(acc.reshape(codes.shape[:3] + (-1,)),
+                                    epi_scale, bias_eff)
+        # the kernel pads `top` rows above (0 or 1) and what the window
+        # needs below, and gives ceil(h / s) rows: that must be this conv
+        if not (top == left and top in (0, 1) and (s == 2 or top == 1)
+                and (h + top + bottom - 3) // s + 1 == -(-h // s)
+                and (w + left + right - 3) // s + 1 == -(-w // s)):
+            raise NotImplementedError(
+                f"{self.path}: pads {((top, bottom), (left, right))} at "
+                f"stride {s} have no integer path")
+        pending = PendingConv(x_i8.contiguous(), self.w_packed, s, pad, top)
+        return DeferredEpilogue(pending, epi_scale, bias_eff)
 
     def prepare_deploy(self) -> None:
         super().prepare_deploy()
-        # the kernel's own weight layout, packed once
-        self.register_buffer(
-            "w_packed", pack_weight(self.w_int.permute(2, 3, 1, 0)))
+        # the kernels' own weight layouts, packed once
+        if self.kernel_size == 1:
+            self.register_buffer("w_gemm", pack_b(self.w_int[:, :, 0, 0].t()))
+        else:
+            self.register_buffer(
+                "w_packed", pack_weight(self.w_int.permute(2, 3, 1, 0)))
 
 
 def _int8_matmul(x_i8: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 · (N, K)ᵀ int8 → (M, N) int32 with ``torch._int_mm``.
 
-    On CUDA ``_int_mm`` wants M > 16, so small batches are padded with
-    zero rows (K and N must be multiples of 8 there).
+    On CUDA ``_int_mm`` wants M > 16 and M and N multiples of 8: small or
+    ragged batches are padded with zero rows, and a head whose N is not a
+    multiple of 8 (CIFAR's 10 classes) with zero weight rows (K must be a
+    multiple of 8 there).
     """
     m, k = x_i8.shape
-    if x_i8.is_cuda and (m <= 16 or m % 8):
+    n = w_int.shape[0]
+    if x_i8.is_cuda and (m <= 16 or m % 8 or n % 8):
         padded = x_i8.new_zeros((max(32, -(-m // 8) * 8), k))
         padded[:m] = x_i8
-        return torch._int_mm(padded, w_int.t())[:m]
+        w_pad = w_int.new_zeros((-(-n // 8) * 8, k))
+        w_pad[:n] = w_int
+        return torch._int_mm(padded, w_pad.t())[:m, :n]
     return torch._int_mm(x_i8, w_int.t())
 
 
@@ -349,35 +513,116 @@ class QDense(QLayer):
         if qmode in ("int", "intc"):
             if self.cfg is None or not self.cfg.weight.enable:
                 return F.linear(materialize(x), self.weight, self.bias)
-            acc = _int8_matmul(self._input_codes(x), self.w_int)
-            de = DeferredEpilogue(acc, self.epi_scale, self.bias_eff)
+            x_i8, epi_scale, bias_eff, _ = self._int_input(x)
+            acc = _int8_matmul(x_i8, self.w_int)
+            de = DeferredEpilogue(acc, epi_scale, bias_eff)
             return de if qmode == "intc" else materialize(de)
         x_q, w_q = self._quantize(x, qmode)
         return F.linear(x_q, w_q, self.bias)
 
 
+class QBlockOutput(nn.Module):
+    """Residual-block output quantizer: ``relu(trunk + shortcut)`` → int8.
+
+    Counterpart of ``dlmc_quant_tpu/quant/layers.py:819-906`` (the
+    ReLU-closed blocks; ``relu=False``, for MobileNetV2's linear
+    bottlenecks, comes with it: ROADMAP Queue A, rest of the zoo (item 7)).
+    In every qmode but ``'intc'`` this is ``relu(y + r)``.  ``'calibrate'`` observes the f32 block output with the
+    scheme's input observer (one batch, minmax) into ``out_scale``
+    (parameter) and ``out_offset`` (buffer, a float offset: the grid is
+    ``q·out_scale + out_offset``).  :meth:`prepare_deploy` freezes the grid
+    into host scalars, and ``'intc'`` then folds trunk epilogue + shortcut
+    + ReLU + quantize into the epilogue of the trunk's last conv
+    (:func:`~dlmc_quant_torch.quant.chain.fold_sum_quantize`) and returns a
+    :class:`~dlmc_quant_torch.quant.chain.QuantizedTensor`.
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.path = ""
+        self.cfg = None
+        self.plan_scalars = None
+
+    def configure(self, path: str, scheme, device=None) -> None:
+        self.path = path
+        cfg = scheme.resolve(path) if scheme is not None else None
+        aq = cfg.input if cfg is not None else None
+        if aq is None or not aq.enable or aq.per_channel or aq.per_pixel:
+            self.cfg = None
+            return
+        if aq.type.startswith("percentile"):
+            raise NotImplementedError(
+                f"{path}: percentile observers are not ported yet "
+                f"({OBSERVERS_ITEM})")
+        self.cfg = cfg
+        self.out_scale = nn.Parameter(torch.ones((), device=device))
+        self.register_buffer("out_offset", torch.zeros((), device=device))
+
+    def _sum(self, y, r):
+        return torch.relu(materialize(y) + materialize(r))
+
+    def forward(self, y, r, qmode: str = "eval"):
+        if self.cfg is None:
+            return self._sum(y, r)
+        if qmode == "calibrate":
+            v = self._sum(y, r)
+            s, off = minmax_tensor(v.detach(),
+                                   **self.cfg.input.observer_kwargs)
+            self.out_scale.data.copy_(s)
+            self.out_offset.copy_(off)
+            return v
+        if qmode == "intc" and self.plan_scalars is not None:
+            h = self.plan_scalars
+            q = fold_sum_quantize([y, r], h["bq_inv"], h["bq_qbias"],
+                                  h["bq_lo"], h["bq_hi"])
+            return QuantizedTensor(q, h["bq_scale"], h["bq_bias"])
+        return self._sum(y, r)
+
+    def prepare_deploy(self) -> None:
+        """The block's grid as host scalars (float32 values)."""
+        s_x, o_x = self.out_scale.detach(), self.out_offset
+        qmin, qmax = self.cfg.input.qrange
+        shift = dp.act_shift(qmax)
+        # the ReLU as the lower bound: the code of real 0
+        lo = int(torch.clamp(torch.round(-o_x / s_x), qmin, qmax)) - shift
+        self.plan_scalars = {
+            "bq_inv": float(1.0 / s_x), "bq_qbias": float(-o_x / s_x - shift),
+            "bq_lo": lo, "bq_hi": qmax - shift, "bq_scale": float(s_x),
+            "bq_bias": float(shift * s_x + o_x)}
+
+
 def attach_scheme(model: nn.Module, scheme) -> nn.Module:
-    """Configure every quantized layer from its ``named_modules()`` path."""
+    """Configure every quantized layer and block output from its
+    ``named_modules()`` path."""
     model.scheme = scheme
+    device = next(model.parameters()).device
     for name, m in model.named_modules():
         if isinstance(m, QLayer):
             m.configure(name, scheme)
+        elif isinstance(m, QBlockOutput):
+            m.configure(name, scheme, device)
     return model
 
 
 @contextlib.contextmanager
 def full_f32():
-    """Run f32 convs and matmuls in full f32.  On the card cuDNN runs f32
-    convs in TF32 by default, which would move the calibrated scales."""
+    """Run f32 convs and matmuls in full f32, reproducibly.  On the card
+    cuDNN runs f32 convs in TF32 by default, which would move the
+    calibrated scales, and may pick algorithms whose sums (the convs'
+    weight gradients) change from run to run: two runs of the flagship
+    entry reconstructed different blocks (ROADMAP C12)."""
     saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     try:
         yield
     finally:
         (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
 
 
 def calibrate(model: nn.Module, batches, observe_passes: int = 0):

@@ -184,7 +184,8 @@ def reconstruct_block(block: nn.Module, x_cache, y_fp, iters: int = 2000,
                       batch_size: int = 64,
                       lrs: Optional[Dict[str, float]] = None,
                       seed: int = 0, round_reg_lambda: float = 0.01,
-                      holdout_frac: float = 0.25) -> float:
+                      holdout_frac: float = 0.25,
+                      record: Optional[Dict] = None) -> float:
     """Adam + cosine reconstruction of ``block`` (in place) against cached
     FP outputs; returns the held-out l2 of the iterate it keeps.
 
@@ -195,7 +196,9 @@ def reconstruct_block(block: nn.Module, x_cache, y_fp, iters: int = 2000,
     parameters being iterate 0.  Blocks with AdaRound ``alpha`` add the
     rounding regularizer: none for the first 20 % of the iterations, then
     β anneals 20 → 2.  Without a holdout the block keeps its last iterate
-    and the last minibatch loss is returned.
+    and the last minibatch loss is returned.  ``record``, where given,
+    gets ``best_iter``: the iteration whose parameters the block keeps (0
+    for the calibrated ones).
     """
     lrs = {**DEFAULT_GROUP_LRS, **(lrs or {})}
     named = list(block.named_parameters())
@@ -239,6 +242,7 @@ def reconstruct_block(block: nn.Module, x_cache, y_fp, iters: int = 2000,
     with full_f32():
         best_l2 = hold_l2() if n_hold else math.inf
         best = [p.detach().clone() for p in params]
+        best_it = 0
         for it in range(iters):
             for group in opt.param_groups:
                 group["lr"] = sched[group["label"]](it)
@@ -253,8 +257,10 @@ def reconstruct_block(block: nn.Module, x_cache, y_fp, iters: int = 2000,
             if n_hold and (it + 1) % eval_every == 0:
                 cur = hold_l2()
                 if cur < best_l2:
-                    best_l2 = cur
+                    best_l2, best_it = cur, it + 1
                     best = [p.detach().clone() for p in params]
+        if record is not None:
+            record["best_iter"] = best_it if n_hold else iters
         if not n_hold:
             return float(loss)
         with torch.no_grad():
@@ -270,8 +276,8 @@ class FSPTQTrainer:
     calibrated; ``fp_model`` the FP teacher (same module paths).  Blocks are
     reconstructed in place.  With ``disable_first_act_quant`` the first
     layer's input stays unquantized (ref: fsptq_trainer.py:155-161), set on
-    ``model`` itself.  A model with BatchNorm would need
-    ``bn_recalibrate``, which is not ported: :meth:`train` raises for it.
+    ``model`` itself.  A model with BatchNorm has its statistics
+    re-estimated by ``bn_recalibrate`` before the gate first scores it.
     """
 
     def __init__(self, model, fp_model, cal_batches, iters: int = 2000,
@@ -344,9 +350,15 @@ class FSPTQTrainer:
                     torch.cuda.synchronize(y_fp.device)
                 t_cap = time.perf_counter()
                 old = [p.detach().clone() for p in block.parameters()]
+                record = {"best_iter": None}
                 loss = reconstruct_block(block, x_cache, y_fp, self.iters,
-                                         self.batch_size, self.lrs)
+                                         self.batch_size, self.lrs,
+                                         record=record)
                 t_rec = time.perf_counter()
+                # whether the iterate the block keeps left its calibrated
+                # parameters (bit for bit)
+                moved = any(not torch.equal(p, o)
+                            for p, o in zip(block.parameters(), old))
                 del x_cache, y_fp
                 new_agree = self._agreement(teacher_preds)
                 kept = new_agree >= agree
@@ -355,8 +367,10 @@ class FSPTQTrainer:
                 if kept:
                     agree = new_agree
                     self.logger.info("block %-16s recon l2=%.5f kept "
-                                     "(agreement %.4f; capture %.0f ms, "
-                                     "recon %.0f ms)", path, loss, agree,
+                                     "(agreement %.4f; best iterate %s, "
+                                     "moved %s; capture %.0f ms, recon "
+                                     "%.0f ms)", path, loss, agree,
+                                     record["best_iter"], moved,
                                      ms["capture_ms"], ms["recon_ms"])
                 else:
                     with torch.no_grad():
@@ -364,12 +378,14 @@ class FSPTQTrainer:
                             p.copy_(o)
                     self.logger.info(
                         "block %-16s recon l2=%.5f REVERTED "
-                        "(agreement %.4f -> %.4f; capture %.0f ms, "
-                        "recon %.0f ms)", path, loss, agree, new_agree,
+                        "(agreement %.4f -> %.4f; best iterate %s, moved "
+                        "%s; capture %.0f ms, recon %.0f ms)", path, loss,
+                        agree, new_agree, record["best_iter"], moved,
                         ms["capture_ms"], ms["recon_ms"])
                 losses[path] = loss
                 blocks.append({"block": path, "l2": loss, "kept": kept,
-                               **ms})
+                               "best_iter": record["best_iter"],
+                               "moved": moved, **ms})
         self.logger.info("reconstruction done in %.1fs (final teacher "
                          "agreement %.4f)", time.perf_counter() - t0, agree)
         return {"block_losses": losses, "blocks": blocks,

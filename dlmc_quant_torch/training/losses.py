@@ -30,7 +30,8 @@ LOSSES = {"cross_entropy": cross_entropy, "l2_loss": l2_loss}
 def get_loss(name: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"loss {name!r} is not ported yet (ROADMAP Queue A item 11)")
+            f"loss {name!r} is not ported yet (ROADMAP Queue A, QAT + "
+            "trainers (item 6))")
     try:
         return LOSSES[name]
     except KeyError:

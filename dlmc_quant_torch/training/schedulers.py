@@ -5,7 +5,7 @@ schedulers.py``.  Like optax, a schedule is read at the optimizer's update
 count, 0 for the first update: set each group's ``lr`` from it before
 ``optimizer.step()``.  ``torch.optim.lr_scheduler`` counts from 1 and
 would be one step off.  The other schedules are not ported yet (ROADMAP
-Queue A item 11).
+Queue A, QAT + trainers (item 6)).
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ def _with_warmup(base: Schedule, lr: float, warmup_steps: int) -> Schedule:
 def CosineAnnealingLR(lr: float, cycle_steps: int, warmup_steps: int = 0,
                       min_lr: float = 0.0, t_mult: float = 1.0) -> Schedule:
     """Restarting cosine cycles, each ``t_mult`` times the one before.
-    (Spans in epochs are not ported yet: ROADMAP Queue A item 11.)"""
+    (Spans in epochs are not ported yet: ROADMAP Queue A, QAT + trainers
+    (item 6).)"""
 
     def base(step):
         if t_mult == 1.0:

@@ -5,7 +5,7 @@ schema (``name``, ``random_seed``, ``arch``, ``dataloaders``,
 ``quantization``, ``loss``, ``metrics``, ``trainer``) and ``-c/--config``.
 ``-d/--device`` picks the device: ``cuda`` (the default; raises without a
 card) or ``cpu``.  Resuming from a checkpoint (``-r``) is not ported yet
-(ROADMAP Queue A item 11).
+(ROADMAP Queue A, QAT + trainers (item 6)).
 """
 
 from __future__ import annotations
@@ -90,6 +90,10 @@ class ConfigParser:
 
     def get(self, name: str, default=None):
         return self._config.get(name, default)
+
+    @property
+    def config(self) -> Dict:
+        return self._config
 
     @property
     def save_dir(self) -> Optional[Path]:

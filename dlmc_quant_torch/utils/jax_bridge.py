@@ -7,11 +7,14 @@ flax names.  Module paths are the same in both packages, so each port
 module reads the subtree at its own ``named_modules()`` path:
 
 * ``QConv``: ``kernel`` HWIO → OIHW, ``bias``, ``in_scale``, ``wt_scale``,
-  ``alpha`` (HWIO → OIHW), and ``qstate`` ``in_offset``;
+  ``alpha`` (HWIO → OIHW), and ``qstate`` ``in_offset`` (FSPTQ's integer
+  zero-point or the plain family's float offset) and ``wt_offset``;
 * ``QDense``: ``kernel`` and ``alpha`` (in, out) → (out, in), the rest as
   for ``QConv``;
-* ``BatchNorm2d``: ``scale``/``bias`` → ``weight``/``bias``, ``batch_stats``
-  ``mean``/``var`` → ``running_mean``/``running_var``.
+* ``QBlockOutput``: ``out_scale``, and ``qstate`` ``out_offset``;
+* ``BatchNorm2d`` (and the ResNets' flax-style ``BatchNorm``):
+  ``scale``/``bias`` → ``weight``/``bias``, ``batch_stats`` ``mean``/``var``
+  → ``running_mean``/``running_var``.
 
 Every ``params`` leaf must find its module; other ``qstate`` leaves
 (``in_stream``, which the port's ``calibrate`` fills, and ``org_weight``)
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dlmc_quant_torch.quant.layers import QConv, QDense
+from dlmc_quant_torch.quant.layers import QBlockOutput, QConv, QDense
 
 
 def _subtree(tree: Mapping, path: str):
@@ -90,9 +93,19 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
                     _key(path, name))
                 unused.discard(_key(path, name))
             qnode = _subtree(qstate, path) or {}
-            if "in_offset" in qnode and hasattr(module, "in_offset"):
-                put(module.in_offset, qnode["in_offset"],
-                    _key(path, "in_offset"))
+            for name in ("in_offset", "wt_offset"):
+                if name in qnode and hasattr(module, name):
+                    put(getattr(module, name), qnode[name], _key(path, name))
+        elif isinstance(module, QBlockOutput):
+            node = _subtree(params, path) or {}
+            if "out_scale" in node:
+                put(module.out_scale, node["out_scale"],
+                    _key(path, "out_scale"))
+                unused.discard(_key(path, "out_scale"))
+            qnode = _subtree(qstate, path) or {}
+            if "out_offset" in qnode and hasattr(module, "out_offset"):
+                put(module.out_offset, qnode["out_offset"],
+                    _key(path, "out_offset"))
         elif isinstance(module, nn.BatchNorm2d):
             node, snode = _subtree(params, path), _subtree(stats, path)
             if node is None or snode is None:

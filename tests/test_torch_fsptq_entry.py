@@ -3,13 +3,14 @@ metrics, evaluation, checkpoints, and the import guard.
 
 * ``python -m dlmc_quant_torch.examples.FSPTQuant --device cpu`` runs the
   whole path (RepVGG-A0 at 32×32, 1000 classes, synthetic ImageNet, a few
-  iterations a block) in a subprocess, logs the teacher and student
-  metrics and writes a checkpoint that loads back into the model; without
-  ``--device cpu`` and without a card it raises.
+  iterations a block) in a subprocess held to one thread, logs the
+  teacher and student metrics and writes a checkpoint that loads back into
+  the model; without ``--device cpu`` and without a card it raises.
 * Losses and metrics equal the JAX package's within 1e-6 (relative) on
   seeded logits; ``evaluate`` on the same model and loader within 1e-5.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -38,6 +39,10 @@ from dlmc_quant_torch.utils.jax_bridge import load_jax_variables
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
+# the entry's subprocess gets one thread: the suite runs several workers on
+# as many cores, and OpenMP threads at the default count, each waiting at
+# every parallel region for the slowest, ran out the 300 s limit there
+ONE_THREAD = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 FLAGSHIP = REPO / "examples" / "configs" / "FSPTQ_repvgg_a0_w8a8.yaml"
 
 
@@ -62,7 +67,7 @@ def test_entry_runs_on_cpu(tmp_path):
     run = subprocess.run(
         [sys.executable, "-m", "dlmc_quant_torch.examples.FSPTQuant",
          "-c", str(cfg), "--device", "cpu"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=ONE_THREAD)
     assert run.returncode == 0, run.stderr[-3000:]
     out = run.stdout
     assert "disabled activation quant on first layer stage0.reparam" in out

@@ -105,7 +105,8 @@ class TestObservers:
             np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-6)
 
     def test_unported_observer_raises(self):
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        with pytest.raises(NotImplementedError,
+                           match=r"observers left \(item 9\)"):
             tobs.get_qparams_tensor(torch.zeros(4), "l2loss_tensor",
                                     n_bits=8, signed=True)
 
