@@ -1,0 +1,230 @@
+#!/usr/bin/env python3
+"""Headline benchmark of the PyTorch port on one CUDA card: int8 images/s
+of RepVGG-A0 (deploy form) against float forwards of the same model.
+
+    python3 bench_torch.py
+
+The counterpart of ``bench.py`` (same model, scheme, batch, calibration and
+keys).  Prints ONE JSON line:
+
+    {"metric": "...", "value": N, "unit": "images/sec/chip",
+     "vs_baseline": N, "extra": {...}}
+
+``value`` is the chained int8 path (the faster of ``make_serving_fn``'s
+``"intc"`` and ``"int"``) at batch 512; ``vs_baseline`` divides it by the
+same deploy-form model's ``"fp"`` forward at PyTorch's defaults (cuDNN
+convs in TF32).  ``extra`` sets it beside strict float32 (``full_f32``:
+TF32 off, deterministic cuDNN) and bf16 autocast, carries ResNet-50 at
+batch 256 (``resnet50_int8_*``, bench.py's second headline) and, for the
+extras the port cannot build yet, ``<key>_error`` naming their ROADMAP item.
+
+The float baseline is not handicapped: the activations stay NHWC, whose
+NCHW view is channels_last, and the fp model's weights are converted to
+channels_last once, so cuDNN runs each conv on them as they lie; one fp
+request is profiled and the layout-transform kernels it runs are counted
+(``fp32_layout_kernels``).  Before any timing every launch of one int8
+request of each model is held against its plain version (tolerance 0);
+a mismatch exits non-zero.  Those launches are then replayed back to back
+in a CUDA graph: ``int8_kernels_ms`` (A0's 22 convs at batch 512) and
+``resnet50_int8_kernels_ms`` are their device ms.
+
+Timing: per form, 3 warm-up requests, then interleaved rounds (int8, fp32,
+strict f32, bf16) of 30 back-to-back requests between two CUDA events, best
+of 3 rounds per form.  There is no fence to subtract.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import re
+import sys
+
+import torch
+
+from dlmc_quant_torch import (calibrate, get_model, make_serving_fn,
+                              prepare_deploy, scheme_from_dict)
+from dlmc_quant_torch.quant.layers import full_f32
+from dlmc_quant_torch.utils.launches import KERNELS, check_request
+from dlmc_quant_torch.utils.profiling import card_line, graph_ms
+
+BATCH = 512          # bench.py:50
+ITERS, WARMUP, ROUNDS = 30, 3, 3
+SIZE, CLASSES, SEED = 224, 1000, 0
+RESNET50_BATCH = 256  # bench.py:189-190
+# (bench.py:186-207) the extras the port cannot build yet, by ROADMAP item
+NOT_PORTED = {
+    "mobileone_s1_int8": "ROADMAP Queue A item 7 (rest of the zoo: "
+                         "MobileOne)",
+    "mobileone_s1_w4a8": "ROADMAP Queue A item 8 (W4 execution)",
+    "repvgg_d2se_int8": "ROADMAP Queue A item 7 (rest of the zoo: D2se, "
+                        "SEBlock)",
+    "mobilenet_v2_int8": "ROADMAP Queue A item 7 (rest of the zoo: "
+                         "depthwise convs, qrelu6)",
+}
+LAYOUT_KERNEL = re.compile(r"nchwToNhwc|nhwcToNchw|copy|transpose", re.I)
+
+
+def scheme():
+    """bench.py:_scheme: FSPTQ, per-channel int8 weights, per-tensor
+    unsigned int8 activations."""
+    return scheme_from_dict({
+        "quantization_type": "FSPTQ",
+        "weight": {"enable": True, "type": "minmax_channel",
+                   "args": {"n_bits": 8, "signed": True}},
+        "input": {"enable": True, "type": "minmax_tensor",
+                  "args": {"n_bits": 8, "signed": False}}})
+
+
+def prep(name: str, batch: int, device):
+    """bench.py:_prep: the deploy form with seeded weights, uniform inputs,
+    calibrated on the first 8 images, prepared for integer execution."""
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_model(name, device=device, num_classes=CLASSES, deploy=True,
+                      scheme=scheme(), generator=gen)
+    x = torch.rand((batch, SIZE, SIZE, 3), generator=gen).to(device)
+    calibrate(model, [x[:8]])
+    return prepare_deploy(model), x
+
+
+def one_round(fn, x, iters: int = ITERS) -> float:
+    """images/s of ``iters`` back-to-back requests between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(x)
+    end.record()
+    end.synchronize()
+    return x.shape[0] * iters / (start.elapsed_time(end) * 1e-3)
+
+
+def best_of_rounds(fns, x):
+    """Interleaved best-of-ROUNDS images/s for each of ``fns`` (a dict)."""
+    for fn in fns.values():
+        for _ in range(WARMUP):
+            fn(x)
+    torch.cuda.synchronize()
+    best = dict.fromkeys(fns, 0.0)
+    for _ in range(ROUNDS):
+        for name, fn in fns.items():
+            best[name] = max(best[name], one_round(fn, x))
+    return best
+
+
+def float_forms(model, device):
+    """The fp forwards of ``model``: PyTorch's defaults, strict float32 and
+    bf16 autocast, on a copy whose weights are channels_last."""
+    fp_model = copy.deepcopy(model).to(memory_format=torch.channels_last)
+    fp32 = make_serving_fn(fp_model, qmode="fp", device=device)
+
+    def strict(x):
+        with full_f32():
+            return fp32(x)
+
+    def bf16(x):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return fp32(x)
+
+    return {"fp32": fp32, "fp32_strict": strict, "bf16": bf16}
+
+
+def layout_kernels(fn, x):
+    """Kernels of one request whose names say they move a layout, by name
+    with their counts (torch.profiler on the card)."""
+    fn(x)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn(x)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    print(f"# fp request kernels ({len(kernels)} names): " + "; ".join(
+        f"{k[:60]} x{n}" for k, n in sorted(kernels.items(),
+                                            key=lambda kv: -kv[1])[:12]),
+          file=sys.stderr)
+    if not kernels:
+        raise RuntimeError("the profiler saw no CUDA kernel")
+    return {k: n for k, n in kernels.items() if LAYOUT_KERNEL.search(k)}
+
+
+def replay(calls):
+    for kind, args, kw, _ in calls:
+        KERNELS[kind][0](*args, **kw)
+
+
+def bench_model(name: str, batch: int, device, expect):
+    """(images/s by form, int8 qmode, layout kernels of one fp request,
+    device ms of one int8 request's launches)."""
+    model, x = prep(name, batch, device)
+    calls = check_request(model, x, expect)
+    with torch.inference_mode():
+        kernels_ms = graph_ms(lambda _: replay(calls), 4)
+    del calls
+    print(f"# {name}: the {sum(expect.values())} launches of one int8 "
+          f"request at batch {batch} each equal their plain version; "
+          f"{kernels_ms:.4f} ms back to back", file=sys.stderr)
+    int_fns = {qm: make_serving_fn(model, qmode=qm, device=device)
+               for qm in ("intc", "int")}
+    for fn in int_fns.values():
+        fn(x)
+    qmode = max(int_fns, key=lambda qm: one_round(int_fns[qm], x, 16))
+    fns = {"int8": int_fns[qmode], **float_forms(model, device)}
+    layout = layout_kernels(fns["fp32"], x)
+    ips = best_of_rounds(fns, x)
+    print(f"# {name} batch {batch}: images/s {ips} (int8 = {qmode})",
+          file=sys.stderr)
+    return ips, qmode, layout, kernels_ms
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("bench_torch: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda")
+    ips, qmode, layout, conv_ms = bench_model(
+        "RepVGG_A0", BATCH, device, {"conv": 22, "gemm": 0, "im2col": 0})
+    extra = {"batch": BATCH, "int8_qmode": qmode,
+             "fp32_ips": round(ips["fp32"], 1),
+             "fp32_strict_ips": round(ips["fp32_strict"], 1),
+             "vs_fp32_strict": round(ips["int8"] / ips["fp32_strict"], 3),
+             "bf16_ips": round(ips["bf16"], 1),
+             "vs_bf16": round(ips["int8"] / ips["bf16"], 3),
+             "fp32_layout_kernels": layout,
+             "int8_kernels_ms": round(conv_ms, 4)}
+    r_ips, r_qmode, r_layout, r_ms = bench_model(
+        "resnet50", RESNET50_BATCH, device,
+        {"conv": 16, "gemm": 37, "im2col": 1})
+    key = "resnet50_int8"
+    extra.update({
+        f"{key}_ips": round(r_ips["int8"], 1),
+        f"{key}_fp32_ips": round(r_ips["fp32"], 1),
+        f"{key}_vs_fp32": round(r_ips["int8"] / r_ips["fp32"], 3),
+        f"{key}_fp32_strict_ips": round(r_ips["fp32_strict"], 1),
+        f"{key}_vs_fp32_strict": round(r_ips["int8"] / r_ips["fp32_strict"],
+                                       3),
+        f"{key}_bf16_ips": round(r_ips["bf16"], 1),
+        f"{key}_vs_bf16": round(r_ips["int8"] / r_ips["bf16"], 3),
+        f"{key}_batch": RESNET50_BATCH, f"{key}_qmode": r_qmode,
+        f"{key}_fp32_layout_kernels": r_layout,
+        f"{key}_kernels_ms": round(r_ms, 4)})
+    for key, item in NOT_PORTED.items():
+        extra[f"{key}_error"] = f"not ported yet: {item}"
+    extra["card"] = card_line()
+    extra["timing"] = (f"CUDA events around {ITERS} back-to-back requests, "
+                       f"{WARMUP} warm-ups, best of {ROUNDS} interleaved "
+                       "rounds")
+    print(json.dumps({
+        "metric": "repvgg_a0_int8_images_per_sec_per_chip",
+        "value": round(ips["int8"], 1),
+        "unit": "images/sec/chip",
+        "vs_baseline": round(ips["int8"] / ips["fp32"], 3),
+        "extra": extra,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

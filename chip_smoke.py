@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: RepVGG-A0 chained int8,
 FSPTQ reconstruction served through the conv kernel, chained int8
-cifar_resnet18 and BASELINE config #1's PTQ entry, then the two int8 GEMM
-tools.
+cifar_resnet18, BASELINE config #1's PTQ entry and chained int8 ResNet-50,
+then the two int8 GEMM tools.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   the three kernels from dlmc_quant_torch/ops/cuda/csrc (int8
-             3x3 conv, int8 GEMM, int8 MMA probe), one nvcc each, all at
-             once (prints the build seconds, ptxas' report of registers and
-             spills, and the dynamic shared memory of every GEMM tile and
-             of the probe's ring); then the conv's card tests at ragged
-             shapes, the SAME stride-2 geometry, the residual epilogue and
-             the GEMM at the ResNet-18 shortcut shapes
-             (tests/test_torch_int8_conv.py and
-             tests/test_torch_resnet_conv.py, -m cuda), before any timing;
+  1. build   the four kernels from dlmc_quant_torch/ops/cuda/csrc (int8
+             3x3 conv, int8 GEMM, int8 im2col, int8 MMA probe), one nvcc
+             each, all at once (prints the build seconds, ptxas' report of
+             registers and spills, and the dynamic shared memory of every
+             GEMM tile and of the probe's ring); then the card tests of the
+             conv at ragged shapes, the SAME stride-2 geometry, the
+             residual epilogue, the GEMM at the ResNet-18 shortcut shapes
+             and the GEMM's epilogue modes and the im2col at ragged M,
+             every epilogue tile and residual dtype
+             (tests/test_torch_int8_conv.py, tests/test_torch_resnet_conv.py
+             and tests/test_torch_gemm_epilogue.py, -m cuda), before any
+             timing;
   2. kernel  RepVGG-A0 deploy form at 224x224, full width, seeded random
              weights, calibrated on one seeded batch (FSPTQ W8A8 with
              AdaRound decisions) and prepared for integer execution.  At
@@ -65,6 +68,22 @@ Phases, each fatal on failure:
            median request ms, images/s, and the request's split into input
            quantize, the 21 kernels, pool + head (CUDA graphs) and the
            rest (host, gaps and the small per-request ops);
+  resnet50 ResNet-50 at full width (7x7/s2 stem 3->64, max-pool,
+           Bottleneck stages 64/128/256/512 x 4, 1000 classes), 224x224:
+           train form with seeded weights and perturbed BN statistics ->
+           resnet_deploy -> the bench's W8A8 scheme -> calibrate on one
+           seeded batch of 32 -> prepare_deploy.  At batch 8 and 256 every
+           launch of one chained request (the stem's im2col and its GEMM
+           in int32 mode, the 16 3x3 convs, the 36 1x1 GEMMs in codes,
+           residual and int32 modes) against its plain version, tolerance
+           0; per launch kernel us (CUDA graph of 16), bound us, kernel /
+           bound, and the sums by launch group.  Then
+           make_serving_fn(qmode="intc") answers 6 requests of 256 images:
+           logits finite, (256, 1000), within relative L2 2e-2 of the CPU
+           plain path on 8 images, 16 conv + 37 GEMM + 1 im2col launches a
+           request; median request ms, images/s and the request's split
+           (input quantize, stem + pool, the 52 other kernels, pool +
+           head; CUDA graphs) and the rest (host and gaps);
   ptq      python -m dlmc_quant_torch.examples.post_training_quantization
            on config #1 with eval_int: true (nothing else changed): fp32,
            fake-quant and integer metrics, which must be finite, the
@@ -108,14 +127,16 @@ from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda import int8_conv as K
 from dlmc_quant_torch.ops.cuda import int8_gemm as G
 from dlmc_quant_torch.ops.cuda import int8_mma_probe as P
-from dlmc_quant_torch.quant import chain, layers
-from dlmc_quant_torch.quant.chain import fold_params, materialize, qrelu
+from dlmc_quant_torch.quant.chain import (fold_params, materialize, qmaxpool,
+                                          qrelu)
 from dlmc_quant_torch.quant.layers import full_f32
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
 from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
                                               bound_by, card_line, event_ms,
                                               graph_ms)
 from dlmc_quant_torch.utils.checkpoint import load_checkpoint
+from dlmc_quant_torch.utils.launches import (KERNELS, LaunchRecorder,
+                                             max_diff_to_plain)
 from dlmc_quant_torch.utils.config import read_yaml, write_yaml
 
 SIZE, CLASSES, SEED = 224, 1000, 0
@@ -125,7 +146,10 @@ RECON_SAMPLES, RECON_BATCH, RECON_SEED, RECON_ITERS = 256, 64, 123, 40
 GRAPH_LAUNCHES = 16
 REPO = pathlib.Path(__file__).resolve().parent
 CONFIG_1 = REPO / "examples" / "configs" / "PTQ_resnet18_cifar10_w8a8.yaml"
-CIFAR_SIZE, CIFAR_CLASSES, RESNET_CONVS, RESNET_GEMMS = 32, 10, 18, 3
+CIFAR_SIZE, CIFAR_CLASSES = 32, 10
+# launches of one chained request: 3x3 convs, GEMMs, im2cols
+RESNET18_LAUNCHES = {"conv": 18, "gemm": 3, "im2col": 0}
+RESNET50_LAUNCHES = {"conv": 16, "gemm": 37, "im2col": 1}
 SCHEME = {
     "quantization_type": "FSPTQ",
     "weight": {"enable": True, "type": "minmax_channel",
@@ -134,6 +158,9 @@ SCHEME = {
     "input": {"enable": True, "type": "minmax_tensor",
               "args": {"n_bits": 8, "signed": False}},
 }
+# the bench's W8A8 scheme (bench.py:_scheme): no AdaRound
+BENCH_SCHEME = {**SCHEME, "weight": {"enable": True, "type": "minmax_channel",
+                                     "args": {"n_bits": 8, "signed": True}}}
 
 
 def images(n: int, seed: int, device) -> torch.Tensor:
@@ -144,18 +171,20 @@ def images(n: int, seed: int, device) -> torch.Tensor:
 def card_tests():
     """The conv's and the ResNet path's card tests (ragged shapes, every
     compiled tile, both modes, SAME stride 2, the residual epilogue, the
-    shortcut GEMMs), in a process of their own; fatal unless all pass."""
+    shortcut GEMMs, the GEMM's epilogue modes, the im2col), in a process
+    of their own; fatal unless all pass."""
     tests = REPO / "tests"
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
          "-p", "no:cacheprovider", str(tests / "test_torch_int8_conv.py"),
-         str(tests / "test_torch_resnet_conv.py")],
+         str(tests / "test_torch_resnet_conv.py"),
+         str(tests / "test_torch_gemm_epilogue.py")],
         capture_output=True, text=True)
     tail = run.stdout.strip().splitlines()[-1:] or [run.stderr.strip()[-300:]]
     print(f"# card tests of int8_conv3x3 and the ResNet path: {tail[0]}")
     if run.returncode != 0:
         print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
-        raise RuntimeError("the conv's card tests failed")
+        raise RuntimeError("the ResNet path's card tests failed")
 
 
 def conv_calls(model, x):
@@ -442,48 +471,27 @@ def resnet18_deployed(device):
     return prepare_deploy(deploy)
 
 
-class LaunchRecorder:
-    """Records every conv and GEMM launch the port makes while it is
-    entered (arguments, keywords and the kernel's output), by wrapping the
-    wrappers where the chain and the layers call them; each wrapper still
-    counts its own launches."""
-
-    def __enter__(self):
-        self.calls = []
-        self._saved = (chain.int8_conv3x3, layers.int8_gemm)
-
-        def record(kind, fn):
-            def wrapped(*args, **kw):
-                out = fn(*args, **kw)
-                self.calls.append((kind, args, kw, out))
-                return out
-            return wrapped
-
-        chain.int8_conv3x3 = record("conv", self._saved[0])
-        layers.int8_gemm = record("gemm", self._saved[1])
-        return self
-
-    def __exit__(self, *exc):
-        chain.int8_conv3x3, layers.int8_gemm = self._saved
-
-
 def launch_bound(kind, args, kw, out):
     """(bound ms, ops ms, bytes ms) of one recorded launch: inputs read and
-    the output written once (a residual read once too)."""
+    the output written once (a residual and the epilogue's per-column
+    affines read once too)."""
+    nbytes = out.numel() * out.element_size()
+    r = kw.get("residual")
+    if r is not None:
+        nbytes += r[0].numel() * r[0].element_size() + 8 * out.shape[-1]
+    if kind == "im2col":
+        return bound_of(0, args[0].numel() + nbytes)
     if kind == "gemm":
-        x, w = args
+        x, w = args[:2]
         m, k = x.shape
         n = w.shape[0]
-        return bound_of(2 * m * n * k, m * k + n * k + 4 * m * n)
+        epi = 8 * n if kw.get("mode", "int32") != "int32" else 0
+        return bound_of(2 * m * n * k, m * k + n * k + epi + nbytes)
     x, w, a, _ = args
     n, h, wd, c = x.shape
     o = a.shape[0]
     m = out.numel() // o
-    nbytes = x.numel() + 9 * c * o + 8 * o + out.numel() * out.element_size()
-    if kw.get("residual") is not None:
-        r = kw["residual"][0]
-        nbytes += r.numel() * r.element_size() + 8 * o
-    return bound_of(2 * m * o * 9 * c, nbytes)
+    return bound_of(2 * m * o * 9 * c, x.numel() + 9 * c * o + 8 * o + nbytes)
 
 
 def bound_of(ops: int, nbytes: int):
@@ -494,64 +502,89 @@ def bound_of(ops: int, nbytes: int):
 
 def launch_label(kind, args, kw) -> str:
     x = args[0]
-    if kind == "gemm":
-        m, k = x.shape
-        return f"gemm ({m},{k})x({k},{args[1].shape[0]})"
     r = kw.get("residual")
     extra = f" +r {str(r[0].dtype).split('.')[-1]}" if r is not None else ""
+    if kind == "im2col":
+        return (f"im2col {tuple(x.shape)} {kw['kernel']}x{kw['kernel']} "
+                f"s{kw['stride']} pads {kw['pads'][0]}")
+    if kind == "gemm":
+        m, k = x.shape
+        return (f"gemm ({m},{k})x({k},{args[1].shape[0]}) "
+                f"{kw.get('mode', 'int32')}{extra}")
     return (f"conv {tuple(x.shape)}->{args[2].shape[0]} s{kw['stride']} "
             f"pad_lo {kw.get('pad_lo', 1)} {kw['mode']}"
             f"{' relu' if kw.get('relu') else ''}{extra}")
 
 
-def resnet_kernel_phase(model, batch: int, device):
-    """Every conv and GEMM launch of one chained request, kernel vs plain
-    (tolerance 0), timed per launch; returns the totals."""
-    x = cifar_images(batch, SEED + 1, device)
+def launch_group(kind, kw) -> str:
+    """The launch's group in the per-group sums."""
+    if kind != "gemm":
+        return "3x3 conv" if kind == "conv" else "stem im2col"
+    mode = kw.get("mode", "int32")
+    return f"gemm {mode}" + (" + residual" if kw.get("residual") else "")
+
+
+def resnet_kernel_phase(what, model, x, expect):
+    """Every conv, GEMM and im2col launch of one chained request of ``x``,
+    kernel vs plain (tolerance 0), timed per launch; returns the totals
+    and, under "im2col", the im2col launches' ms, plain ms, bound ms, ops
+    and bytes ms (its entry in the kernels line)."""
     with torch.inference_mode():
         with LaunchRecorder() as rec:
             model(x, qmode="intc")
         torch.cuda.synchronize()
-        kinds = [c[0] for c in rec.calls]
-        if (kinds.count("conv"), kinds.count("gemm")) != (RESNET_CONVS,
-                                                          RESNET_GEMMS):
-            raise RuntimeError(f"a request made {kinds.count('conv')} conv "
-                               f"and {kinds.count('gemm')} GEMM launches")
-        print(f"# resnet18 kernel vs plain, batch {batch}: launch | "
+        if rec.counts() != expect:
+            raise RuntimeError(f"{what}: a request made {rec.counts()} "
+                               f"launches, expected {expect}")
+        print(f"# {what} kernel vs plain, batch {x.shape[0]}: launch | "
               "max|diff| | kernel_us bound_us (by) kernel/bound")
         tot = dict(ms=0.0, bound_ms=0.0, err=0.0)
+        groups = {}
+        stem = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                    bytes_ms=0.0)
         for i, (kind, args, kw, out) in enumerate(rec.calls):
-            if kind == "conv":
-                plain = K.int8_conv3x3_plain(*args, **kw)
-                run = K.int8_conv3x3
-            else:
-                plain = G.int8_gemm_plain(*args)
-                run = G.int8_gemm
-            err = float((out.double() - plain.double()).abs().max())
+            run, plain_fn = KERNELS[kind]
+            err = max_diff_to_plain(kind, args, kw, out)
             ms = graph_ms(lambda _: run(*args, **kw), GRAPH_LAUNCHES)
             b_ms, t_ops, t_bytes = launch_bound(kind, args, kw, out)
-            print(f"{i:2d} {launch_label(kind, args, kw):58s} | {err:g} | "
+            print(f"{i:2d} {launch_label(kind, args, kw):62s} | {err:g} | "
                   f"{ms * 1e3:8.2f} {b_ms * 1e3:8.2f} "
                   f"({bound_by(t_ops, t_bytes)}) {ms / b_ms:.2f}")
             if err != 0:
-                raise RuntimeError(f"resnet18 launch {i} "
+                raise RuntimeError(f"{what} launch {i} "
                                    f"({launch_label(kind, args, kw)}): "
                                    f"kernel and plain differ by {err}")
             tot["ms"] += ms
             tot["bound_ms"] += b_ms
             tot["err"] = max(tot["err"], err)
-    print(f"# resnet18 batch {batch}: {len(rec.calls)} launches, kernels "
-          f"{tot['ms']:.4f} ms against a bound of {tot['bound_ms']:.4f} ms")
+            g = groups.setdefault(launch_group(kind, kw), [0, 0.0, 0.0])
+            g[0] += 1
+            g[1] += ms
+            g[2] += b_ms
+            if kind == "im2col":
+                for key, val in (("ms", ms), ("bound_ms", b_ms),
+                                 ("ops_ms", t_ops), ("bytes_ms", t_bytes)):
+                    stem[key] += val
+                stem["plain_ms"] += event_ms(lambda: plain_fn(*args, **kw),
+                                             PLAIN_REPS)
+    print(f"# {what} batch {x.shape[0]}: {len(rec.calls)} launches, kernels "
+          f"{tot['ms']:.4f} ms against a bound of {tot['bound_ms']:.4f} ms; "
+          "by group (launches, ms, bound ms): " + "; ".join(
+              f"{name} {n}, {ms:.4f}, {b:.4f}"
+              for name, (n, ms, b) in groups.items()))
+    tot["im2col"] = stem
     return tot
 
 
-def resnet_serve_phase(model, device, card: str):
-    """Chained int8 cifar_resnet18 through make_serving_fn; returns the
-    conv and GEMM launches."""
+def serve_requests(what, model, x, expect, classes):
+    """make_serving_fn(qmode="intc") on ``x``, REQUESTS times: checks the
+    launches a request, the logits' shape and finiteness and the CPU plain
+    path on 8 images; returns (median request ms, launches by kind)."""
     cpu_model = copy.deepcopy(model).cpu()
-    serve = make_serving_fn(model, qmode="intc", device=device)
-    x = cifar_images(SERVE_BATCH, SEED + 2, device)
-    K.int8_conv3x3.launches = G.int8_gemm.launches = 0
+    serve = make_serving_fn(model, qmode="intc", device=x.device)
+    counters = {kind: KERNELS[kind][0] for kind in expect}
+    for fn in counters.values():
+        fn.launches = 0
     torch.cuda.synchronize()
     times = []
     for _ in range(REQUESTS):
@@ -559,56 +592,121 @@ def resnet_serve_phase(model, device, card: str):
         y = serve(x)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    convs, gemms = K.int8_conv3x3.launches, G.int8_gemm.launches
-    if (convs, gemms) != (RESNET_CONVS * REQUESTS, RESNET_GEMMS * REQUESTS):
-        raise RuntimeError(f"{convs} conv and {gemms} GEMM launches for "
-                           f"{REQUESTS} requests, expected "
-                           f"{RESNET_CONVS} and {RESNET_GEMMS} a request")
-    if y.shape != (SERVE_BATCH, CIFAR_CLASSES) \
+    launches = {kind: fn.launches for kind, fn in counters.items()}
+    if launches != {kind: n * REQUESTS for kind, n in expect.items()}:
+        raise RuntimeError(f"{what}: {launches} launches for {REQUESTS} "
+                           f"requests, expected {expect} a request")
+    if y.shape != (x.shape[0], classes) \
             or not bool(torch.isfinite(y).all()):
-        raise RuntimeError(f"bad logits: {tuple(y.shape)}")
+        raise RuntimeError(f"{what}: bad logits: {tuple(y.shape)}")
     with torch.inference_mode():
         ref = cpu_model(x[:8].cpu(), qmode="intc")
     rel = float((y[:8].cpu() - ref).norm() / (ref.norm() + 1e-9))
     steady = statistics.median(times[1:])
-    print(f"# resnet18 serve: logits {tuple(y.shape)} finite; vs CPU plain "
-          f"path on 8 images: rel L2 {rel:.3e}; launches {convs} conv + "
-          f"{gemms} GEMM = ({RESNET_CONVS} + {RESNET_GEMMS}) x {REQUESTS}")
+    print(f"# {what} serve: logits {tuple(y.shape)} finite; vs CPU plain "
+          f"path on 8 images: rel L2 {rel:.3e}; launches {launches} = "
+          f"{expect} x {REQUESTS}")
     if not rel < 2e-2:
-        raise RuntimeError(f"GPU and CPU logits differ: rel L2 {rel}")
-    print(f"# resnet18 serve: batch {SERVE_BATCH} request {steady * 1e3:.3f} "
+        raise RuntimeError(f"{what}: GPU and CPU logits differ: rel L2 {rel}")
+    print(f"# {what} serve: batch {x.shape[0]} request {steady * 1e3:.3f} "
           f"ms median of {REQUESTS - 1} (first {times[0] * 1e3:.1f} ms); "
-          f"{SERVE_BATCH / steady:.1f} images/s on {card}")
+          f"{x.shape[0] / steady:.1f} images/s on {card_line()}")
+    return steady * 1e3, launches
 
+
+def recorded_calls(model, x, skip: int = 0):
+    """The kernel calls of one chained request of ``x``, as (kernel, args,
+    keywords), without the first ``skip``; and the last block's output."""
+    last = {}
+    hook = getattr(model, model.block_names[-1]).register_forward_hook(
+        lambda mod, args, out: last.__setitem__("out", out))
+    with LaunchRecorder() as rec:
+        model(x, qmode="intc")
+    hook.remove()
+    return ([(KERNELS[kind][0], a, kw) for kind, a, kw, _ in rec.calls[skip:]],
+            materialize(last["out"]))
+
+
+def run_calls(calls):
+    for run, a, kw in calls:
+        run(*a, **kw)
+
+
+def split_line(what, request_ms, parts):
+    rest = request_ms - sum(parts.values())
+    print(f"# {what} serve split (device ms, CUDA graphs): " + ", ".join(
+        f"{name} {ms:.4f}" for name, ms in parts.items())
+        + f"; request {request_ms:.4f} - their sum = host, gaps and small "
+        f"ops {rest:.4f} ({100 * rest / request_ms:.1f} % of the request)")
+
+
+def resnet_serve_phase(model, device):
+    """Chained int8 cifar_resnet18 through make_serving_fn; returns the
+    launches by kind."""
+    x = cifar_images(SERVE_BATCH, SEED + 2, device)
+    request_ms, launches = serve_requests("resnet18", model, x,
+                                          RESNET18_LAUNCHES, CIFAR_CLASSES)
     # the request's split: device parts as CUDA graphs, the rest is host,
     # gaps and the small per-request ops (grid-adapted epilogues)
-    last = {}
-    hook = model.layer4_1.register_forward_hook(
-        lambda mod, args, out: last.__setitem__("out", out))
     with torch.inference_mode():
-        with LaunchRecorder() as rec:
-            model(x, qmode="intc")
-        hook.remove()
-        calls = [(K.int8_conv3x3 if kind == "conv" else G.int8_gemm, a, kw)
-                 for kind, a, kw, _ in rec.calls]
-
-        def kernels(_):
-            for run, a, kw in calls:
-                run(*a, **kw)
-
-        feat = materialize(last["out"])
+        calls, feat = recorded_calls(model, x)
         quant_ms = graph_ms(lambda _: model.conv1._input_codes(x), 4)
-        kernels_ms = graph_ms(kernels, 4)
+        kernels_ms = graph_ms(lambda _: run_calls(calls), 4)
         head_ms = graph_ms(lambda _: materialize(model.linear(
             feat.mean(dim=(1, 2)), qmode="intc")), 4)
-    request_ms = steady * 1e3
-    rest = request_ms - quant_ms - kernels_ms - head_ms
-    print(f"# resnet18 serve split (device ms, CUDA graphs): input quantize "
-          f"{quant_ms:.4f}, {len(calls)} kernels {kernels_ms:.4f}, pool + "
-          f"head {head_ms:.4f}; request {request_ms:.4f} - their sum = host, "
-          f"gaps and small ops {rest:.4f} ({100 * rest / request_ms:.1f} % "
-          f"of the request)")
-    return convs, gemms
+    split_line("resnet18", request_ms, {
+        "input quantize": quant_ms, f"{len(calls)} kernels": kernels_ms,
+        "pool + head": head_ms})
+    return launches
+
+
+def resnet50_deployed(device):
+    """ResNet-50 train form at full width (seeded weights, BN statistics
+    and affine perturbed) -> resnet_deploy -> the bench's W8A8 scheme ->
+    calibrate on one seeded batch of CAL_BATCH -> prepare_deploy."""
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_model("resnet50", device=device, num_classes=CLASSES,
+                      generator=gen)
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, BatchNorm):
+                for t, lo in ((bn.running_mean, -0.1), (bn.running_var, 0.7),
+                              (bn.weight, 0.8), (bn.bias, -0.1)):
+                    t.copy_(lo + 0.3 * torch.rand(t.shape, generator=gen))
+    deploy = attach_scheme(resnet_deploy(model),
+                           scheme_from_dict(BENCH_SCHEME))
+    calibrate(deploy, [images(CAL_BATCH, SEED, device)])
+    return prepare_deploy(deploy)
+
+
+def resnet50_serve_phase(model, device):
+    """Chained int8 ResNet-50 through make_serving_fn; returns the launches
+    by kind."""
+    x = images(SERVE_BATCH, SEED + 2, device)
+    request_ms, launches = serve_requests("resnet50", model, x,
+                                          RESNET50_LAUNCHES, CLASSES)
+    with torch.inference_mode():
+        # the stem's im2col and GEMM are the request's first two launches
+        calls, feat = recorded_calls(model, x, skip=2)
+        codes = model.conv1._input_codes(x)
+        first = getattr(model, model.block_names[0])
+
+        def stem_pool(_):
+            de = qmaxpool(qrelu(model.conv1.deferred(codes)), (3, 3),
+                          (2, 2), ((1, 1), (1, 1)))
+            return (first.conv1._input_codes(de),
+                    first.downsample._input_codes(de))
+
+        quant_ms = graph_ms(lambda _: model.conv1._input_codes(x), 4)
+        stem_ms = graph_ms(stem_pool, 4)
+        kernels_ms = graph_ms(lambda _: run_calls(calls), 4)
+        head_ms = graph_ms(lambda _: materialize(model.linear(
+            feat.mean(dim=(1, 2)), qmode="intc")), 4)
+    split_line("resnet50", request_ms, {
+        "input quantize": quant_ms,
+        "stem + pool (im2col, GEMM, pool, 2 folded quantizes)": stem_ms,
+        f"{len(calls)} kernels": kernels_ms, "pool + head": head_ms})
+    return launches
 
 
 def ptq_phase():
@@ -735,7 +833,8 @@ def main() -> int:
           f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
-    build.build("int8_conv3x3", "int8_gemm", "int8_mma_probe", verbose=True)
+    build.build("int8_conv3x3", "int8_gemm", "int8_im2col", "int8_mma_probe",
+                verbose=True)
     print(f"# build: {time.perf_counter() - t0:.2f} s")
     card_tests()
     print("# int8_gemm dynamic shared memory by tile (BM x BN: stages, "
@@ -766,16 +865,33 @@ def main() -> int:
     print(f"# resnet18: train form -> resnet_deploy -> config #1 scheme -> "
           f"calibrate (batch {SERVE_BATCH}) + prepare_deploy in "
           f"{time.perf_counter() - t0:.2f} s")
-    res_err = max(resnet_kernel_phase(resnet, b, device)["err"]
-                  for b in (8, SERVE_BATCH))
-    serve_convs, serve_gemms = resnet_serve_phase(resnet, device, card)
+    res_err = max(resnet_kernel_phase(
+        "resnet18", resnet, cifar_images(b, SEED + 1, device),
+        RESNET18_LAUNCHES)["err"] for b in (8, SERVE_BATCH))
+    served = resnet_serve_phase(resnet, device)
+    del resnet
     ptq_convs, ptq_gemms = ptq_phase()
-    launches += serve_convs + ptq_convs
-    tot["err"] = max(err8, tot["err"], recon_err, res_err)
+
+    t0 = time.perf_counter()
+    r50 = resnet50_deployed(device)
+    print(f"# resnet50: train form -> resnet_deploy -> bench W8A8 scheme -> "
+          f"calibrate (batch {CAL_BATCH}) + prepare_deploy in "
+          f"{time.perf_counter() - t0:.2f} s")
+    r50_err = resnet_kernel_phase("resnet50", r50, images(8, SEED + 1, device),
+                                  RESNET50_LAUNCHES)["err"]
+    r50_tot = resnet_kernel_phase("resnet50", r50,
+                                  images(SERVE_BATCH, SEED + 1, device),
+                                  RESNET50_LAUNCHES)
+    served50 = resnet50_serve_phase(r50, device)
+    del r50
+    launches += served["conv"] + ptq_convs + served50["conv"]
+    tot["err"] = max(err8, tot["err"], recon_err, res_err, r50_err,
+                     r50_tot["err"])
+    stem = dict(r50_tot["im2col"], err=max(r50_err, r50_tot["err"]))
 
     gemm_rows, gemm_launches = tool_path(gemm_sweep.main, G.int8_gemm,
                                          "gemm_sweep")
-    gemm_launches += serve_gemms + ptq_gemms
+    gemm_launches += served["gemm"] + ptq_gemms + served50["gemm"]
     probe_rows, probe_launches = tool_path(lambda: mma_probe.main([]),
                                            P.int8_mma_probe, "mma_probe")
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -791,7 +907,9 @@ def main() -> int:
         kernel_entry("int8_gemm", "tools/pallas_gemm_sweep.py:37",
                      gemm_launches, gemm_tot, gemm_tot["library_ms"]),
         kernel_entry("int8_mma_probe", "tools/vmem_gemm_probe.py:33",
-                     probe_launches, probe_tot, probe_tot["library_ms"])]}))
+                     probe_launches, probe_tot, probe_tot["library_ms"]),
+        kernel_entry("int8_im2col", "dlmc_quant_tpu/quant/layers.py:721-728",
+                     served50["im2col"], stem, None)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

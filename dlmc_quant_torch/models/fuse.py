@@ -2,7 +2,7 @@
 
 Counterpart of ``dlmc_quant_tpu/models/fuse.py:21-179,193-278``, on OIHW
 kernels.  :func:`repvgg_fuse` turns a train-form RepVGG into its deploy
-form, one 3×3 conv per block; :func:`resnet_deploy` folds a train-form CIFAR
+form, one 3×3 conv per block; :func:`resnet_deploy` folds a train-form
 ResNet's BatchNorms into its convs.  The deploy model's quantizer
 parameters are fresh: calibrate after fusing, as the JAX package does.
 ``merge_bn`` (the fold in place, for other families) is not ported yet
@@ -90,16 +90,17 @@ def repvgg_fuse(model: RepVGG) -> RepVGG:
 
 
 # a ResNet conv's BatchNorm, by the zoo's fixed naming
-RESNET_BN_PARTNERS = {"conv1": "bn1", "conv2": "bn2",
+RESNET_BN_PARTNERS = {"conv1": "bn1", "conv2": "bn2", "conv3": "bn3",
                       "downsample": "downsample_bn"}
 
 
 @torch.no_grad()
 def resnet_deploy(model):
-    """Train-form CIFAR ResNet → its BN-free deploy form on the same device.
+    """Train-form ResNet (any factory of ``models/resnet_cifar.py``, BasicBlock
+    or Bottleneck, either stem) → its BN-free deploy form on the same device.
 
-    Every conv absorbs its BatchNorm partner (``conv1↔bn1``,
-    ``conv2↔bn2``, ``downsample↔downsample_bn``) exactly as
+    Every conv absorbs its BatchNorm partner (``conv1↔bn1``, ``conv2↔bn2``,
+    ``conv3↔bn3``, ``downsample↔downsample_bn``) exactly as
     :func:`fold_conv_bn` does; each block gains its ``out_q`` output
     quantizer.  Calibrate (and ``prepare_deploy``) after conversion.
     """

@@ -1,16 +1,22 @@
-"""CIFAR ResNets, NHWC activations: cifar_resnet20..110 and cifar_resnet18/34.
+"""ResNets, NHWC activations: cifar_resnet20..110, cifar_resnet18..152 and
+the ImageNet resnet18..152.
 
 Counterpart of ``dlmc_quant_tpu/models/resnet_cifar.py``, with the same
 child names (``conv1``, ``bn1``, ``layer2_0.downsample``,
-``layer2_0.out_q``, ``linear``), so one scheme resolves the same way in
-both packages and ``utils.jax_bridge`` carries the JAX variables over.
+``layer2_0.conv3``, ``layer2_0.out_q``, ``linear``), so one scheme
+resolves the same way in both packages and ``utils.jax_bridge`` carries
+the JAX variables over.
 
 * :class:`CifarResNet`: 3 stages of 16/32/64 channels, ``6n+2`` layers,
   option-A (parameter-free) or option-B (1×1 conv) shortcuts.
-* :class:`CifarResNetLarge`: the ImageNet stage layout (64/128/256/512)
-  with the CIFAR 3×3 stem, BasicBlocks.
+* :class:`CifarResNetLarge`: the ImageNet stage layout (64/128/256/512),
+  BasicBlocks or :class:`Bottleneck` blocks (1×1-3×3-1×1, expansion 4, the
+  stride on the 3×3), with the CIFAR 3×3 stem or the ImageNet one: a 7×7/s2
+  conv 3→64 and a 3×3/s2 max-pool padded 1, which stays on the int8 chain
+  (``quant.chain.qmaxpool``).
 * Every conv is flax's SAME: a stride-2 3×3 conv on an even map pads 0 at
-  the top and left and 1 at the bottom and right.
+  the top and left and 1 at the bottom and right; the 7×7/s2 stem pads 2
+  and 3.
 * BatchNorm is flax's: momentum 0.9, eps 1e-5, the running variance from
   the biased batch variance (:class:`BatchNorm`).
 * The deploy form (``deploy=True``, made by
@@ -18,10 +24,6 @@ both packages and ``utils.jax_bridge`` carries the JAX variables over.
   its conv and closes each block with a :class:`QBlockOutput`, which in
   ``qmode='intc'`` keeps the block boundaries int8 codes.  A train-form
   model runs ``'intc'`` as ``'int'``, as the JAX models do.
-
-Not ported yet: the Bottleneck blocks (cifar_resnet50/101/152), the
-ImageNet 7×7 stem with its chained max-pool, and ``qrelu6`` (ROADMAP Queue
-A, residual int8 chain (item 5)); their factories raise.
 """
 
 from __future__ import annotations
@@ -33,11 +35,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dlmc_quant_torch.models.registry import register
-from dlmc_quant_torch.quant.chain import QuantizedTensor, materialize, qrelu
+from dlmc_quant_torch.quant.chain import (QuantizedTensor, materialize,
+                                          qmaxpool, qrelu)
 from dlmc_quant_torch.quant.layers import (QBlockOutput, QConv, QDense,
                                            attach_scheme)
-
-RESIDUAL_ITEM = "ROADMAP Queue A, residual int8 chain (item 5)"
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -121,16 +122,76 @@ class BasicBlock(nn.Module):
         return torch.relu(materialize(y) + materialize(residual))
 
 
+class Bottleneck(nn.Module):
+    """1×1-3×3-1×1 bottleneck, expansion 4, the stride on the 3×3
+    (ref: cifarresnet_large.py;
+    ``dlmc_quant_tpu/models/resnet_cifar.py:89-123``).
+    In ``'intc'`` its 1×1 ``conv3`` closes the block: the residual sum runs
+    in that GEMM's epilogue."""
+
+    expansion = 4
+
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 deploy: bool = False, generator=None):
+        super().__init__()
+        self.deploy = deploy
+        out = features * self.expansion
+        self.conv1 = QConv(in_features, features, 1, 1, "SAME",
+                           use_bias=deploy, generator=generator)
+        self.conv2 = QConv(features, features, 3, stride, "SAME",
+                           use_bias=deploy, generator=generator)
+        self.conv3 = QConv(features, out, 1, 1, "SAME", use_bias=deploy,
+                           generator=generator)
+        if not deploy:
+            self.bn1, self.bn2, self.bn3 = (BatchNorm(features),
+                                            BatchNorm(features),
+                                            BatchNorm(out))
+        self.shortcut = stride != 1 or in_features != out
+        if self.shortcut:
+            self.downsample = QConv(in_features, out, 1, stride, "SAME",
+                                    use_bias=deploy, generator=generator)
+            if not deploy:
+                self.downsample_bn = BatchNorm(out)
+        if deploy:
+            self.out_q = QBlockOutput()
+
+    def forward(self, x, qmode: str = "eval"):
+        if not self.deploy and qmode == "intc":
+            qmode = "int"       # chaining needs the BN-folded form
+        y = x
+        for i in (1, 2, 3):
+            y = getattr(self, f"conv{i}")(y, qmode=qmode)
+            if not self.deploy:
+                y = getattr(self, f"bn{i}")(y)
+            if i < 3:
+                y = qrelu(y)
+        residual = x
+        if self.shortcut:
+            residual = self.downsample(x, qmode=qmode)
+            if not self.deploy:
+                residual = self.downsample_bn(residual)
+        if self.deploy:
+            return self.out_q(y, residual, qmode=qmode)
+        return torch.relu(materialize(y) + materialize(residual))
+
+
 class _ResNet(nn.Module):
-    """Stem conv (+BN) and ReLU, named blocks, global average pool, head."""
+    """Stem conv (+BN), ReLU (and the ImageNet stem's max-pool), named
+    blocks, global average pool, head."""
 
     def _build(self, stem: int, stages, num_classes: int, option: str,
-               deploy: bool, scheme, generator):
+               deploy: bool, scheme, generator, bottleneck: bool = False,
+               imagenet_stem: bool = False):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.deploy, self.num_classes = deploy, num_classes
-        self.conv1 = QConv(3, stem, 3, 1, "SAME", use_bias=deploy,
-                           generator=generator)
+        self.imagenet_stem = imagenet_stem
+        if imagenet_stem:
+            self.conv1 = QConv(3, stem, 7, 2, "SAME", use_bias=deploy,
+                               generator=generator)
+        else:
+            self.conv1 = QConv(3, stem, 3, 1, "SAME", use_bias=deploy,
+                               generator=generator)
         if not deploy:
             self.bn1 = BatchNorm(stem)
         self.block_names = []
@@ -138,11 +199,16 @@ class _ResNet(nn.Module):
         for si, (n, w) in enumerate(stages, start=1):
             for bi in range(n):
                 name = f"layer{si}_{bi}"
-                setattr(self, name, BasicBlock(
-                    prev, w, 2 if (bi == 0 and si > 1) else 1, option,
-                    deploy, generator))
+                stride = 2 if (bi == 0 and si > 1) else 1
+                if bottleneck:
+                    block = Bottleneck(prev, w, stride, deploy, generator)
+                    prev = w * Bottleneck.expansion
+                else:
+                    block = BasicBlock(prev, w, stride, option, deploy,
+                                       generator)
+                    prev = w
+                setattr(self, name, block)
                 self.block_names.append(name)
-                prev = w
         self.linear = QDense(prev, num_classes, generator=generator)
         attach_scheme(self, scheme)
 
@@ -154,6 +220,10 @@ class _ResNet(nn.Module):
         if not self.deploy:
             x = self.bn1(x)
         x = qrelu(x)
+        if self.imagenet_stem:
+            # the pool commutes with the monotone epilogue: it stays lazy
+            # on the chain, so the first block folds ReLU and quantize
+            x = qmaxpool(x, (3, 3), (2, 2), ((1, 1), (1, 1)))
         for name in self.block_names:
             x = getattr(self, name)(x, qmode=qmode)
         x = materialize(x).mean(dim=(1, 2))
@@ -177,24 +247,23 @@ class CifarResNet(_ResNet):
 
 
 class CifarResNetLarge(_ResNet):
-    """ImageNet-style ResNet with the CIFAR 3×3 stem (BasicBlocks)."""
+    """ImageNet-style ResNet: BasicBlocks or Bottlenecks, the CIFAR 3×3
+    stem or the ImageNet 7×7/s2 stem with its max-pool."""
 
     def __init__(self, stage_sizes: Tuple[int, ...] = (2, 2, 2, 2),
                  bottleneck: bool = False, num_classes: int = 10,
                  imagenet_stem: bool = False, deploy: bool = False,
                  scheme=None, generator=None):
         super().__init__()
-        if bottleneck or imagenet_stem:
-            raise NotImplementedError(
-                "Bottleneck blocks and the ImageNet 7x7 stem with its "
-                f"max-pool are not ported yet ({RESIDUAL_ITEM})")
-        self.stage_sizes = tuple(stage_sizes)
+        self.stage_sizes, self.bottleneck = tuple(stage_sizes), bottleneck
         self._build(64, list(zip(self.stage_sizes, (64, 128, 256, 512))),
-                    num_classes, "B", deploy, scheme, generator)
+                    num_classes, "B", deploy, scheme, generator, bottleneck,
+                    imagenet_stem)
 
     def twin_args(self):
-        return dict(stage_sizes=self.stage_sizes,
-                    num_classes=self.num_classes)
+        return dict(stage_sizes=self.stage_sizes, bottleneck=self.bottleneck,
+                    num_classes=self.num_classes,
+                    imagenet_stem=self.imagenet_stem)
 
 
 def _small(name: str, n: int):
@@ -226,7 +295,6 @@ cifar_resnet110 = _small("cifar_resnet110", 18)
 
 cifar_resnet18 = _large("cifar_resnet18", (2, 2, 2, 2))
 cifar_resnet34 = _large("cifar_resnet34", (3, 4, 6, 3))
-# not ported yet: each raises, naming its ROADMAP item
 cifar_resnet50 = _large("cifar_resnet50", (3, 4, 6, 3), bottleneck=True)
 cifar_resnet101 = _large("cifar_resnet101", (3, 4, 23, 3), bottleneck=True)
 cifar_resnet152 = _large("cifar_resnet152", (3, 8, 36, 3), bottleneck=True)

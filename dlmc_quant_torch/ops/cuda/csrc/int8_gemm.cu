@@ -49,6 +49,30 @@
 //    those widths), 128 and 256 for wide outputs, 64-row tiles for M < 128.
 //  - The accumulator goes to global memory straight from registers: a quad
 //    of lanes writes 8 consecutive int32 of a row, one full 32-byte sector.
+//
+// Epilogue modes (the int8 conv's, int8_conv3x3.cu, as the chained int8
+// path of a 1x1 conv and of the im2col'd 7x7 stem needs them): besides
+// the int32 accumulator ("int32", the tools' output), per output column o
+//   codes: out = clamp(rint(f32(acc)*a[o] + b[o]), lo, hi)           -> int8
+//   f32:   out = f32(acc)*a[o] + b[o], then max(., 0) if relu       -> f32
+//   codes with a residual r (M, N) of int8, int32 or f32 (a Bottleneck's
+//   conv3 closing its block, as chain.fold_sum_quantize orders the sum):
+//          out = clamp(rint((((qb + f32(acc)*a[o]) + b[o]) + f32(r)*ar[o])
+//                           + br[o]), lo, hi)                       -> int8
+// written with __int2float_rn, __fmul_rn and __fadd_rn (no fma
+// contraction) and __float2int_rn (round half to even, as rintf), so the
+// kernel equals the plain version (ops/cuda/epilogue.py) bit for bit.  The
+// epilogue runs from registers: a and b (and ar, br, r) come through the
+// read-only path a column pair at a time, a quad of lanes writes 8
+// consecutive codes (or f32) of a row.  What bounds the residual mode
+// (PERF.md): a thread's 2 * BN / 8 loads of r each wait for the one
+// before, and the 128 x 256 tile has no registers to spare for loading
+// ahead (ptxas gives it 168, the accumulator takes 128; a chunked
+// load-ahead spilled and ran slower); staging r in shared memory is the
+// way out.  Each mode is an instantiation of its own, compiled for the
+// tiles of EPILOGUE_TILES (int8_gemm.py), so the int32 kernels keep their
+// registers.  Bound with an epilogue: the output is N bytes a row (4 N for
+// f32) and the residual adds its own.
 
 #include <cstdint>
 #include <cuda.h>
@@ -59,6 +83,136 @@
 namespace {
 
 using namespace dlmcq;
+
+// what a consumer does with its finished accumulator
+enum Epi { EPI_INT32 = 0, EPI_CODES = 1, EPI_RESIDUAL = 2, EPI_F32 = 3 };
+
+struct Epilogue {
+  void* out;          // (M, N): int32, int8 codes or f32 by the mode
+  const float* a;     // (N,) per output column
+  const float* b;
+  const void* r;      // residual (M, N), r_kind: 1 int8, 2 int32, 3 f32
+  const float* ar;
+  const float* br;
+  float qb;
+  int lo, hi, relu, r_kind;
+};
+
+// The residual term of row `row`, columns `col` and `col` + 1 (col even,
+// row < M, col < N), through the read-only path, both columns in one load
+// where N is even and r aligned for it.
+__device__ __forceinline__ void load_residual(const Epilogue& e,
+                                              long long row, int col, int N,
+                                              float rv[2]) {
+  const long long at = row * N + col;
+  const bool two = col + 1 < N;
+  if (e.r_kind == 1) {
+    const int8_t* r = static_cast<const int8_t*>(e.r) + at;
+    if (two && reinterpret_cast<uintptr_t>(r) % 2 == 0) {
+      const char2 v = __ldg(reinterpret_cast<const char2*>(r));
+      rv[0] = v.x;
+      rv[1] = v.y;
+    } else {
+      rv[0] = __ldg(r);
+      if (two) rv[1] = __ldg(r + 1);
+    }
+  } else if (e.r_kind == 2) {
+    const int* r = static_cast<const int*>(e.r) + at;
+    if (two && reinterpret_cast<uintptr_t>(r) % 8 == 0) {
+      const int2 v = __ldg(reinterpret_cast<const int2*>(r));
+      rv[0] = __int2float_rn(v.x);
+      rv[1] = __int2float_rn(v.y);
+    } else {
+      rv[0] = __int2float_rn(__ldg(r));
+      if (two) rv[1] = __int2float_rn(__ldg(r + 1));
+    }
+  } else {
+    const float* r = static_cast<const float*>(e.r) + at;
+    if (two && reinterpret_cast<uintptr_t>(r) % 8 == 0) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(r));
+      rv[0] = v.x;
+      rv[1] = v.y;
+    } else {
+      rv[0] = __ldg(r);
+      if (two) rv[1] = __ldg(r + 1);
+    }
+  }
+}
+
+// The epilogue of one warpgroup's 64 x BN accumulator d, whose first row
+// is row0 and first column col0 (store_acc's lane map: d[4 i + 2 h + e] is
+// row 16 (warp % 4) + lane / 4 + 8 h, column 8 i + 2 (lane % 4) + e).
+template <int BN, int EPI>
+__device__ __forceinline__ void store_epilogue(const Epilogue& e,
+                                               const int (&d)[BN / 2],
+                                               long long row0, int col0,
+                                               long long rows, int cols) {
+  const int t = threadIdx.x % WG_THREADS;
+  const long long r0 = row0 + 16 * (t / 32) + (t % 32) / 4;
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    const int col = col0 + 2 * (t % 4) + 8 * i;
+    if (col >= cols) continue;
+    const bool two = col + 1 < cols;
+    const float av[2] = {__ldg(e.a + col), two ? __ldg(e.a + col + 1) : 0.f};
+    const float bv[2] = {__ldg(e.b + col), two ? __ldg(e.b + col + 1) : 0.f};
+    float arv[2] = {0.f, 0.f}, brv[2] = {0.f, 0.f};
+    if constexpr (EPI == EPI_RESIDUAL) {
+      arv[0] = __ldg(e.ar + col);
+      brv[0] = __ldg(e.br + col);
+      if (two) {
+        arv[1] = __ldg(e.ar + col + 1);
+        brv[1] = __ldg(e.br + col + 1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = r0 + 8 * h;
+      if (row >= rows) continue;
+      float rv[2] = {0.f, 0.f};
+      if constexpr (EPI == EPI_RESIDUAL) load_residual(e, row, col, cols, rv);
+      float y[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float prod = __fmul_rn(__int2float_rn(d[4 * i + 2 * h + k]),
+                                     av[k]);
+        if constexpr (EPI == EPI_RESIDUAL) {
+          // the residual sum, term by term: ((qb + acc a) + b) + r ar + br
+          y[k] = __fadd_rn(__fadd_rn(e.qb, prod), bv[k]);
+          y[k] = __fadd_rn(__fadd_rn(y[k], __fmul_rn(rv[k], arv[k])), brv[k]);
+        } else {
+          y[k] = __fadd_rn(prod, bv[k]);
+        }
+      }
+      if constexpr (EPI == EPI_F32) {
+        if (e.relu) {
+          y[0] = fmaxf(y[0], 0.0f);
+          y[1] = fmaxf(y[1], 0.0f);
+        }
+        float* o = static_cast<float*>(e.out) + row * cols + col;
+        if (cols % 2 == 0 && two) {
+          *reinterpret_cast<float2*>(o) = make_float2(y[0], y[1]);
+        } else {
+          o[0] = y[0];
+          if (two) o[1] = y[1];
+        }
+      } else {
+        // rintf and the conversion in one cvt (half to even, saturating),
+        // then the clamp on integers
+        const int c0 = min(max(__float2int_rn(y[0]), e.lo), e.hi);
+        const int c1 = min(max(__float2int_rn(y[1]), e.lo), e.hi);
+        int8_t* o = static_cast<int8_t*>(e.out) + row * cols + col;
+        if (cols % 2 == 0 && two) {
+          *reinterpret_cast<uint16_t*>(o) =
+              static_cast<uint16_t>(__byte_perm(c0, c1, 0x0040));
+        } else {
+          o[0] = static_cast<int8_t>(c0);
+          if (two) o[1] = static_cast<int8_t>(c1);
+        }
+      }
+    }
+  }
+}
 
 template <int BM, int BN, int STAGES>
 struct Cfg {
@@ -73,12 +227,12 @@ struct Cfg {
   static_assert(STAGE_BYTES % ATOM_BYTES == 0 && SMEM <= MAX_SMEM, "tile");
 };
 
-template <int BM, int BN, int STAGES>
+template <int BM, int BN, int STAGES, int EPI>
 __global__ void __launch_bounds__(Cfg<BM, BN, STAGES>::THREADS,
                                   Cfg<BM, BN, STAGES>::MIN_BLOCKS)
 int8_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
                  const __grid_constant__ CUtensorMap map_w,
-                 int32_t* __restrict__ out, int M, int N, int K, int m_tiles,
+                 const Epilogue e, int M, int N, int K, int m_tiles,
                  int tiles) {
   using C = Cfg<BM, BN, STAGES>;
   extern __shared__ __align__(1024) uint8_t smem[];
@@ -159,15 +313,19 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
     wgmma_wait<0>();
     acc_fence(acc);
     if (lane == 0) mbar_arrive(empty + 8 * prev);
-    store_acc<BN, false>(out, acc, m0 + wg * WGMMA_M, n0, M, N);
+    if constexpr (EPI == EPI_INT32)
+      store_acc<BN, false>(static_cast<int32_t*>(e.out), acc,
+                           m0 + wg * WGMMA_M, n0, M, N);
+    else
+      store_epilogue<BN, EPI>(e, acc, m0 + wg * WGMMA_M, n0, M, N);
   }
 }
 
-template <int BM, int BN, int STAGES>
-int launch(const CUtensorMap& map_x, const CUtensorMap& map_w, int32_t* out,
-           int m, int n, int k, cudaStream_t s) {
+template <int BM, int BN, int STAGES, int EPI>
+int launch(const CUtensorMap& map_x, const CUtensorMap& map_w,
+           const Epilogue& e, int m, int n, int k, cudaStream_t s) {
   using C = Cfg<BM, BN, STAGES>;
-  const auto kernel = int8_gemm_kernel<BM, BN, STAGES>;
+  const auto kernel = int8_gemm_kernel<BM, BN, STAGES, EPI>;
   // once per tile: opt in to the shared memory, ask how many blocks fit an SM
   static const int per_sm = [&] {
     int blocks = 0;
@@ -194,9 +352,28 @@ int launch(const CUtensorMap& map_x, const CUtensorMap& map_w, int32_t* out,
   const long long resident = static_cast<long long>(per_sm) * sms;
   const unsigned grid = static_cast<unsigned>(tiles < resident ? tiles
                                                                : resident);
-  kernel<<<grid, C::THREADS, C::SMEM, s>>>(map_x, map_w, out, m, n, k,
-                                           m_tiles, static_cast<int>(tiles));
+  kernel<<<grid, C::THREADS, C::SMEM, s>>>(map_x, map_w, e, m, n, k, m_tiles,
+                                           static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
+}
+
+// An epilogue mode at one tile: an instantiation per mode.
+template <int BM, int BN, int STAGES>
+int launch_epilogue(const CUtensorMap& map_x, const CUtensorMap& map_w,
+                    const Epilogue& e, int codes, int m, int n, int k,
+                    cudaStream_t s) {
+  if (!codes)
+    return launch<BM, BN, STAGES, EPI_F32>(map_x, map_w, e, m, n, k, s);
+  if (e.r_kind)
+    return launch<BM, BN, STAGES, EPI_RESIDUAL>(map_x, map_w, e, m, n, k, s);
+  return launch<BM, BN, STAGES, EPI_CODES>(map_x, map_w, e, m, n, k, s);
+}
+
+int encode_maps(CUtensorMap* map_x, CUtensorMap* map_w, const void* x,
+                const void* w, int m, int n, int k, int kp, int bm, int bn) {
+  if (bm != 64 && bm != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = encode_tile_map(map_x, x, m, k, k, bm);
+  return err != 0 ? err : encode_tile_map(map_w, w, n, kp, kp, bn);
 }
 
 }  // namespace
@@ -209,16 +386,15 @@ extern "C" {
 // error that refused the tensor maps or the tile.
 int dlmcq_int8_gemm(const void* x, const void* w, void* out, int m, int n,
                     int k, int kp, int bm, int bn, void* stream) {
-  auto* op = static_cast<int32_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm != 64 && bm != 128) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_x, map_w;
-  int err = encode_tile_map(&map_x, x, m, k, k, bm);
-  if (err == 0) err = encode_tile_map(&map_w, w, n, kp, kp, bn);
+  const int err = encode_maps(&map_x, &map_w, x, w, m, n, k, kp, bm, bn);
   if (err != 0) return err;
+  Epilogue e = {};
+  e.out = out;
 #define DLMCQ_TILE(BM, BN, STAGES) \
   if (bm == BM && bn == BN)        \
-    return launch<BM, BN, STAGES>(map_x, map_w, op, m, n, k, s);
+    return launch<BM, BN, STAGES, EPI_INT32>(map_x, map_w, e, m, n, k, s);
   DLMCQ_TILE(128, 256, 4)   // 192 KB, one block an SM
   DLMCQ_TILE(128, 192, 5)   // 200 KB, one block an SM
   DLMCQ_TILE(128, 128, 3)   //  96 KB, two blocks an SM
@@ -227,6 +403,37 @@ int dlmcq_int8_gemm(const void* x, const void* w, void* out, int m, int n,
   DLMCQ_TILE(64, 128, 4)    //  96 KB, two
   DLMCQ_TILE(64, 64, 4)     //  64 KB, three
 #undef DLMCQ_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same product with an epilogue (the header's codes and f32 modes):
+// out (m, n) int8 codes (codes = 1) or f32 (codes = 0) from the
+// accumulator, with a and b (n,) f32; lo/hi the codes' clamp, relu for
+// f32; r_kind 1, 2 or 3 (codes only) adds the residual r (m, n) int8,
+// int32 or f32 with ar, br (n,) f32 and the grid's bias qb.  (bm, bn) is
+// one of the tiles listed below and in int8_gemm.py (EPILOGUE_TILES).
+int dlmcq_int8_gemm_epilogue(const void* x, const void* w, void* out, int m,
+                             int n, int k, int kp, int bm, int bn, int codes,
+                             const float* a, const float* b, const void* r,
+                             const float* ar, const float* br, float qb,
+                             int lo, int hi, int relu, int r_kind,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (r_kind < 0 || r_kind > 3 || (r_kind && !codes) || (relu && codes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w;
+  const int err = encode_maps(&map_x, &map_w, x, w, m, n, k, kp, bm, bn);
+  if (err != 0) return err;
+  const Epilogue e = {out, a, b, r, ar, br, qb, lo, hi, relu, r_kind};
+#define DLMCQ_EPILOGUE_TILE(BM, BN, STAGES)                                 \
+  if (bm == BM && bn == BN)                                                 \
+    return launch_epilogue<BM, BN, STAGES>(map_x, map_w, e, codes, m, n, k, \
+                                           s);
+  DLMCQ_EPILOGUE_TILE(128, 256, 4)
+  DLMCQ_EPILOGUE_TILE(128, 128, 3)
+  DLMCQ_EPILOGUE_TILE(64, 128, 4)
+  DLMCQ_EPILOGUE_TILE(64, 64, 4)
+#undef DLMCQ_EPILOGUE_TILE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,0 +1,95 @@
+"""The requantize epilogue that the int8 conv and the int8 GEMM share.
+
+Both kernels end an int32 accumulator ``acc`` the same way, per output
+column ``o`` (an output channel)::
+
+    "codes": out = clamp(rint(f32(acc)·a[o] + b[o]), lo, hi)           → int8
+    "f32":   out = f32(acc)·a[o] + b[o], then max(·, 0) if relu        → f32
+    "codes" with a residual (r, ar, br), a residual block's shortcut added
+    term by term in the order of ``quant.chain.fold_sum_quantize``:
+             out = clamp(rint((((qb + f32(acc)·a[o]) + b[o]) + f32(r)·ar[o])
+                              + br[o]), lo, hi)                         → int8
+
+``r`` is int8 codes, int32 accumulators or float32 values of the output's
+shape; ``ar`` and ``br`` are per column.  The kernels write each step as
+one rounded float32 op (no fused multiply-add) and round half to even, so
+:func:`epilogue_plain`, their plain version, equals them bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MODES = ("codes", "f32")
+# residual dtypes, by the kernels' r_kind (0: no residual)
+RESIDUAL_KINDS = {torch.int8: 1, torch.int32: 2, torch.float32: 3}
+
+
+def check_epilogue(what: str, mode: str, a, b, lo, hi, relu, residual, qb,
+                   out_shape, device) -> None:
+    """Raise unless the epilogue's arguments fit an output of
+    ``out_shape`` (last axis: the columns) on ``device``."""
+    if mode not in MODES:
+        raise ValueError(f"{what}: mode must be one of {MODES}, got {mode!r}")
+    if mode == "codes" and relu:
+        raise ValueError(f"{what}: codes mode folds the ReLU into lo; relu "
+                         "is for f32")
+    for name, v in (("lo", lo), ("hi", hi)):
+        if not isinstance(v, int) or not -128 <= v <= 127:
+            raise ValueError(f"{what}: {name} must be an int8 code, got "
+                             f"{v!r}")
+    o = out_shape[-1]
+    for name, t in (("a", a), ("b", b)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
+                or tuple(t.shape) != (o,):
+            raise ValueError(f"{what}: {name} must be ({o},) float32")
+    if residual is None:
+        tensors = (("a", a), ("b", b))
+    else:
+        if mode != "codes":
+            raise ValueError(f"{what}: a residual is added in codes mode "
+                             "only")
+        if not isinstance(qb, float):
+            raise ValueError(f"{what}: qb must be a float, got {qb!r}")
+        r, ar, br = residual
+        if r.dtype not in RESIDUAL_KINDS or tuple(r.shape) != tuple(
+                out_shape):
+            raise ValueError(f"{what}: the residual must be "
+                             f"{tuple(out_shape)} int8, int32 or float32, "
+                             f"got {tuple(r.shape)} {r.dtype}")
+        for name, t in (("ar", ar), ("br", br)):
+            if t.dtype != torch.float32 or tuple(t.shape) != (o,):
+                raise ValueError(f"{what}: {name} must be ({o},) float32")
+        tensors = (("a", a), ("b", b), ("r", r), ("ar", ar), ("br", br))
+    for name, t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, x on "
+                             f"{device}")
+
+
+def epilogue_plain(acc: torch.Tensor, a, b, *, mode: str, lo: int = -128,
+                   hi: int = 127, relu: bool = False, residual=None,
+                   qb: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of the kernels' epilogue (module docstring).
+
+    ``acc`` holds exact integers (int32, or float64 from an exact float64
+    sum); its float32 value rounds to nearest even as ``__int2float_rn``
+    does.  Every step is a separate float32 op, so nothing fuses them into
+    an fma.
+    """
+    y = acc.to(torch.float32) * a
+    if residual is not None:
+        r, ar, br = residual
+        y = y + qb
+        y = y + b
+        y = y + r.to(torch.float32) * ar
+        y = y + br
+    else:
+        y = y + b
+    if mode == "codes":
+        return torch.round(y).clamp_(lo, hi).to(torch.int8).contiguous()
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.contiguous()

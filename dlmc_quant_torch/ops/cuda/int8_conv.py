@@ -29,7 +29,8 @@ shortcut to the sum before it is rounded, term by term in the order of
     out = clamp(rint((((qb + f32(acc)·a[o]) + b[o]) + f32(r)·ar[o]) + br[o]), lo, hi)
 
 ``r`` is (N, Ho, Wo, O) int8 codes, int32 accumulators or float32 values;
-``ar`` and ``br`` are (O,) float32.
+``ar`` and ``br`` are (O,) float32.  The epilogue is
+:mod:`.epilogue`'s, which the int8 GEMM shares.
 
 As a GEMM the conv has M = N·Ho·Wo rows, O columns and K = 3·Rp bytes,
 ordered (dy, dx, channel): the 3·C bytes that row dy of the window covers
@@ -55,10 +56,10 @@ import torch
 import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda import build
+from dlmc_quant_torch.ops.cuda.epilogue import (RESIDUAL_KINDS,
+                                                check_epilogue,
+                                                epilogue_plain)
 
-MODES = ("codes", "f32")
-# residual dtypes, by the kernel's r_kind (0: no residual)
-RESIDUAL_KINDS = {torch.int8: 1, torch.int32: 2, torch.float32: 3}
 PRODUCER_WARPS = 4    # each fills every fourth stage of a block's sequence
 CHUNK = 16            # bytes of K that always lie inside one tap
 TILE_K = 128          # bytes of K in a shared-memory tile row
@@ -217,19 +218,14 @@ def tile_plan(m: int, c: int, o: int, mode: str = "codes", *, stride: int = 2,
 
 def _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo=1,
            residual=None, qb=0.0):
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode == "codes" and relu:
-        raise ValueError("codes mode folds the ReLU into lo; relu is for f32")
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     if pad_lo not in (0, 1) or (pad_lo == 0 and stride != 2):
         raise ValueError(f"pad_lo must be 1, or 0 at stride 2 (the SAME "
                          f"geometry of an even map), got {pad_lo!r} at "
                          f"stride {stride}")
-    for name, v in (("pad", pad), ("lo", lo), ("hi", hi)):
-        if not isinstance(v, int) or not -128 <= v <= 127:
-            raise ValueError(f"{name} must be an int8 code, got {v!r}")
+    if not isinstance(pad, int) or not -128 <= pad <= 127:
+        raise ValueError(f"pad must be an int8 code, got {pad!r}")
     if x.dtype != torch.int8 or x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, C) int8, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -246,32 +242,16 @@ def _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo=1,
         raise ValueError(f"w must be pack_weight() output of shape "
                          f"{packed_shape(c, o)} int8, got "
                          f"{tuple(w.shape)} {w.dtype}")
-    for name, t in (("x", x), ("w", w), ("a", a), ("b", b)):
+    for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if w.data_ptr() % 16 or (c % CHUNK == 0 and x.data_ptr() % 16):
         raise ValueError("w, and x when C % 16 == 0, must be 16-byte aligned")
-    if residual is None:
-        return
-    if mode != "codes":
-        raise ValueError("a residual is added in codes mode only")
-    if not isinstance(qb, float):
-        raise ValueError(f"qb must be a float, got {qb!r}")
-    r, ar, br = residual
     ho, wo = out_hw(h, wd, stride)
-    if r.dtype not in RESIDUAL_KINDS or tuple(r.shape) != (n, ho, wo, o):
-        raise ValueError(f"the residual must be {(n, ho, wo, o)} int8, int32 "
-                         f"or float32, got {tuple(r.shape)} {r.dtype}")
-    for name, t in (("ar", ar), ("br", br)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (o,):
-            raise ValueError(f"{name} must be ({o},) float32")
-    for name, t in (("r", r), ("ar", ar), ("br", br)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    check_epilogue("int8_conv3x3", mode, a, b, lo, hi, relu, residual, qb,
+                   (n, ho, wo, o), x.device)
 
 
 def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int,
@@ -297,20 +277,8 @@ def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int,
                value=float(pad))
     acc = F.conv2d(xp, wk.permute(3, 2, 0, 1).to(torch.float64),
                    stride=stride)
-    y = acc.permute(0, 2, 3, 1).to(torch.float32) * a
-    if residual is not None:
-        r, ar, br = residual
-        y = y + qb
-        y = y + b
-        y = y + r.to(torch.float32) * ar
-        y = y + br
-    else:
-        y = y + b
-    if mode == "codes":
-        return torch.round(y).clamp_(lo, hi).to(torch.int8).contiguous()
-    if relu:
-        y = torch.clamp_min(y, 0.0)
-    return y.contiguous()
+    return epilogue_plain(acc.permute(0, 2, 3, 1), a, b, mode=mode, lo=lo,
+                          hi=hi, relu=relu, residual=residual, qb=qb)
 
 
 @functools.cache

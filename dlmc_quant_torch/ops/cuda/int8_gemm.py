@@ -9,6 +9,12 @@ its header says what bounds it on an H100 and how it is laid out);
 
     out[m, n] = Σ_k x[m, k] · w[k, n]      (int32, M × N)
 
+That is ``mode="int32"``, the tools' output.  The chained int8 path of a
+1×1 conv (and of the 7×7 stem, after ``int8_im2col``) ends the product
+with the int8 conv's epilogue instead (:mod:`.epilogue`: ``"codes"``,
+with an optional residual, or ``"f32"``), so its int32 accumulator never
+reaches device memory.
+
 :func:`int8_gemm` launches the kernel for CUDA tensors and runs
 :func:`int8_gemm_plain` for CPU tensors; there is no fallback from one to
 the other.
@@ -22,6 +28,9 @@ import functools
 import torch
 
 from dlmc_quant_torch.ops.cuda import build
+from dlmc_quant_torch.ops.cuda.epilogue import (RESIDUAL_KINDS,
+                                                check_epilogue,
+                                                epilogue_plain)
 
 MMA_K = 32                           # bytes of K one s8 wgmma consumes
 TILE_K = 128                         # bytes of K in a shared-memory tile row
@@ -31,6 +40,10 @@ TILE_K = 128                         # bytes of K in a shared-memory tile row
 TILE_STAGES = {(128, 256): 4, (128, 192): 5, (128, 128): 3, (128, 96): 4,
                (128, 48): 5, (64, 128): 4, (64, 64): 4}
 TILES = tuple(TILE_STAGES)
+# the tiles compiled with the epilogue modes (DLMCQ_EPILOGUE_TILE), for
+# ResNet's widths 64 … 2048
+EPILOGUE_TILES = ((128, 256), (128, 128), (64, 128), (64, 64))
+MODES = ("int32", "codes", "f32")
 MAX_SMEM = 232448                    # dynamic shared memory a block may use
 SMS = 132                            # SMs of an H100 SXM: plans made off the card
 INT32_SAFE_K = 2 ** 31 // 128 ** 2   # K·128² must stay < 2³¹
@@ -103,12 +116,27 @@ def check_operands(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: x and w must be 16-byte aligned")
 
 
-def int8_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: a float64 matmul cast to int32.
+def int8_gemm_plain(x: torch.Tensor, w: torch.Tensor, a=None, b=None, *,
+                    mode: str = "int32", lo: int = -128, hi: int = 127,
+                    relu: bool = False, residual=None,
+                    qb: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version (same arguments, same result): a float64
+    matmul, exact (every product and partial sum is an integer below 2⁵³),
+    cast to int32 or ended by :func:`.epilogue.epilogue_plain`."""
+    acc = x.double() @ unpack_b(w, x.shape[1]).double()
+    if mode == "int32":
+        return acc.to(torch.int32)
+    return epilogue_plain(acc, a, b, mode=mode, lo=lo, hi=hi, relu=relu,
+                          residual=_flat(residual), qb=qb)
 
-    Exact: every product and partial sum is an integer below 2⁵³.
-    """
-    return (x.double() @ unpack_b(w, x.shape[1]).double()).to(torch.int32)
+
+def _flat(residual):
+    """The residual with ``r`` as (M, N): callers may give it in the
+    output's (…, N) shape."""
+    if residual is None:
+        return None
+    r, ar, br = residual
+    return r.reshape(-1, r.shape[-1]), ar, br
 
 
 def tile_smem_bytes(tile) -> int:
@@ -139,11 +167,11 @@ def tile_cost(tile, m: int, n: int, sms: int = SMS) -> int:
     return _cdiv(tile_count(tile, m, n), sms) * (bm * bn + 64 * (bm + bn))
 
 
-def default_tile(m: int, n: int, sms: int = SMS):
-    """The compiled tile of least :func:`tile_cost` on ``sms`` SMs; ties go
-    to the larger tile, which reads its operands fewer times.  Every tile is
-    right at every shape; ``tools/gemm_sweep.py`` times them all."""
-    return min(TILES, key=lambda t: (tile_cost(t, m, n, sms), -t[0] * t[1]))
+def default_tile(m: int, n: int, sms: int = SMS, tiles=TILES):
+    """The tile of ``tiles`` of least :func:`tile_cost` on ``sms`` SMs; ties
+    go to the larger tile, which reads its operands fewer times.  Every tile
+    is right at every shape; ``tools/gemm_sweep.py`` times them all."""
+    return min(tiles, key=lambda t: (tile_cost(t, m, n, sms), -t[0] * t[1]))
 
 
 @functools.cache
@@ -152,16 +180,26 @@ def _library() -> ctypes.CDLL:
     lib.dlmcq_int8_gemm.restype = ctypes.c_int
     lib.dlmcq_int8_gemm.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.dlmcq_int8_gemm_epilogue.restype = ctypes.c_int
+    lib.dlmcq_int8_gemm_epilogue.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return lib
 
 
-def int8_gemm(x: torch.Tensor, w: torch.Tensor, *, tile=None) -> torch.Tensor:
-    """(M, K) int8 @ packed (N, Kp) int8 → (M, N) int32 (module docstring).
+def int8_gemm(x: torch.Tensor, w: torch.Tensor, a=None, b=None, *,
+              mode: str = "int32", lo: int = -128, hi: int = 127,
+              relu: bool = False, residual=None, qb: float = 0.0,
+              tile=None) -> torch.Tensor:
+    """(M, K) int8 @ packed (N, Kp) int8 → (M, N) int32, or int8 codes or
+    f32 through the epilogue (module docstring).
 
-    CUDA tensors launch the kernel on the current stream with ``tile``
-    (one of :data:`TILES`; by default :func:`default_tile` for the device's
-    SM count) and count the launch in ``int8_gemm.launches``; CPU tensors
-    run the plain version.
+    ``a``/``b`` (N,) float32 and ``residual`` ``(r, ar, br)`` with ``r``
+    (M, N) or of shape (…, N) over M rows, as :mod:`.epilogue` says.
+    CUDA tensors launch the kernel on the current stream with ``tile`` (one
+    of :data:`TILES`, of :data:`EPILOGUE_TILES` for an epilogue mode; by
+    default :func:`default_tile` for the device's SM count) and count the
+    launch in ``int8_gemm.launches``; CPU tensors run the plain version.
     Raises where K·128² ≥ 2³¹, where the kernel's int32 sum could wrap.
     """
     check_operands(x, w, "int8_gemm")
@@ -171,20 +209,44 @@ def int8_gemm(x: torch.Tensor, w: torch.Tensor, *, tile=None) -> torch.Tensor:
     n = w.shape[0]
     if k >= INT32_SAFE_K:
         raise ValueError(f"int8_gemm: K = {k} could overflow int32")
+    if mode not in MODES:
+        raise ValueError(f"int8_gemm: mode must be one of {MODES}, got "
+                         f"{mode!r}")
+    tiles = TILES
+    if mode != "int32":
+        residual = _flat(residual)
+        check_epilogue("int8_gemm", mode, a, b, lo, hi, relu, residual, qb,
+                       (m, n), x.device)
+        tiles = EPILOGUE_TILES
+    elif a is not None or residual is not None:
+        raise ValueError("int8_gemm: int32 mode takes no epilogue")
     tile = tuple(tile) if tile is not None else default_tile(
-        m, n, sm_count(x.device))
-    if tile not in TILES:
-        raise ValueError(f"int8_gemm: tile {tile} is not one of {TILES}")
+        m, n, sm_count(x.device), tiles)
+    if tile not in tiles:
+        raise ValueError(f"int8_gemm: tile {tile} is not one of {tiles}")
     if x.device.type == "cpu":
-        return int8_gemm_plain(x, w)
+        return int8_gemm_plain(x, w, a, b, mode=mode, lo=lo, hi=hi,
+                               relu=relu, residual=residual, qb=qb)
     if x.device.type != "cuda":
         raise ValueError(f"int8_gemm runs on cuda or cpu, not {x.device}")
     lib = _library()
-    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    dtype = {"int32": torch.int32, "codes": torch.int8,
+             "f32": torch.float32}[mode]
+    out = torch.empty((m, n), dtype=dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.dlmcq_int8_gemm(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, w.shape[1],
-            *tile, torch.cuda.current_stream(x.device).cuda_stream)
+        if mode == "int32":
+            err = lib.dlmcq_int8_gemm(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                w.shape[1], *tile, stream)
+        else:
+            r, ar, br = residual if residual is not None else (None,) * 3
+            err = lib.dlmcq_int8_gemm_epilogue(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                w.shape[1], *tile, int(mode == "codes"), a.data_ptr(),
+                b.data_ptr(), *(t.data_ptr() if t is not None else None
+                                for t in (r, ar, br)), qb, lo, hi, int(relu),
+                RESIDUAL_KINDS[r.dtype] if r is not None else 0, stream)
     build.check_launch(lib, err, "int8_gemm")
     int8_gemm.launches += 1
     return out

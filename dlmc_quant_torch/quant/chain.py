@@ -24,13 +24,16 @@ ReLU + quantize into one clamp with :func:`fold_sum_quantize`, and emits
 int8 codes on the block's own grid, which both consumers (the next block's
 first conv and its shortcut) read as they are.
 
-Unlike the JAX package, the accumulator of a 3×3 conv is never written to
-memory: a conv's :class:`DeferredEpilogue` holds a :class:`PendingConv`,
-and the consumer runs that conv with the folded epilogue fused into it
-(``ops.cuda.int8_conv.int8_conv3x3`` in ``"codes"`` mode, with the
-residual term where it closes a block), or, for :func:`materialize`, in
-``"f32"`` mode.  ``qrelu6`` and ``qmaxpool`` are not ported yet (ROADMAP
-Queue A, residual int8 chain (item 5)).
+Unlike the JAX package, a conv's accumulator is not written to memory
+where a consumer can take its epilogue: a 3×3 conv's
+:class:`DeferredEpilogue` holds a :class:`PendingConv`, a 1×1 conv's (and
+the im2col'd 7×7 stem's) a :class:`PendingGemm`, and the consumer runs
+that conv with the folded epilogue fused into it (``"codes"`` mode, with
+the residual term where it closes a block), or, for :func:`materialize`,
+in ``"f32"`` mode.  A pending GEMM used as a shortcut term, and the stem
+that :func:`qmaxpool` pools, run in ``"int32"`` mode: the JAX package's
+int32 accumulator.  ``qrelu6`` is not ported yet (ROADMAP Queue A, rest of
+the zoo (item 7)).
 """
 
 from __future__ import annotations
@@ -40,8 +43,10 @@ from typing import Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda.int8_conv import int8_conv3x3
+from dlmc_quant_torch.ops.cuda.int8_gemm import int8_gemm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,13 +67,33 @@ class PendingConv:
 
 
 @dataclasses.dataclass(frozen=True)
+class PendingGemm:
+    """An int8 GEMM that has not run yet: a 1×1 conv on its (subsampled)
+    codes, or a conv on its im2col rows; the output is (N, Ho, Wo, O)."""
+    x: torch.Tensor          # (M, K) int8, M = N·Ho·Wo
+    weight: torch.Tensor     # packed (O, Kp) int8 (ops.cuda.int8_gemm.pack_b)
+    shape: tuple             # (N, Ho, Wo)
+
+    def run(self, a=None, b=None, *, lo: int = -128, hi: int = 127,
+            mode: str = "codes", relu: bool = False, residual=None,
+            qb: float = 0.0) -> torch.Tensor:
+        out = int8_gemm(self.x, self.weight, a, b, mode=mode, lo=lo, hi=hi,
+                        relu=relu, residual=residual, qb=qb)
+        return out.reshape(tuple(self.shape) + (-1,))
+
+
+PENDING = (PendingConv, PendingGemm)
+
+
+@dataclasses.dataclass(frozen=True)
 class DeferredEpilogue:
     """Lazy layer output: real value = ``relu?(acc·scale + bias)``.
 
-    ``acc`` is an int32 tensor (dense layers, 1×1 convs) or a :class:`PendingConv`
-    whose accumulator the consumer computes with its epilogue fused.
+    ``acc`` is an int32 tensor (dense layers, the pooled stem) or a
+    :class:`PendingConv` or :class:`PendingGemm` whose accumulator the
+    consumer computes with its epilogue fused.
     """
-    acc: Union[torch.Tensor, PendingConv]
+    acc: Union[torch.Tensor, PendingConv, PendingGemm]
     scale: torch.Tensor      # (O,) f32
     bias: torch.Tensor       # (O,) f32
     relu: bool = False
@@ -105,6 +130,47 @@ def qrelu(x):
     return torch.relu(x)
 
 
+def _max_pool(x: torch.Tensor, window, strides, padding) -> torch.Tensor:
+    """NHWC max pool of a float32 tensor, pads losing to every element (as
+    flax's -inf); ``padding`` is ``((p, p), (p, p))`` with p at most half
+    the window (the ImageNet stem's pool: 3×3, p = 1)."""
+    (top, bottom), (left, right) = padding
+    if not (top == bottom == left == right and top <= min(window) // 2):
+        raise NotImplementedError(f"max pool padding {padding}: only equal "
+                                  "pads of at most half the window")
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, strides, padding=top)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def qmaxpool(x, window, strides, padding):
+    """``nn.max_pool`` that stays lazy on the chain (JAX: ``chain.qmaxpool``).
+
+    The epilogue is monotone per channel (scale > 0, ReLU and clamp
+    monotone too), so pooling the int32 accumulator (or the int8 codes)
+    and keeping the boundary foldable equals pooling the values; pads lose
+    to every window element, as JAX's ``iinfo.min`` and -128 do.  A pending
+    accumulator (the 7×7 stem's GEMM) runs in ``"int32"`` mode first.
+    Integers are pooled as an exact float32 view: codes always, an
+    accumulator because |acc| ≤ K·128² < 2²⁴ (checked from the GEMM's K),
+    as CUDA's max pool takes no integer type.
+    """
+    if isinstance(x, DeferredEpilogue):
+        if not isinstance(x.acc, PendingGemm):
+            raise ValueError("qmaxpool pools a pending GEMM's accumulator "
+                             "(the 7x7 stem), whose bound it knows")
+        k = x.acc.x.shape[1]
+        if k * 128 ** 2 >= 2 ** 24:
+            raise ValueError(f"K = {k}: the accumulator may not be exact in "
+                             "float32")
+        acc = _max_pool(x.acc.run(mode="int32").to(torch.float32), window,
+                        strides, padding)
+        return dataclasses.replace(x, acc=acc.to(torch.int32))
+    if isinstance(x, QuantizedTensor):
+        q = _max_pool(x.q.to(torch.float32), window, strides, padding)
+        return dataclasses.replace(x, q=q.to(torch.int8))
+    return _max_pool(x, window, strides, padding)
+
+
 def materialize(x):
     """Close a chain: f32 value of a deferred output or of codes (no-op on
     tensors)."""
@@ -113,7 +179,7 @@ def materialize(x):
         return y + x.bias
     if not isinstance(x, DeferredEpilogue):
         return x
-    if isinstance(x.acc, PendingConv):
+    if isinstance(x.acc, PENDING):
         return x.acc.run(x.scale, x.bias, mode="f32", relu=x.relu)
     y = x.acc.to(torch.float32) * x.scale
     y = y + x.bias
@@ -141,7 +207,7 @@ def fold_quantize(x: DeferredEpilogue, inv_s: float, qbias: float,
                   qmin_s: int, qmax_s: int) -> torch.Tensor:
     """Folded boundary: int8 codes of ``x`` on the consumer's grid."""
     a, b, lo, hi = fold_params(x, inv_s, qbias, qmin_s, qmax_s)
-    if isinstance(x.acc, PendingConv):
+    if isinstance(x.acc, PENDING):
         return x.acc.run(a, b, lo=lo, hi=hi, mode="codes")
     y = x.acc.to(torch.float32) * a
     y = y + b
@@ -159,7 +225,10 @@ def _residual_operand(r, inv_s: float, o: int, device):
                 full(float(np.float32(r.bias) * inv)))
     if isinstance(r, DeferredEpilogue) and not r.relu \
             and not isinstance(r.acc, PendingConv):
-        return (r.acc.contiguous(), (r.scale * inv_s).contiguous(),
+        # the int32 accumulator (a pending shortcut GEMM runs for it)
+        acc = r.acc.run(mode="int32") if isinstance(r.acc, PendingGemm) \
+            else r.acc
+        return (acc.contiguous(), (r.scale * inv_s).contiguous(),
                 (r.bias * inv_s).contiguous())
     # a relu-flagged term is nonlinear inside the sum: materialized first
     return materialize(r).contiguous(), full(inv_s), full(0.0)
@@ -170,7 +239,8 @@ def fold_sum_quantize(terms, inv_s: float, qbias: float, lo: int,
     """Residual boundary: int8 codes of ``relu(y + r)`` on a grid.
 
     ``terms`` is ``[y, r]``: ``y`` the trunk, a conv's pending
-    :class:`DeferredEpilogue`; ``r`` the shortcut, a
+    :class:`DeferredEpilogue` (a BasicBlock's 3×3 ``conv2``, a Bottleneck's
+    1×1 ``conv3``); ``r`` the shortcut, a
     :class:`QuantizedTensor`, a :class:`DeferredEpilogue` or an f32 tensor.
     ``inv_s``/``qbias`` are the block-output plan's ``1/s`` and
     ``-o/s - shift``.  As in the JAX package the sum is taken term by
@@ -184,10 +254,10 @@ def fold_sum_quantize(terms, inv_s: float, qbias: float, lo: int,
     The whole sum runs in the epilogue of ``y``'s conv.
     """
     y, r = terms
-    if not (isinstance(y, DeferredEpilogue) and isinstance(y.acc, PendingConv)
+    if not (isinstance(y, DeferredEpilogue) and isinstance(y.acc, PENDING)
             and not y.relu):
         raise ValueError("the residual sum is folded into the epilogue of "
-                         "the trunk's 3x3 conv: y must be its pending, "
+                         "the trunk's last conv: y must be its pending, "
                          "ReLU-free output")
     o = y.acc.weight.shape[0]
     residual = _residual_operand(r, inv_s, o, y.scale.device)

@@ -31,10 +31,13 @@ per-channel weight axis is 0.
   feeds the stream), ``'train'`` (fake quant with AdaRound's soft rounding
   and straight-through gradients, for reconstruction), ``'int'`` and
   ``'intc'`` (real integer execution after ``quant.deploy.prepare_deploy``).
-* Integer convs: 3×3 (``ops.cuda.int8_conv``, SAME or pad-1 geometry) and
-  1×1 (``ops.cuda.int8_gemm`` on the subsampled codes); both take int8
-  codes on the layer's own grid or a :class:`QuantizedTensor` on a
+* Integer convs: 3×3 (``ops.cuda.int8_conv``, SAME or pad-1 geometry),
+  1×1 (``ops.cuda.int8_gemm`` on the subsampled codes) and any other
+  ungrouped square window, such as the ImageNet 7×7/s2 stem
+  (``ops.cuda.int8_im2col`` rows into ``int8_gemm``, any pads); all take
+  int8 codes on the layer's own grid or a :class:`QuantizedTensor` on a
   producer's, whose epilogue is re-derived from the stored column sums.
+  Each leaves its conv pending for the consumer (``quant/chain.py``).
 * :class:`QBlockOutput` closes a residual block: ``relu(y + r)`` in every
   qmode but ``'intc'``, where the sum, the ReLU and the quantize run in the
   epilogue of the block's last conv and give int8 codes.
@@ -50,7 +53,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda.int8_conv import pack_weight
-from dlmc_quant_torch.ops.cuda.int8_gemm import int8_gemm, pack_b
+from dlmc_quant_torch.ops.cuda.int8_gemm import pack_b
+from dlmc_quant_torch.ops.cuda.int8_im2col import int8_im2col, out_hw
+from dlmc_quant_torch.ops.cuda.int8_im2col import \
+    pack_weight as pack_rows_weight
 from dlmc_quant_torch.ops.numerics import (clip, lsq_fake_quant,
                                            lsq_grad_factor, lsq_init_scale,
                                            round_pass)
@@ -59,8 +65,9 @@ from dlmc_quant_torch.ops.observers import (StreamingState, get_qparams_tensor,
                                             streaming_init, streaming_update)
 from dlmc_quant_torch.quant import deploy as dp
 from dlmc_quant_torch.quant.chain import (DeferredEpilogue, PendingConv,
-                                          QuantizedTensor, fold_quantize,
-                                          fold_sum_quantize, materialize)
+                                          PendingGemm, QuantizedTensor,
+                                          fold_quantize, fold_sum_quantize,
+                                          materialize)
 
 QMODES = ("fp", "eval", "calibrate", "observe", "train", "int", "intc")
 
@@ -436,47 +443,57 @@ class QConv(QLayer):
     def deferred(self, x_i8: torch.Tensor, epi_scale=None, bias_eff=None,
                  pad=None) -> DeferredEpilogue:
         """This layer's output on input codes ``x_i8`` (on this layer's
-        grid unless an epilogue and pad code are given), with the 3×3 conv
-        and its epilogue left to the consumer (see quant/chain.py); a 1×1
-        conv runs here, as an int8 GEMM of the subsampled codes."""
+        grid unless an epilogue and pad code are given), with the conv and
+        its epilogue left to the consumer (see quant/chain.py): a 3×3 conv
+        pending for the conv kernel, a 1×1 conv for the int8 GEMM on the
+        subsampled codes, any other window for the GEMM on its im2col rows
+        (built here, with the pad code at the borders)."""
         if epi_scale is None:
             epi_scale, bias_eff = self.epi_scale, self.bias_eff
             pad = self.plan_scalars["pad_val"]
-        if self.groups != 1 or self.kernel_size not in (1, 3):
+        if self.groups != 1:
             raise NotImplementedError(
-                f"{self.path}: the integer path runs ungrouped 3x3 and 1x1 "
-                "convs only (grouped: ROADMAP Queue A, rest of the zoo "
-                "(item 7); 7x7: residual int8 chain (item 5))")
+                f"{self.path}: grouped convs have no integer path yet "
+                "(ROADMAP Queue A, rest of the zoo (item 7))")
         n, h, w, _ = x_i8.shape
-        (top, bottom), (left, right) = self.spatial_pads(h, w)
-        s = self.stride
-        if self.kernel_size == 1:
+        pads = self.spatial_pads(h, w)
+        (top, bottom), (left, right) = pads
+        s, k = self.stride, self.kernel_size
+        if k == 1:
             if top or bottom or left or right:
                 raise NotImplementedError(
                     f"{self.path}: a padded 1x1 conv has no integer path")
             codes = x_i8[:, ::s, ::s, :].contiguous()
-            acc = int8_gemm(codes.reshape(-1, codes.shape[-1]), self.w_gemm)
-            return DeferredEpilogue(acc.reshape(codes.shape[:3] + (-1,)),
-                                    epi_scale, bias_eff)
+            pending = PendingGemm(codes.reshape(-1, codes.shape[-1]),
+                                  self.w_gemm, tuple(codes.shape[:3]))
+            return DeferredEpilogue(pending, epi_scale, bias_eff)
+        if k != 3:
+            rows = int8_im2col(x_i8.contiguous(), kernel=k, stride=s,
+                               pads=pads, pad=pad)
+            pending = PendingGemm(rows, self.w_gemm,
+                                  (n,) + out_hw(h, w, k, s, pads))
+            return DeferredEpilogue(pending, epi_scale, bias_eff)
         # the kernel pads `top` rows above (0 or 1) and what the window
         # needs below, and gives ceil(h / s) rows: that must be this conv
         if not (top == left and top in (0, 1) and (s == 2 or top == 1)
                 and (h + top + bottom - 3) // s + 1 == -(-h // s)
                 and (w + left + right - 3) // s + 1 == -(-w // s)):
             raise NotImplementedError(
-                f"{self.path}: pads {((top, bottom), (left, right))} at "
-                f"stride {s} have no integer path")
+                f"{self.path}: pads {pads} at stride {s} have no integer "
+                "path")
         pending = PendingConv(x_i8.contiguous(), self.w_packed, s, pad, top)
         return DeferredEpilogue(pending, epi_scale, bias_eff)
 
     def prepare_deploy(self) -> None:
         super().prepare_deploy()
         # the kernels' own weight layouts, packed once
-        if self.kernel_size == 1:
-            self.register_buffer("w_gemm", pack_b(self.w_int[:, :, 0, 0].t()))
+        w_hwio = self.w_int.permute(2, 3, 1, 0)
+        if self.kernel_size == 3:
+            self.register_buffer("w_packed", pack_weight(w_hwio))
+        elif self.kernel_size == 1:
+            self.register_buffer("w_gemm", pack_b(w_hwio[0, 0]))
         else:
-            self.register_buffer(
-                "w_packed", pack_weight(self.w_int.permute(2, 3, 1, 0)))
+            self.register_buffer("w_gemm", pack_rows_weight(w_hwio))
 
 
 def _int8_matmul(x_i8: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
