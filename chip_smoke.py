@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: RepVGG-A0 chained int8,
 FSPTQ reconstruction served through the conv kernel, chained int8
-cifar_resnet18, BASELINE config #1's PTQ entry and chained int8 ResNet-50,
+cifar_resnet18, BASELINE config #1's PTQ entry, chained int8 ResNet-50,
+the training path (LSQ and RootQ QAT, fp32, QAT -> deploy, ResNet-50 RootQ),
 then the two int8 GEMM tools.
 
     python3 chip_smoke.py
@@ -43,14 +44,16 @@ Phases, each fatal on failure:
            FSPTQ W8A8 scheme attached to a copy, calibrate with one observe
            pass per batch over 256 images of the synthetic ImageNet
            fallback (seed 123, training, batch 64), FSPTQTrainer with its
-           defaults but 40 iterations a block (per target: capture and
+           defaults but 40 iterations a block and the flagship's
+           disable_first_act_quant (the stem weight-only; per target: capture and
            reconstruction ms, steps/s, held-out l2, kept or reverted; the
            teacher agreement before and after, which may not drop; the
            blocks kept with moved parameters); eval-mode logits on 8
            images within relative L2 2e-2 of the same model on the CPU;
-           prepare_deploy, the 22 reconstructed convs kernel == plain
-           (tolerance 0, batch 8), and one make_serving_fn(qmode="intc")
-           request of 256 images with 22 launches;
+           prepare_deploy (the stem's plan: int8 weights only), the 21
+           reconstructed convs behind it kernel == plain (tolerance 0,
+           batch 8), and one make_serving_fn(qmode="intc") request of 256
+           images with 21 launches and one bf16 stem conv (f32 out);
   resnet   cifar_resnet18 at full width (stem 3->64, stages 64/128/256/512,
            10 classes), 32x32: train form with seeded weights and perturbed
            BN statistics -> resnet_deploy -> config #1's scheme
@@ -84,6 +87,36 @@ Phases, each fatal on failure:
            request; median request ms, images/s and the request's split
            (input quantize, stem + pool, the 52 other kernels, pool +
            head; CUDA graphs) and the rest (host and gaps);
+  qat      the training path (examples/configs): (a) both QAT configs
+           (LSQ and RootQ W4A4) at full width through the QAT entry's
+           build_trainer (classification's build_common -> calibrate on the
+           first batch -> QATTrainer), cut to one epoch over 2048 synthetic
+           CIFAR-10 images at the config's batch 128 (14 steps after the
+           10 % validation split), one run, nothing saved, under full_f32:
+           every step's loss finite, the quantizer parameters (LSQ
+           wt_scale; RootQ wt_upper, wt_alpha) moved, the first step's loss
+           within 1e-2 relative of the same model and batch on the CPU, and
+           after training, in eval mode on 64 validation images, every
+           quantized layer fed the card's input to it within relative L2
+           1e-4 of its CPU copy (the logits' relative L2 is printed: at 4
+           bits a code that flips on a float difference moves every layer
+           after it); then ms a step at the default precision (cuDNN TF32)
+           split into device time (CUDA events over a CUDA graph of the
+           step; the profiler's kernel sum beside it) and host and gaps,
+           images/s, peak memory.  (b) the fp32 baseline
+           config through the classification entry, the same way.  (c) the
+           deploy leg: the LSQ config at 8 bits (weights and inputs; W4 has
+           no integer path yet), trained the same way, prepare_deploy, every
+           one of the 18 conv launches of a request == plain at batch 8 and
+           256, one make_serving_fn(qmode="intc") request of 256 training
+           images under full_f32 (the float stem and head): finite
+           (256, 10) logits, 18 launches, within relative L2 2e-2 of the
+           same deployed model on the CPU plain path; top-1
+           agreement with the fake-quant eval forward printed.  (d) BASELINE
+           config #5's training leg (RootQ W4A4 ResNet-50 at full width on
+           the synthetic ImageNet fallback, 224x224) at batch 64 (the
+           config's 256: r50_training_leg(256), by hand): ms a step and
+           peak memory;
   ptq      python -m dlmc_quant_torch.examples.post_training_quantization
            on config #1 with eval_int: true (nothing else changed): fp32,
            fake-quant and integer metrics, which must be finite, the
@@ -120,7 +153,9 @@ import torch.nn.functional as F
 from dlmc_quant_torch import (FSPTQTrainer, attach_scheme, calibrate,
                               get_dataloader, get_model, make_serving_fn,
                               prepare_deploy, scheme_from_dict)
+from dlmc_quant_torch.examples import classification as fp_entry
 from dlmc_quant_torch.examples import post_training_quantization as ptq_entry
+from dlmc_quant_torch.examples import quantization_aware_training as qat_entry
 from dlmc_quant_torch.models.fuse import repvgg_fuse, resnet_deploy
 from dlmc_quant_torch.models.resnet_cifar import BatchNorm
 from dlmc_quant_torch.ops.cuda import build
@@ -133,11 +168,12 @@ from dlmc_quant_torch.quant.layers import full_f32
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
 from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
                                               bound_by, card_line, event_ms,
-                                              graph_ms)
+                                              graph_ms, step_split)
 from dlmc_quant_torch.utils.checkpoint import load_checkpoint
 from dlmc_quant_torch.utils.launches import (KERNELS, LaunchRecorder,
                                              max_diff_to_plain)
-from dlmc_quant_torch.utils.config import read_yaml, write_yaml
+from dlmc_quant_torch.utils.config import ConfigParser, read_yaml, write_yaml
+from dlmc_quant_torch.utils.logging import get_logger
 
 SIZE, CLASSES, SEED = 224, 1000, 0
 CAL_BATCH, SERVE_BATCH, REQUESTS, REPS = 32, 256, 6, 20
@@ -145,11 +181,21 @@ PLAIN_REPS = 3
 RECON_SAMPLES, RECON_BATCH, RECON_SEED, RECON_ITERS = 256, 64, 123, 40
 GRAPH_LAUNCHES = 16
 REPO = pathlib.Path(__file__).resolve().parent
-CONFIG_1 = REPO / "examples" / "configs" / "PTQ_resnet18_cifar10_w8a8.yaml"
+CONFIGS = REPO / "examples" / "configs"
+CONFIG_1 = CONFIGS / "PTQ_resnet18_cifar10_w8a8.yaml"
 CIFAR_SIZE, CIFAR_CLASSES = 32, 10
 # launches of one chained request: 3x3 convs, GEMMs, im2cols
 RESNET18_LAUNCHES = {"conv": 18, "gemm": 3, "im2col": 0}
 RESNET50_LAUNCHES = {"conv": 16, "gemm": 37, "im2col": 1}
+# the training path: configs, cuts and what must move
+QAT_CONFIGS = {"lsq": "QAT_lsq_resnet20_cifar10_w4a4",
+               "rootq": "RootQ_resnet20_cifar10_w4a4"}
+QAT_MOVED = {"lsq": ("wt_scale",), "rootq": ("wt_upper", "wt_alpha")}
+FP_CONFIG, R50_CONFIG = ("baseline_resnet20_cifar10",
+                         "RootQ_resnet50_imagenet_w4a4")
+QAT_IMAGES, TIMED_STEPS, EVAL_IMAGES = 2048, 20, 64
+R50_BATCH, R50_STEPS = 64, 4
+QAT_W8A8_LAUNCHES = {"conv": 18, "gemm": 0, "im2col": 0}
 SCHEME = {
     "quantization_type": "FSPTQ",
     "weight": {"enable": True, "type": "minmax_channel",
@@ -188,9 +234,14 @@ def card_tests():
 
 
 def conv_calls(model, x):
-    """The 22 conv launches of one chained forward of ``x``, each as
-    (name, args, kwargs), with the kernel's own output as the next input."""
-    convs = [getattr(model, n).reparam for n in model.block_names]
+    """The conv launches of one chained forward of ``x`` (22, or 21 behind
+    a weight-only stem, whose bf16 conv runs here), each as (name, args,
+    kwargs), with the kernel's own output as the next input."""
+    names = list(model.block_names)
+    convs = [getattr(model, n).reparam for n in names]
+    if convs[0].weight_only:
+        x = qrelu(convs[0](x, qmode="intc"))
+        names, convs = names[1:], convs[1:]
     codes = convs[0]._input_codes(x)
     calls = []
     for i, conv in enumerate(convs):
@@ -204,7 +255,7 @@ def conv_calls(model, x):
             a, b, kw = de.scale, de.bias, dict(mode="f32", relu=True)
         kw.update(stride=de.acc.stride, pad=de.acc.pad)
         args = (de.acc.x, de.acc.weight, a.contiguous(), b.contiguous())
-        calls.append((model.block_names[i], args, kw))
+        calls.append((names[i], args, kw))
         if i + 1 < len(convs):
             codes = K.int8_conv3x3(*args, **kw)
     return calls
@@ -282,7 +333,8 @@ def kernel_phase(model, batch: int, device):
                              ("context_ms", context_ms)):
                 tot[key] += val
             tot["err"] = max(tot["err"], err, err_f)
-    print(f"# batch {batch} totals over 22 convs: kernel {tot['ms']:.4f} ms, "
+    print(f"# batch {batch} totals over {len(calls)} convs: kernel "
+          f"{tot['ms']:.4f} ms, "
           f"bound {tot['bound_ms']:.4f} ms (ops {tot['ops_ms']:.4f}, bytes "
           f"{tot['bytes_ms']:.4f}), plain {tot['plain_ms']:.4f} ms, "
           f"bf16 conv context {tot['context_ms']:.4f} ms")
@@ -393,7 +445,9 @@ def recon_phase(device, card: str):
           f"images in {t1 - t0:.2f} s; calibrate ({len(batches)} observe "
           f"passes + 1, batch {RECON_BATCH}) {1e3 * (t2 - t1):.1f} ms")
     before = {k: v.clone() for k, v in student.state_dict().items()}
-    res = FSPTQTrainer(student, teacher, batches, iters=RECON_ITERS).train()
+    # the flagship's setting: the stem runs weight-only
+    res = FSPTQTrainer(student, teacher, batches, iters=RECON_ITERS,
+                       disable_first_act_quant=True).train()
     print(f"# recon: {len(res['blocks'])} targets, {RECON_ITERS} iterations "
           f"each: block capture_ms recon_ms steps/s held-out-l2 kept")
     for b in res["blocks"]:
@@ -430,20 +484,30 @@ def recon_phase(device, card: str):
         raise RuntimeError(f"card and CPU eval logits differ: rel L2 {rel}")
 
     prepare_deploy(student)
+    stem = getattr(student, student.block_names[0]).reparam
+    if not stem.weight_only:
+        raise RuntimeError("the stem is not weight-only after "
+                           "disable_first_act_quant")
     err = kernel_phase(student, 8, device)["err"]
     serve = make_serving_fn(student, qmode="intc", device=device)
     x = images(SERVE_BATCH, SEED + 3, device)
+    stem_calls = []
+    hook = stem.register_forward_hook(
+        lambda mod, args, out: stem_calls.append(out.dtype))
     K.int8_conv3x3.launches = 0
     y = serve(x)
     torch.cuda.synchronize()
     launches = K.int8_conv3x3.launches
-    if launches != 22:
-        raise RuntimeError(f"{launches} conv launches for one request of the "
-                           "reconstructed model, expected 22")
+    hook.remove()
+    if launches != 21 or stem_calls != [torch.float32]:
+        raise RuntimeError(f"{launches} conv launches and stem outputs "
+                           f"{stem_calls} for one request of the "
+                           "reconstructed model, expected 21 and one f32")
     if y.shape != (SERVE_BATCH, CLASSES) or not bool(torch.isfinite(y).all()):
         raise RuntimeError(f"bad logits: {tuple(y.shape)}")
     print(f"# recon: served the reconstructed model: logits "
-          f"{tuple(y.shape)} finite, {launches} conv launches")
+          f"{tuple(y.shape)} finite, {launches} conv launches and one bf16 "
+          "stem conv (weight-only, f32 out)")
     return launches, err
 
 
@@ -709,6 +773,241 @@ def resnet50_serve_phase(model, device):
     return launches
 
 
+def training_config(name: str, **loader_args) -> ConfigParser:
+    """``examples/configs/<name>.yaml`` cut for the smoke run: one epoch,
+    one run, the training loader's ``loader_args``, nothing saved."""
+    cfg = read_yaml(CONFIGS / f"{name}.yaml")
+    cfg["train_loader"]["args"].update(loader_args)
+    cfg["n_runs"] = 1
+    cfg["trainer"]["epochs"] = 1
+    return ConfigParser(cfg, "cuda", save_to_disk=False)
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).norm() / (want.norm() + 1e-12))
+
+
+def _to_cpu(tree):
+    if torch.is_tensor(tree):
+        return tree.cpu()
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_cpu(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def eval_modules(model, x, qmode: str):
+    """Forward of ``x`` in ``qmode`` on the card and on a CPU copy: (logits
+    relative L2, {module: the worst relative L2 of its CPU copy run on the
+    card's inputs to it, with the outputs of its own submodules replaced by
+    the card's}).  That holds every op once on its own, free of the codes
+    that flip upstream: the layers and BatchNorms as wholes, and the code
+    between submodules (ReLUs, option-A shortcuts, residual sums, pooling)
+    on its output and on each submodule's input."""
+    cpu = copy.deepcopy(model).cpu()      # before the hooks: not copied
+    caps = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, args, kwargs, out, name=name: caps.__setitem__(
+            name, (_to_cpu(args), _to_cpu(kwargs), _to_cpu(out))),
+        with_kwargs=True) for name, m in model.named_modules()]
+    with torch.no_grad():
+        y = model(x, qmode=qmode)
+        for h in hooks:
+            h.remove()
+        ref = cpu(x.cpu(), qmode=qmode)
+        worst = {}
+        for name, (args, kwargs, out) in caps.items():
+            mod, fed = cpu.get_submodule(name), {}
+            subs = [c.register_forward_hook(
+                lambda c_, a, o, sub=sub: (fed.__setitem__(sub, a[0]),
+                                           caps[sub][2])[1])
+                for child, c in mod.named_children()
+                for sub in [f"{name}.{child}" if name else child]
+                if sub in caps]
+            errs = [rel_l2(mod(*args, **kwargs), out)] + [
+                rel_l2(inp, caps[sub][0][0]) for sub, inp in fed.items()]
+            for h in subs:
+                h.remove()
+            worst[name or "(model)"] = max(errs)
+    return rel_l2(y, ref), worst
+
+
+def train_gated(what: str, trainer, moved=(), chain_gate: bool = True):
+    """One epoch of ``trainer.train()`` under full_f32, then the gates:
+    every step's loss finite, the parameters named ``moved`` changed, the
+    first step's loss within 1e-2 of the same model and batch on the CPU,
+    in eval mode every module and the code between them, fed the card's
+    inputs, within relative L2 1e-4 of its CPU copy (``eval_modules``),
+    and, with ``chain_gate``, the eval logits within relative L2 2e-2 of the
+    CPU's.  Without it the logits' reading is printed only: RootQ at 4 bits
+    read 4.97e-2 with every layer within 4.4e-6, a code that flips on a
+    float difference moving the layers after it.  Returns the first batch
+    (on the card)."""
+    model = trainer.model
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.rpartition(".")[2] in moved}
+    rec = {"losses": []}
+
+    def recorded_step(x, y):
+        if "x" not in rec:      # the model and batch of the first step
+            rec.update(x=x, y=y, model=copy.deepcopy(model).cpu())
+        loss, logits = type(trainer).train_step(trainer, x, y)
+        rec["losses"].append(loss)
+        return loss, logits
+
+    trainer.train_step = recorded_step
+    t0 = time.perf_counter()
+    with full_f32():
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del trainer.train_step
+        losses = torch.stack(rec["losses"]).cpu()
+        twin = rec["model"].train()
+        cpu_loss = float(trainer.loss_fn(
+            twin(rec["x"].cpu(), qmode=trainer.train_qmode), rec["y"].cpu()))
+        x_eval = torch.from_numpy(next(iter(trainer.valid_loader))[0][
+            :EVAL_IMAGES]).to(rec["x"].device)
+        rel_eval, layers = eval_modules(model.eval(), x_eval,
+                                        trainer.eval_qmode)
+    rel_loss = abs(float(losses[0]) - cpu_loss) / abs(cpu_loss)
+    worst = max(layers.items(), key=lambda kv: kv[1], default=("-", 0.0))
+    shifts = {n: float(((p.detach() - before[n]).abs().max()
+                        / (before[n].abs().max() + 1e-12)))
+              for n, p in model.named_parameters() if n in before}
+    print(f"# {what}: {len(losses)} steps of batch {len(rec['y'])} in "
+          f"{wall:.2f} s (full_f32; train loader, host batches); losses "
+          f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f}, epoch "
+          f"{ {k: round(v, 4) for k, v in result.items()} }; first loss card "
+          f"vs CPU rel {rel_loss:.2e}; eval on {len(x_eval)} images, card "
+          f"vs CPU: logits rel L2 {rel_eval:.2e}"
+          f"{' (gated at 2e-2)' if chain_gate else ' (printed only)'}, "
+          f"{len(layers)} modules each fed the card's inputs: worst rel L2 "
+          f"{worst[1]:.2e} ({worst[0]})"
+          + (f"; {len(shifts)} quantizer parameters moved, relative shift "
+             f"{min(shifts.values()):.2e}..{max(shifts.values()):.2e}"
+             if moved else ""))
+    if not bool(torch.isfinite(losses).all()):
+        raise RuntimeError(f"{what}: a loss is not finite: {losses}")
+    if moved and not (len(shifts) and min(shifts.values()) > 0):
+        raise RuntimeError(f"{what}: quantizer parameters did not move: "
+                           f"{shifts}")
+    if not rel_loss < 1e-2:
+        raise RuntimeError(f"{what}: first loss card vs CPU rel {rel_loss}")
+    if not worst[1] < 1e-4:
+        raise RuntimeError(f"{what}: eval module {worst[0]} card vs CPU rel "
+                           f"{worst[1]}")
+    if chain_gate and not rel_eval < 2e-2:
+        raise RuntimeError(f"{what}: eval logits card vs CPU rel {rel_eval}")
+    return rec["x"], rec["y"]
+
+
+def time_steps(what: str, trainer, x, y, steps: int = TIMED_STEPS,
+               graph_steps: int = 4):
+    """ms a step at the default precision (cuDNN TF32), split into device
+    time and host and gaps; returns the split."""
+    torch.cuda.reset_peak_memory_stats()
+    split = step_split(lambda: trainer.train_step(x, y), steps, graph_steps)
+    peak = torch.cuda.max_memory_allocated()
+    n = x.shape[0]
+    print(f"# {what} step, batch {n}, default precision: "
+          f"{split['wall_ms']:.3f} ms ({n / split['wall_ms'] * 1e3:.1f} "
+          f"images/s); device {split['device_ms']:.3f} ms (CUDA events over "
+          f"a CUDA graph of {graph_steps} steps), {split['kernels']:.0f} "
+          f"kernels a step taking {split['busy_ms']:.3f} ms (profiler); host "
+          f"and gaps "
+          f"{split['host_gap_ms']:.3f} ms "
+          f"({100 * split['host_gap_ms'] / split['wall_ms']:.1f} % of the "
+          f"step); peak memory {peak / 2 ** 30:.2f} GiB; {card_line()}")
+    return split
+
+
+def qat_deploy_leg(device):
+    """LSQ QAT at 8 bits → prepare_deploy → chained int8 through the conv
+    kernel; returns the served request's conv launches and the largest
+    kernel-vs-plain difference."""
+    config = training_config(QAT_CONFIGS["lsq"], n_samples=QAT_IMAGES)
+    for role in ("weight", "input"):
+        config["quantization"][role]["args"]["n_bits"] = 8
+    trainer = qat_entry.build_trainer(config, device, get_logger("qat"))
+    train_gated("qat lsq w8a8", trainer, QAT_MOVED["lsq"])
+    model = prepare_deploy(trainer.model.eval())
+    batches = [torch.from_numpy(b) for b, _ in trainer.train_loader]
+    x256 = torch.cat(batches[:2]).to(device)
+    err = max(resnet_kernel_phase("qat lsq w8a8", model, xb,
+                                  QAT_W8A8_LAUNCHES)["err"]
+              for xb in (x256[:8], x256))
+    serve = make_serving_fn(model, qmode="intc", device=device)
+    # the float stem conv and head in strict f32, as on the CPU (cuDNN's
+    # TF32 default moves them by ~1e-3, and the codes after them with it)
+    K.int8_conv3x3.launches = 0
+    with full_f32():
+        y = serve(x256)
+        torch.cuda.synchronize()
+    launches = K.int8_conv3x3.launches
+    y_tf32 = serve(x256)
+    with torch.inference_mode():
+        ref = copy.deepcopy(model).cpu()(x256.cpu(), qmode="intc")
+        fake = model(x256, qmode="eval")
+    rel = rel_l2(y, ref)
+    agree = float((y.argmax(-1) == fake.argmax(-1)).float().mean())
+    print(f"# qat lsq w8a8 serve: logits {tuple(y.shape)}, {launches} conv "
+          f"launches; vs the CPU plain path on {len(ref)} images rel L2 "
+          f"{rel:.3e} (full_f32; {rel_l2(y_tf32, ref):.3e} with the float "
+          f"stem and head at the default TF32); top-1 agreement with the "
+          f"fake-quant eval forward {agree:.4f}")
+    if launches != QAT_W8A8_LAUNCHES["conv"] \
+            or y.shape != (SERVE_BATCH, CIFAR_CLASSES) \
+            or not bool(torch.isfinite(y).all()) or not rel < 2e-2:
+        raise RuntimeError("the QAT model's int8 request is off")
+    return launches, err
+
+
+def r50_training_leg(batch: int = R50_BATCH, steps: int = R50_STEPS):
+    """BASELINE config #5's training leg: RootQ W4A4 ResNet-50 through the
+    QAT entry's build_trainer on the synthetic ImageNet fallback, one
+    checked step and ``steps`` timed ones at ``batch``.  By hand for the
+    config's batch 256: ``python3 -c 'import chip_smoke as s;
+    s.r50_training_leg(256, 2)'``."""
+    device = torch.device("cuda")
+    n = -(-(steps + 2) * batch * 100 // 96)     # after the 4 % split
+    config = training_config(R50_CONFIG, batch_size=batch, n_samples=n)
+    t0 = time.perf_counter()
+    trainer = qat_entry.build_trainer(config, device, get_logger("qat"))
+    x, y = (torch.from_numpy(a).to(device) for a in
+            next(iter(trainer.train_loader)))
+    print(f"# r50 rootq w4a4: build_trainer (synthetic ImageNet, {n} images "
+          f"at 224x224) + calibrate in {time.perf_counter() - t0:.2f} s")
+    loss, _ = trainer.train_step(x, y.long())
+    if not bool(torch.isfinite(loss)):
+        raise RuntimeError(f"r50 rootq w4a4: loss {float(loss)}")
+    return time_steps("r50 rootq w4a4", trainer, x, y.long(), steps,
+                      graph_steps=1)
+
+
+def qat_phase(device):
+    """(a) both QAT configs, (b) the fp32 baseline, (c) the deploy leg, (d)
+    ResNet-50 RootQ training; returns the deploy leg's (launches, err)."""
+    for family, name in QAT_CONFIGS.items():
+        trainer = qat_entry.build_trainer(
+            training_config(name, n_samples=QAT_IMAGES), device,
+            get_logger("qat"))
+        # RootQ's chain is chaotic across devices (see train_gated)
+        x, y = train_gated(f"qat {family} w4a4", trainer, QAT_MOVED[family],
+                           chain_gate=family != "rootq")
+        time_steps(f"qat {family} w4a4", trainer, x, y)
+    trainer = fp_entry.build_trainer(
+        training_config(FP_CONFIG, n_samples=QAT_IMAGES), device,
+        get_logger("fp"))
+    x, y = train_gated("fp32 baseline", trainer)
+    time_steps("fp32 baseline", trainer, x, y)
+    launches, err = qat_deploy_leg(device)
+    r50_training_leg()
+    return launches, err
+
+
 def ptq_phase():
     """BASELINE config #1 through the PTQ entry, with eval_int: true;
     returns the conv and GEMM launches of the run."""
@@ -828,6 +1127,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     print(f"# card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
@@ -884,9 +1184,12 @@ def main() -> int:
                                   RESNET50_LAUNCHES)
     served50 = resnet50_serve_phase(r50, device)
     del r50
-    launches += served["conv"] + ptq_convs + served50["conv"]
+    t0 = time.perf_counter()
+    qat_launches, qat_err = qat_phase(device)
+    print(f"# qat phase: {time.perf_counter() - t0:.2f} s")
+    launches += served["conv"] + ptq_convs + served50["conv"] + qat_launches
     tot["err"] = max(err8, tot["err"], recon_err, res_err, r50_err,
-                     r50_tot["err"])
+                     r50_tot["err"], qat_err)
     stem = dict(r50_tot["im2col"], err=max(r50_err, r50_tot["err"]))
 
     gemm_rows, gemm_launches = tool_path(gemm_sweep.main, G.int8_gemm,
@@ -901,6 +1204,7 @@ def main() -> int:
     probe_tot = exact_phase("int8_mma_probe", probe_rows,
                             lambda row: probe_calls(row, gen))
 
+    print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         kernel_entry("int8_conv3x3", "dlmc_quant_tpu/ops/pallas/rpconv.py:200",
                      launches, tot, None),

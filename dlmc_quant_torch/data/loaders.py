@@ -8,10 +8,13 @@ data (the ``'easy'`` or ``'hard'`` profile), array for array the JAX
 package's, and batch for batch: the same numpy draws.  Batches are numpy
 (N, H, W, C) float32 and int32 labels; the caller moves them to its device.
 
+``validation_split`` holds out a seeded share of the training set (the
+same indices as the JAX package's), which ``split_validation()`` serves.
+
 Not ported yet (ROADMAP Queue A, data left (item 10)): reading an ImageNet
 folder or CIFAR's pickles, the native C++ batch assembly (the numpy path
-here draws the same randomness and gives the same arrays), MNIST,
-``validation_split`` and the benchmark's ``Synthetic`` loader.
+here draws the same randomness and gives the same arrays), MNIST and the
+benchmark's ``Synthetic`` loader.
 """
 
 from __future__ import annotations
@@ -80,27 +83,52 @@ class ArrayDataset:
 
 class DataLoader:
     """Seeded batch iterator: a fresh shuffle each epoch, optional
-    ``drop_last``.  ref: base/base_data_loader.py:7-64"""
+    ``drop_last``, and a validation split: ``validation_split`` (a share,
+    or a count when ≥ 1) of the indices, shuffled once with seed 0, go to
+    the loader that :meth:`split_validation` returns.
+    ref: base/base_data_loader.py:7-64"""
 
     def __init__(self, dataset: ArrayDataset, batch_size: int = 128,
-                 shuffle: bool = True, drop_last: bool = True, seed: int = 0):
+                 shuffle: bool = True, validation_split: float = 0.0,
+                 drop_last: bool = True, seed: int = 0,
+                 indices: Optional[np.ndarray] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self._epoch = 0
+        self._val_indices = None
+        if indices is not None:
+            self.indices = np.asarray(indices)
+            return
+        all_idx = np.arange(len(dataset))
+        self.indices = all_idx
+        if validation_split:
+            n_val = (int(validation_split) if validation_split >= 1
+                     else int(len(dataset) * validation_split))
+            np.random.default_rng(0).shuffle(all_idx)   # a fixed split
+            self._val_indices = all_idx[:n_val]
+            self.indices = all_idx[n_val:]
+
+    def split_validation(self) -> Optional["DataLoader"]:
+        """The held-out indices' loader (in order, every batch kept), or
+        None without a split."""
+        if self._val_indices is None:
+            return None
+        return DataLoader(self.dataset, self.batch_size, shuffle=False,
+                          indices=self._val_indices, drop_last=False)
 
     def set_epoch(self, epoch: int):
         self._epoch = epoch
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.indices)
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        idx = np.arange(len(self.dataset))
+        idx = self.indices.copy()
         rng = np.random.default_rng((self.seed, self._epoch))
         if self.shuffle:
             rng.shuffle(idx)
@@ -161,7 +189,8 @@ def _subsample(images, labels, n_samples: Optional[int],
 def ImageNet(data_dir: str, batch_size: int = 64, shuffle: bool = True,
              training: bool = True, size: int = 224,
              n_samples: Optional[int] = None, random_sample: bool = False,
-             synthetic_fallback: bool = True, seed: int = 0) -> DataLoader:
+             validation_split: float = 0.0, synthetic_fallback: bool = True,
+             seed: int = 0) -> DataLoader:
     """ImageNet at ``size``², or with no ``<data_dir>/train|val`` folder
     the seeded synthetic fallback of 1000 classes (``n_samples`` images,
     else 2048 for training and 1024 for eval).  The training loader
@@ -182,15 +211,15 @@ def ImageNet(data_dir: str, batch_size: int = 64, shuffle: bool = True,
         seed, split="train" if training else "eval")
     ds = ArrayDataset(images, labels, IMAGENET_MEAN, IMAGENET_STD,
                       train_augment=training)
-    return DataLoader(ds, batch_size, shuffle and training,
+    return DataLoader(ds, batch_size, shuffle and training, validation_split,
                       drop_last=training, seed=seed)
 
 
 def CIFAR10(data_dir: str = "data", batch_size: int = 128,
-            shuffle: bool = True, training: bool = True,
-            n_samples: Optional[int] = None, random_sample: bool = False,
-            synthetic_fallback: bool = True, seed: int = 0,
-            synthetic_profile: str = "easy",
+            shuffle: bool = True, validation_split: float = 0.0,
+            training: bool = True, n_samples: Optional[int] = None,
+            random_sample: bool = False, synthetic_fallback: bool = True,
+            seed: int = 0, synthetic_profile: str = "easy",
             _n_classes: int = 10) -> DataLoader:
     """CIFAR-10 (``_n_classes=100``: CIFAR-100) at 32², or with no
     ``<data_dir>/cifar-10-batches-py`` folder the seeded synthetic fallback
@@ -212,7 +241,7 @@ def CIFAR10(data_dir: str = "data", batch_size: int = 128,
                                 seed)
     ds = ArrayDataset(images, labels, CIFAR_MEAN, CIFAR_STD,
                       train_augment=training)
-    return DataLoader(ds, batch_size, shuffle and training,
+    return DataLoader(ds, batch_size, shuffle and training, validation_split,
                       drop_last=training, seed=seed)
 
 

@@ -5,9 +5,9 @@ Counterpart of ``dlmc_quant_tpu/ops/numerics.py``.  ``round_pass`` and
 ``floor_pass`` are straight-through estimators (rounded forward, identity
 gradient) and :func:`clip` has ``jnp.clip``'s gradient, which FSPTQ
 reconstruction needs.  :func:`lsq_fake_quant` is the LSQ layers' forward
-with its STE.  The custom-gradient estimators ``uniform_q`` and ``lsq_q``
-and the RootQ forms are not ported yet (ROADMAP Queue A, QAT + trainers
-(item 6)).
+with its STE.  :func:`uniform_q` and :func:`lsq_q` pin down the
+reference's explicit backward rules (``torch.autograd.Function`` here,
+``jax.custom_vjp`` there).  The RootQ forms are in ``ops/rootq_math.py``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -84,8 +85,11 @@ def lsq_fake_quant(x, scale, offset, qmin: int, qmax: int, g: float):
 
 
 def lsq_grad_factor(numel: int, qmax: int) -> float:
-    """LSQ gradient scale ``1/sqrt(numel·qmax)``."""
-    return 1.0 / math.sqrt(float(numel) * float(max(qmax, 1)))
+    """LSQ gradient scale ``1/sqrt(numel·qmax)``, in float32 as the JAX
+    package computes it (the forward of :func:`grad_scale` rounds with
+    it)."""
+    return float(np.float32(1.0) / np.sqrt(
+        np.float32(float(numel) * float(max(qmax, 1)))))
 
 
 def lsq_init_scale(x, qmax: int, dim=None):
@@ -93,3 +97,57 @@ def lsq_init_scale(x, qmax: int, dim=None):
     (``dim=None``) or averaged over ``dim`` (per channel)."""
     m = x.abs().mean() if dim is None else x.abs().mean(dim=dim)
     return 2.0 * m / math.sqrt(float(max(qmax, 1)))
+
+
+# ---------------------------------------------------------------------------
+# Explicit custom-gradient estimators (ref: scalar/modules/function.py:9-46)
+# ---------------------------------------------------------------------------
+
+class _UniformQ(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, offset, qmin, qmax):
+        t = (x - offset) / scale
+        ctx.save_for_backward((t >= qmin) & (t <= qmax))
+        return emulate_quantize(x, scale, offset, qmin, qmax)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return torch.where(mask, g, torch.zeros_like(g)), None, None, None, \
+            None
+
+
+def uniform_q(x, scale, offset, qmin: int, qmax: int):
+    """Clip-aware STE fake quant: ``emulate_quantize`` forward; the
+    gradient passes to ``x`` only where ``qmin <= (x-offset)/scale <= qmax``,
+    and ``scale`` and ``offset`` get none."""
+    return _UniformQ.apply(x, scale, offset, qmin, qmax)
+
+
+class _LsqQ(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, qmin, qmax, g):
+        ctx.save_for_backward(x, scale)
+        ctx.qrange, ctx.g = (qmin, qmax), g
+        return torch.clamp(torch.round(x / scale), qmin, qmax) * scale
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        qmin, qmax = ctx.qrange
+        t = x / scale
+        inside = (t >= qmin) & (t <= qmax)
+        r = torch.where(t < qmin, torch.full_like(t, float(qmin)),
+                        torch.where(t > qmax, torch.full_like(t, float(qmax)),
+                                    torch.round(t) - t))
+        dx = torch.where(inside, dy, torch.zeros_like(dy))
+        ds = (torch.sum(dy * r) * ctx.g).reshape(scale.shape)
+        return dx, ds, None, None, None
+
+
+def lsq_q(x, scale, qmin: int, qmax: int, g: float):
+    """Per-tensor LSQ with the reference's explicit backward: forward
+    ``clamp(round(x/s))·s``; ``dx = dy`` inside the clip range, 0 outside;
+    ``ds = Σ dy·r · g`` with ``r = round(t) − t`` inside and ``qmin``/``qmax``
+    at the clipped ends."""
+    return _LsqQ.apply(x, scale, qmin, qmax, g)

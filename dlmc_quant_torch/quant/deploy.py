@@ -16,9 +16,14 @@ per-channel weights w ≈ w_i8·s_w):
 so ``bias_eff = bias + (128·s_x + o_x)·s_w·colsum``, and borders are
 padded with the int8 code of real 0, which keeps the correction exact.
 
+A layer whose input quantizer is off keeps only its int8 weights and
+their scales, and runs a conv or matmul of the dequantized bf16 weights on
+bf16 inputs with an f32 accumulator (``QLayer.weight_only``).  A nonzero
+weight offset (RootQ after QAT) has no integer plan: ``prepare_deploy``
+raises (ROADMAP hazard C1).
+
 Not ported yet: int4 weights (``pack_int4``; ROADMAP Queue A, W4 execution
-(item 8)), weight-only quantization (ROADMAP Queue A, weight-only integer
-execution (item 2)) and the space-to-depth stem.
+(item 8)) and the space-to-depth stem.
 """
 
 from __future__ import annotations
@@ -36,18 +41,23 @@ def affine_from_quantizer(family: str, cfg, params: Dict, qstate: Dict,
     such that the fake-quant grid is ``q*scale + offset``.
 
     role ∈ {'weight', 'input'}.  FSPTQ stores an integer zero-point, the
-    plain/LSQ family a float offset; RootQ is not ported yet.
+    plain/LSQ family a float offset; RootQ's grids come from its running
+    values, the weight's offset ``l − qmin·s`` nonzero in general.
     """
+    if family == "rootq":
+        if role == "input":
+            s = qstate["in_run_scale"]
+            return s, torch.zeros_like(s)
+        u, l = qstate["wt_run_upper"], qstate["wt_run_lower"]
+        qmin, qmax = cfg.qrange
+        s = (u - l) / float(qmax - qmin)
+        return s, l - qmin * s
     if family == "fsptq":
         if role == "input":
             s = params["in_scale"]
             zp = qstate.get("in_offset", torch.zeros_like(s))
             return s, -zp * s
         return params["wt_scale"], torch.zeros_like(params["wt_scale"])
-    if family != "lsq":
-        raise NotImplementedError(
-            f"{family!r} quantizers have no integer plan in the port yet "
-            "(RootQ: ROADMAP Queue A, QAT + trainers (item 6))")
     if role == "input":
         s = params["in_scale"]
         return s, qstate.get("in_offset", torch.zeros_like(s))

@@ -1,4 +1,5 @@
-"""Quantized layers: QConv, QDense and QBlockOutput; FSPTQ and LSQ families.
+"""Quantized layers: QConv, QDense and QBlockOutput; FSPTQ, LSQ and RootQ
+families.
 
 Counterpart of ``dlmc_quant_tpu/quant/layers.py``.  Activations are NHWC
 at the public interface, as in the JAX package; weights are held in
@@ -8,9 +9,8 @@ per-channel weight axis is 0.
 * A layer is quantized when the model's :class:`QuantScheme` resolves a
   config for its ``named_modules()`` path; :func:`attach_scheme` does that
   once the model is built and creates the quantizer parameters.
-* Estimator families (``scheme.quantization_type``): ``'FSPTQ'`` and the
-  plain/LSQ family (``None`` or ``'LSQ'``); RootQ is not ported yet
-  (ROADMAP Queue A, QAT + trainers (item 6)).
+* Estimator families (``scheme.quantization_type``): ``'FSPTQ'``,
+  ``'RootQ'`` and the plain/LSQ family (``None``, ``'LSQ'`` or any other).
 * FSPTQ quantizer state: ``in_scale`` (parameter), ``in_offset`` (buffer,
   the integer zero-point) and the streaming min/max ``in_stream_*``
   (buffers) for the input; ``wt_scale`` (per output channel) and, with
@@ -18,7 +18,18 @@ per-channel weight axis is 0.
 * Plain/LSQ quantizer state: the same names, but ``in_offset`` is a float
   offset (the grid is ``q·in_scale + in_offset``), and the weight has a
   ``wt_offset`` buffer.  Observers: ``minmax_*`` and ``'LSQ'``
-  (``2·mean|x|/√qmax``).
+  (``2·mean|x|/√qmax``).  ``'train'`` learns ``in_scale`` and ``wt_scale``
+  through :func:`~dlmc_quant_torch.ops.numerics.lsq_fake_quant`.
+* RootQ quantizer state (``ops/rootq_math.py``): the learned activation
+  scale ``in_scale`` and clip bounds ``wt_upper``/``wt_lower`` with the
+  root exponent ``wt_alpha`` (parameters, all scalars), and their running
+  values ``in_run_scale``, ``wt_run_upper``, ``wt_run_lower`` (buffers).
+  ``'calibrate'`` sets both from one batch; ``'train'`` blends
+  ``(1 − momentum)·running + momentum·parameter``, scales its gradient by
+  ``1/√(numel·qmax)`` and writes the blend, detached, back into the
+  buffer; ``'eval'`` reads the buffers only; ``'observe'`` is the
+  identity.  Activations use the unsigned grid ``[0, qmax − qmin]``
+  whatever ``signed`` says (ROADMAP hazard C4).
 * :func:`calibrate` is the explicit calibration pass: optional ``'observe'``
   passes fold every batch's input min/max into the stream, then one
   ``'calibrate'`` pass on the first batch makes each layer observe its
@@ -31,6 +42,10 @@ per-channel weight axis is 0.
   feeds the stream), ``'train'`` (fake quant with AdaRound's soft rounding
   and straight-through gradients, for reconstruction), ``'int'`` and
   ``'intc'`` (real integer execution after ``quant.deploy.prepare_deploy``).
+* A layer whose input quantizer is off runs weight-only in ``'int'`` and
+  ``'intc'``: its int8 weights dequantized to bf16, a conv or matmul of
+  bf16 operands with an f32 accumulator (a library call), f32 out; the next
+  layer quantizes that output.
 * Integer convs: 3×3 (``ops.cuda.int8_conv``, SAME or pad-1 geometry),
   1×1 (``ops.cuda.int8_gemm`` on the subsampled codes) and any other
   ungrouped square window, such as the ImageNet 7×7/s2 stem
@@ -57,7 +72,8 @@ from dlmc_quant_torch.ops.cuda.int8_gemm import pack_b
 from dlmc_quant_torch.ops.cuda.int8_im2col import int8_im2col, out_hw
 from dlmc_quant_torch.ops.cuda.int8_im2col import \
     pack_weight as pack_rows_weight
-from dlmc_quant_torch.ops.numerics import (clip, lsq_fake_quant,
+from dlmc_quant_torch.ops import rootq_math as rq
+from dlmc_quant_torch.ops.numerics import (clip, grad_scale, lsq_fake_quant,
                                            lsq_grad_factor, lsq_init_scale,
                                            round_pass)
 from dlmc_quant_torch.ops.observers import (StreamingState, get_qparams_tensor,
@@ -82,6 +98,13 @@ def _bshape(stat, ndim: int):
     return stat.reshape((-1,) + (1,) * (ndim - 1)) if stat.dim() else stat
 
 
+def _bf16_values(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 and held in f32: a conv or matmul on such
+    operands is XLA's bf16 op with ``preferred_element_type=f32`` (the
+    products are exact in f32, and in the card's TF32 as well)."""
+    return x.to(torch.bfloat16).float()
+
+
 class QLayer(nn.Module):
     """Quantizer state and integer plan shared by :class:`QConv` and
     :class:`QDense`.  Subclasses own ``weight`` and ``bias``."""
@@ -98,13 +121,26 @@ class QLayer(nn.Module):
         self.cfg = scheme.resolve(path) if scheme is not None else None
         if self.cfg is None:
             return
-        self.family = (scheme.quantization_type or "LSQ").lower()
-        if self.family not in ("fsptq", "lsq"):
-            raise NotImplementedError(
-                f"{path}: the {self.family!r} estimator family is not ported "
-                "yet (RootQ: ROADMAP Queue A, QAT + trainers (item 6))")
+        family = (scheme.quantization_type or "LSQ").lower()
+        self.family = family if family in ("fsptq", "rootq") else "lsq"
         dev = self.weight.device
         aq, wq = self.cfg.input, self.cfg.weight
+        if self.family == "rootq":
+            # scalar quantizers whatever the observer says (ref: RootQ/base.py)
+            if aq.enable:
+                self.in_scale = nn.Parameter(torch.ones((), device=dev))
+                self.register_buffer("in_run_scale",
+                                     torch.zeros((), device=dev))
+            if wq.enable:
+                self.wt_upper = nn.Parameter(torch.ones((), device=dev))
+                self.wt_lower = nn.Parameter(-torch.ones((), device=dev))
+                self.wt_alpha = nn.Parameter(torch.full((), 0.25,
+                                                        device=dev))
+                self.register_buffer("wt_run_upper",
+                                     torch.ones((), device=dev))
+                self.register_buffer("wt_run_lower",
+                                     -torch.ones((), device=dev))
+            return
         if self.family == "lsq":
             for role, q in (("input", aq), ("weight", wq)):
                 if q.enable and not (q.type == "LSQ"
@@ -203,6 +239,52 @@ class QLayer(nn.Module):
             _bshape(self.wt_offset, kernel.dim()), qmin, qmax,
             lsq_grad_factor(kernel.numel(), qmax))
 
+    # --- RootQ fake quantization (ref: RootQ/base.py) ---------------------
+
+    def _rootq_input(self, x, aq, qmode: str):
+        qmin, qmax = aq.qrange
+        if qmode == "observe":
+            return x                 # RootQ initialises from one batch
+        if qmode == "calibrate":
+            xd = x.detach()
+            running = (xd.max() - xd.min()) / float(qmax - qmin)
+            self.in_scale.data.copy_(running)
+            self.in_run_scale.copy_(running)
+        elif qmode == "train":
+            m = self.cfg.momentum
+            running = grad_scale(
+                (1.0 - m) * self.in_run_scale + m * self.in_scale,
+                lsq_grad_factor(x.numel(), qmax))
+            with torch.no_grad():
+                self.in_run_scale.copy_(running)
+        else:
+            running = self.in_run_scale
+        return rq.rootq_act_fake_quant(x, running, qmax, qmin)
+
+    def _rootq_weight(self, kernel, wq, qmode: str):
+        qmin, qmax = wq.qrange
+        if qmode == "calibrate":
+            wmax = 2.0 * kernel.detach().abs().mean() \
+                * math.sqrt(float(max(qmax, 1)))
+            upper, lower = wmax, -wmax
+            for param, buf, v in ((self.wt_upper, self.wt_run_upper, upper),
+                                  (self.wt_lower, self.wt_run_lower, lower)):
+                param.data.copy_(v)
+                buf.copy_(v)
+        elif qmode == "train":
+            m, g = self.cfg.momentum, lsq_grad_factor(kernel.numel(), qmax)
+            upper = grad_scale((1.0 - m) * self.wt_run_upper
+                               + m * self.wt_upper, g)
+            lower = grad_scale((1.0 - m) * self.wt_run_lower
+                               + m * self.wt_lower, g)
+            with torch.no_grad():
+                self.wt_run_upper.copy_(upper)
+                self.wt_run_lower.copy_(lower)
+        else:
+            upper, lower = self.wt_run_upper, self.wt_run_lower
+        return rq.rootq_weight_fake_quant(kernel, upper, lower, self.wt_alpha,
+                                          qmin, qmax)
+
     # --- FSPTQ fake quantization ------------------------------------------
 
     def _fsptq_input(self, x, aq, qmode: str):
@@ -257,20 +339,30 @@ class QLayer(nn.Module):
         """(input, weight) after the resolved quantizers."""
         if self.cfg is None or qmode == "fp":
             return x, self.weight
-        lsq = self.family == "lsq"
+        quant_input, quant_weight = {
+            "lsq": (self._lsq_input, self._lsq_weight),
+            "fsptq": (self._fsptq_input, self._fsptq_weight),
+            "rootq": (self._rootq_input, self._rootq_weight)}[self.family]
         if self.cfg.input.enable:
-            x = (self._lsq_input if lsq else self._fsptq_input)(
-                x, self.cfg.input, qmode)
+            x = quant_input(x, self.cfg.input, qmode)
         if qmode == "observe" or not self.cfg.weight.enable:
             return x, self.weight    # FP weight while the stream fills
-        w_q = (self._lsq_weight if lsq else self._fsptq_weight)(
-            self.weight, self.cfg.weight, qmode)
-        return x, w_q
+        return x, quant_weight(self.weight, self.cfg.weight, qmode)
 
     # --- integer execution -------------------------------------------------
 
+    def _act_qrange(self):
+        """Integer grid of the input quantizer: RootQ's is unsigned whatever
+        ``signed`` says (ROADMAP hazard C4)."""
+        aq = self.cfg.input
+        if self.family == "rootq":
+            return 0, aq.qmax - aq.qmin
+        return aq.qrange
+
     def _build_int_plan(self):
-        """Integer plan: (tensors, host scalars).  See quant/deploy.py."""
+        """Integer plan: (tensors, host scalars).  See quant/deploy.py.
+        A weight-only layer's plan is its int8 weights and their scales,
+        with no host scalars."""
         cfg = self.cfg
         wq, aq = cfg.weight, cfg.input
         if not wq.enable:
@@ -280,26 +372,22 @@ class QLayer(nn.Module):
             raise NotImplementedError(
                 f"{self.path}: int4 weights are not ported yet "
                 "(ROADMAP Queue A, W4 execution (item 8))")
-        if not aq.enable:
-            raise NotImplementedError(
-                f"{self.path}: weight-only integer execution is not ported "
-                "yet (ROADMAP Queue A, weight-only integer execution "
-                "(item 2))")
-        if aq.per_channel or aq.per_pixel:
+        if aq.enable and (aq.per_channel or aq.per_pixel):
             raise ValueError(f"{self.path}: integer path needs per-tensor "
                              "activation quantization")
-        params = {"wt_scale": self.wt_scale.detach(),
-                  "in_scale": self.in_scale.detach()}
+        params = {name: getattr(self, name).detach()
+                  for name in ("wt_scale", "in_scale") if hasattr(self, name)}
         qstate = {name: getattr(self, name)
-                  for name in ("in_offset", "wt_offset")
+                  for name in ("in_offset", "wt_offset", "in_run_scale",
+                               "wt_run_upper", "wt_run_lower")
                   if hasattr(self, name)}
         s_w, o_w = dp.affine_from_quantizer(self.family, wq, params, qstate,
                                             "weight")
         if bool((o_w != 0).any()):
-            # the o_w·Σx correction is not in the plan (ROADMAP hazard C1)
+            # RootQ's grid after QAT, for one: the JAX package drops o_w
             raise NotImplementedError(
-                f"{self.path}: a nonzero weight offset has no integer plan "
-                "yet (ROADMAP Queue A, QAT + trainers (item 6))")
+                f"{self.path}: a nonzero weight offset has no integer plan: "
+                "it needs an o_w·Σx correction (ROADMAP hazard C1)")
         kernel = self.weight.detach()
         if wq.recon_type == "adaround" and hasattr(self, "alpha"):
             # learned rounding: floor + hard alpha decision
@@ -309,11 +397,15 @@ class QLayer(nn.Module):
             w_int = torch.clamp(q, wq.qmin, wq.qmax).to(torch.int8)
         else:
             w_int = dp.quantize_weight_int(kernel, s_w, wq.qmin, wq.qmax)
-        w_scale = s_w.to(torch.float32)
+        # one scale per output channel, per-tensor scales too: the kernels'
+        # epilogues take (O,) vectors
+        w_scale = s_w.to(torch.float32).expand(kernel.shape[0]).contiguous()
+        if not aq.enable:
+            return {"w_int": w_int, "w_scale": w_scale}, {}
 
         s_x, o_x = dp.affine_from_quantizer(self.family, aq, params, qstate,
                                             "input")
-        aqmin, aqmax = aq.qrange
+        aqmin, aqmax = self._act_qrange()
         shift = dp.act_shift(aqmax)
         colsum = w_int.to(torch.int32).sum(
             dim=tuple(range(1, w_int.dim()))).to(torch.float32)
@@ -343,6 +435,21 @@ class QLayer(nn.Module):
         for name, t in tensors.items():
             self.register_buffer(name, t)
 
+    def _require_plan(self) -> None:
+        if self.plan_scalars is None:
+            raise RuntimeError(f"{self.path}: run prepare_deploy() before "
+                               "an integer qmode")
+
+    @property
+    def weight_only(self) -> bool:
+        return not self.cfg.input.enable
+
+    def _dequantized_weight(self) -> torch.Tensor:
+        """A weight-only layer's int8 weights as bf16 values."""
+        self._require_plan()
+        return self.w_int.to(torch.bfloat16) \
+            * _bshape(self.w_scale, self.w_int.dim()).to(torch.bfloat16)
+
     def _int_input(self, x):
         """``(codes, epi_scale, bias_eff, pad)`` of an integer forward: a
         :class:`QuantizedTensor` goes in as it is, on its own grid (the
@@ -351,20 +458,16 @@ class QLayer(nn.Module):
         if isinstance(x, QuantizedTensor):
             bias_eff = x.bias * self.w_scale * self.colsum + self.bias0
             return x.q, x.scale * self.w_scale, bias_eff, x.zero_code()
-        if self.plan_scalars is None:
-            raise RuntimeError(f"{self.path}: run prepare_deploy() before "
-                               "an integer qmode")
+        self._require_plan()
         return (self._input_codes(x), self.epi_scale, self.bias_eff,
                 self.plan_scalars["pad_val"])
 
     def _input_codes(self, x) -> torch.Tensor:
         """int8 codes of the input on this layer's grid: a folded boundary
         for a chained input, the single-FMA act quantize otherwise."""
-        if self.plan_scalars is None:
-            raise RuntimeError(f"{self.path}: run prepare_deploy() before "
-                               "an integer qmode")
+        self._require_plan()
         h = self.plan_scalars
-        aqmin, aqmax = self.cfg.input.qrange
+        aqmin, aqmax = self._act_qrange()
         shift = dp.act_shift(aqmax)
         if isinstance(x, DeferredEpilogue):
             return fold_quantize(x, h["in_inv_scale"], h["in_qbias"],
@@ -420,14 +523,15 @@ class QConv(QLayer):
             pads.append((total // 2, total - total // 2))
         return tuple(pads)
 
-    def _conv(self, x, w):
+    def _conv(self, x, w, bias=True):
         (top, bottom), (left, right) = self.spatial_pads(x.shape[1],
                                                          x.shape[2])
         xc = x.permute(0, 3, 1, 2)
         pad = top
         if not top == bottom == left == right:
             xc, pad = F.pad(xc, (left, right, top, bottom)), 0
-        y = F.conv2d(xc, w, self.bias, self.stride, pad, groups=self.groups)
+        y = F.conv2d(xc, w, self.bias if bias else None, self.stride, pad,
+                     groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
     def forward(self, x, qmode: str = "eval"):
@@ -435,6 +539,12 @@ class QConv(QLayer):
         if qmode in ("int", "intc"):
             if self.cfg is None or not self.cfg.weight.enable:
                 return self._conv(materialize(x), self.weight)
+            if self.weight_only:
+                # dlmc_quant_tpu/quant/layers.py:666-672: bf16 operands, an
+                # f32 accumulator and output (bf16 products are exact in f32)
+                y = self._conv(_bf16_values(materialize(x)),
+                               self._dequantized_weight().float(), bias=False)
+                return y if self.bias is None else y + self.bias
             de = self.deferred(*self._int_input(x))
             return de if qmode == "intc" else materialize(de)
         x_q, w_q = self._quantize(x, qmode)
@@ -486,6 +596,8 @@ class QConv(QLayer):
 
     def prepare_deploy(self) -> None:
         super().prepare_deploy()
+        if self.weight_only:
+            return
         # the kernels' own weight layouts, packed once
         w_hwio = self.w_int.permute(2, 3, 1, 0)
         if self.kernel_size == 3:
@@ -530,6 +642,11 @@ class QDense(QLayer):
         if qmode in ("int", "intc"):
             if self.cfg is None or not self.cfg.weight.enable:
                 return F.linear(materialize(x), self.weight, self.bias)
+            if self.weight_only:
+                # dlmc_quant_tpu/quant/layers.py:787-791, as the conv's
+                y = F.linear(_bf16_values(materialize(x)),
+                             self._dequantized_weight().float())
+                return y if self.bias is None else y + self.bias
             x_i8, epi_scale, bias_eff, _ = self._int_input(x)
             acc = _int8_matmul(x_i8, self.w_int)
             de = DeferredEpilogue(acc, epi_scale, bias_eff)
@@ -647,12 +764,21 @@ def calibrate(model: nn.Module, batches, observe_passes: int = 0):
     ``observe_passes`` batches, then one ``'calibrate'`` pass on the first.
 
     Every quantized layer writes its observed scales (from the streamed
-    min/max where there is one), zero-points and AdaRound ``alpha`` into its
-    own parameters.  Returns ``model``.
+    min/max where there is one), zero-points, AdaRound ``alpha`` and RootQ
+    running values into its own parameters and buffers.  The passes run in
+    eval mode (BatchNorm on its running statistics, as the JAX package's
+    ``train=False``); each module's mode is restored after.  Returns
+    ``model``.
     """
     batches = list(batches)
-    with torch.no_grad(), full_f32():
-        for b in batches[:observe_passes]:
-            model(b, qmode="observe")
-        model(batches[0], qmode="calibrate")
+    modes = {m: m.training for m in model.modules()}
+    model.eval()
+    try:
+        with torch.no_grad(), full_f32():
+            for b in batches[:observe_passes]:
+                model(b, qmode="observe")
+            model(batches[0], qmode="calibrate")
+    finally:
+        for m, mode in modes.items():
+            m.training = mode
     return model

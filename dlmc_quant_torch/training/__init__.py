@@ -1,2 +1,3 @@
-"""FSPTQ reconstruction and what it needs: losses, schedules, metrics and
+"""Training: the classification and QAT trainers, FSPTQ reconstruction,
+PTQ, and what they share: losses, schedules, optimizers, metrics and
 evaluation."""

@@ -22,7 +22,7 @@ from dlmc_quant_torch.quant.deploy import prepare_deploy
 from dlmc_quant_torch.quant.layers import calibrate, full_f32
 from dlmc_quant_torch.training.losses import get_loss
 from dlmc_quant_torch.training.metrics import get_metric
-from dlmc_quant_torch.utils.checkpoint import save_checkpoint
+from dlmc_quant_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from dlmc_quant_torch.utils.logging import get_logger
 
 
@@ -90,10 +90,6 @@ def run_ptq(config, logger=None) -> Dict:
     logger = logger or get_logger("ptq")
     device = resolve_device(config.device)
     get = config.get
-    if get("resume"):
-        raise NotImplementedError(
-            "resuming from a checkpoint is not ported yet (ROADMAP Queue A, "
-            "QAT + trainers (item 6))")
     loaders = {name: get_dataloader(spec["type"], **(spec.get("args") or {}))
                for name, spec in config["dataloaders"].items()}
     calib_loader = loaders.get("calibration") or loaders.get("train")
@@ -102,6 +98,16 @@ def run_ptq(config, logger=None) -> Dict:
     gen = torch.Generator().manual_seed(config.seed)
     model = config.init_obj("arch", get_model, device=device, generator=gen,
                             scheme=scheme_from_dict(get("quantization")))
+    if get("resume"):
+        # a weights-only checkpoint, or a trainer's (its "model" entry); an
+        # fp checkpoint has no quantizer state, which calibration sets
+        tree, _ = load_checkpoint(get("resume"))
+        _, unexpected = model.load_state_dict(
+            tree["model"] if "optimizer" in tree else tree, strict=False)
+        if unexpected:
+            raise ValueError(f"{get('resume')}: entries with no place in "
+                             f"the model: {unexpected}")
+        logger.info("restored checkpoint from %s", get("resume"))
     loss_fn = get_loss(get("loss", "cross_entropy"))
     metric_fns = {m: get_metric(m) for m in get("metrics", ["accuracy"])}
 

@@ -2,10 +2,11 @@
 
 Counterpart of ``dlmc_quant_tpu/utils/config.py``, with the same YAML
 schema (``name``, ``random_seed``, ``arch``, ``dataloaders``,
-``quantization``, ``loss``, ``metrics``, ``trainer``) and ``-c/--config``.
-``-d/--device`` picks the device: ``cuda`` (the default; raises without a
-card) or ``cpu``.  Resuming from a checkpoint (``-r``) is not ported yet
-(ROADMAP Queue A, QAT + trainers (item 6)).
+``quantization``, ``optimizer``, ``lr_scheduler``, ``loss``, ``metrics``,
+``trainer``), ``-c/--config`` and ``-r/--resume``: a checkpoint directory
+of an earlier run, whose run's ``config.yaml`` (the directory's parent's)
+is read, updated by ``-c`` if given.  ``-d/--device`` picks the device:
+``cuda`` (the default; raises without a card) or ``cpu``.
 """
 
 from __future__ import annotations
@@ -41,12 +42,14 @@ class ConfigParser:
     """
 
     def __init__(self, config: Dict, device: str = "cuda",
-                 run_id: Optional[str] = None, save_to_disk: bool = True):
+                 run_id: Optional[str] = None, save_to_disk: bool = True,
+                 resume: Optional[str] = None):
         if device not in DEVICES:
             raise ValueError(f"device {device!r}: the port runs on one of "
                              f"{DEVICES}")
         self._config = dict(config)
         self.device = device
+        self.resume = resume
         self._config.setdefault("random_seed", random.randint(0, 2 ** 31 - 1))
         if save_to_disk:
             save_root = Path(self._config.get("save_dir", "saved"))
@@ -63,14 +66,26 @@ class ConfigParser:
     @classmethod
     def from_args(cls, args: Optional[Sequence[str]] = None,
                   save_to_disk: bool = True) -> "ConfigParser":
-        """CLI: ``-c/--config`` (required) and ``-d/--device``."""
+        """CLI: ``-c/--config``, ``-r/--resume`` (one of them at least) and
+        ``-d/--device``.  ref: parse_config.py:66-94"""
         parser = argparse.ArgumentParser(description="dlmc_quant_torch")
-        parser.add_argument("-c", "--config", required=True, type=str,
+        parser.add_argument("-c", "--config", default=None, type=str,
                             help="config yaml path")
+        parser.add_argument("-r", "--resume", default=None, type=str,
+                            help="checkpoint directory to resume from")
         parser.add_argument("-d", "--device", default="cuda", choices=DEVICES,
                             help="device to run on (default: cuda)")
         ns = parser.parse_args(args)
-        return cls(read_yaml(ns.config), ns.device, save_to_disk=save_to_disk)
+        if ns.resume is not None:
+            config = read_yaml(Path(ns.resume).parent / "config.yaml")
+            if ns.config is not None:
+                config.update(read_yaml(ns.config))
+        elif ns.config is not None:
+            config = read_yaml(ns.config)
+        else:
+            parser.error("either -c/--config or -r/--resume is required")
+        return cls(config, ns.device, save_to_disk=save_to_disk,
+                   resume=ns.resume)
 
     def init_obj(self, name: str, registry: Callable[..., Any], *args,
                  **kwargs):
@@ -90,6 +105,9 @@ class ConfigParser:
 
     def get(self, name: str, default=None):
         return self._config.get(name, default)
+
+    def __contains__(self, name: str):
+        return name in self._config
 
     @property
     def config(self) -> Dict:

@@ -7,8 +7,10 @@ flax names.  Module paths are the same in both packages, so each port
 module reads the subtree at its own ``named_modules()`` path:
 
 * ``QConv``: ``kernel`` HWIO → OIHW, ``bias``, ``in_scale``, ``wt_scale``,
-  ``alpha`` (HWIO → OIHW), and ``qstate`` ``in_offset`` (FSPTQ's integer
-  zero-point or the plain family's float offset) and ``wt_offset``;
+  ``alpha`` (HWIO → OIHW), RootQ's ``wt_upper``, ``wt_lower`` and
+  ``wt_alpha``, and ``qstate`` ``in_offset`` (FSPTQ's integer zero-point or
+  the plain family's float offset), ``wt_offset`` and RootQ's running
+  values ``in_run_scale``, ``wt_run_upper`` and ``wt_run_lower``;
 * ``QDense``: ``kernel`` and ``alpha`` (in, out) → (out, in), the rest as
   for ``QConv``;
 * ``QBlockOutput``: ``out_scale``, and ``qstate`` ``out_offset``;
@@ -84,7 +86,8 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     for path, module in model.named_modules():
         if isinstance(module, (QConv, QDense)):
             node = _subtree(params, path) or {}
-            for name in ("kernel", "bias", "in_scale", "wt_scale", "alpha"):
+            for name in ("kernel", "bias", "in_scale", "wt_scale", "alpha",
+                         "wt_upper", "wt_lower", "wt_alpha"):
                 if name not in node:
                     continue
                 target = module.weight if name == "kernel" \
@@ -93,7 +96,8 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
                     _key(path, name))
                 unused.discard(_key(path, name))
             qnode = _subtree(qstate, path) or {}
-            for name in ("in_offset", "wt_offset"):
+            for name in ("in_offset", "wt_offset", "in_run_scale",
+                         "wt_run_upper", "wt_run_lower"):
                 if name in qnode and hasattr(module, name):
                     put(getattr(module, name), qnode[name], _key(path, name))
         elif isinstance(module, QBlockOutput):

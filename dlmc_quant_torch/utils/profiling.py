@@ -4,7 +4,8 @@ The port of ``dlmc_quant_tpu/utils/profiling.py`` and, for timing, of
 ``tools/tpu_timing.py``.  :func:`trace` wraps a region in a
 ``torch.profiler`` trace; :class:`StepTimer` times host steps fenced by
 ``torch.cuda.synchronize()``; :func:`event_ms` and :func:`graph_ms` time
-device work with CUDA events; :func:`roofline` and :func:`roof_ms` hold a
+device work with CUDA events; :func:`step_split` splits a training step
+into the card's time and what the host and the gaps add; :func:`roofline` and :func:`roof_ms` hold a
 time against the card's published peaks, :func:`copy_rate` measures the
 memory rate a device copy reaches.  Timing needs a CUDA card: with
 none these raise, they never time the CPU instead.
@@ -164,3 +165,42 @@ def roofline(macs: int, seconds: float, dtype: str = "int8",
     return {"achieved_tops": achieved / 1e12,
             "peak_tops": peak / 1e12,
             "utilization": achieved / peak}
+
+
+def step_split(step: Callable[[], object], steps: int = 20,
+               graph_steps: int = 4) -> Dict[str, float]:
+    """Wall and device ms of one call of ``step()`` (a training step, which
+    must not wait for the card).
+
+    * ``wall_ms``: host clock over ``steps`` calls, then a synchronize.
+    * ``device_ms``: CUDA events around replays of one CUDA graph of
+      ``graph_steps`` steps (:func:`graph_ms`): the card runs the step's
+      kernels back to back, with no host in between.
+    * ``busy_ms``: the kernels' own time a step, summed by the
+      ``torch.profiler`` over ``steps`` calls (0 where it sees no device),
+      and ``kernels``, how many device activities (kernels, copies, sets)
+      it saw a step.
+    * ``host_gap_ms``: ``wall_ms − device_ms``, what the host and the gaps
+      between launches add to a step.
+    """
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = graph_ms(lambda _: step(), graph_steps, reps=3)
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_ms": sum(e.self_device_time_total for e in device)
+            / 1e3 / steps,
+            "kernels": sum(e.count for e in device) / steps,
+            "host_gap_ms": wall_ms - device_ms}

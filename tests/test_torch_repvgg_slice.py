@@ -225,21 +225,42 @@ def test_intc_matches_jax(jax_slice):
     assert np.linalg.norm(y - y_int) / (np.linalg.norm(y_int) + 1e-9) < 2e-2
 
 
+TRAINING_MODULES = (
+    "dlmc_quant_torch.ops.rootq_math", "dlmc_quant_torch.training.trainer",
+    "dlmc_quant_torch.training.qat", "dlmc_quant_torch.training.optimizers",
+    "dlmc_quant_torch.utils.metric_tracker",
+    "dlmc_quant_torch.examples.classification",
+    "dlmc_quant_torch.examples.quantization_aware_training")
+
+
 def test_import_leaves_out_jax():
-    code = ("import sys, dlmc_quant_torch, dlmc_quant_torch.models.fuse, "
-            "dlmc_quant_torch.utils.jax_bridge\n"
+    code = ("import importlib, sys, dlmc_quant_torch, "
+            "dlmc_quant_torch.models.fuse, dlmc_quant_torch.utils.jax_bridge\n"
+            f"for m in {TRAINING_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'flax', 'dlmc_quant_tpu'))]\n"
+            "m.startswith(('jax.', 'flax', 'optax', 'dlmc_quant_tpu'))]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
 
 
-def test_entry_points_need_a_card_or_cpu(monkeypatch):
+def test_entry_points_need_a_card_or_cpu(monkeypatch, tmp_path):
+    from dlmc_quant_torch.examples import classification
+    from dlmc_quant_torch.examples import quantization_aware_training as qat
     from dlmc_quant_torch.quant.deploy import make_serving_fn
+    from dlmc_quant_torch.utils.config import read_yaml, write_yaml
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_model("RepVGG_A0", num_classes=CLASSES, deploy=True)
     model = _port_model(False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_serving_fn(model)
+    for entry, name in ((qat, "RootQ_resnet20_cifar10_w4a4"),
+                        (qat, "QAT_lsq_resnet20_cifar10_w4a4"),
+                        (classification, "baseline_resnet20_cifar10")):
+        cfg = read_yaml(REPO / "examples" / "configs" / f"{name}.yaml")
+        cfg["save_dir"] = str(tmp_path / "saved")
+        path = tmp_path / f"{name}.yaml"
+        write_yaml(cfg, path)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry.main(["-c", str(path)])
