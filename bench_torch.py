@@ -185,7 +185,8 @@ def main() -> int:
         return 1
     device = torch.device("cuda")
     ips, qmode, layout, conv_ms = bench_model(
-        "RepVGG_A0", BATCH, device, {"conv": 22, "gemm": 0, "im2col": 0})
+        "RepVGG_A0", BATCH, device,
+        {"conv": 22, "gemm": 0, "im2col": 0, "stem_pool": 0})
     extra = {"batch": BATCH, "int8_qmode": qmode,
              "fp32_ips": round(ips["fp32"], 1),
              "fp32_strict_ips": round(ips["fp32_strict"], 1),
@@ -196,7 +197,7 @@ def main() -> int:
              "int8_kernels_ms": round(conv_ms, 4)}
     r_ips, r_qmode, r_layout, r_ms = bench_model(
         "resnet50", RESNET50_BATCH, device,
-        {"conv": 16, "gemm": 37, "im2col": 1})
+        {"conv": 16, "gemm": 36, "im2col": 0, "stem_pool": 1})
     key = "resnet50_int8"
     extra.update({
         f"{key}_ips": round(r_ips["int8"], 1),

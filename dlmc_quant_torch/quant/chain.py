@@ -26,20 +26,22 @@ first conv and its shortcut) read as they are.
 
 Unlike the JAX package, a conv's accumulator is not written to memory
 where a consumer can take its epilogue: a 3×3 conv's
-:class:`DeferredEpilogue` holds a :class:`PendingConv`, a 1×1 conv's (and
-the im2col'd 7×7 stem's) a :class:`PendingGemm`, and the consumer runs
-that conv with the folded epilogue fused into it (``"codes"`` mode, with
-the residual term where it closes a block), or, for :func:`materialize`,
-in ``"f32"`` mode.  A pending GEMM used as a shortcut term, and the stem
-that :func:`qmaxpool` pools, run in ``"int32"`` mode: the JAX package's
-int32 accumulator.  ``qrelu6`` is not ported yet (ROADMAP Queue A, rest of
-the zoo (item 7)).
+:class:`DeferredEpilogue` holds a :class:`PendingConv`, a 1×1 conv's a
+:class:`PendingGemm`, a wider window's (the ImageNet 7×7/s2 stem) a
+:class:`PendingWideConv`, and the consumer runs that conv with the folded
+epilogue fused into it (``"codes"`` mode, with the residual term where it
+closes a block), or, for :func:`materialize`, in ``"f32"`` mode.  A
+pending GEMM used as a shortcut term runs in ``"int32"`` mode: the JAX
+package's int32 accumulator.  The stem that :func:`qmaxpool` pools runs
+conv and pool in one kernel (``ops.cuda.int8_stem_pool``), which gives
+the pooled int32 accumulator.  ``qrelu6`` is not ported yet (ROADMAP
+Queue A, rest of the zoo (item 7)).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -47,6 +49,8 @@ import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda.int8_conv import int8_conv3x3
 from dlmc_quant_torch.ops.cuda.int8_gemm import int8_gemm
+from dlmc_quant_torch.ops.cuda.int8_im2col import int8_im2col, out_hw
+from dlmc_quant_torch.ops.cuda.int8_stem_pool import int8_stem_pool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +86,43 @@ class PendingGemm:
         return out.reshape(tuple(self.shape) + (-1,))
 
 
-PENDING = (PendingConv, PendingGemm)
+@dataclasses.dataclass(frozen=True)
+class PendingWideConv:
+    """A padded int8 conv with a window other than 1×1 and 3×3 (the
+    ImageNet 7×7/s2 stem) that has not run yet.  :func:`qmaxpool` runs it
+    with the 3×3/s2 pool after it in ``int8_stem_pool``; every other
+    consumer runs it as ``int8_im2col`` rows through the int8 GEMM."""
+    x: torch.Tensor          # (N, H, W, C) int8 codes
+    weight: torch.Tensor     # packed (O, Kp) int8 (ops.cuda.int8_im2col)
+    pool_weight: Optional[torch.Tensor]  # ops.cuda.int8_stem_pool's layout,
+    #                          None where that kernel does not take the conv
+    kernel: int
+    stride: int
+    pads: tuple              # ((top, bottom), (left, right))
+    pad: int                 # int8 code of real 0 on the input grid
+
+    def run(self, a=None, b=None, **epilogue) -> torch.Tensor:
+        rows = int8_im2col(self.x, kernel=self.kernel, stride=self.stride,
+                           pads=self.pads, pad=self.pad)
+        n, h, w, _ = self.x.shape
+        shape = (n,) + out_hw(h, w, self.kernel, self.stride, self.pads)
+        return PendingGemm(rows, self.weight, shape).run(a, b, **epilogue)
+
+    def pool(self) -> torch.Tensor:
+        """The accumulator max-pooled 3×3/s2 with pads 1, int32."""
+        if self.pool_weight is None:
+            raise NotImplementedError(
+                f"a {self.kernel}x{self.kernel}/s{self.stride} conv of "
+                f"{tuple(self.x.shape)} codes is not pooled on the chain: "
+                "int8_stem_pool takes the 7x7/s2 stem, C <= 4, O a "
+                "multiple of 16 up to 128")
+        return int8_stem_pool(self.x, self.pool_weight, pads=self.pads,
+                              pad=self.pad)
+
+
+PENDING = (PendingConv, PendingGemm, PendingWideConv)
+# the pool that follows the ImageNet stem: window, strides, padding
+STEM_POOL = ((3, 3), (2, 2), ((1, 1), (1, 1)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,10 +130,10 @@ class DeferredEpilogue:
     """Lazy layer output: real value = ``relu?(acc·scale + bias)``.
 
     ``acc`` is an int32 tensor (dense layers, the pooled stem) or a
-    :class:`PendingConv` or :class:`PendingGemm` whose accumulator the
-    consumer computes with its epilogue fused.
+    pending conv (:data:`PENDING`) whose accumulator the consumer computes
+    with its epilogue fused.
     """
-    acc: Union[torch.Tensor, PendingConv, PendingGemm]
+    acc: Union[torch.Tensor, PendingConv, PendingGemm, PendingWideConv]
     scale: torch.Tensor      # (O,) f32
     bias: torch.Tensor       # (O,) f32
     relu: bool = False
@@ -149,22 +189,20 @@ def qmaxpool(x, window, strides, padding):
     monotone too), so pooling the int32 accumulator (or the int8 codes)
     and keeping the boundary foldable equals pooling the values; pads lose
     to every window element, as JAX's ``iinfo.min`` and -128 do.  A pending
-    accumulator (the 7×7 stem's GEMM) runs in ``"int32"`` mode first.
-    Integers are pooled as an exact float32 view: codes always, an
-    accumulator because |acc| ≤ K·128² < 2²⁴ (checked from the GEMM's K),
+    stem conv (:class:`PendingWideConv`) and the ImageNet pool after it
+    (:data:`STEM_POOL`) run together in ``int8_stem_pool``, which gives the
+    pooled int32 accumulator.  Codes are pooled as an exact float32 view,
     as CUDA's max pool takes no integer type.
     """
     if isinstance(x, DeferredEpilogue):
-        if not isinstance(x.acc, PendingGemm):
-            raise ValueError("qmaxpool pools a pending GEMM's accumulator "
-                             "(the 7x7 stem), whose bound it knows")
-        k = x.acc.x.shape[1]
-        if k * 128 ** 2 >= 2 ** 24:
-            raise ValueError(f"K = {k}: the accumulator may not be exact in "
-                             "float32")
-        acc = _max_pool(x.acc.run(mode="int32").to(torch.float32), window,
-                        strides, padding)
-        return dataclasses.replace(x, acc=acc.to(torch.int32))
+        if not (isinstance(x.acc, PendingWideConv) and
+                (tuple(window), tuple(strides),
+                 tuple(map(tuple, padding))) == STEM_POOL):
+            raise NotImplementedError(
+                "qmaxpool pools a pending wide-window conv (the ImageNet "
+                f"stem) with the {STEM_POOL} pool, got "
+                f"{type(x.acc).__name__} and {(window, strides, padding)}")
+        return dataclasses.replace(x, acc=x.acc.pool())
     if isinstance(x, QuantizedTensor):
         q = _max_pool(x.q.to(torch.float32), window, strides, padding)
         return dataclasses.replace(x, q=q.to(torch.int8))
@@ -226,7 +264,7 @@ def _residual_operand(r, inv_s: float, o: int, device):
     if isinstance(r, DeferredEpilogue) and not r.relu \
             and not isinstance(r.acc, PendingConv):
         # the int32 accumulator (a pending shortcut GEMM runs for it)
-        acc = r.acc.run(mode="int32") if isinstance(r.acc, PendingGemm) \
+        acc = r.acc.run(mode="int32") if isinstance(r.acc, PENDING) \
             else r.acc
         return (acc.contiguous(), (r.scale * inv_s).contiguous(),
                 (r.bias * inv_s).contiguous())

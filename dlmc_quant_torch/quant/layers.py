@@ -49,7 +49,8 @@ per-channel weight axis is 0.
 * Integer convs: 3×3 (``ops.cuda.int8_conv``, SAME or pad-1 geometry),
   1×1 (``ops.cuda.int8_gemm`` on the subsampled codes) and any other
   ungrouped square window, such as the ImageNet 7×7/s2 stem
-  (``ops.cuda.int8_im2col`` rows into ``int8_gemm``, any pads); all take
+  (``ops.cuda.int8_stem_pool`` with the max pool after it, else
+  ``ops.cuda.int8_im2col`` rows into ``int8_gemm``, any pads); all take
   int8 codes on the layer's own grid or a :class:`QuantizedTensor` on a
   producer's, whose epilogue is re-derived from the stored column sums.
   Each leaves its conv pending for the consumer (``quant/chain.py``).
@@ -69,7 +70,7 @@ import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda.int8_conv import pack_weight
 from dlmc_quant_torch.ops.cuda.int8_gemm import pack_b
-from dlmc_quant_torch.ops.cuda.int8_im2col import int8_im2col, out_hw
+from dlmc_quant_torch.ops.cuda import int8_stem_pool as stem_pool
 from dlmc_quant_torch.ops.cuda.int8_im2col import \
     pack_weight as pack_rows_weight
 from dlmc_quant_torch.ops import rootq_math as rq
@@ -81,9 +82,9 @@ from dlmc_quant_torch.ops.observers import (StreamingState, get_qparams_tensor,
                                             streaming_init, streaming_update)
 from dlmc_quant_torch.quant import deploy as dp
 from dlmc_quant_torch.quant.chain import (DeferredEpilogue, PendingConv,
-                                          PendingGemm, QuantizedTensor,
-                                          fold_quantize, fold_sum_quantize,
-                                          materialize)
+                                          PendingGemm, PendingWideConv,
+                                          QuantizedTensor, fold_quantize,
+                                          fold_sum_quantize, materialize)
 
 QMODES = ("fp", "eval", "calibrate", "observe", "train", "int", "intc")
 
@@ -556,8 +557,9 @@ class QConv(QLayer):
         grid unless an epilogue and pad code are given), with the conv and
         its epilogue left to the consumer (see quant/chain.py): a 3×3 conv
         pending for the conv kernel, a 1×1 conv for the int8 GEMM on the
-        subsampled codes, any other window for the GEMM on its im2col rows
-        (built here, with the pad code at the borders)."""
+        subsampled codes, any other window as a :class:`PendingWideConv`
+        (the stem kernel where a max pool follows, else im2col rows with
+        the pad code at the borders into the GEMM)."""
         if epi_scale is None:
             epi_scale, bias_eff = self.epi_scale, self.bias_eff
             pad = self.plan_scalars["pad_val"]
@@ -565,7 +567,7 @@ class QConv(QLayer):
             raise NotImplementedError(
                 f"{self.path}: grouped convs have no integer path yet "
                 "(ROADMAP Queue A, rest of the zoo (item 7))")
-        n, h, w, _ = x_i8.shape
+        _, h, w, _ = x_i8.shape
         pads = self.spatial_pads(h, w)
         (top, bottom), (left, right) = pads
         s, k = self.stride, self.kernel_size
@@ -578,10 +580,8 @@ class QConv(QLayer):
                                   self.w_gemm, tuple(codes.shape[:3]))
             return DeferredEpilogue(pending, epi_scale, bias_eff)
         if k != 3:
-            rows = int8_im2col(x_i8.contiguous(), kernel=k, stride=s,
-                               pads=pads, pad=pad)
-            pending = PendingGemm(rows, self.w_gemm,
-                                  (n,) + out_hw(h, w, k, s, pads))
+            pending = PendingWideConv(x_i8.contiguous(), self.w_gemm,
+                                      self.w_stem, k, s, pads, pad)
             return DeferredEpilogue(pending, epi_scale, bias_eff)
         # the kernel pads `top` rows above (0 or 1) and what the window
         # needs below, and gives ceil(h / s) rows: that must be this conv
@@ -606,6 +606,12 @@ class QConv(QLayer):
             self.register_buffer("w_gemm", pack_b(w_hwio[0, 0]))
         else:
             self.register_buffer("w_gemm", pack_rows_weight(w_hwio))
+            # the stem kernel's layout, where it takes the conv
+            c, o = w_hwio.shape[2:]
+            stem = (self.kernel_size, self.stride) == \
+                (stem_pool.KERNEL, stem_pool.STRIDE) and stem_pool.takes(c, o)
+            self.register_buffer(
+                "w_stem", stem_pool.pack_weight(w_hwio) if stem else None)
 
 
 def _int8_matmul(x_i8: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:

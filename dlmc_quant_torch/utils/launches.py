@@ -1,9 +1,9 @@
 """Record the kernel launches of a chained int8 forward and hold each
 against its plain version.
 
-:class:`LaunchRecorder` wraps the kernel wrappers where the chain and the
-layers call them (the 3×3 conv and the GEMM in ``quant/chain.py``, the
-im2col in ``quant/layers.py``), so one forward gives every launch
+:class:`LaunchRecorder` wraps the kernel wrappers where the chain calls
+them (the 3×3 conv, the GEMM, the im2col and the stem conv + pool, all in
+``quant/chain.py``), so one forward gives every launch
 with its arguments and output; :func:`max_diff_to_plain` runs a recorded
 launch's plain version on the same arguments.  ``chip_smoke.py`` and
 ``bench_torch.py`` check and time the launches of a request with these.
@@ -16,21 +16,23 @@ import torch
 from dlmc_quant_torch.ops.cuda import int8_conv as _conv
 from dlmc_quant_torch.ops.cuda import int8_gemm as _gemm
 from dlmc_quant_torch.ops.cuda import int8_im2col as _im2col
+from dlmc_quant_torch.ops.cuda import int8_stem_pool as _stem
 from dlmc_quant_torch.quant import chain as _chain
-from dlmc_quant_torch.quant import layers as _layers
 
 # kind → (kernel wrapper, plain version)
 KERNELS = {"conv": (_conv.int8_conv3x3, _conv.int8_conv3x3_plain),
            "gemm": (_gemm.int8_gemm, _gemm.int8_gemm_plain),
-           "im2col": (_im2col.int8_im2col, _im2col.int8_im2col_plain)}
+           "im2col": (_im2col.int8_im2col, _im2col.int8_im2col_plain),
+           "stem_pool": (_stem.int8_stem_pool, _stem.int8_stem_pool_plain)}
 # where the port calls each wrapper: (module, attribute, kind)
 _SITES = ((_chain, "int8_conv3x3", "conv"), (_chain, "int8_gemm", "gemm"),
-          (_layers, "int8_im2col", "im2col"))
+          (_chain, "int8_im2col", "im2col"),
+          (_chain, "int8_stem_pool", "stem_pool"))
 
 
 class LaunchRecorder:
     """``with LaunchRecorder() as rec: model(x, qmode="intc")`` records
-    every conv, GEMM and im2col call in ``rec.calls`` as (kind, args,
+    every kernel wrapper's call in ``rec.calls`` as (kind, args,
     keywords, output); each wrapper still counts its own launches."""
 
     def __enter__(self):

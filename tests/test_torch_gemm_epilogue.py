@@ -11,8 +11,9 @@ kernels of the ImageNet ResNet path against the JAX package.
 * The 7×7/s2 stem as ``int8_im2col`` rows through ``int8_gemm``: equal to
   JAX's int8 conv over the pad-code-padded codes (SAME pads (2, 3)), and
   the plain im2col to a float64 ``F.conv2d``, at ragged shapes.
-* ``qmaxpool`` on the stem's int32 accumulator and on int8 codes equals
-  JAX's ``qmaxpool`` exactly.
+* ``qmaxpool`` on the stem's pending conv (conv and pool in
+  ``int8_stem_pool``) and on int8 codes equals JAX's ``qmaxpool``
+  exactly.
 * The compiled epilogue tiles are the source's; the wrappers raise on
   what the kernels do not take.
 * ``cuda``-marked tests hold both kernels against their plain versions on
@@ -30,13 +31,14 @@ import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda import int8_gemm as G
+from dlmc_quant_torch.ops.cuda import int8_stem_pool as stem_pool
 from dlmc_quant_torch.ops.cuda.epilogue import epilogue_plain
 from dlmc_quant_torch.ops.cuda.int8_im2col import (int8_im2col,
                                                    int8_im2col_plain,
                                                    out_hw, pack_weight)
 from dlmc_quant_torch.quant.chain import (DeferredEpilogue, PendingGemm,
-                                          QuantizedTensor, fold_sum_quantize,
-                                          qmaxpool)
+                                          PendingWideConv, QuantizedTensor,
+                                          fold_sum_quantize, qmaxpool)
 
 torch.set_num_threads(1)
 
@@ -189,23 +191,28 @@ def test_im2col_plain_equals_padded_conv(n, h, w, c, k, s, pads):
 
 
 def test_qmaxpool_equals_jax():
-    """The stem's pending accumulator (run in int32 mode) and int8 codes,
-    pooled 3×3/s2 with pads 1, as JAX pools them."""
-    _, jnp, jchain = _jax()
+    """The stem's pending conv (7×7/s2 on a 28×28 map, SAME pads (2, 3),
+    run with its pool by int8_stem_pool) and int8 codes, pooled 3×3/s2
+    with pads 1, as JAX pools them."""
+    jax, jnp, jchain = _jax()
     rng = np.random.default_rng(6)
-    x = rng.integers(-128, 128, (2 * 14 * 14, 160), dtype=np.int8)
-    x[:, 147:] = 0
-    w = rng.integers(-128, 128, (147, 16), dtype=np.int8)
-    acc = _acc(x[:, :147], w).reshape(2, 14, 14, 16)
+    x = rng.integers(-128, 128, (2, 28, 28, 3), dtype=np.int8)
+    wk = rng.integers(-128, 128, (7, 7, 3, 16), dtype=np.int8)
+    pad, pads = 9, ((2, 3), (2, 3))
+    xp = jnp.pad(jnp.asarray(x), ((0, 0), (2, 3), (2, 3), (0, 0)),
+                 constant_values=jnp.int8(pad))
+    acc = jax.lax.conv_general_dilated(
+        xp, jnp.asarray(wk), (2, 2), "VALID",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.int32)
     scale, bias = np.ones(16, np.float32), np.zeros(16, np.float32)
     args = ((3, 3), (2, 2), ((1, 1), (1, 1)))
     want = jchain.qmaxpool(jchain.DeferredEpilogue(
-        jnp.asarray(acc), jnp.asarray(scale), jnp.asarray(bias), relu=True),
-        *args)
-    wp = torch.zeros((160, 16), dtype=torch.int8)
-    wp[:147] = torch.from_numpy(w)
-    de = DeferredEpilogue(PendingGemm(torch.from_numpy(x), G.pack_b(wp),
-                                      (2, 14, 14)), *_t(scale, bias), True)
+        acc, jnp.asarray(scale), jnp.asarray(bias), relu=True), *args)
+    w_t = torch.from_numpy(wk)
+    de = DeferredEpilogue(PendingWideConv(
+        torch.from_numpy(x), pack_weight(w_t), stem_pool.pack_weight(w_t), 7,
+        2, pads, pad), *_t(scale, bias), True)
     got = qmaxpool(de, *args)
     assert got.relu and got.acc.dtype == torch.int32
     assert got.acc.shape == (2, 7, 7, 16)

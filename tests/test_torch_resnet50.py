@@ -18,7 +18,8 @@ activations).
   accumulator equal; each block's output codes at most one code apart on
   at most 0.1 % of the values; logits within relative L2 2e-2.
 * The launches of one port ``intc`` request (wrapper calls, counted on the
-  CPU as on the card).
+  CPU as on the card): the ImageNet stem and its pool are one
+  ``int8_stem_pool`` launch.
 * The 7×7/s2 stem's SAME pads equal flax's; the ``resnet50`` parameter
   count equals JAX's (``jax.eval_shape``, no init).
 """
@@ -40,9 +41,10 @@ from dlmc_quant_tpu.quant.layers import QConv as JQConv
 from dlmc_quant_tpu.quant.layers import calibrate as jax_calibrate
 from dlmc_quant_torch.models import get_model
 from dlmc_quant_torch.models.fuse import resnet_deploy
-from dlmc_quant_torch.quant import chain, layers
+from dlmc_quant_torch.quant import chain
 from dlmc_quant_torch.quant.chain import (DeferredEpilogue, PendingGemm,
-                                          QuantizedTensor, qmaxpool, qrelu)
+                                          PendingWideConv, QuantizedTensor,
+                                          qmaxpool, qrelu)
 from dlmc_quant_torch.quant.config import scheme_from_dict as port_scheme
 from dlmc_quant_torch.quant.deploy import prepare_deploy
 from dlmc_quant_torch.quant.layers import QConv
@@ -57,11 +59,12 @@ SCHEME = {"quantization_type": "FSPTQ",
           "input": {"enable": True, "type": "minmax_tensor",
                     "args": {"n_bits": 8, "signed": False}}}
 # arch → (image size, classes, launches of one intc request: 3x3 convs,
-# GEMMs, im2cols).  cifar_resnet50: the 3x3 stem runs for each of its two
-# consumers, 16 conv2s; 16 conv1 + 16 conv3 + 4 downsample GEMMs.
-# resnet18: 16 3x3 convs; the stem's GEMM and 3 downsamples; one im2col.
-ARCHS = {"cifar_resnet50": (32, 10, (18, 36, 0)),
-         "resnet18": (64, 1000, (16, 4, 1))}
+# GEMMs, im2cols, stem convs + pools).  cifar_resnet50: the 3x3 stem runs
+# for each of its two consumers, 16 conv2s; 16 conv1 + 16 conv3 + 4
+# downsample GEMMs.  resnet18: 16 3x3 convs; 3 downsample GEMMs; the 7x7
+# stem and its pool in one int8_stem_pool.
+ARCHS = {"cifar_resnet50": (32, 10, (18, 36, 0, 0)),
+         "resnet18": (64, 1000, (16, 3, 0, 1))}
 
 
 def _np(tree):
@@ -195,7 +198,7 @@ def test_intc_convs_match_jax_on_its_inputs(case):
             de = m.deferred(torch.from_numpy(np.array(codes_j)), epi_scale,
                             bias_eff, pad)
             acc_j = np.asarray(y_j.acc)
-            if isinstance(de.acc, PendingGemm):
+            if isinstance(de.acc, (PendingGemm, PendingWideConv)):
                 acc = de.acc.run(mode="int32").numpy()
                 assert np.array_equal(acc, acc_j), path
             else:   # the conv kernel has no int32 mode: f32(acc) exactly
@@ -223,8 +226,8 @@ def test_intc_convs_match_jax_on_its_inputs(case):
 @pytest.mark.parametrize("case", ["resnet18"], indirect=True)
 def test_pooled_stem_matches_jax(case):
     """The stem on JAX's input codes, ReLU-flagged and pooled on the
-    chain: the pooled int32 accumulator equals the one JAX hands the
-    first block."""
+    chain (int8_stem_pool's conv + pool): the pooled int32 accumulator
+    equals the one JAX hands the first block."""
     _, seen = _jax_intc(case, _images(3, case["size"]))
     x_j, _ = seen["conv1"]
     codes_j = _jax_codes(x_j, case["qint"]["conv1"])
@@ -233,7 +236,7 @@ def test_pooled_stem_matches_jax(case):
     assert isinstance(want, jchain.DeferredEpilogue) and want.relu
     with torch.no_grad():
         de = stem.deferred(torch.from_numpy(np.array(codes_j)))
-        assert isinstance(de.acc, PendingGemm)
+        assert isinstance(de.acc, PendingWideConv)
         pooled = qmaxpool(qrelu(de), (3, 3), (2, 2), ((1, 1), (1, 1)))
     assert pooled.relu and pooled.acc.dtype == torch.int32
     assert np.array_equal(pooled.acc.numpy(), np.asarray(want.acc))
@@ -264,16 +267,17 @@ def test_intc_blocks_and_logits_match_jax(case):
 
 
 class _Counter:
-    """Counts calls of the kernel wrappers where the chain and the layers
-    reach them (on the CPU they run the plain versions)."""
+    """Counts calls of the kernel wrappers where the chain reaches them
+    (on the CPU they run the plain versions)."""
+
+    KINDS = {"conv": "int8_conv3x3", "gemm": "int8_gemm",
+             "im2col": "int8_im2col", "stem_pool": "int8_stem_pool"}
 
     def __init__(self, monkeypatch):
-        self.n = {"conv": 0, "gemm": 0, "im2col": 0}
-        for kind, mod, attr in (("conv", chain, "int8_conv3x3"),
-                                ("gemm", chain, "int8_gemm"),
-                                ("im2col", layers, "int8_im2col")):
-            monkeypatch.setattr(mod, attr, self._wrap(kind,
-                                                      getattr(mod, attr)))
+        self.n = dict.fromkeys(self.KINDS, 0)
+        for kind, attr in self.KINDS.items():
+            monkeypatch.setattr(chain, attr, self._wrap(kind,
+                                                        getattr(chain, attr)))
 
     def _wrap(self, kind, fn):
         def wrapped(*args, **kw):
@@ -287,8 +291,7 @@ def test_intc_request_launches(case, monkeypatch):
     with torch.no_grad():
         case["port"](torch.from_numpy(_images(4, case["size"])),
                      qmode="intc")
-    assert (count.n["conv"], count.n["gemm"], count.n["im2col"]) == \
-        case["launches"]
+    assert tuple(count.n.values()) == case["launches"]
 
 
 @pytest.mark.parametrize("size", [224, 64, 65])
