@@ -15,8 +15,11 @@ keys).  Prints ONE JSON line:
 same deploy-form model's ``"fp"`` forward at PyTorch's defaults (cuDNN
 convs in TF32).  ``extra`` sets it beside strict float32 (``full_f32``:
 TF32 off, deterministic cuDNN) and bf16 autocast, carries ResNet-50 at
-batch 256 (``resnet50_int8_*``, bench.py's second headline) and, for the
-extras the port cannot build yet, ``<key>_error`` naming their ROADMAP item.
+batch 256 (``resnet50_int8_*``, bench.py's second headline), bench.py's
+extras MobileOne-S1 and MobileNetV2 at batch 256 (``mobileone_s1_int8_*``,
+``mobilenet_v2_int8_*``: the deploy form, as bench.py benches it) and, for
+the extras the port cannot build yet, ``<key>_error`` naming their ROADMAP
+item.
 
 The float baseline is not handicapped: the activations stay NHWC, whose
 NCHW view is channels_last, and the fp model's weights are converted to
@@ -26,7 +29,7 @@ request is profiled and the layout-transform kernels it runs are counted
 request of each model is held against its plain version (tolerance 0);
 a mismatch exits non-zero.  Those launches are then replayed back to back
 in a CUDA graph: ``int8_kernels_ms`` (A0's 22 convs at batch 512) and
-``resnet50_int8_kernels_ms`` are their device ms.
+``<key>_kernels_ms`` of the other models are their device ms.
 
 Timing: per form, 3 warm-up requests, then interleaved rounds (int8, fp32,
 strict f32, bf16) of 30 back-to-back requests between two CUDA events, best
@@ -52,15 +55,21 @@ BATCH = 512          # bench.py:50
 ITERS, WARMUP, ROUNDS = 30, 3, 3
 SIZE, CLASSES, SEED = 224, 1000, 0
 RESNET50_BATCH = 256  # bench.py:189-190
-# (bench.py:186-207) the extras the port cannot build yet, by ROADMAP item
+# bench.py's other models at batch 256 (bench.py:186-207): key, registry
+# name, the launches of one int8 request (3x3 convs, GEMMs, im2cols, stem
+# convs + pools, depthwise convs)
+LAUNCHES = dict(conv=0, gemm=0, im2col=0, stem_pool=0, dwconv=0)
+EXTRAS = (("resnet50_int8", "resnet50",
+           dict(LAUNCHES, conv=16, gemm=36, stem_pool=1)),
+          ("mobileone_s1_int8", "mobileone_s1",
+           dict(LAUNCHES, conv=1, gemm=21, dwconv=21)),
+          ("mobilenet_v2_int8", "mobilenet_v2",
+           dict(LAUNCHES, conv=1, gemm=39, dwconv=17)))
+# the extras the port cannot build yet, by ROADMAP item
 NOT_PORTED = {
-    "mobileone_s1_int8": "ROADMAP Queue A item 7 (rest of the zoo: "
-                         "MobileOne)",
     "mobileone_s1_w4a8": "ROADMAP Queue A item 8 (W4 execution)",
     "repvgg_d2se_int8": "ROADMAP Queue A item 7 (rest of the zoo: D2se, "
                         "SEBlock)",
-    "mobilenet_v2_int8": "ROADMAP Queue A item 7 (rest of the zoo: "
-                         "depthwise convs, qrelu6)",
 }
 LAYOUT_KERNEL = re.compile(r"nchwToNhwc|nhwcToNchw|copy|transpose", re.I)
 
@@ -185,8 +194,7 @@ def main() -> int:
         return 1
     device = torch.device("cuda")
     ips, qmode, layout, conv_ms = bench_model(
-        "RepVGG_A0", BATCH, device,
-        {"conv": 22, "gemm": 0, "im2col": 0, "stem_pool": 0})
+        "RepVGG_A0", BATCH, device, dict(LAUNCHES, conv=22))
     extra = {"batch": BATCH, "int8_qmode": qmode,
              "fp32_ips": round(ips["fp32"], 1),
              "fp32_strict_ips": round(ips["fp32_strict"], 1),
@@ -195,22 +203,21 @@ def main() -> int:
              "vs_bf16": round(ips["int8"] / ips["bf16"], 3),
              "fp32_layout_kernels": layout,
              "int8_kernels_ms": round(conv_ms, 4)}
-    r_ips, r_qmode, r_layout, r_ms = bench_model(
-        "resnet50", RESNET50_BATCH, device,
-        {"conv": 16, "gemm": 36, "im2col": 0, "stem_pool": 1})
-    key = "resnet50_int8"
-    extra.update({
-        f"{key}_ips": round(r_ips["int8"], 1),
-        f"{key}_fp32_ips": round(r_ips["fp32"], 1),
-        f"{key}_vs_fp32": round(r_ips["int8"] / r_ips["fp32"], 3),
-        f"{key}_fp32_strict_ips": round(r_ips["fp32_strict"], 1),
-        f"{key}_vs_fp32_strict": round(r_ips["int8"] / r_ips["fp32_strict"],
-                                       3),
-        f"{key}_bf16_ips": round(r_ips["bf16"], 1),
-        f"{key}_vs_bf16": round(r_ips["int8"] / r_ips["bf16"], 3),
-        f"{key}_batch": RESNET50_BATCH, f"{key}_qmode": r_qmode,
-        f"{key}_fp32_layout_kernels": r_layout,
-        f"{key}_kernels_ms": round(r_ms, 4)})
+    for key, name, expect in EXTRAS:
+        r_ips, r_qmode, r_layout, r_ms = bench_model(
+            name, RESNET50_BATCH, device, expect)
+        extra.update({
+            f"{key}_ips": round(r_ips["int8"], 1),
+            f"{key}_fp32_ips": round(r_ips["fp32"], 1),
+            f"{key}_vs_fp32": round(r_ips["int8"] / r_ips["fp32"], 3),
+            f"{key}_fp32_strict_ips": round(r_ips["fp32_strict"], 1),
+            f"{key}_vs_fp32_strict": round(
+                r_ips["int8"] / r_ips["fp32_strict"], 3),
+            f"{key}_bf16_ips": round(r_ips["bf16"], 1),
+            f"{key}_vs_bf16": round(r_ips["int8"] / r_ips["bf16"], 3),
+            f"{key}_batch": RESNET50_BATCH, f"{key}_qmode": r_qmode,
+            f"{key}_fp32_layout_kernels": r_layout,
+            f"{key}_kernels_ms": round(r_ms, 4)})
     for key, item in NOT_PORTED.items():
         extra[f"{key}_error"] = f"not ported yet: {item}"
     extra["card"] = card_line()

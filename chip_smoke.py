@@ -2,26 +2,32 @@
 """Smoke run of the PyTorch port on one CUDA card: RepVGG-A0 chained int8,
 FSPTQ reconstruction served through the conv kernel, chained int8
 cifar_resnet18, BASELINE config #1's PTQ entry, chained int8 ResNet-50,
-the training path (LSQ and RootQ QAT, fp32, QAT -> deploy, ResNet-50 RootQ),
+chained int8 MobileNetV2 and MobileOne-S1 (the depthwise kernel), the
+training path (LSQ and RootQ QAT, fp32, QAT -> deploy, ResNet-50 RootQ),
 then the two int8 GEMM tools.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   the five kernels from dlmc_quant_torch/ops/cuda/csrc (int8
+  1. build   the six kernels from dlmc_quant_torch/ops/cuda/csrc (int8
              3x3 conv, int8 GEMM, int8 im2col, int8 stem conv + pool, int8
-             MMA probe), one nvcc each, all at once (prints the build
+             depthwise 3x3 conv, int8 MMA probe), one nvcc each, all at
+             once (prints the build
              seconds, ptxas' report of registers and spills, and the
              dynamic shared memory of every GEMM tile and of the probe's
              ring); then the card tests of the conv at ragged shapes, the
              SAME stride-2 geometry, the residual epilogue, the GEMM at the
              ResNet-18 shortcut shapes and the GEMM's epilogue modes and
              the im2col at ragged M, every epilogue tile and residual
-             dtype, and the stem conv + pool at ragged shapes, every band
-             size and ResNet-50's stem at batch 8 and 256
-             (tests/test_torch_int8_conv.py, tests/test_torch_resnet_conv.py,
-             tests/test_torch_gemm_epilogue.py and
-             tests/test_torch_stem_pool.py, -m cuda), before any timing;
+             dtype, the stem conv + pool at ragged shapes, every band
+             size and ResNet-50's stem at batch 8 and 256, the depthwise
+             conv at MobileNetV2's and MobileOne-S1's shapes at batch 8 and
+             256 and at ragged shapes, the two models' stems and the GEMM
+             at 24 channels (tests/test_torch_int8_conv.py,
+             tests/test_torch_resnet_conv.py,
+             tests/test_torch_gemm_epilogue.py,
+             tests/test_torch_stem_pool.py, tests/test_torch_dwconv.py and
+             tests/test_torch_mobile.py, -m cuda), before any timing;
   2. kernel  RepVGG-A0 deploy form at 224x224, full width, seeded random
              weights, calibrated on one seeded batch (FSPTQ W8A8 with
              AdaRound decisions) and prepared for integer execution.  At
@@ -96,6 +102,25 @@ Phases, each fatal on failure:
            and the request's split (input quantize, stem + pool, the 52
            other kernels, pool + head; CUDA graphs) and the rest (host and
            gaps);
+  mobile   MobileNetV2 and MobileOne-S1 at full published width, 224x224,
+           1000 classes: train form with seeded weights and perturbed BN
+           statistics -> its fuser (mobilenet_deploy, mobileone_fuse) ->
+           the bench's W8A8 scheme -> calibrate on one seeded batch of 32
+           -> prepare_deploy.  At batch 8 and 256 every launch of one
+           chained request (the 3x3 stem conv, the depthwise convs, the
+           1x1 GEMMs in codes, f32, int32 and residual modes) against its
+           plain version, tolerance 0; per launch kernel us, bound us,
+           kernel / bound, and for each depthwise launch its plain ms and,
+           as context, a bf16 F.conv2d(groups=C) of the same shape.  Then
+           make_serving_fn(qmode="intc") answers 6 requests of 256
+           images: logits finite, (256, 1000), within relative L2 2e-2 of
+           the CPU plain path on 8 images, MobileNetV2 1 conv + 39 GEMM +
+           17 depthwise launches a request (16 expand, 17 project, the
+           head and 5 int32 re-runs of a project GEMM that is also a
+           residual block's shortcut), MobileOne-S1 1 + 21 + 21; median
+           request ms, images/s, and the split: input quantize, the
+           kernels by kind, the K-pad copies (MobileNetV2's 24-channel
+           maps into the GEMM), pool + head, and the rest (host and gaps);
   qat      the training path (examples/configs): (a) both QAT configs
            (LSQ and RootQ W4A4) at full width through the QAT entry's
            build_trainer (classification's build_common -> calibrate on the
@@ -155,6 +180,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -165,17 +191,20 @@ from dlmc_quant_torch import (FSPTQTrainer, attach_scheme, calibrate,
 from dlmc_quant_torch.examples import classification as fp_entry
 from dlmc_quant_torch.examples import post_training_quantization as ptq_entry
 from dlmc_quant_torch.examples import quantization_aware_training as qat_entry
-from dlmc_quant_torch.models.fuse import repvgg_fuse, resnet_deploy
+from dlmc_quant_torch.models.fuse import (mobilenet_deploy, repvgg_fuse,
+                                          resnet_deploy)
+from dlmc_quant_torch.models.mobileone import mobileone_fuse
 from dlmc_quant_torch.models.resnet_cifar import BatchNorm
 from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda import int8_conv as K
+from dlmc_quant_torch.ops.cuda import int8_dwconv as DW
 from dlmc_quant_torch.ops.cuda import int8_gemm as G
 from dlmc_quant_torch.ops.cuda import int8_im2col as I
 from dlmc_quant_torch.ops.cuda import int8_mma_probe as P
 from dlmc_quant_torch.ops.cuda import int8_stem_pool as SP
 from dlmc_quant_torch.quant.chain import (fold_params, materialize, qmaxpool,
-                                          qrelu)
-from dlmc_quant_torch.quant.layers import full_f32
+                                          qrelu, qrelu6)
+from dlmc_quant_torch.quant.layers import QConv, full_f32
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
 from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
                                               bound_by, card_line, event_ms,
@@ -196,9 +225,20 @@ CONFIGS = REPO / "examples" / "configs"
 CONFIG_1 = CONFIGS / "PTQ_resnet18_cifar10_w8a8.yaml"
 CIFAR_SIZE, CIFAR_CLASSES = 32, 10
 # launches of one chained request: 3x3 convs, GEMMs, im2cols, stem convs
-# + pools
-RESNET18_LAUNCHES = {"conv": 18, "gemm": 3, "im2col": 0, "stem_pool": 0}
-RESNET50_LAUNCHES = {"conv": 16, "gemm": 36, "im2col": 0, "stem_pool": 1}
+# + pools, depthwise convs
+RESNET18_LAUNCHES = {"conv": 18, "gemm": 3, "im2col": 0, "stem_pool": 0,
+                     "dwconv": 0}
+RESNET50_LAUNCHES = {"conv": 16, "gemm": 36, "im2col": 0, "stem_pool": 1,
+                     "dwconv": 0}
+# the depthwise zoo: train-form factory, its fuser, the launches of a
+# request, and the module whose (activated) output the pool reads
+MOBILE = {
+    "mobilenet_v2": (mobilenet_deploy, {"conv": 1, "gemm": 39, "im2col": 0,
+                                        "stem_pool": 0, "dwconv": 17},
+                     "conv_head"),
+    "MobileOne_S1": (mobileone_fuse, {"conv": 1, "gemm": 21, "im2col": 0,
+                                      "stem_pool": 0, "dwconv": 21},
+                     "stage4_0_pw")}
 # the training path: configs, cuts and what must move
 QAT_CONFIGS = {"lsq": "QAT_lsq_resnet20_cifar10_w4a4",
                "rootq": "RootQ_resnet20_cifar10_w4a4"}
@@ -207,7 +247,8 @@ FP_CONFIG, R50_CONFIG = ("baseline_resnet20_cifar10",
                          "RootQ_resnet50_imagenet_w4a4")
 QAT_IMAGES, TIMED_STEPS, EVAL_IMAGES = 2048, 20, 64
 R50_BATCH, R50_STEPS = 64, 4
-QAT_W8A8_LAUNCHES = {"conv": 18, "gemm": 0, "im2col": 0, "stem_pool": 0}
+QAT_W8A8_LAUNCHES = {"conv": 18, "gemm": 0, "im2col": 0, "stem_pool": 0,
+                     "dwconv": 0}
 SCHEME = {
     "quantization_type": "FSPTQ",
     "weight": {"enable": True, "type": "minmax_channel",
@@ -227,20 +268,24 @@ def images(n: int, seed: int, device) -> torch.Tensor:
 
 
 def card_tests():
-    """The conv's and the ResNet path's card tests (ragged shapes, every
-    compiled tile, both modes, SAME stride 2, the residual epilogue, the
-    shortcut GEMMs, the GEMM's epilogue modes, the im2col, the stem conv +
-    pool), in a process of their own; fatal unless all pass."""
+    """The conv's, the ResNet path's and the depthwise zoo's card tests
+    (ragged shapes, every compiled tile, both modes, SAME stride 2, the
+    residual epilogue, the shortcut GEMMs, the GEMM's epilogue modes, the
+    im2col, the stem conv + pool, the depthwise conv, the GEMM at 24
+    channels), in a process of their own; fatal unless all pass."""
     tests = REPO / "tests"
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
          "-p", "no:cacheprovider", str(tests / "test_torch_int8_conv.py"),
          str(tests / "test_torch_resnet_conv.py"),
          str(tests / "test_torch_gemm_epilogue.py"),
-         str(tests / "test_torch_stem_pool.py")],
+         str(tests / "test_torch_stem_pool.py"),
+         str(tests / "test_torch_dwconv.py"),
+         str(tests / "test_torch_mobile.py")],
         capture_output=True, text=True)
     tail = run.stdout.strip().splitlines()[-1:] or [run.stderr.strip()[-300:]]
-    print(f"# card tests of int8_conv3x3 and the ResNet path: {tail[0]}")
+    print(f"# card tests of int8_conv3x3, the ResNet path and the "
+          f"depthwise zoo: {tail[0]}")
     if run.returncode != 0:
         print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
         raise RuntimeError("the ResNet path's card tests failed")
@@ -558,6 +603,11 @@ def launch_bound(kind, args, kw, out):
         nbytes += r[0].numel() * r[0].element_size() + 8 * out.shape[-1]
     if kind == "im2col":
         return bound_of(0, args[0].numel() + nbytes)
+    if kind == "dwconv":
+        # 9 multiply-adds an output value; x, the (9, C) weight, a and b
+        x, w = args[:2]
+        return bound_of(2 * 9 * (out.numel()), x.numel() + w.numel()
+                        + 8 * w.shape[1] + nbytes)
     if kind == "stem_pool":
         # the conv's int8 operations (the pool's compares are not counted)
         x, wp = args
@@ -591,6 +641,10 @@ def launch_label(kind, args, kw) -> str:
     if kind == "im2col":
         return (f"im2col {tuple(x.shape)} {kw['kernel']}x{kw['kernel']} "
                 f"s{kw['stride']} pads {kw['pads'][0]}")
+    if kind == "dwconv":
+        return (f"dwconv {tuple(x.shape)} s{kw['stride']} pad_lo "
+                f"{kw.get('pad_lo', 1)} {kw['mode']}"
+                f"{' relu' if kw.get('relu') else ''}")
     if kind == "stem_pool":
         out = (x.shape[0],) + SP.geometry(x.shape[1], x.shape[2],
                                           kw["pads"])[2:] + (args[1].shape[1],)
@@ -608,7 +662,8 @@ def launch_group(kind, kw) -> str:
     """The launch's group in the per-group sums."""
     if kind != "gemm":
         return {"conv": "3x3 conv", "im2col": "stem im2col",
-                "stem_pool": "stem conv + pool"}[kind]
+                "stem_pool": "stem conv + pool",
+                "dwconv": "depthwise 3x3 conv"}[kind]
     mode = kw.get("mode", "int32")
     return f"gemm {mode}" + (" + residual" if kw.get("residual") else "")
 
@@ -627,6 +682,26 @@ def stem_context_ms(args, kw) -> float:
         **SP.POOL), REPS)
 
 
+def dw_context_ms(args, kw) -> float:
+    """A bf16 F.conv2d(groups=C) 3x3 at a depthwise launch's shape,
+    channels last (context: no PyTorch call computes an int8 conv)."""
+    x, wp = args[:2]
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    wb = DW.unpack_weight(wp).permute(3, 2, 0, 1).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    pad = kw.get("pad_lo", 1)
+    if pad == 0:                         # SAME at stride 2: pads (0, 1)
+        xb = F.pad(xb, (0, 1, 0, 1))
+    return event_ms(lambda: F.conv2d(xb, wb, stride=kw["stride"],
+                                     padding=pad, groups=x.shape[-1]), REPS)
+
+
+# kinds whose launches get their plain ms and a bf16 context in the log and
+# the kernels line (the other kinds have phases of their own for that)
+CONTEXT = {"stem_pool": stem_context_ms, "dwconv": dw_context_ms}
+
+
 def int_mm_beside(label, args, out):
     """torch._int_mm on an int32-mode GEMM launch's operands: equal to the
     kernel's output; returns its ms (CUDA graph of 16)."""
@@ -641,9 +716,10 @@ def int_mm_beside(label, args, out):
 def resnet_kernel_phase(what, model, x, expect):
     """Every kernel launch of one chained request of ``x``, kernel vs plain
     (tolerance 0), timed per launch, torch._int_mm beside each int32-mode
-    GEMM; returns the totals and, under "stem_pool", the stem conv + pool
-    launches' ms, plain ms, bound ms, ops and bytes ms (its entry in the
-    kernels line)."""
+    GEMM, a plain ms and a bf16 context beside each launch of a CONTEXT
+    kind; returns the totals and, under each CONTEXT kind, its launches'
+    ms, plain ms, bound ms, ops and bytes ms (its entry in the kernels
+    line)."""
     with torch.inference_mode():
         with LaunchRecorder() as rec:
             model(x, qmode="intc")
@@ -653,11 +729,12 @@ def resnet_kernel_phase(what, model, x, expect):
                                f"launches, expected {expect}")
         print(f"# {what} kernel vs plain, batch {x.shape[0]}: launch | "
               "max|diff| | kernel_us bound_us (by) kernel/bound "
-              "[torch._int_mm_us]")
+              "[torch._int_mm_us] {plain_us bf16_context_us}")
         tot = dict(ms=0.0, bound_ms=0.0, err=0.0)
         groups = {}
-        stem = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
-                    bytes_ms=0.0, context_ms=0.0)
+        extra = {kind: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                            bytes_ms=0.0, context_ms=0.0, err=0.0)
+                 for kind in CONTEXT}
         for i, (kind, args, kw, out) in enumerate(rec.calls):
             run, plain_fn = KERNELS[kind]
             label = launch_label(kind, args, kw)
@@ -667,6 +744,18 @@ def resnet_kernel_phase(what, model, x, expect):
             lib = ""
             if kind == "gemm" and kw.get("mode", "int32") == "int32":
                 lib = f" [{int_mm_beside(label, args, out) * 1e3:8.2f}]"
+            if kind in CONTEXT:
+                e = extra[kind]
+                plain_ms = event_ms(lambda: plain_fn(*args, **kw),
+                                    PLAIN_REPS)
+                context_ms = CONTEXT[kind](args, kw)
+                for key, val in (("ms", ms), ("bound_ms", b_ms),
+                                 ("ops_ms", t_ops), ("bytes_ms", t_bytes),
+                                 ("plain_ms", plain_ms),
+                                 ("context_ms", context_ms)):
+                    e[key] += val
+                e["err"] = max(e["err"], err)
+                lib = f" {{{plain_ms * 1e3:.1f} {context_ms * 1e3:.2f}}}"
             print(f"{i:2d} {label:62s} | {err:g} | "
                   f"{ms * 1e3:8.2f} {b_ms * 1e3:8.2f} "
                   f"({bound_by(t_ops, t_bytes)}) {ms / b_ms:.2f}{lib}")
@@ -680,26 +769,24 @@ def resnet_kernel_phase(what, model, x, expect):
             g[0] += 1
             g[1] += ms
             g[2] += b_ms
-            if kind == "stem_pool":
-                for key, val in (("ms", ms), ("bound_ms", b_ms),
-                                 ("ops_ms", t_ops), ("bytes_ms", t_bytes)):
-                    stem[key] += val
-                stem["plain_ms"] += event_ms(lambda: plain_fn(*args, **kw),
-                                             PLAIN_REPS)
-                stem["context_ms"] += stem_context_ms(args, kw)
     print(f"# {what} batch {x.shape[0]}: {len(rec.calls)} launches, kernels "
           f"{tot['ms']:.4f} ms against a bound of {tot['bound_ms']:.4f} ms; "
           "by group (launches, ms, bound ms): " + "; ".join(
               f"{name} {n}, {ms:.4f}, {b:.4f}"
               for name, (n, ms, b) in groups.items()))
-    if expect.get("stem_pool"):
-        print(f"# {what} batch {x.shape[0]} stem conv + pool: kernel "
-              f"{stem['ms']:.4f} ms, bound {stem['bound_ms']:.4f} ms, plain "
-              f"{stem['plain_ms']:.4f} ms; library_ms: none - no PyTorch "
-              "call computes an int8 conv; a bf16 F.conv2d 7x7/s2 + "
-              f"F.max_pool2d of the same shape takes {stem['context_ms']:.4f}"
-              " ms (context only, not the same function)")
-    tot["stem_pool"] = stem
+    for kind, name in (("stem_pool", "stem conv + pool"),
+                       ("dwconv", "depthwise 3x3 convs")):
+        e = extra[kind]
+        if expect.get(kind):
+            print(f"# {what} batch {x.shape[0]} {name} ({expect[kind]}): "
+                  f"kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+                  f"({bound_by(e['ops_ms'], e['bytes_ms'])}; ops "
+                  f"{e['ops_ms']:.4f}, bytes {e['bytes_ms']:.4f}), plain "
+                  f"{e['plain_ms']:.4f} ms; library_ms: none - no PyTorch "
+                  "call computes an int8 conv; bf16 convs of the same "
+                  f"shapes take {e['context_ms']:.4f} ms (context only, not "
+                  "the same function)")
+    tot.update(extra)
     return tot
 
 
@@ -717,7 +804,8 @@ def stem_im2col_phase(model, x):
             materialize(de)
         torch.cuda.synchronize()
         launches = I.int8_im2col.launches
-        want = {"conv": 0, "gemm": 1, "im2col": 1, "stem_pool": 0}
+        want = {"conv": 0, "gemm": 1, "im2col": 1, "stem_pool": 0,
+                "dwconv": 0}
         if rec.counts() != want or launches != 1:
             raise RuntimeError(f"the stem's im2col route made "
                                f"{rec.counts()} calls, {launches} im2col "
@@ -758,13 +846,28 @@ def serve_requests(what, model, x, expect, classes):
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
-    times = []
+    times, enqueue = [], []
     for _ in range(REQUESTS):
         t0 = time.perf_counter()
         y = serve(x)
+        enqueue.append(time.perf_counter() - t0)   # the host's part
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {kind: fn.launches for kind, fn in counters.items()}
+    # one more request with PyTorch's sync debugging on: every call that
+    # makes the host wait for the card warns
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            serve(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # (the first use also warns that the mode is a prototype)
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
     if launches != {kind: n * REQUESTS for kind, n in expect.items()}:
         raise RuntimeError(f"{what}: {launches} launches for {REQUESTS} "
                            f"requests, expected {expect} a request")
@@ -782,7 +885,12 @@ def serve_requests(what, model, x, expect, classes):
         raise RuntimeError(f"{what}: GPU and CPU logits differ: rel L2 {rel}")
     print(f"# {what} serve: batch {x.shape[0]} request {steady * 1e3:.3f} "
           f"ms median of {REQUESTS - 1} (first {times[0] * 1e3:.1f} ms); "
-          f"{x.shape[0] / steady:.1f} images/s on {card_line()}")
+          f"{x.shape[0] / steady:.1f} images/s on {card_line()}; the host "
+          f"has enqueued a request after "
+          f"{statistics.median(enqueue[1:]) * 1e3:.3f} ms; host syncs in a "
+          f"request: {len(syncs)}"
+          + "".join(f"\n#   sync: {str(w.message)[:200]}"
+                    for w in syncs[:3]))
     return steady * 1e3, launches
 
 
@@ -879,6 +987,129 @@ def resnet50_serve_phase(model, device):
         "stem + pool (int8_stem_pool, 2 folded quantizes)": stem_ms,
         f"{len(calls)} kernels": kernels_ms, "pool + head": head_ms})
     return launches
+
+
+def mobile_deployed(name, fuser, device):
+    """``name`` in train form at full width (seeded weights; BN statistics
+    from one train-mode forward of the calibration batch, so that every
+    branch's output is normalized as in a trained model, then perturbed
+    with the BN affine) -> ``fuser`` -> the bench's W8A8 scheme ->
+    calibrate on that batch of CAL_BATCH -> prepare_deploy."""
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_model(name, device=device, num_classes=CLASSES,
+                      generator=gen)
+    x = images(CAL_BATCH, SEED, device)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+    def batch_stats(bn, args):
+        # flax's statistics of this batch; the forward then keeps them
+        t = args[0]
+        mean = t.mean(dim=(0, 1, 2))
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(torch.clamp_min(
+            (t * t).mean(dim=(0, 1, 2)) - mean * mean, 0.0))
+
+    hooks = [bn.register_forward_pre_hook(batch_stats) for bn in bns]
+    with torch.no_grad():
+        model.train()(x, qmode="fp")
+        model.eval()
+        for h in hooks:
+            h.remove()
+        for bn in bns:
+            for t in (bn.running_mean, bn.running_var, bn.weight, bn.bias):
+                t += 0.1 * torch.rand(t.shape, generator=gen).to(device)
+    deploy = attach_scheme(fuser(model), scheme_from_dict(BENCH_SCHEME))
+    calibrate(deploy, [x])
+    return prepare_deploy(deploy)
+
+
+def mobile_serve_phase(name, model, device, pooled):
+    """Chained int8 MobileNetV2 or MobileOne-S1 through make_serving_fn;
+    returns the launches by kind.  ``pooled`` names the module whose
+    output, activated and materialized, the global pool reads."""
+    _, expect, _ = MOBILE[name]
+    x = images(SERVE_BATCH, SEED + 2, device)
+    request_ms, launches = serve_requests(name, model, x, expect, CLASSES)
+    # the 1x1 convs whose K the GEMM takes padded (pad_k copies their codes)
+    narrow = {id(m.w_gemm): m.weight.shape[1] for m in model.modules()
+              if isinstance(m, QConv) and m.kernel_size == 1
+              and m.weight.shape[1] % 16}
+    with torch.inference_mode():
+        # one recorded request: the launches by kind, the pooled module's
+        # output
+        seen = {}
+        hook = model.get_submodule(pooled).register_forward_hook(
+            lambda mod, args, out: seen.__setitem__("out", out))
+        with LaunchRecorder() as rec:
+            model(x, qmode="intc")
+        hook.remove()
+        by_kind, copies = {}, []
+        for kind, a, kw, _ in rec.calls:
+            by_kind.setdefault(kind, []).append((KERNELS[kind][0], a, kw))
+            if kind == "gemm" and id(a[1]) in narrow:
+                copies.append(torch.zeros((a[0].shape[0], narrow[id(a[1])]),
+                                          dtype=torch.int8, device=device))
+        out = seen["out"]
+        feat = materialize(qrelu6(out) if pooled == "conv_head" else out)
+        stem = model.conv_stem if hasattr(model, "conv_stem") \
+            else model.stage0.reparam
+        parts = {"input quantize": graph_ms(
+            lambda _: stem._input_codes(x), 4)}
+        for kind, calls in by_kind.items():
+            parts[f"{len(calls)} {kind}"] = graph_ms(
+                lambda _, c=calls: run_calls(c), 4)
+        if copies:
+            parts[f"{len(copies)} K-pad copies"] = graph_ms(
+                lambda _: [G.pad_k(c) for c in copies], 4)
+        parts["pool + head"] = graph_ms(lambda _: materialize(model.linear(
+            feat.mean(dim=(1, 2)), qmode="intc")), 4)
+    split_line(name, request_ms, parts)
+    # what the host enqueues: the kernels of one request by the profiler
+    serve = make_serving_fn(model, qmode="intc", device=device)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        serve(x)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    ours = sum(n for k, n in kernels.items() if "int8_" in k)
+    print(f"# {name} serve: one request runs {sum(kernels.values())} "
+          f"kernels on the card, {ours} of them the port's "
+          f"({sum(expect.values())} launches) and the rest torch's small "
+          "ops (the folded boundaries' affines, the input quantize, the "
+          "K-pad copies, the head)")
+    return launches
+
+
+def mobile_phase(device):
+    """MobileNetV2 and MobileOne-S1: deploy, every launch == plain at batch
+    8 and 256, 6 served requests each.  Returns the largest difference,
+    the depthwise launches' totals at batch 256 over both models (their
+    entry in the kernels line) and the served launches by kind."""
+    err, served = 0.0, {}
+    dw = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
+              err=0.0)
+    for name, (fuser, expect, pooled) in MOBILE.items():
+        t0 = time.perf_counter()
+        model = mobile_deployed(name, fuser, device)
+        print(f"# {name}: train form -> {fuser.__name__} -> bench W8A8 "
+              f"scheme -> calibrate (batch {CAL_BATCH}) + prepare_deploy in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for batch in (8, SERVE_BATCH):
+            got = resnet_kernel_phase(name, model,
+                                      images(batch, SEED + 1, device), expect)
+            err = max(err, got["err"])
+            dw["err"] = max(dw["err"], got["dwconv"]["err"])
+            if batch == SERVE_BATCH:
+                for key in ("ms", "plain_ms", "bound_ms", "ops_ms",
+                            "bytes_ms"):
+                    dw[key] += got["dwconv"][key]
+        launches = mobile_serve_phase(name, model, device, pooled)
+        for kind, n in launches.items():
+            served[kind] = served.get(kind, 0) + n
+        del model
+    return err, dw, served
 
 
 def training_config(name: str, **loader_args) -> ConfigParser:
@@ -1241,8 +1472,7 @@ def main() -> int:
           f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
-    build.build("int8_conv3x3", "int8_gemm", "int8_im2col", "int8_stem_pool",
-                "int8_mma_probe", verbose=True)
+    build.build(*build.SOURCES, verbose=True)
     print(f"# build: {time.perf_counter() - t0:.2f} s")
     card_tests()
     print("# int8_gemm dynamic shared memory by tile (BM x BN: stages, "
@@ -1294,17 +1524,20 @@ def main() -> int:
         r50, images(SERVE_BATCH, SEED + 1, device))
     served50 = resnet50_serve_phase(r50, device)
     del r50
+    mobile_err, dw, mobile_served = mobile_phase(device)
     t0 = time.perf_counter()
     qat_launches, qat_err = qat_phase(device)
     print(f"# qat phase: {time.perf_counter() - t0:.2f} s")
-    launches += served["conv"] + ptq_convs + served50["conv"] + qat_launches
+    launches += (served["conv"] + ptq_convs + served50["conv"] + qat_launches
+                 + mobile_served["conv"])
     tot["err"] = max(err8, tot["err"], recon_err, res_err, r50_err,
-                     r50_tot["err"], qat_err)
+                     r50_tot["err"], qat_err, mobile_err)
     stem = dict(r50_tot["stem_pool"], err=max(r50_err, r50_tot["err"]))
 
     gemm_rows, gemm_launches = tool_path(gemm_sweep.main, G.int8_gemm,
                                          "gemm_sweep")
-    gemm_launches += served["gemm"] + ptq_gemms + served50["gemm"]
+    gemm_launches += (served["gemm"] + ptq_gemms + served50["gemm"]
+                      + mobile_served["gemm"])
     probe_rows, probe_launches = tool_path(lambda: mma_probe.main([]),
                                            P.int8_mma_probe, "mma_probe")
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -1327,7 +1560,11 @@ def main() -> int:
         kernel_entry("int8_stem_pool",
                      "dlmc_quant_tpu/quant/layers.py:721-728 + "
                      "dlmc_quant_tpu/quant/chain.py:135",
-                     served50["stem_pool"], stem, None)]}))
+                     served50["stem_pool"], stem, None),
+        kernel_entry("int8_dwconv3x3",
+                     "dlmc_quant_tpu/quant/layers.py:722-728 (XLA grouped "
+                     "int8 conv, feature_group_count=C; no Pallas kernel)",
+                     mobile_served["dwconv"], dw, None)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

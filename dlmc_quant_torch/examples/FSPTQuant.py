@@ -21,7 +21,8 @@ import torch
 from dlmc_quant_torch.data import get_dataloader
 from dlmc_quant_torch.device import resolve_device
 from dlmc_quant_torch.models import get_model
-from dlmc_quant_torch.models.fuse import repvgg_fuse
+from dlmc_quant_torch.models.fuse import mobilenet_deploy, repvgg_fuse
+from dlmc_quant_torch.models.mobileone import mobileone_fuse
 from dlmc_quant_torch.quant.config import scheme_from_dict
 from dlmc_quant_torch.quant.layers import attach_scheme, calibrate
 from dlmc_quant_torch.training.fsptq import FSPTQTrainer
@@ -33,7 +34,8 @@ from dlmc_quant_torch.utils.config import ConfigParser
 from dlmc_quant_torch.utils.logging import setup_logging
 
 # train form → deploy form, by model class (ref: FSPTQuant.py:65-67)
-FUSERS = {"RepVGG": repvgg_fuse}
+FUSERS = {"RepVGG": repvgg_fuse, "MobileOne": mobileone_fuse,
+          "MobileNetV2": mobilenet_deploy}
 
 
 def to_deploy(model, logger):
@@ -41,9 +43,9 @@ def to_deploy(model, logger):
     family = type(model).__name__
     if family not in FUSERS:
         raise NotImplementedError(
-            f"{family}: only RepVGG has a deploy conversion in the port "
-            "(merge_bn: ROADMAP Queue A, PTQ E2E (item 4); the other "
-            "families: rest of the zoo (item 7))")
+            f"{family}: only {sorted(FUSERS)} have a deploy conversion in "
+            "the port (merge_bn: ROADMAP Queue A, PTQ E2E (item 4); the "
+            "other families: rest of the zoo (item 7))")
     if model.deploy:
         return model
     logger.info("converted %s to deploy form", family)

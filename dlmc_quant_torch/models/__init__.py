@@ -1,4 +1,5 @@
-"""Model zoo (RepVGG-A0, the CIFAR ResNets) and reparameterization."""
+"""Model zoo (RepVGG-A0, the ResNets, MobileNetV2, MobileOne) and
+reparameterization."""
 
 from dlmc_quant_torch.models.registry import get_model, register
 

@@ -1,9 +1,11 @@
 """Reparameterization: BN folding and RepVGG branch fusion.
 
-Counterpart of ``dlmc_quant_tpu/models/fuse.py:21-179,193-278``, on OIHW
+Counterpart of ``dlmc_quant_tpu/models/fuse.py:21-179,193-321``, on OIHW
 kernels.  :func:`repvgg_fuse` turns a train-form RepVGG into its deploy
-form, one 3×3 conv per block; :func:`resnet_deploy` folds a train-form
-ResNet's BatchNorms into its convs.  The deploy model's quantizer
+form, one 3×3 conv per block; :func:`resnet_deploy` and
+:func:`mobilenet_deploy` fold a train-form ResNet's or MobileNetV2's
+BatchNorms into their convs (``models/mobileone.py`` has MobileOne's
+fuser, as in the JAX package).  The deploy model's quantizer
 parameters are fresh: calibrate after fusing, as the JAX package does.
 ``merge_bn`` (the fold in place, for other families) is not ported yet
 (ROADMAP Queue A, PTQ E2E (item 4)).
@@ -89,21 +91,22 @@ def repvgg_fuse(model: RepVGG) -> RepVGG:
     return deploy.train(model.training)
 
 
-# a ResNet conv's BatchNorm, by the zoo's fixed naming
+# a conv's BatchNorm, by each zoo family's fixed naming
 RESNET_BN_PARTNERS = {"conv1": "bn1", "conv2": "bn2", "conv3": "bn3",
                       "downsample": "downsample_bn"}
+MOBILENET_BN_PARTNERS = {"expand": "expand_bn", "depthwise": "depthwise_bn",
+                         "project": "project_bn", "conv_stem": "bn_stem",
+                         "conv_head": "bn_head"}
 
 
 @torch.no_grad()
-def resnet_deploy(model):
-    """Train-form ResNet (any factory of ``models/resnet_cifar.py``, BasicBlock
-    or Bottleneck, either stem) → its BN-free deploy form on the same device.
-
-    Every conv absorbs its BatchNorm partner (``conv1↔bn1``, ``conv2↔bn2``,
-    ``conv3↔bn3``, ``downsample↔downsample_bn``) exactly as
-    :func:`fold_conv_bn` does; each block gains its ``out_q`` output
-    quantizer.  Calibrate (and ``prepare_deploy``) after conversion.
-    """
+def fold_bn_deploy(model, partners):
+    """Train-form model → its BN-free deploy twin on the same device
+    (``type(model)(**model.twin_args(), deploy=True)``): every conv
+    absorbs its BatchNorm partner, named by ``partners`` (conv leaf name →
+    BN leaf name beside it), exactly as :func:`fold_conv_bn` does; the
+    dense head is copied; the twin's block-output quantizers are fresh.
+    Calibrate (and ``prepare_deploy``) after conversion."""
     device = model.linear.weight.device
     deploy = type(model)(**model.twin_args(), deploy=True,
                          scheme=model.scheme).to(device)
@@ -112,7 +115,7 @@ def resnet_deploy(model):
             parent, _, leaf = path.rpartition(".")
             src = model.get_submodule(path)
             bn = model.get_submodule(
-                ".".join(filter(None, (parent, RESNET_BN_PARTNERS[leaf]))))
+                ".".join(filter(None, (parent, partners[leaf]))))
             k, b = fold_conv_bn(src.weight, src.bias, *_bn_args(bn), bn.eps)
             conv.weight.copy_(k)
             conv.bias.copy_(b)
@@ -121,3 +124,19 @@ def resnet_deploy(model):
             conv.weight.copy_(src.weight)
             conv.bias.copy_(src.bias)
     return deploy.train(model.training)
+
+
+def resnet_deploy(model):
+    """Train-form ResNet (any factory of ``models/resnet_cifar.py``, BasicBlock
+    or Bottleneck, either stem) → its BN-free deploy form on the same device:
+    ``conv1↔bn1``, ``conv2↔bn2``, ``conv3↔bn3``, ``downsample↔downsample_bn``
+    folded; each block gains its ``out_q`` output quantizer."""
+    return fold_bn_deploy(model, RESNET_BN_PARTNERS)
+
+
+def mobilenet_deploy(model):
+    """Train-form MobileNetV2 → its BN-free deploy form on the same device:
+    ``expand``/``depthwise``/``project``↔``*_bn``, ``conv_stem↔bn_stem`` and
+    ``conv_head↔bn_head`` folded; each linear-bottleneck block gains its
+    ``out_q`` (``QBlockOutput(relu=False)``)."""
+    return fold_bn_deploy(model, MOBILENET_BN_PARTNERS)

@@ -25,6 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
+# every kernel source of csrc/: the 3x3 conv, the GEMM, the im2col, the
+# ImageNet stem conv + pool, the depthwise 3x3 conv and the MMA probe
+SOURCES = ("int8_conv3x3", "int8_gemm", "int8_im2col", "int8_stem_pool",
+           "int8_dwconv3x3", "int8_mma_probe")
 
 
 def library_path(name: str) -> Path:

@@ -81,6 +81,19 @@ def pack_b(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def pad_k(x: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 → (M, roundup(K, 16)), zero past K: the depth the kernel
+    takes (TMA's row pitch; MobileNetV2's 24-channel maps), exact against a
+    weight packed by :func:`pack_b`, which is zero there too.  A copy where
+    K % 16 != 0; ``x`` itself otherwise."""
+    m, k = x.shape
+    if k % 16 == 0:
+        return x
+    out = x.new_zeros((m, _cdiv(k, 16) * 16))
+    out[:, :k] = x
+    return out
+
+
 def unpack_b(wp: torch.Tensor, k: int) -> torch.Tensor:
     """Inverse of :func:`pack_b` → (…, K, N) int8, for (…, N, Kp) input."""
     return wp[..., :k].transpose(-1, -2).contiguous()

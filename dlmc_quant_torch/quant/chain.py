@@ -12,10 +12,13 @@ and the chained path folds it into one affine and one clamp:
     q = clip(round(acc·A + B), L, hi)
     A = ps·inv        B = pb·inv + qb
     L = clip(round(qb), lo, hi)   if the boundary has a ReLU, else lo
+    H = clip(round(6·inv + qb), lo, hi)   if it has a ReLU6, else hi
 
 A quantized layer in ``'intc'`` returns a :class:`DeferredEpilogue`;
-:func:`qrelu` marks the pending ReLU; the consumer, the only layer that
-knows its input grid, turns it into int8 codes with :func:`fold_quantize`.
+:func:`qrelu` marks the pending ReLU and :func:`qrelu6` the ReLU6 (the
+upper clamp at 6 folds into ``H``: rounding is monotone); the consumer,
+the only layer that knows its input grid, turns it into int8 codes with
+:func:`fold_quantize`.
 :func:`materialize` closes the chain before non-quantized ops.
 
 Residual blocks chain through :class:`QuantizedTensor`: the block's output
@@ -28,14 +31,15 @@ Unlike the JAX package, a conv's accumulator is not written to memory
 where a consumer can take its epilogue: a 3×3 conv's
 :class:`DeferredEpilogue` holds a :class:`PendingConv`, a 1×1 conv's a
 :class:`PendingGemm`, a wider window's (the ImageNet 7×7/s2 stem) a
-:class:`PendingWideConv`, and the consumer runs that conv with the folded
+:class:`PendingWideConv`, a depthwise 3×3 conv's (MobileNetV2, MobileOne)
+a :class:`PendingDwConv`, and the consumer runs that conv with the folded
 epilogue fused into it (``"codes"`` mode, with the residual term where it
 closes a block), or, for :func:`materialize`, in ``"f32"`` mode.  A
 pending GEMM used as a shortcut term runs in ``"int32"`` mode: the JAX
 package's int32 accumulator.  The stem that :func:`qmaxpool` pools runs
 conv and pool in one kernel (``ops.cuda.int8_stem_pool``), which gives
-the pooled int32 accumulator.  ``qrelu6`` is not ported yet (ROADMAP
-Queue A, rest of the zoo (item 7)).
+the pooled int32 accumulator.  A linear-bottleneck block (MobileNetV2)
+closes its sum without a ReLU: the lower clamp is then the grid's minimum.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda.int8_conv import int8_conv3x3
+from dlmc_quant_torch.ops.cuda.int8_dwconv import int8_dwconv3x3
 from dlmc_quant_torch.ops.cuda.int8_gemm import int8_gemm
 from dlmc_quant_torch.ops.cuda.int8_im2col import int8_im2col, out_hw
 from dlmc_quant_torch.ops.cuda.int8_stem_pool import int8_stem_pool
@@ -120,23 +125,43 @@ class PendingWideConv:
                               pad=self.pad)
 
 
-PENDING = (PendingConv, PendingGemm, PendingWideConv)
+@dataclasses.dataclass(frozen=True)
+class PendingDwConv:
+    """A padded int8 depthwise 3×3 conv that has not run yet (no residual
+    and no int32 mode: the kernel ends in the epilogue)."""
+    x: torch.Tensor          # (N, H, W, C) int8 codes
+    weight: torch.Tensor     # packed (9, C) int8 (ops.cuda.int8_dwconv)
+    stride: int
+    pad: int                 # int8 code of real 0 on the input grid
+    pad_lo: int = 1          # top/left pad: 0 for SAME at stride 2, even map
+
+    def run(self, a, b, *, lo: int = -128, hi: int = 127,
+            mode: str = "codes", relu: bool = False) -> torch.Tensor:
+        return int8_dwconv3x3(self.x, self.weight, a, b, stride=self.stride,
+                              pad=self.pad, pad_lo=self.pad_lo, lo=lo, hi=hi,
+                              mode=mode, relu=relu)
+
+
+PENDING = (PendingConv, PendingGemm, PendingWideConv, PendingDwConv)
 # the pool that follows the ImageNet stem: window, strides, padding
 STEM_POOL = ((3, 3), (2, 2), ((1, 1), (1, 1)))
 
 
 @dataclasses.dataclass(frozen=True)
 class DeferredEpilogue:
-    """Lazy layer output: real value = ``relu?(acc·scale + bias)``.
+    """Lazy layer output: real value = ``relu?(acc·scale + bias)``, then
+    ``min(·, clamp_hi)`` where set (ReLU6).
 
     ``acc`` is an int32 tensor (dense layers, the pooled stem) or a
     pending conv (:data:`PENDING`) whose accumulator the consumer computes
     with its epilogue fused.
     """
-    acc: Union[torch.Tensor, PendingConv, PendingGemm, PendingWideConv]
+    acc: Union[torch.Tensor, PendingConv, PendingGemm, PendingWideConv,
+               PendingDwConv]
     scale: torch.Tensor      # (O,) f32
     bias: torch.Tensor       # (O,) f32
     relu: bool = False
+    clamp_hi: Optional[float] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +193,25 @@ def qrelu(x):
     if isinstance(x, QuantizedTensor):
         return dataclasses.replace(x, q=torch.clamp_min(x.q, x.zero_code()))
     return torch.relu(x)
+
+
+def qrelu6(x):
+    """ReLU6 (``min(max(x, 0), 6)``) that stays lazy on the chain.
+
+    On a :class:`DeferredEpilogue` the upper clamp folds into the
+    consumer's quantize (:func:`fold_params`); on block-output codes it
+    clamps at the zero code and at the grid code of 6, computed in float32
+    as the JAX package does.
+    """
+    if isinstance(x, DeferredEpilogue):
+        return dataclasses.replace(x, relu=True, clamp_hi=6.0)
+    if isinstance(x, QuantizedTensor):
+        hi = np.rint((np.float32(6.0) - np.float32(x.bias))
+                     / np.float32(x.scale))
+        hi = int(np.clip(hi, -128, 127))
+        return dataclasses.replace(
+            x, q=torch.clamp(x.q, x.zero_code(), hi))
+    return torch.clamp(x, 0.0, 6.0)
 
 
 def _max_pool(x: torch.Tensor, window, strides, padding) -> torch.Tensor:
@@ -218,10 +262,14 @@ def materialize(x):
     if not isinstance(x, DeferredEpilogue):
         return x
     if isinstance(x.acc, PENDING):
-        return x.acc.run(x.scale, x.bias, mode="f32", relu=x.relu)
-    y = x.acc.to(torch.float32) * x.scale
-    y = y + x.bias
-    return torch.clamp_min(y, 0.0) if x.relu else y
+        y = x.acc.run(x.scale, x.bias, mode="f32", relu=x.relu)
+    else:
+        y = x.acc.to(torch.float32) * x.scale
+        y = y + x.bias
+        if x.relu:
+            y = torch.clamp_min(y, 0.0)
+    # min(., 6) is exact: it runs after the f32 epilogue
+    return y if x.clamp_hi is None else torch.clamp_max(y, x.clamp_hi)
 
 
 def fold_params(x: DeferredEpilogue, inv_s: float, qbias: float,
@@ -231,14 +279,19 @@ def fold_params(x: DeferredEpilogue, inv_s: float, qbias: float,
     ``inv_s``/``qbias`` are the consumer plan's ``in_inv_scale`` /
     ``in_qbias`` as Python floats holding float32 values, so ``A`` and
     ``B`` are computed in float32 as in the JAX package, and ``L`` on the
-    host (Python's ``round`` rounds half to even, as ``jnp.round`` does).
+    host (Python's ``round`` rounds half to even, as ``jnp.round`` does),
+    and ``hi`` of a ReLU6 as ``round(6·inv + qbias)``, its product and sum
+    in float32 as in the JAX package.
     """
     a = x.scale * inv_s
     b = x.bias * inv_s + qbias
-    lo = qmin_s
+    lo, hi = qmin_s, qmax_s
     if x.relu:
         lo = min(max(round(qbias), qmin_s), qmax_s)
-    return a, b, lo, qmax_s
+    if x.clamp_hi is not None:
+        top = np.float32(x.clamp_hi) * np.float32(inv_s) + np.float32(qbias)
+        hi = int(np.clip(np.rint(top), qmin_s, qmax_s))
+    return a, b, lo, hi
 
 
 def fold_quantize(x: DeferredEpilogue, inv_s: float, qbias: float,
@@ -262,13 +315,15 @@ def _residual_operand(r, inv_s: float, o: int, device):
         return (r.q.contiguous(), full(float(np.float32(r.scale) * inv)),
                 full(float(np.float32(r.bias) * inv)))
     if isinstance(r, DeferredEpilogue) and not r.relu \
-            and not isinstance(r.acc, PendingConv):
+            and r.clamp_hi is None \
+            and not isinstance(r.acc, (PendingConv, PendingDwConv)):
         # the int32 accumulator (a pending shortcut GEMM runs for it)
         acc = r.acc.run(mode="int32") if isinstance(r.acc, PENDING) \
             else r.acc
         return (acc.contiguous(), (r.scale * inv_s).contiguous(),
                 (r.bias * inv_s).contiguous())
-    # a relu-flagged term is nonlinear inside the sum: materialized first
+    # a relu- or ReLU6-flagged term is nonlinear inside the sum:
+    # materialized first
     return materialize(r).contiguous(), full(inv_s), full(0.0)
 
 
@@ -288,15 +343,17 @@ def fold_sum_quantize(terms, inv_s: float, qbias: float, lo: int,
 
     (``A = scale·inv``, ``B = bias·inv`` per term; an int8 term's affine is
     its grid, an f32 term has ``Ar = inv`` and ``Br = 0``, and a
-    relu-flagged term is materialized first).  The ReLU lives in ``lo``.
+    relu-flagged term is materialized first).  The block's ReLU lives in
+    ``lo``; a linear bottleneck (no ReLU) passes the grid's minimum.
     The whole sum runs in the epilogue of ``y``'s conv.
     """
     y, r = terms
     if not (isinstance(y, DeferredEpilogue) and isinstance(y.acc, PENDING)
-            and not y.relu):
+            and not isinstance(y.acc, PendingDwConv) and not y.relu
+            and y.clamp_hi is None):
         raise ValueError("the residual sum is folded into the epilogue of "
                          "the trunk's last conv: y must be its pending, "
-                         "ReLU-free output")
+                         "ReLU-free output (a 3x3, 1x1 or wide conv)")
     o = y.acc.weight.shape[0]
     residual = _residual_operand(r, inv_s, o, y.scale.device)
     return y.acc.run(y.scale * inv_s, y.bias * inv_s, lo=lo, hi=qmax_s,

@@ -47,16 +47,20 @@ per-channel weight axis is 0.
   bf16 operands with an f32 accumulator (a library call), f32 out; the next
   layer quantizes that output.
 * Integer convs: 3×3 (``ops.cuda.int8_conv``, SAME or pad-1 geometry),
-  1×1 (``ops.cuda.int8_gemm`` on the subsampled codes) and any other
-  ungrouped square window, such as the ImageNet 7×7/s2 stem
+  1×1 (``ops.cuda.int8_gemm`` on the subsampled codes, K padded to a
+  multiple of 16), depthwise 3×3 (``groups`` = C in = C out;
+  ``ops.cuda.int8_dwconv``, the 3×3 geometry) and any other ungrouped
+  square window, such as the ImageNet 7×7/s2 stem
   (``ops.cuda.int8_stem_pool`` with the max pool after it, else
   ``ops.cuda.int8_im2col`` rows into ``int8_gemm``, any pads); all take
   int8 codes on the layer's own grid or a :class:`QuantizedTensor` on a
   producer's, whose epilogue is re-derived from the stored column sums.
   Each leaves its conv pending for the consumer (``quant/chain.py``).
-* :class:`QBlockOutput` closes a residual block: ``relu(y + r)`` in every
-  qmode but ``'intc'``, where the sum, the ReLU and the quantize run in the
-  epilogue of the block's last conv and give int8 codes.
+  Other groupings have no integer path.
+* :class:`QBlockOutput` closes a residual block: ``relu(y + r)`` (or
+  ``y + r`` for a linear bottleneck) in every qmode but ``'intc'``, where
+  the sum, the ReLU and the quantize run in the epilogue of the block's
+  last conv and give int8 codes.
 """
 
 from __future__ import annotations
@@ -69,7 +73,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda.int8_conv import pack_weight
-from dlmc_quant_torch.ops.cuda.int8_gemm import pack_b
+from dlmc_quant_torch.ops.cuda.int8_gemm import pack_b, pad_k
+from dlmc_quant_torch.ops.cuda import int8_dwconv as dwconv
 from dlmc_quant_torch.ops.cuda import int8_stem_pool as stem_pool
 from dlmc_quant_torch.ops.cuda.int8_im2col import \
     pack_weight as pack_rows_weight
@@ -82,7 +87,8 @@ from dlmc_quant_torch.ops.observers import (StreamingState, get_qparams_tensor,
                                             streaming_init, streaming_update)
 from dlmc_quant_torch.quant import deploy as dp
 from dlmc_quant_torch.quant.chain import (DeferredEpilogue, PendingConv,
-                                          PendingGemm, PendingWideConv,
+                                          PendingDwConv, PendingGemm,
+                                          PendingWideConv,
                                           QuantizedTensor, fold_quantize,
                                           fold_sum_quantize, materialize)
 
@@ -512,6 +518,14 @@ class QConv(QLayer):
                      kernel_size * kernel_size * in_features // groups, 2.0)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
+    @property
+    def depthwise(self) -> bool:
+        """A depthwise 3×3 conv: one input channel a group, as many
+        groups as channels in and out (MobileNetV2, MobileOne)."""
+        return (self.groups > 1 and self.kernel_size == 3
+                and self.weight.shape[0] == self.groups
+                and self.weight.shape[1] == 1)
+
     def spatial_pads(self, h: int, w: int):
         """``((top, bottom), (left, right))`` pads of an ``h``×``w`` input
         (dlmc_quant_tpu/quant/layers.py:639-651 for SAME)."""
@@ -556,17 +570,20 @@ class QConv(QLayer):
         """This layer's output on input codes ``x_i8`` (on this layer's
         grid unless an epilogue and pad code are given), with the conv and
         its epilogue left to the consumer (see quant/chain.py): a 3×3 conv
-        pending for the conv kernel, a 1×1 conv for the int8 GEMM on the
-        subsampled codes, any other window as a :class:`PendingWideConv`
-        (the stem kernel where a max pool follows, else im2col rows with
-        the pad code at the borders into the GEMM)."""
+        pending for the conv kernel, a depthwise 3×3 for the depthwise
+        kernel, a 1×1 conv for the int8 GEMM on the subsampled codes (zero
+        columns pad K to a multiple of 16: the packed weight is zero
+        there), any other window as a :class:`PendingWideConv` (the stem
+        kernel where a max pool follows, else im2col rows with the pad
+        code at the borders into the GEMM)."""
         if epi_scale is None:
             epi_scale, bias_eff = self.epi_scale, self.bias_eff
             pad = self.plan_scalars["pad_val"]
-        if self.groups != 1:
+        if self.groups != 1 and not self.depthwise:
             raise NotImplementedError(
-                f"{self.path}: grouped convs have no integer path yet "
-                "(ROADMAP Queue A, rest of the zoo (item 7))")
+                f"{self.path}: grouped convs other than a depthwise 3x3 "
+                "have no integer path yet (ROADMAP Queue A, rest of the zoo "
+                "(item 7))")
         _, h, w, _ = x_i8.shape
         pads = self.spatial_pads(h, w)
         (top, bottom), (left, right) = pads
@@ -576,7 +593,7 @@ class QConv(QLayer):
                 raise NotImplementedError(
                     f"{self.path}: a padded 1x1 conv has no integer path")
             codes = x_i8[:, ::s, ::s, :].contiguous()
-            pending = PendingGemm(codes.reshape(-1, codes.shape[-1]),
+            pending = PendingGemm(pad_k(codes.reshape(-1, codes.shape[-1])),
                                   self.w_gemm, tuple(codes.shape[:3]))
             return DeferredEpilogue(pending, epi_scale, bias_eff)
         if k != 3:
@@ -591,7 +608,11 @@ class QConv(QLayer):
             raise NotImplementedError(
                 f"{self.path}: pads {pads} at stride {s} have no integer "
                 "path")
-        pending = PendingConv(x_i8.contiguous(), self.w_packed, s, pad, top)
+        if self.depthwise:
+            pending = PendingDwConv(x_i8.contiguous(), self.w_dw, s, pad, top)
+        else:
+            pending = PendingConv(x_i8.contiguous(), self.w_packed, s, pad,
+                                  top)
         return DeferredEpilogue(pending, epi_scale, bias_eff)
 
     def prepare_deploy(self) -> None:
@@ -600,7 +621,11 @@ class QConv(QLayer):
             return
         # the kernels' own weight layouts, packed once
         w_hwio = self.w_int.permute(2, 3, 1, 0)
-        if self.kernel_size == 3:
+        if self.groups != 1:
+            # other groupings have none: deferred() raises for them
+            if self.depthwise:
+                self.register_buffer("w_dw", dwconv.pack_weight(w_hwio))
+        elif self.kernel_size == 3:
             self.register_buffer("w_packed", pack_weight(w_hwio))
         elif self.kernel_size == 1:
             self.register_buffer("w_gemm", pack_b(w_hwio[0, 0]))
@@ -664,10 +689,11 @@ class QDense(QLayer):
 class QBlockOutput(nn.Module):
     """Residual-block output quantizer: ``relu(trunk + shortcut)`` → int8.
 
-    Counterpart of ``dlmc_quant_tpu/quant/layers.py:819-906`` (the
-    ReLU-closed blocks; ``relu=False``, for MobileNetV2's linear
-    bottlenecks, comes with it: ROADMAP Queue A, rest of the zoo (item 7)).
-    In every qmode but ``'intc'`` this is ``relu(y + r)``.  ``'calibrate'`` observes the f32 block output with the
+    Counterpart of ``dlmc_quant_tpu/quant/layers.py:819-906``.
+    ``relu=False`` closes a linear bottleneck (MobileNetV2): the sum has no
+    ReLU, and the folded clamp's lower bound is the grid's minimum, not
+    the code of 0.  In every qmode but ``'intc'`` this is ``relu(y + r)``
+    (``y + r``).  ``'calibrate'`` observes the f32 block output with the
     scheme's input observer (one batch, minmax) into ``out_scale``
     (parameter) and ``out_offset`` (buffer, a float offset: the grid is
     ``q·out_scale + out_offset``).  :meth:`prepare_deploy` freezes the grid
@@ -677,8 +703,9 @@ class QBlockOutput(nn.Module):
     :class:`~dlmc_quant_torch.quant.chain.QuantizedTensor`.
     """
 
-    def __init__(self):
+    def __init__(self, relu: bool = True):
         super().__init__()
+        self.relu = relu
         self.path = ""
         self.cfg = None
         self.plan_scalars = None
@@ -699,7 +726,8 @@ class QBlockOutput(nn.Module):
         self.register_buffer("out_offset", torch.zeros((), device=device))
 
     def _sum(self, y, r):
-        return torch.relu(materialize(y) + materialize(r))
+        v = materialize(y) + materialize(r)
+        return torch.relu(v) if self.relu else v
 
     def forward(self, y, r, qmode: str = "eval"):
         if self.cfg is None:
@@ -723,8 +751,10 @@ class QBlockOutput(nn.Module):
         s_x, o_x = self.out_scale.detach(), self.out_offset
         qmin, qmax = self.cfg.input.qrange
         shift = dp.act_shift(qmax)
-        # the ReLU as the lower bound: the code of real 0
-        lo = int(torch.clamp(torch.round(-o_x / s_x), qmin, qmax)) - shift
+        # the ReLU as the lower bound: the code of real 0; without one the
+        # grid's minimum
+        lo = (int(torch.clamp(torch.round(-o_x / s_x), qmin, qmax))
+              if self.relu else qmin) - shift
         self.plan_scalars = {
             "bq_inv": float(1.0 / s_x), "bq_qbias": float(-o_x / s_x - shift),
             "bq_lo": lo, "bq_hi": qmax - shift, "bq_scale": float(s_x),

@@ -2,10 +2,10 @@
 against its plain version.
 
 :class:`LaunchRecorder` wraps the kernel wrappers where the chain calls
-them (the 3×3 conv, the GEMM, the im2col and the stem conv + pool, all in
-``quant/chain.py``), so one forward gives every launch
-with its arguments and output; :func:`max_diff_to_plain` runs a recorded
-launch's plain version on the same arguments.  ``chip_smoke.py`` and
+them (the 3×3 conv, the GEMM, the im2col, the stem conv + pool and the
+depthwise 3×3 conv, all in ``quant/chain.py``), so one forward gives every
+launch with its arguments and output; :func:`max_diff_to_plain` runs a
+recorded launch's plain version on the same arguments.  ``chip_smoke.py`` and
 ``bench_torch.py`` check and time the launches of a request with these.
 """
 
@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from dlmc_quant_torch.ops.cuda import int8_conv as _conv
+from dlmc_quant_torch.ops.cuda import int8_dwconv as _dwconv
 from dlmc_quant_torch.ops.cuda import int8_gemm as _gemm
 from dlmc_quant_torch.ops.cuda import int8_im2col as _im2col
 from dlmc_quant_torch.ops.cuda import int8_stem_pool as _stem
@@ -23,11 +24,13 @@ from dlmc_quant_torch.quant import chain as _chain
 KERNELS = {"conv": (_conv.int8_conv3x3, _conv.int8_conv3x3_plain),
            "gemm": (_gemm.int8_gemm, _gemm.int8_gemm_plain),
            "im2col": (_im2col.int8_im2col, _im2col.int8_im2col_plain),
-           "stem_pool": (_stem.int8_stem_pool, _stem.int8_stem_pool_plain)}
+           "stem_pool": (_stem.int8_stem_pool, _stem.int8_stem_pool_plain),
+           "dwconv": (_dwconv.int8_dwconv3x3, _dwconv.int8_dwconv3x3_plain)}
 # where the port calls each wrapper: (module, attribute, kind)
 _SITES = ((_chain, "int8_conv3x3", "conv"), (_chain, "int8_gemm", "gemm"),
           (_chain, "int8_im2col", "im2col"),
-          (_chain, "int8_stem_pool", "stem_pool"))
+          (_chain, "int8_stem_pool", "stem_pool"),
+          (_chain, "int8_dwconv3x3", "dwconv"))
 
 
 class LaunchRecorder:
