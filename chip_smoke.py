@@ -6,7 +6,7 @@ chained int8 MobileNetV2 and MobileOne-S1 (the depthwise kernel), the
 training path (LSQ and RootQ QAT, fp32, QAT -> deploy, ResNet-50 RootQ),
 then the two int8 GEMM tools.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each fatal on failure:
   1. build   the six kernels from dlmc_quant_torch/ops/cuda/csrc (int8
@@ -102,22 +102,27 @@ Phases, each fatal on failure:
            and the request's split (input quantize, stem + pool, the 52
            other kernels, pool + head; CUDA graphs) and the rest (host and
            gaps);
-  mobile   MobileNetV2 and MobileOne-S1 at full published width, 224x224,
-           1000 classes: train form with seeded weights and perturbed BN
-           statistics -> its fuser (mobilenet_deploy, mobileone_fuse) ->
-           the bench's W8A8 scheme -> calibrate on one seeded batch of 32
-           -> prepare_deploy.  At batch 8 and 256 every launch of one
-           chained request (the 3x3 stem conv, the depthwise convs, the
-           1x1 GEMMs in codes, f32, int32 and residual modes) against its
-           plain version, tolerance 0; per launch kernel us, bound us,
-           kernel / bound, and for each depthwise launch its plain ms and,
-           as context, a bf16 F.conv2d(groups=C) of the same shape.  Then
+  mobile   MobileNetV2 and MobileOne-S1 at full published width, and
+           MobileNetV2 at width 0.75 (24-channel stem and first depthwise
+           conv), 224x224, 1000 classes: train form with seeded weights and
+           perturbed BN statistics -> its fuser (mobilenet_deploy,
+           mobileone_fuse) -> the bench's W8A8 scheme -> calibrate on one
+           seeded batch of 32 -> prepare_deploy.  At batch 8 and 256 every
+           launch of one chained request (the 3x3 stem conv, the depthwise
+           convs, the 1x1 GEMMs in codes, f32, int32 and residual modes)
+           against its plain version, tolerance 0; per launch kernel us,
+           bound us, kernel / bound, and for each depthwise launch its tile
+           plan, its plain ms, as context a bf16 F.conv2d(groups=C) of the
+           same shape, and with --parent DIR the us of DIR's depthwise
+           kernel at that launch (tools/dw_launches.py on DIR, seeded
+           operands of the same shape, in a process of its own).  Then
            make_serving_fn(qmode="intc") answers 6 requests of 256
            images: logits finite, (256, 1000), within relative L2 2e-2 of
            the CPU plain path on 8 images, MobileNetV2 1 conv + 39 GEMM +
-           17 depthwise launches a request (16 expand, 17 project, the
-           head and 5 int32 re-runs of a project GEMM that is also a
-           residual block's shortcut), MobileOne-S1 1 + 21 + 21; median
+           17 depthwise launches a request at either width (16 expand,
+           17 project, the head and 5 int32 re-runs of a project GEMM that
+           is also a residual block's shortcut), MobileOne-S1 1 + 21 + 21;
+           median
            request ms, images/s, and the split: input quantize, the
            kernels by kind, the K-pad copies (MobileNetV2's 24-channel
            maps into the GEMM), pool + head, and the rest (host and gaps);
@@ -173,12 +178,14 @@ limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -230,15 +237,21 @@ RESNET18_LAUNCHES = {"conv": 18, "gemm": 3, "im2col": 0, "stem_pool": 0,
                      "dwconv": 0}
 RESNET50_LAUNCHES = {"conv": 16, "gemm": 36, "im2col": 0, "stem_pool": 1,
                      "dwconv": 0}
-# the depthwise zoo: train-form factory, its fuser, the launches of a
-# request, and the module whose (activated) output the pool reads
+# the depthwise zoo: registry name and factory keywords of the train form,
+# its fuser, the launches of a request, and the module whose (activated)
+# output the pool reads
+MOBILENET_V2_LAUNCHES = {"conv": 1, "gemm": 39, "im2col": 0, "stem_pool": 0,
+                         "dwconv": 17}
 MOBILE = {
-    "mobilenet_v2": (mobilenet_deploy, {"conv": 1, "gemm": 39, "im2col": 0,
-                                        "stem_pool": 0, "dwconv": 17},
-                     "conv_head"),
-    "MobileOne_S1": (mobileone_fuse, {"conv": 1, "gemm": 21, "im2col": 0,
-                                      "stem_pool": 0, "dwconv": 21},
-                     "stage4_0_pw")}
+    "mobilenet_v2": ("mobilenet_v2", {}, mobilenet_deploy,
+                     MOBILENET_V2_LAUNCHES, "conv_head"),
+    "mobilenet_v2_w075": ("mobilenet_v2", {"width_mult": 0.75},
+                          mobilenet_deploy, MOBILENET_V2_LAUNCHES,
+                          "conv_head"),
+    "MobileOne_S1": ("MobileOne_S1", {}, mobileone_fuse,
+                     {"conv": 1, "gemm": 21, "im2col": 0, "stem_pool": 0,
+                      "dwconv": 21}, "stage4_0_pw")}
+DW_TOOL = REPO / "dlmc_quant_torch" / "tools" / "dw_launches.py"
 # the training path: configs, cuts and what must move
 QAT_CONFIGS = {"lsq": "QAT_lsq_resnet20_cifar10_w4a4",
                "rootq": "RootQ_resnet20_cifar10_w4a4"}
@@ -642,9 +655,11 @@ def launch_label(kind, args, kw) -> str:
         return (f"im2col {tuple(x.shape)} {kw['kernel']}x{kw['kernel']} "
                 f"s{kw['stride']} pads {kw['pads'][0]}")
     if kind == "dwconv":
+        p = DW.plan(*x.shape, kw["stride"])
         return (f"dwconv {tuple(x.shape)} s{kw['stride']} pad_lo "
                 f"{kw.get('pad_lo', 1)} {kw['mode']}"
-                f"{' relu' if kw.get('relu') else ''}")
+                f"{' relu' if kw.get('relu') else ''} [cb{p.cb} {p.th}x"
+                f"{p.tw} {p.threads}t rpt{p.rpt} {p.tiles} tiles]")
     if kind == "stem_pool":
         out = (x.shape[0],) + SP.geometry(x.shape[1], x.shape[2],
                                           kw["pads"])[2:] + (args[1].shape[1],)
@@ -713,13 +728,14 @@ def int_mm_beside(label, args, out):
     return graph_ms(lambda _: torch._int_mm(x, wc), GRAPH_LAUNCHES)
 
 
-def resnet_kernel_phase(what, model, x, expect):
+def resnet_kernel_phase(what, model, x, expect, parent=None):
     """Every kernel launch of one chained request of ``x``, kernel vs plain
     (tolerance 0), timed per launch, torch._int_mm beside each int32-mode
     GEMM, a plain ms and a bf16 context beside each launch of a CONTEXT
-    kind; returns the totals and, under each CONTEXT kind, its launches'
-    ms, plain ms, bound ms, ops and bytes ms (its entry in the kernels
-    line)."""
+    kind, and the ms of another tree's depthwise kernel beside the i-th
+    depthwise launch where ``parent`` ({i: ms}) has it; returns the totals
+    and, under each CONTEXT kind, its launches' ms, plain ms, bound ms, ops
+    and bytes ms (its entry in the kernels line)."""
     with torch.inference_mode():
         with LaunchRecorder() as rec:
             model(x, qmode="intc")
@@ -727,14 +743,17 @@ def resnet_kernel_phase(what, model, x, expect):
         if rec.counts() != expect:
             raise RuntimeError(f"{what}: a request made {rec.counts()} "
                                f"launches, expected {expect}")
-        print(f"# {what} kernel vs plain, batch {x.shape[0]}: launch | "
+        print(f"# {what} kernel vs plain, batch {x.shape[0]}: launch "
+              "[depthwise plan: slice, tile, threads, rows a thread, tiles] | "
               "max|diff| | kernel_us bound_us (by) kernel/bound "
-              "[torch._int_mm_us] {plain_us bf16_context_us}")
+              "[torch._int_mm_us] {plain_us bf16_context_us} "
+              "(parent tree's depthwise us)")
         tot = dict(ms=0.0, bound_ms=0.0, err=0.0)
         groups = {}
         extra = {kind: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                             bytes_ms=0.0, context_ms=0.0, err=0.0)
                  for kind in CONTEXT}
+        dw_index = 0
         for i, (kind, args, kw, out) in enumerate(rec.calls):
             run, plain_fn = KERNELS[kind]
             label = launch_label(kind, args, kw)
@@ -756,6 +775,10 @@ def resnet_kernel_phase(what, model, x, expect):
                     e[key] += val
                 e["err"] = max(e["err"], err)
                 lib = f" {{{plain_ms * 1e3:.1f} {context_ms * 1e3:.2f}}}"
+            if kind == "dwconv":
+                if (parent or {}).get(dw_index) is not None:
+                    lib += f" ({parent[dw_index] * 1e3:.2f})"
+                dw_index += 1
             print(f"{i:2d} {label:62s} | {err:g} | "
                   f"{ms * 1e3:8.2f} {b_ms * 1e3:8.2f} "
                   f"({bound_by(t_ops, t_bytes)}) {ms / b_ms:.2f}{lib}")
@@ -989,15 +1012,15 @@ def resnet50_serve_phase(model, device):
     return launches
 
 
-def mobile_deployed(name, fuser, device):
-    """``name`` in train form at full width (seeded weights; BN statistics
-    from one train-mode forward of the calibration batch, so that every
-    branch's output is normalized as in a trained model, then perturbed
-    with the BN affine) -> ``fuser`` -> the bench's W8A8 scheme ->
-    calibrate on that batch of CAL_BATCH -> prepare_deploy."""
+def mobile_deployed(name, kwargs, fuser, device):
+    """``name`` in train form with the factory's ``kwargs`` (seeded
+    weights; BN statistics from one train-mode forward of the calibration
+    batch, so that every branch's output is normalized as in a trained
+    model, then perturbed with the BN affine) -> ``fuser`` -> the bench's
+    W8A8 scheme -> calibrate on that batch of CAL_BATCH -> prepare_deploy."""
     gen = torch.Generator().manual_seed(SEED)
     model = get_model(name, device=device, num_classes=CLASSES,
-                      generator=gen)
+                      generator=gen, **kwargs)
     x = images(CAL_BATCH, SEED, device)
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
 
@@ -1027,7 +1050,7 @@ def mobile_serve_phase(name, model, device, pooled):
     """Chained int8 MobileNetV2 or MobileOne-S1 through make_serving_fn;
     returns the launches by kind.  ``pooled`` names the module whose
     output, activated and materialized, the global pool reads."""
-    _, expect, _ = MOBILE[name]
+    expect = MOBILE[name][3]
     x = images(SERVE_BATCH, SEED + 2, device)
     request_ms, launches = serve_requests(name, model, x, expect, CLASSES)
     # the 1x1 convs whose K the GEMM takes padded (pad_k copies their codes)
@@ -1082,30 +1105,54 @@ def mobile_serve_phase(name, model, device, pooled):
     return launches
 
 
-def mobile_phase(device):
-    """MobileNetV2 and MobileOne-S1: deploy, every launch == plain at batch
-    8 and 256, 6 served requests each.  Returns the largest difference,
-    the depthwise launches' totals at batch 256 over both models (their
-    entry in the kernels line) and the served launches by kind."""
+def parent_dw_ms(root: str):
+    """The depthwise kernel of the tree at ``root`` timed at every
+    depthwise launch of the MOBILE requests (tools/dw_launches.py in a
+    process of its own, on that tree's package): {(model, batch, i): ms}."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "rows.json"
+        run = subprocess.run(
+            [sys.executable, str(DW_TOOL), "--root", root, "--json",
+             str(out), "8", str(SERVE_BATCH)], capture_output=True, text=True)
+        if run.returncode != 0:
+            print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
+            raise RuntimeError(f"timing the depthwise kernel of {root} "
+                               "failed")
+        rows = json.loads(out.read_text())
+    print(f"# parent tree {root}: its depthwise kernel timed at "
+          f"{len(rows)} launches (tools/dw_launches.py)")
+    return {(r["model"], r["batch"], r["index"]): r["ms"] for r in rows}
+
+
+def mobile_phase(device, parent=None):
+    """MobileNetV2 (widths 1.0 and 0.75) and MobileOne-S1: deploy, every
+    launch == plain at batch 8 and 256, 6 served requests each.  Returns
+    the largest difference, the depthwise launches' totals at batch 256
+    over the three models (their entry in the kernels line) and the served
+    launches by kind.  ``parent``: another tree's depthwise ms by (model,
+    batch, launch), printed beside each depthwise launch."""
     err, served = 0.0, {}
     dw = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
               err=0.0)
-    for name, (fuser, expect, pooled) in MOBILE.items():
+    for label, (name, kwargs, fuser, expect, pooled) in MOBILE.items():
         t0 = time.perf_counter()
-        model = mobile_deployed(name, fuser, device)
-        print(f"# {name}: train form -> {fuser.__name__} -> bench W8A8 "
+        model = mobile_deployed(name, kwargs, fuser, device)
+        print(f"# {label}: train form -> {fuser.__name__} -> bench W8A8 "
               f"scheme -> calibrate (batch {CAL_BATCH}) + prepare_deploy in "
               f"{time.perf_counter() - t0:.2f} s")
         for batch in (8, SERVE_BATCH):
-            got = resnet_kernel_phase(name, model,
-                                      images(batch, SEED + 1, device), expect)
+            theirs = {i: ms for (m, b, i), ms in (parent or {}).items()
+                      if m == label and b == batch}
+            got = resnet_kernel_phase(label, model,
+                                      images(batch, SEED + 1, device), expect,
+                                      theirs)
             err = max(err, got["err"])
             dw["err"] = max(dw["err"], got["dwconv"]["err"])
             if batch == SERVE_BATCH:
                 for key in ("ms", "plain_ms", "bound_ms", "ops_ms",
                             "bytes_ms"):
                     dw[key] += got["dwconv"][key]
-        launches = mobile_serve_phase(name, model, device, pooled)
+        launches = mobile_serve_phase(label, model, device, pooled)
         for kind, n in launches.items():
             served[kind] = served.get(kind, 0) + n
         del model
@@ -1461,7 +1508,13 @@ def kernel_entry(name, replaces, launches, tot, library_ms):
             "library_ms": library_ms}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    cli = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    cli.add_argument("--parent", default=None,
+                     help="another tree (e.g. an archive of the parent "
+                          "commit) whose depthwise kernel is timed beside "
+                          "this one's at every depthwise launch")
+    args = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1524,7 +1577,8 @@ def main() -> int:
         r50, images(SERVE_BATCH, SEED + 1, device))
     served50 = resnet50_serve_phase(r50, device)
     del r50
-    mobile_err, dw, mobile_served = mobile_phase(device)
+    parent = parent_dw_ms(args.parent) if args.parent else None
+    mobile_err, dw, mobile_served = mobile_phase(device, parent)
     t0 = time.perf_counter()
     qat_launches, qat_err = qat_phase(device)
     print(f"# qat phase: {time.perf_counter() - t0:.2f} s")

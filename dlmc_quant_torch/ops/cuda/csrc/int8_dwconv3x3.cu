@@ -18,42 +18,63 @@
 //   codes: out = clamp(rint(f32(acc)*a[c] + b[c]), lo, hi)    -> int8
 //   f32:   out = f32(acc)*a[c] + b[c], then max(., 0) if relu -> f32
 //
-// written with __int2float_rn, __fmul_rn, __fadd_rn (no fma contraction)
-// and __float2int_rn (round half to even), as the int8 conv's and GEMM's
-// epilogues (ops/cuda/epilogue.py is the plain version), so the kernel
-// equals int8_dwconv3x3_plain bit for bit.  The ReLU of a boundary lives
+// written with __fmul_rn, __fadd_rn (no fma contraction) and rounding half
+// to even, as the int8 conv's and GEMM's epilogues (ops/cuda/epilogue.py is
+// the plain version), so the kernel equals int8_dwconv3x3_plain bit for
+// bit; the two conversions (acc to float, float to code) are exact float
+// additions here (acc_to_float, store_row).  The ReLU of a boundary lives
 // in lo and a ReLU6 in hi (quant/chain.py: fold_params).
 //
 // Bound on an H100: bytes.  A depthwise conv does 9 multiply-adds an
-// output value and has no reduction over channels, so tensor cores do not
-// apply: at batch 256 MobileNetV2's 17 launches move ~1.5 GB (x read once,
-// codes written once) for ~5.3 G multiply-adds, 0.46 ms at 3.35 TB/s
-// against ~0.005 ms of int8 operations at the card's peak.  The
-// multiply-adds run on the CUDA cores' int32 pipes, 64 lanes an SM a
-// clock: ~0.6 ms for MobileNetV2's at 1.98 GHz, so the design has to keep
-// instructions low as well as bytes.
+// output value and has no reduction over channels, so wgmma does not
+// apply: a block-diagonal product would do C times the work.  At batch 256
+// MobileNetV2's 17 launches move 1.547 GB (x read once, codes written
+// once), 0.46 ms at 3.35 TB/s, for 5.3 G multiply-adds; what serves here
+// is shared memory, asynchronous copies and the CUDA cores' 4-way int8 dot
+// product (dp4a), so that instructions stay under the bytes.
 //
-// Design (simple first): one thread per output pixel and 16-channel
-// group, channel groups fastest, so a warp reads and writes consecutive
-// 16-byte chunks.  It makes nine 16-byte loads of codes through the
-// read-only path (the pad code where a tap lies outside the map), 144
-// int32 multiply-adds against the group's nine taps, which sit in shared
-// memory with a and b for every channel (loaded once a block), runs the
-// epilogue and stores one 16-byte chunk of codes (or four float4).  The
-// nine loads of neighbouring pixels overlap: at stride 1 each input chunk
-// is read by nine threads, from L1 or L2, and from device memory about
-// once.  Not done yet: halo tiles in shared memory, packed byte
-// arithmetic.  A grid-stride loop over (pixel, group) with 32-bit indices
-// (the wrapper bounds them).
+// Design.  A block owns one image, a tile of TH x TW outputs and a slice
+// of CB channels: the whole pixel where it fits (a warp's stores then run
+// on through the pixel: with C = 144, slices of 32 that straddle 32-byte
+// sectors took twice as long), else 64, 48 or 32 (a tail slice masked in
+// quads; C % 8 == 0).  It stages the tile's input halo, ((TH-1)s+3) x
+// ((TW-1)s+3) pixels of CB bytes at a pitch of CB + 16 (a warp's words
+// spread over the banks), in shared memory with cp.async in 16-byte
+// granules (8 where C or CB % 16 != 0: a pixel may start on an 8-byte
+// boundary); every cell outside the map, the bottom/right overhang
+// included, gets the pad code.  The grid is what fits on the card at once,
+// a multiple of the slice count, so a block keeps one slice and walks
+// tiles (slice fastest, then column, row, image), staging the next tile's
+// halo into the second buffer while it computes this one.  A thread owns
+// 4 channels x R output columns of a row (R = 4 at stride 1, 2 at stride
+// 2) and walks rpt rows down the tile.  From each halo row it reads
+// (R-1)s+3 words (a word: the 4 channels of one pixel) and transposes them
+// with __byte_perm into channel words (4 consecutive pixels of one
+// channel); one signed __dp4a against the tap row's weight word
+// (w0,w1,w2,0) or (0,w0,w1,w2) gives an output's three taps of that row.
+// At stride 1 a channel word of pixels q-1..q+2 serves output q and q+1,
+// and a halo row's words are kept for the three output rows that use it:
+// ~6 LDS, 14 PRMT and 48 dp4a an output row of 16 values (144
+// multiply-adds) against ~5 instructions a multiply-add for a byte
+// extract and an IMAD.  The epilogue's two conversions are exact float
+// additions on the full-rate pipes.  The weight words and a, b are loaded
+// into registers once a block (load_weights), the index math once a tile.
+// The tile plan (CB, column groups, row groups, rows a thread) comes from
+// the wrapper (ops/cuda/int8_dwconv.py: plan, a model of the work and of
+// the last tile's latency), which the CPU tests emulate word for word
+// (tests/test_torch_dwconv_tiles.py).  On an H100 at batch 256 the 17 and
+// 21 launches of MobileNetV2 and MobileOne-S1 run at 1.8-2.0x their bound:
+// the stride-1 layers near 2x, the stride-2 ones 1.35-2.0x, 7x7 maps 2.4x.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int GROUP = 16;           // channels of a thread
-constexpr int MAX_C = 2880;         // 17 bytes a channel in 48 KB of smem
+constexpr int MAX_THREADS = 256;
+constexpr int PITCH_PAD = 16;        // bytes after a pixel's slice in smem
+constexpr int MAX_SMEM = 232448;     // dynamic shared memory a block may use
+constexpr int MAX_DEVICES = 64;
 
 struct DwArgs {
   const int8_t* x;
@@ -61,109 +82,338 @@ struct DwArgs {
   const float* a;
   const float* b;
   void* out;             // (N, Ho, Wo, C): int8 codes or f32
-  int H, W, C, Ho, Wo, stride, pad_lo, lo, hi, relu;
+  int H, W, C, Ho, Wo, pad_lo, relu;
+  float flo, fhi;        // the codes' clamp, lo and hi
   uint32_t pad4;         // the pad code in every byte
-  unsigned items;        // N * Ho * Wo * C / 16 < 2^31
+  // the plan: channel slice and its quads, column groups, rows a thread;
+  // tile, halo and smem pitch; tiles of the walk
+  int cb, cq, cg, rpt;
+  int th, tw, hh, hw, pitch, granule, buf_bytes;
+  int slices, tiles_x, tiles_y, tiles;
 };
 
-// acc[4 u + j] += byte j of x.u * byte j of w.u, bytes as signed int8
-__device__ __forceinline__ void mac16(int (&acc)[GROUP], const uint4 x,
-                                      const uint4 w) {
-  const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
-  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int xv = static_cast<int>(xs[u] << (24 - 8 * j)) >> 24;
-      const int wv = static_cast<int>(ws[u] << (24 - 8 * j)) >> 24;
-      acc[4 * u + j] += xv * wv;
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int granule) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (granule == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// tile t -> (image, tile row, tile column); the slice is t % slices
+struct Tile {
+  int n, oy0, ox0;
+};
+
+__device__ __forceinline__ Tile tile_of(const DwArgs& g, int t) {
+  int rest = t / g.slices;
+  const int tx = rest % g.tiles_x;
+  rest /= g.tiles_x;
+  const int ty = rest % g.tiles_y;
+  return Tile{rest / g.tiles_y, ty * g.th, tx * g.tw};
+}
+
+// Stage tile t's halo in buf: a thread takes a column of granules and
+// every `ways`-th row of it (ways = the threads a column gets); cp.async
+// inside the map, the pad code outside it and past C.
+template <int S>
+__device__ void stage_halo(const DwArgs& g, int t, unsigned char* buf) {
+  const Tile tl = tile_of(g, t);
+  const int c0 = (t % g.slices) * g.cb;
+  const int iy0 = tl.oy0 * S - g.pad_lo;
+  const int ix0 = tl.ox0 * S - g.pad_lo;
+  const int gpp = g.cb / g.granule;      // granules a pixel
+  const int cols = g.hw * gpp;
+  const long long row_bytes = static_cast<long long>(g.W) * g.C;
+  const int8_t* image = g.x + static_cast<long long>(tl.n) * g.H * row_bytes;
+  int ways = blockDim.x / cols, col = threadIdx.x, col_step = blockDim.x;
+  int hr0 = 0;
+  if (ways > 1) {
+    hr0 = threadIdx.x / cols;
+    col = hr0 < ways ? threadIdx.x - hr0 * cols : cols;
+    col_step = cols;
+  } else {
+    ways = 1;
+  }
+  const int step = ways * g.hw * g.pitch;
+  for (; col < cols; col += col_step) {
+    const int hc = col / gpp;
+    const int c = c0 + (col - hc * gpp) * g.granule;
+    const int ix = ix0 + hc;
+    // C % granule == 0, so a granule lies wholly inside or past C
+    const bool col_in = ix >= 0 && ix < g.W && c < g.C;
+    unsigned char* dst = buf + (hr0 * g.hw + hc) * g.pitch + (c - c0);
+    for (int hr = hr0; hr < g.hh; hr += ways, dst += step) {
+      const int iy = iy0 + hr;
+      if (col_in && iy >= 0 && iy < g.H) {
+        cp_async(dst, image + iy * row_bytes + static_cast<long long>(ix) *
+                                  g.C + c, g.granule);
+      } else if (g.granule == 16) {
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(g.pad4, g.pad4, g.pad4, g.pad4);
+      } else {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(g.pad4, g.pad4);
+      }
     }
   }
 }
 
-template <bool CODES>
-__global__ void __launch_bounds__(THREADS)
-int8_dwconv3x3_kernel(const DwArgs g) {
-  // a (C floats), b (C floats), then the weight (9 C bytes, 16-aligned:
-  // 8 C is a multiple of 128)
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* s_a = reinterpret_cast<float*>(smem);
-  float* s_b = s_a + g.C;
-  uint4* s_w = reinterpret_cast<uint4*>(smem + 8 * g.C);
-  for (int i = threadIdx.x; i < g.C; i += THREADS) {
-    s_a[i] = __ldg(g.a + i);
-    s_b[i] = __ldg(g.b + i);
-  }
-  const int groups = g.C / GROUP;
-  const uint4* w4 = reinterpret_cast<const uint4*>(g.w);
-  for (int i = threadIdx.x; i < 9 * groups; i += THREADS) s_w[i] = __ldg(w4 + i);
-  __syncthreads();
+// 4 words of 4 bytes (p[i] byte j) -> t[j] byte i = p[i] byte j
+__device__ __forceinline__ void transpose4(uint32_t p0, uint32_t p1,
+                                           uint32_t p2, uint32_t p3,
+                                           uint32_t (&t)[4]) {
+  const uint32_t x0 = __byte_perm(p0, p1, 0x5140);   // p0.0 p1.0 p0.1 p1.1
+  const uint32_t x1 = __byte_perm(p0, p1, 0x7362);   // p0.2 p1.2 p0.3 p1.3
+  const uint32_t y0 = __byte_perm(p2, p3, 0x5140);
+  const uint32_t y1 = __byte_perm(p2, p3, 0x7362);
+  t[0] = __byte_perm(x0, y0, 0x5410);
+  t[1] = __byte_perm(x0, y0, 0x7632);
+  t[2] = __byte_perm(x1, y1, 0x5410);
+  t[3] = __byte_perm(x1, y1, 0x7632);
+}
 
-  const uint4 padv = make_uint4(g.pad4, g.pad4, g.pad4, g.pad4);
-  for (unsigned q = blockIdx.x * THREADS + threadIdx.x; q < g.items;
-       q += gridDim.x * THREADS) {
-    const unsigned pix = q / groups;
-    const int grp = q - pix * groups;
-    const int ox = pix % g.Wo;
-    const unsigned nh = pix / g.Wo;
-    const int oy = nh % g.Ho;
-    const int n = nh / g.Ho;
-    const int iy0 = oy * g.stride - g.pad_lo;
-    const int ix0 = ox * g.stride - g.pad_lo;
-    int acc[GROUP];
+// The weight words of channels c..c+3 for each tap row dy: byte i of
+// wa[dy][j] is w[3 dy + i, c + j] for i < 3, byte 3 is 0; and a, b.  The
+// one place the kernel reads the weight.
+__device__ __forceinline__ void load_weights(const DwArgs& g, int c,
+                                             bool c_in,
+                                             uint32_t (&wa)[3][4],
+                                             float (&ea)[4], float (&eb)[4]) {
 #pragma unroll
-    for (int c = 0; c < GROUP; ++c) acc[c] = 0;
+  for (int dy = 0; dy < 3; ++dy) {
+    uint32_t tap[3] = {0, 0, 0};
+    if (c_in) {
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const int iy = iy0 + dy;
-      const bool row_in = iy >= 0 && iy < g.H;
-      const long long row =
-          (static_cast<long long>(n) * g.H + iy) * g.W;
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const int ix = ix0 + dx;
-        uint4 xv = padv;
-        if (row_in && ix >= 0 && ix < g.W)
-          xv = __ldg(reinterpret_cast<const uint4*>(
-              g.x + (row + ix) * g.C + GROUP * grp));
-        mac16(acc, xv, s_w[(3 * dy + dx) * groups + grp]);
-      }
+      for (int dx = 0; dx < 3; ++dx)
+        tap[dx] = __ldg(reinterpret_cast<const uint32_t*>(
+            g.w + (3 * dy + dx) * g.C + c));
     }
-    const int c0 = GROUP * grp;
-    float y[GROUP];
+    transpose4(tap[0], tap[1], tap[2], 0u, wa[dy]);
+  }
 #pragma unroll
-    for (int c = 0; c < GROUP; ++c)
-      y[c] = __fadd_rn(__fmul_rn(__int2float_rn(acc[c]), s_a[c0 + c]),
-                       s_b[c0 + c]);
-    const long long at = static_cast<long long>(pix) * g.C + c0;
-    if constexpr (CODES) {
-      uint32_t word[4];
+  for (int j = 0; j < 4; ++j) {
+    ea[j] = c_in ? __ldg(g.a + c + j) : 0.0f;
+    eb[j] = c_in ? __ldg(g.b + c + j) : 0.0f;
+  }
+}
+
+// The channel words of one halo row for a thread's R outputs.  Stride 1
+// (words p0..p5 = halo columns h..h+5): cw[j] = pixels h..h+3 of channel
+// j, cw[4 + j] = pixels h+2..h+5.  Stride 2 (p0..p4 = columns h..h+4):
+// cw[j] = pixels h..h+3, cw[4 + j] = pixels h+2, h+3, h+4 and a byte that
+// meets a zero weight byte.
+template <int S>
+__device__ __forceinline__ void row_words(const unsigned char* q, int pitch,
+                                          uint32_t (&cw)[8]) {
+  constexpr int WORDS = S == 1 ? 6 : 5;
+  uint32_t p[WORDS];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        uint32_t v = 0;
+  for (int k = 0; k < WORDS; ++k)
+    p[k] = *reinterpret_cast<const uint32_t*>(q + k * pitch);
+  uint32_t lo[4];
+  transpose4(p[0], p[1], p[2], p[3], lo);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // rintf and the conversion in one cvt (half to even, saturating)
-          const int code = min(max(__float2int_rn(y[4 * u + j]), g.lo), g.hi);
-          v |= static_cast<uint32_t>(code & 0xFF) << (8 * j);
-        }
-        word[u] = v;
-      }
-      *reinterpret_cast<uint4*>(static_cast<int8_t*>(g.out) + at) =
-          make_uint4(word[0], word[1], word[2], word[3]);
+  for (int j = 0; j < 4; ++j) cw[j] = lo[j];
+  if constexpr (S == 1) {
+    const uint32_t y0 = __byte_perm(p[2], p[3], 0x5140);
+    const uint32_t y1 = __byte_perm(p[2], p[3], 0x7362);
+    const uint32_t z0 = __byte_perm(p[4], p[5], 0x5140);
+    const uint32_t z1 = __byte_perm(p[4], p[5], 0x7362);
+    cw[4] = __byte_perm(y0, z0, 0x5410);
+    cw[5] = __byte_perm(y0, z0, 0x7632);
+    cw[6] = __byte_perm(y1, z1, 0x5410);
+    cw[7] = __byte_perm(y1, z1, 0x7632);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      cw[4 + j] = __byte_perm(lo[j], p[4], 0x32 | (4 + j) << 8 |
+                                               (4 + j) << 12);
+  }
+}
+
+// acc[j][k] += the tap row's three products for output k of channel j
+template <int S, int R>
+__device__ __forceinline__ void mac_row(int (&acc)[4][R],
+                                        const uint32_t (&cw)[8],
+                                        const uint32_t (&wa)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int w0 = static_cast<int>(wa[j]);
+    if constexpr (S == 1) {
+      const int w1 = static_cast<int>(wa[j] << 8);
+      acc[j][0] = __dp4a(static_cast<int>(cw[j]), w0, acc[j][0]);
+      acc[j][1] = __dp4a(static_cast<int>(cw[j]), w1, acc[j][1]);
+      acc[j][2] = __dp4a(static_cast<int>(cw[4 + j]), w0, acc[j][2]);
+      acc[j][3] = __dp4a(static_cast<int>(cw[4 + j]), w1, acc[j][3]);
     } else {
-      float4* o = reinterpret_cast<float4*>(static_cast<float*>(g.out) + at);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = g.relu ? fmaxf(y[4 * u + j], 0.0f) : y[4 * u + j];
-        o[u] = make_float4(v[0], v[1], v[2], v[3]);
-      }
+      acc[j][0] = __dp4a(static_cast<int>(cw[j]), w0, acc[j][0]);
+      acc[j][1] = __dp4a(static_cast<int>(cw[4 + j]), w0, acc[j][1]);
     }
   }
+}
+
+// 1.5 * 2^23: in [2^23, 2^24) a float's last bit is worth 1, so an int
+// below 2^22 in magnitude added to these bits is that float plus the int
+constexpr float MAGIC = 12582912.0f;
+constexpr int MAGIC_BITS = 0x4B400000;
+
+// f32(acc), exact (|acc| <= 9 * 128 * 128 < 2^22) as __int2float_rn, on the
+// integer and float pipes instead of the conversion pipe (16 a clock an SM)
+__device__ __forceinline__ float acc_to_float(int acc) {
+  return __fsub_rn(__int_as_float(MAGIC_BITS + acc), MAGIC);
+}
+
+// the epilogue of one output row's R x 4 values, stored where inside the
+// map (and the thread's channels inside C)
+template <bool CODES, int R>
+__device__ __forceinline__ void store_row(const DwArgs& g,
+                                          const int (&acc)[4][R],
+                                          const float (&ea)[4],
+                                          const float (&eb)[4],
+                                          long long at, int ox) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (ox + k >= g.Wo) break;
+    float y[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      y[j] = __fadd_rn(__fmul_rn(acc_to_float(acc[j][k]), ea[j]), eb[j]);
+    const long long o = at + static_cast<long long>(k) * g.C;
+    if constexpr (CODES) {
+      // clamp(rint(y), lo, hi) as __float2int_rn and a clamp give it: the
+      // clamp to the integers lo, hi commutes with rint, and adding MAGIC
+      // rounds half to even to an integer whose low byte is the code
+      uint32_t code[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        code[j] = __float_as_uint(
+            __fadd_rn(fminf(fmaxf(y[j], g.flo), g.fhi), MAGIC));
+      const uint32_t lo = __byte_perm(code[0], code[1], 0x0040);
+      const uint32_t hi = __byte_perm(code[2], code[3], 0x0040);
+      *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(g.out) + o) =
+          __byte_perm(lo, hi, 0x5410);
+    } else {
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = g.relu ? fmaxf(y[j], 0.0f) : y[j];
+      *reinterpret_cast<float4*>(static_cast<float*>(g.out) + o) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+template <int S, bool CODES>
+__global__ void __launch_bounds__(MAX_THREADS)
+int8_dwconv3x3_kernel(const DwArgs g) {
+  constexpr int R = S == 1 ? 4 : 2;      // output columns of a thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the thread: channel quad (fastest), column group, row group
+  const int cq = threadIdx.x % g.cq;
+  const int j = threadIdx.x / g.cq % g.cg;
+  const int r0 = threadIdx.x / (g.cq * g.cg) * g.rpt;
+  // gridDim.x is a multiple of the slice count: one slice a block
+  const int c = blockIdx.x % g.slices * g.cb + 4 * cq;
+  const bool c_in = c < g.C;
+  uint32_t wa[3][4];
+  float ea[4], eb[4];
+  load_weights(g, c, c_in, wa, ea, eb);
+
+  const int row_step = g.hw * g.pitch;        // a halo row in smem
+  const int col0 = R * S * j;                 // the thread's first column
+  int buf = 0;
+  stage_halo<S>(g, blockIdx.x, smem);
+  cp_async_commit();
+  for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+    if (t + gridDim.x < g.tiles)
+      stage_halo<S>(g, t + gridDim.x, smem + (buf ^ 1) * g.buf_bytes);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+
+    const Tile tl = tile_of(g, t);
+    const unsigned char* q =
+        smem + buf * g.buf_bytes + col0 * g.pitch + 4 * cq;
+    const int ox = tl.ox0 + R * j;
+    const bool col_in = c_in && ox < g.Wo;
+    long long at = ((static_cast<long long>(tl.n) * g.Ho + tl.oy0 + r0) *
+                        g.Wo + ox) * g.C + c;
+    const long long out_row = static_cast<long long>(g.Wo) * g.C;
+    int oy = tl.oy0 + r0;
+    uint32_t cw[3][8];
+    row_words<S>(q + r0 * S * row_step, g.pitch, cw[0]);
+    if constexpr (S == 1)
+      row_words<S>(q + (r0 + 1) * row_step, g.pitch, cw[1]);
+    for (int i = 0; i < g.rpt; ++i, ++oy, at += out_row) {
+      const unsigned char* hr = q + ((r0 + i) * S + 2) * row_step;
+      int acc[4][R];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int k = 0; k < R; ++k) acc[u][k] = 0;
+      if constexpr (S == 1) {
+        row_words<S>(hr, g.pitch, cw[2]);
+        mac_row<S, R>(acc, cw[0], wa[0]);
+        mac_row<S, R>(acc, cw[1], wa[1]);
+        mac_row<S, R>(acc, cw[2], wa[2]);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          cw[0][u] = cw[1][u];
+          cw[1][u] = cw[2][u];
+        }
+      } else {
+        mac_row<S, R>(acc, cw[0], wa[0]);
+        row_words<S>(hr - row_step, g.pitch, cw[1]);
+        mac_row<S, R>(acc, cw[1], wa[1]);
+        row_words<S>(hr, g.pitch, cw[0]);
+        mac_row<S, R>(acc, cw[0], wa[2]);
+      }
+      if (col_in && oy < g.Ho)
+        store_row<CODES, R>(g, acc, ea, eb, at, ox);
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+}
+
+template <int S, bool CODES>
+cudaError_t launch(const DwArgs& g, int threads, int smem,
+                   cudaStream_t stream) {
+  const auto kernel = int8_dwconv3x3_kernel<S, CODES>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  // above 48 KB a kernel needs the attribute, once per device
+  static bool raised[MAX_DEVICES];
+  if (smem > 48 * 1024 && device < MAX_DEVICES && !raised[device]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return err;
+    raised[device] = true;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // what fits at once, whole multiples of the slice count
+  long long grid = static_cast<long long>(per_sm) * sms;
+  if (grid > g.tiles) grid = g.tiles;
+  grid = grid / g.slices * g.slices;
+  if (grid < g.slices) grid = g.slices;
+  kernel<<<static_cast<unsigned>(grid), threads, smem, stream>>>(g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -173,20 +423,23 @@ extern "C" {
 // out (n, ceil(h/stride), ceil(w/stride), c) from x (n, h, w, c) int8 and
 // w (9, c) int8: the depthwise 3x3 conv with top/left pad pad_lo, `pad`
 // outside the map, then the epilogue (codes: clamp to [lo, hi] -> int8;
-// else f32, ReLU'd if relu).  c % 16 == 0, c <= 2880, stride 1 or 2,
-// pad_lo 0 or 1, 16-byte aligned x, w and out, n*ho*wo*c/16 < 2^31 (the
-// wrapper checks them).  Launches on `stream`; returns cudaGetLastError().
+// else f32, ReLU'd if relu).  The plan (ops/cuda/int8_dwconv.py: plan):
+// cb channels a block, cg column groups, rg row groups, rpt rows a thread
+// (cb % 8 == 0, cb/4 * cg * rg <= 256 threads).  c % 8 == 0, stride 1 or
+// 2, pad_lo 0 or 1, 16-byte aligned x, w and out (the wrapper checks
+// them).  Launches on `stream`; returns cudaGetLastError().
 int dlmcq_int8_dwconv3x3(const void* x, const void* w, const void* a,
                          const void* b, void* out, int n, int h, int wd,
                          int c, int stride, int pad_lo, int pad, int lo,
-                         int hi, int codes, int relu, void* stream) {
-  if (c % GROUP || c <= 0 || c > MAX_C || (stride != 1 && stride != 2) ||
-      (pad_lo != 0 && pad_lo != 1) || n <= 0 || h <= 0 || wd <= 0)
+                         int hi, int codes, int relu, int cb, int cg, int rg,
+                         int rpt, void* stream) {
+  const int r = stride == 1 ? 4 : 2;
+  const long long threads = static_cast<long long>(cb / 4) * cg * rg;
+  if (c % 8 || c <= 0 || (stride != 1 && stride != 2) ||
+      (pad_lo != 0 && pad_lo != 1) || n <= 0 || h <= 0 || wd <= 0 ||
+      cb % 8 || cb < 8 || cg < 1 || rg < 1 || rpt < 1 ||
+      threads > MAX_THREADS || rpt > 1024 || cg > 64)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ho = (h - 1) / stride + 1;
-  const int wo = (wd - 1) / stride + 1;
-  const long long items = static_cast<long long>(n) * ho * wo * (c / GROUP);
-  if (items >= 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
   DwArgs g;
   g.x = static_cast<const int8_t*>(x);
   g.w = static_cast<const int8_t*>(w);
@@ -196,30 +449,43 @@ int dlmcq_int8_dwconv3x3(const void* x, const void* w, const void* a,
   g.H = h;
   g.W = wd;
   g.C = c;
-  g.Ho = ho;
-  g.Wo = wo;
-  g.stride = stride;
+  g.Ho = (h - 1) / stride + 1;
+  g.Wo = (wd - 1) / stride + 1;
   g.pad_lo = pad_lo;
-  g.lo = lo;
-  g.hi = hi;
+  g.flo = static_cast<float>(lo);
+  g.fhi = static_cast<float>(hi);
   g.relu = relu;
   g.pad4 = 0x01010101u * static_cast<uint32_t>(pad & 0xFF);
-  g.items = static_cast<unsigned>(items);
-  int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess)
-    return static_cast<int>(cudaGetLastError());
-  const long long blocks = (items + THREADS - 1) / THREADS;
-  const long long most = 8LL * sms;   // 8 blocks of 256 threads an SM
-  const unsigned grid = static_cast<unsigned>(blocks < most ? blocks : most);
-  const size_t smem = 17 * static_cast<size_t>(c);
+  g.cb = cb;
+  g.cq = cb / 4;
+  g.cg = cg;
+  g.rpt = rpt;
+  g.th = rg * rpt;
+  g.tw = r * cg;
+  g.hh = (g.th - 1) * stride + 3;
+  g.hw = (g.tw - 1) * stride + 3;
+  g.pitch = cb + PITCH_PAD;
+  g.granule = c % 16 == 0 && cb % 16 == 0 ? 16 : 8;
+  const long long buf = static_cast<long long>(g.hh) * g.hw * g.pitch;
+  g.slices = (c + cb - 1) / cb;
+  g.tiles_x = (g.Wo + g.tw - 1) / g.tw;
+  g.tiles_y = (g.Ho + g.th - 1) / g.th;
+  const long long tiles =
+      static_cast<long long>(n) * g.tiles_y * g.tiles_x * g.slices;
+  if (2 * buf > MAX_SMEM || tiles >= 0x7FFFFFFF)
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.buf_bytes = static_cast<int>(buf);
+  g.tiles = static_cast<int>(tiles);
+  const int smem = static_cast<int>(2 * buf);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (codes)
-    int8_dwconv3x3_kernel<true><<<grid, THREADS, smem, s>>>(g);
+  cudaError_t err;
+  if (stride == 1)
+    err = codes ? launch<1, true>(g, threads, smem, s)
+                : launch<1, false>(g, threads, smem, s);
   else
-    int8_dwconv3x3_kernel<false><<<grid, THREADS, smem, s>>>(g);
-  return static_cast<int>(cudaGetLastError());
+    err = codes ? launch<2, true>(g, threads, smem, s)
+                : launch<2, false>(g, threads, smem, s);
+  return static_cast<int>(err);
 }
 
 const char* dlmcq_cuda_error_string(int err) {

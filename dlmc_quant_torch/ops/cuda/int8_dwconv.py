@@ -4,9 +4,9 @@ MobileNetV2's and MobileOne's depthwise convs on the chained int8 path.
 The JAX package runs them as an XLA int8 conv at ``feature_group_count =
 C`` on the pad-code-padded codes (``dlmc_quant_tpu/quant/layers.py:722-728``);
 no Pallas kernel did.  The CUDA source is ``csrc/int8_dwconv3x3.cu``; its
-header says what bounds it on an H100.  For input codes ``x`` (N, H, W, C)
-int8 and a weight ``w`` (3, 3, 1, C) int8 (packed once by
-:func:`pack_weight` as (9, C), the tap ``dy·3 + dx`` a row)::
+header says what bounds it on an H100 and how its tiles work.  For input
+codes ``x`` (N, H, W, C) int8 and a weight ``w`` (3, 3, 1, C) int8 (packed
+once by :func:`pack_weight` as (9, C), the tap ``dy·3 + dx`` a row)::
 
     acc[n,p,q,c] = Σ_{dy,dx} xpad[n, p·s + dy, q·s + dx, c] · w[dy, dx, 0, c]   (int32)
     xpad         = x padded with the int8 code ``pad``: ``pad_lo`` rows and
@@ -16,8 +16,10 @@ int8 and a weight ``w`` (3, 3, 1, C) int8 (packed once by
     "codes": out = clamp(rint(f32(acc)·a[c] + b[c]), lo, hi) → int8 (N, Ho, Wo, C)
     "f32":   out = f32(acc)·a[c] + b[c], then max(·, 0) if relu → f32
 
-The epilogue is :mod:`.epilogue`'s (no residual).  C must be a multiple of
-16 (a thread's 16-byte chunk of channels).
+The epilogue is :mod:`.epilogue`'s (no residual).  The plain version takes
+any C; the kernel takes C % 8 == 0 (:func:`check_kernel`), which every
+width of the zoo gives (``_make_divisible(·, 8)``).  :func:`plan` picks the
+kernel's tiles per shape.
 
 :func:`int8_dwconv3x3` launches the kernel for CUDA tensors and runs
 :func:`int8_dwconv3x3_plain` for CPU tensors; there is no fallback from one
@@ -26,6 +28,7 @@ to the other.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -36,9 +39,110 @@ from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda.epilogue import check_epilogue, epilogue_plain
 from dlmc_quant_torch.ops.cuda.int8_conv import out_hw
 
-GROUP = 16            # channels of a thread: one 16-byte chunk
-MAX_C = 2880          # a, b and the weight (17 bytes a channel) in 48 KB
+GRANULE = 8           # the kernel's channel granule: C % 8 == 0
+PITCH_PAD = 16        # bytes after a pixel's slice in shared memory
+MAX_THREADS = 256
+MAX_COLUMN_GROUPS = 8
+MAX_ROWS = 8          # output rows a thread walks down a tile
+HALF_SMEM = 232448 // 2   # two blocks an SM at least
+SMS = 132             # an H100 SXM's SMs, as the plan models the card
 INT_LIMIT = 2 ** 31 - 1
+# the plan's cost model, in instructions of a lane: an output value's
+# multiply-adds and epilogue; a halo row's loads and byte permutes; a
+# tile's decode and barriers; a staged 16- or 8-byte granule
+COST_VALUE, COST_ROW, COST_TILE, COST_GRANULE = 10, 20, 50, 6
+LANES = 128           # lanes an SM runs a clock
+
+DwPlan = collections.namedtuple(
+    "DwPlan", "cb cg rg rpt threads th tw hh hw pitch granule slices "
+              "tiles_y tiles_x tiles smem")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def columns(stride: int) -> int:
+    """Output columns a thread owns: 4 at stride 1, 2 at stride 2."""
+    return 4 if stride == 1 else 2
+
+
+def make_plan(n: int, h: int, w: int, c: int, stride: int, cb: int, cg: int,
+              rg: int, rpt: int) -> DwPlan:
+    """The kernel's geometry for ``cb`` channels a block, ``cg`` column
+    groups, ``rg`` row groups and ``rpt`` rows a thread (the C entry point
+    derives the same)."""
+    ho, wo = out_hw(h, w, stride)
+    th, tw = rg * rpt, columns(stride) * cg
+    hh, hw = (th - 1) * stride + 3, (tw - 1) * stride + 3
+    pitch = cb + PITCH_PAD
+    slices, tiles_y, tiles_x = _cdiv(c, cb), _cdiv(ho, th), _cdiv(wo, tw)
+    return DwPlan(cb, cg, rg, rpt, cb // 4 * cg * rg, th, tw, hh, hw, pitch,
+                  16 if c % 16 == 0 and cb % 16 == 0 else 8, slices,
+                  tiles_y, tiles_x,
+                  n * tiles_y * tiles_x * slices, 2 * hh * hw * pitch)
+
+
+def _best(n: int, h: int, w: int, c: int, stride: int, cb: int) -> DwPlan:
+    """The row groups and rows a thread of least modelled time at ``cb``
+    (ties to the more threads): a thread's instructions for a tile (its
+    values' multiply-adds and epilogue, its halo rows, the tile's overhead,
+    its share of the staged granules) times the lanes of all tiles over
+    the card's lanes, plus one thread's for the last tile.  At batch 256
+    the first term decides (long walks down a tile reuse the halo rows), at
+    batch 8 the second (more, shorter tiles fill the card)."""
+    cg = column_groups(w, stride)
+    best = None
+    for rg in range(1, MAX_THREADS // (cb // 4 * cg) + 1):
+        for rpt in range(1, MAX_ROWS + 1):
+            p = make_plan(n, h, w, c, stride, cb, cg, rg, rpt)
+            if p.smem > HALF_SMEM:
+                continue
+            lanes = _cdiv(p.threads, 32) * 32
+            granules = _cdiv(p.hh * p.hw * cb // p.granule, p.threads)
+            thread = (rpt * columns(stride) * 4 * COST_VALUE
+                      + (rpt * stride + 3 - stride) * COST_ROW + COST_TILE
+                      + granules * COST_GRANULE)
+            # the card's share of all tiles' lane work, and the last tile
+            cost = p.tiles * lanes * thread / (SMS * LANES) + thread
+            if best is None or (cost, -p.threads) < best[0]:
+                best = ((cost, -p.threads), p)
+    return best[1]
+
+
+def column_groups(w: int, stride: int) -> int:
+    """Column groups of a tile: at most 8, balanced over a row's tiles."""
+    groups = _cdiv(out_hw(w, w, stride)[1], columns(stride))
+    return _cdiv(groups, _cdiv(groups, MAX_COLUMN_GROUPS))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, h: int, w: int, c: int, stride: int) -> DwPlan:
+    """Tiles for one launch.
+
+    The channel slice CB: the whole pixel where its quads fit in 256
+    threads and either C % 32 != 0 (slices of 32 would straddle 32-byte
+    sectors; whole pixels let each warp's stores run on through the pixel)
+    or the stride is 2 (a tall tile buys little there: each output row
+    needs two new halo rows anyway); else, where C % 32 != 0, the widest
+    of 64, 48, 32, 16 and 8 that divides C; where C % 32 == 0, 64 if it
+    divides C and still gives two tiles an SM, else 32 (at stride 1 the
+    taller tile of a narrow slice wins).  Tile columns: at
+    most 8 groups of :func:`columns`, balanced over the tiles of a row.
+    Row groups and rows a thread: the pair of least modelled time
+    (:func:`_best`), within 256 threads and half the shared memory.
+    """
+    if (c % 32 or stride == 2) \
+            and c // 4 * column_groups(w, stride) <= MAX_THREADS:
+        return _best(n, h, w, c, stride, c)
+    if c % 32:
+        cb = next(cb for cb in (64, 48, 32, 16, 8) if c % cb == 0)
+        return _best(n, h, w, c, stride, cb)
+    if c % 64 == 0:
+        wide = _best(n, h, w, c, stride, 64)
+        if wide.tiles >= 2 * SMS:
+            return wide
+    return _best(n, h, w, c, stride, 32)
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -56,6 +160,8 @@ def unpack_weight(wp: torch.Tensor) -> torch.Tensor:
 
 
 def _check(x, w, a, b, stride, pad, pad_lo, lo, hi, mode, relu):
+    """The arguments of either route: shapes, types, the geometry and the
+    epilogue."""
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     if pad_lo not in (0, 1) or (pad_lo == 0 and stride != 2):
@@ -68,12 +174,7 @@ def _check(x, w, a, b, stride, pad, pad_lo, lo, hi, mode, relu):
         raise ValueError(f"x must be non-empty (N, H, W, C) int8, got "
                          f"{tuple(x.shape)} {x.dtype}")
     n, h, wd, c = x.shape
-    if c % GROUP or c > MAX_C:
-        raise ValueError(f"C = {c} must be a multiple of {GROUP} up to "
-                         f"{MAX_C}")
     ho, wo = out_hw(h, wd, stride)
-    if n * ho * wo * (c // GROUP) >= INT_LIMIT or n * h * wd >= INT_LIMIT:
-        raise ValueError(f"x has too many pixels: {tuple(x.shape)}")
     if w.dtype != torch.int8 or tuple(w.shape) != (9, c):
         raise ValueError(f"w must be pack_weight() output of shape (9, {c}) "
                          f"int8, got {tuple(w.shape)} {w.dtype}")
@@ -82,11 +183,23 @@ def _check(x, w, a, b, stride, pad, pad_lo, lo, hi, mode, relu):
             raise ValueError(f"{name} must be contiguous")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("x and w must be 16-byte aligned")
     check_epilogue("int8_dwconv3x3", mode, a, b, lo, hi, relu, None, 0.0,
                    (n, ho, wo, c), x.device)
     return n, h, wd, c, ho, wo
+
+
+def check_kernel(x, w, stride: int) -> None:
+    """The kernel's own limits, checked on the CUDA route only: C % 8 == 0
+    (a pixel of the staged halo in 8- or 16-byte granules), 16-byte aligned
+    x and w, and a tile count in 32 bits."""
+    n, h, wd, c = x.shape
+    if c % GRANULE:
+        raise ValueError(f"the int8_dwconv3x3 kernel takes C % {GRANULE} == "
+                         f"0, got C = {c}")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("x and w must be 16-byte aligned")
+    if plan(n, h, wd, c, stride).tiles >= INT_LIMIT:
+        raise ValueError(f"x has too many tiles: {tuple(x.shape)}")
 
 
 def int8_dwconv3x3_plain(x, w, a, b, *, stride: int, pad: int,
@@ -114,18 +227,19 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_dwconv3x3")
     lib.dlmcq_int8_dwconv3x3.restype = ctypes.c_int
     lib.dlmcq_int8_dwconv3x3.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [ctypes.c_void_p])
     return lib
 
 
 def int8_dwconv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
                    lo: int = -128, hi: int = 127, mode: str = "codes",
-                   relu: bool = False) -> torch.Tensor:
+                   relu: bool = False, _plan=None) -> torch.Tensor:
     """Run the int8 depthwise 3×3 conv (see the module docstring).
 
     ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight`, ``a``/``b``
     (C,) float32, all contiguous and on one device.  CUDA tensors launch
-    the kernel on the current stream and count the launch in
+    the kernel on the current stream, on :func:`plan`'s tiles (``_plan =
+    (cb, cg, rg, rpt)`` overrides them), and count the launch in
     ``int8_dwconv3x3.launches``; CPU tensors run the plain version.
     """
     n, h, wd, c, ho, wo = _check(x, w, a, b, stride, pad, pad_lo, lo, hi,
@@ -137,6 +251,9 @@ def int8_dwconv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
     if x.device.type != "cuda":
         raise ValueError(f"int8_dwconv3x3 runs on cuda or cpu, not "
                          f"{x.device}")
+    check_kernel(x, w, stride)
+    p = plan(n, h, wd, c, stride) if _plan is None \
+        else make_plan(n, h, wd, c, stride, *_plan)
     lib = _library()
     out = torch.empty((n, ho, wo, c), device=x.device,
                       dtype=torch.int8 if mode == "codes" else torch.float32)
@@ -144,7 +261,7 @@ def int8_dwconv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
         err = lib.dlmcq_int8_dwconv3x3(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), n, h, wd, c, stride, pad_lo, pad, lo, hi,
-            int(mode == "codes"), int(relu),
+            int(mode == "codes"), int(relu), p.cb, p.cg, p.rg, p.rpt,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(lib, err, "int8_dwconv3x3")
     int8_dwconv3x3.launches += 1

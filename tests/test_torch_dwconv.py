@@ -10,13 +10,16 @@ on the chain, against the JAX package.
   pad 1 and flax's SAME, odd and even maps, C ∈ {16, 48, 144}, no clamp,
   a ReLU and a ReLU6 (``clamp_hi``).  Exact: the int8 inputs and the
   float32 epilogue inputs are equal (ROADMAP hazard C2).
-* The packing round-trips; the wrapper raises on what the kernel does
-  not take; a depthwise ``QConv`` fed codes on a producer's grid (a
+* The packing round-trips; the wrapper raises on what neither route
+  takes, and the kernel's own check on a C off its granule (C % 8) while
+  the plain version runs it; a depthwise ``QConv`` fed codes on a producer's grid (a
   ``QuantizedTensor``) re-derives its epilogue from per-channel column
   sums over the nine taps and equals an f32 conv of the dequantized codes.
 * ``cuda``-marked tests hold the kernel against its plain version on the
   card (tolerance 0) at MobileNetV2's and MobileOne-S1's depthwise shapes
-  at batch 8 and 256 and at ragged sizes, and skip here:
+  at batch 8 and 256, at ragged sizes (C = 8, 24 and 40 among them) and
+  on plans other than ``plan()``'s; a C off the kernel's granule raises;
+  they skip here:
   ``python -m pytest --noconftest tests/test_torch_dwconv.py -m cuda``.
 """
 
@@ -122,7 +125,7 @@ def test_pack_weight_round_trip():
 @pytest.mark.parametrize("bad", ["channels", "stride", "pad_lo", "weight",
                                  "pad", "epilogue"])
 def test_raises(bad):
-    c = 24 if bad == "channels" else 32
+    c = 20 if bad == "channels" else 32
     x = torch.zeros((1, 6, 6, c), dtype=torch.int8)
     w = torch.zeros((9, 16 if bad == "weight" else c), dtype=torch.int8)
     a, b = torch.ones(c), torch.zeros(c)
@@ -130,6 +133,13 @@ def test_raises(bad):
               else 0, pad_lo=0 if bad == "pad_lo" else 1)
     if bad == "epilogue":
         kw["relu"] = True          # codes fold the ReLU into lo
+    if bad == "channels":
+        # the kernel's granule is checked on the CUDA route only: the plain
+        # version takes C = 20
+        with pytest.raises(ValueError, match=r"C % 8 == 0"):
+            D.check_kernel(x, w, 1)
+        assert D.int8_dwconv3x3(x, w, a, b, **kw).shape == (1, 6, 6, c)
+        return
     with pytest.raises(ValueError):
         D.int8_dwconv3x3(x, w, a, b, **kw)
 
@@ -190,8 +200,11 @@ MOBILENET_V2 = [(112, 112, 32, 1, 1), (112, 112, 96, 2, 0),
 MOBILEONE_S1 = [(112, 112, 64, 2, 1), (56, 56, 96, 1, 1), (56, 56, 96, 2, 1),
                 (28, 28, 192, 1, 1), (28, 28, 192, 2, 1), (14, 14, 512, 1, 1),
                 (14, 14, 512, 2, 1)]
+# and C = 8, 24, 40: the 8-byte granule and a masked tail slice
 RAGGED = [(1, 1, 16, 1, 1), (3, 5, 16, 2, 1), (9, 13, 48, 2, 1),
-          (2, 17, 2880, 1, 1), (31, 30, 80, 2, 0), (15, 1, 32, 2, 1)]
+          (2, 17, 2880, 1, 1), (31, 30, 80, 2, 0), (15, 1, 32, 2, 1),
+          (5, 7, 8, 1, 1), (12, 10, 24, 2, 0), (9, 11, 40, 1, 1),
+          (20, 19, 24, 1, 1), (13, 6, 40, 2, 1)]
 
 
 def _card_operands(n, h, w, c, dev, seed):
@@ -235,6 +248,35 @@ def test_kernel_matches_plain_mobile_shapes(shape, n):
 @pytest.mark.parametrize("shape", RAGGED, ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain_ragged(shape):
     _kernel_vs_plain(3, *shape, seed=shape[0] * shape[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(4, 13, 11, 24, 1, 1, (32, 2, 2, 3)),
+                                  (4, 12, 9, 96, 2, 0, (64, 2, 1, 2)),
+                                  (3, 9, 16, 40, 2, 1, (32, 3, 3, 1)),
+                                  (2, 30, 30, 64, 1, 1, (64, 4, 4, 8))],
+                         ids=["s1_c24", "s2_c96_cb64_tail", "s2_c40",
+                              "s1_c64_cb64"])
+def test_kernel_matches_plain_on_other_plans(case):
+    """Plans other than plan()'s: small tiles, so that a block walks many
+    (both halo buffers), a 64-channel slice with a masked tail."""
+    n, h, w, c, stride, pad_lo, override = case
+    dev = _card()
+    x, wp, a, b = _card_operands(n, h, w, c, dev, c)
+    for kw in (dict(mode="codes", lo=-3, hi=90), dict(mode="f32")):
+        got = D.int8_dwconv3x3(x, wp, a, b, stride=stride, pad=7,
+                               pad_lo=pad_lo, _plan=override, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, D.int8_dwconv3x3_plain(
+            x, wp, a, b, stride=stride, pad=7, pad_lo=pad_lo, **kw)), kw
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_channels_off_its_granule():
+    dev = _card()
+    x, wp, a, b = _card_operands(2, 5, 5, 20, dev, 3)
+    with pytest.raises(ValueError, match=r"C % 8 == 0"):
+        D.int8_dwconv3x3(x, wp, a, b, stride=1, pad=0)
 
 
 @pytest.mark.cuda

@@ -38,8 +38,9 @@ BN statistics and affine are perturbed and the deploy biases are nonzero
   at MobileOne's grouped 1×1 scale branch (ROADMAP item 7).
 * ``cuda``-marked tests hold the other kernels of the two models' paths
   against their plain versions on the card (tolerance 0): the stems
-  (3→32 3×3/s2 SAME and 3→64 3×3/s2 pad 1) and the GEMM at N = 24 in
-  every mode, K = 24 padded, at batch 8 and 256; they skip here:
+  (3→32 and, at width 0.75, 3→24 3×3/s2 SAME; 3→64 3×3/s2 pad 1) and
+  the GEMM at N = 24 in every mode, K = 24 padded, at batch 8 and 256;
+  they skip here:
   ``python -m pytest --noconftest tests/test_torch_mobile.py -m cuda``.
 """
 
@@ -120,19 +121,20 @@ def _rel(a, b) -> float:
     return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-12))
 
 
-def _jax_model(arch, deploy=False):
+def _jax_model(arch, deploy=False, width_mult=1.0):
     j = _jax()
     scheme = j.scheme_from_dict(SCHEME)
     if arch == "mobilenet":
         return j.jax_get_model("cifar_mobilenet_v2", num_classes=10,
-                               scheme=scheme, deploy=deploy)
+                               scheme=scheme, deploy=deploy,
+                               width_mult=width_mult)
     return j.JMobileOne(**MOBILEONE_SMALL, scheme=scheme, deploy=deploy)
 
 
-def _port_model(arch, deploy=False):
+def _port_model(arch, deploy=False, width_mult=1.0):
     if arch == "mobilenet":
         return get_model("cifar_mobilenet_v2", device="cpu", deploy=deploy,
-                         scheme=port_scheme(SCHEME))
+                         scheme=port_scheme(SCHEME), width_mult=width_mult)
     return MobileOne(**MOBILEONE_SMALL, deploy=deploy,
                      scheme=port_scheme(SCHEME)).eval()
 
@@ -146,14 +148,17 @@ def _leaf(tree, path, name):
 
 @pytest.fixture(scope="module", params=list(ARCHS))
 def case(request):
+    return make_case(request.param)
+
+
+def make_case(arch, width_mult=1.0):
     """JAX's train form (BN statistics and affine perturbed) and its
     calibration; JAX's fuser, calibration and prepare_deploy of the deploy
     form; the port's twins on the same variables."""
     j = _jax()
-    arch = request.param
     size, launches, n_convs, n_layers = ARCHS[arch]
     x = j.jnp.asarray(_images(0, size))
-    jm = _jax_model(arch)
+    jm = _jax_model(arch, width_mult=width_mult)
     v = j.flax.core.unfreeze(j.jax.jit(jm.init)(j.jax.random.PRNGKey(1), x))
     rng = np.random.default_rng(2)
     v["batch_stats"] = j.jax.tree_util.tree_map(
@@ -177,9 +182,10 @@ def case(request):
     jdm, dv = fuse(jm, v, example)
     dv = j.jdp.prepare_deploy(jdm, j.jax_calibrate(jdm, dv, [x]),
                               sample_input=x)
-    train = load_jax_variables(_port_model(arch), _np(v))
+    train = load_jax_variables(_port_model(arch, width_mult=width_mult),
+                               _np(v))
     port = load_jax_variables(
-        _port_model(arch, deploy=True),
+        _port_model(arch, deploy=True, width_mult=width_mult),
         _np({k: t for k, t in dv.items() if k != "qint"}))
     prepare_deploy(port)
     return dict(arch=arch, size=size, launches=launches, n_convs=n_convs,
@@ -588,8 +594,9 @@ def _affine(g, o, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [8, 256])
-@pytest.mark.parametrize("o,pad_lo", [(32, 0), (64, 1)],
-                         ids=["mobilenet_v2", "mobileone_s1"])
+@pytest.mark.parametrize("o,pad_lo", [(32, 0), (64, 1), (24, 0)],
+                         ids=["mobilenet_v2", "mobileone_s1",
+                              "mobilenet_v2_w075"])
 def test_stem_conv_matches_plain(o, pad_lo, n):
     dev = _card()
     g = torch.Generator().manual_seed(o + n)
