@@ -17,9 +17,11 @@ convs in TF32).  ``extra`` sets it beside strict float32 (``full_f32``:
 TF32 off, deterministic cuDNN) and bf16 autocast, carries ResNet-50 at
 batch 256 (``resnet50_int8_*``, bench.py's second headline), bench.py's
 extras MobileOne-S1 and MobileNetV2 at batch 256 (``mobileone_s1_int8_*``,
-``mobilenet_v2_int8_*``: the deploy form, as bench.py benches it) and, for
-the extras the port cannot build yet, ``<key>_error`` naming their ROADMAP
-item.
+``mobilenet_v2_int8_*``: the deploy form, as bench.py benches it),
+MobileOne-S1 with every weight at 4 bits (``mobileone_s1_w4a8_*``:
+bench.py's ``_scheme(w_bits=4)``, the weights nibble-packed in device
+memory and unpacked in the kernels) and, for the extras the port cannot
+build yet, ``<key>_error`` naming their ROADMAP item.
 
 The float baseline is not handicapped: the activations stay NHWC, whose
 NCHW view is channels_last, and the fp model's weights are converted to
@@ -56,41 +58,42 @@ ITERS, WARMUP, ROUNDS = 30, 3, 3
 SIZE, CLASSES, SEED = 224, 1000, 0
 RESNET50_BATCH = 256  # bench.py:189-190
 # bench.py's other models at batch 256 (bench.py:186-207): key, registry
-# name, the launches of one int8 request (3x3 convs, GEMMs, im2cols, stem
-# convs + pools, depthwise convs)
+# name, weight bits, the launches of one int8 request (3x3 convs, GEMMs,
+# im2cols, stem convs + pools, depthwise convs)
 LAUNCHES = dict(conv=0, gemm=0, im2col=0, stem_pool=0, dwconv=0)
-EXTRAS = (("resnet50_int8", "resnet50",
+EXTRAS = (("resnet50_int8", "resnet50", 8,
            dict(LAUNCHES, conv=16, gemm=36, stem_pool=1)),
-          ("mobileone_s1_int8", "mobileone_s1",
+          ("mobileone_s1_int8", "mobileone_s1", 8,
            dict(LAUNCHES, conv=1, gemm=21, dwconv=21)),
-          ("mobilenet_v2_int8", "mobilenet_v2",
+          ("mobileone_s1_w4a8", "mobileone_s1", 4,
+           dict(LAUNCHES, conv=1, gemm=21, dwconv=21)),
+          ("mobilenet_v2_int8", "mobilenet_v2", 8,
            dict(LAUNCHES, conv=1, gemm=39, dwconv=17)))
 # the extras the port cannot build yet, by ROADMAP item
 NOT_PORTED = {
-    "mobileone_s1_w4a8": "ROADMAP Queue A item 8 (W4 execution)",
     "repvgg_d2se_int8": "ROADMAP Queue A item 7 (rest of the zoo: D2se, "
                         "SEBlock)",
 }
 LAYOUT_KERNEL = re.compile(r"nchwToNhwc|nhwcToNchw|copy|transpose", re.I)
 
 
-def scheme():
-    """bench.py:_scheme: FSPTQ, per-channel int8 weights, per-tensor
+def scheme(w_bits: int = 8):
+    """bench.py:_scheme: FSPTQ, per-channel ``w_bits`` weights, per-tensor
     unsigned int8 activations."""
     return scheme_from_dict({
         "quantization_type": "FSPTQ",
         "weight": {"enable": True, "type": "minmax_channel",
-                   "args": {"n_bits": 8, "signed": True}},
+                   "args": {"n_bits": w_bits, "signed": True}},
         "input": {"enable": True, "type": "minmax_tensor",
                   "args": {"n_bits": 8, "signed": False}}})
 
 
-def prep(name: str, batch: int, device):
+def prep(name: str, batch: int, device, w_bits: int = 8):
     """bench.py:_prep: the deploy form with seeded weights, uniform inputs,
     calibrated on the first 8 images, prepared for integer execution."""
     gen = torch.Generator().manual_seed(SEED)
     model = get_model(name, device=device, num_classes=CLASSES, deploy=True,
-                      scheme=scheme(), generator=gen)
+                      scheme=scheme(w_bits), generator=gen)
     x = torch.rand((batch, SIZE, SIZE, 3), generator=gen).to(device)
     calibrate(model, [x[:8]])
     return prepare_deploy(model), x
@@ -164,15 +167,16 @@ def replay(calls):
         KERNELS[kind][0](*args, **kw)
 
 
-def bench_model(name: str, batch: int, device, expect):
+def bench_model(name: str, batch: int, device, expect, w_bits: int = 8):
     """(images/s by form, int8 qmode, layout kernels of one fp request,
     device ms of one int8 request's launches)."""
-    model, x = prep(name, batch, device)
+    model, x = prep(name, batch, device, w_bits)
     calls = check_request(model, x, expect)
     with torch.inference_mode():
         kernels_ms = graph_ms(lambda _: replay(calls), 4)
     del calls
-    print(f"# {name}: the {sum(expect.values())} launches of one int8 "
+    print(f"# {name} W{w_bits}: the {sum(expect.values())} launches of one "
+          "int8 "
           f"request at batch {batch} each equal their plain version; "
           f"{kernels_ms:.4f} ms back to back", file=sys.stderr)
     int_fns = {qm: make_serving_fn(model, qmode=qm, device=device)
@@ -203,9 +207,9 @@ def main() -> int:
              "vs_bf16": round(ips["int8"] / ips["bf16"], 3),
              "fp32_layout_kernels": layout,
              "int8_kernels_ms": round(conv_ms, 4)}
-    for key, name, expect in EXTRAS:
+    for key, name, w_bits, expect in EXTRAS:
         r_ips, r_qmode, r_layout, r_ms = bench_model(
-            name, RESNET50_BATCH, device, expect)
+            name, RESNET50_BATCH, device, expect, w_bits)
         extra.update({
             f"{key}_ips": round(r_ips["int8"], 1),
             f"{key}_fp32_ips": round(r_ips["fp32"], 1),

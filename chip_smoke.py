@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port on one CUDA card: RepVGG-A0 chained int8,
 FSPTQ reconstruction served through the conv kernel, chained int8
 cifar_resnet18, BASELINE config #1's PTQ entry, chained int8 ResNet-50,
-chained int8 MobileNetV2 and MobileOne-S1 (the depthwise kernel), the
-training path (LSQ and RootQ QAT, fp32, QAT -> deploy, ResNet-50 RootQ),
-then the two int8 GEMM tools.
+chained int8 MobileNetV2 and MobileOne-S1 (the depthwise kernel), W4
+execution (MobileOne-S1 all-W4, a W4 stem, BASELINE config #4's entry),
+the training path (LSQ and RootQ QAT, fp32, QAT -> deploy at W4A4,
+ResNet-50 RootQ), then the two int8 GEMM tools.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -26,8 +27,10 @@ Phases, each fatal on failure:
              at 24 channels (tests/test_torch_int8_conv.py,
              tests/test_torch_resnet_conv.py,
              tests/test_torch_gemm_epilogue.py,
-             tests/test_torch_stem_pool.py, tests/test_torch_dwconv.py and
-             tests/test_torch_mobile.py, -m cuda), before any timing;
+             tests/test_torch_stem_pool.py, tests/test_torch_dwconv.py,
+             tests/test_torch_mobile.py and, the four weight-taking
+             kernels at W4, tests/test_torch_int4_kernels.py, -m cuda),
+             before any timing;
   2. kernel  RepVGG-A0 deploy form at 224x224, full width, seeded random
              weights, calibrated on one seeded batch (FSPTQ W8A8 with
              AdaRound decisions) and prepared for integer execution.  At
@@ -126,6 +129,22 @@ Phases, each fatal on failure:
            request ms, images/s, and the split: input quantize, the
            kernels by kind, the K-pad copies (MobileNetV2's 24-channel
            maps into the GEMM), pool + head, and the rest (host and gaps);
+  w4       MobileOne-S1 at full width under bench's all-W4 scheme (every
+           weight at 4 bits, the stem and head too; deployed as in the
+           mobile phase): the weight bytes a served request reads, W4 at
+           most 0.55 of W8's, and no int8 copy of a W4 weight; at batch 8
+           and 256 every launch (1 conv, 21 GEMM, 21 depthwise) == plain,
+           its us beside the same launch of the mobile phase's W8 model; 6
+           served batch-256 requests (logits finite, within relative L2
+           2e-2 of the CPU plain path, 1 + 21 + 21 launches each) and
+           their split; W8 and W4 requests in turns, with the host's
+           busiest ops; one W4 int8_stem_pool launch at ResNet-50's stem
+           (batch 256) == plain, beside the same weight at W8; then
+           BASELINE config #4 through python -m
+           dlmc_quant_torch.examples.FSPTQuant on a cut copy (256
+           calibration images, 40 iterations a block, 64 eval images; the
+           cuts printed): it must reach its chained int8 evaluation, whose
+           21 GEMM + 21 depthwise launches each == plain;
   qat      the training path (examples/configs): (a) both QAT configs
            (LSQ and RootQ W4A4) at full width through the QAT entry's
            build_trainer (classification's build_common -> calibrate on the
@@ -144,8 +163,8 @@ Phases, each fatal on failure:
            step; the profiler's kernel sum beside it) and host and gaps,
            images/s, peak memory.  (b) the fp32 baseline
            config through the classification entry, the same way.  (c) the
-           deploy leg: the LSQ config at 8 bits (weights and inputs; W4 has
-           no integer path yet), trained the same way, prepare_deploy, every
+           deploy leg: the LSQ config at its own W4A4, trained the same
+           way, prepare_deploy (the weights nibble-packed), every
            one of the 18 conv launches of a request == plain at batch 8 and
            256, one make_serving_fn(qmode="intc") request of 256 training
            images under full_f32 (the float stem and head): finite
@@ -195,6 +214,7 @@ import torch.nn.functional as F
 from dlmc_quant_torch import (FSPTQTrainer, attach_scheme, calibrate,
                               get_dataloader, get_model, make_serving_fn,
                               prepare_deploy, scheme_from_dict)
+from dlmc_quant_torch.examples import FSPTQuant as fsptq_entry
 from dlmc_quant_torch.examples import classification as fp_entry
 from dlmc_quant_torch.examples import post_training_quantization as ptq_entry
 from dlmc_quant_torch.examples import quantization_aware_training as qat_entry
@@ -209,9 +229,10 @@ from dlmc_quant_torch.ops.cuda import int8_gemm as G
 from dlmc_quant_torch.ops.cuda import int8_im2col as I
 from dlmc_quant_torch.ops.cuda import int8_mma_probe as P
 from dlmc_quant_torch.ops.cuda import int8_stem_pool as SP
+from dlmc_quant_torch.ops.cuda.nibbles import W4
 from dlmc_quant_torch.quant.chain import (fold_params, materialize, qmaxpool,
                                           qrelu, qrelu6)
-from dlmc_quant_torch.quant.layers import QConv, full_f32
+from dlmc_quant_torch.quant.layers import QConv, QDense, full_f32
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
 from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
                                               bound_by, card_line, event_ms,
@@ -260,8 +281,8 @@ FP_CONFIG, R50_CONFIG = ("baseline_resnet20_cifar10",
                          "RootQ_resnet50_imagenet_w4a4")
 QAT_IMAGES, TIMED_STEPS, EVAL_IMAGES = 2048, 20, 64
 R50_BATCH, R50_STEPS = 64, 4
-QAT_W8A8_LAUNCHES = {"conv": 18, "gemm": 0, "im2col": 0, "stem_pool": 0,
-                     "dwconv": 0}
+QAT_DEPLOY_LAUNCHES = {"conv": 18, "gemm": 0, "im2col": 0, "stem_pool": 0,
+                       "dwconv": 0}
 SCHEME = {
     "quantization_type": "FSPTQ",
     "weight": {"enable": True, "type": "minmax_channel",
@@ -273,6 +294,15 @@ SCHEME = {
 # the bench's W8A8 scheme (bench.py:_scheme): no AdaRound
 BENCH_SCHEME = {**SCHEME, "weight": {"enable": True, "type": "minmax_channel",
                                      "args": {"n_bits": 8, "signed": True}}}
+# bench.py's mobileone_s1_w4a8 (_scheme(w_bits=4)): every weight at 4 bits,
+# the stem and the head too
+W4_SCHEME = {**SCHEME, "weight": {"enable": True, "type": "minmax_channel",
+                                  "args": {"n_bits": 4, "signed": True}}}
+W4_MODEL = "MobileOne_S1"
+# BASELINE config #4 and its cut: calibration images and iterations a
+# block as the recon phase cuts A0, 64 eval images
+CONFIG_4 = CONFIGS / "FSPTQ_mobileone_s1_w4a8.yaml"
+CONFIG_4_EVAL = 64
 
 
 def images(n: int, seed: int, device) -> torch.Tensor:
@@ -285,7 +315,8 @@ def card_tests():
     (ragged shapes, every compiled tile, both modes, SAME stride 2, the
     residual epilogue, the shortcut GEMMs, the GEMM's epilogue modes, the
     im2col, the stem conv + pool, the depthwise conv, the GEMM at 24
-    channels), in a process of their own; fatal unless all pass."""
+    channels, the four weight-taking kernels at W4), in a process of their
+    own; fatal unless all pass."""
     tests = REPO / "tests"
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
@@ -294,7 +325,8 @@ def card_tests():
          str(tests / "test_torch_gemm_epilogue.py"),
          str(tests / "test_torch_stem_pool.py"),
          str(tests / "test_torch_dwconv.py"),
-         str(tests / "test_torch_mobile.py")],
+         str(tests / "test_torch_mobile.py"),
+         str(tests / "test_torch_int4_kernels.py")],
         capture_output=True, text=True)
     tail = run.stdout.strip().splitlines()[-1:] or [run.stderr.strip()[-300:]]
     print(f"# card tests of int8_conv3x3, the ResNet path and the "
@@ -617,10 +649,11 @@ def launch_bound(kind, args, kw, out):
     if kind == "im2col":
         return bound_of(0, args[0].numel() + nbytes)
     if kind == "dwconv":
-        # 9 multiply-adds an output value; x, the (9, C) weight, a and b
+        # 9 multiply-adds an output value; x, the (9, C) weight (half the
+        # bytes at W4), a and b
         x, w = args[:2]
         return bound_of(2 * 9 * (out.numel()), x.numel() + w.numel()
-                        + 8 * w.shape[1] + nbytes)
+                        + 8 * x.shape[-1] + nbytes)
     if kind == "stem_pool":
         # the conv's int8 operations (the pool's compares are not counted)
         x, wp = args
@@ -633,12 +666,19 @@ def launch_bound(kind, args, kw, out):
         m, k = x.shape
         n = w.shape[0]
         epi = 8 * n if kw.get("mode", "int32") != "int32" else 0
-        return bound_of(2 * m * n * k, m * k + n * k + epi + nbytes)
+        return bound_of(2 * m * n * k, m * k + weight_bytes(n * k, w) + epi
+                        + nbytes)
     x, w, a, _ = args
     n, h, wd, c = x.shape
     o = a.shape[0]
     m = out.numel() // o
-    return bound_of(2 * m * o * 9 * c, x.numel() + 9 * c * o + 8 * o + nbytes)
+    return bound_of(2 * m * o * 9 * c, x.numel() + weight_bytes(9 * c * o, w)
+                    + 8 * o + nbytes)
+
+
+def weight_bytes(values: int, w) -> int:
+    """Bytes of a weight of ``values`` values: one a byte, two at W4."""
+    return -(-values // 2) if w.dtype == W4 else values
 
 
 def bound_of(ops: int, nbytes: int):
@@ -703,8 +743,8 @@ def dw_context_ms(args, kw) -> float:
     x, wp = args[:2]
     xb = x.permute(0, 3, 1, 2).to(torch.bfloat16) \
         .contiguous(memory_format=torch.channels_last)
-    wb = DW.unpack_weight(wp).permute(3, 2, 0, 1).to(torch.bfloat16) \
-        .contiguous(memory_format=torch.channels_last)
+    wb = DW.unpack_weight(wp, x.shape[-1]).permute(3, 2, 0, 1) \
+        .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     pad = kw.get("pad_lo", 1)
     if pad == 0:                         # SAME at stride 2: pads (0, 1)
         xb = F.pad(xb, (0, 1, 0, 1))
@@ -728,14 +768,16 @@ def int_mm_beside(label, args, out):
     return graph_ms(lambda _: torch._int_mm(x, wc), GRAPH_LAUNCHES)
 
 
-def resnet_kernel_phase(what, model, x, expect, parent=None):
+def resnet_kernel_phase(what, model, x, expect, parent=None, beside=None):
     """Every kernel launch of one chained request of ``x``, kernel vs plain
     (tolerance 0), timed per launch, torch._int_mm beside each int32-mode
     GEMM, a plain ms and a bf16 context beside each launch of a CONTEXT
-    kind, and the ms of another tree's depthwise kernel beside the i-th
-    depthwise launch where ``parent`` ({i: ms}) has it; returns the totals
-    and, under each CONTEXT kind, its launches' ms, plain ms, bound ms, ops
-    and bytes ms (its entry in the kernels line)."""
+    kind, the ms of another tree's depthwise kernel beside the i-th
+    depthwise launch where ``parent`` ({i: ms}) has it, and ``beside``'s
+    ms of launch i (the same launch of another model) <in angle
+    brackets>; returns the totals, the launches' ms in order
+    (``launch_ms``) and, under each CONTEXT kind, its launches' ms, plain
+    ms, bound ms, ops and bytes ms (its entry in the kernels line)."""
     with torch.inference_mode():
         with LaunchRecorder() as rec:
             model(x, qmode="intc")
@@ -747,8 +789,10 @@ def resnet_kernel_phase(what, model, x, expect, parent=None):
               "[depthwise plan: slice, tile, threads, rows a thread, tiles] | "
               "max|diff| | kernel_us bound_us (by) kernel/bound "
               "[torch._int_mm_us] {plain_us bf16_context_us} "
-              "(parent tree's depthwise us)")
-        tot = dict(ms=0.0, bound_ms=0.0, err=0.0)
+              "(parent tree's depthwise us)"
+              + (" <the same launch's us in the W8 model>" if beside
+                 else ""))
+        tot = dict(ms=0.0, bound_ms=0.0, err=0.0, launch_ms=[])
         groups = {}
         extra = {kind: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                             bytes_ms=0.0, context_ms=0.0, err=0.0)
@@ -779,6 +823,9 @@ def resnet_kernel_phase(what, model, x, expect, parent=None):
                 if (parent or {}).get(dw_index) is not None:
                     lib += f" ({parent[dw_index] * 1e3:.2f})"
                 dw_index += 1
+            if beside:
+                lib += f" <{beside[i] * 1e3:.2f}>"
+            tot["launch_ms"].append(ms)
             print(f"{i:2d} {label:62s} | {err:g} | "
                   f"{ms * 1e3:8.2f} {b_ms * 1e3:8.2f} "
                   f"({bound_by(t_ops, t_bytes)}) {ms / b_ms:.2f}{lib}")
@@ -1012,12 +1059,13 @@ def resnet50_serve_phase(model, device):
     return launches
 
 
-def mobile_deployed(name, kwargs, fuser, device):
+def mobile_deployed(name, kwargs, fuser, device, scheme=BENCH_SCHEME):
     """``name`` in train form with the factory's ``kwargs`` (seeded
     weights; BN statistics from one train-mode forward of the calibration
     batch, so that every branch's output is normalized as in a trained
-    model, then perturbed with the BN affine) -> ``fuser`` -> the bench's
-    W8A8 scheme -> calibrate on that batch of CAL_BATCH -> prepare_deploy."""
+    model, then perturbed with the BN affine) -> ``fuser`` -> ``scheme``
+    (the bench's W8A8) -> calibrate on that batch of CAL_BATCH ->
+    prepare_deploy."""
     gen = torch.Generator().manual_seed(SEED)
     model = get_model(name, device=device, num_classes=CLASSES,
                       generator=gen, **kwargs)
@@ -1041,16 +1089,38 @@ def mobile_deployed(name, kwargs, fuser, device):
         for bn in bns:
             for t in (bn.running_mean, bn.running_var, bn.weight, bn.bias):
                 t += 0.1 * torch.rand(t.shape, generator=gen).to(device)
-    deploy = attach_scheme(fuser(model), scheme_from_dict(BENCH_SCHEME))
+    deploy = attach_scheme(fuser(model), scheme_from_dict(scheme))
     calibrate(deploy, [x])
     return prepare_deploy(deploy)
 
 
-def mobile_serve_phase(name, model, device, pooled):
+def served_weight_bytes(model) -> int:
+    """Bytes of the weight buffers a served request reads: each conv's
+    kernel layout (``w_packed``, ``w_gemm`` or ``w_dw``; ``w_stem`` where
+    the stem kernel takes the conv) and each dense or weight-only layer's
+    ``w_int4`` or ``w_int``."""
+    total = 0
+    for m in model.modules():
+        if not isinstance(m, (QConv, QDense)) or m.plan_scalars is None:
+            continue
+        if isinstance(m, QDense) or m.weight_only:
+            names = ("w_int4", "w_int")
+        elif getattr(m, "w_stem", None) is not None:
+            names = ("w_stem",)
+        else:
+            names = ("w_packed", "w_gemm", "w_dw")
+        t = next(getattr(m, n) for n in names
+                 if getattr(m, n, None) is not None)
+        total += t.numel() * t.element_size()
+    return total
+
+
+def mobile_serve_phase(name, model, device, pooled, expect=None):
     """Chained int8 MobileNetV2 or MobileOne-S1 through make_serving_fn;
-    returns the launches by kind.  ``pooled`` names the module whose
-    output, activated and materialized, the global pool reads."""
-    expect = MOBILE[name][3]
+    returns the launches by kind (``expect``, by default ``MOBILE``'s).
+    ``pooled`` names the module whose output, activated and materialized,
+    the global pool reads."""
+    expect = expect or MOBILE[name][3]
     x = images(SERVE_BATCH, SEED + 2, device)
     request_ms, launches = serve_requests(name, model, x, expect, CLASSES)
     # the 1x1 convs whose K the GEMM takes padded (pad_k copies their codes)
@@ -1128,10 +1198,12 @@ def mobile_phase(device, parent=None):
     """MobileNetV2 (widths 1.0 and 0.75) and MobileOne-S1: deploy, every
     launch == plain at batch 8 and 256, 6 served requests each.  Returns
     the largest difference, the depthwise launches' totals at batch 256
-    over the three models (their entry in the kernels line) and the served
-    launches by kind.  ``parent``: another tree's depthwise ms by (model,
-    batch, launch), printed beside each depthwise launch."""
-    err, served = 0.0, {}
+    over the three models (their entry in the kernels line), the served
+    launches by kind and, for the W4 phase, MobileOne-S1's per-launch ms by
+    batch and its served weight bytes.  ``parent``: another tree's
+    depthwise ms by (model, batch, launch), printed beside each depthwise
+    launch."""
+    err, served, w8 = 0.0, {}, {}
     dw = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
               err=0.0)
     for label, (name, kwargs, fuser, expect, pooled) in MOBILE.items():
@@ -1148,6 +1220,8 @@ def mobile_phase(device, parent=None):
                                       theirs)
             err = max(err, got["err"])
             dw["err"] = max(dw["err"], got["dwconv"]["err"])
+            if label == W4_MODEL:
+                w8[batch] = got["launch_ms"]
             if batch == SERVE_BATCH:
                 for key in ("ms", "plain_ms", "bound_ms", "ops_ms",
                             "bytes_ms"):
@@ -1155,8 +1229,163 @@ def mobile_phase(device, parent=None):
         launches = mobile_serve_phase(label, model, device, pooled)
         for kind, n in launches.items():
             served[kind] = served.get(kind, 0) + n
+        if label == W4_MODEL:
+            w8["weight_bytes"] = served_weight_bytes(model)
+            w8["model"] = model         # the W4 phase serves it in turns
         del model
-    return err, dw, served
+    return err, dw, served, w8
+
+
+def requests_in_turns(models, x, rounds: int = 4):
+    """Requests of each model of ``models`` ({name: model}) in turns, in
+    one process: the median request ms and host enqueue ms of each, and
+    the host's busiest ops of one request by the profiler's self CPU
+    time."""
+    serves = {name: make_serving_fn(m, qmode="intc", device=x.device)
+              for name, m in models.items()}
+    times = {name: ([], []) for name in serves}
+    for fn in serves.values():
+        fn(x)
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for name, fn in serves.items():
+            t0 = time.perf_counter()
+            fn(x)
+            enqueue = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            times[name][0].append((time.perf_counter() - t0) * 1e3)
+            times[name][1].append(enqueue * 1e3)
+    for name, fn in serves.items():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            fn(x)
+            torch.cuda.synchronize()
+        top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        req, enq = (statistics.median(t) for t in times[name])
+        print(f"# {name} in turns ({rounds} rounds): request {req:.3f} ms, "
+              f"host enqueue {enq:.3f} ms; the host's busiest ops of a "
+              "request (self CPU ms, calls): " + "; ".join(
+                  f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} "
+                  f"x{e.count}" for e in top[:6]))
+
+
+def w4_stem_launch(device):
+    """One W4 int8_stem_pool launch at ResNet-50's stem (batch 256, 224²,
+    3 -> 64, flax's SAME pads), == plain, timed beside the same weight at
+    W8; returns (launches, totals for the kernels line)."""
+    g = torch.Generator().manual_seed(SEED + 5)
+    x = torch.randint(-128, 128, (SERVE_BATCH, SIZE, SIZE, 3), generator=g,
+                      dtype=torch.int8).to(device)
+    wk = torch.randint(-8, 8, (7, 7, 3, 64), generator=g,
+                       dtype=torch.int8).to(device)
+    w4, w8 = SP.pack_weight_int4(wk), SP.pack_weight(wk)
+    kw = dict(pads=QConv(3, 64, 7, 2, "SAME").spatial_pads(SIZE, SIZE),
+              pad=-17)
+    SP.int8_stem_pool.launches = 0
+    out = SP.int8_stem_pool(x, w4, **kw)
+    torch.cuda.synchronize()
+    launches = SP.int8_stem_pool.launches
+    err = max_abs(out, SP.int8_stem_pool_plain(x, w4, **kw))
+    ms = graph_ms(lambda _: SP.int8_stem_pool(x, w4, **kw), GRAPH_LAUNCHES)
+    ms8 = graph_ms(lambda _: SP.int8_stem_pool(x, w8, **kw), GRAPH_LAUNCHES)
+    plain_ms = event_ms(lambda: SP.int8_stem_pool_plain(x, w4, **kw),
+                        PLAIN_REPS)
+    b_ms, t_ops, t_bytes = launch_bound("stem_pool", (x, w4), kw, out)
+    print(f"# w4 stem: int8_stem_pool {tuple(x.shape)} -> {tuple(out.shape)}"
+          f" with (16, 64, 8) nibble-packed weights: {launches} launch | "
+          f"{err} | {ms * 1e3:.2f} us ({ms8 * 1e3:.2f} us with the int8 "
+          f"weights), bound {b_ms * 1e3:.2f} us "
+          f"({bound_by(t_ops, t_bytes)}), plain {plain_ms:.4f} ms")
+    if err != 0 or launches != 1:
+        raise RuntimeError(f"the W4 stem launch differs from its plain "
+                           f"version by {err} ({launches} launches)")
+    return launches, err
+
+
+def w4_phase(device, w8):
+    """MobileOne-S1 at full width under bench's all-W4 scheme: every launch
+    == plain at batch 8 and 256, each beside the W8 model's same launch
+    (``w8``: mobile_phase's per-launch ms, weight bytes and model); 6
+    served requests and their split, then W8 and W4 requests in turns;
+    the weight bytes a request reads, W4 against W8; then one W4 stem
+    launch.  Returns the largest difference and the
+    launches by kind of the served requests and the stem."""
+    t0 = time.perf_counter()
+    name, kwargs, fuser, expect, pooled = MOBILE[W4_MODEL]
+    model = mobile_deployed(name, kwargs, fuser, device, W4_SCHEME)
+    print(f"# {W4_MODEL} w4: train form -> {fuser.__name__} -> bench's "
+          f"all-W4 scheme -> calibrate (batch {CAL_BATCH}) + prepare_deploy "
+          f"in {time.perf_counter() - t0:.2f} s")
+    nbytes = served_weight_bytes(model)
+    ratio = nbytes / w8["weight_bytes"]
+    print(f"# {W4_MODEL} weight bytes a served request reads: W4 {nbytes} "
+          f"against W8 {w8['weight_bytes']} ({ratio:.4f})")
+    if not ratio <= 0.55:
+        raise RuntimeError(f"W4 weights take {ratio:.4f} of the W8 bytes")
+    for m in model.modules():
+        if isinstance(m, (QConv, QDense)) and hasattr(m, "w_int"):
+            raise RuntimeError(f"{m.path}: a W4 layer keeps an int8 weight")
+    err = 0.0
+    for batch in (8, SERVE_BATCH):
+        got = resnet_kernel_phase(f"{W4_MODEL} w4", model,
+                                  images(batch, SEED + 1, device), expect,
+                                  beside=w8[batch])
+        err = max(err, got["err"])
+        print(f"# {W4_MODEL} batch {batch}: the {len(got['launch_ms'])} "
+              f"launches take {sum(got['launch_ms']):.4f} ms at W4 against "
+              f"{sum(w8[batch]):.4f} ms at W8")
+    served = mobile_serve_phase(f"{W4_MODEL} w4", model, device, pooled,
+                                expect)
+    requests_in_turns({f"{W4_MODEL} w8": w8.pop("model"),
+                       f"{W4_MODEL} w4": model},
+                      images(SERVE_BATCH, SEED + 2, device))
+    del model
+    stem_launches, stem_err = w4_stem_launch(device)
+    served["stem_pool"] = served.get("stem_pool", 0) + stem_launches
+    return max(err, stem_err), served
+
+
+def config4_phase(device):
+    """BASELINE config #4 through ``python -m
+    dlmc_quant_torch.examples.FSPTQuant`` on a cut copy (calibration images
+    and iterations a block as the recon phase cuts A0, CONFIG_4_EVAL eval
+    images): it must reach the chained int8 evaluation, and each launch of
+    that evaluation must equal its plain version.  Returns the launches by
+    kind and the largest difference."""
+    cfg = read_yaml(CONFIG_4)
+    run_dir = REPO / "saved" / "chip_smoke_c4"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    cfg["save_dir"] = str(run_dir)
+    cfg["dataloaders"]["calibration"]["args"].update(
+        n_samples=RECON_SAMPLES, batch_size=RECON_BATCH)
+    cfg["dataloaders"]["eval"]["args"].update(n_samples=CONFIG_4_EVAL,
+                                              batch_size=CONFIG_4_EVAL)
+    cfg["reconstruction"]["epochs"] = RECON_ITERS
+    path = run_dir / "FSPTQ_mobileone_s1_w4a8_cut.yaml"
+    write_yaml(cfg, path)
+    print(f"# config #4 entry: FSPTQ_mobileone_s1_w4a8 cut: calibration "
+          f"{RECON_SAMPLES} images (batch {RECON_BATCH}) instead of 1024, "
+          f"{RECON_ITERS} iterations a block instead of 2000, eval "
+          f"{CONFIG_4_EVAL} images instead of the synthetic fallback's 1024;"
+          " nothing else changed (224x224, 1000 classes, stage0 and linear "
+          "at 8 bits, the 42 other layers at 4)")
+    t0 = time.perf_counter()
+    with LaunchRecorder() as rec:
+        rc = fsptq_entry.main(["-c", str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = rec.counts()
+    want = {"conv": 0, "gemm": 21, "im2col": 0, "stem_pool": 0, "dwconv": 21}
+    err = max((max_diff_to_plain(*call) for call in rec.calls), default=0.0)
+    print(f"# config #4 entry: rc {rc}, {wall:.2f} s; its chained int8 "
+          f"evaluation made {counts} launches (the stem weight-only: "
+          f"disable_first_act_quant), each against its plain version: max "
+          f"|diff| {err:g}")
+    if rc != 0 or counts != want or err != 0:
+        raise RuntimeError(f"config #4's entry did not reach a chained int8 "
+                           f"evaluation equal to plain: rc {rc}, {counts}, "
+                           f"{err}")
+    return counts, err
 
 
 def training_config(name: str, **loader_args) -> ConfigParser:
@@ -1311,19 +1540,17 @@ def time_steps(what: str, trainer, x, y, steps: int = TIMED_STEPS,
 
 
 def qat_deploy_leg(device):
-    """LSQ QAT at 8 bits → prepare_deploy → chained int8 through the conv
-    kernel; returns the served request's conv launches and the largest
-    kernel-vs-plain difference."""
+    """LSQ QAT at the config's own W4A4 → prepare_deploy → chained int8
+    through the conv kernel, W4 weights nibble-packed; returns the served
+    request's conv launches and the largest kernel-vs-plain difference."""
     config = training_config(QAT_CONFIGS["lsq"], n_samples=QAT_IMAGES)
-    for role in ("weight", "input"):
-        config["quantization"][role]["args"]["n_bits"] = 8
     trainer = qat_entry.build_trainer(config, device, get_logger("qat"))
-    train_gated("qat lsq w8a8", trainer, QAT_MOVED["lsq"])
+    train_gated("qat lsq w4a4 (deploy leg)", trainer, QAT_MOVED["lsq"])
     model = prepare_deploy(trainer.model.eval())
     batches = [torch.from_numpy(b) for b, _ in trainer.train_loader]
     x256 = torch.cat(batches[:2]).to(device)
-    err = max(resnet_kernel_phase("qat lsq w8a8", model, xb,
-                                  QAT_W8A8_LAUNCHES)["err"]
+    err = max(resnet_kernel_phase("qat lsq w4a4", model, xb,
+                                  QAT_DEPLOY_LAUNCHES)["err"]
               for xb in (x256[:8], x256))
     serve = make_serving_fn(model, qmode="intc", device=device)
     # the float stem conv and head in strict f32, as on the CPU (cuDNN's
@@ -1339,12 +1566,12 @@ def qat_deploy_leg(device):
         fake = model(x256, qmode="eval")
     rel = rel_l2(y, ref)
     agree = float((y.argmax(-1) == fake.argmax(-1)).float().mean())
-    print(f"# qat lsq w8a8 serve: logits {tuple(y.shape)}, {launches} conv "
+    print(f"# qat lsq w4a4 serve: logits {tuple(y.shape)}, {launches} conv "
           f"launches; vs the CPU plain path on {len(ref)} images rel L2 "
           f"{rel:.3e} (full_f32; {rel_l2(y_tf32, ref):.3e} with the float "
           f"stem and head at the default TF32); top-1 agreement with the "
           f"fake-quant eval forward {agree:.4f}")
-    if launches != QAT_W8A8_LAUNCHES["conv"] \
+    if launches != QAT_DEPLOY_LAUNCHES["conv"] \
             or y.shape != (SERVE_BATCH, CIFAR_CLASSES) \
             or not bool(torch.isfinite(y).all()) or not rel < 2e-2:
         raise RuntimeError("the QAT model's int8 request is off")
@@ -1578,20 +1805,27 @@ def main(argv=None) -> int:
     served50 = resnet50_serve_phase(r50, device)
     del r50
     parent = parent_dw_ms(args.parent) if args.parent else None
-    mobile_err, dw, mobile_served = mobile_phase(device, parent)
+    mobile_err, dw, mobile_served, w8 = mobile_phase(device, parent)
+    t0 = time.perf_counter()
+    w4_err, w4_served = w4_phase(device, w8)
+    c4_launches, c4_err = config4_phase(device)
+    print(f"# w4 phases: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     qat_launches, qat_err = qat_phase(device)
     print(f"# qat phase: {time.perf_counter() - t0:.2f} s")
     launches += (served["conv"] + ptq_convs + served50["conv"] + qat_launches
-                 + mobile_served["conv"])
+                 + mobile_served["conv"] + w4_served["conv"])
     tot["err"] = max(err8, tot["err"], recon_err, res_err, r50_err,
-                     r50_tot["err"], qat_err, mobile_err)
-    stem = dict(r50_tot["stem_pool"], err=max(r50_err, r50_tot["err"]))
+                     r50_tot["err"], qat_err, mobile_err, w4_err)
+    stem = dict(r50_tot["stem_pool"], err=max(r50_err, r50_tot["err"],
+                                              w4_err))
 
     gemm_rows, gemm_launches = tool_path(gemm_sweep.main, G.int8_gemm,
                                          "gemm_sweep")
     gemm_launches += (served["gemm"] + ptq_gemms + served50["gemm"]
-                      + mobile_served["gemm"])
+                      + mobile_served["gemm"] + w4_served["gemm"]
+                      + c4_launches["gemm"])
+    gemm_err = max(w4_err, c4_err)
     probe_rows, probe_launches = tool_path(lambda: mma_probe.main([]),
                                            P.int8_mma_probe, "mma_probe")
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -1600,6 +1834,7 @@ def main(argv=None) -> int:
         lambda row: gemm_calls(row, gen))
     probe_tot = exact_phase("int8_mma_probe", probe_rows,
                             lambda row: probe_calls(row, gen))
+    gemm_tot["err"] = max(gemm_tot["err"], gemm_err)
 
     print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -1614,11 +1849,14 @@ def main(argv=None) -> int:
         kernel_entry("int8_stem_pool",
                      "dlmc_quant_tpu/quant/layers.py:721-728 + "
                      "dlmc_quant_tpu/quant/chain.py:135",
-                     served50["stem_pool"], stem, None),
+                     served50["stem_pool"] + w4_served["stem_pool"], stem,
+                     None),
         kernel_entry("int8_dwconv3x3",
                      "dlmc_quant_tpu/quant/layers.py:722-728 (XLA grouped "
                      "int8 conv, feature_group_count=C; no Pallas kernel)",
-                     mobile_served["dwconv"], dw, None)]}))
+                     mobile_served["dwconv"] + w4_served["dwconv"]
+                     + c4_launches["dwconv"], dict(dw, err=max(
+                         dw["err"], w4_err, c4_err)), None)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,21 @@
 """RepAPQ / FSPTQ entry point: branch-fuse → calibrate → per-block
-reconstruction → evaluate → save.
+reconstruction → evaluate → save → prepare_deploy → evaluate in ``intc``.
 
     python -m dlmc_quant_torch.examples.FSPTQuant \
         -c examples/configs/FSPTQ_repvgg_a0_w8a8.yaml [--device cpu]
+    python -m dlmc_quant_torch.examples.FSPTQuant \
+        -c examples/configs/FSPTQ_mobileone_s1_w4a8.yaml [--device cpu]
 
 Counterpart of ``examples/FSPTQuant.py``.  The teacher is the fused FP
 model; the student a copy with the config's quantization scheme,
-calibrated with one observe pass per calibration batch.  Runs on the card
-unless ``--device cpu`` is given; without a card it raises.
+calibrated with one observe pass per calibration batch.  After the
+checkpoint is written, a copy of the student is prepared for integer
+execution and evaluated chained int8 (``qmode='intc'``), W4 layers
+through the kernels' nibble-packed weights.  Two config grammars: the
+flagship's (``dataloaders.train``, ``trainer: {epochs, recon_batch,
+lrs}``) and config #4's (``dataloaders.calibration``, ``reconstruction:
+{epochs, batch_size, lr_scales, lr_weight, loss: l2_loss}``).  Runs on the
+card unless ``--device cpu`` is given; without a card it raises.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from dlmc_quant_torch.device import resolve_device
 from dlmc_quant_torch.models import get_model
 from dlmc_quant_torch.models.fuse import mobilenet_deploy, repvgg_fuse
 from dlmc_quant_torch.models.mobileone import mobileone_fuse
+from dlmc_quant_torch.quant.deploy import prepare_deploy
 from dlmc_quant_torch.quant.config import scheme_from_dict
 from dlmc_quant_torch.quant.layers import attach_scheme, calibrate
 from dlmc_quant_torch.training.fsptq import FSPTQTrainer
@@ -52,6 +61,30 @@ def to_deploy(model, logger):
     return FUSERS[family](model)
 
 
+def trainer_options(config) -> dict:
+    """The reconstruction's options: the flagship's ``trainer`` section, or
+    config #4's ``reconstruction`` section in the same terms (its weight
+    rate for kernels and biases, its scale rate for the scale-like
+    parameters and AdaRound's alpha)."""
+    if "trainer" in config:
+        return dict(config["trainer"] or {})
+    rcfg = dict(config.get("reconstruction") or {})
+    if rcfg.get("loss", "l2_loss") != "l2_loss":
+        raise NotImplementedError(
+            f"reconstruction loss {rcfg['loss']!r}: the reconstruction "
+            "minimises l2_loss")
+    lrs = {}
+    if "lr_weight" in rcfg:
+        lrs["kernel"] = lrs["bias"] = float(rcfg["lr_weight"])
+    if "lr_scales" in rcfg:
+        lrs["scale_like"] = float(rcfg["lr_scales"])
+    out = {"lrs": lrs or None}
+    for key, name in (("epochs", "epochs"), ("batch_size", "recon_batch")):
+        if key in rcfg:
+            out[name] = rcfg[key]
+    return out
+
+
 def main(args=None) -> int:
     t0 = time.perf_counter()
     config = ConfigParser.from_args(args)
@@ -60,7 +93,10 @@ def main(args=None) -> int:
 
     loaders = {n: get_dataloader(s["type"], **(s.get("args") or {}))
                for n, s in config["dataloaders"].items()}
-    train_l, eval_l = loaders["train"], loaders.get("eval")
+    # the calibration set: the flagship's "train", config #4's "calibration"
+    train_l = loaders["train"] if "train" in loaders \
+        else loaders["calibration"]
+    eval_l = loaders.get("eval")
 
     gen = torch.Generator().manual_seed(config.seed)
     model = config.init_obj("arch", get_model, device=device, generator=gen)
@@ -79,7 +115,7 @@ def main(args=None) -> int:
             break
     calibrate(qmodel, cal_batches, observe_passes=len(cal_batches))
 
-    tcfg = config.get("trainer", {})
+    tcfg = trainer_options(config)
     trainer = FSPTQTrainer(
         qmodel, fp_model, cal_batches,
         iters=int(tcfg.get("epochs", 2000)),
@@ -103,6 +139,11 @@ def main(args=None) -> int:
         save_checkpoint(config.save_dir / "fsptq_model", qmodel.state_dict(),
                         metadata={"block_losses": out["block_losses"]})
         logger.info("saved to %s", config.save_dir)
+    if eval_l is not None:
+        int_model = prepare_deploy(copy.deepcopy(qmodel).eval())
+        int_m = evaluate(int_model, eval_l, loss_fn, metric_fns,
+                         qmode="intc")
+        logger.info("RepAPQ chained int8 (intc): %s", int_m)
     logger.info("FSPTQuant done in %.1f s on %s", time.perf_counter() - t0,
                 torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu")

@@ -89,6 +89,18 @@
 //    the producers run ahead into the next tile during the epilogue.  The
 //    48-wide kernel is compiled for two blocks an SM (80 registers), which
 //    its layers' many small tiles want; the others for one.
+// W4 weights (a layer of 4 bits or fewer) come nibble-packed, (O, Kp/2)
+// bytes with K index 2j in the low nibble of byte j (ops/cuda/nibbles.py),
+// and stay so in device memory.  TMA cannot unpack, and its pitch must be
+// a multiple of 16 bytes, which Kp/2 is not wherever Rp / 16 is odd (C =
+// 3, 16, 48, ...): so at W4 no TMA touches the weight.  The producers read
+// 8 packed bytes a 16-byte chunk with plain loads through the read-only
+// path (Kp/2 is a multiple of 8, so every such load is aligned), expand
+// them to int8 (unpack_nibbles16) and store the chunk at its swizzle128
+// address: a resident weight once a block, all four producer warps
+// together, each arriving on the weight's barrier after its fence; a
+// streamed weight's B tile by the warp that fills the stage, in the same
+// pass as its A tile and before the same proxy fence.
 // The tile plan (width, stages, weight resident or not, halo buffers) is
 // made in int8_conv.py; this file checks that it fits.
 
@@ -138,6 +150,7 @@ inline FastDiv make_fastdiv(int d) {
 
 struct ConvArgs {
   const int8_t* x;
+  const uint8_t* wp;  // the nibble-packed weight (O, Kp/2), if w4
   const float* a;
   const float* b;
   void* out;
@@ -150,6 +163,7 @@ struct ConvArgs {
   int pad, pad_lo, lo, hi, relu, r_kind;
   int m_tiles, n_tiles, tiles, k_chunks, stages, resident;
   int halo_bufs, halo_bytes, pixels;  // halo_bufs 0: gather from x
+  int w4;
   FastDiv by_hw, by_wo, by_m_tiles;   // / (Ho Wo), / Wo, / m_tiles
 };
 
@@ -241,6 +255,42 @@ __device__ __forceinline__ void load_residual(const ConvArgs& g, int row,
   }
 }
 
+// W4: the int8 B tile of output channels n0 .. n0 + BN - 1 at K chunk kc,
+// unpacked from g.wp into the swizzled tile at shared address dst; thread
+// `first` of `step` threads takes every step-th 16-byte chunk.  Rows past
+// O and bytes past Kp are zero.  The loads of BATCH chunks go out before
+// any store, so their latencies overlap.  The caller fences the stores.
+template <int BN>
+__device__ __forceinline__ void unpack_b_tile(const ConvArgs& g, int kc,
+                                              int n0, uint32_t dst, int first,
+                                              int step) {
+  constexpr int CHUNKS = BN * CHUNKS_16;
+  constexpr int BATCH = 4;
+  const int pitch = g.Kp / 2;
+  for (int i0 = first; i0 < CHUNKS; i0 += BATCH * step) {
+    uint2 v[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = i0 + u * step;
+      const int o = n0 + i / CHUNKS_16;
+      const int kbyte = kc * TILE_K + 16 * (i % CHUNKS_16);
+      v[u] = make_uint2(0u, 0u);
+      if (i < CHUNKS && o < g.O && kbyte < g.Kp)
+        v[u] = __ldg(reinterpret_cast<const uint2*>(
+            g.wp + static_cast<long long>(o) * pitch + kbyte / 2));
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = i0 + u * step;
+      if (i >= CHUNKS) break;
+      uint32_t w[4];
+      unpack_nibbles16(v[u].x, v[u].y, w);
+      st_shared16(dst + swizzle128(i / CHUNKS_16, 16 * (i % CHUNKS_16)), w[0],
+                  w[1], w[2], w[3]);
+    }
+  }
+}
+
 // RESIDUAL (codes only) adds the residual term: an instantiation of its
 // own, so that the epilogue without one keeps its registers
 template <int BN, bool CODES, bool RESIDUAL>
@@ -270,10 +320,13 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
   if (threadIdx.x == 0) {
     for (int s = 0; s < g.stages; ++s) {
       // lane 0 of the warp that fills it, and its expect_tx if B streams
-      mbar_init(full + 8 * s, g.resident ? 1 : 2);
+      // by TMA
+      mbar_init(full + 8 * s, g.resident || g.w4 ? 1 : 2);
       mbar_init(empty + 8 * s, 4 * CONSUMER_WGS);  // lane 0 of each warp
     }
-    mbar_init(bfull, 1);
+    // the resident weight: TMA's expect_tx, or at W4 lane 0 of every
+    // producer warp once its share is unpacked
+    mbar_init(bfull, g.w4 ? PRODUCER_WARPS : 1);
     for (int h = 0; h < 2; ++h) {
       mbar_init(hfull + 8 * h, 1);
       mbar_init(hempty + 8 * h, PRODUCER_WARPS);
@@ -292,7 +345,15 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
     // due: with stages >= PRODUCER_WARPS the slot's previous use is at or
     // before this warp's own previous stage, whose slot it saw released.
     const int pw = warp - 4 * CONSUMER_WGS;
-    if (pw == 0 && lane == 0) {
+    if (g.w4 && g.resident) {
+      for (int kc = 0; kc < g.k_chunks; ++kc)
+        unpack_b_tile<BN>(g, kc, 0, base + L.bres + kc * C::B_BYTES,
+                          32 * pw + lane, 32 * PRODUCER_WARPS);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bfull);
+    }
+    if (!g.w4 && pw == 0 && lane == 0) {
       tma_prefetch_map(&map_w);
       if (g.resident) {
         mbar_arrive_expect_tx(bfull, g.k_chunks * C::B_BYTES);
@@ -403,7 +464,9 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
         mbar_wait(empty + 8 * slot, slot_parity);
         const uint32_t a_tile = base + slot * L.stage_bytes;
         const uint32_t a_row0 = a_tile + r0 * TILE_K;  // its rows: + 512 j
-        if (!g.resident && lane == 0) {
+        if (!g.resident && g.w4) {
+          unpack_b_tile<BN>(g, kc, n0, a_tile + C::A_BYTES, lane, 32);
+        } else if (!g.resident && lane == 0) {
           mbar_arrive_expect_tx(full + 8 * slot, C::B_BYTES);
           tma_load_2d(a_tile + C::A_BYTES, &map_w, full + 8 * slot,
                       kc * TILE_K, n0);
@@ -771,7 +834,8 @@ int dlmcq_int8_conv3x3_smem(int bn, int codes, int stages,
 }
 
 // x (n, h, wd, c) int8, w packed as (o, kp) int8 with kp = 3 *
-// roundup(3 c, 16), a and b (o,) float32, out (n, ho, wo, o) int8 (codes)
+// roundup(3 c, 16), or with w4 = 1 nibble-packed as (o, kp / 2) bytes, a
+// and b (o,) float32, out (n, ho, wo, o) int8 (codes)
 // or float32; pad_lo 1, or 0 at stride 2.  With r_kind 1, 2 or 3 (codes
 // only) r is (n, ho, wo, o) int8, int32 or float32, ar and br (o,) float32
 // and qb the grid's bias; with r_kind 0 they are not read.  The plan (bn,
@@ -781,12 +845,15 @@ int dlmcq_int8_conv3x3_smem(int bn, int codes, int stages,
 int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
                        const void* b, void* out, const void* r,
                        const void* ar, const void* br, int n, int h, int wd,
-                       int c, int o, int kp, int stride, int pad, int pad_lo,
+                       int c, int o, int kp, int w4, int stride, int pad,
+                       int pad_lo,
                        int lo, int hi, int codes, int relu, int r_kind,
                        int bn, int stages, int resident, int halo_bufs,
                        float qb, void* stream) {
   ConvArgs g;
   g.x = static_cast<const int8_t*>(x);
+  g.wp = static_cast<const uint8_t*>(w);
+  g.w4 = w4 != 0;
   g.a = static_cast<const float*>(a);
   g.b = static_cast<const float*>(b);
   g.out = out;
@@ -839,9 +906,11 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
   if (halo_bufs < 0 || halo_bufs > 2 ||
       (halo_bufs && (stride != 1 || c % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map_w;
-  const int err = encode_tile_map(&map_w, w, o, kp, kp, bn);
-  if (err != 0) return err;
+  CUtensorMap map_w = {};   // not read at W4
+  if (!w4) {
+    const int err = encode_tile_map(&map_w, w, o, kp, kp, bn);
+    if (err != 0) return err;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DLMCQ_LAUNCH(BN)                                 \
   if (bn == BN)                                          \

@@ -59,6 +59,12 @@
 // extract and an IMAD.  The epilogue's two conversions are exact float
 // additions on the full-rate pipes.  The weight words and a, b are loaded
 // into registers once a block (load_weights), the index math once a tile.
+// A weight of 4 bits or fewer comes nibble-packed, (9, C/2) bytes with
+// channel 2j in the low nibble of byte j (ops/cuda/nibbles.py), and stays
+// so in device memory; load_weights reads a 16-bit word for a thread's 4
+// channels a tap, sign-extends the nibbles bytewise and interleaves them
+// into the same tap words as an int8 weight gives, so nothing after it
+// changes.
 // The tile plan (CB, column groups, row groups, rows a thread) comes from
 // the wrapper (ops/cuda/int8_dwconv.py: plan, a model of the work and of
 // the last tile's latency), which the CPU tests emulate word for word
@@ -69,6 +75,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "wgmma_s8.cuh"   // sext_nibbles: the W4 weights' sign extension
+
 namespace {
 
 constexpr int MAX_THREADS = 256;
@@ -78,11 +86,11 @@ constexpr int MAX_DEVICES = 64;
 
 struct DwArgs {
   const int8_t* x;
-  const int8_t* w;       // (9, C)
+  const int8_t* w;       // (9, C) int8, or (9, C/2) nibble pairs if w4
   const float* a;
   const float* b;
   void* out;             // (N, Ho, Wo, C): int8 codes or f32
-  int H, W, C, Ho, Wo, pad_lo, relu;
+  int H, W, C, Ho, Wo, pad_lo, relu, w4;
   float flo, fhi;        // the codes' clamp, lo and hi
   uint32_t pad4;         // the pad code in every byte
   // the plan: channel slice and its quads, column groups, rows a thread;
@@ -183,9 +191,18 @@ __device__ __forceinline__ void transpose4(uint32_t p0, uint32_t p1,
   t[3] = __byte_perm(x1, y1, 0x7632);
 }
 
+// 4 channels' int8 weights from their 2 nibble-packed bytes (channel 2j
+// in the low nibble of byte j): the word an int8 weight gives.
+__device__ __forceinline__ uint32_t unpack_pair(uint32_t u) {
+  const uint32_t lo = dlmcq::sext_nibbles(u & 0x0F0Fu);   // channels 0, 2
+  const uint32_t hi = dlmcq::sext_nibbles((u >> 4) & 0x0F0Fu);  // 1, 3
+  return __byte_perm(lo, hi, 0x5140);
+}
+
 // The weight words of channels c..c+3 for each tap row dy: byte i of
 // wa[dy][j] is w[3 dy + i, c + j] for i < 3, byte 3 is 0; and a, b.  The
-// one place the kernel reads the weight.
+// one place the kernel reads the weight: a 32-bit word a tap, or at W4 a
+// 16-bit word of nibbles (C % 8 == 0 keeps it aligned), unpacked.
 __device__ __forceinline__ void load_weights(const DwArgs& g, int c,
                                              bool c_in,
                                              uint32_t (&wa)[3][4],
@@ -195,9 +212,12 @@ __device__ __forceinline__ void load_weights(const DwArgs& g, int c,
     uint32_t tap[3] = {0, 0, 0};
     if (c_in) {
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-        tap[dx] = __ldg(reinterpret_cast<const uint32_t*>(
-            g.w + (3 * dy + dx) * g.C + c));
+      for (int dx = 0; dx < 3; ++dx) {
+        const int at = (3 * dy + dx) * g.C + c;
+        tap[dx] = g.w4 ? unpack_pair(__ldg(
+                             reinterpret_cast<const uint16_t*>(g.w) + at / 4))
+                       : __ldg(reinterpret_cast<const uint32_t*>(g.w + at));
+      }
     }
     transpose4(tap[0], tap[1], tap[2], 0u, wa[dy]);
   }
@@ -421,7 +441,8 @@ cudaError_t launch(const DwArgs& g, int threads, int smem,
 extern "C" {
 
 // out (n, ceil(h/stride), ceil(w/stride), c) from x (n, h, w, c) int8 and
-// w (9, c) int8: the depthwise 3x3 conv with top/left pad pad_lo, `pad`
+// w (9, c) int8 (w4 = 0) or (9, c / 2) nibble pairs (w4 = 1): the
+// depthwise 3x3 conv with top/left pad pad_lo, `pad`
 // outside the map, then the epilogue (codes: clamp to [lo, hi] -> int8;
 // else f32, ReLU'd if relu).  The plan (ops/cuda/int8_dwconv.py: plan):
 // cb channels a block, cg column groups, rg row groups, rpt rows a thread
@@ -431,8 +452,8 @@ extern "C" {
 int dlmcq_int8_dwconv3x3(const void* x, const void* w, const void* a,
                          const void* b, void* out, int n, int h, int wd,
                          int c, int stride, int pad_lo, int pad, int lo,
-                         int hi, int codes, int relu, int cb, int cg, int rg,
-                         int rpt, void* stream) {
+                         int hi, int codes, int relu, int w4, int cb, int cg,
+                         int rg, int rpt, void* stream) {
   const int r = stride == 1 ? 4 : 2;
   const long long threads = static_cast<long long>(cb / 4) * cg * rg;
   if (c % 8 || c <= 0 || (stride != 1 && stride != 2) ||
@@ -455,6 +476,7 @@ int dlmcq_int8_dwconv3x3(const void* x, const void* w, const void* a,
   g.flo = static_cast<float>(lo);
   g.fhi = static_cast<float>(hi);
   g.relu = relu;
+  g.w4 = w4 != 0;
   g.pad4 = 0x01010101u * static_cast<uint32_t>(pad & 0xFF);
   g.cb = cb;
   g.cq = cb / 4;

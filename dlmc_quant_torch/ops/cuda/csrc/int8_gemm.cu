@@ -73,6 +73,28 @@
 // tiles of EPILOGUE_TILES (int8_gemm.py), so the int32 kernels keep their
 // registers.  Bound with an epilogue: the output is N bytes a row (4 N for
 // f32) and the residual adds its own.
+//
+// W4 weights (a layer of 4 bits or fewer): w comes nibble-packed, (N, Kp/2)
+// bytes with K index 2j in the low nibble of byte j (ops/cuda/nibbles.py),
+// and stays so in device memory.  TMA cannot unpack and wgmma reads only
+// int8 B, so the packed BN x 64-byte tile of a stage is TMA-loaded
+// (unswizzled) into one of two staging slots beside the ring and reported
+// to that slot's "packed landed" barrier; then two producer warps expand
+// each 8 packed bytes into one 16-byte int8 chunk (unpack_nibbles16: masks,
+// a multiply that sign-extends every byte, byte permutes) and store it with
+// st.shared.v4 at its swizzle128 address in the stage's B tile.  Those are
+// generic-proxy writes that wgmma reads through the async proxy: every lane
+// executes fence_proxy_async before its warp's lane 0 arrives on the
+// stage's full barrier (count 3: A's expect_tx and the two warps), or wgmma
+// may read stale bytes without any error.  Warp 0 loads stage j and then
+// both warps unpack stage j - 1, so a packed tile's latency overlaps a
+// stage's unpack and wait; a named barrier between the two warps closes
+// each step, so a staging slot is refilled only once both have read it.
+// One warp alone took 1.4x the W8 time at K = 512 (the unpack, ~20
+// instructions a chunk, outran the tensor cores' stage; PERF.md §6).
+// W4 is an instantiation of its own (template W4), compiled at
+// EPILOGUE_TILES in every mode with the W8 stage counts (the two staging
+// slots still fit); the W8 kernels are unchanged.
 
 #include <cstdint>
 #include <cuda.h>
@@ -214,44 +236,116 @@ __device__ __forceinline__ void store_epilogue(const Epilogue& e,
   }
 }
 
-template <int BM, int BN, int STAGES>
+template <int BM, int BN, int STAGES, bool W4 = false>
 struct Cfg {
   static constexpr int WGS = BM / WGMMA_M;            // consumer warpgroups
-  static constexpr int THREADS = WGS * WG_THREADS + 32;  // + the producer warp
+  // the producer warp, and at W4 a second warp that unpacks with it
+  static constexpr int PRODUCERS = W4 ? 2 : 1;
+  static constexpr int THREADS = WGS * WG_THREADS + 32 * PRODUCERS;
   static constexpr int A_BYTES = BM * TILE_K;
   static constexpr int B_BYTES = BN * TILE_K;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  // W4: two staging slots of a packed B tile, BN rows of 64 bytes
+  static constexpr int P_BYTES = B_BYTES / 2;
+  static constexpr int P_SLOTS = W4 ? 2 : 0;
+  // full and empty a stage, and at W4 "packed landed" a slot
+  static constexpr int SMEM = STAGES * STAGE_BYTES + P_SLOTS * P_BYTES +
+                              (2 * STAGES + P_SLOTS) * 8;
   // two blocks share an SM where their shared memory allows it
   static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= MAX_SMEM + 1024 ? 2 : 1;
   static_assert(STAGE_BYTES % ATOM_BYTES == 0 && SMEM <= MAX_SMEM, "tile");
+  // W4: loading stage j waits for a slot that the consumers hand back once
+  // stage j - STAGES + 1 is full, which the warps unpacked at step
+  // j - STAGES + 2 < j
+  static_assert(!W4 || STAGES >= 3, "W4 needs a ring of 3 stages");
 };
 
-template <int BM, int BN, int STAGES, int EPI>
-__global__ void __launch_bounds__(Cfg<BM, BN, STAGES>::THREADS,
-                                  Cfg<BM, BN, STAGES>::MIN_BLOCKS)
+// map_w describes w: at W8 (N, Kp) in 128-byte swizzled boxes, at W4 the
+// packed (N, Kp/2) in unswizzled boxes of BN x 64 bytes.
+template <int BM, int BN, int STAGES, int EPI, bool W4>
+__global__ void __launch_bounds__(Cfg<BM, BN, STAGES, W4>::THREADS,
+                                  Cfg<BM, BN, STAGES, W4>::MIN_BLOCKS)
 int8_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
                  const __grid_constant__ CUtensorMap map_w,
                  const Epilogue e, int M, int N, int K, int m_tiles,
                  int tiles) {
-  using C = Cfg<BM, BN, STAGES>;
+  using C = Cfg<BM, BN, STAGES, W4>;
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t base = smem_u32(smem);
   if (base % ATOM_BYTES != 0) __trap();  // the swizzle needs the alignment
-  const uint32_t full = base + STAGES * C::STAGE_BYTES;
+  const uint32_t staging = base + STAGES * C::STAGE_BYTES;   // W4 only
+  const uint32_t full = staging + C::P_SLOTS * C::P_BYTES;
   const uint32_t empty = full + STAGES * 8;
+  const uint32_t packed = empty + STAGES * 8;   // W4 only
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int k_chunks = (K + TILE_K - 1) / TILE_K;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);             // the producer's expect_tx
+      // the producer's expect_tx, and at W4 lane 0 of each unpacking warp
+      mbar_init(full + 8 * s, 1 + (W4 ? C::PRODUCERS : 0));
       mbar_init(empty + 8 * s, 4 * C::WGS);   // lane 0 of each consumer warp
     }
+    for (int p = 0; p < C::P_SLOTS; ++p) mbar_init(packed + 8 * p, 1);
     mbar_init_fence();
   }
   __syncthreads();
+
+  if (W4 && warp >= 4 * C::WGS) {
+    // the two producer warps at W4: at step j warp 0 loads stage j (A by
+    // TMA into the ring, the packed B tile into staging slot j % 2), then
+    // both unpack stage j - 1 from slot (j - 1) % 2 into its B tile
+    const int pw = warp - 4 * C::WGS;
+    if (pw == 0 && lane == 0) {
+      tma_prefetch_map(&map_x);
+      tma_prefetch_map(&map_w);
+    }
+    const int my_tiles = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+    const int total = my_tiles * k_chunks;
+    for (int j = 0; j <= total; ++j) {
+      if (pw == 0 && j < total) {
+        const int s = j % STAGES;
+        mbar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          const int tile = blockIdx.x + (j / k_chunks) * gridDim.x;
+          const int kc = j % k_chunks;
+          const uint32_t a = base + s * C::STAGE_BYTES;
+          mbar_arrive_expect_tx(full + 8 * s, C::A_BYTES);
+          tma_load_2d(a, &map_x, full + 8 * s, kc * TILE_K,
+                      (tile % m_tiles) * BM);
+          mbar_arrive_expect_tx(packed + 8 * (j % 2), C::P_BYTES);
+          tma_load_2d(staging + (j % 2) * C::P_BYTES, &map_w,
+                      packed + 8 * (j % 2), kc * (TILE_K / 2),
+                      (tile / m_tiles) * BN);
+        }
+      }
+      if (j > 0) {
+        const int u = j - 1;
+        const int s = u % STAGES;
+        mbar_wait(packed + 8 * (u % 2), (u / 2) & 1);
+        const uint32_t b = base + s * C::STAGE_BYTES + C::A_BYTES;
+        const uint32_t p = staging + (u % 2) * C::P_BYTES;
+        // chunk i: row i / 8, 16-byte chunk i % 8 of the row, from packed
+        // bytes 8 i .. 8 i + 7 (a warp reads 256 consecutive bytes)
+#pragma unroll 4
+        for (int i = 32 * pw + lane; i < BN * (TILE_K / 16);
+             i += 32 * C::PRODUCERS) {
+          const uint2 v = ld_shared8(p + 8 * i);
+          uint32_t w[4];
+          unpack_nibbles16(v.x, v.y, w);
+          st_shared16(b + swizzle128(i / 8, 16 * (i % 8)), w[0], w[1], w[2],
+                      w[3]);
+        }
+        fence_proxy_async();   // the B tile is read by wgmma
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full + 8 * s);
+      }
+      // both warps have read slot (j - 1) % 2 before warp 0 refills it
+      asm volatile("bar.sync 1, %0;\n" ::"n"(32 * C::PRODUCERS) : "memory");
+    }
+    return;
+  }
 
   if (warp == 4 * C::WGS) {
     // producer: one thread walks the same tiles and K chunks as the
@@ -321,11 +415,11 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-template <int BM, int BN, int STAGES, int EPI>
+template <int BM, int BN, int STAGES, int EPI, bool W4 = false>
 int launch(const CUtensorMap& map_x, const CUtensorMap& map_w,
            const Epilogue& e, int m, int n, int k, cudaStream_t s) {
-  using C = Cfg<BM, BN, STAGES>;
-  const auto kernel = int8_gemm_kernel<BM, BN, STAGES, EPI>;
+  using C = Cfg<BM, BN, STAGES, W4>;
+  const auto kernel = int8_gemm_kernel<BM, BN, STAGES, EPI, W4>;
   // once per tile: opt in to the shared memory, ask how many blocks fit an SM
   static const int per_sm = [&] {
     int blocks = 0;
@@ -358,40 +452,64 @@ int launch(const CUtensorMap& map_x, const CUtensorMap& map_w,
 }
 
 // An epilogue mode at one tile: an instantiation per mode.
-template <int BM, int BN, int STAGES>
+template <int BM, int BN, int STAGES, bool W4 = false>
 int launch_epilogue(const CUtensorMap& map_x, const CUtensorMap& map_w,
                     const Epilogue& e, int codes, int m, int n, int k,
                     cudaStream_t s) {
   if (!codes)
-    return launch<BM, BN, STAGES, EPI_F32>(map_x, map_w, e, m, n, k, s);
+    return launch<BM, BN, STAGES, EPI_F32, W4>(map_x, map_w, e, m, n, k, s);
   if (e.r_kind)
-    return launch<BM, BN, STAGES, EPI_RESIDUAL>(map_x, map_w, e, m, n, k, s);
-  return launch<BM, BN, STAGES, EPI_CODES>(map_x, map_w, e, m, n, k, s);
+    return launch<BM, BN, STAGES, EPI_RESIDUAL, W4>(map_x, map_w, e, m, n, k,
+                                                    s);
+  return launch<BM, BN, STAGES, EPI_CODES, W4>(map_x, map_w, e, m, n, k, s);
 }
 
+// The W4 instantiations: the epilogue tiles at their W8 stage counts, the
+// two staging slots beside the ring (int8_gemm.py: W4_TILE_STAGES).
+#define DLMCQ_W4_TILES      \
+  DLMCQ_W4_TILE(128, 256, 4) \
+  DLMCQ_W4_TILE(128, 128, 3) \
+  DLMCQ_W4_TILE(64, 128, 4)  \
+  DLMCQ_W4_TILE(64, 64, 4)
+
+// w is (n, kp) int8, or at W4 (n, kp / 2) nibble pairs
 int encode_maps(CUtensorMap* map_x, CUtensorMap* map_w, const void* x,
-                const void* w, int m, int n, int k, int kp, int bm, int bn) {
+                const void* w, int m, int n, int k, int kp, int w4, int bm,
+                int bn) {
   if (bm != 64 && bm != 128) return static_cast<int>(cudaErrorInvalidValue);
   const int err = encode_tile_map(map_x, x, m, k, k, bm);
-  return err != 0 ? err : encode_tile_map(map_w, w, n, kp, kp, bn);
+  if (err != 0) return err;
+  return w4 ? encode_tile_map(map_w, w, n, kp / 2, kp / 2, bn, TILE_K / 2,
+                              false)
+            : encode_tile_map(map_w, w, n, kp, kp, bn);
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (m, n) int32 = x (m, k) int8 @ w, with w packed as (n, kp) int8.
-// (bm, bn) is one of the compiled tiles, listed below and in int8_gemm.py.
-// Launches on `stream`; returns cudaGetLastError() (0 on success), or the
-// error that refused the tensor maps or the tile.
+// out (m, n) int32 = x (m, k) int8 @ w, with w packed as (n, kp) int8, or
+// with w4 = 1 nibble-packed as (n, kp / 2) bytes.  (bm, bn) is one of the
+// compiled tiles, listed below and in int8_gemm.py (at W4 the
+// DLMCQ_W4_TILES).  Launches on `stream`; returns cudaGetLastError() (0 on
+// success), or the error that refused the tensor maps or the tile.
 int dlmcq_int8_gemm(const void* x, const void* w, void* out, int m, int n,
-                    int k, int kp, int bm, int bn, void* stream) {
+                    int k, int kp, int w4, int bm, int bn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap map_x, map_w;
-  const int err = encode_maps(&map_x, &map_w, x, w, m, n, k, kp, bm, bn);
+  const int err = encode_maps(&map_x, &map_w, x, w, m, n, k, kp, w4, bm, bn);
   if (err != 0) return err;
   Epilogue e = {};
   e.out = out;
+  if (w4) {
+#define DLMCQ_W4_TILE(BM, BN, STAGES)                                        \
+  if (bm == BM && bn == BN)                                                 \
+    return launch<BM, BN, STAGES, EPI_INT32, true>(map_x, map_w, e, m, n, k, \
+                                                   s);
+    DLMCQ_W4_TILES
+#undef DLMCQ_W4_TILE
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 #define DLMCQ_TILE(BM, BN, STAGES) \
   if (bm == BM && bn == BN)        \
     return launch<BM, BN, STAGES, EPI_INT32>(map_x, map_w, e, m, n, k, s);
@@ -413,7 +531,8 @@ int dlmcq_int8_gemm(const void* x, const void* w, void* out, int m, int n,
 // int32 or f32 with ar, br (n,) f32 and the grid's bias qb.  (bm, bn) is
 // one of the tiles listed below and in int8_gemm.py (EPILOGUE_TILES).
 int dlmcq_int8_gemm_epilogue(const void* x, const void* w, void* out, int m,
-                             int n, int k, int kp, int bm, int bn, int codes,
+                             int n, int k, int kp, int w4, int bm, int bn,
+                             int codes,
                              const float* a, const float* b, const void* r,
                              const float* ar, const float* br, float qb,
                              int lo, int hi, int relu, int r_kind,
@@ -422,9 +541,18 @@ int dlmcq_int8_gemm_epilogue(const void* x, const void* w, void* out, int m,
   if (r_kind < 0 || r_kind > 3 || (r_kind && !codes) || (relu && codes))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_x, map_w;
-  const int err = encode_maps(&map_x, &map_w, x, w, m, n, k, kp, bm, bn);
+  const int err = encode_maps(&map_x, &map_w, x, w, m, n, k, kp, w4, bm, bn);
   if (err != 0) return err;
   const Epilogue e = {out, a, b, r, ar, br, qb, lo, hi, relu, r_kind};
+  if (w4) {
+#define DLMCQ_W4_TILE(BM, BN, STAGES)                                       \
+  if (bm == BM && bn == BN)                                                \
+    return launch_epilogue<BM, BN, STAGES, true>(map_x, map_w, e, codes, m, \
+                                                 n, k, s);
+    DLMCQ_W4_TILES
+#undef DLMCQ_W4_TILE
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 #define DLMCQ_EPILOGUE_TILE(BM, BN, STAGES)                                 \
   if (bm == BM && bn == BN)                                                 \
     return launch_epilogue<BM, BN, STAGES>(map_x, map_w, e, codes, m, n, k, \

@@ -46,7 +46,10 @@
 //    wgmma reads B straight from the cells, the overlapping windows
 //    included; eight m64n128k32 wgmmas make a conv row.  The weight, packed
 //    on the host as (chunk, O, 16), stays resident in shared memory in the
-//    same layout (1024 bytes from one chunk to the next).
+//    same layout (1024 bytes from one chunk to the next).  A weight of 4
+//    bits or fewer comes nibble-packed, 8 bytes a cell (cell byte 2j in
+//    the low nibble of byte j, ops/cuda/nibbles.py), and is unpacked to
+//    int8 right where the block writes it into shared memory.
 //  - Pool in registers.  A thread holds pixels 8i + 2(lane % 4) + {0, 1} of
 //    two channels: the pooled column 4i + lane % 4 is the max of its two
 //    and the next pixel, which one shuffle brings from the neighbouring
@@ -93,9 +96,9 @@ constexpr int CELL_BATCH = 4;             // cells a thread loads at once
 
 struct StemArgs {
   const int8_t* x;
-  const int8_t* w;   // (CHUNKS, O, CELL) int8
+  const int8_t* w;   // (CHUNKS, O, CELL) int8, or (CHUNKS, O, CELL / 2) if w4
   int32_t* out;
-  int H, W, O, top, left, Hc, Wc, Hp, Wp, pad, band;
+  int H, W, O, top, left, Hc, Wc, Hp, Wp, pad, band, w4;
   int bands, col_bands, o_tiles, units;
 };
 
@@ -209,9 +212,15 @@ int8_stem_pool_kernel(const StemArgs g) {
     const int k = (i / OT) % CHUNKS;
     const int o = (i / (OT * CHUNKS)) * OT + r;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (o < g.O)
-      v = __ldg(reinterpret_cast<const uint4*>(g.w) +
-                static_cast<long long>(k) * g.O + o);
+    const long long cell = static_cast<long long>(k) * g.O + o;
+    if (o < g.O && g.w4) {
+      const uint2 p = __ldg(reinterpret_cast<const uint2*>(g.w) + cell);
+      uint32_t u[4];
+      unpack_nibbles16(p.x, p.y, u);
+      v = make_uint4(u[0], u[1], u[2], u[3]);
+    } else if (o < g.O) {
+      v = __ldg(reinterpret_cast<const uint4*>(g.w) + cell);
+    }
     *reinterpret_cast<uint4*>(smem + i * CELL) = v;
   }
 
@@ -364,7 +373,8 @@ int launch(const StemArgs& g, cudaStream_t s) {
 extern "C" {
 
 // out (n, hp, wp, o) int32 from x (n, h, wd, c) int8 and w (16, o, 16) int8
-// (int8_stem_pool.py: pack_weight): the 7x7/s2 conv with top/left pads and
+// (int8_stem_pool.py: pack_weight), or with w4 = 1 (16, o, 8) nibble pairs
+// (pack_weight_int4): the 7x7/s2 conv with top/left pads and
 // hc x wc outputs, `pad` outside the map, max-pooled 3x3/s2 with pads 1;
 // hp = (hc - 1) / 2 + 1, likewise wp.  1 <= c <= 4, o % 16 == 0,
 // o <= 128, 1 <= band <= 8 pooled rows a unit.  Launches on `stream`;
@@ -372,7 +382,8 @@ extern "C" {
 // a geometry the kernel does not take.
 int dlmcq_int8_stem_pool(const void* x, const void* w, void* out, int n,
                          int h, int wd, int c, int o, int top, int left,
-                         int hc, int wc, int pad, int band, void* stream) {
+                         int hc, int wc, int pad, int band, int w4,
+                         void* stream) {
   if (n < 1 || h < 1 || wd < 1 || c < 1 || c > 4 || o < 16 || o % 16 ||
       o > 2 * OT || hc < 1 || wc < 1 || band < 1 || band > MAX_BAND ||
       top < 0 || left < 0 || h > (INT_MAX - 64) / 2 ||
@@ -393,6 +404,7 @@ int dlmcq_int8_stem_pool(const void* x, const void* w, void* out, int n,
   g.Wp = (wc - 1) / 2 + 1;
   g.pad = pad;
   g.band = band;
+  g.w4 = w4 != 0;
   g.bands = (g.Hp + band - 1) / band;
   g.col_bands = (g.Wp + POOL_COLS - 1) / POOL_COLS;
   g.o_tiles = (o + OT - 1) / OT;

@@ -5,7 +5,8 @@
 // mbarriers, the TMA tile load with its host-side tensor map and the bulk
 // copy that needs none, and the cp.async and st.shared pieces a producer
 // needs to write the same swizzled layout by hand (for a tile TMA cannot
-// describe: rolled or gathered rows, a padded halo).
+// describe: rolled or gathered rows, a padded halo, a weight unpacked from
+// nibbles).
 //
 // One tile layout serves everything here.  A tile is ROWS x 128 bytes, K
 // contiguous within a row ("K-major"; for 8-bit types wgmma takes both
@@ -399,9 +400,15 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
 // faster than 256 at RepVGG-A0's bytes-bound GEMM shapes, whose rows are
 // not multiples of 128 bytes (H100 80GB HBM3).  Returns a cudaError_t value
 // (0 = ok).
+//
+// With swizzle = false the box is box_rows x box_bytes bytes, written
+// row after row with no swizzle (box_bytes a multiple of 16): a staging
+// tile that threads read, such as a nibble-packed weight before it is
+// unpacked.
 inline int encode_tile_map(CUtensorMap* map, const void* base, uint64_t rows,
                            uint64_t row_bytes, uint64_t pitch,
-                           uint32_t box_rows) {
+                           uint32_t box_rows, uint32_t box_bytes = TILE_K,
+                           bool swizzle = true) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -424,12 +431,13 @@ inline int encode_tile_map(CUtensorMap* map, const void* base, uint64_t rows,
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {row_bytes, rows};
   const cuuint64_t strides[1] = {pitch};
-  const cuuint32_t box[2] = {TILE_K, box_rows};
+  const cuuint32_t box[2] = {box_bytes, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -475,6 +483,46 @@ __device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t w0,
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
                "r"(w0), "r"(w1), "r"(w2), "r"(w3)
                : "memory");
+}
+
+// ------------------------------------------------------------ W4 weights
+
+// A weight of 4 bits or fewer is kept two values a byte, value 2j in the
+// low nibble of byte j (ops/cuda/nibbles.py).  wgmma has no s4 operand, so
+// a kernel unpacks it to int8 where it writes its weight into shared
+// memory.  unpack_nibbles16 turns 8 packed bytes (p0: values 0..7, p1:
+// values 8..15) into the 16 int8 bytes of one chunk, w[i] holding values
+// 4i..4i+3: the nibbles are masked bytewise, sign-extended (sext_nibbles)
+// and interleaved by byte permutes.
+
+// Each byte of v, a nibble 0..15, sign-extended to int8: (v ^ 8) - 8, done
+// as v | 0xF0 where bit 3 is set.  The multiply puts 0xF0 in every byte
+// whose bit 3 is set (8 * 0x1E = 0xF0: no byte carries into the next).
+__device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
+  return v | ((v & 0x08080808u) * 0x1Eu);
+}
+
+__device__ __forceinline__ void unpack_nibbles16(uint32_t p0, uint32_t p1,
+                                                 uint32_t (&w)[4]) {
+  const uint32_t p[2] = {p0, p1};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // lo: values 0, 2, 4, 6 of the word; hi: values 1, 3, 5, 7
+    const uint32_t lo = sext_nibbles(p[h] & 0x0F0F0F0Fu);
+    const uint32_t hi = sext_nibbles((p[h] >> 4) & 0x0F0F0F0Fu);
+    w[2 * h] = __byte_perm(lo, hi, 0x5140);
+    w[2 * h + 1] = __byte_perm(lo, hi, 0x7362);
+  }
+}
+
+// 8 bytes from shared memory (address from smem_u32, 8-byte aligned).
+__device__ __forceinline__ uint2 ld_shared8(uint32_t src) {
+  uint2 v;
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(src)
+               : "memory");
+  return v;
 }
 
 }  // namespace dlmcq

@@ -41,6 +41,10 @@ the tile, ring stages, weight resident in shared memory or streamed, halo
 buffers for stride 1); the kernel runs whatever plan it is given, so the
 plan is checked on the CPU.
 
+A weight of 4 bits or fewer comes nibble-packed (:func:`pack_weight_int4`:
+the packed weight, two bytes of K a byte) and stays so in device memory;
+the kernel's producers unpack it where they write the B tile.
+
 :func:`int8_conv3x3` launches the kernel for CUDA tensors and runs
 :func:`int8_conv3x3_plain` for CPU tensors; there is no fallback from one
 to the other.
@@ -59,6 +63,7 @@ from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda.epilogue import (RESIDUAL_KINDS,
                                                 check_epilogue,
                                                 epilogue_plain)
+from dlmc_quant_torch.ops.cuda.nibbles import W4, pack_nibbles, unpack_nibbles
 
 PRODUCER_WARPS = 4    # each fills every fourth stage of a block's sequence
 CHUNK = 16            # bytes of K that always lie inside one tap
@@ -115,8 +120,25 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     return wp.reshape(packed_shape(c, o))
 
 
+def packed_shape_int4(c: int, o: int):
+    """(O, Kp/2) of the nibble-packed weight: Kp/2 is a multiple of 8 but
+    not always of 16 (C = 3, 16, 48 …), so the kernel reads it with plain
+    8-byte loads, not by TMA."""
+    return o, 3 * padded_run(c) // 2
+
+
+def pack_weight_int4(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, O) int8 HWIO in [-8, 7] → (O, Kp/2) uint8: the layout of
+    :func:`pack_weight`, two bytes of K a byte (K index 2j in the low
+    nibble of byte j)."""
+    return pack_nibbles(pack_weight(w))
+
+
 def unpack_weight(wp: torch.Tensor, c: int, o: int) -> torch.Tensor:
-    """Inverse of :func:`pack_weight` → (3, 3, C, O) int8."""
+    """Inverse of :func:`pack_weight` and :func:`pack_weight_int4` →
+    (3, 3, C, O) int8."""
+    if wp.dtype == W4:
+        wp = unpack_nibbles(wp, 3 * padded_run(c))
     runs = wp.reshape(o, 3, padded_run(c))[:, :, :3 * c]
     return runs.permute(1, 2, 0).reshape(3, 3, c, o).contiguous()
 
@@ -238,10 +260,12 @@ def _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo=1,
             or a.dim() != 1 or a.shape != b.shape:
         raise ValueError("a and b must be (O,) float32")
     o = a.shape[0]
-    if w.dtype != torch.int8 or tuple(w.shape) != packed_shape(c, o):
+    if (w.dtype, tuple(w.shape)) not in ((torch.int8, packed_shape(c, o)),
+                                         (W4, packed_shape_int4(c, o))):
         raise ValueError(f"w must be pack_weight() output of shape "
-                         f"{packed_shape(c, o)} int8, got "
-                         f"{tuple(w.shape)} {w.dtype}")
+                         f"{packed_shape(c, o)} int8 or pack_weight_int4() "
+                         f"output of shape {packed_shape_int4(c, o)} uint8, "
+                         f"got {tuple(w.shape)} {w.dtype}")
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -286,7 +310,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_conv3x3")
     lib.dlmcq_int8_conv3x3.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 18
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 19
         + [ctypes.c_float, ctypes.c_void_p])
     lib.dlmcq_int8_conv3x3_smem.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3_smem.argtypes = [ctypes.c_int] * 7
@@ -306,7 +330,8 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
                  _plan=None) -> torch.Tensor:
     """Run the fused int8 3×3 conv (see the module docstring).
 
-    ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight`, ``a``/``b`` (O,)
+    ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight` (or
+    :func:`pack_weight_int4`: the kernel unpacks it), ``a``/``b`` (O,)
     float32, ``residual`` ``(r, ar, br)`` or None, all contiguous and on
     one device.  CUDA tensors launch the
     kernel on the current stream at :func:`tile_plan`'s plan (``_plan``: a
@@ -337,7 +362,8 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), *(t.data_ptr() if t is not None else None
                               for t in (r, ar, br)),
-            n, h, wd, c, o, w.shape[1], stride, pad, pad_lo, lo, hi,
+            n, h, wd, c, o, packed_shape(c, o)[1], int(w.dtype == W4),
+            stride, pad, pad_lo, lo, hi,
             int(mode == "codes"), int(relu),
             RESIDUAL_KINDS[r.dtype] if r is not None else 0, plan.bn,
             plan.stages, int(plan.resident), plan.halo_bufs, qb,

@@ -16,6 +16,10 @@ once by :func:`pack_weight` as (9, C), the tap ``dy·3 + dx`` a row)::
     "codes": out = clamp(rint(f32(acc)·a[c] + b[c]), lo, hi) → int8 (N, Ho, Wo, C)
     "f32":   out = f32(acc)·a[c] + b[c], then max(·, 0) if relu → f32
 
+A weight of 4 bits or fewer comes nibble-packed (:func:`pack_weight_int4`:
+(9, C/2) uint8, two channels a byte along C), and the kernel unpacks it
+where it reads the weight, once a block.
+
 The epilogue is :mod:`.epilogue`'s (no residual).  The plain version takes
 any C; the kernel takes C % 8 == 0 (:func:`check_kernel`), which every
 width of the zoo gives (``_make_divisible(·, 8)``).  :func:`plan` picks the
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda.epilogue import check_epilogue, epilogue_plain
 from dlmc_quant_torch.ops.cuda.int8_conv import out_hw
+from dlmc_quant_torch.ops.cuda.nibbles import W4, pack_nibbles, unpack_nibbles
 
 GRANULE = 8           # the kernel's channel granule: C % 8 == 0
 PITCH_PAD = 16        # bytes after a pixel's slice in shared memory
@@ -154,9 +159,23 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(9, w.shape[3]).contiguous()
 
 
-def unpack_weight(wp: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`pack_weight` → (3, 3, 1, C) int8."""
-    return wp.reshape(3, 3, 1, wp.shape[1])
+def pack_weight_int4(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, 1, C) int8 HWIO in [-8, 7] → (9, ⌈C/2⌉) uint8: the layout of
+    :func:`pack_weight`, two channels a byte (channel 2j in the low nibble
+    of byte j)."""
+    return pack_nibbles(pack_weight(w))
+
+
+def int8_weight(wp: torch.Tensor, c: int) -> torch.Tensor:
+    """The (9, C) int8 layout of a packed weight of either width."""
+    return unpack_nibbles(wp, c) if wp.dtype == W4 else wp
+
+
+def unpack_weight(wp: torch.Tensor, c: int = None) -> torch.Tensor:
+    """Inverse of :func:`pack_weight` (or, given C, of
+    :func:`pack_weight_int4`) → (3, 3, 1, C) int8."""
+    w = int8_weight(wp, c)
+    return w.reshape(3, 3, 1, w.shape[1])
 
 
 def _check(x, w, a, b, stride, pad, pad_lo, lo, hi, mode, relu):
@@ -175,9 +194,12 @@ def _check(x, w, a, b, stride, pad, pad_lo, lo, hi, mode, relu):
                          f"{tuple(x.shape)} {x.dtype}")
     n, h, wd, c = x.shape
     ho, wo = out_hw(h, wd, stride)
-    if w.dtype != torch.int8 or tuple(w.shape) != (9, c):
+    if (w.dtype, tuple(w.shape)) not in ((torch.int8, (9, c)),
+                                         (W4, (9, -(-c // 2)))):
         raise ValueError(f"w must be pack_weight() output of shape (9, {c}) "
-                         f"int8, got {tuple(w.shape)} {w.dtype}")
+                         f"int8 or pack_weight_int4() output of shape (9, "
+                         f"{-(-c // 2)}) uint8, got {tuple(w.shape)} "
+                         f"{w.dtype}")
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -216,7 +238,7 @@ def int8_dwconv3x3_plain(x, w, a, b, *, stride: int, pad: int,
     xp = F.pad(x.permute(0, 3, 1, 2).to(torch.float64),
                (pad_lo, max(pad_w, 0), pad_lo, max(pad_h, 0)),
                value=float(pad))
-    wk = unpack_weight(w).permute(3, 2, 0, 1).to(torch.float64)
+    wk = unpack_weight(w, c).permute(3, 2, 0, 1).to(torch.float64)
     acc = F.conv2d(xp, wk, stride=stride, groups=c)
     return epilogue_plain(acc.permute(0, 2, 3, 1), a, b, mode=mode, lo=lo,
                           hi=hi, relu=relu)
@@ -227,7 +249,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_dwconv3x3")
     lib.dlmcq_int8_dwconv3x3.restype = ctypes.c_int
     lib.dlmcq_int8_dwconv3x3.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
     return lib
 
 
@@ -236,7 +258,8 @@ def int8_dwconv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
                    relu: bool = False, _plan=None) -> torch.Tensor:
     """Run the int8 depthwise 3×3 conv (see the module docstring).
 
-    ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight`, ``a``/``b``
+    ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight` (or
+    :func:`pack_weight_int4`: the kernel unpacks the nibbles), ``a``/``b``
     (C,) float32, all contiguous and on one device.  CUDA tensors launch
     the kernel on the current stream, on :func:`plan`'s tiles (``_plan =
     (cb, cg, rg, rpt)`` overrides them), and count the launch in
@@ -261,7 +284,8 @@ def int8_dwconv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
         err = lib.dlmcq_int8_dwconv3x3(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), n, h, wd, c, stride, pad_lo, pad, lo, hi,
-            int(mode == "codes"), int(relu), p.cb, p.cg, p.rg, p.rpt,
+            int(mode == "codes"), int(relu), int(w.dtype == W4), p.cb,
+            p.cg, p.rg, p.rpt,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(lib, err, "int8_dwconv3x3")
     int8_dwconv3x3.launches += 1

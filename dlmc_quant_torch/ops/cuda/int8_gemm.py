@@ -15,6 +15,12 @@ with the int8 conv's epilogue instead (:mod:`.epilogue`: ``"codes"``,
 with an optional residual, or ``"f32"``), so its int32 accumulator never
 reaches device memory.
 
+A weight of 4 bits or fewer comes nibble-packed (:func:`pack_b_int4`: the
+packed B, two bytes of K a byte) and stays so in device memory; the
+kernel's W4 instantiations load it by TMA into one of two staging slots,
+and two producer warps unpack it into the swizzled B tile that ``wgmma``
+reads (:data:`W4_TILE_STAGES`).
+
 :func:`int8_gemm` launches the kernel for CUDA tensors and runs
 :func:`int8_gemm_plain` for CPU tensors; there is no fallback from one to
 the other.
@@ -31,6 +37,7 @@ from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda.epilogue import (RESIDUAL_KINDS,
                                                 check_epilogue,
                                                 epilogue_plain)
+from dlmc_quant_torch.ops.cuda.nibbles import W4, pack_nibbles, unpack_nibbles
 
 MMA_K = 32                           # bytes of K one s8 wgmma consumes
 TILE_K = 128                         # bytes of K in a shared-memory tile row
@@ -43,6 +50,11 @@ TILES = tuple(TILE_STAGES)
 # the tiles compiled with the epilogue modes (DLMCQ_EPILOGUE_TILE), for
 # ResNet's widths 64 … 2048
 EPILOGUE_TILES = ((128, 256), (128, 128), (64, 128), (64, 64))
+# the W4 instantiations (every mode, int32 too) at the epilogue tiles, at
+# their W8 stage counts: two staging slots of a packed B tile (BN x 64
+# bytes) fit beside the ring
+W4_TILE_STAGES = {t: TILE_STAGES[t] for t in EPILOGUE_TILES}
+W4_STAGING_SLOTS = 2
 MODES = ("int32", "codes", "f32")
 MAX_SMEM = 232448                    # dynamic shared memory a block may use
 SMS = 132                            # SMs of an H100 SXM: plans made off the card
@@ -81,6 +93,14 @@ def pack_b(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def pack_b_int4(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 in [-8, 7] → (N, Kp/2) uint8: :func:`pack_b`'s layout
+    with two bytes of K a byte (K index 2j in the low nibble of byte j).
+    Kp is a multiple of 32, so the row pitch is whole 16 bytes, as TMA
+    needs."""
+    return pack_nibbles(pack_b(w))
+
+
 def pad_k(x: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 → (M, roundup(K, 16)), zero past K: the depth the kernel
     takes (TMA's row pitch; MobileNetV2's 24-channel maps), exact against a
@@ -95,14 +115,20 @@ def pad_k(x: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_b(wp: torch.Tensor, k: int) -> torch.Tensor:
-    """Inverse of :func:`pack_b` → (…, K, N) int8, for (…, N, Kp) input."""
+    """Inverse of :func:`pack_b` (and of :func:`pack_b_int4`) → (…, K, N)
+    int8, for (…, N, Kp) int8 or (…, N, Kp/2) uint8 input."""
+    if wp.dtype == W4:
+        wp = unpack_nibbles(wp, 2 * wp.shape[-1])
     return wp[..., :k].transpose(-1, -2).contiguous()
 
 
-def check_operands(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
+def check_operands(x: torch.Tensor, w: torch.Tensor, what: str,
+                   int4: bool = False) -> None:
     """Raise unless ``x`` is (M, K) int8 and ``w`` a packed B of depth K.
 
-    ``w`` is (…, N, roundup(K, 32)) int8; both contiguous, on one device.
+    ``w`` is (…, N, roundup(K, 32)) int8 or, with ``int4``, also the
+    nibble-packed (…, N, roundup(K, 32) / 2) uint8; both contiguous, on
+    one device.
     K must be a multiple of 16: TMA needs row pitches of whole 16 bytes and
     ``cp.async`` copies 16-byte chunks.  A
     (K, N) weight that was never packed has the wrong shape unless N
@@ -114,11 +140,14 @@ def check_operands(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
     k = x.shape[1]
     if k % 16:
         raise ValueError(f"{what}: K = {k} must be a multiple of 16")
-    if w.dtype != torch.int8 or w.shape[-1] != packed_k(k) \
-            or w.shape[-2] == 0:
+    nibbles = int4 and w.dtype == W4
+    if w.dtype != (W4 if nibbles else torch.int8) or w.shape[-2] == 0 \
+            or w.shape[-1] != packed_k(k) // (2 if nibbles else 1):
         raise ValueError(f"{what}: w must be pack_b() output (…, N, "
-                         f"{packed_k(k)}) int8 for K = {k}, got "
-                         f"{tuple(w.shape)} {w.dtype}")
+                         f"{packed_k(k)}) int8 for K = {k}"
+                         + (f" or pack_b_int4() output (…, N, "
+                            f"{packed_k(k) // 2}) uint8" if int4 else "")
+                         + f", got {tuple(w.shape)} {w.dtype}")
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
@@ -152,12 +181,16 @@ def _flat(residual):
     return r.reshape(-1, r.shape[-1]), ar, br
 
 
-def tile_smem_bytes(tile) -> int:
+def tile_smem_bytes(tile, int4: bool = False) -> int:
     """Dynamic shared memory of a block at ``tile``: the ring's stages of a
-    BM × 128 and a BN × 128 byte tile, and a full and an empty barrier each."""
+    BM × 128 and a BN × 128 byte tile, and a full and an empty barrier each;
+    at W4 (``int4``) also the staging slots of the packed BN × 64 byte tile,
+    a barrier each."""
     bm, bn = tile
-    stages = TILE_STAGES[tile]
-    return stages * (bm + bn) * TILE_K + 2 * stages * 8
+    stages = (W4_TILE_STAGES if int4 else TILE_STAGES)[tile]
+    slots = W4_STAGING_SLOTS if int4 else 0
+    return (stages * (bm + bn) * TILE_K + slots * bn * TILE_K // 2
+            + (2 * stages + slots) * 8)
 
 
 def tile_count(tile, m: int, n: int) -> int:
@@ -192,10 +225,10 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_gemm")
     lib.dlmcq_int8_gemm.restype = ctypes.c_int
     lib.dlmcq_int8_gemm.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.dlmcq_int8_gemm_epilogue.restype = ctypes.c_int
     lib.dlmcq_int8_gemm_epilogue.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
         + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return lib
 
@@ -204,18 +237,20 @@ def int8_gemm(x: torch.Tensor, w: torch.Tensor, a=None, b=None, *,
               mode: str = "int32", lo: int = -128, hi: int = 127,
               relu: bool = False, residual=None, qb: float = 0.0,
               tile=None) -> torch.Tensor:
-    """(M, K) int8 @ packed (N, Kp) int8 → (M, N) int32, or int8 codes or
-    f32 through the epilogue (module docstring).
+    """(M, K) int8 @ packed (N, Kp) int8 (or the nibble-packed (N, Kp/2)
+    uint8 of :func:`pack_b_int4`) → (M, N) int32, or int8 codes or f32
+    through the epilogue (module docstring).
 
     ``a``/``b`` (N,) float32 and ``residual`` ``(r, ar, br)`` with ``r``
     (M, N) or of shape (…, N) over M rows, as :mod:`.epilogue` says.
     CUDA tensors launch the kernel on the current stream with ``tile`` (one
-    of :data:`TILES`, of :data:`EPILOGUE_TILES` for an epilogue mode; by
-    default :func:`default_tile` for the device's SM count) and count the
-    launch in ``int8_gemm.launches``; CPU tensors run the plain version.
+    of :data:`TILES`, of :data:`EPILOGUE_TILES` for an epilogue mode or a
+    W4 weight; by default :func:`default_tile` for the device's SM count)
+    and count the launch in ``int8_gemm.launches``; CPU tensors run the
+    plain version.
     Raises where K·128² ≥ 2³¹, where the kernel's int32 sum could wrap.
     """
-    check_operands(x, w, "int8_gemm")
+    check_operands(x, w, "int8_gemm", int4=True)
     if w.dim() != 2:
         raise ValueError(f"int8_gemm: w must be (N, Kp), got {tuple(w.shape)}")
     m, k = x.shape
@@ -225,7 +260,8 @@ def int8_gemm(x: torch.Tensor, w: torch.Tensor, a=None, b=None, *,
     if mode not in MODES:
         raise ValueError(f"int8_gemm: mode must be one of {MODES}, got "
                          f"{mode!r}")
-    tiles = TILES
+    int4 = w.dtype == W4
+    tiles = EPILOGUE_TILES if int4 else TILES
     if mode != "int32":
         residual = _flat(residual)
         check_epilogue("int8_gemm", mode, a, b, lo, hi, relu, residual, qb,
@@ -251,12 +287,13 @@ def int8_gemm(x: torch.Tensor, w: torch.Tensor, a=None, b=None, *,
         if mode == "int32":
             err = lib.dlmcq_int8_gemm(
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-                w.shape[1], *tile, stream)
+                packed_k(k), int(int4), *tile, stream)
         else:
             r, ar, br = residual if residual is not None else (None,) * 3
             err = lib.dlmcq_int8_gemm_epilogue(
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-                w.shape[1], *tile, int(mode == "codes"), a.data_ptr(),
+                packed_k(k), int(int4), *tile, int(mode == "codes"),
+                a.data_ptr(),
                 b.data_ptr(), *(t.data_ptr() if t is not None else None
                                 for t in (r, ar, br)), qb, lo, hi, int(relu),
                 RESIDUAL_KINDS[r.dtype] if r is not None else 0, stream)

@@ -31,6 +31,7 @@ import torch
 
 from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda.int8_gemm import pack_b, packed_k
+from dlmc_quant_torch.ops.cuda.nibbles import pack_nibbles
 
 MAX_KP = 2048          # bytes of a row the kernel's table covers
 
@@ -53,6 +54,12 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     wk = torch.zeros((packed_k(kk), o), dtype=torch.int8, device=w.device)
     wk[:kk] = w.reshape(kk, o)
     return pack_b(wk)
+
+
+def pack_weight_int4(w: torch.Tensor) -> torch.Tensor:
+    """(k, k, C, O) int8 HWIO in [-8, 7] → the GEMM's nibble-packed (O,
+    Kp/2) uint8 (``int8_gemm.pack_b_int4`` of the same rows)."""
+    return pack_nibbles(pack_weight(w))
 
 
 def _check(x, kernel, stride, pads, pad):

@@ -17,7 +17,9 @@ and a weight ``w`` (7, 7, C, O) int8 (packed once by :func:`pack_weight`)::
 ``pooled`` is (N, Hp, Wp, O) int32 with Hc = (H + top + bottom − 7) // 2
 + 1 and Hp = (Hc − 1) // 2 + 1 (likewise W): the tensor the chain's
 ``qmaxpool`` hands the first block.  The kernel takes C ≤ 4 (every
-ImageNet ResNet has C = 3) and O a multiple of 16 up to 128.
+ImageNet ResNet has C = 3) and O a multiple of 16 up to 128.  A weight of
+4 bits or fewer comes nibble-packed (:func:`pack_weight_int4`), and the
+kernel unpacks it where it writes the resident weight into shared memory.
 
 :func:`int8_stem_pool` launches the kernel for CUDA tensors and runs
 :func:`int8_stem_pool_plain` for CPU tensors; there is no fallback from one
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda import build
+from dlmc_quant_torch.ops.cuda.nibbles import W4, pack_nibbles, unpack_nibbles
 
 KERNEL, STRIDE = 7, 2     # the conv's window and stride
 POOL = dict(kernel_size=3, stride=2, padding=1)
@@ -111,8 +114,18 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def pack_weight_int4(w: torch.Tensor) -> torch.Tensor:
+    """(7, 7, C, O) int8 HWIO in [-8, 7] → (16, O, 8) uint8: the layout of
+    :func:`pack_weight`, each 16-byte cell in 8 bytes (cell byte 2j in the
+    low nibble of byte j)."""
+    return pack_nibbles(pack_weight(w))
+
+
 def unpack_weight(wp: torch.Tensor, c: int) -> torch.Tensor:
-    """Inverse of :func:`pack_weight` → (7, 7, C, O) int8."""
+    """Inverse of :func:`pack_weight` and :func:`pack_weight_int4` →
+    (7, 7, C, O) int8."""
+    if wp.dtype == W4:
+        wp = unpack_nibbles(wp, CELL)
     o = wp.shape[1]
     cells = wp[:, :, :4 * c].reshape(TAPS, TAPS, o, 2, 2, c)
     w8 = cells.permute(0, 3, 1, 4, 5, 2).reshape(2 * TAPS, 2 * TAPS, c, o)
@@ -128,9 +141,11 @@ def _check(x, wp, pads, pad):
         raise ValueError(f"pad must be an int8 code, got {pad!r}")
     if any(p < 0 for pair in pads for p in pair):
         raise ValueError(f"pads must be >= 0, got {pads}")
-    if wp.dtype != torch.int8 or wp.dim() != 3 \
-            or (wp.shape[0], wp.shape[2]) != (TAPS * TAPS, CELL):
-        raise ValueError(f"w must be pack_weight() output (16, O, 16) int8, "
+    cell = CELL // 2 if wp.dtype == W4 else CELL
+    if wp.dtype not in (torch.int8, W4) or wp.dim() != 3 \
+            or (wp.shape[0], wp.shape[2]) != (TAPS * TAPS, cell):
+        raise ValueError(f"w must be pack_weight() output (16, O, 16) int8 "
+                         f"or pack_weight_int4() output (16, O, 8) uint8, "
                          f"got {tuple(wp.shape)} {wp.dtype}")
     o = wp.shape[1]
     if not takes(c, o):
@@ -176,7 +191,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_stem_pool")
     lib.dlmcq_int8_stem_pool.restype = ctypes.c_int
     lib.dlmcq_int8_stem_pool.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     return lib
 
 
@@ -185,7 +200,8 @@ def int8_stem_pool(x: torch.Tensor, wp: torch.Tensor, *, pads, pad: int,
     """(N, Hp, Wp, O) int32: the stem conv's accumulator, max-pooled
     (module docstring).
 
-    ``x`` (N, H, W, C) int8 and ``wp`` from :func:`pack_weight`, contiguous
+    ``x`` (N, H, W, C) int8 and ``wp`` from :func:`pack_weight` (or
+    :func:`pack_weight_int4`: the kernel unpacks it), contiguous
     and on one device; ``pads`` ``((top, bottom), (left, right))``; ``pad``
     the int8 code of real 0.  CUDA tensors launch the kernel on the current
     stream with :func:`band_rows` pooled rows a unit (``_band`` overrides
@@ -207,7 +223,7 @@ def int8_stem_pool(x: torch.Tensor, wp: torch.Tensor, *, pads, pad: int,
     with torch.cuda.device(x.device):
         err = lib.dlmcq_int8_stem_pool(
             x.data_ptr(), wp.data_ptr(), out.data_ptr(), n, h, w, c, o, top,
-            left, hc, wc, pad, band,
+            left, hc, wc, pad, band, int(wp.dtype == W4),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(lib, err, "int8_stem_pool")
     int8_stem_pool.launches += 1

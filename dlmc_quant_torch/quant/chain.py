@@ -40,6 +40,13 @@ package's int32 accumulator.  The stem that :func:`qmaxpool` pools runs
 conv and pool in one kernel (``ops.cuda.int8_stem_pool``), which gives
 the pooled int32 accumulator.  A linear-bottleneck block (MobileNetV2)
 closes its sum without a ReLU: the lower clamp is then the grid's minimum.
+
+Each pending conv carries its kernel's weight layout as the layer's plan
+packed it: int8, or at W4 (4-bit weights) the same layout nibble-packed,
+two values a byte (``ops/cuda/nibbles.py``), whose ``uint8`` dtype says so
+(:attr:`PendingConv.int4` and the like).  The kernel unpacks it in its
+weight load; the plain version unpacks it with torch ops and runs its
+float64 route.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from dlmc_quant_torch.ops.cuda.int8_dwconv import int8_dwconv3x3
 from dlmc_quant_torch.ops.cuda.int8_gemm import int8_gemm
 from dlmc_quant_torch.ops.cuda.int8_im2col import int8_im2col, out_hw
 from dlmc_quant_torch.ops.cuda.int8_stem_pool import int8_stem_pool
+from dlmc_quant_torch.ops.cuda.nibbles import W4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +71,15 @@ class PendingConv:
     """A padded int8 3×3 conv that has not run yet."""
     x: torch.Tensor          # (N, H, W, C) int8 codes
     weight: torch.Tensor     # packed int8 (ops.cuda.int8_conv.pack_weight)
+    #                          or uint8 nibbles (pack_weight_int4)
     stride: int
     pad: int                 # int8 code of real 0 on the input grid
     pad_lo: int = 1          # top/left pad: 0 for SAME at stride 2, even map
+
+    @property
+    def int4(self) -> bool:
+        """Whether the weight is nibble-packed (W4)."""
+        return self.weight.dtype == W4
 
     def run(self, a, b, *, lo: int = -128, hi: int = 127,
             mode: str = "codes", relu: bool = False, residual=None,
@@ -81,7 +95,10 @@ class PendingGemm:
     codes, or a conv on its im2col rows; the output is (N, Ho, Wo, O)."""
     x: torch.Tensor          # (M, K) int8, M = N·Ho·Wo
     weight: torch.Tensor     # packed (O, Kp) int8 (ops.cuda.int8_gemm.pack_b)
+    #                          or (O, Kp/2) uint8 nibbles (pack_b_int4)
     shape: tuple             # (N, Ho, Wo)
+
+    int4 = PendingConv.int4
 
     def run(self, a=None, b=None, *, lo: int = -128, hi: int = 127,
             mode: str = "codes", relu: bool = False, residual=None,
@@ -99,12 +116,16 @@ class PendingWideConv:
     consumer runs it as ``int8_im2col`` rows through the int8 GEMM."""
     x: torch.Tensor          # (N, H, W, C) int8 codes
     weight: torch.Tensor     # packed (O, Kp) int8 (ops.cuda.int8_im2col)
-    pool_weight: Optional[torch.Tensor]  # ops.cuda.int8_stem_pool's layout,
-    #                          None where that kernel does not take the conv
+    #                          or (O, Kp/2) uint8 nibbles
+    pool_weight: Optional[torch.Tensor]  # ops.cuda.int8_stem_pool's layout
+    #                          (nibble-packed with weight), None where that
+    #                          kernel does not take the conv
     kernel: int
     stride: int
     pads: tuple              # ((top, bottom), (left, right))
     pad: int                 # int8 code of real 0 on the input grid
+
+    int4 = PendingConv.int4
 
     def run(self, a=None, b=None, **epilogue) -> torch.Tensor:
         rows = int8_im2col(self.x, kernel=self.kernel, stride=self.stride,
@@ -131,9 +152,12 @@ class PendingDwConv:
     and no int32 mode: the kernel ends in the epilogue)."""
     x: torch.Tensor          # (N, H, W, C) int8 codes
     weight: torch.Tensor     # packed (9, C) int8 (ops.cuda.int8_dwconv)
+    #                          or (9, C/2) uint8 nibbles (pack_weight_int4)
     stride: int
     pad: int                 # int8 code of real 0 on the input grid
     pad_lo: int = 1          # top/left pad: 0 for SAME at stride 2, even map
+
+    int4 = PendingConv.int4
 
     def run(self, a, b, *, lo: int = -128, hi: int = 127,
             mode: str = "codes", relu: bool = False) -> torch.Tensor:

@@ -16,14 +16,19 @@ per-channel weights w ≈ w_i8·s_w):
 so ``bias_eff = bias + (128·s_x + o_x)·s_w·colsum``, and borders are
 padded with the int8 code of real 0, which keeps the correction exact.
 
-A layer whose input quantizer is off keeps only its int8 weights and
-their scales, and runs a conv or matmul of the dequantized bf16 weights on
+A weight of 4 bits or fewer stays nibble-packed, two values a byte, and
+no int8 copy of it stays in the plan: a conv keeps only its kernel's own
+layout, packed along K (``ops/cuda/nibbles.py``), which the kernel
+unpacks in its weight load; a dense layer and a weight-only layer keep
+``w_int4`` (:func:`pack_int4`, the JAX package's layout and bytes).
+
+A layer whose input quantizer is off keeps only its int8 (or packed int4)
+weights and their scales, and runs a conv or matmul of the dequantized bf16 weights on
 bf16 inputs with an f32 accumulator (``QLayer.weight_only``).  A nonzero
 weight offset (RootQ after QAT) has no integer plan: ``prepare_deploy``
 raises (ROADMAP hazard C1).
 
-Not ported yet: int4 weights (``pack_int4``; ROADMAP Queue A, W4 execution
-(item 8)) and the space-to-depth stem.
+Not ported yet: the space-to-depth stem.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Dict
 import torch
 
 from dlmc_quant_torch.device import DeviceLike, resolve_device
+from dlmc_quant_torch.ops.cuda.nibbles import pack_nibbles, unpack_nibbles
 
 
 def affine_from_quantizer(family: str, cfg, params: Dict, qstate: Dict,
@@ -105,6 +111,27 @@ def int8_pad_value(s_x, o_x, qmin: int, qmax: int):
     """int8 code representing real value 0 (used as conv padding)."""
     return (torch.clamp(torch.round(-o_x / s_x), qmin, qmax)
             - act_shift(qmax)).to(torch.int8)
+
+
+def pack_int4(w_int: torch.Tensor) -> torch.Tensor:
+    """Pack int8 values in [-8, 7] two a byte along axis 0 (uint8).
+
+    The JAX package's ``pack_int4`` byte for byte: axis 0 is the first
+    kernel axis (H of a conv's HWIO, K of a dense layer's IO), an odd size
+    is padded with zeros, the even index goes in the low nibble.  The JAX
+    package's other int4 route, a native S4 dtype that XLA contracts
+    directly, has no counterpart: torch has no 4-bit integer dtype that a
+    product takes, and Hopper's ``wgmma`` has no s4 operand, so every
+    kernel here unpacks nibbles to int8 in its weight load.
+    """
+    return pack_nibbles(w_int.movedim(0, -1)).movedim(-1, 0).contiguous()
+
+
+def unpack_int4(packed: torch.Tensor, orig_dim0: int) -> torch.Tensor:
+    """Inverse of :func:`pack_int4` → int8 values (each nibble
+    sign-extended as ``(v ^ 8) - 8``), axis 0 cut to ``orig_dim0``."""
+    return unpack_nibbles(packed.movedim(0, -1), orig_dim0) \
+        .movedim(-1, 0).contiguous()
 
 
 def prepare_deploy(model: torch.nn.Module) -> torch.nn.Module:

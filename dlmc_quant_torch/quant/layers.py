@@ -42,6 +42,12 @@ per-channel weight axis is 0.
   feeds the stream), ``'train'`` (fake quant with AdaRound's soft rounding
   and straight-through gradients, for reconstruction), ``'int'`` and
   ``'intc'`` (real integer execution after ``quant.deploy.prepare_deploy``).
+* A weight of 4 bits or fewer (W4) stays nibble-packed and no int8 copy of
+  it stays in the plan: a conv keeps only its kernel's layout, packed two
+  values a byte along K, which the kernel unpacks in its weight load; a
+  dense layer and a weight-only layer keep ``w_int4``
+  (``quant.deploy.pack_int4``, the JAX package's layout), unpacked at
+  forward time, the dense layer's product then ``torch._int_mm``.
 * A layer whose input quantizer is off runs weight-only in ``'int'`` and
   ``'intc'``: its int8 weights dequantized to bf16, a conv or matmul of
   bf16 operands with an f32 accumulator (a library call), f32 out; the next
@@ -72,12 +78,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dlmc_quant_torch.ops.cuda.int8_conv import pack_weight
-from dlmc_quant_torch.ops.cuda.int8_gemm import pack_b, pad_k
+from dlmc_quant_torch.ops.cuda import int8_conv as conv3x3
 from dlmc_quant_torch.ops.cuda import int8_dwconv as dwconv
+from dlmc_quant_torch.ops.cuda import int8_gemm as gemm
+from dlmc_quant_torch.ops.cuda import int8_im2col as im2col
 from dlmc_quant_torch.ops.cuda import int8_stem_pool as stem_pool
-from dlmc_quant_torch.ops.cuda.int8_im2col import \
-    pack_weight as pack_rows_weight
+from dlmc_quant_torch.ops.cuda.int8_gemm import pad_k
 from dlmc_quant_torch.ops import rootq_math as rq
 from dlmc_quant_torch.ops.numerics import (clip, grad_scale, lsq_fake_quant,
                                            lsq_grad_factor, lsq_init_scale,
@@ -366,19 +372,35 @@ class QLayer(nn.Module):
             return 0, aq.qmax - aq.qmin
         return aq.qrange
 
+    @property
+    def int4(self) -> bool:
+        """Whether the weight has 4 bits or fewer (W4: kept nibble-packed)."""
+        return self.cfg.weight.n_bits <= 4
+
+    def _weight_buffers(self, w_int) -> dict:
+        """The plan's weight buffers: ``w_int`` (OI) at W8; at W4 only
+        ``w_int4``, :func:`~dlmc_quant_torch.quant.deploy.pack_int4` of the
+        JAX package's IO layout, as its bytes."""
+        if self.int4:
+            return {"w_int4": dp.pack_int4(w_int.t())}
+        return {"w_int": w_int}
+
+    def _int_weight(self) -> torch.Tensor:
+        """The int8 weight (OI) of the plan, unpacked at W4."""
+        if self.int4:
+            return dp.unpack_int4(self.w_int4, self.weight.shape[1]).t()
+        return self.w_int
+
     def _build_int_plan(self):
         """Integer plan: (tensors, host scalars).  See quant/deploy.py.
-        A weight-only layer's plan is its int8 weights and their scales,
-        with no host scalars."""
+        A weight-only layer's plan is its weights and their scales, with
+        no host scalars; the weights are :meth:`_weight_buffers`, and the
+        int8 weight itself is only a local here at W4."""
         cfg = self.cfg
         wq, aq = cfg.weight, cfg.input
         if not wq.enable:
             raise ValueError(f"{self.path}: weight quantization disabled — "
                              "nothing to deploy")
-        if wq.n_bits <= 4:
-            raise NotImplementedError(
-                f"{self.path}: int4 weights are not ported yet "
-                "(ROADMAP Queue A, W4 execution (item 8))")
         if aq.enable and (aq.per_channel or aq.per_pixel):
             raise ValueError(f"{self.path}: integer path needs per-tensor "
                              "activation quantization")
@@ -407,8 +429,9 @@ class QLayer(nn.Module):
         # one scale per output channel, per-tensor scales too: the kernels'
         # epilogues take (O,) vectors
         w_scale = s_w.to(torch.float32).expand(kernel.shape[0]).contiguous()
+        weights = self._weight_buffers(w_int)
         if not aq.enable:
-            return {"w_int": w_int, "w_scale": w_scale}, {}
+            return {**weights, "w_scale": w_scale}, {}
 
         s_x, o_x = dp.affine_from_quantizer(self.family, aq, params, qstate,
                                             "input")
@@ -423,7 +446,7 @@ class QLayer(nn.Module):
             bias_eff = bias_eff + self.bias.detach()
         # colsum and bias0 let a consumer re-derive its epilogue for codes on
         # a producer's grid (a QuantizedTensor input)
-        tensors = {"w_int": w_int, "w_scale": w_scale,
+        tensors = {**weights, "w_scale": w_scale,
                    "epi_scale": (s_x * w_scale).to(torch.float32),
                    "bias_eff": bias_eff.to(torch.float32),
                    "colsum": colsum, "bias0": bias0}
@@ -452,10 +475,12 @@ class QLayer(nn.Module):
         return not self.cfg.input.enable
 
     def _dequantized_weight(self) -> torch.Tensor:
-        """A weight-only layer's int8 weights as bf16 values."""
+        """A weight-only layer's int8 weights (unpacked at W4, as the JAX
+        package's ``_plan_weights``) as bf16 values."""
         self._require_plan()
-        return self.w_int.to(torch.bfloat16) \
-            * _bshape(self.w_scale, self.w_int.dim()).to(torch.bfloat16)
+        w_int = self._int_weight()
+        return w_int.to(torch.bfloat16) \
+            * _bshape(self.w_scale, w_int.dim()).to(torch.bfloat16)
 
     def _int_input(self, x):
         """``(codes, epi_scale, bias_eff, pad)`` of an integer forward: a
@@ -615,28 +640,46 @@ class QConv(QLayer):
                                   top)
         return DeferredEpilogue(pending, epi_scale, bias_eff)
 
-    def prepare_deploy(self) -> None:
-        super().prepare_deploy()
+    def _weight_buffers(self, w_int) -> dict:
+        """The plan's weight buffers: a weight-only conv's ``w_int`` (OIHW;
+        at W4 ``w_int4``, ``pack_int4`` of the JAX package's HWIO); any
+        other conv's kernel layouts, packed once (at W8 beside ``w_int``,
+        at W4 nibble-packed and alone): ``w_dw`` (depthwise), ``w_packed``
+        (3×3), ``w_gemm`` (1×1 and wider windows) and ``w_stem`` (the stem
+        kernel's, where it takes the conv, else None).  Other groupings
+        have none: :meth:`deferred` raises for them."""
+        w_hwio = w_int.permute(2, 3, 1, 0)
         if self.weight_only:
-            return
-        # the kernels' own weight layouts, packed once
-        w_hwio = self.w_int.permute(2, 3, 1, 0)
+            return ({"w_int4": dp.pack_int4(w_hwio)} if self.int4
+                    else {"w_int": w_int})
+        out = {} if self.int4 else {"w_int": w_int}
         if self.groups != 1:
-            # other groupings have none: deferred() raises for them
             if self.depthwise:
-                self.register_buffer("w_dw", dwconv.pack_weight(w_hwio))
+                out["w_dw"] = (dwconv.pack_weight_int4 if self.int4
+                               else dwconv.pack_weight)(w_hwio)
         elif self.kernel_size == 3:
-            self.register_buffer("w_packed", pack_weight(w_hwio))
+            out["w_packed"] = (conv3x3.pack_weight_int4 if self.int4
+                               else conv3x3.pack_weight)(w_hwio)
         elif self.kernel_size == 1:
-            self.register_buffer("w_gemm", pack_b(w_hwio[0, 0]))
+            out["w_gemm"] = (gemm.pack_b_int4 if self.int4
+                             else gemm.pack_b)(w_hwio[0, 0])
         else:
-            self.register_buffer("w_gemm", pack_rows_weight(w_hwio))
-            # the stem kernel's layout, where it takes the conv
+            out["w_gemm"] = (im2col.pack_weight_int4 if self.int4
+                             else im2col.pack_weight)(w_hwio)
             c, o = w_hwio.shape[2:]
             stem = (self.kernel_size, self.stride) == \
                 (stem_pool.KERNEL, stem_pool.STRIDE) and stem_pool.takes(c, o)
-            self.register_buffer(
-                "w_stem", stem_pool.pack_weight(w_hwio) if stem else None)
+            out["w_stem"] = ((stem_pool.pack_weight_int4 if self.int4
+                              else stem_pool.pack_weight)(w_hwio)
+                             if stem else None)
+        return out
+
+    def _int_weight(self) -> torch.Tensor:
+        """A weight-only conv's int8 weight (OIHW), unpacked at W4."""
+        if self.int4:
+            return dp.unpack_int4(self.w_int4, self.kernel_size) \
+                .permute(3, 2, 0, 1)
+        return self.w_int
 
 
 def _int8_matmul(x_i8: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
@@ -679,7 +722,7 @@ class QDense(QLayer):
                              self._dequantized_weight().float())
                 return y if self.bias is None else y + self.bias
             x_i8, epi_scale, bias_eff, _ = self._int_input(x)
-            acc = _int8_matmul(x_i8, self.w_int)
+            acc = _int8_matmul(x_i8, self._int_weight().contiguous())
             de = DeferredEpilogue(acc, epi_scale, bias_eff)
             return de if qmode == "intc" else materialize(de)
         x_q, w_q = self._quantize(x, qmode)
