@@ -4,8 +4,9 @@ FSPTQ reconstruction served through the conv kernel, chained int8
 cifar_resnet18, BASELINE config #1's PTQ entry, chained int8 ResNet-50,
 chained int8 MobileNetV2 and MobileOne-S1 (the depthwise kernel), W4
 execution (MobileOne-S1 all-W4, a W4 stem, BASELINE config #4's entry),
-the training path (LSQ and RootQ QAT, fp32, QAT -> deploy at W4A4,
-ResNet-50 RootQ), then the two int8 GEMM tools.
+the PTQ observers and BASELINE config #2's PTQ entry, the training path
+(LSQ and RootQ QAT, fp32, QAT -> deploy at W4A4, ResNet-50 RootQ), then
+the two int8 GEMM tools.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -145,6 +146,31 @@ Phases, each fatal on failure:
            calibration images, 40 iterations a block, 64 eval images; the
            cuts printed): it must reach its chained int8 evaluation, whose
            21 GEMM + 21 depthwise launches each == plain;
+  observers every observer of ops/observers.py (the 9 tensor observers,
+           the 2 output observers, the percentile stream per tensor and
+           per channel, the min/max stream per channel) on config #2's
+           tensors: MobileNetV2 at full width (seeded, fp), the input of
+           block1_0.depthwise (batch x 112 x 112 x 96, unsigned 8 bits;
+           channels on the last axis), its 96x1x3x3 weight for the pixel
+           observers, its own conv (forward_oi) for the output observers.
+           At batch 8 the card against the same tensors on the CPU:
+           minmax, percentile and the streams equal, l2loss and l2norm
+           within rtol 1e-5 in the achieved SSE, the output observers'
+           scales within rtol 1e-4; then each one's card ms at config #2's
+           calibration batch of 64 (77.1 M values; CUDA events, one call
+           after a warm-up call);
+  config2  python -m dlmc_quant_torch.examples.post_training_quantization
+           on config #2 (examples/configs/
+           PTQ_mobilenetv2_imagenet_w8a8_percentile.yaml) with eval_int:
+           true and int_qmode: intc, nothing cut (8 observe passes over
+           calibration batches of 64 at 224x224, the BN refresh, 1024 eval
+           images at batch 256; the train form runs intc as int): rc 0,
+           finite fp32, fake-quant and integer losses, the integer loss
+           within 5 % of the fake-quant one, conv, GEMM and depthwise
+           launches, each held against its plain version as it runs
+           (tolerance 0); wall time, the calibration's observe passes,
+           calibrate passes and BN refresh apart, the metrics, the
+           launches by kind;
   qat      the training path (examples/configs): (a) both QAT configs
            (LSQ and RootQ W4A4) at full width through the QAT entry's
            build_trainer (classification's build_common -> calibrate on the
@@ -198,6 +224,7 @@ limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import pathlib
@@ -229,11 +256,13 @@ from dlmc_quant_torch.ops.cuda import int8_gemm as G
 from dlmc_quant_torch.ops.cuda import int8_im2col as I
 from dlmc_quant_torch.ops.cuda import int8_mma_probe as P
 from dlmc_quant_torch.ops.cuda import int8_stem_pool as SP
+from dlmc_quant_torch.ops import observers as OBS
 from dlmc_quant_torch.ops.cuda.nibbles import W4
 from dlmc_quant_torch.quant.chain import (fold_params, materialize, qmaxpool,
                                           qrelu, qrelu6)
 from dlmc_quant_torch.quant.layers import QConv, QDense, full_f32
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
+from dlmc_quant_torch.training import ptq as ptq_lib
 from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
                                               bound_by, card_line, event_ms,
                                               graph_ms, step_split)
@@ -303,6 +332,10 @@ W4_MODEL = "MobileOne_S1"
 # block as the recon phase cuts A0, 64 eval images
 CONFIG_4 = CONFIGS / "FSPTQ_mobileone_s1_w4a8.yaml"
 CONFIG_4_EVAL = 64
+CONFIG_2 = CONFIGS / "PTQ_mobilenetv2_imagenet_w8a8_percentile.yaml"
+# config #2's calibration batch, and the batch the observers are held
+# against the CPU at
+C2_BATCH, C2_COMPARE = 64, 8
 
 
 def images(n: int, seed: int, device) -> torch.Tensor:
@@ -1388,6 +1421,214 @@ def config4_phase(device):
     return counts, err
 
 
+def c2_activation(model, batch: int, device) -> torch.Tensor:
+    """The input of config #2's largest observed layer, block1_0.depthwise
+    (batch x 112 x 112 x 96 after ReLU6), from a seeded fp forward."""
+    seen = []
+    hook = model.block1_0.depthwise.register_forward_pre_hook(
+        lambda m, args: seen.append(args[0]))
+    try:
+        with torch.no_grad():
+            model(images(batch, SEED + 5, device), qmode="fp")
+    finally:
+        hook.remove()
+    return seen[0]
+
+
+def observer_calls(model, x):
+    """(name, call) of every observer on config #2's tensors: the tensor
+    and channel observers (channels on the NHWC last axis) on the
+    activation ``x`` with config #2's input grid (unsigned 8 bits), the
+    pixel observers on the depthwise weight (signed 8 bits), the output
+    observers driving the depthwise conv on ``x``, and the streams (x's
+    two halves folded: the 99.99 percentile of |x| per tensor and per
+    channel, min/max per channel)."""
+    layer = model.block1_0.depthwise
+    w = layer.weight.detach().to(x.device)
+    act, wt = dict(n_bits=8, signed=False), dict(n_bits=8, signed=True)
+    calls = []
+    for name, fn in OBS.TENSOR_OBSERVERS.items():
+        if "pixel" in name:
+            calls.append((name, lambda fn=fn: fn(w, **wt)))
+        else:
+            kw = dict(act, ch_axis=3) if "channel" in name else act
+            calls.append((name, lambda fn=fn, kw=kw: fn(x, **kw)))
+    for name, fn in OBS.OUTPUT_OBSERVERS.items():
+        calls.append((name, lambda fn=fn: fn(x, w, layer.forward_oi, **wt)))
+    half = x.shape[0] // 2
+    for name, ch_axis, pct in (("stream percentile", None, 99.99),
+                               ("stream percentile channel", 3, 99.99),
+                               ("stream minmax channel", 3, None)):
+        def stream(ch_axis=ch_axis, pct=pct):
+            st = OBS.streaming_init(() if ch_axis is None else (x.shape[3],),
+                                    device=x.device)
+            for part in (x[:half], x[half:]):
+                st = OBS.streaming_update(st, part, ch_axis, pct)
+            return OBS.streaming_finalize(
+                st, "percentile" if pct else "minmax", **act)
+        calls.append((name, stream))
+    return calls
+
+
+def observer_sse(name, x, w, scale, offset) -> float:
+    """The reconstruction SSE of ``(scale, offset)`` in float64 on the
+    CPU: on the activation (or, for a pixel observer, the weight)."""
+    t = (w if "pixel" in name else x).double().cpu()
+    s, o = scale.double().cpu(), offset.double().cpu()
+    if "channel" in name:
+        s, o = s.reshape(-1), o.reshape(-1)          # NHWC last axis
+    lo, hi = (-127, 127) if "pixel" in name else (0, 255)
+    q = torch.clamp(torch.round((t - o) / s), lo, hi)
+    return float(((q * s + o - t) ** 2).sum())
+
+
+def observers_phase(device):
+    """Every observer of the port on config #2's tensors, on the card and on
+    the same tensors on the CPU at batch C2_COMPARE: minmax, percentile and
+    the streams equal; l2loss and l2norm within rtol 1e-5 in the achieved
+    SSE; the output observers' scales within rtol 1e-4.  Then each one's
+    card ms at config #2's calibration batch (C2_BATCH: the 77.1 M-value
+    activation), CUDA events around one call after one warm-up call."""
+    model = get_model("mobilenet_v2", device=device, num_classes=CLASSES,
+                      generator=torch.Generator().manual_seed(SEED)).eval()
+    x = c2_activation(model, C2_COMPARE, device)
+    w = model.block1_0.depthwise.weight.detach()
+    print(f"# observers: config #2's MobileNetV2 (seeded, fp), the input of "
+          f"block1_0.depthwise {tuple(x.shape)} (unsigned 8 bits), its "
+          f"weight {tuple(w.shape)} for the pixel observers (signed 8 bits)"
+          "; name | card vs CPU | card ms at batch "
+          f"{C2_BATCH}")
+    card = dict(observer_calls(model, x))
+    cpu_model = copy.deepcopy(model).cpu()
+    host = dict(observer_calls(cpu_model, x.cpu()))
+    worst = {}
+    with full_f32():
+        for name in card:
+            got = [t.cpu() for t in card[name]()]
+            want = host[name]()
+            if name.startswith(("minmax", "percentile", "stream")):
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(got, want))
+                ok = err == 0
+                what = f"max |diff| {err:g}"
+            elif "output" in name:
+                err = float(((got[0] - want[0]).abs()
+                             / want[0].abs()).max())
+                ok = err <= 1e-4 and torch.equal(got[1], want[1])
+                what = f"scale rel {err:.3g}"
+            else:
+                a = observer_sse(name, x, w, *got)
+                b = observer_sse(name, x, w, *want)
+                err = abs(a - b) / b
+                ok = err <= 1e-5
+                what = f"SSE {a:.6g} vs {b:.6g} (rel {err:.3g})"
+            worst[name] = (what, ok)
+        del card, host, cpu_model
+        x = c2_activation(model, C2_BATCH, device)
+        times = {name: event_ms(call, 1)
+                 for name, call in observer_calls(model, x)}
+    for name, (what, ok) in worst.items():
+        print(f"{name} | {what}{'' if ok else ' FAILED'} | "
+              f"{times[name]:.4f}")
+    bad = [name for name, (_, ok) in worst.items() if not ok]
+    if bad:
+        raise RuntimeError(f"observers off the CPU's: {bad}")
+    return times
+
+
+@contextlib.contextmanager
+def calibration_split(times: dict):
+    """Time the PTQ entry's calibration on the card: its ``'observe'`` and
+    ``'calibrate'`` forwards (hooks on the model inside ``ptq.calibrate``)
+    and ``ptq.bn_recalibrate``, each bracketed by synchronizes."""
+    saved = ptq_lib.calibrate, ptq_lib.bn_recalibrate
+
+    def calibrate_timed(model, batches, observe_passes=0):
+        start = []
+
+        def pre(m, args, kw):
+            torch.cuda.synchronize()
+            start.append(time.perf_counter())
+
+        def post(m, args, kw, out):
+            torch.cuda.synchronize()
+            times[kw["qmode"]] += time.perf_counter() - start.pop()
+
+        hooks = (model.register_forward_pre_hook(pre, with_kwargs=True),
+                 model.register_forward_hook(post, with_kwargs=True))
+        try:
+            return saved[0](model, batches, observe_passes=observe_passes)
+        finally:
+            for h in hooks:
+                h.remove()
+
+    def bn_timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved[1](*args, **kw)
+        torch.cuda.synchronize()
+        times["bn refresh"] += time.perf_counter() - t0
+        return out
+
+    ptq_lib.calibrate, ptq_lib.bn_recalibrate = calibrate_timed, bn_timed
+    try:
+        yield
+    finally:
+        ptq_lib.calibrate, ptq_lib.bn_recalibrate = saved
+
+
+def config2_phase():
+    """BASELINE config #2 through the PTQ entry, uncut, with eval_int: true
+    and int_qmode: intc: rc 0, finite losses, the integer loss within 5 %
+    of the fake-quant one, conv, GEMM and depthwise launches, each launch
+    equal to its plain version (held as it runs).  Returns the launches by
+    kind and the largest difference."""
+    cfg = read_yaml(CONFIG_2)
+    cfg.update(eval_int=True, int_qmode="intc")
+    run_dir = REPO / "saved" / "chip_smoke_c2"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    cfg["save_dir"] = str(run_dir)
+    path = run_dir / "PTQ_mobilenetv2_imagenet_w8a8_percentile_eval_int.yaml"
+    write_yaml(cfg, path)
+    cal = cfg["dataloaders"]["calibration"]["args"]
+    print(f"# config #2: with eval_int: true, int_qmode: intc, nothing cut "
+          f"(mobilenet_v2, 1000 classes, 224x224; {cfg['observe_passes']} "
+          f"observe passes over calibration batches of {cal['batch_size']}; "
+          f"eval the synthetic fallback's 1024 at batch "
+          f"{cfg['dataloaders']['eval']['args']['batch_size']}; the train "
+          "form runs intc as int)")
+    wrappers = {"conv": K.int8_conv3x3, "gemm": G.int8_gemm,
+                "dwconv": DW.int8_dwconv3x3}
+    for fn in wrappers.values():
+        fn.launches = 0
+    times = dict.fromkeys(("observe", "calibrate", "bn refresh"), 0.0)
+    t0 = time.perf_counter()
+    with calibration_split(times), LaunchRecorder(check=True) as rec:
+        rc = ptq_entry.main(["-c", str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kind: fn.launches for kind, fn in wrappers.items()}
+    counts = rec.counts()
+    err = max((diff for _, diff in rec.calls), default=0.0)
+    (ckpt,) = sorted((run_dir / "models").glob("*/*/quantized_model"))[-1:]
+    _, meta = load_checkpoint(ckpt)
+    fp, quant, real = meta["fp32"], meta["quant"], meta["int"]
+    print(f"# config #2: rc {rc}, wall {wall:.2f} s; calibration "
+          f"{sum(times.values()):.2f} s: observe passes "
+          f"{times['observe']:.2f} s, calibrate passes "
+          f"{times['calibrate']:.2f} s, BN refresh {times['bn refresh']:.2f}"
+          f" s; fp32 {fp}; fake quant {quant}; int {real}; launches "
+          f"{launches} (recorded {counts}), each against its plain version: "
+          f"max |diff| {err:g}")
+    losses = torch.tensor([fp["loss"], quant["loss"], real["loss"]])
+    if not (rc == 0 and bool(torch.isfinite(losses).all())
+            and all(launches.values()) and launches == {
+                kind: counts[kind] for kind in launches} and err == 0
+            and abs(real["loss"] - quant["loss"]) < 0.05 * quant["loss"]):
+        raise RuntimeError("config #2's PTQ entry is off")
+    return launches, err
+
+
 def training_config(name: str, **loader_args) -> ConfigParser:
     """``examples/configs/<name>.yaml`` cut for the smoke run: one epoch,
     one run, the training loader's ``loader_args``, nothing saved."""
@@ -1811,12 +2052,19 @@ def main(argv=None) -> int:
     c4_launches, c4_err = config4_phase(device)
     print(f"# w4 phases: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    observers_phase(device)
+    print(f"# observers phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    c2_launches, c2_err = config2_phase()
+    print(f"# config2 phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     qat_launches, qat_err = qat_phase(device)
     print(f"# qat phase: {time.perf_counter() - t0:.2f} s")
     launches += (served["conv"] + ptq_convs + served50["conv"] + qat_launches
-                 + mobile_served["conv"] + w4_served["conv"])
+                 + mobile_served["conv"] + w4_served["conv"]
+                 + c2_launches["conv"])
     tot["err"] = max(err8, tot["err"], recon_err, res_err, r50_err,
-                     r50_tot["err"], qat_err, mobile_err, w4_err)
+                     r50_tot["err"], qat_err, mobile_err, w4_err, c2_err)
     stem = dict(r50_tot["stem_pool"], err=max(r50_err, r50_tot["err"],
                                               w4_err))
 
@@ -1824,8 +2072,8 @@ def main(argv=None) -> int:
                                          "gemm_sweep")
     gemm_launches += (served["gemm"] + ptq_gemms + served50["gemm"]
                       + mobile_served["gemm"] + w4_served["gemm"]
-                      + c4_launches["gemm"])
-    gemm_err = max(w4_err, c4_err)
+                      + c4_launches["gemm"] + c2_launches["gemm"])
+    gemm_err = max(w4_err, c4_err, c2_err)
     probe_rows, probe_launches = tool_path(lambda: mma_probe.main([]),
                                            P.int8_mma_probe, "mma_probe")
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -1855,8 +2103,9 @@ def main(argv=None) -> int:
                      "dlmc_quant_tpu/quant/layers.py:722-728 (XLA grouped "
                      "int8 conv, feature_group_count=C; no Pallas kernel)",
                      mobile_served["dwconv"] + w4_served["dwconv"]
-                     + c4_launches["dwconv"], dict(dw, err=max(
-                         dw["err"], w4_err, c4_err)), None)]}))
+                     + c4_launches["dwconv"] + c2_launches["dwconv"],
+                     dict(dw, err=max(dw["err"], w4_err, c4_err, c2_err)),
+                     None)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

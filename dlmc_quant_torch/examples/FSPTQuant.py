@@ -29,7 +29,8 @@ import torch
 from dlmc_quant_torch.data import get_dataloader
 from dlmc_quant_torch.device import resolve_device
 from dlmc_quant_torch.models import get_model
-from dlmc_quant_torch.models.fuse import mobilenet_deploy, repvgg_fuse
+from dlmc_quant_torch.models.fuse import (mobilenet_deploy, repvgg_fuse,
+                                          resnet_deploy)
 from dlmc_quant_torch.models.mobileone import mobileone_fuse
 from dlmc_quant_torch.quant.deploy import prepare_deploy
 from dlmc_quant_torch.quant.config import scheme_from_dict
@@ -44,6 +45,7 @@ from dlmc_quant_torch.utils.logging import setup_logging
 
 # train form → deploy form, by model class (ref: FSPTQuant.py:65-67)
 FUSERS = {"RepVGG": repvgg_fuse, "MobileOne": mobileone_fuse,
+          "CifarResNet": resnet_deploy, "CifarResNetLarge": resnet_deploy,
           "MobileNetV2": mobilenet_deploy}
 
 
@@ -53,8 +55,8 @@ def to_deploy(model, logger):
     if family not in FUSERS:
         raise NotImplementedError(
             f"{family}: only {sorted(FUSERS)} have a deploy conversion in "
-            "the port (merge_bn: ROADMAP Queue A, PTQ E2E (item 4); the "
-            "other families: rest of the zoo (item 7))")
+            "the port (the JAX package's merge_bn for the others: ROADMAP "
+            "Queue A, merge_bn (item 4))")
     if model.deploy:
         return model
     logger.info("converted %s to deploy form", family)

@@ -8,7 +8,7 @@ BatchNorms into their convs (``models/mobileone.py`` has MobileOne's
 fuser, as in the JAX package).  The deploy model's quantizer
 parameters are fresh: calibrate after fusing, as the JAX package does.
 ``merge_bn`` (the fold in place, for other families) is not ported yet
-(ROADMAP Queue A, PTQ E2E (item 4)).
+(ROADMAP Queue A, merge_bn (item 4)).
 """
 
 from __future__ import annotations

@@ -12,14 +12,23 @@ per-channel weight axis is 0.
 * Estimator families (``scheme.quantization_type``): ``'FSPTQ'``,
   ``'RootQ'`` and the plain/LSQ family (``None``, ``'LSQ'`` or any other).
 * FSPTQ quantizer state: ``in_scale`` (parameter), ``in_offset`` (buffer,
-  the integer zero-point) and the streaming min/max ``in_stream_*``
-  (buffers) for the input; ``wt_scale`` (per output channel) and, with
-  AdaRound, ``alpha`` for the weight.
+  the integer zero-point) and the streaming statistics ``in_stream_*``
+  (buffers: min, max, the sum of per-batch percentiles, the count) for
+  the input; ``wt_scale`` and, with AdaRound, ``alpha`` for the weight.
 * Plain/LSQ quantizer state: the same names, but ``in_offset`` is a float
   offset (the grid is ``q·in_scale + in_offset``), and the weight has a
-  ``wt_offset`` buffer.  Observers: ``minmax_*`` and ``'LSQ'``
-  (``2·mean|x|/√qmax``).  ``'train'`` learns ``in_scale`` and ``wt_scale``
-  through :func:`~dlmc_quant_torch.ops.numerics.lsq_fake_quant`.
+  ``wt_offset`` buffer.  ``'train'`` learns ``in_scale`` and ``wt_scale``
+  through :func:`~dlmc_quant_torch.ops.numerics.lsq_fake_quant`.  A
+  per-channel input observer gives ``in_scale``/``in_offset`` and the
+  stream one value per channel of the NHWC last axis.
+* Observers (``ops/observers.py``): every name of the JAX package, on
+  input and weight, in both families, and ``'LSQ'`` (``2·mean|x|/√qmax``)
+  in the plain one.  Weight scales are per tensor, per output channel
+  (``(O,)``) or per pixel (``(H, W)``, broadcast as ``(1, 1, H, W)``
+  against the OIHW kernel); an output observer (``*output*``) drives the
+  layer's own op, :meth:`QConv.forward_oi` / :meth:`QDense.forward_oi`,
+  on the quantized input.  ``minmax*`` and ``percentile*`` inputs read the
+  stream where observe passes filled it, else one batch.
 * RootQ quantizer state (``ops/rootq_math.py``): the learned activation
   scale ``in_scale`` and clip bounds ``wt_upper``/``wt_lower`` with the
   root exponent ``wt_alpha`` (parameters, all scalars), and their running
@@ -31,7 +40,7 @@ per-channel weight axis is 0.
   identity.  Activations use the unsigned grid ``[0, qmax − qmin]``
   whatever ``signed`` says (ROADMAP hazard C4).
 * :func:`calibrate` is the explicit calibration pass: optional ``'observe'``
-  passes fold every batch's input min/max into the stream, then one
+  passes fold every batch's input statistics into the stream, then one
   ``'calibrate'`` pass on the first batch makes each layer observe its
   input (the stream where it has one) and weight, write the results into
   its own parameters (the JAX package's ``merge_calibration``) and
@@ -88,8 +97,12 @@ from dlmc_quant_torch.ops import rootq_math as rq
 from dlmc_quant_torch.ops.numerics import (clip, grad_scale, lsq_fake_quant,
                                            lsq_grad_factor, lsq_init_scale,
                                            round_pass)
-from dlmc_quant_torch.ops.observers import (StreamingState, get_qparams_tensor,
-                                            minmax_tensor, streaming_finalize,
+from dlmc_quant_torch.ops.observers import (DEFAULT_PCT, StreamingState,
+                                            get_qparams_output,
+                                            get_qparams_tensor,
+                                            is_output_observer, minmax_tensor,
+                                            percentile_tensor,
+                                            streaming_finalize,
                                             streaming_init, streaming_update)
 from dlmc_quant_torch.quant import deploy as dp
 from dlmc_quant_torch.quant.chain import (DeferredEpilogue, PendingConv,
@@ -103,12 +116,26 @@ QMODES = ("fp", "eval", "calibrate", "observe", "train", "int", "intc")
 # AdaRound rectified-sigmoid constants (ref: FSPTQuant/base.py:62-63)
 ADAROUND_GAMMA, ADAROUND_ZETA = -0.1, 1.1
 
-OBSERVERS_ITEM = "ROADMAP Queue A, observers left (item 9)"
-
 
 def _bshape(stat, ndim: int):
-    """Per-output-channel stat → broadcast shape against an O-first kernel."""
+    """A weight stat → its broadcast shape against an O-first kernel: a
+    scalar as it is, a per-output-channel (O,) as (O, 1, ...), a per-pixel
+    (H, W) as (1, 1, H, W)."""
+    if stat.dim() == 2:
+        return stat.reshape((1, 1) + tuple(stat.shape))
     return stat.reshape((-1,) + (1,) * (ndim - 1)) if stat.dim() else stat
+
+
+def _batch_observe(x, aq, ch_axis):
+    """``(scale, offset)`` of a ``minmax*`` or ``percentile*`` input
+    observer from one batch: per channel along ``ch_axis`` where the
+    observer is per-channel and an axis is given, else per tensor."""
+    kw = aq.observer_kwargs
+    if aq.per_channel and ch_axis is not None:
+        return get_qparams_tensor(x, aq.type, ch_axis=ch_axis, **kw)
+    if aq.type.startswith("percentile"):
+        return percentile_tensor(x, **kw)
+    return minmax_tensor(x, **kw)
 
 
 def _bf16_values(x: torch.Tensor) -> torch.Tensor:
@@ -120,7 +147,10 @@ def _bf16_values(x: torch.Tensor) -> torch.Tensor:
 
 class QLayer(nn.Module):
     """Quantizer state and integer plan shared by :class:`QConv` and
-    :class:`QDense`.  Subclasses own ``weight`` and ``bias``."""
+    :class:`QDense`.  Subclasses own ``weight``, ``bias`` and
+    ``forward_oi``."""
+
+    groups = 1
 
     def __init__(self):
         super().__init__()
@@ -154,30 +184,25 @@ class QLayer(nn.Module):
                 self.register_buffer("wt_run_lower",
                                      -torch.ones((), device=dev))
             return
-        if self.family == "lsq":
-            for role, q in (("input", aq), ("weight", wq)):
-                if q.enable and not (q.type == "LSQ"
-                                     or q.type.startswith("minmax")):
-                    raise NotImplementedError(
-                        f"{path}: the {role} observer {q.type!r} of the "
-                        f"plain/LSQ family is not ported yet "
-                        f"({OBSERVERS_ITEM})")
-            if aq.enable and aq.per_channel:
-                raise NotImplementedError(
-                    f"{path}: per-channel activation scales are not ported "
-                    f"yet ({OBSERVERS_ITEM})")
         if aq.enable:
-            self.in_scale = nn.Parameter(torch.ones((), device=dev))
-            self.register_buffer("in_offset", torch.zeros((), device=dev))
+            # per channel of the NHWC last axis in the plain family only
+            shape = (self.weight.shape[1] * self.groups,) \
+                if self.family == "lsq" and aq.per_channel else ()
+            self.in_scale = nn.Parameter(torch.ones(shape, device=dev))
+            self.register_buffer("in_offset", torch.zeros(shape, device=dev))
             for field, t in zip(StreamingState._fields,
-                                streaming_init(device=dev)):
+                                streaming_init(shape, device=dev)):
                 self.register_buffer(f"in_stream_{field}", t)
         if wq.enable:
-            if wq.per_pixel:
-                raise NotImplementedError(
-                    f"{path}: per-pixel weight scales are not ported yet "
-                    f"({OBSERVERS_ITEM})")
-            shape = (self.weight.shape[0],) if wq.per_channel else ()
+            if wq.per_channel:
+                shape = (self.weight.shape[0],)
+            elif wq.per_pixel:
+                if self.weight.dim() != 4:
+                    raise ValueError(f"{path}: per-pixel weight quantization "
+                                     "needs a conv kernel")
+                shape = tuple(self.weight.shape[2:])
+            else:
+                shape = ()
             self.wt_scale = nn.Parameter(torch.ones(shape, device=dev))
             if self.family == "lsq":
                 self.register_buffer("wt_offset",
@@ -185,38 +210,59 @@ class QLayer(nn.Module):
             elif wq.recon_type == "adaround":
                 self.alpha = nn.Parameter(torch.ones_like(self.weight))
 
-    # --- input observers -----------------------------------------------
+    # --- observers ------------------------------------------------------
 
-    def _observe_stream(self, x) -> None:
-        """``'observe'``: fold ``x``'s min/max into the input stream."""
-        stream = StreamingState(*(getattr(self, f"in_stream_{field}")
-                                  for field in StreamingState._fields))
-        for field, t in zip(StreamingState._fields,
-                            streaming_update(stream, x.detach())):
+    def _stream(self) -> StreamingState:
+        return StreamingState(*(getattr(self, f"in_stream_{field}")
+                                for field in StreamingState._fields))
+
+    def _observe_stream(self, x, aq, ch_axis) -> None:
+        """``'observe'``: fold ``x`` into the input stream (per channel
+        along ``ch_axis`` unless it is None), with the configured
+        percentile for a ``percentile*`` observer (ROADMAP hazard C16: the
+        JAX package's layers always stream 99.99)."""
+        pct = aq.observer_kwargs.get("pct", DEFAULT_PCT) \
+            if aq.type.startswith("percentile") else None
+        for field, t in zip(StreamingState._fields, streaming_update(
+                self._stream(), x.detach(), ch_axis, pct)):
             setattr(self, f"in_stream_{field}", t)
 
-    def _observe_input(self, xd, aq):
-        """``(scale, offset)`` of a per-tensor input observer: from the
-        stream where observe passes filled it, else from this batch."""
-        stream = StreamingState(*(getattr(self, f"in_stream_{field}")
-                                  for field in StreamingState._fields))
-        if aq.type.startswith(("minmax", "percentile")) \
-                and int(stream.count) > 0:
-            return streaming_finalize(stream, aq.type, aq.n_bits, aq.signed)
-        if aq.type.startswith("percentile"):
-            raise NotImplementedError(
-                f"percentile observers are not ported yet ({OBSERVERS_ITEM})")
-        if aq.type.startswith("minmax"):
-            return minmax_tensor(xd, **aq.observer_kwargs)
-        s, off = get_qparams_tensor(xd, aq.type, **aq.observer_kwargs)
-        return s.reshape(()), off.reshape(())
+    def _observe_input(self, xd, aq, ch_axis=None):
+        """``(scale, offset)`` of the input observer: a ``minmax*`` or
+        ``percentile*`` one from the stream where observe passes filled
+        it, else from this batch (per channel along ``ch_axis`` unless it
+        is None); any other from this batch."""
+        if aq.type.startswith(("minmax", "percentile")):
+            stream = self._stream()
+            if int(stream.count) > 0:
+                return streaming_finalize(stream, aq.type, aq.n_bits,
+                                          aq.signed)
+            return _batch_observe(xd, aq, ch_axis)
+        kw = aq.observer_kwargs
+        if ch_axis is not None:
+            kw["ch_axis"] = ch_axis
+        return get_qparams_tensor(xd, aq.type, **kw)
+
+    def _observe_weight(self, wq, x_q):
+        """``(scale, offset)`` of the weight observer, broadcast-shaped
+        against the O-first kernel; an output observer drives
+        :meth:`forward_oi` on the quantized input ``x_q``."""
+        kw = wq.observer_kwargs
+        if wq.per_channel:
+            kw["ch_axis"] = 0
+        kd = self.weight.detach()
+        if is_output_observer(wq.type):
+            return get_qparams_output(x_q.detach(), kd, self.forward_oi,
+                                      wq.type, **kw)
+        return get_qparams_tensor(kd, wq.type, **kw)
 
     # --- plain/LSQ fake quantization (ref: modules/base.py) --------------
 
     def _lsq_input(self, x, aq, qmode: str):
         qmin, qmax = aq.qrange
+        ch_axis = x.dim() - 1 if aq.per_channel else None
         if qmode == "observe":
-            self._observe_stream(x)
+            self._observe_stream(x, aq, ch_axis)
             return x
         if qmode == "calibrate":
             xd = x.detach()
@@ -224,13 +270,13 @@ class QLayer(nn.Module):
                 s, off = lsq_init_scale(xd, qmax), torch.zeros_like(
                     self.in_offset)
             else:
-                s, off = self._observe_input(xd, aq)
-            self.in_scale.data.copy_(s)
-            self.in_offset.copy_(off)
+                s, off = self._observe_input(xd, aq, ch_axis)
+            self.in_scale.data.copy_(s.reshape(self.in_scale.shape))
+            self.in_offset.copy_(off.reshape(self.in_offset.shape))
         return lsq_fake_quant(x, self.in_scale, self.in_offset, qmin, qmax,
                               lsq_grad_factor(x.numel(), qmax))
 
-    def _lsq_weight(self, kernel, wq, qmode: str):
+    def _lsq_weight(self, kernel, wq, qmode: str, x_q):
         qmin, qmax = wq.qrange
         if qmode == "calibrate":
             kd = kernel.detach()
@@ -238,10 +284,7 @@ class QLayer(nn.Module):
                 dims = tuple(range(1, kd.dim())) if wq.per_channel else None
                 s, off = lsq_init_scale(kd, qmax, dims), None
             else:
-                kw = wq.observer_kwargs
-                if wq.per_channel:
-                    kw["ch_axis"] = 0
-                s, off = get_qparams_tensor(kd, wq.type, **kw)
+                s, off = self._observe_weight(wq, x_q)
             self.wt_scale.data.copy_(s.reshape(self.wt_scale.shape))
             if off is None:
                 self.wt_offset.zero_()
@@ -274,7 +317,7 @@ class QLayer(nn.Module):
             running = self.in_run_scale
         return rq.rootq_act_fake_quant(x, running, qmax, qmin)
 
-    def _rootq_weight(self, kernel, wq, qmode: str):
+    def _rootq_weight(self, kernel, wq, qmode: str, x_q=None):
         qmin, qmax = wq.qrange
         if qmode == "calibrate":
             wmax = 2.0 * kernel.detach().abs().mean() \
@@ -303,10 +346,11 @@ class QLayer(nn.Module):
     def _fsptq_input(self, x, aq, qmode: str):
         qmin, qmax = aq.qrange
         if qmode == "observe":
-            self._observe_stream(x)
+            self._observe_stream(x, aq, None)
             return x
         if qmode == "calibrate":
             s, off_f = self._observe_input(x.detach(), aq)
+            s, off_f = s.reshape(()), off_f.reshape(())
             # integer zero-point convention (dlmc_quant_tpu layers.py:316-319)
             zp = torch.clamp(torch.round(-off_f / s), qmin, qmax)
             self.in_scale.data.copy_(s)
@@ -315,14 +359,11 @@ class QLayer(nn.Module):
         q = clip(round_pass(x / s) + zp, qmin, qmax)
         return (q - zp) * s
 
-    def _fsptq_weight(self, kernel, wq, qmode: str):
+    def _fsptq_weight(self, kernel, wq, qmode: str, x_q):
         qmin, qmax = wq.qrange
         adaround = wq.recon_type == "adaround"
         if qmode == "calibrate":
-            kw = wq.observer_kwargs
-            if wq.per_channel:
-                kw["ch_axis"] = 0
-            s_b, _ = get_qparams_tensor(kernel.detach(), wq.type, **kw)
+            s_b, _ = self._observe_weight(wq, x_q)
             s = s_b.reshape(self.wt_scale.shape) + 1e-6
             self.wt_scale.data.copy_(s)
             if adaround:
@@ -360,7 +401,7 @@ class QLayer(nn.Module):
             x = quant_input(x, self.cfg.input, qmode)
         if qmode == "observe" or not self.cfg.weight.enable:
             return x, self.weight    # FP weight while the stream fills
-        return x, quant_weight(self.weight, self.cfg.weight, qmode)
+        return x, quant_weight(self.weight, self.cfg.weight, qmode, x)
 
     # --- integer execution -------------------------------------------------
 
@@ -401,6 +442,9 @@ class QLayer(nn.Module):
         if not wq.enable:
             raise ValueError(f"{self.path}: weight quantization disabled — "
                              "nothing to deploy")
+        if wq.per_pixel:
+            raise ValueError(f"{self.path}: per-pixel weights have no "
+                             "integer execution plan (use fake-quant eval)")
         if aq.enable and (aq.per_channel or aq.per_pixel):
             raise ValueError(f"{self.path}: integer path needs per-tensor "
                              "activation quantization")
@@ -574,6 +618,12 @@ class QConv(QLayer):
                      groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
+    def forward_oi(self, x, w):
+        """This conv (bias, stride, padding, groups) with the OIHW weight
+        ``w``, in full f32: the output observers' forward."""
+        with full_f32():
+            return self._conv(x, w)
+
     def forward(self, x, qmode: str = "eval"):
         self._check_qmode(qmode)
         if qmode in ("int", "intc"):
@@ -711,6 +761,12 @@ class QDense(QLayer):
         _init_weight(self.weight.data, generator, in_features, 1.0)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
+    def forward_oi(self, x, w):
+        """This layer with the (out, in) weight ``w``, in full f32: the
+        output observers' forward."""
+        with full_f32():
+            return F.linear(x, w, self.bias)
+
     def forward(self, x, qmode: str = "eval"):
         self._check_qmode(qmode)
         if qmode in ("int", "intc"):
@@ -737,7 +793,8 @@ class QBlockOutput(nn.Module):
     ReLU, and the folded clamp's lower bound is the grid's minimum, not
     the code of 0.  In every qmode but ``'intc'`` this is ``relu(y + r)``
     (``y + r``).  ``'calibrate'`` observes the f32 block output with the
-    scheme's input observer (one batch, minmax) into ``out_scale``
+    scheme's input observer from one batch (``percentile_tensor`` for a
+    ``percentile*`` observer, else ``minmax_tensor``) into ``out_scale``
     (parameter) and ``out_offset`` (buffer, a float offset: the grid is
     ``q·out_scale + out_offset``).  :meth:`prepare_deploy` freezes the grid
     into host scalars, and ``'intc'`` then folds trunk epilogue + shortcut
@@ -760,10 +817,6 @@ class QBlockOutput(nn.Module):
         if aq is None or not aq.enable or aq.per_channel or aq.per_pixel:
             self.cfg = None
             return
-        if aq.type.startswith("percentile"):
-            raise NotImplementedError(
-                f"{path}: percentile observers are not ported yet "
-                f"({OBSERVERS_ITEM})")
         self.cfg = cfg
         self.out_scale = nn.Parameter(torch.ones((), device=device))
         self.register_buffer("out_offset", torch.zeros((), device=device))
@@ -777,10 +830,9 @@ class QBlockOutput(nn.Module):
             return self._sum(y, r)
         if qmode == "calibrate":
             v = self._sum(y, r)
-            s, off = minmax_tensor(v.detach(),
-                                   **self.cfg.input.observer_kwargs)
-            self.out_scale.data.copy_(s)
-            self.out_offset.copy_(off)
+            s, off = _batch_observe(v.detach(), self.cfg.input, None)
+            self.out_scale.data.copy_(s.reshape(()))
+            self.out_offset.copy_(off.reshape(()))
             return v
         if qmode == "intc" and self.plan_scalars is not None:
             h = self.plan_scalars
@@ -842,8 +894,8 @@ def calibrate(model: nn.Module, batches, observe_passes: int = 0):
     """Explicit calibration: ``'observe'`` passes over the first
     ``observe_passes`` batches, then one ``'calibrate'`` pass on the first.
 
-    Every quantized layer writes its observed scales (from the streamed
-    min/max where there is one), zero-points, AdaRound ``alpha`` and RootQ
+    Every quantized layer writes its observed scales (from the stream
+    where there is one), zero-points, AdaRound ``alpha`` and RootQ
     running values into its own parameters and buffers.  The passes run in
     eval mode (BatchNorm on its running statistics, as the JAX package's
     ``train=False``); each module's mode is restored after.  Returns

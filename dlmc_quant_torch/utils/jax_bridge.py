@@ -6,8 +6,10 @@ dict with ``params``, and optionally ``qstate`` and ``batch_stats``, in
 flax names.  Module paths are the same in both packages, so each port
 module reads the subtree at its own ``named_modules()`` path:
 
-* ``QConv``: ``kernel`` HWIO → OIHW, ``bias``, ``in_scale``, ``wt_scale``,
-  ``alpha`` (HWIO → OIHW), RootQ's ``wt_upper``, ``wt_lower`` and
+* ``QConv``: ``kernel`` HWIO → OIHW, ``bias``, ``in_scale`` (a scalar, or
+  (C,) per input channel), ``wt_scale`` (a scalar, (O,) per output channel
+  or (H, W) per pixel: the same shapes in both packages), ``alpha`` (HWIO
+  → OIHW), RootQ's ``wt_upper``, ``wt_lower`` and
   ``wt_alpha``, and ``qstate`` ``in_offset`` (FSPTQ's integer zero-point or
   the plain family's float offset), ``wt_offset`` and RootQ's running
   values ``in_run_scale``, ``wt_run_upper`` and ``wt_run_lower``;
@@ -19,8 +21,8 @@ module reads the subtree at its own ``named_modules()`` path:
   → ``running_mean``/``running_var``.
 
 Every ``params`` leaf must find its module; other ``qstate`` leaves
-(``in_stream``, which the port's ``calibrate`` fills, and ``org_weight``)
-are not read.
+(``in_stream``, the streaming statistics with their percentile sum, which
+the port's ``calibrate`` fills, and ``org_weight``) are not read.
 """
 
 from __future__ import annotations

@@ -36,7 +36,13 @@ _SITES = ((_chain, "int8_conv3x3", "conv"), (_chain, "int8_gemm", "gemm"),
 class LaunchRecorder:
     """``with LaunchRecorder() as rec: model(x, qmode="intc")`` records
     every kernel wrapper's call in ``rec.calls`` as (kind, args,
-    keywords, output); each wrapper still counts its own launches."""
+    keywords, output); each wrapper still counts its own launches.  With
+    ``check=True`` it holds each call against its plain version as it runs
+    and keeps only (kind, :func:`max_diff_to_plain`), so that a long run
+    holds no tensors."""
+
+    def __init__(self, check: bool = False):
+        self.check = check
 
     def __enter__(self):
         self.calls = []
@@ -45,7 +51,9 @@ class LaunchRecorder:
         def record(kind, fn):
             def wrapped(*args, **kw):
                 out = fn(*args, **kw)
-                self.calls.append((kind, args, kw, out))
+                self.calls.append(
+                    (kind, max_diff_to_plain(kind, args, kw, out))
+                    if self.check else (kind, args, kw, out))
                 return out
             return wrapped
 

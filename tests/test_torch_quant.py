@@ -105,9 +105,12 @@ class TestObservers:
             np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-6)
 
     def test_unported_observer_raises(self):
-        with pytest.raises(NotImplementedError,
-                           match=r"observers left \(item 9\)"):
-            tobs.get_qparams_tensor(torch.zeros(4), "l2loss_tensor",
+        """Every observer of the JAX package is ported; a name that neither
+        package registers raises, listing the known ones."""
+        assert set(tobs.TENSOR_OBSERVERS) == set(jobs.TENSOR_OBSERVERS)
+        with pytest.raises(ValueError,
+                           match=r"unknown observer 'bogus'.*l2loss_tensor"):
+            tobs.get_qparams_tensor(torch.zeros(4), "bogus",
                                     n_bits=8, signed=True)
 
 
