@@ -5,7 +5,8 @@ cifar_resnet18, BASELINE config #1's PTQ entry, chained int8 ResNet-50,
 chained int8 MobileNetV2 and MobileOne-S1 (the depthwise kernel), W4
 execution (MobileOne-S1 all-W4, a W4 stem, BASELINE config #4's entry),
 the PTQ observers and BASELINE config #2's PTQ entry, the training path
-(LSQ and RootQ QAT, fp32, QAT -> deploy at W4A4, ResNet-50 RootQ), then
+(LSQ and RootQ QAT, fp32, QAT -> deploy at W4A4, ResNet-50 RootQ), the
+accuracy protocol cut short (trained cifar_resnet20 and RepVGG-A0), then
 the two int8 GEMM tools.
 
     python3 chip_smoke.py [--parent DIR]
@@ -201,6 +202,21 @@ Phases, each fatal on failure:
            the synthetic ImageNet fallback, 224x224) at batch 64 (the
            config's 256: r50_training_leg(256), by hand): ms a step and
            peak memory;
+  accuracy the port's accuracy protocol (python -m
+           dlmc_quant_torch.tools.accuracy_protocol) cut to --epochs 2
+           --qat-epochs 1 --recon-iters 40, both sections, on the hard
+           synthetic CIFAR at batch 256: every table value finite (the
+           cut top-1s printed), the teacher agreement not lower after
+           reconstruction in any PTQ row, the card-against-CPU eval
+           logits of the reconstructed A0 and the RootQ W4A4 model
+           printed; every kernel launch of the protocol's run (A0's int
+           and intc evaluations at batch 256 and the last batch of 208)
+           against its plain version as it runs (tolerance 0); the
+           trained, reconstructed A0 (32x32): its intc
+           evaluation 21 conv launches a batch, its 21 convs on 8
+           calibration images kernel == plain (tolerance 0), its served
+           intc logits on them within relative L2 2e-2 of the CPU plain
+           path;
   ptq      python -m dlmc_quant_torch.examples.post_training_quantization
            on config #1 with eval_int: true (nothing else changed): fp32,
            fake-quant and integer metrics, which must be finite, the
@@ -227,6 +243,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -261,6 +278,7 @@ from dlmc_quant_torch.ops.cuda.nibbles import W4
 from dlmc_quant_torch.quant.chain import (fold_params, materialize, qmaxpool,
                                           qrelu, qrelu6)
 from dlmc_quant_torch.quant.layers import QConv, QDense, full_f32
+from dlmc_quant_torch.tools import accuracy_protocol as protocol
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
 from dlmc_quant_torch.training import ptq as ptq_lib
 from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
@@ -336,6 +354,10 @@ CONFIG_2 = CONFIGS / "PTQ_mobilenetv2_imagenet_w8a8_percentile.yaml"
 # config #2's calibration batch, and the batch the observers are held
 # against the CPU at
 C2_BATCH, C2_COMPARE = 64, 8
+# the accuracy protocol's cut, and A0's conv launches a batch of its
+# intc evaluation (the stem weight-only)
+ACCURACY_CUT = ["--epochs", "2", "--qat-epochs", "1", "--recon-iters", "40"]
+ACCURACY_CONVS = 21
 
 
 def images(n: int, seed: int, device) -> torch.Tensor:
@@ -412,8 +434,9 @@ def bound(args, kw):
     return max(t_ops, t_bytes), t_ops, t_bytes
 
 
-def kernel_phase(model, batch: int, device):
-    """Kernel vs plain on every conv of one forward; returns the totals."""
+def kernel_phase(model, batch: int, device, x=None):
+    """Kernel vs plain on every conv of one forward (of ``x``, else of
+    ``batch`` seeded images at 224x224); returns the totals."""
     print(f"# kernel vs plain, batch {batch}: name in-shape C->O s mode "
           "plan(BN x rows, stages, weight) | max|dcode| max|df32| | "
           "kernel_ms bound_ms(by) kernel/bound plain_ms "
@@ -421,7 +444,8 @@ def kernel_phase(model, batch: int, device):
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                bytes_ms=0.0, err=0.0, context_ms=0.0)
     with torch.inference_mode():
-        calls = conv_calls(model, images(batch, SEED + 1, device))
+        calls = conv_calls(model, images(batch, SEED + 1, device)
+                           if x is None else x)
         for name, args, kw in calls:
             got = K.int8_conv3x3(*args, **kw)
             want = K.int8_conv3x3_plain(*args, **kw)
@@ -1894,6 +1918,81 @@ def ptq_phase():
     return convs, gemms
 
 
+def accuracy_phase(device, card: str):
+    """The port's accuracy protocol (tools/accuracy_protocol.py) cut to
+    ACCURACY_CUT, both sections, as its main runs them; then the gates on
+    its reconstructed RepVGG-A0.  Returns the conv launches of the
+    protocol's run and the largest kernel-vs-plain difference."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = protocol.parse_args(ACCURACY_CUT
+                                   + ["--out", f"{tmp}/RESULTS_torch.md"])
+        K.int8_conv3x3.launches = 0
+        # every launch of the run held against its plain version as it runs
+        with LaunchRecorder(check=True) as rec:
+            results = protocol.run(args, *protocol.loaders(args))
+        torch.cuda.synchronize()
+        launches = K.int8_conv3x3.launches
+        protocol.write(results, args, card)
+    t_run = time.perf_counter() - t0
+    checked = rec.counts()
+    worst = max((e for _, e in rec.calls), default=0.0)
+    print(f"# accuracy: {checked} kernel calls of the protocol's run held "
+          f"against their plain versions: max |diff| {worst}")
+    if checked["conv"] != launches or worst != 0:
+        raise RuntimeError(f"{checked['conv']} conv calls checked of "
+                           f"{launches} launches, max |diff| {worst}")
+    values = protocol.table_values(results)
+    if not all(math.isfinite(v) for v in values):
+        raise RuntimeError(f"the protocol's tables hold {values}")
+    res, qat, rep = results["resnet"], results["qat"], results["repvgg"]
+    rows = ([("resnet20 fp32", res["fp32"], None)]
+            + [(r["label"], r["top1"], r["agreement"]) for r in res["rows"]]
+            + [(r["label"], r["top1"], None) for r in qat["rows"]]
+            + [("A0 fp32", rep["fp32"], None)]
+            + [(r["label"], r["top1"], rep["agreement"] if i == 0 else None)
+               for i, r in enumerate(rep["rows"])])
+    print(f"# accuracy: protocol {' '.join(ACCURACY_CUT)} in {t_run:.1f} s "
+          f"(fp32 training {res['train_s']:.1f} + {rep['train_s']:.1f} s, "
+          f"A0 reconstruction {rep['recon_s']:.1f} s); top-1 % and teacher "
+          "agreement:")
+    for label, top1, agree in rows:
+        print(f"{label:45s} {top1:6.2f}" + (
+            "" if agree is None else
+            f"  agreement {agree[0]:.4f} -> {agree[1]:.4f}"))
+    print("# accuracy: card vs CPU eval logits on 8 images (the worst "
+          "quantized layer fed the card's input): reconstructed A0 rel L2 "
+          "{:.3e} ({:.3e}), RootQ W4A4 {:.3e} ({:.3e}); gate kept ".format(
+              *rep.get("card_vs_cpu", (math.nan,) * 2),
+              *qat.get("rootq_card_vs_cpu", (math.nan,) * 2))
+          + ", ".join(f"{r['kept']}/{r['blocks']}" for r in res["rows"])
+          + f" (resnet20), {rep['kept']}/{rep['blocks']} (A0)")
+    dropped = [a for a in [r["agreement"] for r in res["rows"]]
+               + [rep["agreement"]] if a[1] < a[0]]
+    if dropped:
+        raise RuntimeError(f"teacher agreement dropped: {dropped}")
+    intc = rep["rows"][2]
+    per_batch = intc["launches"] / rep["batches"]
+    print(f"# accuracy: A0 intc evaluation {intc['launches']} conv launches "
+          f"over {rep['batches']} batches ({per_batch:g} a batch)")
+    if intc["launches"] != ACCURACY_CONVS * rep["batches"]:
+        raise RuntimeError(f"{per_batch} conv launches a batch in A0's "
+                           f"intc evaluation, expected {ACCURACY_CONVS}")
+    model, x8 = rep["qmodel"], rep["x8"]
+    err = kernel_phase(model, 8, device, x=x8)["err"]
+    y = make_serving_fn(model, qmode="intc", device=device)(x8)
+    with torch.inference_mode():
+        ref = copy.deepcopy(model).cpu()(x8.cpu(), qmode="intc")
+    rel = rel_l2(y, ref)
+    print(f"# accuracy: trained, reconstructed A0 served (intc, batch 8) vs "
+          f"CPU plain path: rel L2 {rel:.3e}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    if y.shape != ref.shape or not bool(torch.isfinite(y).all()) \
+            or not rel < 2e-2:
+        raise RuntimeError(f"served A0 logits: rel L2 {rel} against the CPU")
+    return launches, max(err, worst)
+
+
 def tool_path(drive, wrapper, what: str):
     """Run a tool's main path with ``wrapper``'s launch count set to 0;
     returns the tool's rows and the launches of that run."""
@@ -2060,11 +2159,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     qat_launches, qat_err = qat_phase(device)
     print(f"# qat phase: {time.perf_counter() - t0:.2f} s")
+    acc_launches, acc_err = accuracy_phase(device, card)
     launches += (served["conv"] + ptq_convs + served50["conv"] + qat_launches
                  + mobile_served["conv"] + w4_served["conv"]
-                 + c2_launches["conv"])
+                 + c2_launches["conv"] + acc_launches)
     tot["err"] = max(err8, tot["err"], recon_err, res_err, r50_err,
-                     r50_tot["err"], qat_err, mobile_err, w4_err, c2_err)
+                     r50_tot["err"], qat_err, mobile_err, w4_err, c2_err,
+                     acc_err)
     stem = dict(r50_tot["stem_pool"], err=max(r50_err, r50_tot["err"],
                                               w4_err))
 

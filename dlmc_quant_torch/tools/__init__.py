@@ -1,4 +1,6 @@
 """Measurement tools of the port, each run as ``python -m
 dlmc_quant_torch.tools.<name>`` on the card: ``gemm_sweep`` (int8 GEMM rate
 against shape), ``mma_probe`` (int8 tensor-core rate with operands in
-shared memory) and ``gemm_ceiling`` (PyTorch's own int8 and bf16 GEMMs)."""
+shared memory), ``gemm_ceiling`` (PyTorch's own int8 and bf16 GEMMs) and
+``accuracy_protocol`` (top-1 of trained models through PTQ, QAT and the
+integer paths)."""

@@ -30,7 +30,7 @@ import torch.nn as nn
 from dlmc_quant_torch.ops.numerics import clip
 from dlmc_quant_torch.quant.config import _freeze
 from dlmc_quant_torch.quant.layers import (ADAROUND_GAMMA, ADAROUND_ZETA,
-                                           QLayer, full_f32)
+                                           QLayer, calibrate, full_f32)
 from dlmc_quant_torch.training.losses import l2_loss
 from dlmc_quant_torch.training.ptq import bn_recalibrate
 from dlmc_quant_torch.training.schedulers import CosineAnnealingLR
@@ -277,7 +277,8 @@ class FSPTQTrainer:
     reconstructed in place.  With ``disable_first_act_quant`` the first
     layer's input stays unquantized (ref: fsptq_trainer.py:155-161), set on
     ``model`` itself.  A model with BatchNorm has its statistics
-    re-estimated by ``bn_recalibrate`` before the gate first scores it.
+    re-estimated by ``bn_recalibrate`` and its quantizers re-calibrated
+    (:meth:`refresh_bn`) before the gate first scores it.
     """
 
     def __init__(self, model, fp_model, cal_batches, iters: int = 2000,
@@ -301,6 +302,17 @@ class FSPTQTrainer:
                 disable_act_quant_on(model, path)
                 self.logger.info(
                     "disabled activation quant on first layer %s", path)
+
+    def refresh_bn(self) -> None:
+        """BN statistics re-estimated under quantization, then the
+        quantizers re-calibrated with one observe pass a batch: their
+        scales were observed under the stale statistics.  The JAX
+        package's ``_refresh_bn(recalibrate_quantizers=True)`` before
+        reconstruction; its refresh after the gate (ROADMAP hazard C6) is
+        not copied."""
+        bn_recalibrate(self.model, self.cal_batches)
+        calibrate(self.model, self.cal_batches,
+                  observe_passes=len(self.cal_batches))
 
     def _teacher_preds(self):
         """FP teacher's argmax on the calibration batches (the label-free
@@ -326,7 +338,7 @@ class FSPTQTrainer:
         with full_f32():
             if any(isinstance(m, nn.BatchNorm2d)
                    for m in self.model.modules()):
-                bn_recalibrate(self.model, self.cal_batches)
+                self.refresh_bn()
             targets = discover_blocks(self.model, self.cal_batches[0],
                                       self.block_types, self.layer_names)
             self.logger.info("reconstructing %d blocks: %s", len(targets),
