@@ -6,8 +6,10 @@ chained int8 MobileNetV2 and MobileOne-S1 (the depthwise kernel), W4
 execution (MobileOne-S1 all-W4, a W4 stem, BASELINE config #4's entry),
 the PTQ observers and BASELINE config #2's PTQ entry, the training path
 (LSQ and RootQ QAT, fp32, QAT -> deploy at W4A4, ResNet-50 RootQ), the
-accuracy protocol cut short (trained cifar_resnet20 and RepVGG-A0), then
-the two int8 GEMM tools.
+accuracy protocol cut short (trained cifar_resnet20 and RepVGG-A0), the
+serving engine (RepVGG-A0 and ResNet-50 through continuous batching, the
+two-process lockstep) and data-parallel training on NCCL, then the two
+int8 GEMM tools.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -107,6 +109,26 @@ Phases, each fatal on failure:
            and the request's split (input quantize, stem + pool, the 52
            other kernels, pool + head; CUDA graphs) and the rest (host and
            gaps);
+  serving  the continuous-batching engine (parallel/serving.py) on
+           serve_benchmark's path: RepVGG-A0 (deploy form) and ResNet-50
+           (train form) under the FSPTQ W8A8 scheme of examples/
+           serve_benchmark.py, calibrated on 8 seeded images, qmode 'int',
+           batch 128 (A0 through the entry itself, its JSON line: images/s
+           at 1 device), then
+           the resnet50 phase's deploy-form ResNet-50 in 'intc' (the stem
+           conv + pool kernel).  Each: measure_throughput images/s; a
+           stream of 6 requests of 1..384 seeded images from a submitter
+           thread under LaunchRecorder(check=True): the launches of the
+           steps as expected (A0 22 convs, ResNet-50 16 convs + 37 GEMMs +
+           1 im2col in 'int', 16 + 36 + 1 stem conv + pool in 'intc'),
+           each == plain (tolerance 0); then 32 requests of 1..384 images
+           submitted at once (the engine's images/s under a full queue),
+           and a stream at Poisson arrivals at 0.6 of that rate (A0 300
+           requests: latency p50, p99 and max; ResNet-50 32: p50 and
+           max), images/s, pad waste; every future's rows == the direct
+           forward of its images (relative 1e-6); a step's forward ms on
+           device-resident images and the host-to-device copy ms of its
+           128 float32 images (CUDA events);
   mobile   MobileNetV2 and MobileOne-S1 at full published width, and
            MobileNetV2 at width 0.75 (24-channel stem and first depthwise
            conv), 224x224, 1000 classes: train form with seeded weights and
@@ -217,6 +239,14 @@ Phases, each fatal on failure:
            calibration images kernel == plain (tolerance 0), its served
            intc logits on them within relative L2 2e-2 of the CPU plain
            path;
+  lockstep python -m dlmc_quant_torch.tools.lockstep_2proc: two
+           processes, both engines on the card, votes over gloo; every
+           future resolved, consensus exit, equal step counts;
+  distributed python -m dlmc_quant_torch.examples.distributed_training at
+           world size 1 on NCCL (localhost, a free port) on the LSQ W4A4
+           config cut as the qat phase cuts it, under full_f32: rc 0, its
+           first 3 losses within 1e-4 relative of the plain QATTrainer's
+           (the QAT entry's build_trainer) on the same config;
   ptq      python -m dlmc_quant_torch.examples.post_training_quantization
            on config #1 with eval_int: true (nothing else changed): fp32,
            fake-quant and integer metrics, which must be finite, the
@@ -242,16 +272,20 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import io
 import json
 import math
 import pathlib
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -260,6 +294,8 @@ from dlmc_quant_torch import (FSPTQTrainer, attach_scheme, calibrate,
                               prepare_deploy, scheme_from_dict)
 from dlmc_quant_torch.examples import FSPTQuant as fsptq_entry
 from dlmc_quant_torch.examples import classification as fp_entry
+from dlmc_quant_torch.examples import distributed_training as dist_entry
+from dlmc_quant_torch.examples import serve_benchmark as serve_bench
 from dlmc_quant_torch.examples import post_training_quantization as ptq_entry
 from dlmc_quant_torch.examples import quantization_aware_training as qat_entry
 from dlmc_quant_torch.models.fuse import (mobilenet_deploy, repvgg_fuse,
@@ -275,12 +311,15 @@ from dlmc_quant_torch.ops.cuda import int8_mma_probe as P
 from dlmc_quant_torch.ops.cuda import int8_stem_pool as SP
 from dlmc_quant_torch.ops import observers as OBS
 from dlmc_quant_torch.ops.cuda.nibbles import W4
+from dlmc_quant_torch.parallel.serving import (InferenceEngine,
+                                               measure_throughput)
 from dlmc_quant_torch.quant.chain import (fold_params, materialize, qmaxpool,
                                           qrelu, qrelu6)
 from dlmc_quant_torch.quant.layers import QConv, QDense, full_f32
 from dlmc_quant_torch.tools import accuracy_protocol as protocol
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
 from dlmc_quant_torch.training import ptq as ptq_lib
+from dlmc_quant_torch.training.trainer import Trainer
 from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
                                               bound_by, card_line, event_ms,
                                               graph_ms, step_split)
@@ -358,6 +397,22 @@ C2_BATCH, C2_COMPARE = 64, 8
 # intc evaluation (the stem weight-only)
 ACCURACY_CUT = ["--epochs", "2", "--qat-epochs", "1", "--recon-iters", "40"]
 ACCURACY_CONVS = 21
+# the serving engine: serve_benchmark's batch, the requests of the checked
+# and the full-queue streams, the requests of A0's timed stream (enough
+# for a p99) and of ResNet-50's (p50 and max only), the timed stream's
+# load (a share of the images/s under a full queue); the launches of one
+# 'int' step of serve_benchmark's models (A0 deploy form; ResNet-50 train
+# form: its stem through im2col rows into the GEMM)
+ENGINE_BATCH, ENGINE_CHECKED, ENGINE_FULL = 128, 6, 32
+ENGINE_TAIL, ENGINE_SHORT = 300, 32
+ENGINE_LOAD = 0.6
+ENGINE_INT_LAUNCHES = {
+    "RepVGG_A0": {"conv": 22, "gemm": 0, "im2col": 0, "stem_pool": 0,
+                  "dwconv": 0},
+    "resnet50": {"conv": 16, "gemm": 37, "im2col": 1, "stem_pool": 0,
+                 "dwconv": 0}}
+# distributed_training's losses held against the plain QATTrainer's
+DIST_LOSSES = 3
 
 
 def images(n: int, seed: int, device) -> torch.Tensor:
@@ -2065,6 +2120,236 @@ def exact_phase(what: str, rows, calls):
     return tot
 
 
+def engine_counts():
+    """Every kernel wrapper's launch count, by kind."""
+    return {kind: fn.launches for kind, (fn, _) in KERNELS.items()}
+
+
+def zero_counts():
+    for fn, _ in KERNELS.values():
+        fn.launches = 0
+
+
+def submit_stream(engine, pool, sizes, rate=None, seed=SEED):
+    """Submit requests of ``sizes`` images (slices of ``pool`` at seeded
+    offsets) from a submitter thread, at exponential gaps of mean
+    ``1/rate`` s (all at once without a rate); returns [(offset, size,
+    future, submit time, done times)] once every future is done."""
+    rng = np.random.default_rng(seed)
+    offsets = rng.integers(0, len(pool) - max(sizes) + 1, len(sizes))
+    gaps = (rng.exponential(1.0 / rate, len(sizes)) if rate
+            else np.zeros(len(sizes)))
+    reqs = []
+
+    def submitter():
+        for off, k, gap in zip(offsets, sizes, gaps):
+            time.sleep(gap)
+            done = []
+            t = time.perf_counter()
+            fut = engine.submit(pool[off:off + k])
+            fut.add_done_callback(
+                lambda _, d=done: d.append(time.perf_counter()))
+            reqs.append((off, k, fut, t, done))
+
+    thread = threading.Thread(target=submitter)
+    thread.start()
+    thread.join()
+    for *_, fut, _t, _d in reqs:
+        fut.result(timeout=600)
+    return reqs
+
+
+def engine_leg(what, model, qmode, image, expect, device, card,
+               ips_line=None, n_timed=ENGINE_SHORT):
+    """One model through the continuous-batching engine at ENGINE_BATCH: a
+    checked stream of mixed request sizes (1 to 3 batches) under
+    LaunchRecorder(check=True), every launch == plain, every future's rows
+    == the direct forward of its images; ENGINE_FULL requests submitted at
+    once (the engine's images/s under a full queue); a timed stream of
+    ``n_timed`` requests with Poisson arrivals at ENGINE_LOAD of that
+    rate: request latency median (p50), max, and p99 where ``n_timed`` is
+    ENGINE_TAIL; images/s, pad waste; the step's device parts.  Returns
+    the engine's launches by kind (all three streams)."""
+    eng = InferenceEngine(model, batch_size=ENGINE_BATCH, qmode=qmode,
+                          device=device)
+    ips = measure_throughput(eng, image, n_batches=20)
+    if ips_line is not None:
+        print(f"# {what} engine: serve_benchmark {json.dumps(ips_line)}")
+    print(f"# {what} engine (qmode {qmode!r}, batch {ENGINE_BATCH}): "
+          f"measure_throughput {ips:.1f} images/s on {card}")
+    b = ENGINE_BATCH
+    pool = np.random.default_rng(SEED + 5).random(
+        (3 * b + 64,) + tuple(image), np.float32)
+    rng = np.random.default_rng(SEED + 6)
+    eng.start()
+    try:
+        zero_counts()
+        steps0 = eng.stats["batches"]
+        with LaunchRecorder(check=True) as rec:
+            checked = submit_stream(eng, pool, rng.integers(
+                1, 3 * b + 1, ENGINE_CHECKED).tolist())
+        checked_steps = eng.stats["batches"] - steps0
+        sizes = rng.integers(1, 3 * b + 1, ENGINE_FULL).tolist()
+        t0 = time.perf_counter()
+        full = submit_stream(eng, pool, sizes, seed=SEED + 7)
+        full_ips = sum(sizes) / (time.perf_counter() - t0)
+        sizes = rng.integers(1, 3 * b + 1, n_timed).tolist()
+        before = dict(eng.stats)
+        t0 = time.perf_counter()
+        timed = submit_stream(eng, pool, sizes, seed=SEED + 8,
+                              rate=ENGINE_LOAD * full_ips / np.mean(sizes))
+        wall = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    torch.cuda.synchronize()
+    launches = engine_counts()
+    steps = {k: eng.stats[k] - before[k] for k in eng.stats}
+    bad = [(kind, err) for kind, err in rec.calls if err != 0]
+    want = {kind: n * checked_steps for kind, n in expect.items()}
+    if rec.counts() != want or bad:
+        raise RuntimeError(f"{what} engine: {rec.counts()} checked "
+                           f"launches in {checked_steps} steps (expected "
+                           f"{want}); differing from plain: {bad[:3]}")
+    worst = 0.0
+    for off, k, fut, *_ in checked + full + timed:
+        got = fut.result()
+        direct = np.concatenate([
+            eng.forward(pool[off + i:off + min(i + b, k)]).cpu().numpy()
+            for i in range(0, k, b)])
+        if got.shape != direct.shape or not np.isfinite(got).all():
+            raise RuntimeError(f"{what} engine: bad rows {got.shape}")
+        worst = max(worst, float(np.abs(got - direct).max()
+                                 / (np.abs(direct).max() + 1e-12)))
+    if not worst <= 1e-6:
+        raise RuntimeError(f"{what} engine: a future differs from the "
+                           f"direct forward by {worst} (relative)")
+    lat = np.array([(d[0] - t) * 1e3 for *_, t, d in timed])
+    tail = (f"p99 {np.percentile(lat, 99):.2f} ms, "
+            if n_timed >= ENGINE_TAIL else "")
+    images = sum(k for _, k, *_ in timed)
+    x = torch.from_numpy(pool[:b])
+    xd = x.to(device)
+    with torch.inference_mode():
+        fwd_ms = event_ms(lambda: model(xd, qmode=qmode), 5)
+    h2d_ms = event_ms(lambda: x.to(device), 5)
+    print(f"# {what} engine: checked stream of {len(checked)} requests "
+          f"({sum(k for _, k, *_ in checked)} images, {checked_steps} steps, "
+          f"{len(rec.calls)} launches == plain); every future == the direct "
+          f"forward (worst relative {worst:.1e}, "
+          f"{len(checked + full + timed)} requests); {len(full)} requests of "
+          f"1..{3 * b} images at once: {full_ips:.1f} images/s; "
+          f"{len(timed)} requests at Poisson arrivals at {ENGINE_LOAD} of "
+          f"that rate: request latency median (p50) "
+          f"{np.percentile(lat, 50):.2f} ms, {tail}max of {len(timed)} "
+          f"{lat.max():.2f} ms, mean {lat.mean():.2f} ms; "
+          f"{images / wall:.1f} images/s over {wall:.2f} s; {steps['batches']}"
+          f" steps, pad waste {steps['pad_waste'] / (steps['batches'] * b):.3f}"
+          f" of the rows; a step's device parts: forward "
+          f"{fwd_ms:.3f} ms on device-resident images, host-to-device copy of "
+          f"{b} float32 images {h2d_ms:.3f} ms; launches {launches}; {card}")
+    return launches
+
+
+def serving_phase(device, card, r50_deploy):
+    """serve_benchmark's path on RepVGG-A0 (the entry itself, with its
+    defaults) and ResNet-50 (W8A8, 224x224, qmode 'int'), then the
+    deploy-form ResNet-50 in 'intc' (the stem conv + pool kernel), each
+    through InferenceEngine; returns the launches by kind."""
+    total = dict.fromkeys(KERNELS, 0)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_bench.main([])
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    for name in ("RepVGG_A0", "resnet50"):
+        model = serve_bench.build(name, 8, 8, device)
+        a0 = name == "RepVGG_A0"
+        got = engine_leg(f"{name} W8A8", model, "int", (SIZE, SIZE, 3),
+                         ENGINE_INT_LAUNCHES[name], device, card,
+                         line if a0 else None,
+                         ENGINE_TAIL if a0 else ENGINE_SHORT)
+        total = {k: total[k] + got[k] for k in total}
+        del model
+    got = engine_leg("resnet50 deploy form", r50_deploy, "intc",
+                     (SIZE, SIZE, 3), RESNET50_LAUNCHES, device, card)
+    return {k: total[k] + got[k] for k in total}
+
+
+def lockstep_leg():
+    """tools/lockstep_2proc.py on the card: two processes, both engines on
+    card 0, the votes over gloo."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "dlmc_quant_torch.tools.lockstep_2proc"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    lines = run.stdout.strip().splitlines()
+    print("# lockstep 2-proc on the card: " + " | ".join(
+        ln for ln in lines if ln.startswith(("proc ", "LOCKSTEP")))
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    steps = [ln.split("steps=")[1].split(",")[0] for ln in lines
+             if "steps=" in ln]
+    if run.returncode != 0 or "LOCKSTEP 2-PROC: PASS" not in run.stdout \
+            or len(steps) != 2 or steps[0] != steps[1]:
+        print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
+        raise RuntimeError("the two-process lockstep failed")
+
+
+@contextlib.contextmanager
+def recorded_losses(losses):
+    """Every trainer's step losses into ``losses``."""
+    step = Trainer.train_step
+
+    def recorded(self, x, y):
+        loss, logits = step(self, x, y)
+        losses.append(loss)
+        return loss, logits
+
+    Trainer.train_step = recorded
+    try:
+        yield
+    finally:
+        Trainer.train_step = step
+
+
+def distributed_phase(device):
+    """python -m dlmc_quant_torch.examples.distributed_training at world
+    size 1 on NCCL (LSQ W4A4 cut as the qat phase cuts it), its first
+    losses against the plain QATTrainer's, both under full_f32."""
+    cfg = read_yaml(CONFIGS / f"{QAT_CONFIGS['lsq']}.yaml")
+    cfg["train_loader"]["args"].update(n_samples=QAT_IMAGES)
+    cfg["n_runs"] = 1
+    cfg["trainer"]["epochs"] = 1
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg["save_dir"] = tmp
+        path = pathlib.Path(tmp) / "lsq_cut.yaml"
+        write_yaml(cfg, path)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist_losses, plain_losses = [], []
+        t0 = time.perf_counter()
+        with full_f32(), recorded_losses(dist_losses):
+            rc = dist_entry.main(["-c", str(path), "--coordinator",
+                                  f"localhost:{port}", "--num-hosts", "1",
+                                  "--host-id", "0"])
+        wall = time.perf_counter() - t0
+    trainer = qat_entry.build_trainer(
+        training_config(QAT_CONFIGS["lsq"], n_samples=QAT_IMAGES), device,
+        get_logger("qat"))
+    with full_f32(), recorded_losses(plain_losses):
+        trainer.train()
+    a = torch.stack(dist_losses).cpu().double()
+    b = torch.stack(plain_losses).cpu().double()
+    n = DIST_LOSSES
+    rel = float(((a[:n] - b[:n]).abs() / b[:n].abs()).max())
+    print(f"# distributed_training (NCCL, world size 1, LSQ W4A4, "
+          f"{len(a)} steps in {wall:.2f} s): rc {rc}; first {n} losses "
+          f"{[round(float(v), 5) for v in a[:n]]} vs the plain "
+          f"QATTrainer's {[round(float(v), 5) for v in b[:n]]}: worst "
+          f"relative {rel:.2e}")
+    if rc != 0 or len(a) != len(b) or not rel < 1e-4:
+        raise RuntimeError("distributed_training departs from QATTrainer")
+
+
 def kernel_entry(name, replaces, launches, tot, library_ms):
     return {"name": name, "route": "cuda",
             "source": f"dlmc_quant_torch/ops/cuda/csrc/{name}.cu",
@@ -2143,6 +2428,9 @@ def main(argv=None) -> int:
     im2col_launches, im2col = stem_im2col_phase(
         r50, images(SERVE_BATCH, SEED + 1, device))
     served50 = resnet50_serve_phase(r50, device)
+    t0 = time.perf_counter()
+    engine = serving_phase(device, card, r50)
+    print(f"# serving phase: {time.perf_counter() - t0:.2f} s")
     del r50
     parent = parent_dw_ms(args.parent) if args.parent else None
     mobile_err, dw, mobile_served, w8 = mobile_phase(device, parent)
@@ -2160,9 +2448,14 @@ def main(argv=None) -> int:
     qat_launches, qat_err = qat_phase(device)
     print(f"# qat phase: {time.perf_counter() - t0:.2f} s")
     acc_launches, acc_err = accuracy_phase(device, card)
+    t0 = time.perf_counter()
+    lockstep_leg()
+    distributed_phase(device)
+    print(f"# lockstep + distributed phases: {time.perf_counter() - t0:.2f}"
+          f" s")
     launches += (served["conv"] + ptq_convs + served50["conv"] + qat_launches
                  + mobile_served["conv"] + w4_served["conv"]
-                 + c2_launches["conv"] + acc_launches)
+                 + c2_launches["conv"] + acc_launches + engine["conv"])
     tot["err"] = max(err8, tot["err"], recon_err, res_err, r50_err,
                      r50_tot["err"], qat_err, mobile_err, w4_err, c2_err,
                      acc_err)
@@ -2173,7 +2466,8 @@ def main(argv=None) -> int:
                                          "gemm_sweep")
     gemm_launches += (served["gemm"] + ptq_gemms + served50["gemm"]
                       + mobile_served["gemm"] + w4_served["gemm"]
-                      + c4_launches["gemm"] + c2_launches["gemm"])
+                      + c4_launches["gemm"] + c2_launches["gemm"]
+                      + engine["gemm"])
     gemm_err = max(w4_err, c4_err, c2_err)
     probe_rows, probe_launches = tool_path(lambda: mma_probe.main([]),
                                            P.int8_mma_probe, "mma_probe")
@@ -2194,11 +2488,12 @@ def main(argv=None) -> int:
         kernel_entry("int8_mma_probe", "tools/vmem_gemm_probe.py:33",
                      probe_launches, probe_tot, probe_tot["library_ms"]),
         kernel_entry("int8_im2col", "dlmc_quant_tpu/quant/layers.py:721-728",
-                     im2col_launches, im2col, None),
+                     im2col_launches + engine["im2col"], im2col, None),
         kernel_entry("int8_stem_pool",
                      "dlmc_quant_tpu/quant/layers.py:721-728 + "
                      "dlmc_quant_tpu/quant/chain.py:135",
-                     served50["stem_pool"] + w4_served["stem_pool"], stem,
+                     served50["stem_pool"] + w4_served["stem_pool"]
+                     + engine["stem_pool"], stem,
                      None),
         kernel_entry("int8_dwconv3x3",
                      "dlmc_quant_tpu/quant/layers.py:722-728 (XLA grouped "

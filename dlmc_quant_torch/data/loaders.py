@@ -137,6 +137,15 @@ class DataLoader:
             yield self.dataset.get_batch(
                 batch_idx, rng if self.dataset.train_augment else None)
 
+    def shard(self, process_index: int, process_count: int) -> "DataLoader":
+        """This rank's share of the data: every ``process_count``-th index
+        from ``process_index``, shuffled with seed ``seed + process_index``
+        (ref: DistributedSampler, DDP_RootQ_train.py:81-97)."""
+        return DataLoader(self.dataset, self.batch_size, self.shuffle,
+                          indices=self.indices[process_index::process_count],
+                          drop_last=self.drop_last,
+                          seed=self.seed + process_index)
+
 
 def _synthetic_classification(n: int, image_size, num_classes: int,
                               seed: int = 0, profile: str = "easy",

@@ -1,0 +1,117 @@
+"""Quantized-serving throughput: images/s of one replica, and summed over
+the ranks of a launched world with its scaling efficiency.
+
+    python -m dlmc_quant_torch.examples.serve_benchmark \
+        [model] [batch] [w_bits] [a_bits] [--device cpu] \
+        [--coordinator HOST:PORT --num-hosts N --host-id I]
+
+Counterpart of ``examples/serve_benchmark.py`` (the defaults: RepVGG_A0,
+batch 128, W8A8; 224×224 images, 32×32 for ``cifar*``): the FSPTQ scheme
+with per-channel min/max weights and per-tensor min/max inputs, RepVGG and
+MobileOne in their deploy form; one seeded batch of 8 calibrates, then
+``prepare_deploy``, an ``InferenceEngine`` with ``qmode='int'`` and
+``measure_throughput`` over 20 batches.
+
+Under a launched world of N ranks (one invocation a rank, as
+``distributed_training``) each rank serves its own replica on its own
+card: rank 0 measures alone while the others wait, then every rank
+measures at once and the rates are summed.  The model axis stays 1
+(ROADMAP item 11b) and the line says so.  Rank 0 prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+import torch.distributed as dist
+
+from dlmc_quant_torch.device import resolve_device
+from dlmc_quant_torch.examples.distributed_training import dist_args, join
+from dlmc_quant_torch.models import get_model
+from dlmc_quant_torch.parallel import mesh as mesh_lib
+from dlmc_quant_torch.parallel.serving import (InferenceEngine,
+                                               measure_throughput)
+from dlmc_quant_torch.quant.config import scheme_from_dict
+from dlmc_quant_torch.quant.deploy import prepare_deploy
+from dlmc_quant_torch.quant.layers import calibrate
+
+N_BATCHES = 20
+
+
+def image_shape(model_name: str):
+    return (32, 32, 3) if "cifar" in model_name else (224, 224, 3)
+
+
+def build(model_name: str, w_bits: int, a_bits: int, device):
+    """The model at ``w_bits``/``a_bits``, calibrated on one seeded batch
+    of 8 and prepared for integer execution."""
+    scheme = scheme_from_dict({
+        "quantization_type": "FSPTQ",
+        "weight": {"enable": True, "type": "minmax_channel",
+                   "args": {"n_bits": w_bits, "signed": True}},
+        "input": {"enable": True, "type": "minmax_tensor",
+                  "args": {"n_bits": a_bits, "signed": False}},
+    })
+    kwargs = ({"deploy": True}
+              if model_name.lower().startswith(("repvgg", "mobileone"))
+              else {})
+    model = get_model(model_name, device=device, scheme=scheme,
+                      generator=torch.Generator().manual_seed(1), **kwargs)
+    x = torch.rand((8,) + image_shape(model_name),
+                   generator=torch.Generator().manual_seed(0)).to(device)
+    calibrate(model, [x])
+    return prepare_deploy(model)
+
+
+def _sum_over_ranks(value: float) -> float:
+    t = torch.tensor([value], dtype=torch.float64)
+    dist.all_reduce(t, group=mesh_lib.vote_group())
+    return float(t)
+
+
+def main(argv=None) -> int:
+    ns, rest = dist_args(sys.argv[1:] if argv is None else argv)
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("model", nargs="?", default="RepVGG_A0")
+    p.add_argument("batch", nargs="?", type=int, default=128)
+    p.add_argument("w_bits", nargs="?", type=int, default=8)
+    p.add_argument("a_bits", nargs="?", type=int, default=8)
+    p.add_argument("-d", "--device", default="cuda", choices=("cuda", "cpu"))
+    args = p.parse_args(rest)
+    device = join(ns, resolve_device(args.device))
+    try:
+        mesh = mesh_lib.make_mesh()
+        ranks, rank = mesh_lib.world_size(), mesh_lib.rank()
+        model = build(args.model, args.w_bits, args.a_bits, device)
+        eng = InferenceEngine(model, mesh, batch_size=args.batch,
+                              qmode="int", device=device)
+        image = image_shape(args.model)
+        what = f"{args.model} W{args.w_bits}A{args.a_bits}"
+        results = {}
+        ips = measure_throughput(eng, image, N_BATCHES) if rank == 0 else 0.0
+        results["1_devices"] = round(ips, 1)
+        if rank == 0:
+            print(f"{what} on 1 device: {ips:.1f} img/s", flush=True)
+        if ranks > 1:
+            dist.barrier(group=mesh_lib.vote_group())
+            total = _sum_over_ranks(measure_throughput(eng, image,
+                                                       N_BATCHES))
+            results[f"{ranks}_devices"] = round(total, 1)
+            results["scaling_efficiency"] = round(total / (ips * ranks), 3) \
+                if rank == 0 else None
+            if rank == 0:
+                print(f"{what} on {ranks} devices (a replica each): "
+                      f"{total:.1f} img/s", flush=True)
+        results["model_axis"] = "1 (int8 weight sharding is ROADMAP 11b)"
+        if rank == 0:
+            print(json.dumps(results), flush=True)
+    finally:
+        mesh_lib.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

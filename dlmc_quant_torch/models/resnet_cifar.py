@@ -35,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dlmc_quant_torch.models.registry import register
+from dlmc_quant_torch.parallel.mesh import batch_mean
 from dlmc_quant_torch.quant.chain import (QuantizedTensor, materialize,
                                           qmaxpool, qrelu)
 from dlmc_quant_torch.quant.layers import (QBlockOutput, QConv, QDense,
@@ -49,16 +50,21 @@ class BatchNorm(nn.BatchNorm2d):
     running statistics move as ``r = 0.9·r + 0.1·batch`` with the *biased*
     batch variance, where ``nn.BatchNorm2d`` would use the unbiased one.
     The parameter and buffer names are ``nn.BatchNorm2d``'s.
+    Its batch statistics are the global batch's under
+    ``parallel.mesh.data_parallel`` (``reduces_over_data``).
     """
+
+    reduces_over_data = True
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
     def forward(self, x):
         if self.training:
-            mean = x.mean(dim=(0, 1, 2))
-            var = torch.clamp_min((x * x).mean(dim=(0, 1, 2)) - mean * mean,
-                                  0.0)
+            # E[x] and E[x²] of the global batch under data parallelism
+            mean, sq = batch_mean(x.mean(dim=(0, 1, 2)),
+                                  (x * x).mean(dim=(0, 1, 2)))
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * var)

@@ -39,6 +39,9 @@ per-channel weight axis is 0.
   buffer; ``'eval'`` reads the buffers only; ``'observe'`` is the
   identity.  Activations use the unsigned grid ``[0, qmax − qmin]``
   whatever ``signed`` says (ROADMAP hazard C4).
+* The gradient scales of the input quantizers (LSQ's and RootQ's
+  ``1/√(numel·qmax)``) count the global batch's elements inside
+  ``parallel.mesh.data_parallel``, as JAX does on the sharded batch.
 * :func:`calibrate` is the explicit calibration pass: optional ``'observe'``
   passes fold every batch's input statistics into the stream, then one
   ``'calibrate'`` pass on the first batch makes each layer observe its
@@ -104,6 +107,7 @@ from dlmc_quant_torch.ops.observers import (DEFAULT_PCT, StreamingState,
                                             percentile_tensor,
                                             streaming_finalize,
                                             streaming_init, streaming_update)
+from dlmc_quant_torch.parallel.mesh import batch_numel
 from dlmc_quant_torch.quant import deploy as dp
 from dlmc_quant_torch.quant.chain import (DeferredEpilogue, PendingConv,
                                           PendingDwConv, PendingGemm,
@@ -274,7 +278,7 @@ class QLayer(nn.Module):
             self.in_scale.data.copy_(s.reshape(self.in_scale.shape))
             self.in_offset.copy_(off.reshape(self.in_offset.shape))
         return lsq_fake_quant(x, self.in_scale, self.in_offset, qmin, qmax,
-                              lsq_grad_factor(x.numel(), qmax))
+                              lsq_grad_factor(batch_numel(x), qmax))
 
     def _lsq_weight(self, kernel, wq, qmode: str, x_q):
         qmin, qmax = wq.qrange
@@ -310,7 +314,7 @@ class QLayer(nn.Module):
             m = self.cfg.momentum
             running = grad_scale(
                 (1.0 - m) * self.in_run_scale + m * self.in_scale,
-                lsq_grad_factor(x.numel(), qmax))
+                lsq_grad_factor(batch_numel(x), qmax))
             with torch.no_grad():
                 self.in_run_scale.copy_(running)
         else:

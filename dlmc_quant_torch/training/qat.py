@@ -9,6 +9,7 @@ trainer's; gradient clipping is the optimizer's (``grad_clip_param``).
 
 from __future__ import annotations
 
+from dlmc_quant_torch.parallel import mesh as mesh_lib
 from dlmc_quant_torch.quant.layers import calibrate
 from dlmc_quant_torch.training.trainer import Trainer
 
@@ -29,10 +30,13 @@ class QATTrainer(Trainer):
     def _on_step(self, epoch: int, batch_idx: int, batch) -> None:
         """Every ``update_qparams_period`` steps, recalibrate on the batch
         about to be stepped on (ref: qat trainer:43-48); ``calibrate``
-        runs the model in eval mode and restores its modes."""
+        runs the model in eval mode and restores its modes.  Under a data
+        mesh it calibrates on the global batch, gathered, so that every
+        rank gets the same quantizer parameters."""
         if (self.update_qparams_period and self.step > 0
                 and self.step % self.update_qparams_period == 0):
-            calibrate(self.model, [batch[0]])
+            calibrate(self.model,
+                      [mesh_lib.all_gather_rows(batch[0], self.mesh)])
             self.logger.info("re-calibrated quantizers at step %d",
                              self.step)
 

@@ -3,10 +3,9 @@ checkpoints and resume, mid-epoch validation, log densities, metric
 tracking and TensorBoard.
 
 Counterpart of ``dlmc_quant_tpu/training/trainer.py`` (ref:
-base/base_trainer.py:14-279, trainer/classification_trainer.py) on one
-device; data-parallel training is ROADMAP Queue A item 11.  The model
-holds its own state (parameters, BN statistics, quantizer buffers), so a
-step is a forward, a backward and an optimizer step in place:
+base/base_trainer.py:14-279, trainer/classification_trainer.py).  The
+model holds its own state (parameters, BN statistics, quantizer buffers),
+so a step is a forward, a backward and an optimizer step in place:
 
 * per-epoch seeds ``default_rng(random_seed).integers(0, 2**31 − 1,
   epochs + 1)`` go to ``train_loader.set_epoch``;
@@ -19,6 +18,22 @@ step is a forward, a backward and an optimizer step in place:
 * checkpoints hold the model's state dict, the optimizer's state and the
   step (and ReduceLROnPlateau's state); ``resume`` also takes a
   weights-only checkpoint (a module's state dict), with a fresh optimizer.
+
+Data parallelism (``mesh``, a data mesh from ``parallel.mesh.make_mesh``):
+each rank steps on its own loader's batch, its slice of the global batch,
+and the update is the one JAX's SPMD step makes on the whole global batch.
+The train forward runs inside ``parallel.mesh.data_parallel``, so the BN
+statistics and the quantizers' gradient scales are the global batch's; the
+gradients are averaged over the ranks before the optimizer clips and
+steps; the logged loss and metrics are the ranks' mean.  Validation pads
+each batch to a multiple of the ranks, each rank runs its slice, and the
+gathered logits of the real rows are scored.  Logging, TensorBoard and
+checkpoints are rank 0's.  The model is broadcast from rank 0 at the
+start, the ranks must have as many batches an epoch, and a BatchNorm
+whose class does not set ``reduces_over_data`` (torch's ``BatchNorm2d``,
+RepVGG's train form) takes its statistics over the local batch and
+trains only under ``freeze_bn``.  With ``mesh=None`` and no process group
+the trainer is the one-device one.
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from dlmc_quant_torch.parallel import mesh as mesh_lib
 from dlmc_quant_torch.training.losses import get_loss, kurtosis
 from dlmc_quant_torch.training.metrics import get_metric
 from dlmc_quant_torch.training.schedulers import ReduceLROnPlateau
@@ -58,7 +74,7 @@ class Trainer:
     built with (a float, a schedule or a ReduceLROnPlateau).  ``config``
     keys (the YAML's trainer section): epochs, save_period, monitor,
     early_stop, train_log_density, valid_log_density, kurtosis, freeze_bn,
-    detect_anomalies, random_seed.
+    detect_anomalies, random_seed.  ``mesh``: see the module docstring.
     """
 
     train_qmode = "train"
@@ -66,9 +82,12 @@ class Trainer:
     def __init__(self, model: nn.Module, optimizer, lr_schedule,
                  train_loader, valid_loader=None,
                  config: Optional[Dict] = None, loss: str = "cross_entropy",
-                 metrics=("accuracy",), save_dir=None, log_dir=None,
-                 logger=None, resume: Optional[str] = None):
+                 metrics=("accuracy",), mesh=None, save_dir=None,
+                 log_dir=None, logger=None, resume: Optional[str] = None):
         self.model = model
+        self.mesh = mesh
+        self.ranks = mesh_lib.axis_size(mesh)
+        self.process_index = mesh_lib.rank()
         self.device = next(model.parameters()).device
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
@@ -86,10 +105,10 @@ class Trainer:
 
         self.loss_fn = get_loss(loss)
         self.metric_fns = {m: get_metric(m) for m in metrics}
-        self.logger = logger or get_logger("trainer")
+        self.logger = logger or get_logger("trainer", self.process_index)
         self.writer = TensorboardWriter(
             log_dir, self.logger,
-            enabled=log_dir is not None)
+            enabled=log_dir is not None and self.process_index == 0)
         self.ckpt = CheckpointManager(save_dir, self.monitor_metric or "loss") \
             if save_dir else None
 
@@ -118,6 +137,31 @@ class Trainer:
                         == "weight"]
         self.tracker = MetricTracker("loss", *self.metric_fns,
                                      writer=self.writer)
+        if self.ranks > 1:
+            self._check_data_parallel()
+            mesh_lib.replicate_tree(model, mesh)
+
+    def _check_data_parallel(self) -> None:
+        """Refuse what would make the ranks part: BN statistics that are
+        not reduced, and epochs of unequal length (a collective would
+        wait forever)."""
+        unreduced = [name for name, m in self.model.named_modules()
+                     if isinstance(m, nn.modules.batchnorm._BatchNorm)
+                     and not getattr(m, "reduces_over_data", False)]
+        if unreduced and not self.freeze_bn:
+            raise NotImplementedError(
+                f"{unreduced[0]}: this BatchNorm takes its statistics "
+                "over the local batch; data-parallel training needs one "
+                "that sets reduces_over_data, or freeze_bn")
+        counts = mesh_lib.all_gather_rows(torch.tensor(
+            [len(self.train_loader)], device=self.device), self.mesh)
+        if len(set(counts.tolist())) != 1:
+            raise ValueError(f"the ranks' epochs have {counts.tolist()} "
+                             "batches: they must be equal")
+
+    def _global(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-batch value (loss, metric) as the mean over the ranks."""
+        return mesh_lib.all_reduce_mean(t, self.mesh)
 
     @property
     def step(self) -> int:
@@ -144,7 +188,8 @@ class Trainer:
         """One update on a device batch; returns (loss, logits), detached.
         Nothing in it waits for the device."""
         self._set_train_mode()
-        logits = self.model(x, qmode=self.train_qmode)
+        with mesh_lib.data_parallel(self.mesh):
+            logits = self.model(x, qmode=self.train_qmode)
         loss = self.loss_fn(logits, y)
         if self.kurtosis_weight and self.kernels:
             # kurtosis regularizer of the conv kernels
@@ -153,6 +198,8 @@ class Trainer:
                 [kurtosis(k) for k in self.kernels]).mean()
         self.optimizer.zero_grad()
         loss.backward()
+        if self.ranks > 1:
+            mesh_lib.all_reduce_grads(self.optimizer.params, self.mesh)
         self.optimizer.step()
         return loss.detach(), logits.detach()
 
@@ -183,7 +230,7 @@ class Trainer:
                     if improved:
                         self.monitor_best = current
                         self.not_improved = 0
-                        if self.ckpt:
+                        if self.ckpt and self.process_index == 0:
                             self.ckpt.save_best(
                                 self._resume_tree(),
                                 {"epoch": epoch,
@@ -195,7 +242,8 @@ class Trainer:
                             "early stop at epoch %d (no improvement in %d)",
                             epoch, self.early_stop)
                         break
-            if self.ckpt and epoch % self.save_period == 0:
+            if (self.ckpt and self.process_index == 0
+                    and epoch % self.save_period == 0):
                 self.ckpt.save_epoch(epoch, self._resume_tree(),
                                      {"epoch": epoch, **result,
                                       "monitor_best": self.monitor_best})
@@ -219,7 +267,7 @@ class Trainer:
             if self.cfg.get("detect_anomalies"):
                 # a non-finite loss stops training before it can poison
                 # the parameters (the reference has no such check)
-                loss_val = float(loss)
+                loss_val = float(self._global(loss))
                 if not math.isfinite(loss_val):
                     raise FloatingPointError(
                         f"non-finite loss {loss_val} at epoch {epoch} "
@@ -227,9 +275,10 @@ class Trainer:
                         f"to disable)")
             if (i + 1) % self.train_log_step == 0 or i + 1 == n_batches:
                 self.writer.set_step((epoch - 1) * n_batches + i)
-                self.tracker.update("loss", float(loss))
+                self.tracker.update("loss", float(self._global(loss)))
                 for name, fn in self.metric_fns.items():
-                    self.tracker.update(name, float(fn(logits, batch[1])))
+                    self.tracker.update(name, float(self._global(
+                        fn(logits, batch[1]))))
                 self._log_quant_scalars()
                 self.logger.info(
                     "epoch %d [%d/%d] loss=%.4f lr=%.2e",
@@ -254,8 +303,15 @@ class Trainer:
         self.model.eval()           # a step sets its own modes
         with torch.no_grad():
             for x, y in self.valid_loader:
-                xb, yb = self._to_device(x, y)
-                logits = self.model(xb, qmode=self.eval_qmode)
+                bs = len(y)
+                x = np.asarray(x)
+                pad = (-bs) % self.ranks
+                if pad:     # the last batch may not divide over the ranks
+                    x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+                xb, yb = self._to_device(
+                    x[mesh_lib.data_sharding(self.mesh, len(x))], y)
+                logits = mesh_lib.all_gather_rows(
+                    self.model(xb, qmode=self.eval_qmode), self.mesh)[:bs]
                 m = {"loss": self.loss_fn(logits, yb)}
                 for name, fn in self.metric_fns.items():
                     m[name] = fn(logits, yb)

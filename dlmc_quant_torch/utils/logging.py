@@ -51,7 +51,20 @@ def setup_logging(save_dir: Optional[Path], level: int = logging.INFO,
     return logging.getLogger(name)
 
 
-def get_logger(name: str) -> logging.Logger:
+class NoOp:
+    """The logger of a non-zero rank: every call does nothing.
+    ref: logger/logger.py:28-31"""
+
+    def __getattr__(self, _name):
+        def no_op(*args, **kwargs):
+            pass
+        return no_op
+
+
+def get_logger(name: str, process_index: int = 0):
+    """``name``'s logger at INFO; a :class:`NoOp` on a non-zero rank."""
+    if process_index > 0:
+        return NoOp()
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     return logger

@@ -230,7 +230,12 @@ TRAINING_MODULES = (
     "dlmc_quant_torch.training.qat", "dlmc_quant_torch.training.optimizers",
     "dlmc_quant_torch.utils.metric_tracker",
     "dlmc_quant_torch.examples.classification",
-    "dlmc_quant_torch.examples.quantization_aware_training")
+    "dlmc_quant_torch.examples.quantization_aware_training",
+    "dlmc_quant_torch.parallel.mesh", "dlmc_quant_torch.parallel.serving",
+    "dlmc_quant_torch.tools.lockstep_2proc",
+    "dlmc_quant_torch.examples.serve_benchmark",
+    "dlmc_quant_torch.examples.benchmark",
+    "dlmc_quant_torch.examples.distributed_training")
 
 
 def test_import_leaves_out_jax():
