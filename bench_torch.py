@@ -59,8 +59,9 @@ SIZE, CLASSES, SEED = 224, 1000, 0
 RESNET50_BATCH = 256  # bench.py:189-190
 # bench.py's other models at batch 256 (bench.py:186-207): key, registry
 # name, weight bits, the launches of one int8 request (3x3 convs, GEMMs,
-# im2cols, stem convs + pools, depthwise convs)
-LAUNCHES = dict(conv=0, gemm=0, im2col=0, stem_pool=0, dwconv=0)
+# im2cols, stem convs + pools, depthwise convs, window sums)
+LAUNCHES = dict(conv=0, gemm=0, im2col=0, stem_pool=0, dwconv=0,
+                window_sum=0)
 EXTRAS = (("resnet50_int8", "resnet50", 8,
            dict(LAUNCHES, conv=16, gemm=36, stem_pool=1)),
           ("mobileone_s1_int8", "mobileone_s1", 8,

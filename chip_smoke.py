@@ -8,16 +8,17 @@ the PTQ observers and BASELINE config #2's PTQ entry, the training path
 (LSQ and RootQ QAT, fp32, QAT -> deploy at W4A4, ResNet-50 RootQ), the
 accuracy protocol cut short (trained cifar_resnet20 and RepVGG-A0), the
 serving engine (RepVGG-A0 and ResNet-50 through continuous batching, the
-two-process lockstep) and data-parallel training on NCCL, then the two
-int8 GEMM tools.
+two-process lockstep) and data-parallel training on NCCL, RootQ served in
+int8 (BASELINE config #5's ResNet-50 through the engine, cifar_resnet20;
+the window sums of a weight offset), then the two int8 GEMM tools.
 
     python3 chip_smoke.py [--parent DIR]
 
 Phases, each fatal on failure:
-  1. build   the six kernels from dlmc_quant_torch/ops/cuda/csrc (int8
+  1. build   the seven kernels from dlmc_quant_torch/ops/cuda/csrc (int8
              3x3 conv, int8 GEMM, int8 im2col, int8 stem conv + pool, int8
-             depthwise 3x3 conv, int8 MMA probe), one nvcc each, all at
-             once (prints the build
+             depthwise 3x3 conv, int8 window sum, int8 MMA probe), one nvcc
+             each, all at once (prints the build
              seconds, ptxas' report of registers and spills, and the
              dynamic shared memory of every GEMM tile and of the probe's
              ring); then the card tests of the conv at ragged shapes, the
@@ -32,9 +33,11 @@ Phases, each fatal on failure:
              tests/test_torch_resnet_conv.py,
              tests/test_torch_gemm_epilogue.py,
              tests/test_torch_stem_pool.py, tests/test_torch_dwconv.py,
-             tests/test_torch_mobile.py and, the four weight-taking
-             kernels at W4, tests/test_torch_int4_kernels.py, -m cuda),
-             before any timing;
+             tests/test_torch_mobile.py, the four weight-taking kernels at
+             W4, tests/test_torch_int4_kernels.py, and the window sums and
+             the weight offset's term in the conv's, GEMM's and depthwise
+             conv's epilogues at W8 and W4, tests/test_torch_rootq_int.py;
+             -m cuda), before any timing;
   2. kernel  RepVGG-A0 deploy form at 224x224, full width, seeded random
              weights, calibrated on one seeded batch (FSPTQ W8A8 with
              AdaRound decisions) and prepared for integer execution.  At
@@ -224,6 +227,27 @@ Phases, each fatal on failure:
            the synthetic ImageNet fallback, 224x224) at batch 64 (the
            config's 256: r50_training_leg(256), by hand): ms a step and
            peak memory;
+  rootq_serve RootQ in int8 (a weight offset's row term, ROADMAP item 13):
+           (a) config #5's ResNet-50 as the qat phase's (d) trains it,
+           prepare_deploy (the C20 midpoint count printed); (b)
+           'intc' (the train form runs it as 'int') through InferenceEngine
+           at batch 128: measure_throughput images/s, a checked stream of
+           6 requests of 1..384 images under LaunchRecorder(check=True),
+           16 conv + 36 GEMM + 52 window-sum launches a step, each ==
+           plain, every future == the direct forward, a step's forward ms;
+           (c) on 4 images the card against the CPU plain path under
+           full_f32: every module fed the card's inputs within relative L2
+           1e-4, the logits' relative L2 printed (not gated: C14), top-1
+           agreement with the card's fake-quant eval; every window-sum
+           launch of a batch-128 step == plain, timed, its bound (bytes),
+           its plain ms and torch.sum beside the 1x1 ones, their share of
+           the forward; each conv and GEMM launch timed with its term and
+           without it; (d) the qat phase's RootQ W4A4 cifar_resnet20
+           deployed: every launch of a request == plain at batch 8 and 256
+           (18 convs, 18 window sums), one make_serving_fn request of 256
+           under full_f32 and the card against the CPU at 64 images as in
+           (c); (e) one RootQ depthwise launch with its offset term (W4,
+           56x56x144) == plain, timed with and without the term;
   accuracy the port's accuracy protocol (python -m
            dlmc_quant_torch.tools.accuracy_protocol) cut to --epochs 2
            --qat-epochs 1 --recon-iters 40, both sections, on the hard
@@ -309,12 +333,14 @@ from dlmc_quant_torch.ops.cuda import int8_gemm as G
 from dlmc_quant_torch.ops.cuda import int8_im2col as I
 from dlmc_quant_torch.ops.cuda import int8_mma_probe as P
 from dlmc_quant_torch.ops.cuda import int8_stem_pool as SP
+from dlmc_quant_torch.ops.cuda import int8_window_sum as WS
 from dlmc_quant_torch.ops import observers as OBS
 from dlmc_quant_torch.ops.cuda.nibbles import W4
 from dlmc_quant_torch.parallel.serving import (InferenceEngine,
                                                measure_throughput)
 from dlmc_quant_torch.quant.chain import (fold_params, materialize, qmaxpool,
                                           qrelu, qrelu6)
+from dlmc_quant_torch.quant.deploy import midpoint_count
 from dlmc_quant_torch.quant.layers import QConv, QDense, full_f32
 from dlmc_quant_torch.tools import accuracy_protocol as protocol
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
@@ -341,14 +367,14 @@ CIFAR_SIZE, CIFAR_CLASSES = 32, 10
 # launches of one chained request: 3x3 convs, GEMMs, im2cols, stem convs
 # + pools, depthwise convs
 RESNET18_LAUNCHES = {"conv": 18, "gemm": 3, "im2col": 0, "stem_pool": 0,
-                     "dwconv": 0}
+                     "dwconv": 0, "window_sum": 0}
 RESNET50_LAUNCHES = {"conv": 16, "gemm": 36, "im2col": 0, "stem_pool": 1,
-                     "dwconv": 0}
+                     "dwconv": 0, "window_sum": 0}
 # the depthwise zoo: registry name and factory keywords of the train form,
 # its fuser, the launches of a request, and the module whose (activated)
 # output the pool reads
 MOBILENET_V2_LAUNCHES = {"conv": 1, "gemm": 39, "im2col": 0, "stem_pool": 0,
-                         "dwconv": 17}
+                         "dwconv": 17, "window_sum": 0}
 MOBILE = {
     "mobilenet_v2": ("mobilenet_v2", {}, mobilenet_deploy,
                      MOBILENET_V2_LAUNCHES, "conv_head"),
@@ -357,7 +383,7 @@ MOBILE = {
                           "conv_head"),
     "MobileOne_S1": ("MobileOne_S1", {}, mobileone_fuse,
                      {"conv": 1, "gemm": 21, "im2col": 0, "stem_pool": 0,
-                      "dwconv": 21}, "stage4_0_pw")}
+                      "dwconv": 21, "window_sum": 0}, "stage4_0_pw")}
 DW_TOOL = REPO / "dlmc_quant_torch" / "tools" / "dw_launches.py"
 # the training path: configs, cuts and what must move
 QAT_CONFIGS = {"lsq": "QAT_lsq_resnet20_cifar10_w4a4",
@@ -368,7 +394,16 @@ FP_CONFIG, R50_CONFIG = ("baseline_resnet20_cifar10",
 QAT_IMAGES, TIMED_STEPS, EVAL_IMAGES = 2048, 20, 64
 R50_BATCH, R50_STEPS = 64, 4
 QAT_DEPLOY_LAUNCHES = {"conv": 18, "gemm": 0, "im2col": 0, "stem_pool": 0,
-                       "dwconv": 0}
+                       "dwconv": 0, "window_sum": 0}
+# the rootq_serve phase: a step of config #5's ResNet-50 (train form,
+# 'intc' runs as 'int'; conv1 and linear excluded: 16 3x3 convs, 36 1x1
+# GEMMs, a window sum each) and a request of RootQ cifar_resnet20 (18 3x3
+# convs, a window sum each); the images of the card-vs-CPU check
+R50_ROOTQ_LAUNCHES = {"conv": 16, "gemm": 36, "im2col": 0, "stem_pool": 0,
+                      "dwconv": 0, "window_sum": 52}
+RESNET20_ROOTQ_LAUNCHES = {"conv": 18, "gemm": 0, "im2col": 0,
+                           "stem_pool": 0, "dwconv": 0, "window_sum": 18}
+ROOTQ_IMAGES = 4
 SCHEME = {
     "quantization_type": "FSPTQ",
     "weight": {"enable": True, "type": "minmax_channel",
@@ -408,9 +443,9 @@ ENGINE_TAIL, ENGINE_SHORT = 300, 32
 ENGINE_LOAD = 0.6
 ENGINE_INT_LAUNCHES = {
     "RepVGG_A0": {"conv": 22, "gemm": 0, "im2col": 0, "stem_pool": 0,
-                  "dwconv": 0},
+                  "dwconv": 0, "window_sum": 0},
     "resnet50": {"conv": 16, "gemm": 37, "im2col": 1, "stem_pool": 0,
-                 "dwconv": 0}}
+                 "dwconv": 0, "window_sum": 0}}
 # distributed_training's losses held against the plain QATTrainer's
 DIST_LOSSES = 3
 
@@ -425,8 +460,9 @@ def card_tests():
     (ragged shapes, every compiled tile, both modes, SAME stride 2, the
     residual epilogue, the shortcut GEMMs, the GEMM's epilogue modes, the
     im2col, the stem conv + pool, the depthwise conv, the GEMM at 24
-    channels, the four weight-taking kernels at W4), in a process of their
-    own; fatal unless all pass."""
+    channels, the four weight-taking kernels at W4, the window sums and a
+    weight offset's term in the conv, GEMM and depthwise epilogues), in a
+    process of their own; fatal unless all pass."""
     tests = REPO / "tests"
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
@@ -436,11 +472,12 @@ def card_tests():
          str(tests / "test_torch_stem_pool.py"),
          str(tests / "test_torch_dwconv.py"),
          str(tests / "test_torch_mobile.py"),
-         str(tests / "test_torch_int4_kernels.py")],
+         str(tests / "test_torch_int4_kernels.py"),
+         str(tests / "test_torch_rootq_int.py")],
         capture_output=True, text=True)
     tail = run.stdout.strip().splitlines()[-1:] or [run.stderr.strip()[-300:]]
-    print(f"# card tests of int8_conv3x3, the ResNet path and the "
-          f"depthwise zoo: {tail[0]}")
+    print(f"# card tests of int8_conv3x3, the ResNet path, the depthwise "
+          f"zoo and the weight offset's term: {tail[0]}")
     if run.returncode != 0:
         print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
         raise RuntimeError("the ResNet path's card tests failed")
@@ -752,14 +789,25 @@ def resnet18_deployed(device):
 
 def launch_bound(kind, args, kw, out):
     """(bound ms, ops ms, bytes ms) of one recorded launch: inputs read and
-    the output written once (a residual and the epilogue's per-column
-    affines read once too)."""
+    the output written once (a residual, a row term's S and c and the
+    epilogue's per-column affines read once too)."""
     nbytes = out.numel() * out.element_size()
     r = kw.get("residual")
     if r is not None:
         nbytes += r[0].numel() * r[0].element_size() + 8 * out.shape[-1]
+    if kw.get("row") is not None:
+        nbytes += 4 * (kw["row"][0].numel() + out.shape[-1])
+    if kw.get("offset") is not None:
+        nbytes += 4 * out.shape[-1]
     if kind == "im2col":
         return bound_of(0, args[0].numel() + nbytes)
+    if kind == "window_sum":
+        # adds, no int8 multiply-adds: bytes bound; the pixels the windows
+        # touch read once (all of x, but a strided 1x1's subsample)
+        x = args[0]
+        k, st = kw.get("kernel", 1), kw.get("stride", 1)
+        touched = x.numel() if k >= st else out.numel() * k * k * x.shape[-1]
+        return bound_of(0, touched + nbytes)
     if kind == "dwconv":
         # 9 multiply-adds an output value; x, the (9, C) weight (half the
         # bytes at W4), a and b
@@ -803,6 +851,12 @@ def launch_label(kind, args, kw) -> str:
     x = args[0]
     r = kw.get("residual")
     extra = f" +r {str(r[0].dtype).split('.')[-1]}" if r is not None else ""
+    if kw.get("row") is not None or kw.get("offset") is not None:
+        extra += " +o_w"
+    if kind == "window_sum":
+        return (f"window_sum {tuple(x.shape)} {kw.get('kernel', 1)}x"
+                f"{kw.get('kernel', 1)} s{kw.get('stride', 1)} pads "
+                f"{kw.get('pads', ((0, 0), (0, 0)))[0]}")
     if kind == "im2col":
         return (f"im2col {tuple(x.shape)} {kw['kernel']}x{kw['kernel']} "
                 f"s{kw['stride']} pads {kw['pads'][0]}")
@@ -810,8 +864,8 @@ def launch_label(kind, args, kw) -> str:
         p = DW.plan(*x.shape, kw["stride"])
         return (f"dwconv {tuple(x.shape)} s{kw['stride']} pad_lo "
                 f"{kw.get('pad_lo', 1)} {kw['mode']}"
-                f"{' relu' if kw.get('relu') else ''} [cb{p.cb} {p.th}x"
-                f"{p.tw} {p.threads}t rpt{p.rpt} {p.tiles} tiles]")
+                f"{' relu' if kw.get('relu') else ''}{extra} [cb{p.cb} "
+                f"{p.th}x{p.tw} {p.threads}t rpt{p.rpt} {p.tiles} tiles]")
     if kind == "stem_pool":
         out = (x.shape[0],) + SP.geometry(x.shape[1], x.shape[2],
                                           kw["pads"])[2:] + (args[1].shape[1],)
@@ -830,7 +884,8 @@ def launch_group(kind, kw) -> str:
     if kind != "gemm":
         return {"conv": "3x3 conv", "im2col": "stem im2col",
                 "stem_pool": "stem conv + pool",
-                "dwconv": "depthwise 3x3 conv"}[kind]
+                "dwconv": "depthwise 3x3 conv",
+                "window_sum": "window sums"}[kind]
     mode = kw.get("mode", "int32")
     return f"gemm {mode}" + (" + residual" if kw.get("residual") else "")
 
@@ -987,7 +1042,7 @@ def stem_im2col_phase(model, x):
         torch.cuda.synchronize()
         launches = I.int8_im2col.launches
         want = {"conv": 0, "gemm": 1, "im2col": 1, "stem_pool": 0,
-                "dwconv": 0}
+                "dwconv": 0, "window_sum": 0}
         if rec.counts() != want or launches != 1:
             raise RuntimeError(f"the stem's im2col route made "
                                f"{rec.counts()} calls, {launches} im2col "
@@ -1487,7 +1542,7 @@ def config4_phase(device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = rec.counts()
-    want = {"conv": 0, "gemm": 21, "im2col": 0, "stem_pool": 0, "dwconv": 21}
+    want = {"conv": 0, "gemm": 21, "im2col": 0, "stem_pool": 0, "dwconv": 21, "window_sum": 0}
     err = max((max_diff_to_plain(*call) for call in rec.calls), default=0.0)
     print(f"# config #4 entry: rc {rc}, {wall:.2f} s; its chained int8 "
           f"evaluation made {counts} launches (the stem weight-only: "
@@ -1901,7 +1956,8 @@ def qat_deploy_leg(device):
 def r50_training_leg(batch: int = R50_BATCH, steps: int = R50_STEPS):
     """BASELINE config #5's training leg: RootQ W4A4 ResNet-50 through the
     QAT entry's build_trainer on the synthetic ImageNet fallback, one
-    checked step and ``steps`` timed ones at ``batch``.  By hand for the
+    checked step and ``steps`` timed ones at ``batch``; returns the
+    trainer (the rootq_serve phase serves its model).  By hand for the
     config's batch 256: ``python3 -c 'import chip_smoke as s;
     s.r50_training_leg(256, 2)'``."""
     device = torch.device("cuda")
@@ -1916,13 +1972,16 @@ def r50_training_leg(batch: int = R50_BATCH, steps: int = R50_STEPS):
     loss, _ = trainer.train_step(x, y.long())
     if not bool(torch.isfinite(loss)):
         raise RuntimeError(f"r50 rootq w4a4: loss {float(loss)}")
-    return time_steps("r50 rootq w4a4", trainer, x, y.long(), steps,
-                      graph_steps=1)
+    time_steps("r50 rootq w4a4", trainer, x, y.long(), steps, graph_steps=1)
+    return trainer
 
 
 def qat_phase(device):
     """(a) both QAT configs, (b) the fp32 baseline, (c) the deploy leg, (d)
-    ResNet-50 RootQ training; returns the deploy leg's (launches, err)."""
+    ResNet-50 RootQ training; returns the deploy leg's (launches, err) and
+    the two RootQ trainers, cifar_resnet20's and ResNet-50's (the
+    rootq_serve phase deploys them)."""
+    trained = {}
     for family, name in QAT_CONFIGS.items():
         trainer = qat_entry.build_trainer(
             training_config(name, n_samples=QAT_IMAGES), device,
@@ -1931,14 +1990,268 @@ def qat_phase(device):
         x, y = train_gated(f"qat {family} w4a4", trainer, QAT_MOVED[family],
                            chain_gate=family != "rootq")
         time_steps(f"qat {family} w4a4", trainer, x, y)
+        trained[family] = trainer
     trainer = fp_entry.build_trainer(
         training_config(FP_CONFIG, n_samples=QAT_IMAGES), device,
         get_logger("fp"))
     x, y = train_gated("fp32 baseline", trainer)
     time_steps("fp32 baseline", trainer, x, y)
     launches, err = qat_deploy_leg(device)
-    r50_training_leg()
-    return launches, err
+    return launches, err, trained["rootq"], r50_training_leg()
+
+
+def card_vs_cpu(what, model, x, qmode):
+    """``model(x)`` in ``qmode`` on the card and on its CPU copy (the plain
+    path) under full_f32: the logits' relative L2, printed and not gated
+    (C14: at 4 bits a code that a float difference flips at a tie, in the
+    float stem's conv or a BatchNorm's rsqrt, moves every layer after it),
+    and, gated at 1e-4, every module fed the card's inputs to it
+    (``eval_modules``); returns the card's logits."""
+    with full_f32():
+        rel, layers = eval_modules(model, x, qmode)
+    worst = max(layers.items(), key=lambda kv: kv[1])
+    with torch.inference_mode(), full_f32():
+        y = model(x, qmode=qmode)
+    print(f"# {what} {qmode} card vs CPU plain path on {len(x)} images "
+          f"(full_f32): logits rel L2 {rel:.3e} (printed only: C14); "
+          f"{len(layers)} modules each fed the card's inputs: worst rel L2 "
+          f"{worst[1]:.2e} ({worst[0]})")
+    if not worst[1] < 1e-4 or not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"{what}: module {worst[0]} card vs CPU rel "
+                           f"{worst[1]}, or the logits are not finite")
+    return y
+
+
+def checked_engine(what, model, qmode, image, expect, device, card):
+    """``model`` through InferenceEngine at ENGINE_BATCH: measure_throughput
+    images/s, then engine_leg's checked stream (ENGINE_CHECKED requests of
+    1..3 batches under LaunchRecorder(check=True): the launches a step as
+    ``expect`` says, each == plain; every future's rows == the direct
+    forward) and a step's forward ms on device-resident images; returns
+    (the stream's launches by kind, images/s, forward ms)."""
+    eng = InferenceEngine(model, batch_size=ENGINE_BATCH, qmode=qmode,
+                          device=device)
+    ips = measure_throughput(eng, image, n_batches=20)
+    b = ENGINE_BATCH
+    pool = np.random.default_rng(SEED + 5).random(
+        (3 * b + 64,) + tuple(image), np.float32)
+    sizes = np.random.default_rng(SEED + 6).integers(
+        1, 3 * b + 1, ENGINE_CHECKED).tolist()
+    eng.start()
+    try:
+        reqs, steps, n_checked = checked_stream(what, eng, pool, sizes,
+                                                expect)
+    finally:
+        eng.stop()
+    torch.cuda.synchronize()
+    launches = engine_counts()
+    if launches != {kind: n * steps for kind, n in expect.items()}:
+        raise RuntimeError(f"{what} engine: the wrappers counted {launches} "
+                           f"launches in {steps} steps")
+    worst = check_futures(what, eng, pool, reqs)
+    xd = torch.from_numpy(pool[:b]).to(device)
+    with torch.inference_mode():
+        fwd_ms = event_ms(lambda: model(xd, qmode=qmode), 5)
+    print(f"# {what} engine (qmode {qmode!r}, batch {b}): measure_throughput"
+          f" {ips:.1f} images/s; checked stream of {len(reqs)} requests "
+          f"({sum(sizes)} images, {steps} steps, {n_checked} launches "
+          f"== plain); every future == the direct forward (worst relative "
+          f"{worst:.1e}); a step's forward {fwd_ms:.3f} ms on "
+          f"device-resident images; launches {launches}; {card}")
+    return launches, ips, fwd_ms
+
+
+def offset_beside(calls):
+    """Each conv, GEMM and depthwise launch of ``calls`` that carries a
+    weight offset's term, timed with it and again without it at the same
+    shape (CUDA graphs of GRAPH_LAUNCHES); returns {kind: [launches, ms
+    with, ms without]}."""
+    out = {}
+    for kind, args, kw, _ in calls:
+        key = "row" if kind in ("conv", "gemm") else "offset"
+        if kind not in ("conv", "gemm", "dwconv") or kw.get(key) is None:
+            continue
+        run = KERNELS[kind][0]
+        bare = {k: v for k, v in kw.items() if k != key}
+        e = out.setdefault(kind, [0, 0.0, 0.0])
+        e[0] += 1
+        e[1] += graph_ms(lambda _: run(*args, **kw), GRAPH_LAUNCHES)
+        e[2] += graph_ms(lambda _: run(*args, **bare), GRAPH_LAUNCHES)
+    return out
+
+
+def window_sum_launches(calls, total_ms):
+    """Every window-sum launch of ``calls``: kernel == plain (tolerance 0),
+    kernel ms (CUDA graph), bound ms (bytes: x read once, S written once,
+    over HBM's rate), plain ms, and beside a 1x1 window the library call
+    that computes it, torch.sum(x - zero, -1, dtype=int32); their sums,
+    and their share of ``total_ms``.  Returns the kernels-line entry."""
+    e = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
+             library_ms=0.0, err=0.0)
+    shapes = {}
+    for kind, args, kw, out in calls:
+        if kind != "window_sum":
+            continue
+        err = max_diff_to_plain(kind, args, kw, out)
+        ms = graph_ms(lambda _: WS.int8_window_sum(*args, **kw),
+                      GRAPH_LAUNCHES)
+        b_ms, t_ops, t_bytes = launch_bound(kind, args, kw, out)
+        key = launch_label(kind, args, kw)
+        if key not in shapes:
+            plain_ms = event_ms(lambda: WS.int8_window_sum_plain(
+                *args, **kw), PLAIN_REPS)
+            lib = None
+            if kw.get("kernel", 1) == 1 and kw.get("stride", 1) == 1:
+                x, zero = args[0], kw["zero"]
+                want = torch.sum(x, -1, dtype=torch.int32) \
+                    - zero * x.shape[-1]
+                if not torch.equal(want, out):
+                    raise RuntimeError(f"{key}: torch.sum differs")
+                lib = graph_ms(lambda _: torch.sum(x, -1, dtype=torch.int32),
+                               GRAPH_LAUNCHES)
+            shapes[key] = [0, plain_ms, lib]
+        shapes[key][0] += 1
+        for k, v in (("ms", ms), ("bound_ms", b_ms), ("ops_ms", t_ops),
+                     ("bytes_ms", t_bytes), ("plain_ms", shapes[key][1]),
+                     ("library_ms", shapes[key][2] or 0.0)):
+            e[k] += v
+        e["err"] = max(e["err"], err)
+        print(f"{key:52s} | {err:g} | {ms * 1e3:8.2f} {b_ms * 1e3:8.2f} "
+              f"{ms / b_ms:.2f} {{plain {shapes[key][1] * 1e3:.1f}}}"
+              + (f" [torch.sum {shapes[key][2] * 1e3:.2f}]"
+                 if shapes[key][2] is not None else ""))
+        if err != 0:
+            raise RuntimeError(f"{key}: kernel and plain differ by {err}")
+    n = sum(v[0] for v in shapes.values())
+    print(f"# window sums: {n} launches at {len(shapes)} shapes, kernel "
+          f"{e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms (bytes), plain "
+          f"{e['plain_ms']:.4f} ms, torch.sum beside the 1x1 ones "
+          f"{e['library_ms']:.4f} ms (no library call sums a window); "
+          f"{100 * e['ms'] / total_ms:.1f} % of the {total_ms:.3f} ms "
+          f"forward")
+    return e
+
+
+def rootq_dw_launch(device):
+    """One RootQ depthwise launch with its offset term at MobileNetV2's
+    56x56x144 stride-1 layer, batch 8, W4: kernel == plain, timed beside
+    the same launch without the term; returns (max diff, ms with, ms
+    without)."""
+    g = torch.Generator().manual_seed(SEED + 11)
+    x = torch.randint(-8, 8, (8, 56, 56, 144), generator=g,
+                      dtype=torch.int8).to(device)
+    wp = DW.pack_weight_int4(torch.randint(-7, 8, (3, 3, 1, 144),
+                                           generator=g, dtype=torch.int8))
+    a, b, oc = ((torch.rand(144, generator=g) * 1e-2).to(device),
+                torch.randn(144, generator=g).to(device),
+                (torch.randn(144, generator=g) * 1e-2).to(device))
+    kw = dict(stride=1, pad=-8, lo=-8, hi=7, mode="codes")
+    wp = wp.to(device)
+    got = DW.int8_dwconv3x3(x, wp, a, b, offset=oc, **kw)
+    err = max_abs(got, DW.int8_dwconv3x3_plain(x, wp, a, b, offset=oc, **kw))
+    ms = graph_ms(lambda _: DW.int8_dwconv3x3(x, wp, a, b, offset=oc, **kw),
+                  GRAPH_LAUNCHES)
+    bare = graph_ms(lambda _: DW.int8_dwconv3x3(x, wp, a, b, **kw),
+                    GRAPH_LAUNCHES)
+    print(f"# rootq depthwise launch (8,56,56,144) s1 W4 codes +o_w: max "
+          f"|diff| to plain {err}; {ms * 1e3:.2f} us with the offset term, "
+          f"{bare * 1e3:.2f} us without")
+    if err != 0:
+        raise RuntimeError(f"the depthwise offset term differs from plain "
+                           f"by {err}")
+    return err, ms, bare
+
+
+def spread_bounds(model, seed: int):
+    """Move every RootQ weight's bounds apart, running and learned alike,
+    from ``seed``: ``u`` up by 5-35 %, ``l`` toward 0 by 10-40 %.  A cut
+    QAT run leaves ``u = −l`` (its few steps sit inside the configs'
+    warmup of 400 and 2,500 steps, and the running bounds take 0.1 % of
+    each step), so ``o_w = (u + l)/2`` is 0 on the symmetric grid; a
+    trained checkpoint's is not, and the served path is the one with the
+    row term."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "wt_run_upper"):
+                up, down = (1.05 + 0.3 * torch.rand((2,), generator=g)
+                            ).tolist()
+                for t in (m.wt_run_upper, m.wt_upper):
+                    t.mul_(up)
+                for t in (m.wt_run_lower, m.wt_lower):
+                    t.mul_(down - 0.45)
+
+
+def rootq_serve_phase(device, card, r20_trainer, r50_trainer):
+    """BASELINE config #5 served, and RootQ's integer routes: (a) the
+    ResNet-50 RootQ W4A4 model of r50_training_leg, its bounds spread
+    (spread_bounds) -> prepare_deploy; (b)
+    intc through InferenceEngine at ENGINE_BATCH (checked_engine); (c) on
+    ROOTQ_IMAGES images the card against the CPU plain path (card_vs_cpu),
+    top-1 agreement with the card's fake-quant eval, the C20 count; (d)
+    RootQ cifar_resnet20 (qat_phase's trainer) deployed: every launch ==
+    plain at batch 8 and SERVE_BATCH, one served request; (e) one RootQ
+    depthwise launch, every window-sum launch of a ResNet-50 step (==
+    plain, timed, bound, torch.sum beside the 1x1 ones) and each corrected
+    conv / GEMM launch beside its uncorrected one.  Returns the launches by
+    kind (b + d's request), the largest kernel-vs-plain difference, the
+    window sums' kernels-line entry and the depthwise launch's
+    (err, ms, bare ms)."""
+    t0 = time.perf_counter()
+    model = r50_trainer.model.eval()
+    spread_bounds(model, SEED + 12)
+    model = prepare_deploy(model)
+    mids = midpoint_count(model)
+    launches, ips, fwd_ms = checked_engine(
+        "r50 rootq w4a4 (config #5)", model, "intc", (SIZE, SIZE, 3),
+        R50_ROOTQ_LAUNCHES, device, card)
+    x = images(ROOTQ_IMAGES, SEED + 9, device)
+    y = card_vs_cpu("r50 rootq w4a4", model, x, "intc")
+    with torch.inference_mode(), full_f32():
+        fake = model(x, qmode="eval")
+    agree = float((y.argmax(-1) == fake.argmax(-1)).float().mean())
+    print(f"# r50 rootq w4a4: logits {tuple(y.shape)}; top-1 agreement with "
+          f"the card's fake-quant eval {agree:.4f}; weights on a bin "
+          f"midpoint (C20) {mids}")
+    if y.shape != (ROOTQ_IMAGES, CLASSES):
+        raise RuntimeError(f"r50 rootq w4a4: logits {tuple(y.shape)}")
+    xb = torch.from_numpy(np.random.default_rng(SEED + 5).random(
+        (ENGINE_BATCH, SIZE, SIZE, 3), np.float32)).to(device)
+    with torch.inference_mode():
+        with LaunchRecorder() as rec:
+            model(xb, qmode="intc")
+        torch.cuda.synchronize()
+        ws = window_sum_launches(rec.calls, fwd_ms)
+        beside = offset_beside(rec.calls)
+    print("# r50 rootq w4a4 batch 128, each corrected launch beside the "
+          "uncorrected one at its shape (launches, ms with the term, ms "
+          "without): " + "; ".join(f"{kind} {n}, {a:.4f}, {b:.4f}"
+                                   for kind, (n, a, b) in beside.items()))
+    del model, rec
+    r20 = r20_trainer.model.eval()
+    spread_bounds(r20, SEED + 13)
+    r20 = prepare_deploy(r20)
+    xs = torch.cat([torch.from_numpy(b) for b, _ in
+                    list(r20_trainer.train_loader)[:2]]).to(device)
+    err = max(resnet_kernel_phase("qat rootq w4a4", r20, xb_,
+                                  RESNET20_ROOTQ_LAUNCHES)["err"]
+              for xb_ in (xs[:8], xs))
+    zero_counts()
+    serve = make_serving_fn(r20, qmode="intc", device=device)
+    with full_f32():
+        served = serve(xs)
+        torch.cuda.synchronize()
+    request = engine_counts()
+    card_vs_cpu("qat rootq w4a4 (cifar_resnet20)", r20, xs[:EVAL_IMAGES],
+                "intc")
+    if request != RESNET20_ROOTQ_LAUNCHES or not bool(
+            torch.isfinite(served).all()):
+        raise RuntimeError(f"the RootQ cifar_resnet20 request made "
+                           f"{request}, expected {RESNET20_ROOTQ_LAUNCHES}")
+    dw = rootq_dw_launch(device)
+    print(f"# rootq_serve phase: {time.perf_counter() - t0:.1f} s")
+    total = {k: launches[k] + request[k] for k in launches}
+    return total, max(err, ws["err"]), ws, dw
 
 
 def ptq_phase():
@@ -2159,6 +2472,45 @@ def submit_stream(engine, pool, sizes, rate=None, seed=SEED):
     return reqs
 
 
+def checked_stream(what, eng, pool, sizes, expect):
+    """Requests of ``sizes`` images (slices of ``pool``) through the
+    running engine under LaunchRecorder(check=True): the launches a step
+    as ``expect`` says, each == plain.  Returns (the requests, the steps,
+    the launches checked)."""
+    zero_counts()
+    steps0 = eng.stats["batches"]
+    with LaunchRecorder(check=True) as rec:
+        reqs = submit_stream(eng, pool, sizes)
+    steps = eng.stats["batches"] - steps0
+    bad = [(kind, err) for kind, err in rec.calls if err != 0]
+    want = {kind: n * steps for kind, n in expect.items()}
+    if rec.counts() != want or bad:
+        raise RuntimeError(f"{what} engine: {rec.counts()} checked "
+                           f"launches in {steps} steps (expected {want}); "
+                           f"differing from plain: {bad[:3]}")
+    return reqs, steps, len(rec.calls)
+
+
+def check_futures(what, eng, pool, reqs):
+    """Every request's rows == the direct forward of its images (relative
+    1e-6); returns the worst relative difference."""
+    b = eng.batch_size
+    worst = 0.0
+    for off, k, fut, *_ in reqs:
+        got = fut.result()
+        direct = np.concatenate([
+            eng.forward(pool[off + i:off + min(i + b, k)]).cpu().numpy()
+            for i in range(0, k, b)])
+        if got.shape != direct.shape or not np.isfinite(got).all():
+            raise RuntimeError(f"{what} engine: bad rows {got.shape}")
+        worst = max(worst, float(np.abs(got - direct).max()
+                                 / (np.abs(direct).max() + 1e-12)))
+    if not worst <= 1e-6:
+        raise RuntimeError(f"{what} engine: a future differs from the "
+                           f"direct forward by {worst} (relative)")
+    return worst
+
+
 def engine_leg(what, model, qmode, image, expect, device, card,
                ips_line=None, n_timed=ENGINE_SHORT):
     """One model through the continuous-batching engine at ENGINE_BATCH: a
@@ -2183,12 +2535,9 @@ def engine_leg(what, model, qmode, image, expect, device, card,
     rng = np.random.default_rng(SEED + 6)
     eng.start()
     try:
-        zero_counts()
-        steps0 = eng.stats["batches"]
-        with LaunchRecorder(check=True) as rec:
-            checked = submit_stream(eng, pool, rng.integers(
-                1, 3 * b + 1, ENGINE_CHECKED).tolist())
-        checked_steps = eng.stats["batches"] - steps0
+        checked, checked_steps, n_checked = checked_stream(
+            what, eng, pool, rng.integers(1, 3 * b + 1,
+                                          ENGINE_CHECKED).tolist(), expect)
         sizes = rng.integers(1, 3 * b + 1, ENGINE_FULL).tolist()
         t0 = time.perf_counter()
         full = submit_stream(eng, pool, sizes, seed=SEED + 7)
@@ -2204,25 +2553,7 @@ def engine_leg(what, model, qmode, image, expect, device, card,
     torch.cuda.synchronize()
     launches = engine_counts()
     steps = {k: eng.stats[k] - before[k] for k in eng.stats}
-    bad = [(kind, err) for kind, err in rec.calls if err != 0]
-    want = {kind: n * checked_steps for kind, n in expect.items()}
-    if rec.counts() != want or bad:
-        raise RuntimeError(f"{what} engine: {rec.counts()} checked "
-                           f"launches in {checked_steps} steps (expected "
-                           f"{want}); differing from plain: {bad[:3]}")
-    worst = 0.0
-    for off, k, fut, *_ in checked + full + timed:
-        got = fut.result()
-        direct = np.concatenate([
-            eng.forward(pool[off + i:off + min(i + b, k)]).cpu().numpy()
-            for i in range(0, k, b)])
-        if got.shape != direct.shape or not np.isfinite(got).all():
-            raise RuntimeError(f"{what} engine: bad rows {got.shape}")
-        worst = max(worst, float(np.abs(got - direct).max()
-                                 / (np.abs(direct).max() + 1e-12)))
-    if not worst <= 1e-6:
-        raise RuntimeError(f"{what} engine: a future differs from the "
-                           f"direct forward by {worst} (relative)")
+    worst = check_futures(what, eng, pool, checked + full + timed)
     lat = np.array([(d[0] - t) * 1e3 for *_, t, d in timed])
     tail = (f"p99 {np.percentile(lat, 99):.2f} ms, "
             if n_timed >= ENGINE_TAIL else "")
@@ -2234,7 +2565,7 @@ def engine_leg(what, model, qmode, image, expect, device, card,
     h2d_ms = event_ms(lambda: x.to(device), 5)
     print(f"# {what} engine: checked stream of {len(checked)} requests "
           f"({sum(k for _, k, *_ in checked)} images, {checked_steps} steps, "
-          f"{len(rec.calls)} launches == plain); every future == the direct "
+          f"{n_checked} launches == plain); every future == the direct "
           f"forward (worst relative {worst:.1e}, "
           f"{len(checked + full + timed)} requests); {len(full)} requests of "
           f"1..{3 * b} images at once: {full_ips:.1f} images/s; "
@@ -2445,8 +2776,11 @@ def main(argv=None) -> int:
     c2_launches, c2_err = config2_phase()
     print(f"# config2 phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    qat_launches, qat_err = qat_phase(device)
+    qat_launches, qat_err, r20_trainer, r50_trainer = qat_phase(device)
     print(f"# qat phase: {time.perf_counter() - t0:.2f} s")
+    rootq, rootq_err, window, rootq_dw = rootq_serve_phase(
+        device, card, r20_trainer, r50_trainer)
+    del r20_trainer, r50_trainer
     acc_launches, acc_err = accuracy_phase(device, card)
     t0 = time.perf_counter()
     lockstep_leg()
@@ -2455,10 +2789,11 @@ def main(argv=None) -> int:
           f" s")
     launches += (served["conv"] + ptq_convs + served50["conv"] + qat_launches
                  + mobile_served["conv"] + w4_served["conv"]
-                 + c2_launches["conv"] + acc_launches + engine["conv"])
+                 + c2_launches["conv"] + acc_launches + engine["conv"]
+                 + rootq["conv"])
     tot["err"] = max(err8, tot["err"], recon_err, res_err, r50_err,
                      r50_tot["err"], qat_err, mobile_err, w4_err, c2_err,
-                     acc_err)
+                     acc_err, rootq_err)
     stem = dict(r50_tot["stem_pool"], err=max(r50_err, r50_tot["err"],
                                               w4_err))
 
@@ -2467,8 +2802,8 @@ def main(argv=None) -> int:
     gemm_launches += (served["gemm"] + ptq_gemms + served50["gemm"]
                       + mobile_served["gemm"] + w4_served["gemm"]
                       + c4_launches["gemm"] + c2_launches["gemm"]
-                      + engine["gemm"])
-    gemm_err = max(w4_err, c4_err, c2_err)
+                      + engine["gemm"] + rootq["gemm"])
+    gemm_err = max(w4_err, c4_err, c2_err, rootq_err)
     probe_rows, probe_launches = tool_path(lambda: mma_probe.main([]),
                                            P.int8_mma_probe, "mma_probe")
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -2500,8 +2835,13 @@ def main(argv=None) -> int:
                      "int8 conv, feature_group_count=C; no Pallas kernel)",
                      mobile_served["dwconv"] + w4_served["dwconv"]
                      + c4_launches["dwconv"] + c2_launches["dwconv"],
-                     dict(dw, err=max(dw["err"], w4_err, c4_err, c2_err)),
-                     None)]}))
+                     dict(dw, err=max(dw["err"], w4_err, c4_err, c2_err,
+                                      rootq_dw[0])),
+                     None),
+        kernel_entry("int8_window_sum",
+                     "dlmc_quant_tpu/quant/layers.py:459 (the integer plan "
+                     "drops o_w, hazard C1; no Pallas kernel)",
+                     rootq["window_sum"], window, None)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

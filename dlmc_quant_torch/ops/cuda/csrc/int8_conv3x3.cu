@@ -16,6 +16,10 @@
 //   block's output, folded as chain.fold_sum_quantize orders it):
 //          out = clamp(rint((((qb + f32(acc)*a[o]) + b[o]) + f32(r)*ar[o])
 //                           + br[o]), lo, hi)                          -> int8
+//   with a row term (S (N, Ho, Wo) int32, c (O,) f32: a weight offset's
+//   term, S the window sums of int8_window_sum.cu), in every mode the
+//   product f32(acc)*a[o] becomes f32(acc)*a[o] + f32(S[n,p,q])*c[o]
+//   (the product and the sum each rounded) before the rest.
 //
 // The epilogue is written with __int2float_rn, __fmul_rn and __fadd_rn so
 // nvcc cannot contract it into an fma, and rounds half to even as rintf,
@@ -157,6 +161,8 @@ struct ConvArgs {
   const void* r;      // residual, r_kind: 0 none, 1 int8, 2 int32, 3 f32
   const float* ar;
   const float* br;
+  const int* srow;    // the row term (or null): S per output pixel
+  const float* crow;  // and c per output channel
   float qb;
   long long x_bytes;
   int H, W, C, Rp, O, Ho, Wo, M, stride, Kp;
@@ -204,6 +210,14 @@ __host__ __device__ Layout make_layout(int stages, int resident, int k_chunks,
   l.bars = l.rows + PRODUCER_WARPS * C::BM * 8;
   l.total = l.bars + (2 * MAX_STAGES + 1 + 4) * 8;
   return l;
+}
+
+// v[col] and v[col + 1] of an (O,) vector through the read-only path,
+// zero past O.
+__device__ __forceinline__ void load_pair(const float* v, int col, int O,
+                                          float out[2]) {
+  if (col < O) out[0] = __ldg(v + col);
+  if (col + 1 < O) out[1] = __ldg(v + col + 1);
 }
 
 // The residual term of output row `row`, columns `col` and `col` + 1 (col
@@ -291,9 +305,10 @@ __device__ __forceinline__ void unpack_b_tile(const ConvArgs& g, int kc,
   }
 }
 
-// RESIDUAL (codes only) adds the residual term: an instantiation of its
-// own, so that the epilogue without one keeps its registers
-template <int BN, bool CODES, bool RESIDUAL>
+// RESIDUAL (codes only) adds the residual term and TERM a weight offset's
+// row term: instantiations of their own, so that the epilogue without
+// them keeps its registers
+template <int BN, bool CODES, bool RESIDUAL, bool TERM>
 __global__ void __launch_bounds__(THREADS, Cfg<BN, CODES>::MIN_BLOCKS)
 int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
                     const ConvArgs g) {
@@ -689,11 +704,18 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         uint8_t* srow = stg + (row_in + 8 * h) * C::PITCH;
+        const int orow = m0 + row_in + 8 * h;
+        // the row term's S of this row (0 past M: not stored)
+        const float sv = TERM && orow < g.M
+                             ? __int2float_rn(__ldg(g.srow + orow))
+                             : 0.0f;
 #pragma unroll
         for (int i = 0; i < BN / 8; ++i) {
           const int col = 8 * i + col_in;
           const float2 av = *reinterpret_cast<const float2*>(sa + n0 + col);
           const float2 bv = *reinterpret_cast<const float2*>(sb + n0 + col);
+          float cv[2] = {0.0f, 0.0f};
+          if constexpr (TERM) load_pair(g.crow, n0 + col, g.O, cv);
           // the residual term of both columns: r, ar and br, zero outside
           // the output (those codes are not stored)
           float rv[2] = {0.0f, 0.0f}, arv[2] = {0.0f, 0.0f},
@@ -703,9 +725,10 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
           int c[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float prod =
-                __fmul_rn(__int2float_rn(acc[4 * i + 2 * h + e]),
-                          e ? av.y : av.x);
+            float prod = __fmul_rn(__int2float_rn(acc[4 * i + 2 * h + e]),
+                                   e ? av.y : av.x);
+            if constexpr (TERM)
+              prod = __fadd_rn(prod, __fmul_rn(sv, cv[e]));
             float y;
             if constexpr (!RESIDUAL) {
               y = __fadd_rn(prod, e ? bv.y : bv.x);
@@ -754,18 +777,22 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
         const int row = m0 + row_in + 8 * h;
         if (row >= g.M) continue;
         float* orow = out + static_cast<long long>(row) * g.O;
+        const float sv = TERM ? __int2float_rn(__ldg(g.srow + row)) : 0.0f;
 #pragma unroll
         for (int i = 0; i < BN / 8; ++i) {
           const int col = n0 + 8 * i + col_in;
           const float2 av = *reinterpret_cast<const float2*>(sa + col);
           const float2 bv = *reinterpret_cast<const float2*>(sb + col);
+          float cv[2] = {0.0f, 0.0f};
+          if constexpr (TERM) load_pair(g.crow, col, g.O, cv);
           float y[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            y[e] = __fadd_rn(
-                __fmul_rn(__int2float_rn(acc[4 * i + 2 * h + e]),
-                          e ? av.y : av.x),
-                e ? bv.y : bv.x);
+            float prod = __fmul_rn(__int2float_rn(acc[4 * i + 2 * h + e]),
+                                   e ? av.y : av.x);
+            if constexpr (TERM)
+              prod = __fadd_rn(prod, __fmul_rn(sv, cv[e]));
+            y[e] = __fadd_rn(prod, e ? bv.y : bv.x);
             if (g.relu) y[e] = fmaxf(y[e], 0.0f);
           }
           if (g.O % 2 == 0 && col + 1 < g.O) {
@@ -780,10 +807,10 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
   }
 }
 
-template <int BN, bool CODES, bool RESIDUAL = false>
+template <int BN, bool CODES, bool RESIDUAL, bool TERM>
 int launch(const CUtensorMap& map_w, const ConvArgs& g, cudaStream_t s) {
   using C = Cfg<BN, CODES>;
-  const auto kernel = int8_conv3x3_kernel<BN, CODES, RESIDUAL>;
+  const auto kernel = int8_conv3x3_kernel<BN, CODES, RESIDUAL, TERM>;
   const int smem =
       make_layout<C>(g.stages, g.resident, g.k_chunks, g.n_tiles,
                      g.halo_bufs * g.halo_bytes).total;
@@ -806,6 +833,16 @@ int launch(const CUtensorMap& map_w, const ConvArgs& g, cudaStream_t s) {
       g.tiles < resident_blocks ? g.tiles : resident_blocks);
   kernel<<<grid, THREADS, smem, s>>>(map_w, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The epilogue's instantiation at a tile width: f32, codes, or codes with a
+// residual.
+template <int BN, bool TERM>
+int launch_mode(const CUtensorMap& map_w, const ConvArgs& g, int codes,
+                cudaStream_t s) {
+  return !codes    ? launch<BN, false, false, TERM>(map_w, g, s)
+         : g.r_kind ? launch<BN, true, true, TERM>(map_w, g, s)
+                    : launch<BN, true, false, TERM>(map_w, g, s);
 }
 
 // The compiled tile widths (a tile has 128 rows); listed in int8_conv.py too.
@@ -838,13 +875,15 @@ int dlmcq_int8_conv3x3_smem(int bn, int codes, int stages,
 // and b (o,) float32, out (n, ho, wo, o) int8 (codes)
 // or float32; pad_lo 1, or 0 at stride 2.  With r_kind 1, 2 or 3 (codes
 // only) r is (n, ho, wo, o) int8, int32 or float32, ar and br (o,) float32
-// and qb the grid's bias; with r_kind 0 they are not read.  The plan (bn,
-// stages, resident, halo_bufs) comes from int8_conv.py.  Launches on
+// and qb the grid's bias; with r_kind 0 they are not read.  srow (n, ho,
+// wo) int32 and crow (o,) float32 are the row term, or both null.  The
+// plan (bn, stages, resident, halo_bufs) comes from int8_conv.py.  Launches on
 // `stream`; returns cudaGetLastError() (0 on success), or the error that
 // refused the tensor map or the plan.
 int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
                        const void* b, void* out, const void* r,
-                       const void* ar, const void* br, int n, int h, int wd,
+                       const void* ar, const void* br, const void* srow,
+                       const void* crow, int n, int h, int wd,
                        int c, int o, int kp, int w4, int stride, int pad,
                        int pad_lo,
                        int lo, int hi, int codes, int relu, int r_kind,
@@ -860,11 +899,13 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
   g.r = r;
   g.ar = static_cast<const float*>(ar);
   g.br = static_cast<const float*>(br);
+  g.srow = static_cast<const int*>(srow);
+  g.crow = static_cast<const float*>(crow);
   g.qb = qb;
   g.r_kind = r_kind;
   g.pad_lo = pad_lo;
   if (pad_lo < 0 || pad_lo > 1 || (pad_lo == 0 && stride != 2) ||
-      r_kind < 0 || r_kind > 3 || (r_kind && !codes))
+      r_kind < 0 || r_kind > 3 || (r_kind && !codes) || (!srow != !crow))
     return static_cast<int>(cudaErrorInvalidValue);
   g.H = h;
   g.W = wd;
@@ -912,11 +953,10 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
     if (err != 0) return err;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DLMCQ_LAUNCH(BN)                                 \
-  if (bn == BN)                                          \
-    return !codes   ? launch<BN, false>(map_w, g, s)     \
-           : r_kind ? launch<BN, true, true>(map_w, g, s) \
-                    : launch<BN, true>(map_w, g, s);
+#define DLMCQ_LAUNCH(BN)                                        \
+  if (bn == BN)                                                 \
+    return srow ? launch_mode<BN, true>(map_w, g, codes, s)     \
+                : launch_mode<BN, false>(map_w, g, codes, s);
   DLMCQ_CONV_TILES(DLMCQ_LAUNCH)
 #undef DLMCQ_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -17,6 +17,14 @@
 //          even map; Ho = ceil(H / s), Wo = ceil(W / s)
 //   codes: out = clamp(rint(f32(acc)*a[c] + b[c]), lo, hi)    -> int8
 //   f32:   out = f32(acc)*a[c] + b[c], then max(., 0) if relu -> f32
+//   with a weight offset's term (an offset o_w on the weight grid, c the
+//   per-channel oc[c] = s_x*o_w[c]) the product f32(acc)*a[c] becomes
+//   f32(acc)*a[c] + f32(S)*oc[c], each rounded, before the rest, with
+//   S[n,p,q,c] = sum_{dy,dx} xpad[...] - 9*pad: the window's codes of the
+//   channel less the pad code (a pad adds 0).  The kernel sums them next
+//   to the products: one more signed __dp4a a tap row, against a word of
+//   ones where the weight word has its three taps (TERM, an instantiation
+//   of its own).
 //
 // written with __fmul_rn, __fadd_rn (no fma contraction) and rounding half
 // to even, as the int8 conv's and GEMM's epilogues (ops/cuda/epilogue.py is
@@ -89,9 +97,11 @@ struct DwArgs {
   const int8_t* w;       // (9, C) int8, or (9, C/2) nibble pairs if w4
   const float* a;
   const float* b;
+  const float* oc;       // the offset term's (C,) coefficient, if TERM
   void* out;             // (N, Ho, Wo, C): int8 codes or f32
   int H, W, C, Ho, Wo, pad_lo, relu, w4;
   float flo, fhi;        // the codes' clamp, lo and hi
+  int pad9;              // 9 * the pad code: a window's pads, if TERM
   uint32_t pad4;         // the pad code in every byte
   // the plan: channel slice and its quads, column groups, rows a thread;
   // tile, halo and smem pitch; tiles of the walk
@@ -203,10 +213,12 @@ __device__ __forceinline__ uint32_t unpack_pair(uint32_t u) {
 // wa[dy][j] is w[3 dy + i, c + j] for i < 3, byte 3 is 0; and a, b.  The
 // one place the kernel reads the weight: a 32-bit word a tap, or at W4 a
 // 16-bit word of nibbles (C % 8 == 0 keeps it aligned), unpacked.
+template <bool TERM>
 __device__ __forceinline__ void load_weights(const DwArgs& g, int c,
                                              bool c_in,
                                              uint32_t (&wa)[3][4],
-                                             float (&ea)[4], float (&eb)[4]) {
+                                             float (&ea)[4], float (&eb)[4],
+                                             float (&ec)[4]) {
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy) {
     uint32_t tap[3] = {0, 0, 0};
@@ -225,6 +237,7 @@ __device__ __forceinline__ void load_weights(const DwArgs& g, int c,
   for (int j = 0; j < 4; ++j) {
     ea[j] = c_in ? __ldg(g.a + c + j) : 0.0f;
     eb[j] = c_in ? __ldg(g.b + c + j) : 0.0f;
+    ec[j] = TERM && c_in ? __ldg(g.oc + c + j) : 0.0f;
   }
 }
 
@@ -283,6 +296,27 @@ __device__ __forceinline__ void mac_row(int (&acc)[4][R],
   }
 }
 
+// sums[j][k] += the tap row's three codes for output k of channel j: the
+// products of mac_row against a weight word of ones where its three taps
+// are (bytes 0-2, or 1-3 for the second output at stride 1)
+template <int S, int R>
+__device__ __forceinline__ void sum_row(int (&sums)[4][R],
+                                        const uint32_t (&cw)[8]) {
+  constexpr int ONES0 = 0x00010101, ONES1 = 0x01010100;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (S == 1) {
+      sums[j][0] = __dp4a(static_cast<int>(cw[j]), ONES0, sums[j][0]);
+      sums[j][1] = __dp4a(static_cast<int>(cw[j]), ONES1, sums[j][1]);
+      sums[j][2] = __dp4a(static_cast<int>(cw[4 + j]), ONES0, sums[j][2]);
+      sums[j][3] = __dp4a(static_cast<int>(cw[4 + j]), ONES1, sums[j][3]);
+    } else {
+      sums[j][0] = __dp4a(static_cast<int>(cw[j]), ONES0, sums[j][0]);
+      sums[j][1] = __dp4a(static_cast<int>(cw[4 + j]), ONES0, sums[j][1]);
+    }
+  }
+}
+
 // 1.5 * 2^23: in [2^23, 2^24) a float's last bit is worth 1, so an int
 // below 2^22 in magnitude added to these bits is that float plus the int
 constexpr float MAGIC = 12582912.0f;
@@ -296,19 +330,26 @@ __device__ __forceinline__ float acc_to_float(int acc) {
 
 // the epilogue of one output row's R x 4 values, stored where inside the
 // map (and the thread's channels inside C)
-template <bool CODES, int R>
+template <bool CODES, bool TERM, int R>
 __device__ __forceinline__ void store_row(const DwArgs& g,
                                           const int (&acc)[4][R],
+                                          const int (&sums)[4][R],
                                           const float (&ea)[4],
                                           const float (&eb)[4],
+                                          const float (&ec)[4],
                                           long long at, int ox) {
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     if (ox + k >= g.Wo) break;
     float y[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      y[j] = __fadd_rn(__fmul_rn(acc_to_float(acc[j][k]), ea[j]), eb[j]);
+    for (int j = 0; j < 4; ++j) {
+      float prod = __fmul_rn(acc_to_float(acc[j][k]), ea[j]);
+      if constexpr (TERM)
+        prod = __fadd_rn(prod,
+                         __fmul_rn(acc_to_float(sums[j][k] - g.pad9), ec[j]));
+      y[j] = __fadd_rn(prod, eb[j]);
+    }
     const long long o = at + static_cast<long long>(k) * g.C;
     if constexpr (CODES) {
       // clamp(rint(y), lo, hi) as __float2int_rn and a clamp give it: the
@@ -333,7 +374,7 @@ __device__ __forceinline__ void store_row(const DwArgs& g,
   }
 }
 
-template <int S, bool CODES>
+template <int S, bool CODES, bool TERM>
 __global__ void __launch_bounds__(MAX_THREADS)
 int8_dwconv3x3_kernel(const DwArgs g) {
   constexpr int R = S == 1 ? 4 : 2;      // output columns of a thread
@@ -346,8 +387,8 @@ int8_dwconv3x3_kernel(const DwArgs g) {
   const int c = blockIdx.x % g.slices * g.cb + 4 * cq;
   const bool c_in = c < g.C;
   uint32_t wa[3][4];
-  float ea[4], eb[4];
-  load_weights(g, c, c_in, wa, ea, eb);
+  float ea[4], eb[4], ec[4];
+  load_weights<TERM>(g, c, c_in, wa, ea, eb, ec);
 
   const int row_step = g.hw * g.pitch;        // a halo row in smem
   const int col0 = R * S * j;                 // the thread's first column
@@ -376,16 +417,21 @@ int8_dwconv3x3_kernel(const DwArgs g) {
       row_words<S>(q + (r0 + 1) * row_step, g.pitch, cw[1]);
     for (int i = 0; i < g.rpt; ++i, ++oy, at += out_row) {
       const unsigned char* hr = q + ((r0 + i) * S + 2) * row_step;
-      int acc[4][R];
+      int acc[4][R], sums[4][R];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
 #pragma unroll
-        for (int k = 0; k < R; ++k) acc[u][k] = 0;
+        for (int k = 0; k < R; ++k) acc[u][k] = sums[u][k] = 0;
       if constexpr (S == 1) {
         row_words<S>(hr, g.pitch, cw[2]);
         mac_row<S, R>(acc, cw[0], wa[0]);
         mac_row<S, R>(acc, cw[1], wa[1]);
         mac_row<S, R>(acc, cw[2], wa[2]);
+        if constexpr (TERM) {
+          sum_row<S, R>(sums, cw[0]);
+          sum_row<S, R>(sums, cw[1]);
+          sum_row<S, R>(sums, cw[2]);
+        }
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
           cw[0][u] = cw[1][u];
@@ -393,23 +439,26 @@ int8_dwconv3x3_kernel(const DwArgs g) {
         }
       } else {
         mac_row<S, R>(acc, cw[0], wa[0]);
+        if constexpr (TERM) sum_row<S, R>(sums, cw[0]);
         row_words<S>(hr - row_step, g.pitch, cw[1]);
         mac_row<S, R>(acc, cw[1], wa[1]);
+        if constexpr (TERM) sum_row<S, R>(sums, cw[1]);
         row_words<S>(hr, g.pitch, cw[0]);
         mac_row<S, R>(acc, cw[0], wa[2]);
+        if constexpr (TERM) sum_row<S, R>(sums, cw[0]);
       }
       if (col_in && oy < g.Ho)
-        store_row<CODES, R>(g, acc, ea, eb, at, ox);
+        store_row<CODES, TERM, R>(g, acc, sums, ea, eb, ec, at, ox);
     }
     __syncthreads();
     buf ^= 1;
   }
 }
 
-template <int S, bool CODES>
+template <int S, bool CODES, bool TERM>
 cudaError_t launch(const DwArgs& g, int threads, int smem,
                    cudaStream_t stream) {
-  const auto kernel = int8_dwconv3x3_kernel<S, CODES>;
+  const auto kernel = int8_dwconv3x3_kernel<S, CODES, TERM>;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -446,11 +495,13 @@ extern "C" {
 // outside the map, then the epilogue (codes: clamp to [lo, hi] -> int8;
 // else f32, ReLU'd if relu).  The plan (ops/cuda/int8_dwconv.py: plan):
 // cb channels a block, cg column groups, rg row groups, rpt rows a thread
-// (cb % 8 == 0, cb/4 * cg * rg <= 256 threads).  c % 8 == 0, stride 1 or
+// (cb % 8 == 0, cb/4 * cg * rg <= 256 threads).  oc (c,) float32 adds
+// the weight offset's term, or is null.  c % 8 == 0, stride 1 or
 // 2, pad_lo 0 or 1, 16-byte aligned x, w and out (the wrapper checks
 // them).  Launches on `stream`; returns cudaGetLastError().
 int dlmcq_int8_dwconv3x3(const void* x, const void* w, const void* a,
-                         const void* b, void* out, int n, int h, int wd,
+                         const void* b, const void* oc, void* out, int n,
+                         int h, int wd,
                          int c, int stride, int pad_lo, int pad, int lo,
                          int hi, int codes, int relu, int w4, int cb, int cg,
                          int rg, int rpt, void* stream) {
@@ -466,6 +517,7 @@ int dlmcq_int8_dwconv3x3(const void* x, const void* w, const void* a,
   g.w = static_cast<const int8_t*>(w);
   g.a = static_cast<const float*>(a);
   g.b = static_cast<const float*>(b);
+  g.oc = static_cast<const float*>(oc);
   g.out = out;
   g.H = h;
   g.W = wd;
@@ -478,6 +530,7 @@ int dlmcq_int8_dwconv3x3(const void* x, const void* w, const void* a,
   g.relu = relu;
   g.w4 = w4 != 0;
   g.pad4 = 0x01010101u * static_cast<uint32_t>(pad & 0xFF);
+  g.pad9 = 9 * pad;
   g.cb = cb;
   g.cq = cb / 4;
   g.cg = cg;
@@ -501,12 +554,21 @@ int dlmcq_int8_dwconv3x3(const void* x, const void* w, const void* a,
   const int smem = static_cast<int>(2 * buf);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (stride == 1)
-    err = codes ? launch<1, true>(g, threads, smem, s)
-                : launch<1, false>(g, threads, smem, s);
-  else
-    err = codes ? launch<2, true>(g, threads, smem, s)
-                : launch<2, false>(g, threads, smem, s);
+  if (oc == nullptr) {
+    if (stride == 1)
+      err = codes ? launch<1, true, false>(g, threads, smem, s)
+                  : launch<1, false, false>(g, threads, smem, s);
+    else
+      err = codes ? launch<2, true, false>(g, threads, smem, s)
+                  : launch<2, false, false>(g, threads, smem, s);
+  } else {
+    if (stride == 1)
+      err = codes ? launch<1, true, true>(g, threads, smem, s)
+                  : launch<1, false, true>(g, threads, smem, s);
+    else
+      err = codes ? launch<2, true, true>(g, threads, smem, s)
+                  : launch<2, false, true>(g, threads, smem, s);
+  }
   return static_cast<int>(err);
 }
 

@@ -59,6 +59,10 @@
 //   conv3 closing its block, as chain.fold_sum_quantize orders the sum):
 //          out = clamp(rint((((qb + f32(acc)*a[o]) + b[o]) + f32(r)*ar[o])
 //                           + br[o]), lo, hi)                       -> int8
+//   with a row term (S (M,) int32, c (N,) f32: a weight offset's term, S
+//   the window sums of int8_window_sum.cu), in every epilogue mode the
+//   product f32(acc)*a[o] becomes f32(acc)*a[o] + f32(S[m])*c[o] (the
+//   product and the sum each rounded) before the rest
 // written with __int2float_rn, __fmul_rn and __fadd_rn (no fma
 // contraction) and __float2int_rn (round half to even, as rintf), so the
 // kernel equals the plain version (ops/cuda/epilogue.py) bit for bit.  The
@@ -108,6 +112,9 @@ using namespace dlmcq;
 
 // what a consumer does with its finished accumulator
 enum Epi { EPI_INT32 = 0, EPI_CODES = 1, EPI_RESIDUAL = 2, EPI_F32 = 3 };
+// a flag on an epilogue mode: it adds a row term (instantiations of their
+// own, so that the epilogues without one keep their registers)
+constexpr int EPI_TERM = 4;
 
 struct Epilogue {
   void* out;          // (M, N): int32, int8 codes or f32 by the mode
@@ -118,6 +125,8 @@ struct Epilogue {
   const float* br;
   float qb;
   int lo, hi, relu, r_kind;
+  const int* srow;    // the row term (or null): S (M,) int32
+  const float* crow;  // and c (N,) f32
 };
 
 // The residual term of row `row`, columns `col` and `col` + 1 (col even,
@@ -164,11 +173,13 @@ __device__ __forceinline__ void load_residual(const Epilogue& e,
 // The epilogue of one warpgroup's 64 x BN accumulator d, whose first row
 // is row0 and first column col0 (store_acc's lane map: d[4 i + 2 h + e] is
 // row 16 (warp % 4) + lane / 4 + 8 h, column 8 i + 2 (lane % 4) + e).
-template <int BN, int EPI>
+template <int BN, int EPI_FLAGS>
 __device__ __forceinline__ void store_epilogue(const Epilogue& e,
                                                const int (&d)[BN / 2],
                                                long long row0, int col0,
                                                long long rows, int cols) {
+  constexpr bool TERM = (EPI_FLAGS & EPI_TERM) != 0;
+  constexpr int EPI = EPI_FLAGS & ~EPI_TERM;
   const int t = threadIdx.x % WG_THREADS;
   const long long r0 = row0 + 16 * (t / 32) + (t % 32) / 4;
 #pragma unroll
@@ -178,7 +189,11 @@ __device__ __forceinline__ void store_epilogue(const Epilogue& e,
     const bool two = col + 1 < cols;
     const float av[2] = {__ldg(e.a + col), two ? __ldg(e.a + col + 1) : 0.f};
     const float bv[2] = {__ldg(e.b + col), two ? __ldg(e.b + col + 1) : 0.f};
-    float arv[2] = {0.f, 0.f}, brv[2] = {0.f, 0.f};
+    float arv[2] = {0.f, 0.f}, brv[2] = {0.f, 0.f}, cv[2] = {0.f, 0.f};
+    if constexpr (TERM) {
+      cv[0] = __ldg(e.crow + col);
+      if (two) cv[1] = __ldg(e.crow + col + 1);
+    }
     if constexpr (EPI == EPI_RESIDUAL) {
       arv[0] = __ldg(e.ar + col);
       brv[0] = __ldg(e.br + col);
@@ -193,11 +208,12 @@ __device__ __forceinline__ void store_epilogue(const Epilogue& e,
       if (row >= rows) continue;
       float rv[2] = {0.f, 0.f};
       if constexpr (EPI == EPI_RESIDUAL) load_residual(e, row, col, cols, rv);
+      const float sv = TERM ? __int2float_rn(__ldg(e.srow + row)) : 0.f;
       float y[2];
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
-        const float prod = __fmul_rn(__int2float_rn(d[4 * i + 2 * h + k]),
-                                     av[k]);
+        float prod = __fmul_rn(__int2float_rn(d[4 * i + 2 * h + k]), av[k]);
+        if constexpr (TERM) prod = __fadd_rn(prod, __fmul_rn(sv, cv[k]));
         if constexpr (EPI == EPI_RESIDUAL) {
           // the residual sum, term by term: ((qb + acc a) + b) + r ar + br
           y[k] = __fadd_rn(__fadd_rn(e.qb, prod), bv[k]);
@@ -451,17 +467,30 @@ int launch(const CUtensorMap& map_x, const CUtensorMap& map_w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// An epilogue mode at one tile: an instantiation per mode.
+// An epilogue mode at one tile: an instantiation per mode, with and
+// without a row term.
+template <int BM, int BN, int STAGES, bool W4, int TERM>
+int launch_mode(const CUtensorMap& map_x, const CUtensorMap& map_w,
+                const Epilogue& e, int codes, int m, int n, int k,
+                cudaStream_t s) {
+  if (!codes)
+    return launch<BM, BN, STAGES, EPI_F32 | TERM, W4>(map_x, map_w, e, m, n,
+                                                      k, s);
+  if (e.r_kind)
+    return launch<BM, BN, STAGES, EPI_RESIDUAL | TERM, W4>(map_x, map_w, e,
+                                                           m, n, k, s);
+  return launch<BM, BN, STAGES, EPI_CODES | TERM, W4>(map_x, map_w, e, m, n,
+                                                      k, s);
+}
+
 template <int BM, int BN, int STAGES, bool W4 = false>
 int launch_epilogue(const CUtensorMap& map_x, const CUtensorMap& map_w,
                     const Epilogue& e, int codes, int m, int n, int k,
                     cudaStream_t s) {
-  if (!codes)
-    return launch<BM, BN, STAGES, EPI_F32, W4>(map_x, map_w, e, m, n, k, s);
-  if (e.r_kind)
-    return launch<BM, BN, STAGES, EPI_RESIDUAL, W4>(map_x, map_w, e, m, n, k,
-                                                    s);
-  return launch<BM, BN, STAGES, EPI_CODES, W4>(map_x, map_w, e, m, n, k, s);
+  return e.srow ? launch_mode<BM, BN, STAGES, W4, EPI_TERM>(
+                      map_x, map_w, e, codes, m, n, k, s)
+                : launch_mode<BM, BN, STAGES, W4, 0>(map_x, map_w, e, codes,
+                                                     m, n, k, s);
 }
 
 // The W4 instantiations: the epilogue tiles at their W8 stage counts, the
@@ -528,7 +557,8 @@ int dlmcq_int8_gemm(const void* x, const void* w, void* out, int m, int n,
 // out (m, n) int8 codes (codes = 1) or f32 (codes = 0) from the
 // accumulator, with a and b (n,) f32; lo/hi the codes' clamp, relu for
 // f32; r_kind 1, 2 or 3 (codes only) adds the residual r (m, n) int8,
-// int32 or f32 with ar, br (n,) f32 and the grid's bias qb.  (bm, bn) is
+// int32 or f32 with ar, br (n,) f32 and the grid's bias qb; srow (m,)
+// int32 and crow (n,) f32 are the row term, or both null.  (bm, bn) is
 // one of the tiles listed below and in int8_gemm.py (EPILOGUE_TILES).
 int dlmcq_int8_gemm_epilogue(const void* x, const void* w, void* out, int m,
                              int n, int k, int kp, int w4, int bm, int bn,
@@ -536,14 +566,17 @@ int dlmcq_int8_gemm_epilogue(const void* x, const void* w, void* out, int m,
                              const float* a, const float* b, const void* r,
                              const float* ar, const float* br, float qb,
                              int lo, int hi, int relu, int r_kind,
+                             const int* srow, const float* crow,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (r_kind < 0 || r_kind > 3 || (r_kind && !codes) || (relu && codes))
+  if (r_kind < 0 || r_kind > 3 || (r_kind && !codes) || (relu && codes) ||
+      (!srow != !crow))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_x, map_w;
   const int err = encode_maps(&map_x, &map_w, x, w, m, n, k, kp, w4, bm, bn);
   if (err != 0) return err;
-  const Epilogue e = {out, a, b, r, ar, br, qb, lo, hi, relu, r_kind};
+  const Epilogue e = {out, a,  b,    r,      ar,     br,  qb,
+                      lo,  hi, relu, r_kind, srow, crow};
   if (w4) {
 #define DLMCQ_W4_TILE(BM, BN, STAGES)                                       \
   if (bm == BM && bn == BN)                                                \

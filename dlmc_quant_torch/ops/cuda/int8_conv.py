@@ -29,7 +29,10 @@ shortcut to the sum before it is rounded, term by term in the order of
     out = clamp(rint((((qb + f32(acc)·a[o]) + b[o]) + f32(r)·ar[o]) + br[o]), lo, hi)
 
 ``r`` is (N, Ho, Wo, O) int8 codes, int32 accumulators or float32 values;
-``ar`` and ``br`` are (O,) float32.  The epilogue is
+``ar`` and ``br`` are (O,) float32.  A ``row`` term ``(S, c)``, ``S`` (N,
+Ho, Wo) int32 and ``c`` (O,) float32, adds ``f32(S)·c[o]`` to the product
+``f32(acc)·a[o]`` before the rest (a weight offset's term, ``S`` from
+``int8_window_sum``), in every mode.  The epilogue is
 :mod:`.epilogue`'s, which the int8 GEMM shares.
 
 As a GEMM the conv has M = N·Ho·Wo rows, O columns and K = 3·Rp bytes,
@@ -239,7 +242,7 @@ def tile_plan(m: int, c: int, o: int, mode: str = "codes", *, stride: int = 2,
 
 
 def _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo=1,
-           residual=None, qb=0.0):
+           residual=None, qb=0.0, row=None):
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     if pad_lo not in (0, 1) or (pad_lo == 0 and stride != 2):
@@ -275,13 +278,14 @@ def _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo=1,
         raise ValueError("w, and x when C % 16 == 0, must be 16-byte aligned")
     ho, wo = out_hw(h, wd, stride)
     check_epilogue("int8_conv3x3", mode, a, b, lo, hi, relu, residual, qb,
-                   (n, ho, wo, o), x.device)
+                   (n, ho, wo, o), x.device, row)
 
 
 def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int,
                        pad_lo: int = 1, lo: int = -128, hi: int = 127,
                        mode: str = "codes", relu: bool = False,
-                       residual=None, qb: float = 0.0) -> torch.Tensor:
+                       residual=None, qb: float = 0.0,
+                       row=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same arguments, same result).
 
     ``acc`` is a float64 ``F.conv2d`` over the pad-code-padded input, exact
@@ -302,7 +306,8 @@ def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int,
     acc = F.conv2d(xp, wk.permute(3, 2, 0, 1).to(torch.float64),
                    stride=stride)
     return epilogue_plain(acc.permute(0, 2, 3, 1), a, b, mode=mode, lo=lo,
-                          hi=hi, relu=relu, residual=residual, qb=qb)
+                          hi=hi, relu=relu, residual=residual, qb=qb,
+                          row=row)
 
 
 @functools.cache
@@ -310,7 +315,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_conv3x3")
     lib.dlmcq_int8_conv3x3.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 19
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 19
         + [ctypes.c_float, ctypes.c_void_p])
     lib.dlmcq_int8_conv3x3_smem.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3_smem.argtypes = [ctypes.c_int] * 7
@@ -327,13 +332,13 @@ def _library() -> ctypes.CDLL:
 def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
                  lo: int = -128, hi: int = 127, mode: str = "codes",
                  relu: bool = False, residual=None, qb: float = 0.0,
-                 _plan=None) -> torch.Tensor:
+                 row=None, _plan=None) -> torch.Tensor:
     """Run the fused int8 3×3 conv (see the module docstring).
 
     ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight` (or
     :func:`pack_weight_int4`: the kernel unpacks it), ``a``/``b`` (O,)
-    float32, ``residual`` ``(r, ar, br)`` or None, all contiguous and on
-    one device.  CUDA tensors launch the
+    float32, ``residual`` ``(r, ar, br)`` or None, ``row`` ``(S, c)`` or
+    None, all contiguous and on one device.  CUDA tensors launch the
     kernel on the current stream at :func:`tile_plan`'s plan (``_plan``: a
     dict of its overrides, for the card tests and for timing plans against
     each other) and count the launch in ``int8_conv3x3.launches``; CPU
@@ -341,11 +346,13 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
     memory (a and b of every output channel sit beside the ring: a few
     thousand channels); ``tile_plan`` raises where nothing fits.
     """
-    _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo, residual, qb)
+    _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo, residual, qb,
+           row)
     if x.device.type == "cpu":
         return int8_conv3x3_plain(x, w, a, b, stride=stride, pad=pad,
                                   pad_lo=pad_lo, lo=lo, hi=hi, mode=mode,
-                                  relu=relu, residual=residual, qb=qb)
+                                  relu=relu, residual=residual, qb=qb,
+                                  row=row)
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv3x3 runs on cuda or cpu, not {x.device}")
     n, h, wd, c = x.shape
@@ -357,11 +364,12 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
     out = torch.empty((n, ho, wo, o), device=x.device,
                       dtype=torch.int8 if mode == "codes" else torch.float32)
     r, ar, br = residual if residual is not None else (None, None, None)
+    sums, c_row = row if row is not None else (None, None)
     with torch.cuda.device(x.device):
         err = lib.dlmcq_int8_conv3x3(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), *(t.data_ptr() if t is not None else None
-                              for t in (r, ar, br)),
+                              for t in (r, ar, br, sums, c_row)),
             n, h, wd, c, o, packed_shape(c, o)[1], int(w.dtype == W4),
             stride, pad, pad_lo, lo, hi,
             int(mode == "codes"), int(relu),

@@ -16,6 +16,15 @@ once by :func:`pack_weight` as (9, C), the tap ``dy·3 + dx`` a row)::
     "codes": out = clamp(rint(f32(acc)·a[c] + b[c]), lo, hi) → int8 (N, Ho, Wo, C)
     "f32":   out = f32(acc)·a[c] + b[c], then max(·, 0) if relu → f32
 
+With an ``offset`` (C,) float32, a weight offset's term (a weight grid
+``q·s_w + o_w``, ``offset = s_x·o_w``), the product ``f32(acc)·a[c]``
+becomes ``f32(acc)·a[c] + f32(S)·offset[c]`` before the rest, ``S`` the
+window's codes of channel ``c`` less the pad code::
+
+    S[n,p,q,c] = Σ_{dy,dx} xpad[n, p·s + dy, q·s + dx, c] − 9·pad
+
+which the kernel sums next to its products (no separate launch).
+
 A weight of 4 bits or fewer comes nibble-packed (:func:`pack_weight_int4`:
 (9, C/2) uint8, two channels a byte along C), and the kernel unpacks it
 where it reads the weight, once a block.
@@ -178,7 +187,8 @@ def unpack_weight(wp: torch.Tensor, c: int = None) -> torch.Tensor:
     return w.reshape(3, 3, 1, w.shape[1])
 
 
-def _check(x, w, a, b, stride, pad, pad_lo, lo, hi, mode, relu):
+def _check(x, w, a, b, stride, pad, pad_lo, lo, hi, mode, relu,
+           offset=None):
     """The arguments of either route: shapes, types, the geometry and the
     epilogue."""
     if stride not in (1, 2):
@@ -207,6 +217,11 @@ def _check(x, w, a, b, stride, pad, pad_lo, lo, hi, mode, relu):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     check_epilogue("int8_dwconv3x3", mode, a, b, lo, hi, relu, None, 0.0,
                    (n, ho, wo, c), x.device)
+    if offset is not None and (
+            offset.dtype != torch.float32 or tuple(offset.shape) != (c,)
+            or not offset.is_contiguous() or offset.device != x.device):
+        raise ValueError(f"offset must be contiguous ({c},) float32 on "
+                         f"{x.device}")
     return n, h, wd, c, ho, wo
 
 
@@ -226,13 +241,15 @@ def check_kernel(x, w, stride: int) -> None:
 
 def int8_dwconv3x3_plain(x, w, a, b, *, stride: int, pad: int,
                          pad_lo: int = 1, lo: int = -128, hi: int = 127,
-                         mode: str = "codes",
-                         relu: bool = False) -> torch.Tensor:
+                         mode: str = "codes", relu: bool = False,
+                         offset=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same arguments, same result):
     a float64 ``F.conv2d(groups=C)`` over the pad-code-padded input, exact
-    because |acc| ≤ 9·128² ≪ 2⁵³, then :func:`.epilogue.epilogue_plain`."""
+    because |acc| ≤ 9·128² ≪ 2⁵³, and with an ``offset`` the window sums
+    as a float64 ``F.conv2d(groups=C)`` of ones over it less ``pad``, then
+    :func:`.epilogue.epilogue_plain`."""
     n, h, wd, c, ho, wo = _check(x, w, a, b, stride, pad, pad_lo, lo, hi,
-                                 mode, relu)
+                                 mode, relu, offset)
     pad_h = (ho - 1) * stride + 3 - h - pad_lo
     pad_w = (wo - 1) * stride + 3 - wd - pad_lo
     xp = F.pad(x.permute(0, 3, 1, 2).to(torch.float64),
@@ -240,8 +257,13 @@ def int8_dwconv3x3_plain(x, w, a, b, *, stride: int, pad: int,
                value=float(pad))
     wk = unpack_weight(w, c).permute(3, 2, 0, 1).to(torch.float64)
     acc = F.conv2d(xp, wk, stride=stride, groups=c)
+    row = None
+    if offset is not None:
+        sums = F.conv2d(xp - pad, torch.ones_like(wk), stride=stride,
+                        groups=c)
+        row = (sums.permute(0, 2, 3, 1), offset)
     return epilogue_plain(acc.permute(0, 2, 3, 1), a, b, mode=mode, lo=lo,
-                          hi=hi, relu=relu)
+                          hi=hi, relu=relu, row=row)
 
 
 @functools.cache
@@ -249,28 +271,30 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_dwconv3x3")
     lib.dlmcq_int8_dwconv3x3.restype = ctypes.c_int
     lib.dlmcq_int8_dwconv3x3.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
     return lib
 
 
 def int8_dwconv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
                    lo: int = -128, hi: int = 127, mode: str = "codes",
-                   relu: bool = False, _plan=None) -> torch.Tensor:
+                   relu: bool = False, offset=None,
+                   _plan=None) -> torch.Tensor:
     """Run the int8 depthwise 3×3 conv (see the module docstring).
 
     ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight` (or
     :func:`pack_weight_int4`: the kernel unpacks the nibbles), ``a``/``b``
-    (C,) float32, all contiguous and on one device.  CUDA tensors launch
+    (and ``offset``, or None) (C,) float32, all contiguous and on one
+    device.  CUDA tensors launch
     the kernel on the current stream, on :func:`plan`'s tiles (``_plan =
     (cb, cg, rg, rpt)`` overrides them), and count the launch in
     ``int8_dwconv3x3.launches``; CPU tensors run the plain version.
     """
     n, h, wd, c, ho, wo = _check(x, w, a, b, stride, pad, pad_lo, lo, hi,
-                                 mode, relu)
+                                 mode, relu, offset)
     if x.device.type == "cpu":
         return int8_dwconv3x3_plain(x, w, a, b, stride=stride, pad=pad,
                                     pad_lo=pad_lo, lo=lo, hi=hi, mode=mode,
-                                    relu=relu)
+                                    relu=relu, offset=offset)
     if x.device.type != "cuda":
         raise ValueError(f"int8_dwconv3x3 runs on cuda or cpu, not "
                          f"{x.device}")
@@ -283,6 +307,7 @@ def int8_dwconv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
     with torch.cuda.device(x.device):
         err = lib.dlmcq_int8_dwconv3x3(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            offset.data_ptr() if offset is not None else None,
             out.data_ptr(), n, h, wd, c, stride, pad_lo, pad, lo, hi,
             int(mode == "codes"), int(relu), int(w.dtype == W4), p.cb,
             p.cg, p.rg, p.rpt,

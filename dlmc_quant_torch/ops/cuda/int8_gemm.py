@@ -12,8 +12,8 @@ its header says what bounds it on an H100 and how it is laid out);
 That is ``mode="int32"``, the tools' output.  The chained int8 path of a
 1×1 conv (and of the 7×7 stem, after ``int8_im2col``) ends the product
 with the int8 conv's epilogue instead (:mod:`.epilogue`: ``"codes"``,
-with an optional residual, or ``"f32"``), so its int32 accumulator never
-reaches device memory.
+with an optional residual, or ``"f32"``, and in either a weight offset's
+row term), so its int32 accumulator never reaches device memory.
 
 A weight of 4 bits or fewer comes nibble-packed (:func:`pack_b_int4`: the
 packed B, two bytes of K a byte) and stays so in device memory; the
@@ -161,7 +161,7 @@ def check_operands(x: torch.Tensor, w: torch.Tensor, what: str,
 def int8_gemm_plain(x: torch.Tensor, w: torch.Tensor, a=None, b=None, *,
                     mode: str = "int32", lo: int = -128, hi: int = 127,
                     relu: bool = False, residual=None,
-                    qb: float = 0.0) -> torch.Tensor:
+                    qb: float = 0.0, row=None) -> torch.Tensor:
     """Plain PyTorch version (same arguments, same result): a float64
     matmul, exact (every product and partial sum is an integer below 2⁵³),
     cast to int32 or ended by :func:`.epilogue.epilogue_plain`."""
@@ -169,7 +169,8 @@ def int8_gemm_plain(x: torch.Tensor, w: torch.Tensor, a=None, b=None, *,
     if mode == "int32":
         return acc.to(torch.int32)
     return epilogue_plain(acc, a, b, mode=mode, lo=lo, hi=hi, relu=relu,
-                          residual=_flat(residual), qb=qb)
+                          residual=_flat(residual), qb=qb,
+                          row=_flat_row(row))
 
 
 def _flat(residual):
@@ -179,6 +180,15 @@ def _flat(residual):
         return None
     r, ar, br = residual
     return r.reshape(-1, r.shape[-1]), ar, br
+
+
+def _flat_row(row):
+    """The row term with ``S`` as (M,): callers may give it in the
+    output's (…) shape, as ``int8_window_sum`` makes it."""
+    if row is None:
+        return None
+    sums, c = row
+    return sums.reshape(-1), c
 
 
 def tile_smem_bytes(tile, int4: bool = False) -> int:
@@ -229,20 +239,21 @@ def _library() -> ctypes.CDLL:
     lib.dlmcq_int8_gemm_epilogue.restype = ctypes.c_int
     lib.dlmcq_int8_gemm_epilogue.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
-        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
     return lib
 
 
 def int8_gemm(x: torch.Tensor, w: torch.Tensor, a=None, b=None, *,
               mode: str = "int32", lo: int = -128, hi: int = 127,
               relu: bool = False, residual=None, qb: float = 0.0,
-              tile=None) -> torch.Tensor:
+              row=None, tile=None) -> torch.Tensor:
     """(M, K) int8 @ packed (N, Kp) int8 (or the nibble-packed (N, Kp/2)
     uint8 of :func:`pack_b_int4`) → (M, N) int32, or int8 codes or f32
     through the epilogue (module docstring).
 
-    ``a``/``b`` (N,) float32 and ``residual`` ``(r, ar, br)`` with ``r``
-    (M, N) or of shape (…, N) over M rows, as :mod:`.epilogue` says.
+    ``a``/``b`` (N,) float32, ``residual`` ``(r, ar, br)`` with ``r``
+    (M, N) or of shape (…, N) over M rows, and ``row`` ``(S, c)`` with
+    ``S`` int32 over the M rows in any shape, as :mod:`.epilogue` says.
     CUDA tensors launch the kernel on the current stream with ``tile`` (one
     of :data:`TILES`, of :data:`EPILOGUE_TILES` for an epilogue mode or a
     W4 weight; by default :func:`default_tile` for the device's SM count)
@@ -263,11 +274,11 @@ def int8_gemm(x: torch.Tensor, w: torch.Tensor, a=None, b=None, *,
     int4 = w.dtype == W4
     tiles = EPILOGUE_TILES if int4 else TILES
     if mode != "int32":
-        residual = _flat(residual)
+        residual, row = _flat(residual), _flat_row(row)
         check_epilogue("int8_gemm", mode, a, b, lo, hi, relu, residual, qb,
-                       (m, n), x.device)
+                       (m, n), x.device, row)
         tiles = EPILOGUE_TILES
-    elif a is not None or residual is not None:
+    elif a is not None or residual is not None or row is not None:
         raise ValueError("int8_gemm: int32 mode takes no epilogue")
     tile = tuple(tile) if tile is not None else default_tile(
         m, n, sm_count(x.device), tiles)
@@ -275,7 +286,7 @@ def int8_gemm(x: torch.Tensor, w: torch.Tensor, a=None, b=None, *,
         raise ValueError(f"int8_gemm: tile {tile} is not one of {tiles}")
     if x.device.type == "cpu":
         return int8_gemm_plain(x, w, a, b, mode=mode, lo=lo, hi=hi,
-                               relu=relu, residual=residual, qb=qb)
+                               relu=relu, residual=residual, qb=qb, row=row)
     if x.device.type != "cuda":
         raise ValueError(f"int8_gemm runs on cuda or cpu, not {x.device}")
     lib = _library()
@@ -290,13 +301,16 @@ def int8_gemm(x: torch.Tensor, w: torch.Tensor, a=None, b=None, *,
                 packed_k(k), int(int4), *tile, stream)
         else:
             r, ar, br = residual if residual is not None else (None,) * 3
+            sums, c = row if row is not None else (None,) * 2
             err = lib.dlmcq_int8_gemm_epilogue(
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
                 packed_k(k), int(int4), *tile, int(mode == "codes"),
                 a.data_ptr(),
                 b.data_ptr(), *(t.data_ptr() if t is not None else None
                                 for t in (r, ar, br)), qb, lo, hi, int(relu),
-                RESIDUAL_KINDS[r.dtype] if r is not None else 0, stream)
+                RESIDUAL_KINDS[r.dtype] if r is not None else 0,
+                *(t.data_ptr() if t is not None else None
+                  for t in (sums, c)), stream)
     build.check_launch(lib, err, "int8_gemm")
     int8_gemm.launches += 1
     return out

@@ -69,6 +69,19 @@ def rootq_weight_fake_quant(w, upper, lower, alpha, qmin: int, qmax: int):
     return bin_dequantize(s, lower, delta, interval)
 
 
+def weight_bins(w, upper, lower, qmin: int, qmax: int):
+    """``(interval, on_midpoint)`` of :func:`rootq_weight_fake_quant`'s
+    forward, op for op: each clipped weight's bin index, and whether it
+    lies exactly on its bin's midpoint, where ``sgn`` sees 0 and the
+    weight dequantizes to the midpoint, off the integer grid (ROADMAP
+    hazard C20)."""
+    w_c = clipping(w, upper, lower)
+    delta = (upper - lower) / float(qmax - qmin)
+    interval = torch.floor((w_c - lower) / delta)
+    mi = (interval + 0.5) * delta + lower
+    return interval, (w_c - mi) == 0
+
+
 def rootq_act_fake_quant(x, scale, qmax: int, qmin: int = 0):
     """RootQ activation path: clip to ``[0, scale·(qmax−qmin)]`` with
     :func:`clipping`, then round (STE) on the integer grid."""

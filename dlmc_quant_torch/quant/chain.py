@@ -41,6 +41,22 @@ conv and pool in one kernel (``ops.cuda.int8_stem_pool``), which gives
 the pooled int32 accumulator.  A linear-bottleneck block (MobileNetV2)
 closes its sum without a ReLU: the lower clamp is then the grid's minimum.
 
+A layer whose weight grid has an offset (``q·s_w + o_w``: RootQ's, an
+offset LSQ weight's) adds a row term to its real value,
+``off_scale[o]·S[m]`` with ``off_scale = s_x·o_w`` and ``S`` the sum of
+the input codes less the zero code over the window of output ``m``
+(``ops.cuda.int8_window_sum``, one launch a layer; a depthwise conv's
+kernel sums its own window).  :class:`DeferredEpilogue` carries it
+as ``row = (S, off_scale)``, and every boundary folds it like the scale:
+``C = off_scale·inv`` beside ``A`` and ``B``, added to the product in the
+kernels' epilogue (``ops/cuda/epilogue.py``).  The ReLU's ``L`` and the
+ReLU6's ``H`` stay valid: the term is part of the real value before them.
+Two routes change: a shortcut GEMM with a row term runs in ``"f32"`` mode
+and enters the residual sum as a float32 term (an int32 accumulator cannot
+carry the term), and :func:`qmaxpool` on a stem with a row term pools the
+float32 values of its ``int8_im2col`` rows through the GEMM (the term
+varies by position, so pooling the accumulator is no longer monotone).
+
 Each pending conv carries its kernel's weight layout as the layer's plan
 packed it: int8, or at W4 (4-bit weights) the same layout nibble-packed,
 two values a byte (``ops/cuda/nibbles.py``), whose ``uint8`` dtype says so
@@ -83,10 +99,11 @@ class PendingConv:
 
     def run(self, a, b, *, lo: int = -128, hi: int = 127,
             mode: str = "codes", relu: bool = False, residual=None,
-            qb: float = 0.0) -> torch.Tensor:
+            qb: float = 0.0, row=None) -> torch.Tensor:
         return int8_conv3x3(self.x, self.weight, a, b, stride=self.stride,
                             pad=self.pad, pad_lo=self.pad_lo, lo=lo, hi=hi,
-                            mode=mode, relu=relu, residual=residual, qb=qb)
+                            mode=mode, relu=relu, residual=residual, qb=qb,
+                            row=row)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,9 +119,9 @@ class PendingGemm:
 
     def run(self, a=None, b=None, *, lo: int = -128, hi: int = 127,
             mode: str = "codes", relu: bool = False, residual=None,
-            qb: float = 0.0) -> torch.Tensor:
+            qb: float = 0.0, row=None) -> torch.Tensor:
         out = int8_gemm(self.x, self.weight, a, b, mode=mode, lo=lo, hi=hi,
-                        relu=relu, residual=residual, qb=qb)
+                        relu=relu, residual=residual, qb=qb, row=row)
         return out.reshape(tuple(self.shape) + (-1,))
 
 
@@ -160,10 +177,20 @@ class PendingDwConv:
     int4 = PendingConv.int4
 
     def run(self, a, b, *, lo: int = -128, hi: int = 127,
-            mode: str = "codes", relu: bool = False) -> torch.Tensor:
+            mode: str = "codes", relu: bool = False,
+            row=None) -> torch.Tensor:
+        """``row`` is ``(None, c)``: the kernel sums each channel's window
+        itself."""
+        offset = None
+        if row is not None:
+            if row[0] is not None:
+                raise ValueError("a depthwise conv sums its own windows: "
+                                 "its row term is (None, c) (ROADMAP item "
+                                 "13)")
+            offset = row[1]
         return int8_dwconv3x3(self.x, self.weight, a, b, stride=self.stride,
                               pad=self.pad, pad_lo=self.pad_lo, lo=lo, hi=hi,
-                              mode=mode, relu=relu)
+                              mode=mode, relu=relu, offset=offset)
 
 
 PENDING = (PendingConv, PendingGemm, PendingWideConv, PendingDwConv)
@@ -173,12 +200,15 @@ STEM_POOL = ((3, 3), (2, 2), ((1, 1), (1, 1)))
 
 @dataclasses.dataclass(frozen=True)
 class DeferredEpilogue:
-    """Lazy layer output: real value = ``relu?(acc·scale + bias)``, then
-    ``min(·, clamp_hi)`` where set (ReLU6).
+    """Lazy layer output: real value = ``relu?(acc·scale + S·c + bias)``,
+    then ``min(·, clamp_hi)`` where set (ReLU6).
 
     ``acc`` is an int32 tensor (dense layers, the pooled stem) or a
     pending conv (:data:`PENDING`) whose accumulator the consumer computes
-    with its epilogue fused.
+    with its epilogue fused.  ``row`` is a weight offset's row term ``(S,
+    c)`` or None: ``S`` int32 over the output's rows ((N, Ho, Wo), or (M,)
+    for an (M, O) ``acc``; None for a depthwise conv, whose kernel sums its
+    own windows), ``c`` (O,) f32.
     """
     acc: Union[torch.Tensor, PendingConv, PendingGemm, PendingWideConv,
                PendingDwConv]
@@ -186,6 +216,7 @@ class DeferredEpilogue:
     bias: torch.Tensor       # (O,) f32
     relu: bool = False
     clamp_hi: Optional[float] = None
+    row: Optional[tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,8 +290,11 @@ def qmaxpool(x, window, strides, padding):
     to every window element, as JAX's ``iinfo.min`` and -128 do.  A pending
     stem conv (:class:`PendingWideConv`) and the ImageNet pool after it
     (:data:`STEM_POOL`) run together in ``int8_stem_pool``, which gives the
-    pooled int32 accumulator.  Codes are pooled as an exact float32 view,
-    as CUDA's max pool takes no integer type.
+    pooled int32 accumulator.  A stem with a row term (a weight offset's)
+    is not monotone in its accumulator: it runs as ``int8_im2col`` rows
+    into the GEMM in ``"f32"`` mode, and its float32 values are pooled.
+    Codes are pooled as an exact float32 view, as CUDA's max pool takes no
+    integer type.
     """
     if isinstance(x, DeferredEpilogue):
         if not (isinstance(x.acc, PendingWideConv) and
@@ -270,6 +304,8 @@ def qmaxpool(x, window, strides, padding):
                 "qmaxpool pools a pending wide-window conv (the ImageNet "
                 f"stem) with the {STEM_POOL} pool, got "
                 f"{type(x.acc).__name__} and {(window, strides, padding)}")
+        if x.row is not None:
+            return _max_pool(materialize(x), window, strides, padding)
         return dataclasses.replace(x, acc=x.acc.pool())
     if isinstance(x, QuantizedTensor):
         q = _max_pool(x.q.to(torch.float32), window, strides, padding)
@@ -286,14 +322,33 @@ def materialize(x):
     if not isinstance(x, DeferredEpilogue):
         return x
     if isinstance(x.acc, PENDING):
-        y = x.acc.run(x.scale, x.bias, mode="f32", relu=x.relu)
+        y = x.acc.run(x.scale, x.bias, mode="f32", relu=x.relu, row=x.row)
     else:
-        y = x.acc.to(torch.float32) * x.scale
+        y = _row_product(x.acc, x.scale, x.row)
         y = y + x.bias
         if x.relu:
             y = torch.clamp_min(y, 0.0)
     # min(., 6) is exact: it runs after the f32 epilogue
     return y if x.clamp_hi is None else torch.clamp_max(y, x.clamp_hi)
+
+
+def _row_product(acc: torch.Tensor, scale, row) -> torch.Tensor:
+    """``f32(acc)·scale``, and with a row term ``(S, c)`` ``+ f32(S)·c``,
+    each step rounded: the kernels' epilogue on an int32 ``acc`` (M, O)."""
+    y = acc.to(torch.float32) * scale
+    if row is not None:
+        sums, c = row
+        y = y + sums.reshape(-1, 1).to(torch.float32) * c
+    return y
+
+
+def _folded_row(x: DeferredEpilogue, inv_s: float):
+    """The row term on the consumer's grid, ``(S, c·inv)`` (``C`` of the
+    module docstring, in float32 as ``A``), or None."""
+    if x.row is None:
+        return None
+    sums, c = x.row
+    return sums, c * inv_s
 
 
 def fold_params(x: DeferredEpilogue, inv_s: float, qbias: float,
@@ -322,9 +377,10 @@ def fold_quantize(x: DeferredEpilogue, inv_s: float, qbias: float,
                   qmin_s: int, qmax_s: int) -> torch.Tensor:
     """Folded boundary: int8 codes of ``x`` on the consumer's grid."""
     a, b, lo, hi = fold_params(x, inv_s, qbias, qmin_s, qmax_s)
+    row = _folded_row(x, inv_s)
     if isinstance(x.acc, PENDING):
-        return x.acc.run(a, b, lo=lo, hi=hi, mode="codes")
-    y = x.acc.to(torch.float32) * a
+        return x.acc.run(a, b, lo=lo, hi=hi, mode="codes", row=row)
+    y = _row_product(x.acc, a, row)
     y = y + b
     return torch.round(y).clamp_(lo, hi).to(torch.int8)
 
@@ -339,15 +395,15 @@ def _residual_operand(r, inv_s: float, o: int, device):
         return (r.q.contiguous(), full(float(np.float32(r.scale) * inv)),
                 full(float(np.float32(r.bias) * inv)))
     if isinstance(r, DeferredEpilogue) and not r.relu \
-            and r.clamp_hi is None \
+            and r.clamp_hi is None and r.row is None \
             and not isinstance(r.acc, (PendingConv, PendingDwConv)):
         # the int32 accumulator (a pending shortcut GEMM runs for it)
         acc = r.acc.run(mode="int32") if isinstance(r.acc, PENDING) \
             else r.acc
         return (acc.contiguous(), (r.scale * inv_s).contiguous(),
                 (r.bias * inv_s).contiguous())
-    # a relu- or ReLU6-flagged term is nonlinear inside the sum:
-    # materialized first
+    # a relu- or ReLU6-flagged term is nonlinear inside the sum, and a row
+    # term has no int32 form: materialized first
     return materialize(r).contiguous(), full(inv_s), full(0.0)
 
 
@@ -367,7 +423,9 @@ def fold_sum_quantize(terms, inv_s: float, qbias: float, lo: int,
 
     (``A = scale·inv``, ``B = bias·inv`` per term; an int8 term's affine is
     its grid, an f32 term has ``Ar = inv`` and ``Br = 0``, and a
-    relu-flagged term is materialized first).  The block's ReLU lives in
+    relu-flagged term and one with a row term are materialized first; the
+    trunk's own row term is added to its product, ``(qbias + (acc·A +
+    S·C)) + B``).  The block's ReLU lives in
     ``lo``; a linear bottleneck (no ReLU) passes the grid's minimum.
     The whole sum runs in the epilogue of ``y``'s conv.
     """
@@ -381,4 +439,5 @@ def fold_sum_quantize(terms, inv_s: float, qbias: float, lo: int,
     o = y.acc.weight.shape[0]
     residual = _residual_operand(r, inv_s, o, y.scale.device)
     return y.acc.run(y.scale * inv_s, y.bias * inv_s, lo=lo, hi=qmax_s,
-                     mode="codes", residual=residual, qb=qbias)
+                     mode="codes", residual=residual, qb=qbias,
+                     row=_folded_row(y, inv_s))

@@ -24,21 +24,34 @@ unpacks in its weight load; a dense layer and a weight-only layer keep
 
 A layer whose input quantizer is off keeps only its int8 (or packed int4)
 weights and their scales, and runs a conv or matmul of the dequantized bf16 weights on
-bf16 inputs with an f32 accumulator (``QLayer.weight_only``).  A nonzero
-weight offset (RootQ after QAT) has no integer plan: ``prepare_deploy``
-raises (ROADMAP hazard C1).
+bf16 inputs with an f32 accumulator (``QLayer.weight_only``).
+
+A weight grid with an offset, ``w ≈ q·s_w + o_w`` (RootQ's, an offset LSQ
+weight's; the JAX package drops ``o_w``, ROADMAP hazard C1), adds
+
+    o_w·Σ x = s_x·o_w·S + o_w·K·real(z),   S = Σ_window (x_i8 − z)
+
+to each output: ``S`` per output pixel (``ops.cuda.int8_window_sum``),
+scaled per output channel by the plan's ``off_scale = s_x·o_w`` in the
+kernels' epilogue; the second part, 0 where the zero code ``z`` is real 0
+exactly (RootQ), goes into ``bias_eff``.  The codes come from the
+quantizer's own fake-quant weight; ``prepare_deploy`` logs how many RootQ
+weights lie exactly on a bin midpoint, off the grid (ROADMAP hazard C20).
 
 Not ported yet: the space-to-depth stem.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict
 
 import torch
 
 from dlmc_quant_torch.device import DeviceLike, resolve_device
 from dlmc_quant_torch.ops.cuda.nibbles import pack_nibbles, unpack_nibbles
+
+log = logging.getLogger(__name__)
 
 
 def affine_from_quantizer(family: str, cfg, params: Dict, qstate: Dict,
@@ -139,7 +152,9 @@ def prepare_deploy(model: torch.nn.Module) -> torch.nn.Module:
     place).
 
     The plan depends only on the calibrated parameters, so unlike the JAX
-    package no sample input is needed.
+    package no sample input is needed.  Logs the count of RootQ weights on
+    a bin midpoint (:func:`midpoint_count`, ROADMAP hazard C20) where
+    there are any.
     """
     from dlmc_quant_torch.quant.layers import QBlockOutput, QLayer
 
@@ -147,7 +162,18 @@ def prepare_deploy(model: torch.nn.Module) -> torch.nn.Module:
         for m in model.modules():
             if isinstance(m, (QLayer, QBlockOutput)) and m.cfg is not None:
                 m.prepare_deploy()
+    n = midpoint_count(model)
+    if n:
+        log.info("prepare_deploy: %d RootQ weights lie exactly on a bin "
+                 "midpoint, off the integer grid; each takes the even of "
+                 "its two codes (ROADMAP hazard C20)", n)
     return model
+
+
+def midpoint_count(model: torch.nn.Module) -> int:
+    """RootQ weights of the model's integer plans that lie exactly on a
+    bin midpoint, which their codes miss by half a step (ROADMAP C20)."""
+    return sum(getattr(m, "midpoints", 0) for m in model.modules())
 
 
 def make_serving_fn(model: torch.nn.Module, qmode: str = "intc",

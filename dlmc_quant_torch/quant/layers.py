@@ -75,6 +75,25 @@ per-channel weight axis is 0.
   producer's, whose epilogue is re-derived from the stored column sums.
   Each leaves its conv pending for the consumer (``quant/chain.py``).
   Other groupings have no integer path.
+* A weight grid with an offset, ``q·s_w + o_w`` (RootQ's: ``o_w = l −
+  qmin·s_w``; an LSQ ``wt_offset``, per channel), runs every integer
+  route: the plan takes the codes from the quantizer's own ``'eval'``
+  output, ``rint((w_fq − o_w)/s_w)`` (a RootQ weight's always, its
+  offset zero or not), and keeps ``off_scale = s_x·o_w``
+  (O,), and each integer forward adds the row term ``off_scale[o]·S[m]``,
+  ``S`` the input codes less the zero code summed over the window of
+  output ``m`` (one ``ops.cuda.int8_window_sum`` launch a layer; the
+  depthwise kernel sums its own), in its kernel's
+  epilogue (the dense head's in torch, after ``torch._int_mm``).  Where
+  the zero code's real value is not exactly 0 (an LSQ input offset) its
+  share over the whole window, ``o_w·K·real(z)``, goes into ``bias_eff``.
+  RootQ's signed weight grid is symmetric (``[−(2^{b−1}−1), 2^{b−1}−1]``),
+  so at calibration (``l = −u``) ``o_w`` is 0 up to float rounding; QAT
+  moves ``u`` and ``l`` apart.  A RootQ weight exactly on a bin midpoint
+  dequantizes to the midpoint, off the integer grid (ROADMAP hazard C20):
+  the plan gives it the even one of the two neighbouring codes (round
+  half to even) and ``prepare_deploy`` counts such weights
+  (``midpoints``).  A weight-only layer dequantizes ``w_int·s_w + o_w``.
 * :class:`QBlockOutput` closes a residual block: ``relu(y + r)`` (or
   ``y + r`` for a linear bottleneck) in every qmode but ``'intc'``, where
   the sum, the ReLU and the quantize run in the epilogue of the block's
@@ -86,6 +105,7 @@ from __future__ import annotations
 import contextlib
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -96,6 +116,7 @@ from dlmc_quant_torch.ops.cuda import int8_gemm as gemm
 from dlmc_quant_torch.ops.cuda import int8_im2col as im2col
 from dlmc_quant_torch.ops.cuda import int8_stem_pool as stem_pool
 from dlmc_quant_torch.ops.cuda.int8_gemm import pad_k
+from dlmc_quant_torch.ops.cuda.int8_window_sum import int8_window_sum
 from dlmc_quant_torch.ops import rootq_math as rq
 from dlmc_quant_torch.ops.numerics import (clip, grad_scale, lsq_fake_quant,
                                            lsq_grad_factor, lsq_init_scale,
@@ -161,6 +182,7 @@ class QLayer(nn.Module):
         self.path = ""
         self.cfg = None
         self.plan_scalars = None     # host floats of the integer plan
+        self.midpoints = 0           # C20 weights (_fake_quant_codes)
 
     def configure(self, path: str, scheme) -> None:
         """Resolve this layer's config and create its quantizer state."""
@@ -436,11 +458,36 @@ class QLayer(nn.Module):
             return dp.unpack_int4(self.w_int4, self.weight.shape[1]).t()
         return self.w_int
 
+    def _fake_quant_codes(self, wq, s_w, o_w):
+        """``(codes, midpoints)`` of a weight on the grid ``q·s_w + o_w``:
+        ``rint((w_fq − o_w)/s_w)`` of the quantizer's own ``'eval'`` output
+        ``w_fq``, clamped to ``[qmin, qmax]`` (not ``quantize_weight_int``,
+        which has no offset).  A RootQ weight exactly on its bin's
+        midpoint (ROADMAP C20: ``sgn(0) = 0`` dequantizes to the midpoint,
+        off the grid) takes the even one of its two neighbouring codes,
+        whatever float noise ``w_fq`` carries; ``midpoints`` counts
+        them."""
+        kernel = self.weight.detach()
+        w_fq = {"lsq": self._lsq_weight, "rootq": self._rootq_weight}[
+            self.family](kernel, wq, "eval", None)
+        q = torch.round((w_fq - _bshape(o_w, kernel.dim()))
+                        / _bshape(s_w, kernel.dim()))
+        midpoints = 0
+        if self.family == "rootq":
+            interval, mid = rq.weight_bins(kernel, self.wt_run_upper,
+                                           self.wt_run_lower, wq.qmin,
+                                           wq.qmax)
+            q = torch.where(mid, torch.round(interval + (wq.qmin + 0.5)), q)
+            midpoints = int(mid.sum())
+        return torch.clamp(q, wq.qmin, wq.qmax).to(torch.int8), midpoints
+
     def _build_int_plan(self):
         """Integer plan: (tensors, host scalars).  See quant/deploy.py.
         A weight-only layer's plan is its weights and their scales, with
         no host scalars; the weights are :meth:`_weight_buffers`, and the
-        int8 weight itself is only a local here at W4."""
+        int8 weight itself is only a local here at W4.  A weight offset
+        adds ``w_offset`` (O,) and, with an input quantizer,
+        ``off_scale`` (module docstring)."""
         cfg = self.cfg
         wq, aq = cfg.weight, cfg.input
         if not wq.enable:
@@ -460,13 +507,13 @@ class QLayer(nn.Module):
                   if hasattr(self, name)}
         s_w, o_w = dp.affine_from_quantizer(self.family, wq, params, qstate,
                                             "weight")
-        if bool((o_w != 0).any()):
-            # RootQ's grid after QAT, for one: the JAX package drops o_w
-            raise NotImplementedError(
-                f"{self.path}: a nonzero weight offset has no integer plan: "
-                "it needs an o_w·Σx correction (ROADMAP hazard C1)")
+        # RootQ's grid, for one: the JAX package drops o_w (hazard C1)
+        offset = bool((o_w != 0).any())
         kernel = self.weight.detach()
-        if wq.recon_type == "adaround" and hasattr(self, "alpha"):
+        self.midpoints = 0
+        if offset or self.family == "rootq":
+            w_int, self.midpoints = self._fake_quant_codes(wq, s_w, o_w)
+        elif wq.recon_type == "adaround" and hasattr(self, "alpha"):
             # learned rounding: floor + hard alpha decision
             # (ref: FSPTQuant/base.py:136-141 eval branch)
             q = torch.floor(kernel / _bshape(s_w, kernel.dim())) \
@@ -478,6 +525,9 @@ class QLayer(nn.Module):
         # epilogues take (O,) vectors
         w_scale = s_w.to(torch.float32).expand(kernel.shape[0]).contiguous()
         weights = self._weight_buffers(w_int)
+        if offset:
+            weights["w_offset"] = o_w.to(torch.float32).expand(
+                kernel.shape[0]).contiguous()
         if not aq.enable:
             return {**weights, "w_scale": w_scale}, {}
 
@@ -492,6 +542,12 @@ class QLayer(nn.Module):
                  else torch.zeros_like(colsum))
         if self.bias is not None:
             bias_eff = bias_eff + self.bias.detach()
+        pad_val = int(dp.int8_pad_value(s_x, o_x, aqmin, aqmax))
+        if offset:
+            bias_eff = bias_eff + self._zero_residue(
+                weights["w_offset"], (pad_val + shift) * s_x + o_x)
+            weights["off_scale"] = (s_x * weights["w_offset"]).to(
+                torch.float32)
         # colsum and bias0 let a consumer re-derive its epilogue for codes on
         # a producer's grid (a QuantizedTensor input)
         tensors = {**weights, "w_scale": w_scale,
@@ -503,13 +559,21 @@ class QLayer(nn.Module):
             "in_inv_scale": float((1.0 / s_x).to(torch.float32)),
             "in_qbias": float((-o_x / s_x - shift).to(torch.float32)),
             "in_offset": float(o_x),
-            "pad_val": int(dp.int8_pad_value(s_x, o_x, aqmin, aqmax)),
+            "pad_val": pad_val,
         }
         return tensors, scalars
+
+    def _zero_residue(self, w_offset, zero_value):
+        """``o_w·K·real(z)``: the row term's share that ``S`` (codes less
+        the zero code ``z``) leaves out where ``z``'s real value is not
+        exactly 0, over the K inputs of a window (0 for RootQ's grid)."""
+        return w_offset * (self.weight[0].numel() * zero_value)
 
     def prepare_deploy(self) -> None:
         """Build and store the integer plan (buffers + host scalars)."""
         tensors, self.plan_scalars = self._build_int_plan()
+        for name in ("w_offset", "off_scale"):
+            self._buffers.pop(name, None)     # a plan before may have had one
         for name, t in tensors.items():
             self.register_buffer(name, t)
 
@@ -524,11 +588,16 @@ class QLayer(nn.Module):
 
     def _dequantized_weight(self) -> torch.Tensor:
         """A weight-only layer's int8 weights (unpacked at W4, as the JAX
-        package's ``_plan_weights``) as bf16 values."""
+        package's ``_plan_weights``) as bf16 values, ``+ o_w`` with a weight
+        offset."""
         self._require_plan()
         w_int = self._int_weight()
-        return w_int.to(torch.bfloat16) \
+        w = w_int.to(torch.bfloat16) \
             * _bshape(self.w_scale, w_int.dim()).to(torch.bfloat16)
+        offset = getattr(self, "w_offset", None)
+        if offset is not None:
+            w = w + _bshape(offset, w_int.dim()).to(torch.bfloat16)
+        return w
 
     def _int_input(self, x):
         """``(codes, epi_scale, bias_eff, pad)`` of an integer forward: a
@@ -536,11 +605,28 @@ class QLayer(nn.Module):
         epilogue re-derived from ``colsum`` and ``bias0``); anything else is
         quantized onto this layer's grid."""
         if isinstance(x, QuantizedTensor):
+            z = x.zero_code()
             bias_eff = x.bias * self.w_scale * self.colsum + self.bias0
-            return x.q, x.scale * self.w_scale, bias_eff, x.zero_code()
+            offset = getattr(self, "w_offset", None)
+            if offset is not None:
+                bias_eff = bias_eff + self._zero_residue(
+                    offset, float(np.float32(z) * np.float32(x.scale)
+                                  + np.float32(x.bias)))
+            return x.q, x.scale * self.w_scale, bias_eff, z
         self._require_plan()
         return (self._input_codes(x), self.epi_scale, self.bias_eff,
                 self.plan_scalars["pad_val"])
+
+    def _int_offset(self, x):
+        """The row term's coefficient for an integer forward of ``x``:
+        ``s_x·o_w`` (O,) on this layer's grid, ``x.scale·o_w`` for a
+        :class:`QuantizedTensor`; None without a weight offset."""
+        offset = getattr(self, "w_offset", None)
+        if offset is None:
+            return None
+        if isinstance(x, QuantizedTensor):
+            return x.scale * offset
+        return self.off_scale
 
     def _input_codes(self, x) -> torch.Tensor:
         """int8 codes of the input on this layer's grid: a folded boundary
@@ -639,13 +725,14 @@ class QConv(QLayer):
                 y = self._conv(_bf16_values(materialize(x)),
                                self._dequantized_weight().float(), bias=False)
                 return y if self.bias is None else y + self.bias
-            de = self.deferred(*self._int_input(x))
+            de = self.deferred(*self._int_input(x),
+                               off_scale=self._int_offset(x))
             return de if qmode == "intc" else materialize(de)
         x_q, w_q = self._quantize(x, qmode)
         return self._conv(x_q, w_q)
 
     def deferred(self, x_i8: torch.Tensor, epi_scale=None, bias_eff=None,
-                 pad=None) -> DeferredEpilogue:
+                 pad=None, off_scale=None) -> DeferredEpilogue:
         """This layer's output on input codes ``x_i8`` (on this layer's
         grid unless an epilogue and pad code are given), with the conv and
         its epilogue left to the consumer (see quant/chain.py): a 3×3 conv
@@ -654,10 +741,20 @@ class QConv(QLayer):
         columns pad K to a multiple of 16: the packed weight is zero
         there), any other window as a :class:`PendingWideConv` (the stem
         kernel where a max pool follows, else im2col rows with the pad
-        code at the borders into the GEMM)."""
+        code at the borders into the GEMM).  With a weight offset the
+        output carries the row term ``(S, off_scale)``, ``S`` the window
+        sums of ``x_i8`` (``int8_window_sum`` at this conv's window, stride
+        and pads; ``None`` for a depthwise conv, whose kernel sums its
+        own); ``off_scale`` must come with a given epilogue
+        (:meth:`_int_offset`)."""
         if epi_scale is None:
             epi_scale, bias_eff = self.epi_scale, self.bias_eff
             pad = self.plan_scalars["pad_val"]
+            off_scale = getattr(self, "off_scale", None)
+        elif off_scale is None and hasattr(self, "w_offset"):
+            raise ValueError(f"{self.path}: a weight offset's row term needs "
+                             "off_scale on the input's grid (_int_offset; "
+                             "ROADMAP item 13)")
         if self.groups != 1 and not self.depthwise:
             raise NotImplementedError(
                 f"{self.path}: grouped convs other than a depthwise 3x3 "
@@ -667,6 +764,13 @@ class QConv(QLayer):
         pads = self.spatial_pads(h, w)
         (top, bottom), (left, right) = pads
         s, k = self.stride, self.kernel_size
+        row = None
+        if off_scale is not None:
+            # from the NHWC codes, never from the GEMM's rows: pad_k fills
+            # their K tail with code 0, not the zero code
+            sums = None if self.depthwise else int8_window_sum(
+                x_i8.contiguous(), zero=pad, kernel=k, stride=s, pads=pads)
+            row = (sums, off_scale)
         if k == 1:
             if top or bottom or left or right:
                 raise NotImplementedError(
@@ -674,11 +778,11 @@ class QConv(QLayer):
             codes = x_i8[:, ::s, ::s, :].contiguous()
             pending = PendingGemm(pad_k(codes.reshape(-1, codes.shape[-1])),
                                   self.w_gemm, tuple(codes.shape[:3]))
-            return DeferredEpilogue(pending, epi_scale, bias_eff)
+            return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
         if k != 3:
             pending = PendingWideConv(x_i8.contiguous(), self.w_gemm,
                                       self.w_stem, k, s, pads, pad)
-            return DeferredEpilogue(pending, epi_scale, bias_eff)
+            return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
         # the kernel pads `top` rows above (0 or 1) and what the window
         # needs below, and gives ceil(h / s) rows: that must be this conv
         if not (top == left and top in (0, 1) and (s == 2 or top == 1)
@@ -692,7 +796,7 @@ class QConv(QLayer):
         else:
             pending = PendingConv(x_i8.contiguous(), self.w_packed, s, pad,
                                   top)
-        return DeferredEpilogue(pending, epi_scale, bias_eff)
+        return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
 
     def _weight_buffers(self, w_int) -> dict:
         """The plan's weight buffers: a weight-only conv's ``w_int`` (OIHW;
@@ -781,9 +885,15 @@ class QDense(QLayer):
                 y = F.linear(_bf16_values(materialize(x)),
                              self._dequantized_weight().float())
                 return y if self.bias is None else y + self.bias
-            x_i8, epi_scale, bias_eff, _ = self._int_input(x)
+            x_i8, epi_scale, bias_eff, pad = self._int_input(x)
             acc = _int8_matmul(x_i8, self._int_weight().contiguous())
-            de = DeferredEpilogue(acc, epi_scale, bias_eff)
+            off_scale, row = self._int_offset(x), None
+            if off_scale is not None:
+                # a (M, K) row as a 1x1 window: S at the head's K inputs
+                sums = int8_window_sum(x_i8.reshape(
+                    -1, 1, 1, x_i8.shape[-1]).contiguous(), zero=pad)
+                row = (sums.reshape(-1), off_scale)
+            de = DeferredEpilogue(acc, epi_scale, bias_eff, row=row)
             return de if qmode == "intc" else materialize(de)
         x_q, w_q = self._quantize(x, qmode)
         return F.linear(x_q, w_q, self.bias)

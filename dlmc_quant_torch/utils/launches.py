@@ -3,7 +3,8 @@ against its plain version.
 
 :class:`LaunchRecorder` wraps the kernel wrappers where the chain calls
 them (the 3×3 conv, the GEMM, the im2col, the stem conv + pool and the
-depthwise 3×3 conv, all in ``quant/chain.py``), so one forward gives every
+depthwise 3×3 conv in ``quant/chain.py``, the window sums of a weight
+offset's row term in ``quant/layers.py``), so one forward gives every
 launch with its arguments and output; :func:`max_diff_to_plain` runs a
 recorded launch's plain version on the same arguments.  ``chip_smoke.py`` and
 ``bench_torch.py`` check and time the launches of a request with these.
@@ -18,19 +19,24 @@ from dlmc_quant_torch.ops.cuda import int8_dwconv as _dwconv
 from dlmc_quant_torch.ops.cuda import int8_gemm as _gemm
 from dlmc_quant_torch.ops.cuda import int8_im2col as _im2col
 from dlmc_quant_torch.ops.cuda import int8_stem_pool as _stem
+from dlmc_quant_torch.ops.cuda import int8_window_sum as _window
 from dlmc_quant_torch.quant import chain as _chain
+from dlmc_quant_torch.quant import layers as _layers
 
 # kind → (kernel wrapper, plain version)
 KERNELS = {"conv": (_conv.int8_conv3x3, _conv.int8_conv3x3_plain),
            "gemm": (_gemm.int8_gemm, _gemm.int8_gemm_plain),
            "im2col": (_im2col.int8_im2col, _im2col.int8_im2col_plain),
            "stem_pool": (_stem.int8_stem_pool, _stem.int8_stem_pool_plain),
-           "dwconv": (_dwconv.int8_dwconv3x3, _dwconv.int8_dwconv3x3_plain)}
+           "dwconv": (_dwconv.int8_dwconv3x3, _dwconv.int8_dwconv3x3_plain),
+           "window_sum": (_window.int8_window_sum,
+                          _window.int8_window_sum_plain)}
 # where the port calls each wrapper: (module, attribute, kind)
 _SITES = ((_chain, "int8_conv3x3", "conv"), (_chain, "int8_gemm", "gemm"),
           (_chain, "int8_im2col", "im2col"),
           (_chain, "int8_stem_pool", "stem_pool"),
-          (_chain, "int8_dwconv3x3", "dwconv"))
+          (_chain, "int8_dwconv3x3", "dwconv"),
+          (_layers, "int8_window_sum", "window_sum"))
 
 
 class LaunchRecorder:

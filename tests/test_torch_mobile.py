@@ -77,11 +77,12 @@ SCHEME = {"quantization_type": "FSPTQ",
           "input": {"enable": True, "type": "minmax_tensor",
                     "args": {"n_bits": 8, "signed": False}}}
 # arch → (map size, launches of an intc request: conv, gemm, im2col,
-# stem_pool, dwconv; QConvs in the deploy form; QLayers in the train form)
+# stem_pool, dwconv, window_sum; QConvs in the deploy form; QLayers in the
+# train form)
 ARCHS = {"mobilenet": (32, dict(conv=1, gemm=39, im2col=0, stem_pool=0,
-                                dwconv=17), 52, 53),
+                                dwconv=17, window_sum=0), 52, 53),
          "mobileone": (64, dict(conv=1, gemm=4, im2col=0, stem_pool=0,
-                                dwconv=4), 9, 23)}
+                                dwconv=4, window_sum=0), 9, 23)}
 MOBILEONE_SMALL = dict(num_blocks=(1, 1, 1, 1),
                        width_multipliers=(0.25, 0.25, 0.25, 0.25),
                        num_conv_branches=2, num_classes=10)

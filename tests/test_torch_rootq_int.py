@@ -1,0 +1,901 @@
+"""RootQ (and offset LSQ) weights in ``int`` and ``intc``: the row term of
+a weight offset (ROADMAP item 13) against the JAX package's fake quant.
+
+A weight on the grid ``q·s_w + o_w`` adds ``s_x·o_w[o]·S[m]`` to an
+integer conv, ``S`` the window sums of the input codes less the zero code
+(``quant/layers.py``, ``ops/cuda/int8_window_sum.py``).  The JAX package
+drops ``o_w`` in its integer plan (hazard C1), so the reference is its
+``eval`` on the same variables, not its ``int``.
+
+* Per layer, RootQ at W4A4 and W8A8 (``u``/``l`` moved apart from the
+  seed after JAX's calibration, so that ``o_w = (u + l)/2`` on the
+  symmetric signed grid is not 0, as it is at calibration): a 3×3 conv at
+  stride 1 and 2, a 1×1 at stride 1 and 2, the 7×7/s2 stem with and
+  without its 3×3/s2 max pool, a depthwise 3×3 at stride 1 and 2 and a
+  dense layer; and an LSQ 1×1 conv and dense layer with a per-channel
+  ``wt_offset`` and an input offset (its zero code's real value is not 0).
+  The port's ``int`` and ``intc`` within relative L2 1e-5 of JAX's
+  ``eval``: both compute Σ x_fq·w_fq, JAX as a float32 conv, the port as
+  exact integers and an epilogue of float32 steps whose terms
+  (``acc·a``, ``S·c``, ``bias_eff``) partly cancel, which loses a few
+  ulps of the largest term (up to 5.7e-6 relative at W8A8, where the
+  unsigned grid's shift makes ``bias_eff`` large).  The inputs are kept a
+  quarter step from every rounding tie of the input grid, so that JAX's
+  ``round(x/s)`` and the plan's single-FMA quantize give the same codes
+  (hazard C2's one code is a separate matter).  JAX's own ``int``
+  departs by more than 100× that (C1).  Each forward makes the expected
+  launches: one window sum a layer, none for the depthwise conv.
+* The window sums' plain version against a float64 ``F.conv2d`` of ones
+  over the zero-code-padded codes, at ``zero ≠ 0``, every window, stride
+  and pad the layers use; and the K tail that ``pad_k`` adds with code 0
+  is not counted.
+* ``epilogue_plain`` with the row term against float32 numpy step by step
+  in codes, f32 and residual modes; the conv's, GEMM's and depthwise
+  conv's plain versions with the term against their accumulators.
+* C20: RootQ weights set exactly on their bins' midpoints after
+  calibration (the symmetric grid puts 0 on a bin edge, so an exact zero
+  does not hit one) are counted by ``prepare_deploy`` where JAX's fake
+  quant leaves them off the grid, logged, coded half to even, and move the
+  output by at most half a step times the inputs each meets.
+* A deploy-form Bottleneck (``intc``: the trunk's GEMM closes the block
+  with its row term, the downsample's row term makes it an f32 shortcut)
+  against the same block's ``int`` quantized on the block's grid: codes
+  at most one apart (C2).
+* The slice, built through the JAX package (JAX's init, BN statistics
+  from a train-mode forward of the batch, JAX's calibrate, ``u``/``l``
+  moved apart, bridged): RootQ W4A4 cifar_resnet20 (config #5's
+  ``exclude_layers: [conv1, linear]``) and ResNet-50 at 64×64, batch 2
+  (the bottleneck GEMMs, the residual and the downsample): the port's
+  ``int`` and ``intc`` give JAX ``eval``'s classes, one window sum a
+  quantized layer; every quantized conv fed JAX's own input codes within
+  1e-5 of JAX's layer; cifar_resnet20's logits within relative L2 2e-2
+  (C14's bound).  ResNet-50's logits are not bounded at random weights
+  (``_check_net``: one code flipped at a tie grows to 0.16, and JAX's own
+  jitted and eager evals part by 0.21).  Then four port QAT steps and the
+  port's ``int``/``intc`` against its own ``eval``, the same way (a C20
+  weight that QAT put on a midpoint held to its bound).
+* ``cuda``-marked tests hold the window-sum kernel, and the conv, GEMM
+  and depthwise kernels with the term (codes, f32, residual; W8 and W4),
+  against their plain versions on the card (tolerance 0), and skip here:
+  ``python -m pytest --noconftest tests/test_torch_rootq_int.py -m cuda``.
+"""
+
+import copy
+import logging
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from dlmc_quant_torch.models import get_model
+from dlmc_quant_torch.models.resnet_cifar import Bottleneck
+from dlmc_quant_torch.ops.cuda import int8_conv as K
+from dlmc_quant_torch.ops.cuda import int8_dwconv as D
+from dlmc_quant_torch.ops.cuda import int8_gemm as G
+from dlmc_quant_torch.ops.cuda import int8_window_sum as WS
+from dlmc_quant_torch.ops.cuda.epilogue import epilogue_plain
+from dlmc_quant_torch.ops.cuda.int8_gemm import pad_k
+from dlmc_quant_torch.ops import rootq_math as rq
+from dlmc_quant_torch.quant import chain
+from dlmc_quant_torch.quant import deploy as dp
+from dlmc_quant_torch.quant.chain import materialize, qmaxpool, qrelu
+from dlmc_quant_torch.quant.config import scheme_from_dict as port_scheme
+from dlmc_quant_torch.quant.layers import (QConv, QDense, attach_scheme,
+                                           calibrate)
+from dlmc_quant_torch.utils.jax_bridge import load_jax_variables
+from dlmc_quant_torch.utils.launches import LaunchRecorder
+
+torch.set_num_threads(1)
+
+POOL = ((3, 3), (2, 2), ((1, 1), (1, 1)))
+
+
+def _jax():
+    """JAX, flax and the JAX package, imported where a test compares with
+    them: the card's machine runs this file's cuda tests without JAX."""
+    import flax
+    import jax
+    import jax.numpy as jnp
+
+    from dlmc_quant_tpu.models import get_model as jax_get_model
+    from dlmc_quant_tpu.ops import rootq_math as jrq
+    from dlmc_quant_tpu.quant import deploy as jdp
+    from dlmc_quant_tpu.quant.config import scheme_from_dict as jax_scheme
+    from dlmc_quant_tpu.quant.layers import QConv as JQConv
+    from dlmc_quant_tpu.quant.layers import QDense as JQDense
+    from dlmc_quant_tpu.quant.layers import calibrate as jax_calibrate
+    return dict(flax=flax, jax=jax, jnp=jnp, get_model=jax_get_model,
+                rq=jrq, dp=jdp, scheme=jax_scheme, QConv=JQConv,
+                QDense=JQDense, calibrate=jax_calibrate)
+
+
+def _scheme(family: str, bits: int, exclude=()):
+    """RootQ (the configs' scalar minmax quantizers) or LSQ (per-channel
+    minmax weights, a minmax input with an offset) at ``bits``."""
+    if family == "rootq":
+        w = {"enable": True, "type": "minmax_tensor",
+             "args": {"n_bits": bits, "signed": True}}
+        qtype = "RootQ"
+    else:
+        w = {"enable": True, "type": "minmax_channel",
+             "args": {"n_bits": bits, "signed": True}}
+        qtype = None
+    return {"quantization_type": qtype, "momentum": 0.001, "weight": w,
+            "input": {"enable": True, "type": "minmax_tensor",
+                      "args": {"n_bits": bits, "signed": False}},
+            "exclude_layers": list(exclude)}
+
+
+def _np(tree):
+    J = _jax()
+    return J["jax"].tree_util.tree_map(np.asarray,
+                                       J["flax"].core.unfreeze(tree))
+
+
+def _rel(a, b) -> float:
+    a = np.asarray(a.detach() if torch.is_tensor(a) else a, np.float64)
+    b = np.asarray(b, np.float64)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30))
+
+
+def _spread(tree, rng):
+    """Move every RootQ weight's running bounds (and the learned ones)
+    apart from the seed, in place: ``u`` up, ``l`` toward 0 (or past it),
+    so that ``o_w/s_w`` leaves 1/2."""
+    for key, node in tree.items():
+        if isinstance(node, dict):
+            _spread(node, rng)
+        elif key in ("wt_run_upper", "wt_upper"):
+            tree[key] = (node * np.float32(1.05 + 0.3 * rng.random())) \
+                .astype(np.float32)
+        elif key in ("wt_run_lower", "wt_lower"):
+            tree[key] = (node * np.float32(0.6 + 0.3 * rng.random())) \
+                .astype(np.float32)
+
+
+def _snap(x, scale, offset, rng):
+    """``x`` moved onto its grid's steps plus at most a quarter step: a
+    quarter step from every rounding tie."""
+    q = np.round((x - offset) / scale)
+    u = rng.uniform(-0.25, 0.25, x.shape)
+    return ((q + u) * scale + offset).astype(np.float32)
+
+
+# name → (JAX layer, port layer, input shape, launches of a forward)
+LAYERS = {
+    "conv3x3_s1": (lambda J, s: J["QConv"](16, (3, 3), (1, 1), scheme=s),
+                   lambda: QConv(8, 16, 3, 1, "SAME"), (2, 9, 9, 8),
+                   dict(conv=1, window_sum=1)),
+    "conv3x3_s2": (lambda J, s: J["QConv"](16, (3, 3), (2, 2), scheme=s),
+                   lambda: QConv(8, 16, 3, 2, "SAME"), (2, 10, 10, 8),
+                   dict(conv=1, window_sum=1)),
+    "conv1x1_s1": (lambda J, s: J["QConv"](24, (1, 1), (1, 1), scheme=s),
+                   lambda: QConv(20, 24, 1, 1, "SAME"), (2, 6, 7, 20),
+                   dict(gemm=1, window_sum=1)),
+    "conv1x1_s2": (lambda J, s: J["QConv"](24, (1, 1), (2, 2), scheme=s),
+                   lambda: QConv(20, 24, 1, 2, "SAME"), (2, 7, 6, 20),
+                   dict(gemm=1, window_sum=1)),
+    "stem7x7": (lambda J, s: J["QConv"](16, (7, 7), (2, 2), scheme=s),
+                lambda: QConv(3, 16, 7, 2, "SAME"), (2, 21, 19, 3),
+                dict(im2col=1, gemm=1, window_sum=1)),
+    "stem7x7_pool": (lambda J, s: J["QConv"](16, (7, 7), (2, 2), scheme=s),
+                     lambda: QConv(3, 16, 7, 2, "SAME"), (2, 22, 20, 3),
+                     dict(im2col=1, gemm=1, window_sum=1)),
+    "depthwise_s1": (lambda J, s: J["QConv"](24, (3, 3), (1, 1),
+                                             feature_group_count=24,
+                                             scheme=s),
+                     lambda: QConv(24, 24, 3, 1, "SAME", groups=24),
+                     (2, 9, 8, 24), dict(dwconv=1)),
+    "depthwise_s2": (lambda J, s: J["QConv"](24, (3, 3), (2, 2),
+                                             feature_group_count=24,
+                                             scheme=s),
+                     lambda: QConv(24, 24, 3, 2, "SAME", groups=24),
+                     (2, 10, 8, 24), dict(dwconv=1)),
+    "dense": (lambda J, s: J["QDense"](10, scheme=s),
+              lambda: QDense(33, 10), (5, 33), dict(window_sum=1)),
+}
+
+
+def _launches(**kw):
+    out = dict(conv=0, gemm=0, im2col=0, stem_pool=0, dwconv=0,
+               window_sum=0)
+    out.update(kw)
+    return out
+
+
+def _pair(name, family, bits, seed):
+    """The layer in both packages on JAX's calibrated variables (RootQ
+    bounds spread, or an LSQ per-channel weight offset set), the port's
+    prepared for integer execution; the snapped input."""
+    J = _jax()
+    jnp = J["jnp"]
+    make_jax, make_port, shape, _ = LAYERS[name]
+    rng = np.random.default_rng(seed)
+    x0 = (rng.random(shape, dtype=np.float32) * 3.0 - 0.5)
+    sd = _scheme(family, bits)
+    jl = make_jax(J, J["scheme"](sd))
+    v = J["jax"].jit(jl.init)(J["jax"].random.PRNGKey(seed), jnp.asarray(x0))
+    v = _np(J["calibrate"](jl, v, [jnp.asarray(x0)]))
+    v["params"]["bias"] = rng.normal(
+        0, 0.1, v["params"]["bias"].shape).astype(np.float32)
+    qs = v["qstate"]
+    if family == "rootq":
+        _spread(v, rng)
+        x = _snap(x0, qs["in_run_scale"], np.float32(0.0), rng)
+    else:
+        s_w = v["params"]["wt_scale"]
+        qs["wt_offset"] = (rng.uniform(-0.5, 0.5, s_w.shape) * s_w) \
+            .astype(np.float32)
+        x = _snap(x0, v["params"]["in_scale"], qs["in_offset"], rng)
+    pl = attach_scheme(make_port(), port_scheme(sd))
+    load_jax_variables(pl, v)
+    pl.prepare_deploy()
+    return J, jl, v, pl, x
+
+
+def _jax_eval(J, jl, v, x, pool):
+    y = jl.apply(v, J["jnp"].asarray(x), qmode="eval")
+    if pool:
+        y = J["flax"].linen.max_pool(J["jnp"].maximum(y, 0.0), *POOL)
+    return np.asarray(y)
+
+
+def _port_forwards(pl, x, pool):
+    """(int, intc) outputs of ``x`` (the ReLU'd, pooled stem for ``pool``)
+    and each forward's launches."""
+    xt = torch.from_numpy(x)
+    outs, counts = [], []
+    with torch.no_grad():
+        for qmode in ("int", "intc"):
+            with LaunchRecorder() as rec:
+                y = pl(xt, qmode=qmode)
+                if pool:
+                    y = materialize(qmaxpool(qrelu(y), *POOL))
+                y = materialize(y)
+            outs.append(y)
+            counts.append(rec.counts())
+    return outs, counts
+
+
+CASES = [(name, "rootq", bits) for name in LAYERS for bits in (4, 8)] + \
+    [("conv1x1_s2", "lsq", 4), ("dense", "lsq", 8)]
+
+
+@pytest.mark.parametrize("name,family,bits", CASES,
+                         ids=[f"{n}-{f}-w{b}a{b}" for n, f, b in CASES])
+def test_layer_int_matches_jax_eval(name, family, bits):
+    J, jl, v, pl, x = _pair(name, family, bits, seed=bits + len(name))
+    pool = name.endswith("_pool")
+    o_w = pl.w_offset
+    if family == "rootq":
+        # (u + l)/2 on the symmetric grid: 0 at calibration, not here
+        ratio = float(o_w[0] / pl.w_scale[0])
+        assert abs(ratio) > 0.01, ratio
+    else:
+        assert bool((o_w != 0).all()) and len(set(o_w.tolist())) > 1
+        assert pl.plan_scalars["in_offset"] != 0.0
+    want = _jax_eval(J, jl, v, x, pool)
+    (got_int, got_intc), counts = _port_forwards(pl, x, pool)
+    assert counts == [_launches(**LAYERS[name][3])] * 2
+    assert _rel(got_int, want) <= 1e-5
+    assert _rel(got_intc, want) <= 1e-5
+    # C1: JAX's own int drops o_w
+    vd = J["dp"].prepare_deploy(jl, v, sample_input=J["jnp"].asarray(x))
+    jax_int = np.asarray(jl.apply(vd, J["jnp"].asarray(x), qmode="int"))
+    jax_eval = _jax_eval(J, jl, v, x, False)
+    assert _rel(jax_int, jax_eval) > 100 * max(_rel(got_int, want), 1e-7)
+
+
+def test_offset_lsq_weight_only_layer_adds_the_offset():
+    """A weight-only layer dequantizes ``w_int·s_w + o_w`` (bf16)."""
+    layer = QConv(8, 16, 3, 1, "SAME")
+    sd = _scheme("lsq", 8)
+    sd["input"]["enable"] = False
+    attach_scheme(layer, port_scheme(sd))
+    x = torch.rand(2, 6, 6, 8, generator=torch.Generator().manual_seed(0))
+    calibrate(layer, [x])
+    layer.wt_offset.copy_(0.5 * layer.wt_scale)
+    layer.prepare_deploy()
+    with torch.no_grad():
+        got = layer(x, qmode="int")
+        want = layer(x, qmode="eval")
+        dropped = layer._conv(x, layer._dequantized_weight().float()
+                              - 0.5 * layer.wt_scale.reshape(-1, 1, 1, 1))
+    assert _rel(got, want) < 1e-2   # bf16 operands
+    assert _rel(dropped, want) > 5 * _rel(got, want)
+
+
+# ---------------------------------------------------------------- window sums
+
+WINDOWS = [  # (n, h, w, c, kernel, stride, pads)
+    (2, 7, 6, 20, 1, 1, ((0, 0), (0, 0))),
+    (2, 7, 6, 20, 1, 2, ((0, 0), (0, 0))),
+    (2, 9, 9, 8, 3, 1, ((1, 1), (1, 1))),
+    (2, 10, 10, 64, 3, 2, ((0, 1), (0, 1))),
+    (2, 9, 11, 16, 3, 2, ((1, 1), (1, 1))),
+    (2, 21, 19, 3, 7, 2, ((2, 3), (3, 3))),
+    (5, 1, 1, 33, 1, 1, ((0, 0), (0, 0))),
+]
+
+
+@pytest.mark.parametrize("shape", WINDOWS, ids=lambda s: "x".join(
+    map(str, s[:6])))
+@pytest.mark.parametrize("zero", [-128, -37, 0, 5])
+def test_window_sum_plain_matches_conv_of_ones(shape, zero):
+    n, h, w, c, k, s, pads = shape
+    g = torch.Generator().manual_seed(h * w + c)
+    x = torch.randint(-128, 128, (n, h, w, c), generator=g, dtype=torch.int8)
+    (top, bottom), (left, right) = pads
+    xp = F.pad(x.permute(0, 3, 1, 2).double(), (left, right, top, bottom),
+               value=float(zero))
+    want = F.conv2d(xp, torch.ones((1, c, k, k), dtype=torch.float64),
+                    stride=s)[:, 0] - zero * k * k * c
+    got = WS.int8_window_sum(x, zero=zero, kernel=k, stride=s, pads=pads)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got.double(), want)
+
+
+def test_window_sum_ignores_the_gemm_k_tail():
+    """The 1×1 conv's GEMM rows carry ``pad_k``'s zeros past C = 24: S is
+    taken from the NHWC codes, so the tail is not counted."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(-128, 128, (2, 5, 4, 24), generator=g,
+                      dtype=torch.int8)
+    rows = pad_k(x.reshape(-1, 24))
+    assert rows.shape[1] == 32
+    zero = -128
+    got = WS.int8_window_sum(x, zero=zero).reshape(-1).long()
+    assert torch.equal(got, (x.reshape(-1, 24).long() - zero).sum(-1))
+    assert not torch.equal(got, (rows.long() - zero).sum(-1))
+
+
+def test_window_sum_refuses_bad_arguments():
+    x = torch.zeros((1, 4, 4, 8), dtype=torch.int8)
+    with pytest.raises(ValueError, match="int8 code"):
+        WS.int8_window_sum(x, zero=200)
+    with pytest.raises(ValueError, match="window does not fit"):
+        WS.int8_window_sum(x, zero=0, kernel=7)
+    with pytest.raises(ValueError, match="int8"):
+        WS.int8_window_sum(x.int(), zero=0)
+
+
+# ---------------------------------------------------------------- epilogues
+
+def _epi_operands(seed, m=30, o=12):
+    rng = np.random.default_rng(seed)
+    acc = rng.integers(-20000, 20000, (m, o)).astype(np.int32)
+    sums = rng.integers(-3000, 3000, (m,)).astype(np.int32)
+    a = (rng.random(o) * 1e-3 + 1e-4).astype(np.float32)
+    b = rng.normal(0, 2, o).astype(np.float32)
+    c = rng.normal(0, 1e-3, o).astype(np.float32)
+    return acc, sums, a, b, c, rng
+
+
+@pytest.mark.parametrize("mode", ["codes", "f32", "f32_relu", "residual"])
+def test_epilogue_plain_row_term_in_float32_steps(mode):
+    acc, sums, a, b, c, rng = _epi_operands(len(mode))
+    f = np.float32
+    t = acc.astype(f) * a
+    t = t + sums.astype(f)[:, None] * c            # the row term
+    kw = dict(mode="f32" if mode.startswith("f32") else "codes",
+              relu=mode == "f32_relu")
+    if mode == "residual":
+        r = rng.integers(-128, 128, acc.shape).astype(np.int8)
+        ar = (rng.random(acc.shape[1]) * 0.5).astype(f)
+        br = rng.normal(0, 1, acc.shape[1]).astype(f)
+        qb = float(f(3.5))
+        y = ((f(qb) + t) + b + r.astype(f) * ar) + br
+        kw.update(residual=(torch.from_numpy(r), torch.from_numpy(ar),
+                            torch.from_numpy(br)), qb=qb, lo=-5, hi=100)
+    else:
+        y = t + b
+    if kw["mode"] == "codes":
+        want = np.clip(np.rint(y), kw.get("lo", -128), kw.get("hi", 127))
+    else:
+        want = np.maximum(y, 0) if kw["relu"] else y
+    row = (torch.from_numpy(sums), torch.from_numpy(c))
+    got = epilogue_plain(torch.from_numpy(acc), torch.from_numpy(a),
+                         torch.from_numpy(b), row=row, **kw)
+    assert np.array_equal(got.numpy().astype(want.dtype), want)
+    # the GEMM's plain version: the same epilogue after its product
+    x = torch.from_numpy(rng.integers(-128, 128, (30, 48)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (48, 12)).astype(np.int8))
+    gacc = x.long() @ w.long()
+    got = G.int8_gemm(x, G.pack_b(w), torch.from_numpy(a),
+                      torch.from_numpy(b), row=row, **kw)
+    assert torch.equal(got, epilogue_plain(gacc.int(), torch.from_numpy(a),
+                                           torch.from_numpy(b), row=row,
+                                           **kw))
+
+
+def test_conv_and_depthwise_plain_row_terms():
+    """The 3×3 conv's plain version adds f32(S)·c after its product (S
+    per pixel), the depthwise conv's with S per pixel and channel, the
+    window of its own channel less 9·pad."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randint(-128, 128, (2, 7, 8, 16), generator=g,
+                      dtype=torch.int8)
+    a = torch.rand(16, generator=g) * 1e-3
+    b = torch.randn(16, generator=g)
+    c = torch.randn(16, generator=g) * 1e-3
+    wk = torch.randint(-128, 128, (3, 3, 16, 16), generator=g,
+                       dtype=torch.int8)
+    for stride, pad_lo in ((1, 1), (2, 0), (2, 1)):
+        # the kernels' geometry: pad_lo above and left, what the last
+        # window reaches below and right
+        pads = tuple((pad_lo, (-(-size // stride) - 1) * stride + 3 - size
+                      - pad_lo) for size in (7, 8))
+        sums = WS.int8_window_sum(x, zero=-9, kernel=3, stride=stride,
+                                  pads=pads)
+        acc = K.int8_conv3x3_plain(x, K.pack_weight(wk), torch.ones(16),
+                                   torch.zeros(16), stride=stride, pad=-9,
+                                   pad_lo=pad_lo, mode="f32")
+        got = K.int8_conv3x3(x, K.pack_weight(wk), a, b, stride=stride,
+                             pad=-9, pad_lo=pad_lo, mode="f32",
+                             row=(sums, c))
+        assert torch.equal(got, epilogue_plain(acc.double(), a, b,
+                                               mode="f32", row=(sums, c)))
+        wd = wk[:, :, :1, :]
+        acc = D.int8_dwconv3x3_plain(x, D.pack_weight(wd), torch.ones(16),
+                                     torch.zeros(16), stride=stride, pad=-9,
+                                     pad_lo=pad_lo, mode="f32")
+        # each channel's window sum: the window sums of that channel alone
+        per = torch.stack([WS.int8_window_sum(
+            x[..., i:i + 1].contiguous(), zero=-9, kernel=3, stride=stride,
+            pads=pads) for i in range(16)], dim=-1)
+        got = D.int8_dwconv3x3(x, D.pack_weight(wd), a, b, stride=stride,
+                               pad=-9, pad_lo=pad_lo, mode="codes",
+                               offset=c)
+        assert torch.equal(got, epilogue_plain(acc.double(), a, b,
+                                               mode="codes", row=(per, c)))
+
+
+def test_row_term_arguments_are_checked():
+    x = torch.zeros((8, 32), dtype=torch.int8)
+    w = G.pack_b(torch.zeros((32, 16), dtype=torch.int8))
+    a, b = torch.ones(16), torch.zeros(16)
+    with pytest.raises(ValueError, match="int32 mode takes no epilogue"):
+        G.int8_gemm(x, w, row=(torch.zeros(8, dtype=torch.int32), a))
+    with pytest.raises(ValueError, match="row term's S"):
+        G.int8_gemm(x, w, a, b, mode="f32",
+                    row=(torch.zeros(7, dtype=torch.int32), a))
+    with pytest.raises(ValueError, match="row term's c"):
+        G.int8_gemm(x, w, a, b, mode="f32",
+                    row=(torch.zeros(8, dtype=torch.int32), a[:3]))
+
+
+# ---------------------------------------------------------------- C20
+
+def test_c20_midpoint_weights_counted_and_bounded(caplog):
+    """Weights set exactly on bin midpoints at calibration (4 bits, l = −u,
+    each midpoint in float32 as the quantizer forms it): JAX's fake quant
+    leaves each off the grid; the plan counts them, gives each the even
+    of its two codes, and the output moves by at most half a step times
+    the inputs each meets."""
+    J = _jax()
+    jnp = J["jnp"]
+    rng = np.random.default_rng(20)
+    x0 = (rng.random((2, 9, 9, 8), dtype=np.float32) * 3.0 - 0.5)
+    sd = _scheme("rootq", 4)
+    jl = J["QConv"](16, (3, 3), (1, 1), scheme=J["scheme"](sd))
+    v = _np(J["jax"].jit(jl.init)(J["jax"].random.PRNGKey(0),
+                                  jnp.asarray(x0)))
+    v = _np(J["calibrate"](jl, v, [jnp.asarray(x0)]))
+    qs = v["qstate"]
+    u, l = qs["wt_run_upper"], qs["wt_run_lower"]
+    assert u == -l
+    s_w = (u - l) / np.float32(14)
+    o_w = l + np.float32(7) * s_w
+    kernel = np.array(v["params"]["kernel"])
+    mids = rng.random(kernel.shape) < 0.05
+    bins = rng.integers(0, 14, kernel.shape).astype(np.float32)
+    kernel[mids] = ((bins + np.float32(0.5)) * s_w + l)[mids]
+    v["params"]["kernel"] = kernel
+    w_fq = np.asarray(J["rq"].rootq_weight_fake_quant(
+        jnp.asarray(kernel), u, l, v["params"]["wt_alpha"], -7, 7))
+    k = (w_fq - o_w) / s_w
+    off_grid = np.abs(k - np.round(k)) > 0.25
+    assert np.array_equal(off_grid, mids)
+    pl = attach_scheme(QConv(8, 16, 3, 1, "SAME"), port_scheme(sd))
+    load_jax_variables(pl, v)
+    with caplog.at_level(logging.INFO, logger="dlmc_quant_torch.quant.deploy"):
+        dp.prepare_deploy(pl)
+    assert pl.midpoints == int(off_grid.sum())
+    assert dp.midpoint_count(pl) == pl.midpoints
+    assert f"{pl.midpoints} RootQ weights" in caplog.text
+    x = _snap(x0, qs["in_run_scale"], np.float32(0.0), rng)
+    want = _jax_eval(J, jl, v, x, False)
+    with torch.no_grad():
+        got = pl(torch.from_numpy(x), qmode="int").numpy()
+    x_fq = np.clip(np.round(x / qs["in_run_scale"]), 0, 15) \
+        * qs["in_run_scale"]
+    # the even code of the two: round half to even of the midpoint's
+    codes = K.unpack_weight(pl.w_packed, 8, 16).numpy()     # HWIO
+    assert np.array_equal(codes[mids], np.round(bins[mids] + 0.5 - 7))
+    reach = F.conv2d(torch.from_numpy(np.abs(x_fq)).permute(0, 3, 1, 2)
+                     .double(), torch.from_numpy(
+                         off_grid.astype(np.float64)).permute(3, 2, 0, 1),
+                     padding=1).permute(0, 2, 3, 1).numpy()
+    bound = 0.5 * s_w * reach + 1e-5 * np.abs(want).max()
+    assert (np.abs(got - want) <= bound).all()
+    assert (np.abs(got - want) > 1e-5 * np.abs(want).max()).any()
+
+
+# ---------------------------------------------------------------- the chain
+
+def test_bottleneck_intc_folds_the_row_terms():
+    """A deploy-form downsampling Bottleneck under RootQ W4A4: ``intc``
+    closes the block in conv3's GEMM epilogue with its row term, and the
+    downsample's row term makes it an f32 shortcut; the codes equal the
+    block's ``int`` output quantized on its grid within one code (C2)."""
+    torch.manual_seed(0)
+    block = Bottleneck(16, 8, stride=2, deploy=True,
+                       generator=torch.Generator().manual_seed(1))
+    for m in block.modules():
+        if isinstance(m, QConv):
+            m.bias.data.normal_(0, 0.1)
+    attach_scheme(block, port_scheme(_scheme("rootq", 4)))
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand(2, 10, 10, 16, generator=g)
+    calibrate(block, [x])
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, QConv):
+                m.wt_run_upper.mul_(1.2)
+                m.wt_run_lower.mul_(0.7)
+    dp.prepare_deploy(block)
+    with torch.no_grad(), LaunchRecorder() as rec:
+        codes = block(x, qmode="intc")
+    assert isinstance(codes, chain.QuantizedTensor)
+    # 3 GEMMs (conv1, conv3 closing the block, the f32 downsample), 1 conv,
+    # a window sum each
+    assert rec.counts() == _launches(conv=1, gemm=3, window_sum=4)
+    kinds = [(k, kw.get("mode"), kw.get("residual") is not None)
+             for k, _, kw, _ in rec.calls if k == "gemm"]
+    assert ("gemm", "f32", False) in kinds and ("gemm", "codes", True) in kinds
+    with torch.no_grad():
+        y = block(x, qmode="int")
+    h = block.out_q.plan_scalars
+    want = torch.round(y * h["bq_inv"] + h["bq_qbias"]).clamp(
+        h["bq_lo"], h["bq_hi"])
+    diff = (codes.q.float() - want).abs()
+    assert diff.max() <= 1 and (diff > 0).float().mean() < 0.01
+
+
+# ---------------------------------------------------------------- the slice
+
+NETS = {"cifar_resnet20": (32, 10, 4), "resnet50": (64, 1000, 2)}
+
+
+def _jax_eval_layers(J, jm, v, x):
+    """JAX's ``eval`` logits of ``x``, and every QConv's (input, fake-quant
+    input by JAX's ``rootq_act_fake_quant`` on its running scale, output)
+    by module path.  Eager, as the JAX package's own parity tests run it:
+    jit moves a layer's codes by XLA's rewrites (a code flips at a tie,
+    1.5e-3 at one of ResNet-50's layers) and the logits with them (2.8e-2
+    at cifar_resnet20, 0.21 at ResNet-50)."""
+    seen = {}
+
+    def grab(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if context.method_name == "__call__" and isinstance(
+                context.module, J["QConv"]):
+            path = ".".join(context.module.scope.path)
+            xin, qs = args[0], context.module.variables.get("qstate", {})
+            xq = J["rq"].rootq_act_fake_quant(xin, qs["in_run_scale"], 15) \
+                if "in_run_scale" in qs else xin
+            seen[path] = (np.array(xin), np.array(xq), np.array(out))
+        return out
+
+    with J["flax"].linen.intercept_methods(grab):
+        logits = jm.apply(v, J["jnp"].asarray(x), qmode="eval")
+    return np.asarray(logits), seen
+
+
+def _port_eval_layers(model, x):
+    """The port's own ``eval`` logits and its quantized convs' (input,
+    fake-quant input, output)."""
+    seen, xq = {}, {}
+    hooks = []
+    for name, m in model.named_modules():
+        if isinstance(m, QConv) and m.cfg is not None:
+            hooks.append(m.register_forward_hook(
+                lambda mod, a, o, name=name: seen.__setitem__(
+                    name, (a[0].numpy().copy(), xq[name], o.numpy().copy()))))
+            def quantize(*args, name=name, f=m._rootq_input):
+                out = f(*args)
+                xq[name] = out.numpy().copy()
+                return out
+
+            m._rootq_input = quantize
+    with torch.no_grad():
+        logits = model(torch.from_numpy(x), qmode="eval").numpy()
+    for h in hooks:
+        h.remove()
+    for name, m in model.named_modules():
+        m.__dict__.pop("_rootq_input", None)
+    return logits, seen
+
+
+def _worst_layer(model, seen):
+    """The largest relative L2, over the quantized convs, of a conv's
+    integer output on the reference's own input codes against the
+    reference's output (at a C20 weight, the elementwise bound of half a
+    step times the inputs it meets instead); the port's codes of the
+    reference's float input are at most one code from them (C2: the plan
+    quantizes by ``x·(1/s)``, the reference by ``x/s``)."""
+    worst = (0.0, "-")
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if not isinstance(m, (QConv, QDense)) or m.cfg is None:
+                continue
+            assert isinstance(m, QConv), name      # the heads are excluded
+            xin, xq, want = seen[name]
+            s = np.float32(m.plan_scalars["in_scale"])
+            codes = torch.from_numpy(np.round(xq / s).astype(np.int8))
+            assert (m._input_codes(torch.from_numpy(xin)).int()
+                    - codes.int()).abs().max() <= 1, name
+            got = materialize(m.deferred(codes)).numpy()
+            if not m.midpoints:
+                worst = max(worst, (_rel(got, want), name))
+                continue
+            _, mid = rq.weight_bins(m.weight, m.wt_run_upper,
+                                    m.wt_run_lower, m.cfg.weight.qmin,
+                                    m.cfg.weight.qmax)
+            reach = m._conv(torch.from_numpy(np.abs(xq)), mid.float(),
+                            bias=False).numpy()
+            bound = 0.5 * float(m.w_scale[0]) * reach \
+                + 1e-5 * np.abs(want).max()
+            assert (np.abs(got - want) <= bound).all(), name
+    return worst
+
+
+@pytest.fixture(scope="module", params=list(NETS))
+def net(request):
+    """The net in both packages: JAX's init with BN statistics from a
+    train-mode forward of the batch, JAX's calibrate under config #5's
+    scheme (RootQ W4A4, conv1 and linear excluded), every layer's bounds
+    spread; JAX's eval with each layer's input and output; the port's on
+    JAX's variables."""
+    J = _jax()
+    jnp = J["jnp"]
+    arch = request.param
+    size, classes, batch = NETS[arch]
+    sd = _scheme("rootq", 4, exclude=("conv1", "linear"))
+    jm = J["get_model"](arch, num_classes=classes,
+                        scheme=J["scheme"](sd))
+    rng = np.random.default_rng(5)
+    x = rng.random((batch, size, size, 3), dtype=np.float32)
+    v = _np(J["jax"].jit(jm.init)(J["jax"].random.PRNGKey(1),
+                                  jnp.asarray(x)))
+    # the running statistics r' = 0.9·r + 0.1·batch solved for the batch's
+    old = v["batch_stats"]
+    _, upd = jm.apply(v, jnp.asarray(x), train=True, qmode="fp",
+                      mutable=["batch_stats"])
+    v["batch_stats"] = J["jax"].tree_util.tree_map(
+        lambda n, o: ((n - 0.9 * o) / 0.1).astype(np.float32),
+        _np(upd["batch_stats"]), old)
+    v = _np(J["calibrate"](jm, v, [jnp.asarray(x)]))
+    _spread(v, rng)
+    want, seen = _jax_eval_layers(J, jm, v, x)
+    port = get_model(arch, device="cpu", num_classes=classes,
+                     scheme=port_scheme(sd))
+    load_jax_variables(port, v)
+    return dict(arch=arch, port=port, v=v, x=x, want=want, seen=seen)
+
+
+def _bridged_state(port, v):
+    """Every RootQ buffer of the port equal to JAX's ``qstate`` leaf;
+    returns the quantized layers."""
+    n = 0
+    for path, m in port.named_modules():
+        if isinstance(m, (QConv, QDense)) and m.cfg is not None:
+            node = v["qstate"]
+            for part in path.split("."):
+                node = node[part]
+            for name in ("in_run_scale", "wt_run_upper", "wt_run_lower"):
+                assert np.array_equal(getattr(m, name).numpy(), node[name])
+            n += 1
+    return n
+
+
+def _check_net(arch, model, x, want, seen, n_layers):
+    """``int`` and ``intc``: one window sum a quantized layer, finite,
+    ``want``'s classes; every layer fed the reference's input codes within
+    1e-5; the logits within relative L2 2e-2 for cifar_resnet20.  Not for
+    ResNet-50 at random weights: there one code of 131,072 that the
+    integer path's exact sums put across a rounding tie (layer2_0.conv1,
+    a value 1e-6 from its boundary) grows by about 1.3× a layer to 0.16 at
+    the logits (C14); JAX's own eval reads 0.21 jitted against eager."""
+    for qmode in ("int", "intc"):
+        with torch.no_grad(), LaunchRecorder() as rec:
+            got = model(torch.from_numpy(x), qmode=qmode).numpy()
+        assert rec.counts()["window_sum"] == n_layers
+        assert np.isfinite(got).all()
+        assert (got.argmax(-1) == want.argmax(-1)).all(), qmode
+        if arch == "cifar_resnet20":
+            assert _rel(got, want) <= 2e-2, qmode
+    worst = _worst_layer(model, seen)
+    assert worst[0] <= 1e-5, worst
+
+
+def test_slice_int_and_intc_match_jax_eval(net):
+    port = dp.prepare_deploy(net["port"])
+    n_layers = _bridged_state(port, net["v"])
+    assert n_layers == (18 if net["arch"] == "cifar_resnet20" else 52)
+    _check_net(net["arch"], port, net["x"], net["want"], net["seen"],
+               n_layers)
+
+
+def test_slice_after_port_qat_steps(net):
+    """Four SGD steps of the port's ``'train'`` forward (every parameter,
+    RootQ's bounds and root exponent too: the running bounds move), then
+    ``int``/``intc`` against the port's own ``eval``."""
+    model = copy.deepcopy(net["port"]).train()
+    x = torch.from_numpy(net["x"])
+    y = torch.arange(len(x)) % 10
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3, momentum=0.9)
+    before = {n: b.clone() for n, b in model.named_buffers()
+              if n.endswith("wt_run_upper")}
+    for _ in range(4):
+        opt.zero_grad()
+        F.cross_entropy(model(x, qmode="train"), y).backward()
+        opt.step()
+    assert all(not torch.equal(b, before[n])
+               for n, b in model.named_buffers() if n in before)
+    model.eval()
+    dp.prepare_deploy(model)
+    want, seen = _port_eval_layers(model, net["x"])
+    _check_net(net["arch"], model, net["x"], want, seen,
+               len(before))
+
+
+# ---------------------------------------------------------------- on the card
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+# ResNet-50's window sums at 224² (batch 2 here): the 1x1 convs' inputs at
+# stride 1 and 2, the 3x3 convs' at stride 1 and 2 (SAME, even maps), the
+# stem, the head; and ragged shapes
+CARD_WINDOWS = [
+    (2, 56, 56, 64, 1, 1, ((0, 0), (0, 0))),
+    (2, 56, 56, 256, 1, 2, ((0, 0), (0, 0))),
+    (2, 7, 7, 2048, 1, 1, ((0, 0), (0, 0))),
+    (2, 56, 56, 64, 3, 1, ((1, 1), (1, 1))),
+    (2, 56, 56, 128, 3, 2, ((0, 1), (0, 1))),
+    (2, 14, 14, 256, 3, 1, ((1, 1), (1, 1))),
+    (2, 224, 224, 3, 7, 2, ((2, 3), (2, 3))),
+    (3, 1, 1, 2048, 1, 1, ((0, 0), (0, 0))),
+    (1, 5, 7, 24, 3, 2, ((1, 1), (1, 1))),
+    (2, 9, 13, 40, 1, 2, ((0, 0), (0, 0))),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_WINDOWS, ids=lambda s: "x".join(
+    map(str, s[:6])))
+def test_card_window_sum_matches_plain(shape):
+    dev = _card()
+    n, h, w, c, k, s, pads = shape
+    g = torch.Generator().manual_seed(c + k)
+    x = torch.randint(-128, 128, (n, h, w, c), generator=g,
+                      dtype=torch.int8).to(dev)
+    for zero in (-128, -3, 0):
+        got = WS.int8_window_sum(x, zero=zero, kernel=k, stride=s, pads=pads)
+        torch.cuda.synchronize()
+        want = WS.int8_window_sum_plain(x, zero=zero, kernel=k, stride=s,
+                                        pads=pads)
+        assert torch.equal(got, want), zero
+
+
+def _card_row(dev, m_shape, o, g):
+    sums = torch.randint(-30000, 30000, m_shape, generator=g,
+                         dtype=torch.int32).to(dev)
+    c = (torch.randn(o, generator=g) * 1e-4).to(dev)
+    return sums, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w4", [False, True])
+@pytest.mark.parametrize("m,k,n", [(3136, 64, 256), (300, 96, 40),
+                                   (1568, 512, 2048), (50, 2048, 1000)])
+def test_card_gemm_row_term_matches_plain(m, k, n, w4):
+    dev = _card()
+    g = torch.Generator().manual_seed(m + n)
+    lim = 8 if w4 else 128
+    x = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-lim, lim, (k, n), generator=g, dtype=torch.int8)
+    wp = (G.pack_b_int4 if w4 else G.pack_b)(w).to(dev)
+    x = x.to(dev)
+    a = (torch.rand(n, generator=g) * 1e-3 + 1e-5).to(dev)
+    b = (torch.randn(n, generator=g) * 4).to(dev)
+    row = _card_row(dev, (m,), n, g)
+    r = torch.randint(-128, 128, (m, n), generator=g, dtype=torch.int8)
+    res = (r.to(dev), (torch.rand(n, generator=g) * 0.1).to(dev),
+           torch.randn(n, generator=g).to(dev))
+    rf = (torch.randn(m, n, generator=g).to(dev), res[1], res[2])
+    for kw in (dict(mode="codes", lo=-7, hi=99), dict(mode="f32"),
+               dict(mode="f32", relu=True),
+               dict(mode="codes", residual=res, qb=2.5, lo=-128, hi=127),
+               dict(mode="codes", residual=rf, qb=-1.5, lo=0, hi=127)):
+        got = G.int8_gemm(x, wp, a, b, row=row, **kw)
+        torch.cuda.synchronize()
+        want = G.int8_gemm_plain(x, wp, a, b, row=row, **kw)
+        assert torch.equal(got, want), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w4", [False, True])
+@pytest.mark.parametrize("n,h,w,c,o,stride,pad_lo", [
+    (2, 56, 56, 64, 64, 1, 1), (2, 56, 56, 128, 128, 2, 0),
+    (2, 14, 14, 256, 256, 1, 1), (2, 7, 7, 512, 512, 1, 1),
+    (3, 9, 11, 16, 48, 2, 1), (2, 12, 10, 96, 96, 1, 1),
+    (1, 13, 9, 48, 192, 2, 0)])
+def test_card_conv_row_term_matches_plain(n, h, w, c, o, stride, pad_lo, w4):
+    dev = _card()
+    g = torch.Generator().manual_seed(h * c + o)
+    lim = 8 if w4 else 128
+    x = torch.randint(-128, 128, (n, h, w, c), generator=g,
+                      dtype=torch.int8).to(dev)
+    wk = torch.randint(-lim, lim, (3, 3, c, o), generator=g,
+                       dtype=torch.int8)
+    wp = (K.pack_weight_int4 if w4 else K.pack_weight)(wk).to(dev)
+    a = (torch.rand(o, generator=g) * 1e-3 + 1e-5).to(dev)
+    b = (torch.randn(o, generator=g) * 4).to(dev)
+    ho, wo = K.out_hw(h, w, stride)
+    row = _card_row(dev, (n, ho, wo), o, g)
+    r = torch.randint(-2 ** 20, 2 ** 20, (n, ho, wo, o), generator=g,
+                      dtype=torch.int32).to(dev)
+    res = (r, (torch.rand(o, generator=g) * 1e-5).to(dev),
+           torch.randn(o, generator=g).to(dev))
+    for kw in (dict(mode="codes", lo=-7, hi=99), dict(mode="f32"),
+               dict(mode="f32", relu=True),
+               dict(mode="codes", residual=res, qb=2.5)):
+        got = K.int8_conv3x3(x, wp, a, b, stride=stride, pad=-13,
+                             pad_lo=pad_lo, row=row, **kw)
+        torch.cuda.synchronize()
+        want = K.int8_conv3x3_plain(x, wp, a, b, stride=stride, pad=-13,
+                                    pad_lo=pad_lo, row=row, **kw)
+        assert torch.equal(got, want), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w4", [False, True])
+@pytest.mark.parametrize("n,h,w,c,stride,pad_lo", [
+    (2, 112, 112, 32, 1, 1), (2, 56, 56, 144, 2, 0), (2, 14, 14, 576, 1, 1),
+    (3, 9, 13, 48, 2, 1), (2, 12, 10, 24, 2, 0), (1, 7, 7, 8, 1, 1)])
+def test_card_dwconv_offset_matches_plain(n, h, w, c, stride, pad_lo, w4):
+    dev = _card()
+    g = torch.Generator().manual_seed(h * c)
+    lim = 8 if w4 else 128
+    x = torch.randint(-128, 128, (n, h, w, c), generator=g,
+                      dtype=torch.int8).to(dev)
+    wd = torch.randint(-lim, lim, (3, 3, 1, c), generator=g,
+                       dtype=torch.int8)
+    wp = (D.pack_weight_int4 if w4 else D.pack_weight)(wd).to(dev)
+    a = (torch.rand(c, generator=g) * 1e-3 + 1e-5).to(dev)
+    b = (torch.randn(c, generator=g) * 4).to(dev)
+    oc = (torch.randn(c, generator=g) * 1e-3).to(dev)
+    for kw in (dict(mode="codes", lo=-3, hi=90), dict(mode="f32"),
+               dict(mode="f32", relu=True)):
+        got = D.int8_dwconv3x3(x, wp, a, b, stride=stride, pad=-11,
+                               pad_lo=pad_lo, offset=oc, **kw)
+        torch.cuda.synchronize()
+        want = D.int8_dwconv3x3_plain(x, wp, a, b, stride=stride, pad=-11,
+                                      pad_lo=pad_lo, offset=oc, **kw)
+        assert torch.equal(got, want), kw
+
+
+@pytest.mark.cuda
+def test_card_window_sum_counts_its_launches():
+    dev = _card()
+    x = torch.zeros((1, 4, 4, 16), dtype=torch.int8, device=dev)
+    before = WS.int8_window_sum.launches
+    WS.int8_window_sum(x, zero=0)
+    assert WS.int8_window_sum.launches == before + 1
