@@ -37,6 +37,8 @@ Phases, each fatal on failure:
              W4, tests/test_torch_int4_kernels.py, and the window sums and
              the weight offset's term in the conv's, GEMM's and depthwise
              conv's epilogues at W8 and W4, tests/test_torch_rootq_int.py;
+             the window-sum and im2col kernels at the tiles their CPU
+             emulations run, tests/test_torch_{window_sum,im2col}_tiles.py;
              -m cuda), before any timing;
   2. kernel  RepVGG-A0 deploy form at 224x224, full width, seeded random
              weights, calibrated on one seeded batch (FSPTQ W8A8 with
@@ -103,7 +105,9 @@ Phases, each fatal on failure:
            beside every int32-mode GEMM (the four downsamples), equal and
            timed.  Then the stem's other route at batch 256: its pending
            output materialized (int8_im2col rows into the GEMM), the
-           im2col == plain and timed, the old stem GEMM (3211264,160) x
+           im2col == plain and timed (with --parent DIR, DIR's im2col
+           kernel beside it, as for the window sums in rootq_serve), the
+           old stem GEMM (3211264,160) x
            (160,64) in int32 mode beside torch._int_mm.  Then
            make_serving_fn(qmode="intc") answers 6 requests of 256 images:
            logits finite, (256, 1000), within relative L2 2e-2 of the CPU
@@ -241,7 +245,11 @@ Phases, each fatal on failure:
            agreement with the card's fake-quant eval; every window-sum
            launch of a batch-128 step == plain, timed, its bound (bytes),
            its plain ms and torch.sum beside the 1x1 ones, their share of
-           the forward; each conv and GEMM launch timed with its term and
+           the forward, the sums by group (3x3 at stride 1, 1x1 at stride
+           1, strided) and, with --parent DIR, DIR's window-sum kernel at
+           each launch's shape (tools/window_launches.py on DIR, seeded
+           codes, in a process of its own) and its group sums; each conv
+           and GEMM launch timed with its term and
            without it; (d) the qat phase's RootQ W4A4 cifar_resnet20
            deployed: every launch of a request == plain at batch 8 and 256
            (18 convs, 18 window sums), one make_serving_fn request of 256
@@ -344,6 +352,7 @@ from dlmc_quant_torch.quant.deploy import midpoint_count
 from dlmc_quant_torch.quant.layers import QConv, QDense, full_f32
 from dlmc_quant_torch.tools import accuracy_protocol as protocol
 from dlmc_quant_torch.tools import gemm_sweep, mma_probe
+from dlmc_quant_torch.tools import window_launches as window_tool
 from dlmc_quant_torch.training import ptq as ptq_lib
 from dlmc_quant_torch.training.trainer import Trainer
 from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
@@ -385,6 +394,7 @@ MOBILE = {
                      {"conv": 1, "gemm": 21, "im2col": 0, "stem_pool": 0,
                       "dwconv": 21, "window_sum": 0}, "stage4_0_pw")}
 DW_TOOL = REPO / "dlmc_quant_torch" / "tools" / "dw_launches.py"
+WINDOW_TOOL = REPO / "dlmc_quant_torch" / "tools" / "window_launches.py"
 # the training path: configs, cuts and what must move
 QAT_CONFIGS = {"lsq": "QAT_lsq_resnet20_cifar10_w4a4",
                "rootq": "RootQ_resnet20_cifar10_w4a4"}
@@ -461,8 +471,9 @@ def card_tests():
     residual epilogue, the shortcut GEMMs, the GEMM's epilogue modes, the
     im2col, the stem conv + pool, the depthwise conv, the GEMM at 24
     channels, the four weight-taking kernels at W4, the window sums and a
-    weight offset's term in the conv, GEMM and depthwise epilogues), in a
-    process of their own; fatal unless all pass."""
+    weight offset's term in the conv, GEMM and depthwise epilogues, the
+    window-sum and im2col kernels at their emulated tiles), in a process
+    of their own; fatal unless all pass."""
     tests = REPO / "tests"
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
@@ -473,7 +484,9 @@ def card_tests():
          str(tests / "test_torch_dwconv.py"),
          str(tests / "test_torch_mobile.py"),
          str(tests / "test_torch_int4_kernels.py"),
-         str(tests / "test_torch_rootq_int.py")],
+         str(tests / "test_torch_rootq_int.py"),
+         str(tests / "test_torch_window_sum_tiles.py"),
+         str(tests / "test_torch_im2col_tiles.py")],
         capture_output=True, text=True)
     tail = run.stdout.strip().splitlines()[-1:] or [run.stderr.strip()[-300:]]
     print(f"# card tests of int8_conv3x3, the ResNet path, the depthwise "
@@ -1027,13 +1040,14 @@ def resnet_kernel_phase(what, model, x, expect, parent=None, beside=None):
     return tot
 
 
-def stem_im2col_phase(model, x):
+def stem_im2col_phase(model, x, parent=None):
     """The stem conv's route where no pool follows, at ResNet-50's stem
     shape: its pending output materialized in f32, which runs int8_im2col
     and int8_gemm, each against its plain version (tolerance 0); the
-    im2col timed against its bound, and the old stem GEMM (the rows in
-    int32 mode) beside torch._int_mm.  Returns the im2col launches of the
-    route and its entry in the kernels line."""
+    im2col timed against its bound (and beside another tree's im2col at
+    the same shape where ``parent``, {launch key: ms}, has it), and the
+    old stem GEMM (the rows in int32 mode) beside torch._int_mm.  Returns
+    the im2col launches of the route and its entry in the kernels line."""
     with torch.inference_mode():
         de = model.conv1.deferred(model.conv1._input_codes(x))
         I.int8_im2col.launches = 0
@@ -1060,11 +1074,14 @@ def stem_im2col_phase(model, x):
         lib_ms = int_mm_beside(label, (rows, wp), acc)
         gemm_ms = graph_ms(lambda _: G.int8_gemm(rows, wp), GRAPH_LAUNCHES)
         g_ms, g_ops, g_bytes = launch_bound("gemm", (rows, wp), {}, acc)
+    theirs = parent_ms(parent, "im2col", args, kw)
+    theirs = "" if theirs is None else f", parent tree {theirs:.4f} ms"
     print(f"# resnet50 stem without its pool (materialize), batch "
           f"{x.shape[0]}: im2col {tuple(args[0].shape)} -> "
           f"{tuple(rows.shape)} | {err:g} | kernel {ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({bound_by(t_ops, t_bytes)}), plain {plain_ms:.4f}"
-          f" ms; {label}: int8_gemm {gemm_ms:.4f} ms, torch._int_mm "
+          f" ms{theirs}; {label}: int8_gemm {gemm_ms:.4f} ms, "
+          f"torch._int_mm "
           f"{lib_ms:.4f} ms, bound {g_ms:.4f} ms ({bound_by(g_ops, g_bytes)})")
     if err != 0:
         raise RuntimeError(f"the stem's im2col route differs from its plain "
@@ -1359,6 +1376,35 @@ def parent_dw_ms(root: str):
     print(f"# parent tree {root}: its depthwise kernel timed at "
           f"{len(rows)} launches (tools/dw_launches.py)")
     return {(r["model"], r["batch"], r["index"]): r["ms"] for r in rows}
+
+
+def parent_window_ms(root: str):
+    """The window-sum and im2col kernels of the tree at ``root`` timed at
+    config #5's window-sum launches and ResNet-50's stem im2col
+    (tools/window_launches.py in a process of its own, on that tree's
+    package): {launch key: ms}."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "rows.json"
+        run = subprocess.run(
+            [sys.executable, str(WINDOW_TOOL), "--root", root, "--json",
+             str(out), "--batch", str(ENGINE_BATCH), "--stem-batch",
+             str(SERVE_BATCH)], capture_output=True, text=True)
+        if run.returncode != 0:
+            print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
+            raise RuntimeError(f"timing the window-sum and im2col kernels of "
+                               f"{root} failed")
+        rows = json.loads(out.read_text())
+    print(f"# parent tree {root}: its window-sum and im2col kernels timed at "
+          f"{len(rows)} launches (tools/window_launches.py)")
+    return {r["key"]: r["ms"] for r in rows}
+
+
+def parent_ms(parent, kind, args, kw):
+    """The ms that ``parent`` ({launch key: ms}) has for a window-sum or
+    im2col launch, or None."""
+    return (parent or {}).get(window_tool.key(
+        kind, args[0].shape, kw.get("kernel", 1), kw.get("stride", 1),
+        kw.get("pads", ((0, 0), (0, 0)))))
 
 
 def mobile_phase(device, parent=None):
@@ -2080,15 +2126,18 @@ def offset_beside(calls):
     return out
 
 
-def window_sum_launches(calls, total_ms):
+def window_sum_launches(calls, total_ms, parent=None):
     """Every window-sum launch of ``calls``: kernel == plain (tolerance 0),
     kernel ms (CUDA graph), bound ms (bytes: x read once, S written once,
     over HBM's rate), plain ms, and beside a 1x1 window the library call
-    that computes it, torch.sum(x - zero, -1, dtype=int32); their sums,
-    and their share of ``total_ms``.  Returns the kernels-line entry."""
+    that computes it, torch.sum(x - zero, -1, dtype=int32), and another
+    tree's kernel at the same shape where ``parent`` ({launch key: ms})
+    has it; their sums, by group (3x3 at stride 1, 1x1 at stride 1,
+    strided), and their share of ``total_ms``.  Returns the kernels-line
+    entry."""
     e = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
              library_ms=0.0, err=0.0)
-    shapes = {}
+    shapes, groups = {}, {}
     for kind, args, kw, out in calls:
         if kind != "window_sum":
             continue
@@ -2116,10 +2165,19 @@ def window_sum_launches(calls, total_ms):
                      ("library_ms", shapes[key][2] or 0.0)):
             e[k] += v
         e["err"] = max(e["err"], err)
+        theirs = parent_ms(parent, kind, args, kw)
+        g = groups.setdefault(window_tool.group(kw.get("kernel", 1),
+                                                kw.get("stride", 1)),
+                              [0, 0.0, 0.0, 0.0])
+        g[0] += 1
+        g[1] += ms
+        g[2] += b_ms
+        g[3] += theirs or 0.0
         print(f"{key:52s} | {err:g} | {ms * 1e3:8.2f} {b_ms * 1e3:8.2f} "
               f"{ms / b_ms:.2f} {{plain {shapes[key][1] * 1e3:.1f}}}"
               + (f" [torch.sum {shapes[key][2] * 1e3:.2f}]"
-                 if shapes[key][2] is not None else ""))
+                 if shapes[key][2] is not None else "")
+              + (f" (parent tree {theirs * 1e3:.2f})" if theirs else ""))
         if err != 0:
             raise RuntimeError(f"{key}: kernel and plain differ by {err}")
     n = sum(v[0] for v in shapes.values())
@@ -2128,7 +2186,11 @@ def window_sum_launches(calls, total_ms):
           f"{e['plain_ms']:.4f} ms, torch.sum beside the 1x1 ones "
           f"{e['library_ms']:.4f} ms (no library call sums a window); "
           f"{100 * e['ms'] / total_ms:.1f} % of the {total_ms:.3f} ms "
-          f"forward")
+          f"forward; by group (launches, ms, bound ms"
+          + (", parent tree ms" if parent else "") + "): " + "; ".join(
+              f"{name} {c}, {ms:.4f}, {b:.4f}"
+              + (f", {theirs:.4f}" if parent else "")
+              for name, (c, ms, b, theirs) in groups.items()))
     return e
 
 
@@ -2182,7 +2244,8 @@ def spread_bounds(model, seed: int):
                     t.mul_(down - 0.45)
 
 
-def rootq_serve_phase(device, card, r20_trainer, r50_trainer):
+def rootq_serve_phase(device, card, r20_trainer, r50_trainer,
+                      parent=None):
     """BASELINE config #5 served, and RootQ's integer routes: (a) the
     ResNet-50 RootQ W4A4 model of r50_training_leg, its bounds spread
     (spread_bounds) -> prepare_deploy; (b)
@@ -2192,8 +2255,9 @@ def rootq_serve_phase(device, card, r20_trainer, r50_trainer):
     RootQ cifar_resnet20 (qat_phase's trainer) deployed: every launch ==
     plain at batch 8 and SERVE_BATCH, one served request; (e) one RootQ
     depthwise launch, every window-sum launch of a ResNet-50 step (==
-    plain, timed, bound, torch.sum beside the 1x1 ones) and each corrected
-    conv / GEMM launch beside its uncorrected one.  Returns the launches by
+    plain, timed, bound, torch.sum beside the 1x1 ones, ``parent``'s ms
+    beside each: window_sum_launches) and each corrected conv / GEMM
+    launch beside its uncorrected one.  Returns the launches by
     kind (b + d's request), the largest kernel-vs-plain difference, the
     window sums' kernels-line entry and the depthwise launch's
     (err, ms, bare ms)."""
@@ -2221,7 +2285,7 @@ def rootq_serve_phase(device, card, r20_trainer, r50_trainer):
         with LaunchRecorder() as rec:
             model(xb, qmode="intc")
         torch.cuda.synchronize()
-        ws = window_sum_launches(rec.calls, fwd_ms)
+        ws = window_sum_launches(rec.calls, fwd_ms, parent)
         beside = offset_beside(rec.calls)
     print("# r50 rootq w4a4 batch 128, each corrected launch beside the "
           "uncorrected one at its shape (launches, ms with the term, ms "
@@ -2695,8 +2759,9 @@ def main(argv=None) -> int:
     cli = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     cli.add_argument("--parent", default=None,
                      help="another tree (e.g. an archive of the parent "
-                          "commit) whose depthwise kernel is timed beside "
-                          "this one's at every depthwise launch")
+                          "commit) whose depthwise, window-sum and im2col "
+                          "kernels are timed beside this one's at every "
+                          "launch of theirs")
     args = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2756,8 +2821,9 @@ def main(argv=None) -> int:
     r50_tot = resnet_kernel_phase("resnet50", r50,
                                   images(SERVE_BATCH, SEED + 1, device),
                                   RESNET50_LAUNCHES)
+    windows = parent_window_ms(args.parent) if args.parent else None
     im2col_launches, im2col = stem_im2col_phase(
-        r50, images(SERVE_BATCH, SEED + 1, device))
+        r50, images(SERVE_BATCH, SEED + 1, device), windows)
     served50 = resnet50_serve_phase(r50, device)
     t0 = time.perf_counter()
     engine = serving_phase(device, card, r50)
@@ -2779,7 +2845,7 @@ def main(argv=None) -> int:
     qat_launches, qat_err, r20_trainer, r50_trainer = qat_phase(device)
     print(f"# qat phase: {time.perf_counter() - t0:.2f} s")
     rootq, rootq_err, window, rootq_dw = rootq_serve_phase(
-        device, card, r20_trainer, r50_trainer)
+        device, card, r20_trainer, r50_trainer, windows)
     del r20_trainer, r50_trainer
     acc_launches, acc_err = accuracy_phase(device, card)
     t0 = time.perf_counter()

@@ -16,19 +16,35 @@
 // k*k*C*255 stays far below 2^31 (and below 2^24, so its float32 value in
 // the epilogue is exact) at every shape the port runs.
 //
-// Bound on an H100: bytes, x read once and 4 bytes an output written.  A
-// window conv reads each input byte k*k/s^2 times (9 at 3x3/s1); the other
-// reads come from L1 and L2.  Design: `group` lanes (a power of two up to
-// 32, the host picks the least that covers a window's work, so a warp
-// takes 32 / group outputs side by side) share one output: lane j of a
-// group takes the window's (tap, 16-byte chunk) items j, j + group, ...;
-// a chunk inside the map is one 16-byte load through the read-only path
-// (C % 16 == 0) or byte loads (any other C, the stem's C = 3), its bytes
-// summed by __dp4a against 0x01010101 (signed codes times +1).  Each lane
-// counts the bytes it read, subtracts z for each, and the group adds its
-// lanes' sums with shuffles.  Neighbouring groups read neighbouring pixels,
-// so a warp's 16-byte loads are whole sectors at 1x1.  A grid-stride loop
-// over whole warps keeps every lane of a warp in each shuffle.
+// Bound on an H100: bytes, the pixels the windows touch read once (all of
+// x, but a strided 1x1's subsample) and 4 bytes an output written.  A
+// window reads each input pixel k*k/s^2 times, so the design reads each
+// pixel once and sums windows of pixel sums:
+// - A block takes a tile of outputs of one image, th rows by tw columns
+//   (the full width where it fits; ops/cuda/int8_window_sum.py: plan picks
+//   them per shape).  The tile touches a region of pixels, which the block
+//   first reduces to one int32 each, sum_c x - C*z, into shared memory;
+//   a cell outside the map is 0, so the pads need no test later.  Where
+//   k < s only the touched pixels are kept, packed ("compact" rows and
+//   columns: window p covers compact rows p*k .. p*k + k - 1), so a 1x1 at
+//   stride 2 reads a quarter of x.
+// - The pixel reduction: `lanes` lanes (a power of two up to 32) take one
+//   pixel, lane j its 16-byte chunks j, j + lanes, ...; neighbouring groups
+//   take neighbouring pixels, so a warp's loads cover runs of whole
+//   sectors.  Each lane issues up to 4 of its chunks before it sums them
+//   (__dp4a against 0x01010101: signed codes times +1), then each group
+//   adds its lanes' sums by shuffles.  The group's pixel coordinates step
+//   without a division.  The plan gives a lane about 4 to 8 chunks (one
+//   lane a pixel below C = 128): on an H100 fewer lanes a pixel, with
+//   fewer shuffles and index steps a byte, beat more loads in flight from
+//   more pixels a group.  C % 16 != 0 (the stem's C = 3) reads bytes:
+//   right, not fast.
+// - The box sum from shared memory, separably: sums over dx of k columns
+//   at the stride, then over dy of k of those rows, one int32 an output
+//   written coalesced.  At k = 1 the pixel sums go straight out.  Only the
+//   halo rows of a tile are read by two blocks (the second time from L2).
+// - A 1x1 window at stride 1 without pads is a flat run of pixels: the
+//   plan sees (N, H, W) as (1, 1, N*H*W), so its tiles need not follow rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -36,64 +52,121 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int MAX_SMEM = 48 * 1024;   // no opt-in attribute needed
 
 struct WindowArgs {
   const int8_t* x;
   int* out;
   int H, W, C, k, stride, top, left, Ho, Wo, z;
-  int chunks;   // 16-byte chunks of a pixel, ceil(C / 16)
-  int items;    // k * k * chunks: a window's work
-  int group;    // lanes an output, a power of two <= 32
-  int vec;      // 1: C % 16 == 0 and x 16-byte aligned, 16-byte loads
-  unsigned outputs;   // N * Ho * Wo < 2^31
+  int th, tw;              // output rows and columns of a tile
+  int tiles_y, tiles_x;
+  int se;                  // the box sum's stride in shared memory, min(s, k)
+  int lanes;               // lanes a pixel, a power of two <= 32
+  int chunks;              // 16-byte chunks of a pixel, ceil(C / 16)
 };
 
+// region coordinate of compact coordinate i (k < s: only the touched
+// rows and columns are kept)
+__device__ __forceinline__ int region(int i, int k, int s) {
+  return k >= s ? i : k == 1 ? i * s : (i / k) * s + i % k;
+}
+
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 int8_window_sum_kernel(const WindowArgs g) {
-  const int lane = threadIdx.x % 32;
-  const int sub = lane % g.group;               // lane in its group
-  const int per_warp = 32 / g.group;             // outputs a warp takes
-  const unsigned warp =
-      (blockIdx.x * THREADS + threadIdx.x) / 32;
-  const unsigned warps = gridDim.x * (THREADS / 32);
-  for (unsigned m0 = warp * per_warp; m0 < g.outputs;
-       m0 += warps * per_warp) {
-    const unsigned m = m0 + lane / g.group;
-    int sum = 0, count = 0;
-    if (m < g.outputs) {
-      const int ox = m % g.Wo;
-      const unsigned nh = m / g.Wo;
-      const int oy = nh % g.Ho;
-      const int n = nh / g.Ho;
-      const int iy0 = oy * g.stride - g.top;
-      const int ix0 = ox * g.stride - g.left;
-      for (int i = sub; i < g.items; i += g.group) {
-        const int tap = i / g.chunks;
-        const int chunk = i - tap * g.chunks;
-        const int iy = iy0 + tap / g.k;
-        const int ix = ix0 + tap % g.k;
-        if (iy < 0 || iy >= g.H || ix < 0 || ix >= g.W) continue;
-        const int8_t* p =
-            g.x + ((static_cast<long long>(n) * g.H + iy) * g.W + ix) * g.C +
-            16 * chunk;
-        if (g.vec) {
-          const int4 v = __ldg(reinterpret_cast<const int4*>(p));
-          sum = __dp4a(v.x, 0x01010101, sum);
-          sum = __dp4a(v.y, 0x01010101, sum);
-          sum = __dp4a(v.z, 0x01010101, sum);
-          sum = __dp4a(v.w, 0x01010101, sum);
-          count += 16;
-        } else {
-          const int bytes = min(16, g.C - 16 * chunk);
-          for (int j = 0; j < bytes; ++j) sum += __ldg(p + j);
-          count += bytes;
+  extern __shared__ int pix[];
+  unsigned t = blockIdx.x;
+  const int tx = t % g.tiles_x;
+  t /= g.tiles_x;
+  const int ty = t % g.tiles_y;
+  const int n = t / g.tiles_y;
+  const int p0 = ty * g.th, q0 = tx * g.tw;
+  const int th = min(g.th, g.Ho - p0), tw = min(g.tw, g.Wo - q0);
+  const int rh = (th - 1) * g.se + g.k, rw = (tw - 1) * g.se + g.k;
+  const int iy0 = p0 * g.stride - g.top, ix0 = q0 * g.stride - g.left;
+  const int npix = rh * rw;
+  const int lane = threadIdx.x & (g.lanes - 1);
+  const int group = threadIdx.x / g.lanes;
+  const int groups = THREADS / g.lanes;
+  const int8_t* image = g.x + static_cast<long long>(n) * g.H * g.W * g.C;
+
+  // 1. pixel sums of the region, a pixel a group at a time.  The loop
+  // counts on `base`, which is uniform over the block (so every lane of a
+  // warp reaches the shuffles, and the loop needs no reconvergence: a
+  // per-thread counter cost 12 % on an H100).  (cr, cc): compact
+  // coordinates of the group's pixel, stepped by `groups` pixels without
+  // a division
+  int cr = group / rw, cc = group - (group / rw) * rw;
+  const int dr = groups / rw, dc = groups - (groups / rw) * rw;
+  for (int base = 0; base < npix; base += groups) {
+    const int i = base + group;
+    const int iy = iy0 + region(cr, g.k, g.stride);
+    const int ix = ix0 + region(cc, g.k, g.stride);
+    const bool ok = i < npix && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
+    const int8_t* src =
+        image + static_cast<long long>(ok ? iy * g.W + ix : 0) * g.C;
+    cc += dc;
+    cr += dr;
+    if (cc >= rw) {
+      cc -= rw;
+      ++cr;
+    }
+    int acc = 0;
+    if (VEC) {
+      for (int ch0 = lane; ch0 < g.chunks; ch0 += 4 * g.lanes) {
+        int4 v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ch = ch0 + e * g.lanes;
+          v[e] = ok && ch < g.chunks
+                     ? __ldg(reinterpret_cast<const int4*>(src) + ch)
+                     : make_int4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc = __dp4a(v[e].x, 0x01010101, acc);
+          acc = __dp4a(v[e].y, 0x01010101, acc);
+          acc = __dp4a(v[e].z, 0x01010101, acc);
+          acc = __dp4a(v[e].w, 0x01010101, acc);
         }
       }
+    } else if (ok) {
+      for (int ch = lane; ch < g.chunks; ch += g.lanes) {
+        const int bytes = min(16, g.C - 16 * ch);
+        for (int j = 0; j < bytes; ++j) acc += __ldg(src + 16 * ch + j);
+      }
     }
-    sum -= g.z * count;
-    for (int off = g.group / 2; off > 0; off /= 2)
-      sum += __shfl_xor_sync(0xFFFFFFFFu, sum, off);
-    if (sub == 0 && m < g.outputs) g.out[m] = sum;
+    for (int off = g.lanes / 2; off > 0; off /= 2)
+      acc += __shfl_xor_sync(0xFFFFFFFFu, acc, off);
+    if (lane == 0 && i < npix) pix[i] = ok ? acc - g.C * g.z : 0;
+  }
+  __syncthreads();
+
+  int* out = g.out + (static_cast<long long>(n) * g.Ho + p0) * g.Wo + q0;
+  if (g.k == 1) {                       // se = 1: the sums are the outputs
+    for (int i = threadIdx.x; i < th * tw; i += THREADS) {
+      const int p = i / tw, q = i - p * tw;
+      out[static_cast<long long>(p) * g.Wo + q] = pix[p * rw + q];
+    }
+    return;
+  }
+  // 2. sums over dx: rh rows of tw, after the region
+  int* rows = pix + npix;
+  for (int i = threadIdx.x; i < rh * tw; i += THREADS) {
+    const int r = i / tw, q = i - r * tw;
+    const int* c = pix + r * rw + q * g.se;
+    int s = 0;
+    for (int dx = 0; dx < g.k; ++dx) s += c[dx];
+    rows[i] = s;
+  }
+  __syncthreads();
+  // 3. sums over dy, one output each
+  for (int i = threadIdx.x; i < th * tw; i += THREADS) {
+    const int p = i / tw, q = i - p * tw;
+    const int* c = rows + p * g.se * tw + q;
+    int s = 0;
+    for (int dy = 0; dy < g.k; ++dy) s += c[dy * tw];
+    out[static_cast<long long>(p) * g.Wo + q] = s;
   }
 }
 
@@ -103,14 +176,18 @@ extern "C" {
 
 // out (n, ho, wo) int32 from x (n, h, w, c) int8: the k x k window at
 // `stride` with top/left pads, z outside the map, each code less z,
-// summed.  n*ho*wo < 2^31 and k*k*ceil(c/16) < 2^31 (the wrapper checks
-// them).  Launches on `stream`; returns cudaGetLastError().
+// summed.  The tile plan (th, tw, lanes) comes from the wrapper
+// (int8_window_sum.py: plan); the launch refuses one whose shared memory
+// exceeds 48 KB.  Launches on `stream`; returns cudaGetLastError().
 int dlmcq_int8_window_sum(const void* x, void* out, int n, int h, int w,
                           int c, int k, int stride, int top, int left,
-                          int ho, int wo, int z, void* stream) {
+                          int ho, int wo, int z, int th, int tw, int lanes,
+                          void* stream) {
   const long long outputs = static_cast<long long>(n) * ho * wo;
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || k <= 0 || stride <= 0 ||
-      ho <= 0 || wo <= 0 || outputs >= 0x7FFFFFFF || top < 0 || left < 0)
+      ho <= 0 || wo <= 0 || outputs >= 0x7FFFFFFF || top < 0 || left < 0 ||
+      th <= 0 || tw <= 0 || lanes <= 0 || lanes > 32 ||
+      (lanes & (lanes - 1)) || static_cast<long long>(h) * w >= 0x7FFFFFFF)
     return static_cast<int>(cudaErrorInvalidValue);
   WindowArgs g;
   g.x = static_cast<const int8_t*>(x);
@@ -125,25 +202,27 @@ int dlmcq_int8_window_sum(const void* x, void* out, int n, int h, int w,
   g.Ho = ho;
   g.Wo = wo;
   g.z = z;
+  g.th = th < ho ? th : ho;
+  g.tw = tw < wo ? tw : wo;
+  g.tiles_y = (ho + g.th - 1) / g.th;
+  g.tiles_x = (wo + g.tw - 1) / g.tw;
+  g.se = stride < k ? stride : k;
+  g.lanes = lanes;
   g.chunks = (c + 15) / 16;
-  const long long items = static_cast<long long>(k) * k * g.chunks;
-  if (items >= 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  g.items = static_cast<int>(items);
-  g.group = 1;
-  while (g.group < 32 && g.group < g.items) g.group *= 2;
-  g.vec = c % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  g.outputs = static_cast<unsigned>(outputs);
-  int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess)
-    return static_cast<int>(cudaGetLastError());
-  const long long blocks = (outputs * g.group + THREADS - 1) / THREADS;
-  const long long most = 8LL * sms;   // 8 blocks of 256 threads an SM
-  const unsigned grid =
-      static_cast<unsigned>(blocks < most ? blocks : most);
-  int8_window_sum_kernel<<<grid, THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(g);
+  const long long rh = static_cast<long long>(g.th - 1) * g.se + k;
+  const long long rw = static_cast<long long>(g.tw - 1) * g.se + k;
+  const long long smem = 4 * (rh * rw + (k > 1 ? rh * g.tw : 0));
+  const long long tiles =
+      static_cast<long long>(n) * g.tiles_y * g.tiles_x;
+  if (smem > MAX_SMEM || tiles >= 0x7FFFFFFF)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = c % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const unsigned grid = static_cast<unsigned>(tiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec)
+    int8_window_sum_kernel<true><<<grid, THREADS, smem, st>>>(g);
+  else
+    int8_window_sum_kernel<false><<<grid, THREADS, smem, st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,8 @@ With :func:`~dlmc_quant_torch.ops.cuda.int8_gemm.int8_gemm` this runs the
 integer conv that the 3×3 kernel does not take: the ImageNet ResNets'
 7×7/s2 stem, which the JAX package left to XLA
 (``dlmc_quant_tpu/quant/layers.py:721-728``).  The CUDA source is
-``csrc/int8_im2col.cu``; its header says what bounds it on an H100.  For
+``csrc/int8_im2col.cu``; its header says what bounds it on an H100 and how
+its tiles work; :func:`plan` picks the tiles per shape.  For
 input codes ``x`` (N, H, W, C) int8, a k × k window at ``stride`` and pads
 ``((top, bottom), (left, right))``::
 
@@ -24,6 +25,7 @@ to the other.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -33,7 +35,17 @@ from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda.int8_gemm import pack_b, packed_k
 from dlmc_quant_torch.ops.cuda.nibbles import pack_nibbles
 
-MAX_KP = 2048          # bytes of a row the kernel's table covers
+MAX_KP = 2048          # bytes of a row: Kp/16 chunk threads of a pixel
+THREADS = 256          # the kernel's block
+GUARD = 32             # bytes of shared memory before and after the band
+MAX_SMEM = 48 * 1024   # shared memory a block, below the opt-in limit
+MAX_ROWS = 4           # output rows a tile (the best of 1-16 at the stem)
+SMS = 132              # an H100 SXM's SMs, as the plan models the card
+MIN_TILES = 4 * SMS    # tiles a launch aims at, where the map allows
+
+Im2colPlan = collections.namedtuple(
+    "Im2colPlan", "ho wo kp th tw rows cols pitch tiles_y tiles_x tiles smem "
+                  "per_row step")
 
 
 def out_hw(h: int, w: int, kernel: int, stride: int, pads):
@@ -41,6 +53,54 @@ def out_hw(h: int, w: int, kernel: int, stride: int, pads):
     (top, bottom), (left, right) = pads
     return ((h + top + bottom - kernel) // stride + 1,
             (w + left + right - kernel) // stride + 1)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def make_plan(n: int, h: int, w: int, c: int, kernel: int, stride: int,
+              pads, th: int, tw: int) -> Im2colPlan:
+    """The kernel's geometry for tiles of ``th`` × ``tw`` output pixels
+    (the C entry point derives the same): the band of ``rows`` input rows
+    of ``cols`` pixels, each row ``pitch`` bytes of shared memory (room
+    for the 0–15 bytes that align it with x, and an odd number of 16-byte
+    units, so that band rows start on different banks)."""
+    ho, wo = out_hw(h, w, kernel, stride, pads)
+    kp = packed_k(kernel * kernel * c)
+    th, tw = min(th, ho), min(tw, wo)
+    rows = (th - 1) * stride + kernel
+    cols = (tw - 1) * stride + kernel
+    pitch = _cdiv(cols * c + 15, 16) * 16
+    pitch += 16 if pitch // 16 % 2 == 0 else 0
+    tiles_y, tiles_x = _cdiv(ho, th), _cdiv(wo, tw)
+    per_row = kp // 16
+    return Im2colPlan(ho, wo, kp, th, tw, rows, cols, pitch, tiles_y,
+                      tiles_x, n * tiles_y * tiles_x,
+                      rows * pitch + 2 * GUARD, per_row, THREADS // per_row)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, h: int, w: int, c: int, kernel: int, stride: int,
+         pads) -> Im2colPlan:
+    """Tiles for one launch: the full output width where its band fits in
+    shared memory with one output row (else the widest that does), and up
+    to ``MAX_ROWS`` output rows, fewer where the band does not fit or the
+    launch would have fewer than ``MIN_TILES`` tiles.  (A one-pixel band
+    always fits: Kp ≤ ``MAX_KP`` bounds k·k·C.)"""
+    pads = tuple(map(tuple, pads))
+
+    def at(th, tw):
+        return make_plan(n, h, w, c, kernel, stride, pads, th, tw)
+
+    tw = at(1, 1 << 30).tw
+    while at(1, tw).smem > MAX_SMEM:
+        tw = _cdiv(tw, 2)
+    th = MAX_ROWS
+    while th > 1 and (at(th, tw).smem > MAX_SMEM
+                      or at(th, tw).tiles < MIN_TILES):
+        th -= 1
+    return at(th, tw)
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -83,7 +143,7 @@ def _check(x, kernel, stride, pads, pad):
                          f"kernel {kernel}, pads {pads}")
     if kp > MAX_KP or n * ho * wo * (kp // 16) >= 2 ** 31 - 1:
         raise ValueError(f"im2col of {tuple(x.shape)} at kernel {kernel} is "
-                         "too large for the kernel's 32-bit indices or table")
+                         "too large for the kernel's 32-bit indices or rows")
     return n, h, w, c, ho, wo, kp
 
 
@@ -108,8 +168,26 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_im2col")
     lib.dlmcq_int8_im2col.restype = ctypes.c_int
     lib.dlmcq_int8_im2col.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
     return lib
+
+
+def launch(x: torch.Tensor, kernel: int, stride: int, pads, pad: int,
+           p: Im2colPlan) -> torch.Tensor:
+    """Launch the kernel on CUDA ``x`` with the tiles of ``p`` (any plan of
+    :func:`make_plan` at x's shape); no launch count."""
+    n, h, w, c = x.shape
+    (top, _), (left, _) = pads
+    lib = _library()
+    out = torch.empty((n * p.ho * p.wo, p.kp), dtype=torch.int8,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.dlmcq_int8_im2col(
+            x.data_ptr(), out.data_ptr(), n, h, w, c, kernel, kernel, stride,
+            top, left, p.ho, p.wo, p.kp, pad, p.th, p.tw, p.pitch,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_launch(lib, err, "int8_im2col")
+    return out
 
 
 def int8_im2col(x: torch.Tensor, *, kernel: int, stride: int, pads,
@@ -119,21 +197,14 @@ def int8_im2col(x: torch.Tensor, *, kernel: int, stride: int, pads,
     CUDA tensors launch the kernel on the current stream and count the
     launch in ``int8_im2col.launches``; CPU tensors run the plain version.
     """
-    n, h, w, c, ho, wo, kp = _check(x, kernel, stride, pads, pad)
+    n, h, w, c, _, _, _ = _check(x, kernel, stride, pads, pad)
     if x.device.type == "cpu":
         return int8_im2col_plain(x, kernel=kernel, stride=stride, pads=pads,
                                  pad=pad)
     if x.device.type != "cuda":
         raise ValueError(f"int8_im2col runs on cuda or cpu, not {x.device}")
-    (top, _), (left, _) = pads
-    lib = _library()
-    out = torch.empty((n * ho * wo, kp), dtype=torch.int8, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.dlmcq_int8_im2col(
-            x.data_ptr(), out.data_ptr(), n, h, w, c, kernel, kernel, stride,
-            top, left, ho, wo, kp, pad,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    build.check_launch(lib, err, "int8_im2col")
+    out = launch(x, kernel, stride, pads, pad,
+                 plan(n, h, w, c, kernel, stride, tuple(map(tuple, pads))))
     int8_im2col.launches += 1
     return out
 

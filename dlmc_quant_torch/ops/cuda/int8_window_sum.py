@@ -8,9 +8,10 @@ the sum of the input codes less the zero code over the window of output
 epilogues add it per output channel (``ops/cuda/epilogue.py``).  The JAX
 package drops ``o_w`` in its integer plan (ROADMAP hazard C1), so no TPU
 kernel did this.  The CUDA source is ``csrc/int8_window_sum.cu``; its
-header says what bounds it on an H100.  For input codes ``x`` (N, H, W, C)
-int8, a k × k window at ``stride`` with pads ``((top, bottom), (left,
-right))`` and the zero code ``zero`` (the pad code)::
+header says what bounds it on an H100 and how its tiles work; :func:`plan`
+picks the tiles per shape.  For input codes ``x`` (N, H, W, C) int8, a
+k × k window at ``stride`` with pads ``((top, bottom), (left, right))``
+and the zero code ``zero`` (the pad code)::
 
     S[n, p, q] = Σ_{dy, dx, c} (xpad[n, p·s − top + dy, q·s − left + dx, c] − zero)
     xpad = x padded with ``zero``: a pad adds 0
@@ -28,6 +29,7 @@ one to the other.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -38,6 +40,101 @@ from dlmc_quant_torch.ops.cuda import build
 from dlmc_quant_torch.ops.cuda.int8_im2col import out_hw
 
 INT_LIMIT = 2 ** 31 - 1
+THREADS = 256         # the kernel's block
+MAX_SMEM = 48 * 1024  # shared memory a block, below the opt-in limit
+MAX_REGION = 4096     # pixel sums a tile keeps in shared memory
+MAX_COLUMNS = 512     # region columns of a tile
+TILE_BYTES = 32768    # input bytes a tile aims at
+SMS = 132             # an H100 SXM's SMs, as the plan models the card
+MIN_TILES = 2 * SMS   # tiles a launch aims at, where the map allows
+
+WindowPlan = collections.namedtuple(
+    "WindowPlan", "n h w ho wo th tw se rh rw lanes tiles_y tiles_x tiles "
+                  "smem")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def flat(kernel: int, stride: int, pads) -> bool:
+    """A 1×1 window at stride 1 without pads: the kernel sees a run of
+    pixels, (N, H, W) as (1, 1, N·H·W)."""
+    return kernel == 1 and stride == 1 and not any(map(any, pads))
+
+
+def make_plan(n: int, h: int, w: int, c: int, kernel: int, stride: int,
+              pads, th: int, tw: int, lanes: int = None) -> WindowPlan:
+    """The kernel's geometry for tiles of ``th`` × ``tw`` outputs (the C
+    entry point derives the same from n, h, w, th, tw).  A pixel's
+    16-byte chunks go to ``lanes`` lanes, each loading up to 4 at once; by
+    default (the best of a sweep over config #5's 52 launches on an H100,
+    ``tools/window_launches.py --sweep``) one lane a pixel below 8 chunks
+    (C < 128), else a power of two near an eighth of the chunks, 4 to
+    32."""
+    ho, wo = out_hw(h, w, kernel, stride, pads)
+    if flat(kernel, stride, pads):
+        n, h, w, ho, wo = 1, 1, n * h * w, 1, n * h * w
+    th, tw = min(th, ho), min(tw, wo)
+    se = min(stride, kernel)
+    rh, rw = (th - 1) * se + kernel, (tw - 1) * se + kernel
+    chunks = _cdiv(c, 16)
+    if lanes is None:
+        lanes = 1
+        while chunks >= 8 and lanes < max(4, min(32, chunks // 8)):
+            lanes *= 2
+    smem = 4 * (rh * rw + (rh * tw if kernel > 1 else 0))
+    tiles_y, tiles_x = _cdiv(ho, th), _cdiv(wo, tw)
+    return WindowPlan(n, h, w, ho, wo, th, tw, se, rh, rw, lanes, tiles_y,
+                      tiles_x, n * tiles_y * tiles_x, smem)
+
+
+def _fits(p: WindowPlan) -> bool:
+    return p.rh * p.rw <= MAX_REGION and p.smem <= MAX_SMEM
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, h: int, w: int, c: int, kernel: int, stride: int,
+         pads) -> WindowPlan:
+    """Tiles for one launch.
+
+    A flat run (:func:`flat`): ``TILE_BYTES`` of pixels a tile, at least
+    one pass of the block's lanes, fewer until the launch has
+    ``MIN_TILES`` tiles.  Otherwise columns:
+    the full output width where its region is at most ``MAX_COLUMNS``
+    pixels wide; rows: as many as keep the region's bytes within
+    ``TILE_BYTES`` and its sums within shared memory, then fewer until the
+    launch has ``MIN_TILES`` tiles (a small map's halo rows come from L2).
+    Raises for a window whose 1×1 tile does not fit (k > 64).
+    """
+    pads = tuple(map(tuple, pads))
+
+    def at(th, tw):
+        return make_plan(n, h, w, c, kernel, stride, pads, th, tw)
+
+    one = at(1, 1)
+    if not _fits(one):
+        raise ValueError(f"a {kernel}x{kernel} window does not fit the "
+                         "window-sum kernel's shared memory")
+    if flat(kernel, stride, pads):
+        least = THREADS // one.lanes        # a pass of the block
+        tw = max(least, TILE_BYTES // c)
+        while tw > least and _cdiv(one.wo, tw) < MIN_TILES:
+            tw = max(least, tw // 2)
+        while not _fits(at(1, tw)):
+            tw //= 2
+        return at(1, tw)
+    tw = min(one.wo, (MAX_COLUMNS - kernel) // one.se + 1)
+    th = max(1, min(one.ho, TILE_BYTES
+                    // (one.se * ((tw - 1) * one.se + kernel) * c)))
+    while not _fits(at(th, tw)):
+        if th > 1:
+            th -= 1
+        else:
+            tw = _cdiv(tw, 2)
+    while th > 1 and at(th, tw).tiles < MIN_TILES:
+        th -= 1
+    return at(th, tw)
 
 
 def _check(x, zero, kernel, stride, pads):
@@ -85,8 +182,26 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_window_sum")
     lib.dlmcq_int8_window_sum.restype = ctypes.c_int
     lib.dlmcq_int8_window_sum.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
     return lib
+
+
+def launch(x: torch.Tensor, zero: int, kernel: int, stride: int, pads,
+           p: WindowPlan) -> torch.Tensor:
+    """Launch the kernel on CUDA ``x`` with the tiles of ``p`` (any plan of
+    :func:`make_plan` at x's shape); no launch count."""
+    (top, _), (left, _) = pads
+    lib = _library()
+    out = torch.empty((x.shape[0],) + out_hw(x.shape[1], x.shape[2], kernel,
+                                             stride, pads),
+                      dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.dlmcq_int8_window_sum(
+            x.data_ptr(), out.data_ptr(), p.n, p.h, p.w, x.shape[3], kernel,
+            stride, top, left, p.ho, p.wo, zero, p.th, p.tw, p.lanes,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_launch(lib, err, "int8_window_sum")
+    return out
 
 
 def int8_window_sum(x: torch.Tensor, *, zero: int, kernel: int = 1,
@@ -97,22 +212,15 @@ def int8_window_sum(x: torch.Tensor, *, zero: int, kernel: int = 1,
     launch in ``int8_window_sum.launches``; CPU tensors run the plain
     version.
     """
-    n, h, w, c, ho, wo = _check(x, zero, kernel, stride, pads)
+    n, h, w, c, _, _ = _check(x, zero, kernel, stride, pads)
     if x.device.type == "cpu":
         return int8_window_sum_plain(x, zero=zero, kernel=kernel,
                                      stride=stride, pads=pads)
     if x.device.type != "cuda":
         raise ValueError(f"int8_window_sum runs on cuda or cpu, not "
                          f"{x.device}")
-    (top, _), (left, _) = pads
-    lib = _library()
-    out = torch.empty((n, ho, wo), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.dlmcq_int8_window_sum(
-            x.data_ptr(), out.data_ptr(), n, h, w, c, kernel, stride, top,
-            left, ho, wo, zero,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    build.check_launch(lib, err, "int8_window_sum")
+    out = launch(x, zero, kernel, stride, pads,
+                 plan(n, h, w, c, kernel, stride, tuple(map(tuple, pads))))
     int8_window_sum.launches += 1
     return out
 

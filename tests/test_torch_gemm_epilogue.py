@@ -324,7 +324,11 @@ def test_gemm_epilogue_kernel_matches_plain(case, mode):
 STEM_CASES = [(2, 224, 224, 3, 7, 2, ((2, 3), (2, 3))),
               (3, 64, 64, 3, 7, 2, ((2, 3), (2, 3))),
               (1, 9, 7, 5, 7, 2, ((3, 3), (2, 4))),
-              (2, 10, 10, 16, 5, 1, ((2, 2), (2, 2)))]
+              (2, 10, 10, 16, 5, 1, ((2, 2), (2, 2))),
+              # column tiles (a band row beyond shared memory), and bands
+              # of 6 rows whose last ends on the map's last row
+              (1, 12, 3000, 16, 5, 1, ((2, 2), (2, 2))),
+              (64, 100, 100, 3, 7, 2, ((2, 3), (2, 3)))]
 
 
 @pytest.mark.cuda
@@ -340,3 +344,32 @@ def test_im2col_kernel_matches_plain(case):
     torch.cuda.synchronize()
     assert torch.equal(got, int8_im2col_plain(x, kernel=k, stride=s,
                                               pads=pads, pad=-7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(1, 1), (2, 3), (3, 7), (8, 200)])
+@pytest.mark.parametrize("case", STEM_CASES,
+                         ids=["x".join(map(str, c[:6])) for c in STEM_CASES])
+def test_im2col_kernel_forced_tiles_match_plain(case, tile):
+    """The kernel at tiles the plan would not pick: band rows shared
+    between tiles, column tiles, ragged last tiles, x at an odd address."""
+    dev = _card()
+    n, h, w, c, k, s, pads = case
+    g = torch.Generator().manual_seed(h + w)
+    x = torch.randint(-128, 128, (n, h, w, c), generator=g,
+                      dtype=torch.int8).to(dev)
+    from dlmc_quant_torch.ops.cuda import int8_im2col as I
+    p = I.make_plan(n, h, w, c, k, s, pads, *tile)
+    if p.smem > I.MAX_SMEM:
+        pytest.skip("the band does not fit the kernel's shared memory")
+    want = int8_im2col_plain(x, kernel=k, stride=s, pads=pads, pad=-7)
+    got = I.launch(x, k, s, pads, -7, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # the same codes one byte into a buffer: every lead of the band rows
+    xo = torch.empty(x.numel() + 1, dtype=torch.int8, device=dev)[1:] \
+        .view(x.shape)
+    xo.copy_(x)
+    got = I.launch(xo, k, s, pads, -7, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

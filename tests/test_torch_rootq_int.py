@@ -774,6 +774,11 @@ CARD_WINDOWS = [
     (3, 1, 1, 2048, 1, 1, ((0, 0), (0, 0))),
     (1, 5, 7, 24, 3, 2, ((1, 1), (1, 1))),
     (2, 9, 13, 40, 1, 2, ((0, 0), (0, 0))),
+    # column tiles (a region beyond the plan's 512 columns), and bands of
+    # several rows whose last ends on the map's last row, ragged
+    (1, 6, 600, 16, 3, 1, ((1, 1), (1, 1))),
+    (64, 50, 45, 32, 3, 1, ((1, 1), (1, 1))),
+    (3, 13, 17, 64, 1, 1, ((0, 0), (0, 0))),
 ]
 
 
@@ -792,6 +797,27 @@ def test_card_window_sum_matches_plain(shape):
         want = WS.int8_window_sum_plain(x, zero=zero, kernel=k, stride=s,
                                         pads=pads)
         assert torch.equal(got, want), zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(1, 1), (2, 3), (3, 5), (7, 64)])
+@pytest.mark.parametrize("shape", CARD_WINDOWS[3:10], ids=lambda s: "x".join(
+    map(str, s[:6])))
+def test_card_window_sum_forced_tiles_match_plain(shape, tile):
+    """The kernel at tiles the plan would not pick: halos shared between
+    bands and column tiles, ragged last tiles."""
+    dev = _card()
+    n, h, w, c, k, s, pads = shape
+    g = torch.Generator().manual_seed(h + c)
+    x = torch.randint(-128, 128, (n, h, w, c), generator=g,
+                      dtype=torch.int8).to(dev)
+    p = WS.make_plan(n, h, w, c, k, s, pads, *tile)
+    if not WS._fits(p):
+        pytest.skip("the tile does not fit the kernel's shared memory")
+    got = WS.launch(x, -3, k, s, pads, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, WS.int8_window_sum_plain(x, zero=-3, kernel=k,
+                                                     stride=s, pads=pads))
 
 
 def _card_row(dev, m_shape, o, g):
