@@ -63,7 +63,7 @@ RESNET50_BATCH = 256  # bench.py:189-190
 LAUNCHES = dict(conv=0, gemm=0, im2col=0, stem_pool=0, dwconv=0,
                 window_sum=0)
 EXTRAS = (("resnet50_int8", "resnet50", 8,
-           dict(LAUNCHES, conv=16, gemm=36, stem_pool=1)),
+           dict(LAUNCHES, conv=16, gemm=36, stem_pool=2)),
           ("mobileone_s1_int8", "mobileone_s1", 8,
            dict(LAUNCHES, conv=1, gemm=21, dwconv=21)),
           ("mobileone_s1_w4a8", "mobileone_s1", 4,

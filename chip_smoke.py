@@ -26,7 +26,8 @@ Phases, each fatal on failure:
              ResNet-18 shortcut shapes and the GEMM's epilogue modes and
              the im2col at ragged M, every epilogue tile and residual
              dtype, the stem conv + pool at ragged shapes, every band
-             size and ResNet-50's stem at batch 8 and 256, the depthwise
+             size, each mode (int32, codes, f32) and ResNet-50's stem at
+             batch 8 and 256 (W8 and W4), the depthwise
              conv at MobileNetV2's and MobileOne-S1's shapes at batch 8 and
              256 and at ragged shapes, the two models' stems and the GEMM
              at 24 channels (tests/test_torch_int8_conv.py,
@@ -96,8 +97,10 @@ Phases, each fatal on failure:
            train form with seeded weights and perturbed BN statistics ->
            resnet_deploy -> the bench's W8A8 scheme -> calibrate on one
            seeded batch of 32 -> prepare_deploy.  At batch 8 and 256 every
-           launch of one chained request (the stem conv + pool, the 16 3x3
-           convs, the 36 1x1 GEMMs in codes, residual and int32 modes)
+           launch of one chained request (the stem conv + pool with the
+           first block's conv1 fold and with its downsample's, in codes
+           mode, the 16 3x3 convs, the 36 1x1 GEMMs in codes, residual and
+           int32 modes)
            against its plain version, tolerance 0; per launch kernel us
            (CUDA graph of 16), bound us, kernel / bound, and the sums by
            launch group; the stem's plain ms and, as context, a bf16
@@ -108,14 +111,20 @@ Phases, each fatal on failure:
            im2col == plain and timed (with --parent DIR, DIR's im2col
            kernel beside it, as for the window sums in rootq_serve), the
            old stem GEMM (3211264,160) x
-           (160,64) in int32 mode beside torch._int_mm.  Then
-           make_serving_fn(qmode="intc") answers 6 requests of 256 images:
-           logits finite, (256, 1000), within relative L2 2e-2 of the CPU
-           plain path on 8 images, 16 conv + 36 GEMM + 1 stem conv + pool
-           launches a request and no im2col; median request ms, images/s
-           and the request's split (input quantize, stem + pool, the 52
-           other kernels, pool + head; CUDA graphs) and the rest (host and
-           gaps);
+           (160,64) in int32 mode beside torch._int_mm.  Then the stem
+           launch at batch 256 in each mode (codes with conv1's fold, f32
+           with materialize's, int32), == plain, timed beside its bound and
+           its plain version.  Then make_serving_fn(qmode="intc") answers
+           6 requests of 256 images: logits finite, (256, 1000), within
+           relative L2 2e-2 of the CPU plain path on 8 images, 16 conv +
+           36 GEMM + 2 stem conv + pool launches a request and no im2col;
+           median request ms, images/s and the request's split (input
+           quantize, the stem's two launches, the 52 other kernels, pool +
+           head; CUDA graphs) and the rest (host and gaps); with --parent
+           DIR the stem's part of a request (conv + pool and the two
+           consumers' codes) timed by tools/stem_bands.py --split on DIR
+           and on this tree in turns: DIR's kernel and its two folds in
+           torch ops against this tree's two codes launches;
   serving  the continuous-batching engine (parallel/serving.py) on
            serve_benchmark's path: RepVGG-A0 (deploy form) and ResNet-50
            (train form) under the FSPTQ W8A8 scheme of examples/
@@ -127,7 +136,7 @@ Phases, each fatal on failure:
            stream of 6 requests of 1..384 seeded images from a submitter
            thread under LaunchRecorder(check=True): the launches of the
            steps as expected (A0 22 convs, ResNet-50 16 convs + 37 GEMMs +
-           1 im2col in 'int', 16 + 36 + 1 stem conv + pool in 'intc'),
+           1 im2col in 'int', 16 + 36 + 2 stem conv + pool in 'intc'),
            each == plain (tolerance 0); then 32 requests of 1..384 images
            submitted at once (the engine's images/s under a full queue),
            and a stream at Poisson arrivals at 0.6 of that rate (A0 300
@@ -169,8 +178,9 @@ Phases, each fatal on failure:
            served batch-256 requests (logits finite, within relative L2
            2e-2 of the CPU plain path, 1 + 21 + 21 launches each) and
            their split; W8 and W4 requests in turns, with the host's
-           busiest ops; one W4 int8_stem_pool launch at ResNet-50's stem
-           (batch 256) == plain, beside the same weight at W8; then
+           busiest ops; two W4 int8_stem_pool launches at ResNet-50's stem
+           (batch 256), int32 and codes, == plain, beside the same weight
+           at W8; then
            BASELINE config #4 through python -m
            dlmc_quant_torch.examples.FSPTQuant on a cut copy (256
            calibration images, 40 iterations a block, 64 eval images; the
@@ -377,7 +387,9 @@ CIFAR_SIZE, CIFAR_CLASSES = 32, 10
 # + pools, depthwise convs
 RESNET18_LAUNCHES = {"conv": 18, "gemm": 3, "im2col": 0, "stem_pool": 0,
                      "dwconv": 0, "window_sum": 0}
-RESNET50_LAUNCHES = {"conv": 16, "gemm": 36, "im2col": 0, "stem_pool": 1,
+# (ResNet-50: the stem and its pool stay pending on the chain; the first
+# block's conv1 and downsample each run them with their own fold)
+RESNET50_LAUNCHES = {"conv": 16, "gemm": 36, "im2col": 0, "stem_pool": 2,
                      "dwconv": 0, "window_sum": 0}
 # the depthwise zoo: registry name and factory keywords of the train form,
 # its fuser, the launches of a request, and the module whose (activated)
@@ -395,6 +407,7 @@ MOBILE = {
                       "dwconv": 21, "window_sum": 0}, "stage4_0_pw")}
 DW_TOOL = REPO / "dlmc_quant_torch" / "tools" / "dw_launches.py"
 WINDOW_TOOL = REPO / "dlmc_quant_torch" / "tools" / "window_launches.py"
+STEM_TOOL = REPO / "dlmc_quant_torch" / "tools" / "stem_bands.py"
 # the training path: configs, cuts and what must move
 QAT_CONFIGS = {"lsq": "QAT_lsq_resnet20_cifar10_w4a4",
                "rootq": "RootQ_resnet20_cifar10_w4a4"}
@@ -828,12 +841,14 @@ def launch_bound(kind, args, kw, out):
         return bound_of(2 * 9 * (out.numel()), x.numel() + w.numel()
                         + 8 * x.shape[-1] + nbytes)
     if kind == "stem_pool":
-        # the conv's int8 operations (the pool's compares are not counted)
-        x, wp = args
+        # the conv's int8 operations (the pool's compares are not counted);
+        # x, the packed weight, a and b of an epilogue mode, the output
+        x, wp = args[:2]
         n, h, wd, c = x.shape
         hc, wc, _, _ = SP.geometry(h, wd, kw["pads"])
         ops = 2 * n * hc * wc * wp.shape[1] * SP.KERNEL ** 2 * c
-        return bound_of(ops, x.numel() + wp.numel() + nbytes)
+        epi = 8 * wp.shape[1] if kw.get("mode", "int32") != "int32" else 0
+        return bound_of(ops, x.numel() + wp.numel() + epi + nbytes)
     if kind == "gemm":
         x, w = args[:2]
         m, k = x.shape
@@ -882,7 +897,9 @@ def launch_label(kind, args, kw) -> str:
     if kind == "stem_pool":
         out = (x.shape[0],) + SP.geometry(x.shape[1], x.shape[2],
                                           kw["pads"])[2:] + (args[1].shape[1],)
-        return f"stem_pool {tuple(x.shape)}->{out} pads {kw['pads'][0]}"
+        return (f"stem_pool {tuple(x.shape)}->{out} pads {kw['pads'][0]} "
+                f"{kw.get('mode', 'int32')}{' relu' if kw.get('relu') else ''}"
+                f"{' w4' if args[1].dtype == W4 else ''}")
     if kind == "gemm":
         m, k = x.shape
         return (f"gemm ({m},{k})x({k},{args[1].shape[0]}) "
@@ -907,7 +924,7 @@ def stem_context_ms(args, kw) -> float:
     """A bf16 F.conv2d 7x7/s2 + F.max_pool2d 3x3/s2 at a stem launch's
     shape, channels last (context: not the same function, and no PyTorch
     call computes an int8 conv)."""
-    x, wp = args
+    x, wp = args[:2]
     xb = x.permute(0, 3, 1, 2).to(torch.bfloat16) \
         .contiguous(memory_format=torch.channels_last)
     wb = SP.unpack_weight(wp, x.shape[-1]).permute(3, 2, 0, 1) \
@@ -1148,17 +1165,18 @@ def serve_requests(what, model, x, expect, classes):
     return steady * 1e3, launches
 
 
-def recorded_calls(model, x, skip: int = 0):
+def recorded_calls(model, x, drop=()):
     """The kernel calls of one chained request of ``x``, as (kernel, args,
-    keywords), without the first ``skip``; and the last block's output."""
+    keywords), without those of the kinds in ``drop``; and the last
+    block's output."""
     last = {}
     hook = getattr(model, model.block_names[-1]).register_forward_hook(
         lambda mod, args, out: last.__setitem__("out", out))
     with LaunchRecorder() as rec:
         model(x, qmode="intc")
     hook.remove()
-    return ([(KERNELS[kind][0], a, kw) for kind, a, kw, _ in rec.calls[skip:]],
-            materialize(last["out"]))
+    return ([(KERNELS[kind][0], a, kw) for kind, a, kw, _ in rec.calls
+             if kind not in drop], materialize(last["out"]))
 
 
 def run_calls(calls):
@@ -1213,15 +1231,18 @@ def resnet50_deployed(device):
     return prepare_deploy(deploy)
 
 
-def resnet50_serve_phase(model, device):
+def resnet50_serve_phase(model, device, parent=None):
     """Chained int8 ResNet-50 through make_serving_fn; returns the launches
-    by kind."""
+    by kind.  ``parent``: the stem's part of a request timed on this tree
+    and on another by tools/stem_bands.py --split (parent_stem_ms), put
+    beside the split's stem part."""
     x = images(SERVE_BATCH, SEED + 2, device)
     request_ms, launches = serve_requests("resnet50", model, x,
                                           RESNET50_LAUNCHES, CLASSES)
     with torch.inference_mode():
-        # the stem conv + pool is the request's first launch
-        calls, feat = recorded_calls(model, x, skip=1)
+        # the stem's two launches (one for each of the first block's
+        # consumers) are timed as the stem's part
+        calls, feat = recorded_calls(model, x, drop=("stem_pool",))
         codes = model.conv1._input_codes(x)
         first = getattr(model, model.block_names[0])
 
@@ -1238,9 +1259,59 @@ def resnet50_serve_phase(model, device):
             feat.mean(dim=(1, 2)), qmode="intc")), 4)
     split_line("resnet50", request_ms, {
         "input quantize": quant_ms,
-        "stem + pool (int8_stem_pool, 2 folded quantizes)": stem_ms,
+        "stem + pool (2 int8_stem_pool launches in codes mode, the first "
+        "block's conv1 and downsample folds in their epilogues)": stem_ms,
         f"{len(calls)} kernels": kernels_ms, "pool + head": head_ms})
+    if parent:
+        print("# resnet50 stem + pool + the first block's 2 codes at batch "
+              f"{SERVE_BATCH}, tools/stem_bands.py --split in turns (parent "
+              "tree: one int32 launch and 2 folded quantizes in torch ops; "
+              "this tree: 2 codes launches): " + ", ".join(
+                  f"{who} {ms:.4f} ms" for who, ms in parent)
+              + f"; the split above: {stem_ms:.4f} ms; {card_line()}")
     return launches
+
+
+def stem_modes_phase(model, x):
+    """ResNet-50's stem launch in each mode on a request's codes (batch
+    256): codes with the first block's conv1 fold (the request's launch),
+    f32 with materialize's (the stem's scale and bias, ReLU), and the
+    pooled int32 accumulator (a ReLU-free shortcut term's); each == plain,
+    timed (CUDA graph of 16) beside its bound and its plain version.
+    Returns the largest difference."""
+    with torch.inference_mode():
+        de = qmaxpool(qrelu(model.conv1.deferred(model.conv1._input_codes(
+            x))), (3, 3), (2, 2), ((1, 1), (1, 1)))
+        with LaunchRecorder() as rec:
+            getattr(model, model.block_names[0]).conv1._input_codes(de)
+        (_, codes_args, codes_kw, _), = rec.calls
+        p = de.acc
+        base = dict(pads=p.pads, pad=p.pad)
+        launches = {
+            "codes": (codes_args, codes_kw),
+            "f32": ((p.x, p.weight, de.scale, de.bias),
+                    dict(base, mode="f32", relu=True)),
+            "int32": ((p.x, p.weight), dict(base, mode="int32"))}
+        err = 0.0
+        print(f"# resnet50 stem launch by mode, batch {x.shape[0]}: mode | "
+              "max|diff| | kernel ms, bound ms (by), kernel/bound | plain "
+              f"ms; {card_line()}")
+        for mode, (args, kw) in launches.items():
+            out = SP.int8_stem_pool(*args, **kw)
+            e = max_diff_to_plain("stem_pool", args, kw, out)
+            ms = graph_ms(lambda _: SP.int8_stem_pool(*args, **kw),
+                          GRAPH_LAUNCHES)
+            plain_ms = event_ms(lambda: SP.int8_stem_pool_plain(*args, **kw),
+                                PLAIN_REPS)
+            b_ms, t_ops, t_bytes = launch_bound("stem_pool", args, kw, out)
+            print(f"#   {mode:5s} | {e:g} | {ms:.4f}, {b_ms:.4f} "
+                  f"({bound_by(t_ops, t_bytes)}), {ms / b_ms:.2f} | "
+                  f"{plain_ms:.4f}")
+            if e != 0:
+                raise RuntimeError(f"the stem's {mode} launch differs from "
+                                   f"its plain version by {e}")
+            err = max(err, e)
+    return err
 
 
 def mobile_deployed(name, kwargs, fuser, device, scheme=BENCH_SCHEME):
@@ -1399,6 +1470,28 @@ def parent_window_ms(root: str):
     return {r["key"]: r["ms"] for r in rows}
 
 
+def parent_stem_ms(root: str):
+    """The stem's part of a ResNet-50 request at batch SERVE_BATCH (its
+    conv + pool and the first block's two consumers' codes), timed by
+    tools/stem_bands.py --split on the tree at ``root`` and on this one, in
+    turns (parent, this, this, parent), each in a process of its own:
+    [(tree, ms)]."""
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for who, tree in (("parent", root), ("this", str(REPO)),
+                          ("this", str(REPO)), ("parent", root)):
+            path = pathlib.Path(tmp) / "rows.json"
+            run = subprocess.run(
+                [sys.executable, str(STEM_TOOL), "--root", tree, "--split",
+                 "--json", str(path), str(SERVE_BATCH)], capture_output=True,
+                text=True)
+            if run.returncode != 0:
+                print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
+                raise RuntimeError(f"timing the stem of {tree} failed")
+            out.append((who, json.loads(path.read_text())[0]["ms"]))
+    return out
+
+
 def parent_ms(parent, kind, args, kw):
     """The ms that ``parent`` ({launch key: ms}) has for a window-sum or
     im2col launch, or None."""
@@ -1483,35 +1576,45 @@ def requests_in_turns(models, x, rounds: int = 4):
 
 
 def w4_stem_launch(device):
-    """One W4 int8_stem_pool launch at ResNet-50's stem (batch 256, 224²,
-    3 -> 64, flax's SAME pads), == plain, timed beside the same weight at
-    W8; returns (launches, totals for the kernels line)."""
+    """Two W4 int8_stem_pool launches at ResNet-50's stem (batch 256, 224²,
+    3 -> 64, flax's SAME pads), int32 and codes (a seeded fold), each ==
+    plain and timed beside the same weight at W8; returns (launches, the
+    largest difference)."""
     g = torch.Generator().manual_seed(SEED + 5)
     x = torch.randint(-128, 128, (SERVE_BATCH, SIZE, SIZE, 3), generator=g,
                       dtype=torch.int8).to(device)
     wk = torch.randint(-8, 8, (7, 7, 3, 64), generator=g,
                        dtype=torch.int8).to(device)
     w4, w8 = SP.pack_weight_int4(wk), SP.pack_weight(wk)
-    kw = dict(pads=QConv(3, 64, 7, 2, "SAME").spatial_pads(SIZE, SIZE),
-              pad=-17)
-    SP.int8_stem_pool.launches = 0
-    out = SP.int8_stem_pool(x, w4, **kw)
-    torch.cuda.synchronize()
-    launches = SP.int8_stem_pool.launches
-    err = max_abs(out, SP.int8_stem_pool_plain(x, w4, **kw))
-    ms = graph_ms(lambda _: SP.int8_stem_pool(x, w4, **kw), GRAPH_LAUNCHES)
-    ms8 = graph_ms(lambda _: SP.int8_stem_pool(x, w8, **kw), GRAPH_LAUNCHES)
-    plain_ms = event_ms(lambda: SP.int8_stem_pool_plain(x, w4, **kw),
-                        PLAIN_REPS)
-    b_ms, t_ops, t_bytes = launch_bound("stem_pool", (x, w4), kw, out)
-    print(f"# w4 stem: int8_stem_pool {tuple(x.shape)} -> {tuple(out.shape)}"
-          f" with (16, 64, 8) nibble-packed weights: {launches} launch | "
-          f"{err} | {ms * 1e3:.2f} us ({ms8 * 1e3:.2f} us with the int8 "
-          f"weights), bound {b_ms * 1e3:.2f} us "
-          f"({bound_by(t_ops, t_bytes)}), plain {plain_ms:.4f} ms")
-    if err != 0 or launches != 1:
-        raise RuntimeError(f"the W4 stem launch differs from its plain "
-                           f"version by {err} ({launches} launches)")
+    pads = QConv(3, 64, 7, 2, "SAME").spatial_pads(SIZE, SIZE)
+    a = (2e-4 + 6e-4 * torch.rand(64, generator=g)).to(device)
+    b = (20.0 * torch.randn(64, generator=g)).to(device)
+    err = launches = 0
+    for mode, ab, epi in (("int32", (), {}),
+                          ("codes", (a, b), dict(lo=-128, hi=127))):
+        kw = dict(pads=pads, pad=-17, mode=mode, **epi)
+        before = SP.int8_stem_pool.launches
+        out = SP.int8_stem_pool(x, w4, *ab, **kw)
+        torch.cuda.synchronize()
+        launches += SP.int8_stem_pool.launches - before
+        e = max_abs(out, SP.int8_stem_pool_plain(x, w4, *ab, **kw))
+        ms = graph_ms(lambda _: SP.int8_stem_pool(x, w4, *ab, **kw),
+                      GRAPH_LAUNCHES)
+        ms8 = graph_ms(lambda _: SP.int8_stem_pool(x, w8, *ab, **kw),
+                       GRAPH_LAUNCHES)
+        plain_ms = event_ms(lambda: SP.int8_stem_pool_plain(x, w4, *ab, **kw),
+                            PLAIN_REPS)
+        b_ms, t_ops, t_bytes = launch_bound("stem_pool", (x, w4) + ab, kw,
+                                            out)
+        print(f"# w4 stem: int8_stem_pool {tuple(x.shape)} -> "
+              f"{tuple(out.shape)} {mode} with (16, 64, 8) nibble-packed "
+              f"weights | {e} | {ms * 1e3:.2f} us ({ms8 * 1e3:.2f} us with "
+              f"the int8 weights), bound {b_ms * 1e3:.2f} us "
+              f"({bound_by(t_ops, t_bytes)}), plain {plain_ms:.4f} ms")
+        err = max(err, e)
+    if err != 0 or launches != 2:
+        raise RuntimeError(f"the W4 stem launches differ from their plain "
+                           f"versions by {err} ({launches} launches)")
     return launches, err
 
 
@@ -2761,7 +2864,8 @@ def main(argv=None) -> int:
                      help="another tree (e.g. an archive of the parent "
                           "commit) whose depthwise, window-sum and im2col "
                           "kernels are timed beside this one's at every "
-                          "launch of theirs")
+                          "launch of theirs, and whose stem + pool with the "
+                          "first block's two codes beside this one's")
     args = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2824,7 +2928,9 @@ def main(argv=None) -> int:
     windows = parent_window_ms(args.parent) if args.parent else None
     im2col_launches, im2col = stem_im2col_phase(
         r50, images(SERVE_BATCH, SEED + 1, device), windows)
-    served50 = resnet50_serve_phase(r50, device)
+    modes_err = stem_modes_phase(r50, images(SERVE_BATCH, SEED + 1, device))
+    served50 = resnet50_serve_phase(
+        r50, device, parent_stem_ms(args.parent) if args.parent else None)
     t0 = time.perf_counter()
     engine = serving_phase(device, card, r50)
     print(f"# serving phase: {time.perf_counter() - t0:.2f} s")
@@ -2861,7 +2967,7 @@ def main(argv=None) -> int:
                      r50_tot["err"], qat_err, mobile_err, w4_err, c2_err,
                      acc_err, rootq_err)
     stem = dict(r50_tot["stem_pool"], err=max(r50_err, r50_tot["err"],
-                                              w4_err))
+                                              modes_err, w4_err))
 
     gemm_rows, gemm_launches = tool_path(gemm_sweep.main, G.int8_gemm,
                                          "gemm_sweep")

@@ -41,6 +41,15 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
+def nvcc_path() -> str:
+    """The CUDA compiler; raises where there is none."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "on this machine")
+    return nvcc
+
+
 def build(*names: str, verbose: bool = False) -> list:
     """Compile each ``csrc/<name>.cu`` that has no build of its current text.
 
@@ -53,10 +62,7 @@ def build(*names: str, verbose: bool = False) -> list:
     todo = [(name, lib) for name, lib in zip(names, libs) if not lib.exists()]
     if not todo:
         return libs
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
-                           "on this machine")
+    nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name, lib in todo:

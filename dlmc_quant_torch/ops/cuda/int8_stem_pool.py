@@ -1,25 +1,32 @@
-"""The ImageNet ResNet stem: the int8 7×7/s2 conv and its 3×3/s2 max pool.
+"""The ImageNet ResNet stem: the int8 7×7/s2 conv, its 3×3/s2 max pool and
+the consumer's epilogue.
 
-One kernel computes what the JAX package's integer path does in two steps
-at the stem: the XLA int8 conv on the pad-code-padded codes
-(``dlmc_quant_tpu/quant/layers.py:721-728``) and ``chain.qmaxpool`` on its
-int32 accumulator (``dlmc_quant_tpu/quant/chain.py:135-155``).  The CUDA
-source is ``csrc/int8_stem_pool.cu``; its header says what bounds it on an
-H100 and how its design keeps the conv's rows and its unpooled
-accumulator out of device memory.  For input codes ``x`` (N, H, W, C) int8
-and a weight ``w`` (7, 7, C, O) int8 (packed once by :func:`pack_weight`)::
+One kernel computes what the JAX package's integer path does in three
+steps at the stem: the XLA int8 conv on the pad-code-padded codes
+(``dlmc_quant_tpu/quant/layers.py:721-728``), ``chain.qmaxpool`` on its
+int32 accumulator (``dlmc_quant_tpu/quant/chain.py:135-155``) and the next
+layer's ``chain.fold_quantize`` (or ``materialize``) of the pooled
+accumulator.  The CUDA source is ``csrc/int8_stem_pool.cu``; its header
+says what bounds it on an H100 and how its design keeps the conv's rows,
+its unpooled accumulator and, in codes mode, its pooled one out of device
+memory.  For input codes ``x`` (N, H, W, C) int8 and a weight ``w`` (7, 7,
+C, O) int8 (packed once by :func:`pack_weight`)::
 
     acc[n,r,c,o]    = Σ_{dy,dx,ch} xpad[n, 2r+dy, 2c+dx, ch] · w[dy,dx,ch,o]   (int32)
     xpad            = x padded with the int8 code ``pad`` by ``pads``
     pooled[n,i,j,o] = max_{u,v ∈ 0..2} acc[n, 2i−1+u, 2j−1+v, o]
                       (rows and columns outside acc lose)
 
-``pooled`` is (N, Hp, Wp, O) int32 with Hc = (H + top + bottom − 7) // 2
-+ 1 and Hp = (Hc − 1) // 2 + 1 (likewise W): the tensor the chain's
-``qmaxpool`` hands the first block.  The kernel takes C ≤ 4 (every
-ImageNet ResNet has C = 3) and O a multiple of 16 up to 128.  A weight of
-4 bits or fewer comes nibble-packed (:func:`pack_weight_int4`), and the
-kernel unpacks it where it writes the resident weight into shared memory.
+with Hc = (H + top + bottom − 7) // 2 + 1 and Hp = (Hc − 1) // 2 + 1
+(likewise W).  The output (N, Hp, Wp, O) is, by ``mode``, ``pooled``
+(``"int32"``) or :func:`.epilogue.epilogue_plain` of it with per-channel
+``a``, ``b`` (``"codes"``: int8 ``clamp(rint(f32(pooled)·a + b), lo,
+hi)``; ``"f32"``: ``f32(pooled)·a + b``, ReLU if ``relu``).  The pool runs
+before the epilogue, as on the chain: with ``a > 0`` the epilogue is
+monotone.  The kernel takes C ≤ 4 (every ImageNet ResNet has C = 3) and O
+a multiple of 16 up to 128.  A weight of 4 bits or fewer comes
+nibble-packed (:func:`pack_weight_int4`), and the kernel unpacks it where
+it writes the resident weight into shared memory.
 
 :func:`int8_stem_pool` launches the kernel for CUDA tensors and runs
 :func:`int8_stem_pool_plain` for CPU tensors; there is no fallback from one
@@ -35,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda import build
+from dlmc_quant_torch.ops.cuda.epilogue import check_epilogue, epilogue_plain
 from dlmc_quant_torch.ops.cuda.nibbles import W4, pack_nibbles, unpack_nibbles
 
 KERNEL, STRIDE = 7, 2     # the conv's window and stride
@@ -45,9 +53,10 @@ MAX_C, MAX_O = 4, 128
 POOL_COLS = 63            # pooled columns of a unit: 127 conv columns
 OT = 64                   # output channels of a unit
 MAX_BAND = 8
+MODES = ("int32", "codes", "f32")   # the kernel's mode codes 0, 1, 2
 # units that keep an H100's 132 SMs busy: about 1.5 a multiprocessor
 FILL_UNITS = 200
-# the bands whose blocks fit three to a multiprocessor, and what a unit
+# the bands whose blocks fit two to a multiprocessor, and what a unit
 # costs besides its conv rows (its cells, its weight tile, its first row's
 # wait), in conv rows: fitted to tools/stem_bands.py's sweep on an H100
 FIT_BANDS, UNIT_ROWS = range(1, 8), 1.3
@@ -168,22 +177,39 @@ def _check(x, wp, pads, pad):
     return n, h, w, c, o, hc, wc, hp, wpool
 
 
-def int8_stem_pool_plain(x: torch.Tensor, wp: torch.Tensor, *, pads,
-                         pad: int) -> torch.Tensor:
+def _check_epilogue(mode, a, b, lo, hi, relu, out_shape, device):
+    if mode not in MODES:
+        raise ValueError(f"int8_stem_pool: mode must be one of {MODES}, got "
+                         f"{mode!r}")
+    if mode != "int32":
+        check_epilogue("int8_stem_pool", mode, a, b, lo, hi, relu, None,
+                       0.0, out_shape, device)
+    elif a is not None or b is not None or relu:
+        raise ValueError("int8_stem_pool: int32 mode takes no epilogue")
+
+
+def int8_stem_pool_plain(x: torch.Tensor, wp: torch.Tensor, a=None, b=None,
+                         *, pads, pad: int, mode: str = "int32",
+                         lo: int = -128, hi: int = 127,
+                         relu: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same arguments, same result).
 
     The conv is a float64 ``F.conv2d`` over the pad-code-padded codes, exact
     because |acc| ≤ 49·C·128² ≪ 2⁵³; the pool a float64 ``F.max_pool2d``,
-    whose implicit −inf pads lose as JAX's ``iinfo.min`` does.
+    whose implicit −inf pads lose as JAX's ``iinfo.min`` does; then
+    :func:`.epilogue.epilogue_plain` in codes and f32 modes.
     """
-    _, _, _, c, *_ = _check(x, wp, pads, pad)
+    n, _, _, c, o, _, _, hp, wpool = _check(x, wp, pads, pad)
+    _check_epilogue(mode, a, b, lo, hi, relu, (n, hp, wpool, o), x.device)
     (top, bottom), (left, right) = pads
     xp = F.pad(x.permute(0, 3, 1, 2).to(torch.float64),
                (left, right, top, bottom), value=float(pad))
     wk = unpack_weight(wp, c).permute(3, 2, 0, 1).to(torch.float64)
     acc = F.conv2d(xp, wk, stride=STRIDE)
-    pooled = F.max_pool2d(acc, **POOL)
-    return pooled.permute(0, 2, 3, 1).to(torch.int32).contiguous()
+    pooled = F.max_pool2d(acc, **POOL).permute(0, 2, 3, 1)
+    if mode == "int32":
+        return pooled.to(torch.int32).contiguous()
+    return epilogue_plain(pooled, a, b, mode=mode, lo=lo, hi=hi, relu=relu)
 
 
 @functools.cache
@@ -191,26 +217,32 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int8_stem_pool")
     lib.dlmcq_int8_stem_pool.restype = ctypes.c_int
     lib.dlmcq_int8_stem_pool.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
     return lib
 
 
-def int8_stem_pool(x: torch.Tensor, wp: torch.Tensor, *, pads, pad: int,
+def int8_stem_pool(x: torch.Tensor, wp: torch.Tensor, a=None, b=None, *,
+                   pads, pad: int, mode: str = "int32", lo: int = -128,
+                   hi: int = 127, relu: bool = False,
                    _band=None) -> torch.Tensor:
-    """(N, Hp, Wp, O) int32: the stem conv's accumulator, max-pooled
-    (module docstring).
+    """(N, Hp, Wp, O): the stem conv's accumulator, max-pooled, as int32
+    or through the epilogue (module docstring).
 
     ``x`` (N, H, W, C) int8 and ``wp`` from :func:`pack_weight` (or
     :func:`pack_weight_int4`: the kernel unpacks it), contiguous
     and on one device; ``pads`` ``((top, bottom), (left, right))``; ``pad``
-    the int8 code of real 0.  CUDA tensors launch the kernel on the current
-    stream with :func:`band_rows` pooled rows a unit (``_band`` overrides
-    it, 1 to 8, for the card tests and for timing) and count the launch in
-    ``int8_stem_pool.launches``; CPU tensors run the plain version.
+    the int8 code of real 0; ``a``, ``b`` (O,) float32 in ``"codes"`` and
+    ``"f32"`` modes, none in ``"int32"``.  CUDA tensors launch the kernel
+    on the current stream with :func:`band_rows` pooled rows a unit
+    (``_band`` overrides it, 1 to 8, for the card tests and for timing) and
+    count the launch in ``int8_stem_pool.launches``; CPU tensors run the
+    plain version.
     """
     n, h, w, c, o, hc, wc, hp, wpool = _check(x, wp, pads, pad)
+    _check_epilogue(mode, a, b, lo, hi, relu, (n, hp, wpool, o), x.device)
     if x.device.type == "cpu":
-        return int8_stem_pool_plain(x, wp, pads=pads, pad=pad)
+        return int8_stem_pool_plain(x, wp, a, b, pads=pads, pad=pad,
+                                    mode=mode, lo=lo, hi=hi, relu=relu)
     if x.device.type != "cuda":
         raise ValueError(f"int8_stem_pool runs on cuda or cpu, not "
                          f"{x.device}")
@@ -219,11 +251,15 @@ def int8_stem_pool(x: torch.Tensor, wp: torch.Tensor, *, pads, pad: int,
         raise ValueError(f"band must be 1 to {MAX_BAND}, got {band}")
     (top, _), (left, _) = pads
     lib = _library()
-    out = torch.empty((n, hp, wpool, o), dtype=torch.int32, device=x.device)
+    dtype = {"int32": torch.int32, "codes": torch.int8,
+             "f32": torch.float32}[mode]
+    out = torch.empty((n, hp, wpool, o), dtype=dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.dlmcq_int8_stem_pool(
-            x.data_ptr(), wp.data_ptr(), out.data_ptr(), n, h, w, c, o, top,
-            left, hc, wc, pad, band, int(wp.dtype == W4),
+            x.data_ptr(), wp.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in (a, b)), n, h,
+            w, c, o, top, left, hc, wc, pad, band, int(wp.dtype == W4),
+            MODES.index(mode), lo, hi, int(relu),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(lib, err, "int8_stem_pool")
     int8_stem_pool.launches += 1

@@ -36,10 +36,13 @@ a :class:`PendingDwConv`, and the consumer runs that conv with the folded
 epilogue fused into it (``"codes"`` mode, with the residual term where it
 closes a block), or, for :func:`materialize`, in ``"f32"`` mode.  A
 pending GEMM used as a shortcut term runs in ``"int32"`` mode: the JAX
-package's int32 accumulator.  The stem that :func:`qmaxpool` pools runs
-conv and pool in one kernel (``ops.cuda.int8_stem_pool``), which gives
-the pooled int32 accumulator.  A linear-bottleneck block (MobileNetV2)
-closes its sum without a ReLU: the lower clamp is then the grid's minimum.
+package's int32 accumulator.  The stem that :func:`qmaxpool` pools stays
+pending too, as a :class:`PendingStemPool`: each consumer runs conv, pool
+and its own epilogue in one kernel (``ops.cuda.int8_stem_pool``), so the
+pooled int32 accumulator does not reach device memory either (unless a
+ReLU-free shortcut term asks for it).  A linear-bottleneck block
+(MobileNetV2) closes its sum without a ReLU: the lower clamp is then the
+grid's minimum.
 
 A layer whose weight grid has an offset (``q·s_w + o_w``: RootQ's, an
 offset LSQ weight's) adds a row term to its real value,
@@ -151,16 +154,40 @@ class PendingWideConv:
         shape = (n,) + out_hw(h, w, self.kernel, self.stride, self.pads)
         return PendingGemm(rows, self.weight, shape).run(a, b, **epilogue)
 
-    def pool(self) -> torch.Tensor:
-        """The accumulator max-pooled 3×3/s2 with pads 1, int32."""
+    def pool(self) -> "PendingStemPool":
+        """The conv with the 3×3/s2 max pool (pads 1) after it, pending."""
         if self.pool_weight is None:
             raise NotImplementedError(
                 f"a {self.kernel}x{self.kernel}/s{self.stride} conv of "
                 f"{tuple(self.x.shape)} codes is not pooled on the chain: "
                 "int8_stem_pool takes the 7x7/s2 stem, C <= 4, O a "
                 "multiple of 16 up to 128")
-        return int8_stem_pool(self.x, self.pool_weight, pads=self.pads,
-                              pad=self.pad)
+        return PendingStemPool(self.x, self.pool_weight, self.pads, self.pad)
+
+
+@dataclasses.dataclass(frozen=True)
+class PendingStemPool:
+    """The ImageNet stem's 7×7/s2 conv and the 3×3/s2 max pool after it,
+    not run yet: each consumer runs it in ``int8_stem_pool`` with its own
+    epilogue (``"codes"``, ``"f32"``, or ``"int32"`` for the pooled
+    accumulator), as many times as it has consumers."""
+    x: torch.Tensor          # (N, H, W, C) int8 codes
+    weight: torch.Tensor     # ops.cuda.int8_stem_pool's layout (pack_weight)
+    #                          or its nibbles (pack_weight_int4)
+    pads: tuple              # ((top, bottom), (left, right))
+    pad: int                 # int8 code of real 0 on the input grid
+
+    int4 = PendingConv.int4
+
+    def run(self, a=None, b=None, *, lo: int = -128, hi: int = 127,
+            mode: str = "codes", relu: bool = False, residual=None,
+            qb: float = 0.0, row=None) -> torch.Tensor:
+        if residual is not None or row is not None:
+            raise ValueError("the pooled stem's epilogue takes no residual "
+                             "and no row term")
+        return int8_stem_pool(self.x, self.weight, a, b, pads=self.pads,
+                              pad=self.pad, mode=mode, lo=lo, hi=hi,
+                              relu=relu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,7 +220,8 @@ class PendingDwConv:
                               mode=mode, relu=relu, offset=offset)
 
 
-PENDING = (PendingConv, PendingGemm, PendingWideConv, PendingDwConv)
+PENDING = (PendingConv, PendingGemm, PendingWideConv, PendingStemPool,
+           PendingDwConv)
 # the pool that follows the ImageNet stem: window, strides, padding
 STEM_POOL = ((3, 3), (2, 2), ((1, 1), (1, 1)))
 
@@ -203,15 +231,15 @@ class DeferredEpilogue:
     """Lazy layer output: real value = ``relu?(acc·scale + S·c + bias)``,
     then ``min(·, clamp_hi)`` where set (ReLU6).
 
-    ``acc`` is an int32 tensor (dense layers, the pooled stem) or a
-    pending conv (:data:`PENDING`) whose accumulator the consumer computes
-    with its epilogue fused.  ``row`` is a weight offset's row term ``(S,
-    c)`` or None: ``S`` int32 over the output's rows ((N, Ho, Wo), or (M,)
-    for an (M, O) ``acc``; None for a depthwise conv, whose kernel sums its
-    own windows), ``c`` (O,) f32.
+    ``acc`` is an int32 tensor (dense layers) or a pending conv
+    (:data:`PENDING`, the pooled stem too) whose accumulator the consumer
+    computes with its epilogue fused.  ``row`` is a weight offset's row
+    term ``(S, c)`` or None: ``S`` int32 over the output's rows ((N, Ho,
+    Wo), or (M,) for an (M, O) ``acc``; None for a depthwise conv, whose
+    kernel sums its own windows), ``c`` (O,) f32.
     """
     acc: Union[torch.Tensor, PendingConv, PendingGemm, PendingWideConv,
-               PendingDwConv]
+               PendingStemPool, PendingDwConv]
     scale: torch.Tensor      # (O,) f32
     bias: torch.Tensor       # (O,) f32
     relu: bool = False
@@ -289,8 +317,9 @@ def qmaxpool(x, window, strides, padding):
     and keeping the boundary foldable equals pooling the values; pads lose
     to every window element, as JAX's ``iinfo.min`` and -128 do.  A pending
     stem conv (:class:`PendingWideConv`) and the ImageNet pool after it
-    (:data:`STEM_POOL`) run together in ``int8_stem_pool``, which gives the
-    pooled int32 accumulator.  A stem with a row term (a weight offset's)
+    (:data:`STEM_POOL`) stay pending as a :class:`PendingStemPool`: nothing
+    runs here, and each consumer runs conv, pool and its epilogue in one
+    ``int8_stem_pool`` launch.  A stem with a row term (a weight offset's)
     is not monotone in its accumulator: it runs as ``int8_im2col`` rows
     into the GEMM in ``"f32"`` mode, and its float32 values are pooled.
     Codes are pooled as an exact float32 view, as CUDA's max pool takes no
@@ -431,7 +460,8 @@ def fold_sum_quantize(terms, inv_s: float, qbias: float, lo: int,
     """
     y, r = terms
     if not (isinstance(y, DeferredEpilogue) and isinstance(y.acc, PENDING)
-            and not isinstance(y.acc, PendingDwConv) and not y.relu
+            and not isinstance(y.acc, (PendingDwConv, PendingStemPool))
+            and not y.relu
             and y.clamp_hi is None):
         raise ValueError("the residual sum is folded into the epilogue of "
                          "the trunk's last conv: y must be its pending, "

@@ -38,7 +38,8 @@ from dlmc_quant_torch.ops.cuda.int8_im2col import (int8_im2col,
                                                    out_hw, pack_weight)
 from dlmc_quant_torch.quant.chain import (DeferredEpilogue, PendingGemm,
                                           PendingWideConv, QuantizedTensor,
-                                          fold_sum_quantize, qmaxpool)
+                                          fold_quantize, fold_sum_quantize,
+                                          qmaxpool)
 
 torch.set_num_threads(1)
 
@@ -193,7 +194,8 @@ def test_im2col_plain_equals_padded_conv(n, h, w, c, k, s, pads):
 def test_qmaxpool_equals_jax():
     """The stem's pending conv (7×7/s2 on a 28×28 map, SAME pads (2, 3),
     run with its pool by int8_stem_pool) and int8 codes, pooled 3×3/s2
-    with pads 1, as JAX pools them."""
+    with pads 1, as JAX pools them; the stem's consumer's codes as JAX
+    folds them."""
     jax, jnp, jchain = _jax()
     rng = np.random.default_rng(6)
     x = rng.integers(-128, 128, (2, 28, 28, 3), dtype=np.int8)
@@ -214,9 +216,16 @@ def test_qmaxpool_equals_jax():
         torch.from_numpy(x), pack_weight(w_t), stem_pool.pack_weight(w_t), 7,
         2, pads, pad), *_t(scale, bias), True)
     got = qmaxpool(de, *args)
-    assert got.relu and got.acc.dtype == torch.int32
-    assert got.acc.shape == (2, 7, 7, 16)
-    assert np.array_equal(got.acc.numpy(), np.asarray(want.acc))
+    acc = got.acc.run(mode="int32")
+    assert got.relu and acc.dtype == torch.int32
+    assert acc.shape == (2, 7, 7, 16)
+    assert np.array_equal(acc.numpy(), np.asarray(want.acc))
+    # the consumer's folded codes, in the stem's own launch
+    inv, qbias = float(np.float32(0.37)), float(np.float32(-2.5))
+    codes = fold_quantize(got, inv, qbias, -128, 127)
+    assert codes.dtype == torch.int8
+    assert np.array_equal(codes.numpy(), np.asarray(
+        jchain.fold_quantize(want, inv, qbias, -128, 127)))
 
     q = rng.integers(-128, 128, (2, 13, 12, 8), dtype=np.int8)
     want_q = jchain.qmaxpool(jchain.QuantizedTensor(

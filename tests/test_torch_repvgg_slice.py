@@ -236,7 +236,8 @@ TRAINING_MODULES = (
     "dlmc_quant_torch.examples.serve_benchmark",
     "dlmc_quant_torch.examples.benchmark",
     "dlmc_quant_torch.examples.distributed_training",
-    "dlmc_quant_torch.ops.cuda.int8_window_sum")
+    "dlmc_quant_torch.ops.cuda.int8_window_sum",
+    "dlmc_quant_torch.tools.stem_parts")
 
 
 def test_import_leaves_out_jax():

@@ -18,8 +18,9 @@ activations).
   accumulator equal; each block's output codes at most one code apart on
   at most 0.1 % of the values; logits within relative L2 2e-2.
 * The launches of one port ``intc`` request (wrapper calls, counted on the
-  CPU as on the card): the ImageNet stem and its pool are one
-  ``int8_stem_pool`` launch.
+  CPU as on the card): the ImageNet stem and its pool stay pending on the
+  chain, and each of the first block's two consumers runs them with its
+  own epilogue in one ``int8_stem_pool`` launch.
 * The 7×7/s2 stem's SAME pads equal flax's; the ``resnet50`` parameter
   count equals JAX's (``jax.eval_shape``, no init).
 """
@@ -62,9 +63,10 @@ SCHEME = {"quantization_type": "FSPTQ",
 # GEMMs, im2cols, stem convs + pools).  cifar_resnet50: the 3x3 stem runs
 # for each of its two consumers, 16 conv2s; 16 conv1 + 16 conv3 + 4
 # downsample GEMMs.  resnet18: 16 3x3 convs; 3 downsample GEMMs; the 7x7
-# stem and its pool in one int8_stem_pool.
+# stem and its pool in an int8_stem_pool launch for each of its two
+# consumers (layer1_0's conv1, codes; its identity shortcut, f32).
 ARCHS = {"cifar_resnet50": (32, 10, (18, 36, 0, 0)),
-         "resnet18": (64, 1000, (16, 3, 0, 1))}
+         "resnet18": (64, 1000, (16, 3, 0, 2))}
 
 
 def _np(tree):
@@ -226,8 +228,9 @@ def test_intc_convs_match_jax_on_its_inputs(case):
 @pytest.mark.parametrize("case", ["resnet18"], indirect=True)
 def test_pooled_stem_matches_jax(case):
     """The stem on JAX's input codes, ReLU-flagged and pooled on the
-    chain (int8_stem_pool's conv + pool): the pooled int32 accumulator
-    equals the one JAX hands the first block."""
+    chain (int8_stem_pool's conv + pool): its int32 run equals the pooled
+    accumulator JAX hands the first block, and the first conv's codes,
+    folded in the stem's launch, equal JAX's fold_quantize of it."""
     _, seen = _jax_intc(case, _images(3, case["size"]))
     x_j, _ = seen["conv1"]
     codes_j = _jax_codes(x_j, case["qint"]["conv1"])
@@ -238,8 +241,13 @@ def test_pooled_stem_matches_jax(case):
         de = stem.deferred(torch.from_numpy(np.array(codes_j)))
         assert isinstance(de.acc, PendingWideConv)
         pooled = qmaxpool(qrelu(de), (3, 3), (2, 2), ((1, 1), (1, 1)))
-    assert pooled.relu and pooled.acc.dtype == torch.int32
-    assert np.array_equal(pooled.acc.numpy(), np.asarray(want.acc))
+        acc = pooled.acc.run(mode="int32")
+        codes = case["port"].layer1_0.conv1._input_codes(pooled)
+    assert pooled.relu and acc.dtype == torch.int32
+    assert np.array_equal(acc.numpy(), np.asarray(want.acc))
+    want_codes = _jax_codes(want, _node(case["qint"], "layer1_0.conv1"))
+    assert codes.dtype == torch.int8
+    assert np.array_equal(codes.numpy(), want_codes)
 
 
 def test_intc_blocks_and_logits_match_jax(case):
