@@ -20,8 +20,9 @@ extras MobileOne-S1 and MobileNetV2 at batch 256 (``mobileone_s1_int8_*``,
 ``mobilenet_v2_int8_*``: the deploy form, as bench.py benches it),
 MobileOne-S1 with every weight at 4 bits (``mobileone_s1_w4a8_*``:
 bench.py's ``_scheme(w_bits=4)``, the weights nibble-packed in device
-memory and unpacked in the kernels) and, for the extras the port cannot
-build yet, ``<key>_error`` naming their ROADMAP item.
+memory and unpacked in the kernels) and RepVGG-D2se at batch 64
+(``repvgg_d2se_int8_*``: its 48 convs in f32 mode, each closed by its SE
+block, whose two dense layers are ``torch._int_mm``).
 
 The float baseline is not handicapped: the activations stay NHWC, whose
 NCHW view is channels_last, and the fp model's weights are converted to
@@ -57,24 +58,21 @@ BATCH = 512          # bench.py:50
 ITERS, WARMUP, ROUNDS = 30, 3, 3
 SIZE, CLASSES, SEED = 224, 1000, 0
 RESNET50_BATCH = 256  # bench.py:189-190
-# bench.py's other models at batch 256 (bench.py:186-207): key, registry
-# name, weight bits, the launches of one int8 request (3x3 convs, GEMMs,
+# bench.py's other models (bench.py:186-207): key, registry name, weight
+# bits, batch, the launches of one int8 request (3x3 convs, GEMMs,
 # im2cols, stem convs + pools, depthwise convs, window sums)
 LAUNCHES = dict(conv=0, gemm=0, im2col=0, stem_pool=0, dwconv=0,
                 window_sum=0)
-EXTRAS = (("resnet50_int8", "resnet50", 8,
+EXTRAS = (("resnet50_int8", "resnet50", 8, RESNET50_BATCH,
            dict(LAUNCHES, conv=16, gemm=36, stem_pool=2)),
-          ("mobileone_s1_int8", "mobileone_s1", 8,
+          ("mobileone_s1_int8", "mobileone_s1", 8, 256,
            dict(LAUNCHES, conv=1, gemm=21, dwconv=21)),
-          ("mobileone_s1_w4a8", "mobileone_s1", 4,
+          ("mobileone_s1_w4a8", "mobileone_s1", 4, 256,
            dict(LAUNCHES, conv=1, gemm=21, dwconv=21)),
-          ("mobilenet_v2_int8", "mobilenet_v2", 8,
+          ("repvgg_d2se_int8", "RepVGG_D2se", 8, 64,
+           dict(LAUNCHES, conv=48)),
+          ("mobilenet_v2_int8", "mobilenet_v2", 8, 256,
            dict(LAUNCHES, conv=1, gemm=39, dwconv=17)))
-# the extras the port cannot build yet, by ROADMAP item
-NOT_PORTED = {
-    "repvgg_d2se_int8": "ROADMAP Queue A item 7 (rest of the zoo: D2se, "
-                        "SEBlock)",
-}
 LAYOUT_KERNEL = re.compile(r"nchwToNhwc|nhwcToNchw|copy|transpose", re.I)
 
 
@@ -208,9 +206,9 @@ def main() -> int:
              "vs_bf16": round(ips["int8"] / ips["bf16"], 3),
              "fp32_layout_kernels": layout,
              "int8_kernels_ms": round(conv_ms, 4)}
-    for key, name, w_bits, expect in EXTRAS:
+    for key, name, w_bits, batch, expect in EXTRAS:
         r_ips, r_qmode, r_layout, r_ms = bench_model(
-            name, RESNET50_BATCH, device, expect, w_bits)
+            name, batch, device, expect, w_bits)
         extra.update({
             f"{key}_ips": round(r_ips["int8"], 1),
             f"{key}_fp32_ips": round(r_ips["fp32"], 1),
@@ -220,11 +218,9 @@ def main() -> int:
                 r_ips["int8"] / r_ips["fp32_strict"], 3),
             f"{key}_bf16_ips": round(r_ips["bf16"], 1),
             f"{key}_vs_bf16": round(r_ips["int8"] / r_ips["bf16"], 3),
-            f"{key}_batch": RESNET50_BATCH, f"{key}_qmode": r_qmode,
+            f"{key}_batch": batch, f"{key}_qmode": r_qmode,
             f"{key}_fp32_layout_kernels": r_layout,
             f"{key}_kernels_ms": round(r_ms, 4)})
-    for key, item in NOT_PORTED.items():
-        extra[f"{key}_error"] = f"not ported yet: {item}"
     extra["card"] = card_line()
     extra["timing"] = (f"CUDA events around {ITERS} back-to-back requests, "
                        f"{WARMUP} warm-ups, best of {ROUNDS} interleaved "

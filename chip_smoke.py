@@ -10,7 +10,9 @@ accuracy protocol cut short (trained cifar_resnet20 and RepVGG-A0), the
 serving engine (RepVGG-A0 and ResNet-50 through continuous batching, the
 two-process lockstep) and data-parallel training on NCCL, RootQ served in
 int8 (BASELINE config #5's ResNet-50 through the engine, cifar_resnet20;
-the window sums of a weight offset), then the two int8 GEMM tools.
+the window sums of a weight offset), the rest of the RepVGG family
+(RepVGG-B2g4's grouped convs, RepVGG-D2se's SE blocks) and merge_bn, then
+the two int8 GEMM tools.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -186,6 +188,23 @@ Phases, each fatal on failure:
            calibration images, 40 iterations a block, 64 eval images; the
            cuts printed): it must reach its chained int8 evaluation, whose
            21 GEMM + 21 depthwise launches each == plain;
+  repvgg_zoo the rest of the RepVGG family at 224x224, 1000 classes,
+           seeded weights, the bench's W8A8 scheme calibrated on 8
+           images: RepVGG-B2g4 in train form (BN statistics from a
+           train-mode forward, perturbed) -> repvgg_fuse -> prepare_deploy,
+           13 of its 28 convs grouped (Cg = 40, 80, 160: the grouped
+           layout of int8_conv3x3.cu), and RepVGG-D2se as bench.py's
+           repvgg_d2se_int8 (deploy form, about 133 M weights, an SE block
+           after each of its 48 convs, which therefore run in f32 mode; the
+           SE blocks' dense layers are torch._int_mm, K = C/16 padded to a
+           multiple of 8).  At batch 64 every launch of one chained request
+           == plain (tolerance 0) and timed; each grouped launch beside its
+           bound, its plain ms and a bf16 F.conv2d(groups=G) of the same
+           shape.  Then 6 served batch-64 requests each (logits finite,
+           within relative L2 2e-2 of the CPU plain path on 2 images, 28
+           launches with 13 grouped, or 48, a request), images/s; then
+           merge_bn on cifar_resnet20 (perturbed BN) on the card: 19 folds,
+           the output within 1e-4 relative;
   observers every observer of ops/observers.py (the 9 tensor observers,
            the 2 output observers, the percentile stream per tensor and
            per channel, the min/max stream per channel) on config #2's
@@ -305,8 +324,11 @@ Phases, each fatal on failure:
   5. probe   the same for the MMA-rate probe's path (mma_probe.main) and
              its shapes, the library call being torch._int_mm on the
              concatenated operands.
-The last lines: one JSON line of kernel figures, the card's name and power
-limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
+The last lines: one JSON line of kernel figures (the grouped launches,
+int8_conv3x3.cu's grouped build int8_conv3x3_grouped.cu, under an entry of
+their own: B2g4's 13 at batch 64, their served launches), the card's name
+and power limit,
+and {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -340,8 +362,8 @@ from dlmc_quant_torch.examples import distributed_training as dist_entry
 from dlmc_quant_torch.examples import serve_benchmark as serve_bench
 from dlmc_quant_torch.examples import post_training_quantization as ptq_entry
 from dlmc_quant_torch.examples import quantization_aware_training as qat_entry
-from dlmc_quant_torch.models.fuse import (mobilenet_deploy, repvgg_fuse,
-                                          resnet_deploy)
+from dlmc_quant_torch.models.fuse import (merge_bn, mobilenet_deploy,
+                                          repvgg_fuse, resnet_deploy)
 from dlmc_quant_torch.models.mobileone import mobileone_fuse
 from dlmc_quant_torch.models.resnet_cifar import BatchNorm
 from dlmc_quant_torch.ops.cuda import build
@@ -471,6 +493,16 @@ ENGINE_INT_LAUNCHES = {
                  "dwconv": 0, "window_sum": 0}}
 # distributed_training's losses held against the plain QATTrainer's
 DIST_LOSSES = 3
+# the repvgg_zoo phase: bench.py's D2se batch, the calibration images and
+# the images of the CPU reference; RepVGG-B2g4's 28 convs (13 grouped) and
+# RepVGG-D2se's 48 (f32 mode, an SE block after each: its two dense layers
+# are torch._int_mm) a request; cifar_resnet20's images for merge_bn
+ZOO_BATCH, ZOO_CAL, ZOO_REF = 64, 8, 2
+B2G4_LAUNCHES = {"conv": 28, "gemm": 0, "im2col": 0, "stem_pool": 0,
+                 "dwconv": 0, "window_sum": 0}
+B2G4_GROUPED = 13
+D2SE_LAUNCHES = dict(B2G4_LAUNCHES, conv=48)
+MERGE_BN_IMAGES = 64
 
 
 def images(n: int, seed: int, device) -> torch.Tensor:
@@ -485,8 +517,9 @@ def card_tests():
     im2col, the stem conv + pool, the depthwise conv, the GEMM at 24
     channels, the four weight-taking kernels at W4, the window sums and a
     weight offset's term in the conv, GEMM and depthwise epilogues, the
-    window-sum and im2col kernels at their emulated tiles), in a process
-    of their own; fatal unless all pass."""
+    window-sum and im2col kernels at their emulated tiles, the grouped
+    conv at every (Cg, Og) of RepVGG's g2/g4 variants and the SE blocks'
+    int8 products), in a process of their own; fatal unless all pass."""
     tests = REPO / "tests"
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
@@ -499,11 +532,12 @@ def card_tests():
          str(tests / "test_torch_int4_kernels.py"),
          str(tests / "test_torch_rootq_int.py"),
          str(tests / "test_torch_window_sum_tiles.py"),
-         str(tests / "test_torch_im2col_tiles.py")],
+         str(tests / "test_torch_im2col_tiles.py"),
+         str(tests / "test_torch_grouped_conv.py")],
         capture_output=True, text=True)
     tail = run.stdout.strip().splitlines()[-1:] or [run.stderr.strip()[-300:]]
-    print(f"# card tests of int8_conv3x3, the ResNet path, the depthwise "
-          f"zoo and the weight offset's term: {tail[0]}")
+    print(f"# card tests of int8_conv3x3 (grouped too), the ResNet path, "
+          f"the depthwise zoo and the weight offset's term: {tail[0]}")
     if run.returncode != 0:
         print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
         raise RuntimeError("the ResNet path's card tests failed")
@@ -860,8 +894,9 @@ def launch_bound(kind, args, kw, out):
     n, h, wd, c = x.shape
     o = a.shape[0]
     m = out.numel() // o
-    return bound_of(2 * m * o * 9 * c, x.numel() + weight_bytes(9 * c * o, w)
-                    + 8 * o + nbytes)
+    cg = c // kw.get("groups", 1)      # the inputs of one output channel
+    return bound_of(2 * m * o * 9 * cg, x.numel()
+                    + weight_bytes(9 * cg * o, w) + 8 * o + nbytes)
 
 
 def weight_bytes(values: int, w) -> int:
@@ -904,8 +939,9 @@ def launch_label(kind, args, kw) -> str:
         m, k = x.shape
         return (f"gemm ({m},{k})x({k},{args[1].shape[0]}) "
                 f"{kw.get('mode', 'int32')}{extra}")
-    return (f"conv {tuple(x.shape)}->{args[2].shape[0]} s{kw['stride']} "
-            f"pad_lo {kw.get('pad_lo', 1)} {kw['mode']}"
+    groups = f" g{kw['groups']}" if kw.get("groups", 1) > 1 else ""
+    return (f"conv {tuple(x.shape)}->{args[2].shape[0]}{groups} "
+            f"s{kw['stride']} pad_lo {kw.get('pad_lo', 1)} {kw['mode']}"
             f"{' relu' if kw.get('relu') else ''}{extra}")
 
 
@@ -1107,15 +1143,18 @@ def stem_im2col_phase(model, x, parent=None):
                           ops_ms=t_ops, bytes_ms=t_bytes, err=err)
 
 
-def serve_requests(what, model, x, expect, classes):
+def serve_requests(what, model, x, expect, classes, ref: int = 8):
     """make_serving_fn(qmode="intc") on ``x``, REQUESTS times: checks the
-    launches a request, the logits' shape and finiteness and the CPU plain
-    path on 8 images; returns (median request ms, launches by kind)."""
+    launches a request (``expect`` by kind; ``conv_grouped``, where it is
+    given, the grouped ones among the conv's), the logits' shape and
+    finiteness and the CPU plain path on ``ref`` images; returns (median
+    request ms, launches by kind)."""
     cpu_model = copy.deepcopy(model).cpu()
     serve = make_serving_fn(model, qmode="intc", device=x.device)
-    counters = {kind: KERNELS[kind][0] for kind in expect}
+    counters = {kind: KERNELS[kind][0] for kind in expect if kind in KERNELS}
     for fn in counters.values():
         fn.launches = 0
+    K.int8_conv3x3.grouped_launches = 0
     torch.cuda.synchronize()
     times, enqueue = [], []
     for _ in range(REQUESTS):
@@ -1125,6 +1164,8 @@ def serve_requests(what, model, x, expect, classes):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {kind: fn.launches for kind, fn in counters.items()}
+    if "conv_grouped" in expect:
+        launches["conv_grouped"] = K.int8_conv3x3.grouped_launches
     # one more request with PyTorch's sync debugging on: every call that
     # makes the host wait for the card warns
     torch.cuda.synchronize()
@@ -1145,13 +1186,14 @@ def serve_requests(what, model, x, expect, classes):
     if y.shape != (x.shape[0], classes) \
             or not bool(torch.isfinite(y).all()):
         raise RuntimeError(f"{what}: bad logits: {tuple(y.shape)}")
+    t0 = time.perf_counter()
     with torch.inference_mode():
-        ref = cpu_model(x[:8].cpu(), qmode="intc")
-    rel = float((y[:8].cpu() - ref).norm() / (ref.norm() + 1e-9))
+        want = cpu_model(x[:ref].cpu(), qmode="intc")
+    rel = float((y[:ref].cpu() - want).norm() / (want.norm() + 1e-9))
     steady = statistics.median(times[1:])
     print(f"# {what} serve: logits {tuple(y.shape)} finite; vs CPU plain "
-          f"path on 8 images: rel L2 {rel:.3e}; launches {launches} = "
-          f"{expect} x {REQUESTS}")
+          f"path on {ref} images ({time.perf_counter() - t0:.1f} s): rel L2 "
+          f"{rel:.3e}; launches {launches} = {expect} x {REQUESTS}")
     if not rel < 2e-2:
         raise RuntimeError(f"{what}: GPU and CPU logits differ: rel L2 {rel}")
     print(f"# {what} serve: batch {x.shape[0]} request {steady * 1e3:.3f} "
@@ -1353,13 +1395,13 @@ def served_weight_bytes(model) -> int:
     """Bytes of the weight buffers a served request reads: each conv's
     kernel layout (``w_packed``, ``w_gemm`` or ``w_dw``; ``w_stem`` where
     the stem kernel takes the conv) and each dense or weight-only layer's
-    ``w_int4`` or ``w_int``."""
+    ``w_int4``, ``w_mm`` or ``w_int``."""
     total = 0
     for m in model.modules():
         if not isinstance(m, (QConv, QDense)) or m.plan_scalars is None:
             continue
         if isinstance(m, QDense) or m.weight_only:
-            names = ("w_int4", "w_int")
+            names = ("w_int4", "w_mm", "w_int")
         elif getattr(m, "w_stem", None) is not None:
             names = ("w_stem",)
         else:
@@ -2848,9 +2890,188 @@ def distributed_phase(device):
         raise RuntimeError("distributed_training departs from QATTrainer")
 
 
-def kernel_entry(name, replaces, launches, tot, library_ms):
+def grouped_context_ms(args, kw) -> float:
+    """A bf16 F.conv2d(groups=G) 3x3 at a grouped launch's shape, channels
+    last (context: no PyTorch call computes an int8 conv)."""
+    x, wp, a = args[:3]
+    g = kw["groups"]
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    wb = K.unpack_weight(wp, x.shape[-1], a.shape[0], g) \
+        .permute(3, 2, 0, 1).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    pad = kw.get("pad_lo", 1)
+    if pad == 0:                         # SAME at stride 2: pads (0, 1)
+        xb = F.pad(xb, (0, 1, 0, 1))
+    return event_ms(lambda: F.conv2d(xb, wb, stride=kw["stride"],
+                                     padding=pad, groups=g), REPS)
+
+
+def zoo_deployed(name, device, train_form: bool):
+    """RepVGG ``name`` at full width, 224x224, seeded weights: the train
+    form with BN statistics from a train-mode forward of the calibration
+    images, then perturbed, through repvgg_fuse (``train_form``), or the
+    deploy form built directly (bench.py's D2se); the bench's W8A8 scheme,
+    calibrated on ZOO_CAL images, prepared.  Returns it and ZOO_BATCH
+    seeded images."""
+    gen = torch.Generator().manual_seed(SEED)
+    x = images(ZOO_BATCH, SEED + 4, device)
+    if not train_form:
+        model = get_model(name, device=device, num_classes=CLASSES,
+                          deploy=True, scheme=scheme_from_dict(BENCH_SCHEME),
+                          generator=gen)
+    else:
+        model = get_model(name, device=device, num_classes=CLASSES,
+                          generator=gen)
+        bns = [m for m in model.modules()
+               if isinstance(m, torch.nn.BatchNorm2d)]
+        with torch.no_grad():
+            for bn in bns:
+                bn.momentum = 1.0
+            model.train()(x[:ZOO_CAL], qmode="fp")
+            model.eval()
+            for bn in bns:
+                bn.momentum = 0.1
+                for t in (bn.running_mean, bn.running_var, bn.weight,
+                          bn.bias):
+                    t += 0.1 * torch.rand(t.shape, generator=gen).to(device)
+        model = attach_scheme(repvgg_fuse(model),
+                              scheme_from_dict(BENCH_SCHEME))
+    calibrate(model, [x[:ZOO_CAL]])
+    return prepare_deploy(model), x
+
+
+def zoo_launch_phase(what, model, x, expect):
+    """Every launch of one chained request of ``x`` against its plain
+    version (tolerance 0) and timed (CUDA graph of 16); each grouped
+    launch beside its bound, its plain ms and a bf16 grouped conv of the
+    same shape.  Returns the totals of the grouped and of the other
+    launches."""
+    with torch.inference_mode():
+        with LaunchRecorder() as rec:
+            model(x, qmode="intc")
+        torch.cuda.synchronize()
+        if rec.counts() != expect:
+            raise RuntimeError(f"{what}: a request made {rec.counts()} "
+                               f"launches, expected {expect}")
+        print(f"# {what} kernel vs plain, batch {x.shape[0]}: launch | "
+              "max|diff| | kernel_us bound_us (by) kernel/bound "
+              "{plain_us bf16_grouped_conv_us}")
+        tots = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                          bytes_ms=0.0, context_ms=0.0, err=0.0, n=0)
+                for key in ("grouped", "conv")}
+        for i, (kind, args, kw, out) in enumerate(rec.calls):
+            label = launch_label(kind, args, kw)
+            err = max_diff_to_plain(kind, args, kw, out)
+            if err != 0:
+                raise RuntimeError(f"{what} launch {i} ({label}): kernel "
+                                   f"and plain differ by {err}")
+            ms = graph_ms(lambda _: K.int8_conv3x3(*args, **kw),
+                          GRAPH_LAUNCHES)
+            b_ms, t_ops, t_bytes = launch_bound(kind, args, kw, out)
+            grouped = kw.get("groups", 1) > 1
+            t = tots["grouped" if grouped else "conv"]
+            extra = ""
+            if grouped:
+                plain_ms = event_ms(lambda: KERNELS[kind][1](*args, **kw),
+                                    PLAIN_REPS)
+                context_ms = grouped_context_ms(args, kw)
+                t["plain_ms"] += plain_ms
+                t["context_ms"] += context_ms
+                extra = f" {{{plain_ms * 1e3:.1f} {context_ms * 1e3:.2f}}}"
+            for key, val in (("ms", ms), ("bound_ms", b_ms),
+                             ("ops_ms", t_ops), ("bytes_ms", t_bytes)):
+                t[key] += val
+            t["n"] += 1
+            print(f"{i:2d} {label:62s} | {err:g} | {ms * 1e3:8.2f} "
+                  f"{b_ms * 1e3:8.2f} ({bound_by(t_ops, t_bytes)}) "
+                  f"{ms / b_ms:.2f}{extra}")
+    for key, t in tots.items():
+        if t["n"]:
+            print(f"# {what} batch {x.shape[0]} {key} launches ({t['n']}): "
+                  f"kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({bound_by(t['ops_ms'], t['bytes_ms'])}; ops "
+                  f"{t['ops_ms']:.4f}, bytes {t['bytes_ms']:.4f})"
+                  + (f", plain {t['plain_ms']:.4f} ms; library_ms: none - "
+                     "no PyTorch call computes an int8 conv; bf16 grouped "
+                     f"convs of the same shapes take {t['context_ms']:.4f} "
+                     "ms (context only)" if key == "grouped" else ""))
+    return tots
+
+
+def merge_bn_leg(device):
+    """merge_bn on the card: cifar_resnet20 with seeded weights and
+    perturbed BN statistics keeps its output (strict f32) within 1e-4
+    relative."""
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_model("cifar_resnet20", device=device,
+                      num_classes=CIFAR_CLASSES, generator=gen)
+    x = cifar_images(MERGE_BN_IMAGES, SEED, device)
+    with torch.no_grad(), full_f32():
+        for bn in model.modules():
+            if isinstance(bn, torch.nn.BatchNorm2d):
+                for t, lo in ((bn.running_mean, -0.1), (bn.running_var, 0.7),
+                              (bn.weight, 0.8), (bn.bias, -0.1)):
+                    t.copy_(lo + 0.3 * torch.rand(t.shape, generator=gen))
+        want = model(x)
+        merged = merge_bn(model, x[:1])
+        got = merged(x)
+    folded = sum(bool((m.running_var == 1 - m.eps).all())
+                 for m in merged.modules()
+                 if isinstance(m, torch.nn.BatchNorm2d))
+    rel = float((got - want).norm() / want.norm())
+    print(f"# merge_bn: cifar_resnet20 on the card, {folded} BatchNorms "
+          f"folded into their convs; output vs the unfolded model on "
+          f"{MERGE_BN_IMAGES} images (full f32): rel L2 {rel:.3e}")
+    if folded != 19 or not rel < 1e-4:
+        raise RuntimeError(f"merge_bn on the card: {folded} folds, rel {rel}")
+
+
+def zoo_phase(device):
+    """RepVGG-B2g4 (train form -> repvgg_fuse -> calibrate -> deploy; 13
+    grouped convs) and RepVGG-D2se (deploy form, SE blocks): every launch
+    == plain, 6 served requests each (the CPU reference on ZOO_REF
+    images), then merge_bn on the card.  Returns the grouped launches'
+    totals (with the served grouped launches) and the served launches and
+    largest difference of the other convs."""
+    t0 = time.perf_counter()
+    model, x = zoo_deployed("RepVGG_B2g4", device, train_form=True)
+    grouped = sum(getattr(model, n).reparam.groups > 1
+                  for n in model.block_names)
+    print(f"# RepVGG-B2g4: train form -> repvgg_fuse -> bench W8A8 scheme "
+          f"-> calibrate ({ZOO_CAL} images) + prepare_deploy in "
+          f"{time.perf_counter() - t0:.2f} s; {grouped} of "
+          f"{len(model.block_names)} convs grouped")
+    if grouped != B2G4_GROUPED:
+        raise RuntimeError(f"RepVGG-B2g4 has {grouped} grouped convs")
+    b2 = zoo_launch_phase("RepVGG_B2g4", model, x, B2G4_LAUNCHES)
+    _, b2_served = serve_requests(
+        "RepVGG_B2g4", model, x,
+        dict(B2G4_LAUNCHES, conv_grouped=B2G4_GROUPED), CLASSES, ZOO_REF)
+    del model
+    t0 = time.perf_counter()
+    model, x = zoo_deployed("RepVGG_D2se", device, train_form=False)
+    n_params = sum(p.numel() for n, p in model.named_parameters()
+                   if n.endswith(("weight", "bias"))) / 1e6
+    print(f"# RepVGG-D2se: deploy form ({n_params:.1f} M weights and "
+          f"biases) -> bench W8A8 scheme -> calibrate ({ZOO_CAL} "
+          f"images) + prepare_deploy in {time.perf_counter() - t0:.2f} s")
+    d2 = zoo_launch_phase("RepVGG_D2se", model, x, D2SE_LAUNCHES)
+    _, d2_served = serve_requests("RepVGG_D2se", model, x, D2SE_LAUNCHES,
+                                  CLASSES, ZOO_REF)
+    del model
+    merge_bn_leg(device)
+    grouped_tot = dict(b2["grouped"],
+                       launches=b2_served["conv_grouped"])
+    other = (b2_served["conv"] - b2_served["conv_grouped"]
+             + d2_served["conv"])
+    return grouped_tot, other, max(b2["conv"]["err"], d2["conv"]["err"])
+
+
+def kernel_entry(name, replaces, launches, tot, library_ms,
+                 source=None):
     return {"name": name, "route": "cuda",
-            "source": f"dlmc_quant_torch/ops/cuda/csrc/{name}.cu",
+            "source": source or f"dlmc_quant_torch/ops/cuda/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": tot["err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
@@ -2942,6 +3163,9 @@ def main(argv=None) -> int:
     c4_launches, c4_err = config4_phase(device)
     print(f"# w4 phases: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    zoo_grouped, zoo_launches, zoo_err = zoo_phase(device)
+    print(f"# repvgg_zoo phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     observers_phase(device)
     print(f"# observers phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -2962,10 +3186,10 @@ def main(argv=None) -> int:
     launches += (served["conv"] + ptq_convs + served50["conv"] + qat_launches
                  + mobile_served["conv"] + w4_served["conv"]
                  + c2_launches["conv"] + acc_launches + engine["conv"]
-                 + rootq["conv"])
+                 + rootq["conv"] + zoo_launches)
     tot["err"] = max(err8, tot["err"], recon_err, res_err, r50_err,
                      r50_tot["err"], qat_err, mobile_err, w4_err, c2_err,
-                     acc_err, rootq_err)
+                     acc_err, rootq_err, zoo_err)
     stem = dict(r50_tot["stem_pool"], err=max(r50_err, r50_tot["err"],
                                               modes_err, w4_err))
 
@@ -3013,7 +3237,13 @@ def main(argv=None) -> int:
         kernel_entry("int8_window_sum",
                      "dlmc_quant_tpu/quant/layers.py:459 (the integer plan "
                      "drops o_w, hazard C1; no Pallas kernel)",
-                     rootq["window_sum"], window, None)]}))
+                     rootq["window_sum"], window, None),
+        kernel_entry("int8_conv3x3_grouped",
+                     "dlmc_quant_tpu/quant/layers.py:721-728 (XLA grouped "
+                     "int8 conv, feature_group_count=G; no Pallas kernel)",
+                     zoo_grouped["launches"], zoo_grouped, None,
+                     source="dlmc_quant_torch/ops/cuda/csrc/"
+                            "int8_conv3x3_grouped.cu")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

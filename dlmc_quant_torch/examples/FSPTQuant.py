@@ -29,8 +29,8 @@ import torch
 from dlmc_quant_torch.data import get_dataloader
 from dlmc_quant_torch.device import resolve_device
 from dlmc_quant_torch.models import get_model
-from dlmc_quant_torch.models.fuse import (mobilenet_deploy, repvgg_fuse,
-                                          resnet_deploy)
+from dlmc_quant_torch.models.fuse import (merge_bn, mobilenet_deploy,
+                                          repvgg_fuse, resnet_deploy)
 from dlmc_quant_torch.models.mobileone import mobileone_fuse
 from dlmc_quant_torch.quant.deploy import prepare_deploy
 from dlmc_quant_torch.quant.config import scheme_from_dict
@@ -49,18 +49,20 @@ FUSERS = {"RepVGG": repvgg_fuse, "MobileOne": mobileone_fuse,
           "MobileNetV2": mobilenet_deploy}
 
 
-def to_deploy(model, logger):
-    """The model's fused deploy form (BN folded, branches merged)."""
+def to_deploy(model, logger, example=None):
+    """The model's fused deploy form (BN folded, branches merged): a
+    train-form model of a family with a fuser is fused; any other model,
+    one already in deploy form too, has its conv→BN pairs folded by
+    :func:`~dlmc_quant_torch.models.fuse.merge_bn` on a forward of
+    ``example`` (as ``examples/FSPTQuant.py`` does)."""
     family = type(model).__name__
-    if family not in FUSERS:
-        raise NotImplementedError(
-            f"{family}: only {sorted(FUSERS)} have a deploy conversion in "
-            "the port (the JAX package's merge_bn for the others: ROADMAP "
-            "Queue A, merge_bn (item 4))")
-    if model.deploy:
-        return model
-    logger.info("converted %s to deploy form", family)
-    return FUSERS[family](model)
+    if family in FUSERS and not getattr(model, "deploy", False):
+        logger.info("converted %s to deploy form", family)
+        return FUSERS[family](model)
+    if example is None:
+        raise ValueError(f"{family}: merge_bn needs an example input")
+    logger.info("merged BN into convs")
+    return merge_bn(model, example)
 
 
 def trainer_options(config) -> dict:
@@ -102,7 +104,8 @@ def main(args=None) -> int:
 
     gen = torch.Generator().manual_seed(config.seed)
     model = config.init_obj("arch", get_model, device=device, generator=gen)
-    fp_model = to_deploy(model, logger)
+    x0 = torch.from_numpy(next(iter(train_l))[0][:1]).to(device)
+    fp_model = to_deploy(model, logger, x0)
 
     qmodel = attach_scheme(copy.deepcopy(fp_model),
                            scheme_from_dict(config["quantization"]))

@@ -1,23 +1,29 @@
 """Reparameterization: BN folding and RepVGG branch fusion.
 
-Counterpart of ``dlmc_quant_tpu/models/fuse.py:21-179,193-321``, on OIHW
-kernels.  :func:`repvgg_fuse` turns a train-form RepVGG into its deploy
-form, one 3×3 conv per block; :func:`resnet_deploy` and
-:func:`mobilenet_deploy` fold a train-form ResNet's or MobileNetV2's
-BatchNorms into their convs (``models/mobileone.py`` has MobileOne's
-fuser, as in the JAX package).  The deploy model's quantizer
-parameters are fresh: calibrate after fusing, as the JAX package does.
-``merge_bn`` (the fold in place, for other families) is not ported yet
-(ROADMAP Queue A, merge_bn (item 4)).
+Counterpart of ``dlmc_quant_tpu/models/fuse.py``, on OIHW kernels.
+:func:`repvgg_fuse` turns a train-form RepVGG into its deploy form, one
+3×3 conv per block (grouped where the block is, its SE block carried
+over); :func:`resnet_deploy` and :func:`mobilenet_deploy` fold a
+train-form ResNet's or MobileNetV2's BatchNorms into their convs
+(``models/mobileone.py`` has MobileOne's fuser, as in the JAX package).
+The deploy model's quantizer parameters are fresh: calibrate after
+fusing, as the JAX package does.  :func:`merge_bn` folds every conv→BN
+pair that the traced compute graph shows, for any model, and keeps the
+model's structure.
 """
 
 from __future__ import annotations
 
+import copy
+
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from dlmc_quant_torch.models.repvgg import RepVGG, RepVGGBlock
 from dlmc_quant_torch.quant.layers import QConv, QDense
+from dlmc_quant_torch.utils.count_ops import (BATCHNORMS, CONVS, DENSES,
+                                              get_compute_graph)
 
 BN_EPS = 1e-5
 
@@ -77,14 +83,17 @@ def repvgg_fuse(model: RepVGG) -> RepVGG:
                     width_multiplier=model.width_multiplier,
                     num_classes=model.num_classes,
                     override_groups_map=model.override_groups_map,
-                    deploy=True, scheme=model.scheme,
+                    use_se=model.use_se, deploy=True, scheme=model.scheme,
                     in_features=model.in_features).to(device)
     prev = model.in_features
     for name in model.block_names:
         block = getattr(model, name)
         k, b = fuse_repvgg_block(block, prev, block.rbr_dense.groups)
-        getattr(deploy, name).reparam.weight.copy_(k)
-        getattr(deploy, name).reparam.bias.copy_(b)
+        twin = getattr(deploy, name)
+        twin.reparam.weight.copy_(k)
+        twin.reparam.bias.copy_(b)
+        if hasattr(block, "se"):      # as dlmc_quant_tpu/models/fuse.py:94-95
+            twin.se.load_state_dict(block.se.state_dict())
         prev = k.shape[0]
     deploy.linear.weight.copy_(model.linear.weight)
     deploy.linear.bias.copy_(model.linear.bias)
@@ -140,3 +149,48 @@ def mobilenet_deploy(model):
     ``conv_head↔bn_head`` folded; each linear-bottleneck block gains its
     ``out_q`` (``QBlockOutput(relu=False)``)."""
     return fold_bn_deploy(model, MOBILENET_BN_PARTNERS)
+
+
+
+@torch.no_grad()
+def merge_bn(model: nn.Module, example_input, allow_missing: bool = True):
+    """Fold every conv→BatchNorm pair's scale into the conv's weight
+    (``dlmc_quant_tpu/models/fuse.py:75-129``).
+
+    The pairs come from the compute graph of one forward of
+    ``example_input`` (:func:`~dlmc_quant_torch.utils.count_ops.
+    get_compute_graph`, top style): a conv (or dense layer) whose single
+    tracked BatchNorm consumer keeps running statistics absorbs γ/σ into
+    its weight, its bias (if any) becomes 0, and the BatchNorm becomes a
+    bias-add: scale 1, mean 0, variance 1 − ε, bias β + (b − μ)·γ/σ, with
+    ε the BatchNorm's own (1e-5 in the zoo, the JAX package's fixed
+    ``BN_EPS``).  Numerically exact, so quantizers observe the folded
+    weights.  Returns a new model; ``model`` is left as it was, as the
+    JAX package returns new variables.  Raises where nothing folds and
+    ``allow_missing`` is False.
+    """
+    model = copy.deepcopy(model)
+    graph = get_compute_graph(model, example_input, style="top")
+    n_folded = 0
+    for path, consumers in graph.items():
+        conv = model.get_submodule(path)
+        if not isinstance(conv, CONVS + DENSES):
+            continue
+        bns = [c for c in consumers
+               if isinstance(model.get_submodule(c), BATCHNORMS)
+               and model.get_submodule(c).running_mean is not None]
+        if len(bns) != 1:
+            continue
+        bn = model.get_submodule(bns[0])
+        k, b = fold_conv_bn(conv.weight, conv.bias, *_bn_args(bn), bn.eps)
+        conv.weight.copy_(k)
+        if conv.bias is not None:
+            conv.bias.zero_()
+        bn.weight.fill_(1.0)
+        bn.bias.copy_(b)
+        bn.running_mean.zero_()
+        bn.running_var.fill_(1.0 - bn.eps)
+        n_folded += 1
+    if n_folded == 0 and not allow_missing:
+        raise ValueError("merge_bn found no conv→BN pairs to fold")
+    return model

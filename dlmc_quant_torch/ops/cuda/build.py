@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, ``_build/lib<name>_<hash>.so`` beside this file, compiled for
 ``sm_90a`` and loaded through ``ctypes``.  The hash covers the source and
-the ``csrc/`` headers it includes with ``#include "..."``, so an edited
+the ``csrc/`` files it includes with ``#include "..."``, theirs too, so an
+edited
 kernel is never served by a stale build and editing one kernel rebuilds
 only that one.  Sources are compiled at first use; :func:`build` starts one
 ``nvcc`` per source that needs it, all at once.
@@ -25,19 +26,29 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
-# every kernel source of csrc/: the 3x3 conv, the GEMM, the im2col, the
-# ImageNet stem conv + pool, the depthwise 3x3 conv, the window sums of a
-# weight offset's row term and the MMA probe
-SOURCES = ("int8_conv3x3", "int8_gemm", "int8_im2col", "int8_stem_pool",
-           "int8_dwconv3x3", "int8_window_sum", "int8_mma_probe")
+# every kernel source of csrc/: the 3x3 conv (ungrouped, and its grouped
+# build), the GEMM, the im2col, the ImageNet stem conv + pool, the
+# depthwise 3x3 conv, the window sums of a weight offset's row term and the
+# MMA probe
+SOURCES = ("int8_conv3x3", "int8_conv3x3_grouped", "int8_gemm",
+           "int8_im2col", "int8_stem_pool", "int8_dwconv3x3",
+           "int8_window_sum", "int8_mma_probe")
 
 
 def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu``, as its text stands, lives."""
-    text = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(text)
-    for header in _INCLUDE.findall(text):
-        digest.update((CSRC / header.decode()).read_bytes())
+    digest, seen = hashlib.sha256(), set()
+
+    def add(file: str) -> None:
+        if file in seen:
+            return
+        seen.add(file)
+        text = (CSRC / file).read_bytes()
+        digest.update(text)
+        for header in _INCLUDE.findall(text):
+            add(header.decode())
+
+    add(f"{name}.cu")
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 

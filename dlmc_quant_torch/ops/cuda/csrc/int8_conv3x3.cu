@@ -10,6 +10,8 @@
 // right border supply the pad); Ho = ceil(H / s) either way.
 //
 //   acc[n,p,q,o] = sum_{dy,dx,c} xpad[n, p*s+dy, q*s+dx, c] * w[dy,dx,c,o]   (int32)
+//   in G groups (C = G Cg, O = G Og): the sum runs over c < Cg and reads
+//   channel g Cg + c, g = o / Og the group of output channel o
 //   codes: out = clamp(rint(f32(acc)*a[o] + b[o]), lo, hi)              -> int8
 //   f32:   out = f32(acc)*a[o] + b[o], then max(., 0) if relu          -> f32
 //   codes with a residual r (N, Ho, Wo, O) of int8, int32 or f32 (a residual
@@ -105,6 +107,34 @@
 // together, each arriving on the weight's barrier after its fence; a
 // streamed weight's B tile by the warp that fills the stage, in the same
 // pass as its A tile and before the same proxy fence.
+// Grouped convs (RepVGG's g2/g4 variants; the TPU package lowers them
+// through XLA, quant/layers.py:721-728, feature_group_count) are G GEMMs
+// side by side, each of Og columns and K = 9 Tp bytes ordered (tap,
+// channel): a window row's three taps are C bytes apart in x, so each
+// tap's Cg channels are one run of K padded to Tp = roundup(Cg, 16), and a
+// 16-byte chunk lies inside one tap.  The group is part of the tile index
+// (n tile = group * tiles of a group + tile in the group, M fastest as
+// before): a tile reads its group's channels from offset g Cg of each
+// pixel, its B rows start at g Og, and its columns past the group's end
+// are multiplied (B rows of the next group, or TMA's zero fill) and never
+// stored.  Where Cg % 16 == 0 a chunk is an aligned 16-byte copy, from the
+// halo (which holds whole pixels) or by cp.async; where Cg % 8 == 0
+// (B2g4's Cg = 40) two 8-byte cp.async; elsewhere five aligned words
+// funnel-shifted into place.  The bytes past a tap's run are x's next
+// bytes (zero past its end), which meet zero weights.
+// The weight never stays resident (each group has its own); a and b are
+// staged tile by tile, zero past the group's end.  Measured on an H100
+// 80GB HBM3 at 700 W (chip_smoke.py's repvgg_zoo phase): RepVGG-B2g4's 13
+// grouped launches at batch 64 take 0.96 ms against a 0.167 ms bound; the
+// two at 56x56 (Cg = 40, the 8-byte copies) 0.18 ms each, 9x their bytes'
+// bound (0.48 with five words a chunk), those at 28x28 6x and at 14x14 4x
+// their operations' bound: producers that gather a 48- or 96-wide tile's
+// group are what bounds them, untuned.  This source is built twice:
+// as itself, for groups = 1, and through int8_conv3x3_grouped.cu with
+// DLMCQ_CONV_GROUPED set, for groups > 1 (and no row term: a grouped
+// conv's weight offset raises in quant/layers.py).  The group code is a
+// compile-time branch, so the ungrouped build has none of it, and the
+// two builds compile side by side.
 // The tile plan (width, stages, weight resident or not, halo buffers) is
 // made in int8_conv.py; this file checks that it fits.
 
@@ -115,7 +145,14 @@
 
 #include "wgmma_s8.cuh"
 
+#ifndef DLMCQ_CONV_GROUPED
+#define DLMCQ_CONV_GROUPED 0
+#endif
+
 namespace {
+
+// whether this build takes grouped convs (groups > 1) or ungrouped ones
+constexpr bool GROUPED = DLMCQ_CONV_GROUPED != 0;
 
 using namespace dlmcq;
 
@@ -166,11 +203,15 @@ struct ConvArgs {
   float qb;
   long long x_bytes;
   int H, W, C, Rp, O, Ho, Wo, M, stride, Kp;
+  // groups: Cg and Og channels a group in and out, Tp bytes of K a tap
+  // (grouped; C where C % 16 == 0 ungrouped), ntg N tiles a group
+  int Cg, Og, Tp, ntg;
   int pad, pad_lo, lo, hi, relu, r_kind;
   int m_tiles, n_tiles, tiles, k_chunks, stages, resident;
   int halo_bufs, halo_bytes, pixels;  // halo_bufs 0: gather from x
   int w4;
   FastDiv by_hw, by_wo, by_m_tiles;   // / (Ho Wo), / Wo, / m_tiles
+  FastDiv by_ntg, by_og;              // / ntg, / Og
 };
 
 template <int BN, bool CODES>
@@ -269,11 +310,18 @@ __device__ __forceinline__ void load_residual(const ConvArgs& g, int row,
   }
 }
 
+// The first input channel of the group whose output channels start at n0
+// (0 in the ungrouped build).
+__device__ __forceinline__ int group_offset(const ConvArgs& g, int n0) {
+  return GROUPED ? g.by_og.div(n0) * g.Cg : 0;
+}
+
 // W4: the int8 B tile of output channels n0 .. n0 + BN - 1 at K chunk kc,
 // unpacked from g.wp into the swizzled tile at shared address dst; thread
 // `first` of `step` threads takes every step-th 16-byte chunk.  Rows past
 // O and bytes past Kp are zero.  The loads of BATCH chunks go out before
 // any store, so their latencies overlap.  The caller fences the stores.
+
 template <int BN>
 __device__ __forceinline__ void unpack_b_tile(const ConvArgs& g, int kc,
                                               int n0, uint32_t dst, int first,
@@ -328,9 +376,22 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  for (int i = threadIdx.x; i < g.n_tiles * BN; i += THREADS) {
-    sa[i] = i < g.O ? g.a[i] : 0.0f;
-    sb[i] = i < g.O ? g.b[i] : 0.0f;
+  if constexpr (GROUPED) {
+    // a and b tile by tile: entry BN t + j is output channel (group,
+    // column j of tile t's share of it), zero past the group's end
+    for (int i = threadIdx.x; i < g.n_tiles * BN; i += THREADS) {
+      const int t = i / BN;
+      const int grp = g.by_ntg.div(t);
+      const int local = (t - grp * g.ntg) * BN + (i - t * BN);
+      const bool live = local < g.Og;
+      sa[i] = live ? g.a[grp * g.Og + local] : 0.0f;
+      sb[i] = live ? g.b[grp * g.Og + local] : 0.0f;
+    }
+  } else {
+    for (int i = threadIdx.x; i < g.n_tiles * BN; i += THREADS) {
+      sa[i] = i < g.O ? g.a[i] : 0.0f;
+      sb[i] = i < g.O ? g.b[i] : 0.0f;
+    }
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < g.stages; ++s) {
@@ -386,7 +447,8 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
                                   static_cast<uint32_t>(q ^ (r0 + 4)) << 4};
     const uint32_t pad4 =
         static_cast<uint32_t>(static_cast<uint8_t>(g.pad)) * 0x01010101u;
-    const bool vec = g.C % 16 == 0;
+    // a chunk is 16 aligned bytes of one tap (grouped: where Cg % 16 == 0)
+    const bool vec = (GROUPED ? g.Cg : g.C) % 16 == 0;
     const bool words = reinterpret_cast<uintptr_t>(g.x) % 4 == 0;
     const int hw = g.Ho * g.Wo;
     int stage = 0, turn = 0, my_tile = -1, walked = 0;
@@ -394,7 +456,10 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
     for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x, ++walked) {
       const int n_tile = g.by_m_tiles.div(tile);   // M fastest
       const int m0 = (tile - n_tile * g.m_tiles) * C::BM;
-      const int n0 = n_tile * BN;
+      // the tile's first output channel: grouped, in its group
+      const int grp = GROUPED ? g.by_ntg.div(n_tile) : 0;
+      const int n0 = GROUPED ? grp * g.Og + (n_tile - grp * g.ntg) * BN
+                             : n_tile * BN;
       if (g.halo_bufs) {
         // Stride 1: output pixel m reads input pixels m + (dy-1) W + (dx-1),
         // so the tile reads one run of BM + 2 W + 2 pixels of x.  It is
@@ -490,13 +555,15 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
           // from the halo: pixel (row + dy W + dx) of the run, 16 bytes
           const int kbyte = kc * TILE_K + 16 * q;
           if (kbyte < g.Kp) {
-            const int tap = kbyte / g.C;
-            const int coff = kbyte - tap * g.C;
+            const int tp = GROUPED ? g.Tp : g.C;
+            const int tap = kbyte / tp;
+            const int coff = kbyte - tap * tp;
             const int dy = tap / 3;
             const int dx = tap - 3 * dy;
             const int need = (1 << dy) | (8 << dx);
             const uint8_t* from =
-                halo + ((dy * g.W + dx + r0) * g.C + coff);
+                halo + ((dy * g.W + dx + r0) * g.C + group_offset(g, n0) +
+                        coff);
             const int step = 4 * g.C;   // from one of its rows to the next
             for (int j0 = 0; j0 < C::BM / 4; j0 += C::BATCH) {
               uint4 v[C::BATCH];
@@ -518,15 +585,18 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
             }
           }
         } else if (vec) {
-          // C % 16 == 0: a chunk lies inside one tap, K index = tap * C + c
+          // C % 16 == 0: a chunk lies inside one tap, K index = tap * Tp + c
           const int kbyte = kc * TILE_K + 16 * q;
           if (kbyte < g.Kp) {
-            const int tap = kbyte / g.C;
-            const int coff = kbyte - tap * g.C;
+            const int tp = GROUPED ? g.Tp : g.C;
+            const int tap = kbyte / tp;
+            const int coff = kbyte - tap * tp;
             const int dy = tap / 3;
             const int dx = tap - 3 * dy;
             const int doff = dy * g.W + dx;
             const int need = (1 << dy) | (8 << dx);
+            // the chunk's bytes in pixel 0 (the group's channels in it)
+            const int8_t* x0 = g.x + (group_offset(g, n0) + coff);
             // BATCH rows at a time: first where each reads (table entries
             // and address arithmetic, independent of one another), then the
             // copies back to back; a copy issued between two table reads
@@ -537,7 +607,7 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
 #pragma unroll
               for (int u = 0; u < C::BATCH; ++u) {
                 const int2 e = rows[r0 + 4 * (j0 + u)];
-                src[u] = g.x + static_cast<long long>(e.x + doff) * g.C + coff;
+                src[u] = x0 + static_cast<long long>(e.x + doff) * g.C;
                 if ((e.y & need) == need)
                   copy |= 1u << u;
                 else
@@ -556,6 +626,107 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
           }
           cp_async_commit();
           cp_async_wait<0>();
+        } else if (GROUPED && g.Cg % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(g.x) % 8 == 0) {
+          // grouped, Cg % 8 == 0: as above, a chunk of one tap, K index
+          // tap * Tp + c, but 8-byte aligned: two 8-byte cp.async (the
+          // second zero-filled past the end of x; its bytes past the tap's
+          // run are the next channels', which meet zero weights)
+          const int kbyte = kc * TILE_K + 16 * q;
+          if (kbyte < g.Kp) {
+            const int tap = kbyte / g.Tp;
+            const int coff = kbyte - tap * g.Tp;
+            const int dy = tap / 3;
+            const int dx = tap - 3 * dy;
+            const int doff = dy * g.W + dx;
+            const int need = (1 << dy) | (8 << dx);
+            const int gc = group_offset(g, n0) + coff;
+            for (int j = 0; j < C::BM / 4; ++j) {
+              const int2 e = rows[r0 + 4 * j];
+              const uint32_t dst = a_row0 + 4 * TILE_K * j + chunk_at[j & 1];
+              if ((e.y & need) == need) {
+                const long long off =
+                    static_cast<long long>(e.x + doff) * g.C + gc;
+                const bool second = off + 16 <= g.x_bytes;
+                cp_async8(dst, g.x + off, true);
+                cp_async8(dst + 8, second ? g.x + off + 8 : g.x, second);
+              } else if (e.y & ROW_LIVE) {
+                st_shared16(dst, pad4, pad4, pad4, pad4);
+              }
+            }
+          }
+          cp_async_commit();
+          cp_async_wait<0>();
+        } else if (GROUPED) {
+          // grouped, Cg % 8 != 0: chunk qq of a row is 16 bytes of one
+          // tap's run of Cg channels (K index tap * Tp + c) at an address
+          // that need not be 8-byte aligned: five aligned words shifted
+          // into place.  Bytes past the run are x's next ones (another
+          // group's channels, or the next pixel's), which meet zero weights.
+          // No registered RepVGG factory reaches it (their Cg are multiples
+          // of 8); it serves any other grouping, e.g. the tests' toy widths
+          // Cg = 10 and 20.
+          const int left = (g.Kp - kc * TILE_K) / 16;
+          const int valid = left < CHUNKS_16 ? left : CHUNKS_16;
+          for (int first = lane; first < C::BM * valid;
+               first += 32 * C::GATHER) {
+            uint32_t w[C::GATHER][4];
+            uint32_t dst[C::GATHER];
+            uint32_t live = 0;   // bit u: chunk u is to be stored
+#pragma unroll
+            for (int u = 0; u < C::GATHER; ++u) {
+              const int idx = first + 32 * u;
+              if (idx >= C::BM * valid) continue;
+              const int row = idx % C::BM;
+              const int qq = idx / C::BM;
+              const int2 e = rows[row];
+              if (!(e.y & ROW_LIVE)) continue;
+              dst[u] = a_tile + swizzle128(row, 16 * qq);
+              live |= 1u << u;
+              const int kbyte = kc * TILE_K + 16 * qq;
+              const int tap = kbyte / g.Tp;
+              const int coff = kbyte - tap * g.Tp;
+              const int dy = tap / 3;
+              const int dx = tap - 3 * dy;
+              const int need = (1 << dy) | (8 << dx);
+              if ((e.y & need) != need) {   // the tap is outside the image
+#pragma unroll
+                for (int i = 0; i < 4; ++i) w[u][i] = pad4;
+                continue;
+              }
+              const long long off =
+                  static_cast<long long>(e.x + dy * g.W + dx) * g.C +
+                  group_offset(g, n0) + coff;
+              const long long word0 = off & ~3LL;
+              if (words && word0 + 20 <= g.x_bytes) {
+                const uint32_t* src =
+                    reinterpret_cast<const uint32_t*>(g.x + word0);
+                const uint32_t shift = static_cast<uint32_t>(off & 3) * 8;
+                uint32_t v[5];
+#pragma unroll
+                for (int i = 0; i < 5; ++i) v[i] = __ldg(src + i);
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  w[u][i] = __funnelshift_r(v[i], v[i + 1], shift);
+              } else {
+                // the last bytes of x, or x not word aligned: byte by byte,
+                // zero past the end of x
+#pragma unroll
+                for (int i = 0; i < 4; ++i) w[u][i] = 0u;
+#pragma unroll
+                for (int i = 0; i < 16; ++i) {
+                  if (off + i >= g.x_bytes) break;
+                  w[u][i / 4] |= static_cast<uint32_t>(
+                                     static_cast<uint8_t>(g.x[off + i]))
+                                 << (8 * (i % 4));
+                }
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < C::GATHER; ++u)
+              if (live >> u & 1)
+                st_shared16(dst[u], w[u][0], w[u][1], w[u][2], w[u][3]);
+          }
         } else {
           // any C: chunk qq of the stage holds bytes roff .. roff + 15 of the
           // 3 C bytes that row dy of the 3x3 window covers (contiguous in x);
@@ -661,7 +832,7 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
   for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
     const int n_tile = g.by_m_tiles.div(tile);
     const int m0 = (tile - n_tile * g.m_tiles) * C::BM + wg * WGMMA_M;
-    const int n0 = n_tile * BN;
+    const int n0 = n_tile * BN;   // the tile's a and b in sa and sb
     int prev = -1;
     for (int kc = 0; kc < g.k_chunks; ++kc) {
       mbar_wait(full + 8 * stage, parity);
@@ -692,6 +863,14 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
     acc_fence(acc);
     if (lane == 0) mbar_arrive(empty + 8 * prev);
 
+    // the tile's first output channel c0 and the end of its columns
+    // (grouped: its group's, past which nothing is stored); worked out
+    // only now, out of the main loop where the accumulators hold the
+    // registers
+    const int grp = GROUPED ? g.by_ntg.div(n_tile) : 0;
+    const int c0 = GROUPED ? grp * g.Og + (n_tile - grp * g.ntg) * BN : n0;
+    const int c_end = GROUPED ? min(c0 + BN, (grp + 1) * g.Og) : g.O;
+
     // Epilogue.  Lane map: d[4 i + 2 h + e] is row 16 (warp % 4) + lane / 4
     // + 8 h, column 8 i + 2 (lane % 4) + e of a 64-row tile.
     const int row_in = 16 * (t / 32) + (t % 32) / 4;
@@ -715,13 +894,13 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
           const float2 av = *reinterpret_cast<const float2*>(sa + n0 + col);
           const float2 bv = *reinterpret_cast<const float2*>(sb + n0 + col);
           float cv[2] = {0.0f, 0.0f};
-          if constexpr (TERM) load_pair(g.crow, n0 + col, g.O, cv);
+          if constexpr (TERM) load_pair(g.crow, c0 + col, g.O, cv);
           // the residual term of both columns: r, ar and br, zero outside
           // the output (those codes are not stored)
           float rv[2] = {0.0f, 0.0f}, arv[2] = {0.0f, 0.0f},
                 brv[2] = {0.0f, 0.0f};
           if constexpr (RESIDUAL)
-            load_residual(g, m0 + row_in + 8 * h, n0 + col, rv, arv, brv);
+            load_residual(g, m0 + row_in + 8 * h, c0 + col, rv, arv, brv);
           int c[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -750,12 +929,12 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
       __syncwarp();
       int8_t* out = static_cast<int8_t*>(g.out);
       const int row0 = 16 * (t / 32);  // this warp's 16 rows
-      if (g.O % 16 == 0) {
+      if (g.O % 16 == 0 && (!GROUPED || g.Og % 16 == 0)) {
         constexpr int PER_ROW = BN / 16;
         for (int j = lane; j < 16 * PER_ROW; j += 32) {
           const int row = row0 + j / PER_ROW;
-          const int col = n0 + 16 * (j % PER_ROW);
-          if (m0 + row < g.M && col < g.O)
+          const int col = c0 + 16 * (j % PER_ROW);
+          if (m0 + row < g.M && col < c_end)
             *reinterpret_cast<uint4*>(
                 out + static_cast<long long>(m0 + row) * g.O + col) =
                 *reinterpret_cast<const uint4*>(stg + row * C::PITCH +
@@ -764,8 +943,8 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
       } else {
         for (int j = lane; j < 16 * BN; j += 32) {
           const int row = row0 + j / BN;
-          const int col = n0 + j % BN;
-          if (m0 + row < g.M && col < g.O)
+          const int col = c0 + j % BN;
+          if (m0 + row < g.M && col < c_end)
             out[static_cast<long long>(m0 + row) * g.O + col] =
                 static_cast<int8_t>(stg[row * C::PITCH + j % BN]);
         }
@@ -780,9 +959,11 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
         const float sv = TERM ? __int2float_rn(__ldg(g.srow + row)) : 0.0f;
 #pragma unroll
         for (int i = 0; i < BN / 8; ++i) {
-          const int col = n0 + 8 * i + col_in;
-          const float2 av = *reinterpret_cast<const float2*>(sa + col);
-          const float2 bv = *reinterpret_cast<const float2*>(sb + col);
+          const int col = c0 + 8 * i + col_in;
+          const float2 av =
+              *reinterpret_cast<const float2*>(sa + n0 + 8 * i + col_in);
+          const float2 bv =
+              *reinterpret_cast<const float2*>(sb + n0 + 8 * i + col_in);
           float cv[2] = {0.0f, 0.0f};
           if constexpr (TERM) load_pair(g.crow, col, g.O, cv);
           float y[2];
@@ -795,11 +976,11 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
             y[e] = __fadd_rn(prod, e ? bv.y : bv.x);
             if (g.relu) y[e] = fmaxf(y[e], 0.0f);
           }
-          if (g.O % 2 == 0 && col + 1 < g.O) {
+          if (g.O % 2 == 0 && (!GROUPED || c0 % 2 == 0) && col + 1 < c_end) {
             *reinterpret_cast<float2*>(orow + col) = make_float2(y[0], y[1]);
           } else {
-            if (col < g.O) orow[col] = y[0];
-            if (col + 1 < g.O) orow[col + 1] = y[1];
+            if (col < c_end) orow[col] = y[0];
+            if (col + 1 < c_end) orow[col + 1] = y[1];
           }
         }
       }
@@ -845,6 +1026,16 @@ int launch_mode(const CUtensorMap& map_w, const ConvArgs& g, int codes,
                     : launch<BN, true, false, TERM>(map_w, g, s);
 }
 
+// The row term's instantiations: none in the grouped build.
+template <int BN>
+int launch_term(const CUtensorMap& map_w, const ConvArgs& g, int codes,
+                cudaStream_t s) {
+  if constexpr (GROUPED)
+    return static_cast<int>(cudaErrorInvalidValue);
+  else
+    return launch_mode<BN, true>(map_w, g, codes, s);
+}
+
 // The compiled tile widths (a tile has 128 rows); listed in int8_conv.py too.
 #define DLMCQ_CONV_TILES(X) X(48) X(96) X(192) X(256)
 
@@ -871,7 +1062,8 @@ int dlmcq_int8_conv3x3_smem(int bn, int codes, int stages,
 }
 
 // x (n, h, wd, c) int8, w packed as (o, kp) int8 with kp = 3 *
-// roundup(3 c, 16), or with w4 = 1 nibble-packed as (o, kp / 2) bytes, a
+// roundup(3 c, 16) (in groups > 1 groups kp = 9 roundup(c / groups, 16)),
+// or with w4 = 1 nibble-packed as (o, kp / 2) bytes, a
 // and b (o,) float32, out (n, ho, wo, o) int8 (codes)
 // or float32; pad_lo 1, or 0 at stride 2.  With r_kind 1, 2 or 3 (codes
 // only) r is (n, ho, wo, o) int8, int32 or float32, ar and br (o,) float32
@@ -884,7 +1076,8 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
                        const void* b, void* out, const void* r,
                        const void* ar, const void* br, const void* srow,
                        const void* crow, int n, int h, int wd,
-                       int c, int o, int kp, int w4, int stride, int pad,
+                       int c, int o, int groups, int kp, int w4, int stride,
+                       int pad,
                        int pad_lo,
                        int lo, int hi, int codes, int relu, int r_kind,
                        int bn, int stages, int resident, int halo_bufs,
@@ -907,10 +1100,16 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
   if (pad_lo < 0 || pad_lo > 1 || (pad_lo == 0 && stride != 2) ||
       r_kind < 0 || r_kind > 3 || (r_kind && !codes) || (!srow != !crow))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (groups < 1 || c % groups != 0 || o % groups != 0 ||
+      (groups > 1) != GROUPED || (GROUPED && srow))
+    return static_cast<int>(cudaErrorInvalidValue);
   g.H = h;
   g.W = wd;
   g.C = c;
   g.Rp = (3 * c + 15) / 16 * 16;
+  g.Cg = c / groups;
+  g.Og = o / groups;
+  g.Tp = groups > 1 ? (g.Cg + 15) / 16 * 16 : c;
   g.x_bytes = static_cast<long long>(n) * h * wd * c;
   g.O = o;
   g.Ho = (h - 1) / stride + 1;
@@ -918,7 +1117,8 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
   const long long m = static_cast<long long>(n) * g.Ho * g.Wo;
   const long long pixels = static_cast<long long>(n) * h * wd;
   if (m > INT_MAX - 1024 || pixels > INT_MAX - 1024 || h > 32766 ||
-      wd > 32766 || kp != 3 * g.Rp || stages < MIN_STAGES ||
+      wd > 32766 || kp != (groups > 1 ? 9 * g.Tp : 3 * g.Rp) ||
+      stages < MIN_STAGES ||
       stages > MAX_STAGES || bn < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   g.M = static_cast<int>(m);
@@ -930,7 +1130,8 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
   g.relu = relu;
   const int bm = CONSUMER_WGS * WGMMA_M;
   g.m_tiles = (g.M + bm - 1) / bm;
-  g.n_tiles = (o + bn - 1) / bn;
+  g.ntg = (g.Og + bn - 1) / bn;
+  g.n_tiles = groups * g.ntg;
   const long long tiles = static_cast<long long>(g.m_tiles) * g.n_tiles;
   if (tiles > INT_MAX || (resident && g.n_tiles != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -942,10 +1143,12 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
   g.by_hw = make_fastdiv(g.Ho * g.Wo);
   g.by_wo = make_fastdiv(g.Wo);
   g.by_m_tiles = make_fastdiv(g.m_tiles);
+  g.by_ntg = make_fastdiv(g.ntg);
+  g.by_og = make_fastdiv(g.Og);
   g.halo_bytes = (bm + 2 * wd + 2) * c;
   g.pixels = static_cast<int>(pixels);
   if (halo_bufs < 0 || halo_bufs > 2 ||
-      (halo_bufs && (stride != 1 || c % 16 != 0)))
+      (halo_bufs && (stride != 1 || c % 16 != 0 || g.Cg % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_w = {};   // not read at W4
   if (!w4) {
@@ -955,7 +1158,7 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DLMCQ_LAUNCH(BN)                                        \
   if (bn == BN)                                                 \
-    return srow ? launch_mode<BN, true>(map_w, g, codes, s)     \
+    return srow ? launch_term<BN>(map_w, g, codes, s)           \
                 : launch_mode<BN, false>(map_w, g, codes, s);
   DLMCQ_CONV_TILES(DLMCQ_LAUNCH)
 #undef DLMCQ_LAUNCH

@@ -455,6 +455,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// 8 bytes from 8-byte aligned global memory, or 8 zeros where !full (the
+// source is then not read).
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 8 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -11,10 +11,11 @@ H100 and what the design does about it.  :mod:`.build` compiles it with
 ``nvcc`` for ``sm_90a`` at first use, into ``_build/`` beside this file, as
 a shared library with a plain C interface loaded through ``ctypes``.
 
-For input codes ``x`` (N, H, W, C) int8 and weights ``w`` (3, 3, C, O) int8
-(packed once by :func:`pack_weight`)::
+For input codes ``x`` (N, H, W, C) int8 and weights ``w`` (3, 3, C/G, O)
+int8 in G groups (packed once by :func:`pack_weight`)::
 
-    acc[n,p,q,o] = Σ_{dy,dx,c} xpad[n, p·s+dy, q·s+dx, c] · w[dy,dx,c,o]     (int32)
+    acc[n,p,q,o] = Σ_{dy,dx,c<C/G} xpad[n, p·s+dy, q·s+dx, g·C/G + c] · w[dy,dx,c,o]
+                   (int32; g = o // (O/G), the group of output channel o)
     xpad         = x padded with the int8 code ``pad``: ``pad_lo`` rows and
                    columns at the top and left (1, or 0 for the SAME
                    geometry of a stride-2 conv on an even map), as many at
@@ -38,7 +39,17 @@ Ho, Wo) int32 and ``c`` (O,) float32, adds ``f32(S)·c[o]`` to the product
 As a GEMM the conv has M = N·Ho·Wo rows, O columns and K = 3·Rp bytes,
 ordered (dy, dx, channel): the 3·C bytes that row dy of the window covers
 are consecutive in NHWC and stay one run of K, padded to
-``Rp = roundup(3·C, 16)`` (nothing is padded where C % 16 == 0).
+``Rp = roundup(3·C, 16)`` (nothing is padded where C % 16 == 0).  A
+grouped conv (G > 1: RepVGG's g2/g4 variants) is G such GEMMs side by
+side, one a group, each of O/G columns and K = 9·Tp bytes: the three taps
+of a window row are C bytes apart in NHWC, so each tap's run of
+``Cg = C/G`` channels is padded to ``Tp = roundup(Cg, 16)`` on its own,
+and a 16-byte chunk of K lies inside one tap.  The group is part of the
+tile index: a tile reads its group's channels only, and its columns stop
+at the group's end (the tile's weight rows past it are multiplied and
+never stored).  Grouped convs launch the same source's grouped build,
+``csrc/int8_conv3x3_grouped.cu``, so that the ungrouped build keeps none
+of the group code.
 :func:`tile_plan` chooses the block's plan for a layer (output width of
 the tile, ring stages, weight resident in shared memory or streamed, halo
 buffers for stride 1); the kernel runs whatever plan it is given, so the
@@ -95,8 +106,24 @@ def padded_run(c: int) -> int:
     return _cdiv(3 * c, CHUNK) * CHUNK
 
 
-def packed_shape(c: int, o: int):
-    """(O, Kp) of the packed weight for C input and O output channels."""
+def tap_run(cg: int) -> int:
+    """Bytes of K of one tap of a grouped conv (Cg channels), in whole
+    chunks."""
+    return _cdiv(cg, CHUNK) * CHUNK
+
+
+def _check_groups(c: int, o: int, groups: int) -> None:
+    if groups < 1 or c % groups or o % groups:
+        raise ValueError(f"{groups} groups do not divide C = {c} and "
+                         f"O = {o}")
+
+
+def packed_shape(c: int, o: int, groups: int = 1):
+    """(O, Kp) of the packed weight for C input and O output channels in
+    ``groups`` groups."""
+    _check_groups(c, o, groups)
+    if groups > 1:
+        return o, 9 * tap_run(c // groups)
     return o, 3 * padded_run(c)
 
 
@@ -105,43 +132,60 @@ def out_hw(h: int, w: int, stride: int):
     return (h - 1) // stride + 1, (w - 1) // stride + 1
 
 
-def pack_weight(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, C, O) int8 HWIO → (O, Kp) int8, K contiguous per output channel.
+def pack_weight(w: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """(3, 3, C/G, O) int8 HWIO → (O, Kp) int8, K contiguous per output
+    channel.
 
-    Byte ``k = dy·Rp + dx·C + c`` of row ``o`` is ``w[dy, dx, c, o]``; the
-    bytes past ``3·C`` of every window row are zero.  This is the K-major B
-    that ``wgmma`` takes for 8-bit types; ``Kp = 3·Rp`` is the multiple of
-    16 that TMA's pitch needs, and where C % 16 == 0 every 16-byte chunk of
-    K lies inside one tap.
+    Ungrouped, byte ``k = dy·Rp + dx·C + c`` of row ``o`` is ``w[dy, dx, c,
+    o]``; the bytes past ``3·C`` of every window row are zero.  In G > 1
+    groups byte ``k = (3·dy + dx)·Tp + c`` is, and the bytes past ``Cg`` of
+    every tap are zero.  This is the K-major B that ``wgmma`` takes for
+    8-bit types; ``Kp`` is the multiple of 16 that TMA's pitch needs, and
+    where C % 16 == 0 (grouped: always) every 16-byte chunk of K lies
+    inside one tap.
     """
     if w.dtype != torch.int8 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
         raise ValueError(f"expected (3, 3, C, O) int8 weights, got "
                          f"{tuple(w.shape)} {w.dtype}")
-    _, _, c, o = w.shape
-    wp = torch.zeros((o, 3, padded_run(c)), dtype=torch.int8, device=w.device)
-    wp[:, :, :3 * c] = w.reshape(3, 3 * c, o).permute(2, 0, 1)
-    return wp.reshape(packed_shape(c, o))
+    _, _, cg, o = w.shape
+    c = cg * groups
+    if groups > 1:
+        wp = torch.zeros((o, 9, tap_run(cg)), dtype=torch.int8,
+                         device=w.device)
+        wp[:, :, :cg] = w.reshape(9, cg, o).permute(2, 0, 1)
+    else:
+        wp = torch.zeros((o, 3, padded_run(c)), dtype=torch.int8,
+                         device=w.device)
+        wp[:, :, :3 * c] = w.reshape(3, 3 * c, o).permute(2, 0, 1)
+    return wp.reshape(packed_shape(c, o, groups))
 
 
-def packed_shape_int4(c: int, o: int):
+def packed_shape_int4(c: int, o: int, groups: int = 1):
     """(O, Kp/2) of the nibble-packed weight: Kp/2 is a multiple of 8 but
     not always of 16 (C = 3, 16, 48 …), so the kernel reads it with plain
     8-byte loads, not by TMA."""
-    return o, 3 * padded_run(c) // 2
+    o, kp = packed_shape(c, o, groups)
+    return o, kp // 2
 
 
-def pack_weight_int4(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, C, O) int8 HWIO in [-8, 7] → (O, Kp/2) uint8: the layout of
+def pack_weight_int4(w: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """(3, 3, C/G, O) int8 HWIO in [-8, 7] → (O, Kp/2) uint8: the layout of
     :func:`pack_weight`, two bytes of K a byte (K index 2j in the low
     nibble of byte j)."""
-    return pack_nibbles(pack_weight(w))
+    return pack_nibbles(pack_weight(w, groups))
 
 
-def unpack_weight(wp: torch.Tensor, c: int, o: int) -> torch.Tensor:
+def unpack_weight(wp: torch.Tensor, c: int, o: int,
+                  groups: int = 1) -> torch.Tensor:
     """Inverse of :func:`pack_weight` and :func:`pack_weight_int4` →
-    (3, 3, C, O) int8."""
+    (3, 3, C/G, O) int8."""
+    kp = packed_shape(c, o, groups)[1]
     if wp.dtype == W4:
-        wp = unpack_nibbles(wp, 3 * padded_run(c))
+        wp = unpack_nibbles(wp, kp)
+    if groups > 1:
+        cg = c // groups
+        taps = wp.reshape(o, 9, tap_run(cg))[:, :, :cg]
+        return taps.permute(1, 2, 0).reshape(3, 3, cg, o).contiguous()
     runs = wp.reshape(o, 3, padded_run(c))[:, :, :3 * c]
     return runs.permute(1, 2, 0).reshape(3, 3, c, o).contiguous()
 
@@ -170,9 +214,10 @@ def plan_smem(bn: int, codes: bool, stages: int, resident: bool,
 
 @functools.lru_cache(maxsize=None)
 def tile_plan(m: int, c: int, o: int, mode: str = "codes", *, stride: int = 2,
-              width: int = 0, stages=None, resident=None,
+              width: int = 0, groups: int = 1, stages=None, resident=None,
               halo_bufs=None) -> ConvPlan:
-    """The block plan of a conv with M output pixels, C → O channels.
+    """The block plan of a conv with M output pixels, C → O channels in
+    ``groups`` groups.
 
     The tile is as wide as the layer where that is a compiled width (48,
     96, 192), else the smallest compiled width that covers O, else 256-wide
@@ -188,19 +233,24 @@ def tile_plan(m: int, c: int, o: int, mode: str = "codes", *, stride: int = 2,
     for their staging tile: they get 192-wide tiles.  ``stages``,
     ``resident`` and ``halo_bufs`` override the choice (the kernel is right
     at every plan that fits).  Raises where nothing fits.  The rules come
-    from ``tools/conv_plans.py``'s timings on an H100.
+    from ``tools/conv_plans.py``'s timings on an H100.  A grouped conv
+    chooses the width by the group's O/G columns, has ``n_tiles`` = G ×
+    the tiles of a group, never keeps its weight resident (each group has
+    its own), and uses halo buffers only where C/G % 16 == 0 too.
     """
     codes = mode == "codes"
-    k_chunks = _cdiv(3 * padded_run(c), TILE_K)
-    bn = next((w for w in WIDTHS if w >= o), WIDTHS[-1])
+    k_chunks = _cdiv(packed_shape(c, o, groups)[1], TILE_K)
+    og = o // groups
+    bn = next((w for w in WIDTHS if w >= og), WIDTHS[-1])
     # 256-wide tiles of codes leave no room for their staging tile beside a
     # ring of MIN_STAGES stages: such outputs get 192-wide tiles
     if plan_smem(bn, codes, MIN_STAGES, False, k_chunks,
-                 _cdiv(o, bn)) > MAX_SMEM:
+                 groups * _cdiv(og, bn)) > MAX_SMEM:
         bn = WIDTHS[-2]
-    n_tiles = _cdiv(o, bn)
+    n_tiles = groups * _cdiv(og, bn)
 
-    can_halo = stride == 1 and c % CHUNK == 0 and width > 0
+    can_halo = (stride == 1 and c % CHUNK == 0
+                and (c // groups) % CHUNK == 0 and width > 0)
     if halo_bufs is None:
         halos = (2, 1, 0) if can_halo else (0,)
     elif halo_bufs in (0, 1, 2) and (can_halo or not halo_bufs):
@@ -242,7 +292,7 @@ def tile_plan(m: int, c: int, o: int, mode: str = "codes", *, stride: int = 2,
 
 
 def _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo=1,
-           residual=None, qb=0.0, row=None):
+           residual=None, qb=0.0, row=None, groups=1):
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     if pad_lo not in (0, 1) or (pad_lo == 0 and stride != 2):
@@ -263,12 +313,16 @@ def _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo=1,
             or a.dim() != 1 or a.shape != b.shape:
         raise ValueError("a and b must be (O,) float32")
     o = a.shape[0]
-    if (w.dtype, tuple(w.shape)) not in ((torch.int8, packed_shape(c, o)),
-                                         (W4, packed_shape_int4(c, o))):
+    if not isinstance(groups, int):
+        raise ValueError(f"groups must be an int, got {groups!r}")
+    _check_groups(c, o, groups)
+    shapes = ((torch.int8, packed_shape(c, o, groups)),
+              (W4, packed_shape_int4(c, o, groups)))
+    if (w.dtype, tuple(w.shape)) not in shapes:
         raise ValueError(f"w must be pack_weight() output of shape "
-                         f"{packed_shape(c, o)} int8 or pack_weight_int4() "
-                         f"output of shape {packed_shape_int4(c, o)} uint8, "
-                         f"got {tuple(w.shape)} {w.dtype}")
+                         f"{shapes[0][1]} int8 or pack_weight_int4() "
+                         f"output of shape {shapes[1][1]} uint8 for "
+                         f"{groups} groups, got {tuple(w.shape)} {w.dtype}")
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -285,17 +339,18 @@ def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int,
                        pad_lo: int = 1, lo: int = -128, hi: int = 127,
                        mode: str = "codes", relu: bool = False,
                        residual=None, qb: float = 0.0,
-                       row=None) -> torch.Tensor:
+                       row=None, groups: int = 1) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same arguments, same result).
 
-    ``acc`` is a float64 ``F.conv2d`` over the pad-code-padded input, exact
-    because |acc| ≤ 9·C·128² ≪ 2⁵³; the epilogue runs in float32 as
-    separate ops, so nothing fuses them into an fma.
+    ``acc`` is a float64 ``F.conv2d`` (``groups`` groups) over the
+    pad-code-padded input, exact because |acc| ≤ 9·C·128² ≪ 2⁵³; the
+    epilogue runs in float32 as separate ops, so nothing fuses them into
+    an fma.
     """
     n, h, wd, c = x.shape
     o = a.shape[0]
     ho, wo = out_hw(h, wd, stride)
-    wk = unpack_weight(w, c, o)
+    wk = unpack_weight(w, c, o, groups)
     # pad_lo at the top and left; at the bottom and right what the last
     # window reaches past the map
     pad_h = (ho - 1) * stride + 3 - h - pad_lo
@@ -304,18 +359,20 @@ def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int,
                (pad_lo, max(pad_w, 0), pad_lo, max(pad_h, 0)),
                value=float(pad))
     acc = F.conv2d(xp, wk.permute(3, 2, 0, 1).to(torch.float64),
-                   stride=stride)
+                   stride=stride, groups=groups)
     return epilogue_plain(acc.permute(0, 2, 3, 1), a, b, mode=mode, lo=lo,
                           hi=hi, relu=relu, residual=residual, qb=qb,
                           row=row)
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = build.load("int8_conv3x3")
+def _library(grouped: bool = False) -> ctypes.CDLL:
+    """The ungrouped build of the kernel, or its grouped build (groups > 1:
+    ``csrc/int8_conv3x3_grouped.cu``)."""
+    lib = build.load("int8_conv3x3_grouped" if grouped else "int8_conv3x3")
     lib.dlmcq_int8_conv3x3.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 19
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 20
         + [ctypes.c_float, ctypes.c_void_p])
     lib.dlmcq_int8_conv3x3_smem.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3_smem.argtypes = [ctypes.c_int] * 7
@@ -332,35 +389,38 @@ def _library() -> ctypes.CDLL:
 def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
                  lo: int = -128, hi: int = 127, mode: str = "codes",
                  relu: bool = False, residual=None, qb: float = 0.0,
-                 row=None, _plan=None) -> torch.Tensor:
+                 row=None, groups: int = 1, _plan=None) -> torch.Tensor:
     """Run the fused int8 3×3 conv (see the module docstring).
 
     ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight` (or
-    :func:`pack_weight_int4`: the kernel unpacks it), ``a``/``b`` (O,)
-    float32, ``residual`` ``(r, ar, br)`` or None, ``row`` ``(S, c)`` or
-    None, all contiguous and on one device.  CUDA tensors launch the
-    kernel on the current stream at :func:`tile_plan`'s plan (``_plan``: a
-    dict of its overrides, for the card tests and for timing plans against
-    each other) and count the launch in ``int8_conv3x3.launches``; CPU
-    tensors run the plain version.  On the card O is bounded by shared
-    memory (a and b of every output channel sit beside the ring: a few
-    thousand channels); ``tile_plan`` raises where nothing fits.
+    :func:`pack_weight_int4`: the kernel unpacks it) at the same
+    ``groups``, ``a``/``b`` (O,) float32, ``residual`` ``(r, ar, br)`` or
+    None, ``row`` ``(S, c)`` or None, all contiguous and on one device.
+    CUDA tensors launch the kernel on the current stream at
+    :func:`tile_plan`'s plan (``_plan``: a dict of its overrides, for the
+    card tests and for timing plans against each other) and count the
+    launch in ``int8_conv3x3.launches`` (a grouped one in
+    ``int8_conv3x3.grouped_launches`` as well); CPU tensors run the plain
+    version.  On the card O is bounded by shared memory (a and b of every
+    output channel sit beside the ring: a few thousand channels);
+    ``tile_plan`` raises where nothing fits.
     """
     _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo, residual, qb,
-           row)
+           row, groups)
     if x.device.type == "cpu":
         return int8_conv3x3_plain(x, w, a, b, stride=stride, pad=pad,
                                   pad_lo=pad_lo, lo=lo, hi=hi, mode=mode,
                                   relu=relu, residual=residual, qb=qb,
-                                  row=row)
+                                  row=row, groups=groups)
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv3x3 runs on cuda or cpu, not {x.device}")
     n, h, wd, c = x.shape
     o = a.shape[0]
     ho, wo = out_hw(h, wd, stride)
     plan = tile_plan(n * ho * wo, c, o, mode, stride=stride, width=wd,
+                     groups=groups,
                      **(_plan or {}))   # cached: a conv costs about a launch
-    lib = _library()
+    lib = _library(groups > 1)
     out = torch.empty((n, ho, wo, o), device=x.device,
                       dtype=torch.int8 if mode == "codes" else torch.float32)
     r, ar, br = residual if residual is not None else (None, None, None)
@@ -370,7 +430,8 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), *(t.data_ptr() if t is not None else None
                               for t in (r, ar, br, sums, c_row)),
-            n, h, wd, c, o, packed_shape(c, o)[1], int(w.dtype == W4),
+            n, h, wd, c, o, groups, packed_shape(c, o, groups)[1],
+            int(w.dtype == W4),
             stride, pad, pad_lo, lo, hi,
             int(mode == "codes"), int(relu),
             RESIDUAL_KINDS[r.dtype] if r is not None else 0, plan.bn,
@@ -378,7 +439,10 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(lib, err, "int8_conv3x3")
     int8_conv3x3.launches += 1
+    if groups > 1:
+        int8_conv3x3.grouped_launches += 1
     return out
 
 
 int8_conv3x3.launches = 0
+int8_conv3x3.grouped_launches = 0

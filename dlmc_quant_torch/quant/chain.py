@@ -28,7 +28,7 @@ int8 codes on the block's own grid, which both consumers (the next block's
 first conv and its shortcut) read as they are.
 
 Unlike the JAX package, a conv's accumulator is not written to memory
-where a consumer can take its epilogue: a 3×3 conv's
+where a consumer can take its epilogue: a 3×3 conv's (grouped or not)
 :class:`DeferredEpilogue` holds a :class:`PendingConv`, a 1×1 conv's a
 :class:`PendingGemm`, a wider window's (the ImageNet 7×7/s2 stem) a
 :class:`PendingWideConv`, a depthwise 3×3 conv's (MobileNetV2, MobileOne)
@@ -94,6 +94,8 @@ class PendingConv:
     stride: int
     pad: int                 # int8 code of real 0 on the input grid
     pad_lo: int = 1          # top/left pad: 0 for SAME at stride 2, even map
+    groups: int = 1          # a grouped conv's (RepVGG's g2/g4), the weight
+    #                          packed group by group
 
     @property
     def int4(self) -> bool:
@@ -106,7 +108,7 @@ class PendingConv:
         return int8_conv3x3(self.x, self.weight, a, b, stride=self.stride,
                             pad=self.pad, pad_lo=self.pad_lo, lo=lo, hi=hi,
                             mode=mode, relu=relu, residual=residual, qb=qb,
-                            row=row)
+                            row=row, groups=self.groups)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -64,17 +64,22 @@ per-channel weight axis is 0.
   ``'intc'``: its int8 weights dequantized to bf16, a conv or matmul of
   bf16 operands with an f32 accumulator (a library call), f32 out; the next
   layer quantizes that output.
-* Integer convs: 3×3 (``ops.cuda.int8_conv``, SAME or pad-1 geometry),
-  1×1 (``ops.cuda.int8_gemm`` on the subsampled codes, K padded to a
-  multiple of 16), depthwise 3×3 (``groups`` = C in = C out;
+* Integer convs: 3×3 (``ops.cuda.int8_conv``, SAME or pad-1 geometry,
+  grouped too: RepVGG's g2/g4 variants), 1×1 (``ops.cuda.int8_gemm`` on
+  the subsampled codes, K padded to a multiple of 16; grouped, one int32
+  GEMM a group on its channels, the epilogue in torch), depthwise 3×3
+  (``groups`` = C in = C out;
   ``ops.cuda.int8_dwconv``, the 3×3 geometry) and any other ungrouped
   square window, such as the ImageNet 7×7/s2 stem
   (``ops.cuda.int8_stem_pool`` with the max pool after it, else
   ``ops.cuda.int8_im2col`` rows into ``int8_gemm``, any pads); all take
   int8 codes on the layer's own grid or a :class:`QuantizedTensor` on a
   producer's, whose epilogue is re-derived from the stored column sums.
-  Each leaves its conv pending for the consumer (``quant/chain.py``).
-  Other groupings have no integer path.
+  Each leaves its conv pending for the consumer (``quant/chain.py``),
+  but for the grouped 1×1.  Other groupings (a depthwise 1×1: MobileOne's
+  scale branch) have no integer path, and a grouped conv has none for a
+  weight offset's row term (ROADMAP item 7b: its window sums are per
+  group).
 * A weight grid with an offset, ``q·s_w + o_w`` (RootQ's: ``o_w = l −
   qmin·s_w``; an LSQ ``wt_offset``, per channel), runs every integer
   route: the plan takes the codes from the quantizer's own ``'eval'``
@@ -104,6 +109,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -572,7 +578,7 @@ class QLayer(nn.Module):
     def prepare_deploy(self) -> None:
         """Build and store the integer plan (buffers + host scalars)."""
         tensors, self.plan_scalars = self._build_int_plan()
-        for name in ("w_offset", "off_scale"):
+        for name in ("w_offset", "off_scale", "w_mm"):
             self._buffers.pop(name, None)     # a plan before may have had one
         for name, t in tensors.items():
             self.register_buffer(name, t)
@@ -755,11 +761,18 @@ class QConv(QLayer):
             raise ValueError(f"{self.path}: a weight offset's row term needs "
                              "off_scale on the input's grid (_int_offset; "
                              "ROADMAP item 13)")
-        if self.groups != 1 and not self.depthwise:
+        grouped = self.groups != 1 and not self.depthwise
+        if grouped and (self.kernel_size not in (1, 3)
+                        or self.weight.shape[1] == 1):
             raise NotImplementedError(
-                f"{self.path}: grouped convs other than a depthwise 3x3 "
-                "have no integer path yet (ROADMAP Queue A, rest of the zoo "
-                "(item 7))")
+                f"{self.path}: grouped convs other than a depthwise 3x3 have "
+                "an integer path at 3x3 and at 1x1 with more than one input "
+                "channel a group; not a depthwise 1x1 such as MobileOne's "
+                "scale branch (ROADMAP Queue A, rest of the zoo (item 7))")
+        if grouped and (off_scale is not None or hasattr(self, "w_offset")):
+            raise NotImplementedError(
+                f"{self.path}: a grouped conv's weight offset needs window "
+                "sums per group (ROADMAP item 7b)")
         _, h, w, _ = x_i8.shape
         pads = self.spatial_pads(h, w)
         (top, bottom), (left, right) = pads
@@ -776,6 +789,9 @@ class QConv(QLayer):
                 raise NotImplementedError(
                     f"{self.path}: a padded 1x1 conv has no integer path")
             codes = x_i8[:, ::s, ::s, :].contiguous()
+            if grouped:
+                return DeferredEpilogue(self._grouped_gemm(codes), epi_scale,
+                                        bias_eff)
             pending = PendingGemm(pad_k(codes.reshape(-1, codes.shape[-1])),
                                   self.w_gemm, tuple(codes.shape[:3]))
             return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
@@ -795,33 +811,50 @@ class QConv(QLayer):
             pending = PendingDwConv(x_i8.contiguous(), self.w_dw, s, pad, top)
         else:
             pending = PendingConv(x_i8.contiguous(), self.w_packed, s, pad,
-                                  top)
+                                  top, self.groups)
         return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
+
+    def _grouped_gemm(self, codes: torch.Tensor) -> torch.Tensor:
+        """A grouped 1×1 conv's int32 accumulator (N, Ho, Wo, O) from its
+        subsampled codes: one int8 GEMM launch a group, on that group's
+        channels (the train form of RepVGG's g2/g4 blocks runs it)."""
+        cg = codes.shape[-1] // self.groups
+        accs = [PendingGemm(pad_k(codes[..., g * cg:(g + 1) * cg]
+                                  .reshape(-1, cg).contiguous()),
+                            self.w_gemm[g], tuple(codes.shape[:3]))
+                .run(mode="int32") for g in range(self.groups)]
+        return torch.cat(accs, dim=-1)
 
     def _weight_buffers(self, w_int) -> dict:
         """The plan's weight buffers: a weight-only conv's ``w_int`` (OIHW;
         at W4 ``w_int4``, ``pack_int4`` of the JAX package's HWIO); any
         other conv's kernel layouts, packed once (at W8 beside ``w_int``,
         at W4 nibble-packed and alone): ``w_dw`` (depthwise), ``w_packed``
-        (3×3), ``w_gemm`` (1×1 and wider windows) and ``w_stem`` (the stem
-        kernel's, where it takes the conv, else None).  Other groupings
-        have none: :meth:`deferred` raises for them."""
+        (3×3, grouped too), ``w_gemm`` (1×1 and wider windows; a grouped
+        1×1's is (G, O/G, Kp), one packed B a group) and ``w_stem`` (the
+        stem kernel's, where it takes the conv, else None).  Other
+        groupings have none: :meth:`deferred` raises for them."""
         w_hwio = w_int.permute(2, 3, 1, 0)
         if self.weight_only:
             return ({"w_int4": dp.pack_int4(w_hwio)} if self.int4
                     else {"w_int": w_int})
         out = {} if self.int4 else {"w_int": w_int}
-        if self.groups != 1:
-            if self.depthwise:
-                out["w_dw"] = (dwconv.pack_weight_int4 if self.int4
-                               else dwconv.pack_weight)(w_hwio)
+        if self.depthwise:
+            out["w_dw"] = (dwconv.pack_weight_int4 if self.int4
+                           else dwconv.pack_weight)(w_hwio)
         elif self.kernel_size == 3:
             out["w_packed"] = (conv3x3.pack_weight_int4 if self.int4
-                               else conv3x3.pack_weight)(w_hwio)
-        elif self.kernel_size == 1:
+                               else conv3x3.pack_weight)(w_hwio, self.groups)
+        elif self.kernel_size == 1 and self.groups == 1:
             out["w_gemm"] = (gemm.pack_b_int4 if self.int4
                              else gemm.pack_b)(w_hwio[0, 0])
-        else:
+        elif self.kernel_size == 1 and w_hwio.shape[2] > 1:
+            og = w_hwio.shape[3] // self.groups
+            pack = gemm.pack_b_int4 if self.int4 else gemm.pack_b
+            out["w_gemm"] = torch.stack([
+                pack(w_hwio[0, 0, :, g * og:(g + 1) * og])
+                for g in range(self.groups)])
+        elif self.groups == 1:
             out["w_gemm"] = (im2col.pack_weight_int4 if self.int4
                              else im2col.pack_weight)(w_hwio)
             c, o = w_hwio.shape[2:]
@@ -840,23 +873,41 @@ class QConv(QLayer):
         return self.w_int
 
 
-def _int8_matmul(x_i8: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 · (N, K)ᵀ int8 → (M, N) int32 with ``torch._int_mm``.
+def pad_mm_weight(w_int: torch.Tensor) -> torch.Tensor:
+    """The (N, K) int8 weight with N and K zero-padded to multiples of 8,
+    as ``torch._int_mm`` wants them on CUDA (CIFAR's 10-class heads: N =
+    10; the SE blocks' ``up`` layers of RepVGG-D2se: K = C/16 = 4, 10,
+    20); zero weights add nothing to a product."""
+    n, k = w_int.shape
+    np_, kp = -(-n // 8) * 8, -(-k // 8) * 8
+    if (np_, kp) == (n, k):
+        return w_int.contiguous()
+    out = w_int.new_zeros((np_, kp))
+    out[:n, :k] = w_int
+    return out
 
-    On CUDA ``_int_mm`` wants M > 16 and M and N multiples of 8: small or
-    ragged batches are padded with zero rows, and a head whose N is not a
-    multiple of 8 (CIFAR's 10 classes) with zero weight rows (K must be a
-    multiple of 8 there).
+
+def _int8_matmul(x_i8: torch.Tensor, w_int: torch.Tensor,
+                 n: Optional[int] = None) -> torch.Tensor:
+    """(M, K) int8 · (N, K)ᵀ int8 → (M, n) int32 with ``torch._int_mm``.
+
+    ``w_int`` may be :func:`pad_mm_weight` of the (n, K) weight already
+    (``QDense``'s ``w_mm``, padded once by ``prepare_deploy``); on CUDA it
+    is padded here otherwise.  The codes get zero columns up to the
+    weight's K and, on CUDA, where ``_int_mm`` wants M > 16 and a multiple
+    of 8, zero rows.
     """
     m, k = x_i8.shape
-    n = w_int.shape[0]
-    if x_i8.is_cuda and (m <= 16 or m % 8 or n % 8):
-        padded = x_i8.new_zeros((max(32, -(-m // 8) * 8), k))
-        padded[:m] = x_i8
-        w_pad = w_int.new_zeros((-(-n // 8) * 8, k))
-        w_pad[:n] = w_int
-        return torch._int_mm(padded, w_pad.t())[:m, :n]
-    return torch._int_mm(x_i8, w_int.t())
+    n = w_int.shape[0] if n is None else n
+    if x_i8.is_cuda:
+        w_int = pad_mm_weight(w_int)
+    kp = w_int.shape[1]
+    if kp != k or (x_i8.is_cuda and (m <= 16 or m % 8)):
+        rows = max(32, -(-m // 8) * 8) if x_i8.is_cuda else m
+        padded = x_i8.new_zeros((rows, kp))
+        padded[:m, :k] = x_i8
+        x_i8 = padded
+    return torch._int_mm(x_i8, w_int.t())[:m, :n]
 
 
 class QDense(QLayer):
@@ -868,6 +919,15 @@ class QDense(QLayer):
         self.weight = nn.Parameter(torch.empty(features, in_features))
         _init_weight(self.weight.data, generator, in_features, 1.0)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def _weight_buffers(self, w_int) -> dict:
+        """:meth:`QLayer._weight_buffers` and, at W8 with an input grid,
+        ``w_mm``: :func:`pad_mm_weight` of ``w_int``, so that a request
+        pads only its codes."""
+        out = super()._weight_buffers(w_int)
+        if not self.int4 and not self.weight_only:
+            out["w_mm"] = pad_mm_weight(w_int)
+        return out
 
     def forward_oi(self, x, w):
         """This layer with the (out, in) weight ``w``, in full f32: the
@@ -886,7 +946,9 @@ class QDense(QLayer):
                              self._dequantized_weight().float())
                 return y if self.bias is None else y + self.bias
             x_i8, epi_scale, bias_eff, pad = self._int_input(x)
-            acc = _int8_matmul(x_i8, self._int_weight().contiguous())
+            w_mm = (self._int_weight().contiguous() if self.int4
+                    else self.w_mm)
+            acc = _int8_matmul(x_i8, w_mm, self.weight.shape[0])
             off_scale, row = self._int_offset(x), None
             if off_scale is not None:
                 # a (M, K) row as a 1x1 window: S at the head's K inputs

@@ -6,15 +6,17 @@ dict with ``params``, and optionally ``qstate`` and ``batch_stats``, in
 flax names.  Module paths are the same in both packages, so each port
 module reads the subtree at its own ``named_modules()`` path:
 
-* ``QConv``: ``kernel`` HWIO → OIHW, ``bias``, ``in_scale`` (a scalar, or
+* ``QConv``: ``kernel`` HWIO → OIHW (a grouped conv's (3, 3, Cg, O) →
+  (O, Cg, 3, 3)), ``bias``, ``in_scale`` (a scalar, or
   (C,) per input channel), ``wt_scale`` (a scalar, (O,) per output channel
   or (H, W) per pixel: the same shapes in both packages), ``alpha`` (HWIO
   → OIHW), RootQ's ``wt_upper``, ``wt_lower`` and
   ``wt_alpha``, and ``qstate`` ``in_offset`` (FSPTQ's integer zero-point or
   the plain family's float offset), ``wt_offset`` and RootQ's running
   values ``in_run_scale``, ``wt_run_upper`` and ``wt_run_lower``;
-* ``QDense``: ``kernel`` and ``alpha`` (in, out) → (out, in), the rest as
-  for ``QConv``;
+* ``QDense`` (a head, or an SE block's ``se.down`` / ``se.up``):
+  ``kernel`` and ``alpha`` (in, out) → (out, in), the rest as for
+  ``QConv``;
 * ``QBlockOutput``: ``out_scale``, and ``qstate`` ``out_offset``;
 * ``BatchNorm2d`` (and the ResNets' flax-style ``BatchNorm``):
   ``scale``/``bias`` → ``weight``/``bias``, ``batch_stats`` ``mean``/``var``

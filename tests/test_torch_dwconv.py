@@ -172,14 +172,25 @@ def test_codes_on_a_producer_grid():
 
 
 def test_other_groupings_raise():
+    """Groupings other than the depthwise 3×3 take no depthwise route: a
+    grouped 3×3 (1 < groups < C, RepVGG's g2/g4) runs the conv kernel's
+    grouped tiles; a depthwise 1×1 (MobileOne's scale branch) and a
+    grouped 5×5 have no integer path and raise."""
     conv = QConv(32, 32, 3, 1, 1, groups=2)
     attach_scheme(conv, scheme_from_dict(SCHEME))
     x = torch.rand((1, 6, 6, 32))
     calibrate(conv, [x])
     prepare_deploy(conv)
     assert not hasattr(conv, "w_dw")
-    with pytest.raises(NotImplementedError, match=r"item 7"):
-        conv(x, qmode="intc")
+    assert conv(x, qmode="intc").acc.groups == 2
+    for k, groups in ((1, 32), (5, 2)):
+        conv = QConv(32, 32, k, 1, k // 2, groups=groups)
+        attach_scheme(conv, scheme_from_dict(SCHEME))
+        calibrate(conv, [x])
+        prepare_deploy(conv)
+        assert not hasattr(conv, "w_dw")
+        with pytest.raises(NotImplementedError, match=r"item 7"):
+            conv(x, qmode="intc")
 
 
 # ------------------------------------------------------------ on the card

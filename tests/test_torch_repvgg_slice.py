@@ -237,7 +237,11 @@ TRAINING_MODULES = (
     "dlmc_quant_torch.examples.benchmark",
     "dlmc_quant_torch.examples.distributed_training",
     "dlmc_quant_torch.ops.cuda.int8_window_sum",
-    "dlmc_quant_torch.tools.stem_parts")
+    "dlmc_quant_torch.tools.stem_parts",
+    "dlmc_quant_torch.utils.count_ops", "dlmc_quant_torch.utils.bidict",
+    "dlmc_quant_torch.utils.torch_import",
+    "dlmc_quant_torch.tools.d2se_enqueue",
+    "dlmc_quant_torch.examples.FSPTQuant")
 
 
 def test_import_leaves_out_jax():
