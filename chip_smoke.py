@@ -11,15 +11,18 @@ serving engine (RepVGG-A0 and ResNet-50 through continuous batching, the
 two-process lockstep) and data-parallel training on NCCL, RootQ served in
 int8 (BASELINE config #5's ResNet-50 through the engine, cifar_resnet20;
 the window sums of a weight offset), the rest of the RepVGG family
-(RepVGG-B2g4's grouped convs, RepVGG-D2se's SE blocks) and merge_bn, then
-the two int8 GEMM tools.
+(RepVGG-B2g4's grouped convs, RepVGG-D2se's SE blocks) and merge_bn,
+GhostNet-1.0 and EfficientNet-B0 (the 5x5 depthwise window and any channel
+count), then the two int8 GEMM tools.
 
     python3 chip_smoke.py [--parent DIR]
 
 Phases, each fatal on failure:
-  1. build   the seven kernels from dlmc_quant_torch/ops/cuda/csrc (int8
-             3x3 conv, int8 GEMM, int8 im2col, int8 stem conv + pool, int8
-             depthwise 3x3 conv, int8 window sum, int8 MMA probe), one nvcc
+  1. build   the kernels from dlmc_quant_torch/ops/cuda/csrc (int8
+             3x3 conv and its grouped build, int8 GEMM, int8 im2col, int8
+             stem conv + pool, int8 depthwise conv: the aligned 3x3 build
+             and the build of the 5x5 window and the ragged path, int8
+             window sum, int8 MMA probe), one nvcc
              each, all at once (prints the build
              seconds, ptxas' report of registers and spills, and the
              dynamic shared memory of every GEMM tile and of the probe's
@@ -31,7 +34,10 @@ Phases, each fatal on failure:
              size, each mode (int32, codes, f32) and ResNet-50's stem at
              batch 8 and 256 (W8 and W4), the depthwise
              conv at MobileNetV2's and MobileOne-S1's shapes at batch 8 and
-             256 and at ragged shapes, the two models' stems and the GEMM
+             256 and at ragged shapes, the 5x5 window and the ragged path
+             (C % 8 != 0) at W8 and W4 with and without a weight offset's
+             term and at GhostNet-1.0's and EfficientNet-B0's shapes, the
+             two models' stems and the GEMM
              at 24 channels (tests/test_torch_int8_conv.py,
              tests/test_torch_resnet_conv.py,
              tests/test_torch_gemm_epilogue.py,
@@ -205,6 +211,24 @@ Phases, each fatal on failure:
            launches with 13 grouped, or 48, a request), images/s; then
            merge_bn on cifar_resnet20 (perturbed BN) on the card: 19 folds,
            the output within 1e-4 relative;
+  ghost_effnet GhostNet-1.0 ('intc': its blocks chained, each residual sum
+           closed on a float32 trunk, the ghost module's concat) and
+           EfficientNet-B0 ('int': swish closes every chain) at full
+           width, 224x224, 1000 classes: train form with seeded weights
+           and BN statistics from a train-mode forward of the calibration
+           batch, then perturbed -> ghostnet_deploy / efficientnet_deploy ->
+           the bench's W8A8 scheme -> calibrate on one seeded batch of 32 ->
+           prepare_deploy.  At batch 8 and 256 every launch of one request
+           == plain (tolerance 0, codes and f32), each depthwise launch
+           (GhostNet 41: 4 of them 5x5/s2 and 10 at C % 8 != 0 on the
+           ragged path; EfficientNet 16: 9 of them 5x5) with its window, C,
+           stride, plan, us, bound us (bytes), plain us and a bf16
+           F.conv2d(groups=C) of the same shape as context.  Then 6 served
+           batch-256 requests each (logits finite, (256, 1000), within
+           relative L2 2e-2 of the CPU plain path on 8 images, or, where a
+           tie flips, every module of the 'int' forward fed the card's
+           inputs within 1e-4 and the logits printed), the launches a
+           request by kernel and the request's ms;
   observers every observer of ops/observers.py (the 9 tensor observers,
            the 2 output observers, the percentile stream per tensor and
            per channel, the min/max stream per channel) on config #2's
@@ -326,8 +350,9 @@ Phases, each fatal on failure:
              concatenated operands.
 The last lines: one JSON line of kernel figures (the grouped launches,
 int8_conv3x3.cu's grouped build int8_conv3x3_grouped.cu, under an entry of
-their own: B2g4's 13 at batch 64, their served launches), the card's name
-and power limit,
+their own: B2g4's 13 at batch 64, their served launches; the 5x5
+depthwise launches, int8_dwconv5x5.cu, under theirs, the ragged 3x3 ones
+under int8_dwconv3x3's), the card's name and power limit,
 and {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -362,8 +387,10 @@ from dlmc_quant_torch.examples import distributed_training as dist_entry
 from dlmc_quant_torch.examples import serve_benchmark as serve_bench
 from dlmc_quant_torch.examples import post_training_quantization as ptq_entry
 from dlmc_quant_torch.examples import quantization_aware_training as qat_entry
-from dlmc_quant_torch.models.fuse import (merge_bn, mobilenet_deploy,
-                                          repvgg_fuse, resnet_deploy)
+from dlmc_quant_torch.models.fuse import (efficientnet_deploy,
+                                          ghostnet_deploy, merge_bn,
+                                          mobilenet_deploy, repvgg_fuse,
+                                          resnet_deploy)
 from dlmc_quant_torch.models.mobileone import mobileone_fuse
 from dlmc_quant_torch.models.resnet_cifar import BatchNorm
 from dlmc_quant_torch.ops.cuda import build
@@ -503,6 +530,17 @@ B2G4_LAUNCHES = {"conv": 28, "gemm": 0, "im2col": 0, "stem_pool": 0,
 B2G4_GROUPED = 13
 D2SE_LAUNCHES = dict(B2G4_LAUNCHES, conv=48)
 MERGE_BN_IMAGES = 64
+# the ghost_effnet phase: GhostNet-1.0 (its blocks chained, 'intc') and
+# EfficientNet-B0 (swish: 'intc' runs as 'int'), 224x224, 1000 classes:
+# registry name, fuser, the launches of a request and its depthwise ones
+# at 5x5 and on the ragged path (C % 8 != 0)
+GHOST_EFFNET = {
+    "GhostNet_1.0": ("ghostnet", ghostnet_deploy,
+                     {"conv": 2, "gemm": 70, "im2col": 0, "stem_pool": 0,
+                      "dwconv": 41, "window_sum": 0}, 4, 10),
+    "EfficientNet_B0": ("efficientnetb0", efficientnet_deploy,
+                        {"conv": 1, "gemm": 32, "im2col": 0, "stem_pool": 0,
+                         "dwconv": 16, "window_sum": 0}, 9, 0)}
 
 
 def images(n: int, seed: int, device) -> torch.Tensor:
@@ -869,10 +907,10 @@ def launch_bound(kind, args, kw, out):
         touched = x.numel() if k >= st else out.numel() * k * k * x.shape[-1]
         return bound_of(0, touched + nbytes)
     if kind == "dwconv":
-        # 9 multiply-adds an output value; x, the (9, C) weight (half the
+        # k² multiply-adds an output value; x, the (k², C) weight (half the
         # bytes at W4), a and b
         x, w = args[:2]
-        return bound_of(2 * 9 * (out.numel()), x.numel() + w.numel()
+        return bound_of(2 * w.shape[0] * out.numel(), x.numel() + w.numel()
                         + 8 * x.shape[-1] + nbytes)
     if kind == "stem_pool":
         # the conv's int8 operations (the pool's compares are not counted);
@@ -924,11 +962,14 @@ def launch_label(kind, args, kw) -> str:
         return (f"im2col {tuple(x.shape)} {kw['kernel']}x{kw['kernel']} "
                 f"s{kw['stride']} pads {kw['pads'][0]}")
     if kind == "dwconv":
-        p = DW.plan(*x.shape, kw["stride"])
-        return (f"dwconv {tuple(x.shape)} s{kw['stride']} pad_lo "
-                f"{kw.get('pad_lo', 1)} {kw['mode']}"
+        k = DW.window(args[1])
+        p = DW.check_kernel(x, args[1], kw["stride"])
+        ragged = f" ragged g{p.granule}" if DW.route(x, args[1]) else ""
+        return (f"dwconv {k}x{k} {tuple(x.shape)} s{kw['stride']} pad_lo "
+                f"{kw.get('pad_lo', k // 2)} {kw['mode']}"
                 f"{' relu' if kw.get('relu') else ''}{extra} [cb{p.cb} "
-                f"{p.th}x{p.tw} {p.threads}t rpt{p.rpt} {p.tiles} tiles]")
+                f"{p.th}x{p.tw} {p.threads}t rpt{p.rpt} {p.tiles} tiles"
+                f"{ragged}]")
     if kind == "stem_pool":
         out = (x.shape[0],) + SP.geometry(x.shape[1], x.shape[2],
                                           kw["pads"])[2:] + (args[1].shape[1],)
@@ -945,12 +986,14 @@ def launch_label(kind, args, kw) -> str:
             f"{' relu' if kw.get('relu') else ''}{extra}")
 
 
-def launch_group(kind, kw) -> str:
+def launch_group(kind, args, kw) -> str:
     """The launch's group in the per-group sums."""
+    if kind == "dwconv":
+        k = DW.window(args[1])
+        return f"depthwise {k}x{k} conv"
     if kind != "gemm":
         return {"conv": "3x3 conv", "im2col": "stem im2col",
                 "stem_pool": "stem conv + pool",
-                "dwconv": "depthwise 3x3 conv",
                 "window_sum": "window sums"}[kind]
     mode = kw.get("mode", "int32")
     return f"gemm {mode}" + (" + residual" if kw.get("residual") else "")
@@ -971,18 +1014,20 @@ def stem_context_ms(args, kw) -> float:
 
 
 def dw_context_ms(args, kw) -> float:
-    """A bf16 F.conv2d(groups=C) 3x3 at a depthwise launch's shape,
+    """A bf16 F.conv2d(groups=C) at a depthwise launch's window and shape,
     channels last (context: no PyTorch call computes an int8 conv)."""
     x, wp = args[:2]
+    k, s = DW.window(wp), kw["stride"]
     xb = x.permute(0, 3, 1, 2).to(torch.bfloat16) \
         .contiguous(memory_format=torch.channels_last)
     wb = DW.unpack_weight(wp, x.shape[-1]).permute(3, 2, 0, 1) \
         .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    pad = kw.get("pad_lo", 1)
-    if pad == 0:                         # SAME at stride 2: pads (0, 1)
-        xb = F.pad(xb, (0, 1, 0, 1))
-    return event_ms(lambda: F.conv2d(xb, wb, stride=kw["stride"],
-                                     padding=pad, groups=x.shape[-1]), REPS)
+    pad = kw.get("pad_lo", k // 2)
+    if pad != k // 2:                    # SAME at stride 2: pads (k//2 - 1,
+        xb = F.pad(xb, (pad, pad + 1, pad, pad + 1))   # k//2), even maps
+        pad = 0
+    return event_ms(lambda: F.conv2d(xb, wb, stride=s, padding=pad,
+                                     groups=x.shape[-1]), REPS)
 
 
 # kinds whose launches get their plain ms and a bf16 context in the log and
@@ -1068,7 +1113,8 @@ def resnet_kernel_phase(what, model, x, expect, parent=None, beside=None):
             tot["ms"] += ms
             tot["bound_ms"] += b_ms
             tot["err"] = max(tot["err"], err)
-            g = groups.setdefault(launch_group(kind, kw), [0, 0.0, 0.0])
+            g = groups.setdefault(launch_group(kind, args, kw),
+                                  [0, 0.0, 0.0])
             g[0] += 1
             g[1] += ms
             g[2] += b_ms
@@ -1143,18 +1189,24 @@ def stem_im2col_phase(model, x, parent=None):
                           ops_ms=t_ops, bytes_ms=t_bytes, err=err)
 
 
-def serve_requests(what, model, x, expect, classes, ref: int = 8):
+def serve_requests(what, model, x, expect, classes, ref: int = 8,
+                   on_flip=None):
     """make_serving_fn(qmode="intc") on ``x``, REQUESTS times: checks the
-    launches a request (``expect`` by kind; ``conv_grouped``, where it is
-    given, the grouped ones among the conv's), the logits' shape and
-    finiteness and the CPU plain path on ``ref`` images; returns (median
-    request ms, launches by kind)."""
+    launches a request (``expect`` by kind; ``conv_grouped``,
+    ``dwconv_5x5`` and ``dwconv_ragged``, where given, the grouped ones
+    among the conv's and the 5x5 and ragged ones among the depthwise
+    conv's), the logits' shape and
+    finiteness and the CPU plain path on ``ref`` images (relative L2 2e-2;
+    past it ``on_flip(rel, images)``, where given, must hold the model
+    module by module, C14, or raise); returns (median request ms,
+    launches by kind)."""
     cpu_model = copy.deepcopy(model).cpu()
     serve = make_serving_fn(model, qmode="intc", device=x.device)
     counters = {kind: KERNELS[kind][0] for kind in expect if kind in KERNELS}
     for fn in counters.values():
         fn.launches = 0
     K.int8_conv3x3.grouped_launches = 0
+    DW.int8_dwconv3x3.launches_5x5 = DW.int8_dwconv3x3.launches_ragged = 0
     torch.cuda.synchronize()
     times, enqueue = [], []
     for _ in range(REQUESTS):
@@ -1164,8 +1216,11 @@ def serve_requests(what, model, x, expect, classes, ref: int = 8):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {kind: fn.launches for kind, fn in counters.items()}
-    if "conv_grouped" in expect:
-        launches["conv_grouped"] = K.int8_conv3x3.grouped_launches
+    for key, n in (("conv_grouped", K.int8_conv3x3.grouped_launches),
+                   ("dwconv_5x5", DW.int8_dwconv3x3.launches_5x5),
+                   ("dwconv_ragged", DW.int8_dwconv3x3.launches_ragged)):
+        if key in expect:
+            launches[key] = n
     # one more request with PyTorch's sync debugging on: every call that
     # makes the host wait for the card warns
     torch.cuda.synchronize()
@@ -1195,7 +1250,10 @@ def serve_requests(what, model, x, expect, classes, ref: int = 8):
           f"path on {ref} images ({time.perf_counter() - t0:.1f} s): rel L2 "
           f"{rel:.3e}; launches {launches} = {expect} x {REQUESTS}")
     if not rel < 2e-2:
-        raise RuntimeError(f"{what}: GPU and CPU logits differ: rel L2 {rel}")
+        if on_flip is None:
+            raise RuntimeError(f"{what}: GPU and CPU logits differ: rel L2 "
+                               f"{rel}")
+        on_flip(rel, x[:ref])
     print(f"# {what} serve: batch {x.shape[0]} request {steady * 1e3:.3f} "
           f"ms median of {REQUESTS - 1} (first {times[0] * 1e3:.1f} ms); "
           f"{x.shape[0] / steady:.1f} images/s on {card_line()}; the host "
@@ -3068,6 +3126,153 @@ def zoo_phase(device):
     return grouped_tot, other, max(b2["conv"]["err"], d2["conv"]["err"])
 
 
+def dw_launch_phase(what, model, x, expect):
+    """Every launch of one request of ``x`` against its plain version
+    (tolerance 0); each depthwise launch timed (CUDA graph of 16) beside
+    its window, C, stride, plan, bound (bytes: x and the weight read once,
+    the output written once), plain ms and a bf16 F.conv2d(groups=C) of the
+    same shape.  Returns the depthwise totals by window (3, 5)."""
+    with torch.inference_mode():
+        with LaunchRecorder() as rec:
+            model(x, qmode="intc")
+        torch.cuda.synchronize()
+        if rec.counts() != expect:
+            raise RuntimeError(f"{what}: a request made {rec.counts()} "
+                               f"launches, expected {expect}")
+        tots = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                        bytes_ms=0.0, context_ms=0.0, err=0.0, n=0, ragged=0)
+                for k in DW.WINDOWS}
+        print(f"# {what} kernel vs plain, batch {x.shape[0]}: every launch "
+              "== plain; each depthwise launch: window, (N, H, W, C), "
+              "stride, plan | kernel_us bound_us (by) kernel/bound "
+              "{plain_us bf16_grouped_conv_us}")
+        for i, (kind, args, kw, out) in enumerate(rec.calls):
+            err = max_diff_to_plain(kind, args, kw, out)
+            if err != 0:
+                raise RuntimeError(f"{what} launch {i} ({kind}): kernel and "
+                                   f"plain differ by {err}")
+            if kind != "dwconv":
+                continue
+            t = tots[DW.window(args[1])]
+            ms = graph_ms(lambda _: DW.int8_dwconv3x3(*args, **kw),
+                          GRAPH_LAUNCHES)
+            b_ms, t_ops, t_bytes = launch_bound(kind, args, kw, out)
+            plain_ms = event_ms(lambda: DW.int8_dwconv3x3_plain(*args, **kw),
+                                PLAIN_REPS)
+            context_ms = dw_context_ms(args, kw)
+            for key, val in (("ms", ms), ("bound_ms", b_ms),
+                             ("ops_ms", t_ops), ("bytes_ms", t_bytes),
+                             ("plain_ms", plain_ms),
+                             ("context_ms", context_ms)):
+                t[key] += val
+            t["n"] += 1
+            t["ragged"] += DW.route(args[0], args[1]) != 0
+            print(f"{i:3d} {launch_label(kind, args, kw):78s} | "
+                  f"{ms * 1e3:8.2f} {b_ms * 1e3:8.2f} "
+                  f"({bound_by(t_ops, t_bytes)}) {ms / b_ms:.2f} "
+                  f"{{{plain_ms * 1e3:.1f} {context_ms * 1e3:.2f}}}")
+    for k, t in tots.items():
+        if t["n"]:
+            print(f"# {what} batch {x.shape[0]} depthwise {k}x{k} launches "
+                  f"({t['n']}, {t['ragged']} on the ragged path): kernel "
+                  f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({bound_by(t['ops_ms'], t['bytes_ms'])}), plain "
+                  f"{t['plain_ms']:.4f} ms; bf16 grouped convs of the same "
+                  f"shapes {t['context_ms']:.4f} ms (context only)")
+    return tots
+
+
+def held_by_modules(what, model):
+    """``serve_requests``'s ``on_flip``: the logits of the card and the CPU
+    plain path parted past 2e-2 on the reference images (C14: a code that
+    a float difference flips at a tie moves every layer after it); each
+    module of the plain 'int' forward fed the card's inputs must be within
+    1e-4 of its CPU copy (``card_vs_cpu``: gated there), and the logits
+    are printed."""
+    def hold(rel, x):
+        print(f"# {what}: intc logits card vs CPU rel L2 {rel:.3e} past "
+              "2e-2 (C14, a tie flipped); the model held module by module "
+              "in 'int':")
+        y = card_vs_cpu(what, model, x, "int")
+        print(f"# {what}: card logits {y[:2].cpu().numpy().round(3)}")
+    return hold
+
+
+def kernel_split(what, model, x, request_ms, expect):
+    """One request's launches replayed by kind (CUDA graphs of each kind's
+    launches in request order) against the request's ms: the rest is the
+    host, gaps and torch's small ops, whose kernels the profiler counts."""
+    with torch.inference_mode():
+        with LaunchRecorder() as rec:
+            model(x, qmode="intc")
+        by_kind = {}
+        for kind, a, kw, _ in rec.calls:
+            by_kind.setdefault(kind, []).append((KERNELS[kind][0], a, kw))
+        parts = {f"{len(calls)} {kind}": graph_ms(
+            lambda _, c=calls: run_calls(c), 4)
+            for kind, calls in by_kind.items()}
+    split_line(what, request_ms, parts)
+    serve = make_serving_fn(model, qmode="intc", device=x.device)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        serve(x)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    print(f"# {what} serve: one request runs {sum(kernels.values())} "
+          f"kernels on the card, {sum(expect.values())} of them the port's "
+          "launches and the rest torch's ops (folded boundaries' affines, "
+          "input quantizes, concats, float32 sums, SE blocks, swish, head)")
+
+
+def ghost_effnet_phase(device):
+    """GhostNet-1.0 ('intc') and EfficientNet-B0 ('int') at 224x224: train
+    form with seeded weights and BN statistics -> ghostnet_deploy /
+    efficientnet_deploy -> the bench's W8A8 scheme -> calibrate -> deploy;
+    every launch of a request == plain at batch 8 and 256, each depthwise
+    launch timed; 6 served batch-256 requests each.  Returns the depthwise
+    totals by window at batch 256 (both models), the served launches by
+    kind (``dwconv_5x5`` and ``dwconv_ragged`` among them) and the largest
+    difference."""
+    dw = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                  bytes_ms=0.0, context_ms=0.0, err=0.0) for k in DW.WINDOWS}
+    served = {}
+    for label, (name, fuser, expect, wide, ragged) in GHOST_EFFNET.items():
+        t0 = time.perf_counter()
+        model = mobile_deployed(name, {}, fuser, device)
+        print(f"# {label}: train form -> {fuser.__name__} -> bench W8A8 "
+              f"scheme -> calibrate (batch {CAL_BATCH}) + prepare_deploy in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for batch in (8, SERVE_BATCH):
+            tots = dw_launch_phase(label, model,
+                                   images(batch, SEED + 1, device), expect)
+            if (tots[5]["n"], tots[3]["ragged"] + tots[5]["ragged"]) \
+                    != (wide, ragged):
+                raise RuntimeError(f"{label}: {tots[5]['n']} 5x5 and "
+                                   f"{tots[3]['ragged']} ragged depthwise "
+                                   f"launches, expected {wide}, {ragged}")
+            if batch == SERVE_BATCH:
+                for k, t in tots.items():
+                    for key in dw[k]:
+                        dw[k][key] += t[key]
+        request_ms, launches = serve_requests(
+            label, model, images(SERVE_BATCH, SEED + 2, device),
+            dict(expect, dwconv_5x5=wide, dwconv_ragged=ragged), CLASSES,
+            on_flip=held_by_modules(label, model))
+        kernel_split(label, model, images(SERVE_BATCH, SEED + 2, device),
+                     request_ms, expect)
+        print(f"# {label} serve: launches a request by kernel: "
+              f"int8_conv3x3 {expect['conv']}, int8_gemm {expect['gemm']}, "
+              f"int8_dwconv3x3 {expect['dwconv'] - wide} ({ragged} of them "
+              f"on the ragged path, int8_dwconv5x5.cu), int8_dwconv5x5 "
+              f"{wide}; request {request_ms:.3f} ms at batch {SERVE_BATCH}")
+        for kind, n in launches.items():
+            served[kind] = served.get(kind, 0) + n
+        del model
+    return dw, served
+
+
 def kernel_entry(name, replaces, launches, tot, library_ms,
                  source=None):
     return {"name": name, "route": "cuda",
@@ -3166,6 +3371,9 @@ def main(argv=None) -> int:
     zoo_grouped, zoo_launches, zoo_err = zoo_phase(device)
     print(f"# repvgg_zoo phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    ghost_dw, ghost_served = ghost_effnet_phase(device)
+    print(f"# ghost_effnet phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     observers_phase(device)
     print(f"# observers phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -3186,7 +3394,7 @@ def main(argv=None) -> int:
     launches += (served["conv"] + ptq_convs + served50["conv"] + qat_launches
                  + mobile_served["conv"] + w4_served["conv"]
                  + c2_launches["conv"] + acc_launches + engine["conv"]
-                 + rootq["conv"] + zoo_launches)
+                 + rootq["conv"] + zoo_launches + ghost_served["conv"])
     tot["err"] = max(err8, tot["err"], recon_err, res_err, r50_err,
                      r50_tot["err"], qat_err, mobile_err, w4_err, c2_err,
                      acc_err, rootq_err, zoo_err)
@@ -3198,7 +3406,7 @@ def main(argv=None) -> int:
     gemm_launches += (served["gemm"] + ptq_gemms + served50["gemm"]
                       + mobile_served["gemm"] + w4_served["gemm"]
                       + c4_launches["gemm"] + c2_launches["gemm"]
-                      + engine["gemm"] + rootq["gemm"])
+                      + engine["gemm"] + rootq["gemm"] + ghost_served["gemm"])
     gemm_err = max(w4_err, c4_err, c2_err, rootq_err)
     probe_rows, probe_launches = tool_path(lambda: mma_probe.main([]),
                                            P.int8_mma_probe, "mma_probe")
@@ -3230,10 +3438,19 @@ def main(argv=None) -> int:
                      "dlmc_quant_tpu/quant/layers.py:722-728 (XLA grouped "
                      "int8 conv, feature_group_count=C; no Pallas kernel)",
                      mobile_served["dwconv"] + w4_served["dwconv"]
-                     + c4_launches["dwconv"] + c2_launches["dwconv"],
-                     dict(dw, err=max(dw["err"], w4_err, c4_err, c2_err,
-                                      rootq_dw[0])),
+                     + c4_launches["dwconv"] + c2_launches["dwconv"]
+                     + ghost_served["dwconv"] - ghost_served["dwconv_5x5"],
+                     dict({key: dw[key] + ghost_dw[3][key]
+                           for key in ("ms", "plain_ms", "bound_ms",
+                                       "ops_ms", "bytes_ms")},
+                          err=max(dw["err"], w4_err, c4_err, c2_err,
+                                  rootq_dw[0])),
                      None),
+        kernel_entry("int8_dwconv5x5",
+                     "dlmc_quant_tpu/quant/layers.py:722-728 (XLA grouped "
+                     "int8 conv, feature_group_count=C, 5x5 window; no "
+                     "Pallas kernel)",
+                     ghost_served["dwconv_5x5"], ghost_dw[5], None),
         kernel_entry("int8_window_sum",
                      "dlmc_quant_tpu/quant/layers.py:459 (the integer plan "
                      "drops o_w, hazard C1; no Pallas kernel)",

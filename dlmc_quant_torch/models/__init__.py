@@ -1,5 +1,5 @@
-"""Model zoo (RepVGG-A0, the ResNets, MobileNetV2, MobileOne) and
-reparameterization."""
+"""Model zoo (the RepVGGs, the ResNets, MobileNetV2, MobileOne, GhostNet,
+EfficientNet) and reparameterization."""
 
 from dlmc_quant_torch.models.registry import get_model, register
 

@@ -3,8 +3,10 @@
 Counterpart of ``dlmc_quant_tpu/models/fuse.py``, on OIHW kernels.
 :func:`repvgg_fuse` turns a train-form RepVGG into its deploy form, one
 3×3 conv per block (grouped where the block is, its SE block carried
-over); :func:`resnet_deploy` and :func:`mobilenet_deploy` fold a
-train-form ResNet's or MobileNetV2's BatchNorms into their convs
+over); :func:`resnet_deploy`, :func:`mobilenet_deploy`,
+:func:`ghostnet_deploy` and :func:`efficientnet_deploy` fold a train-form
+ResNet's, MobileNetV2's, GhostNet's or EfficientNet's BatchNorms into
+their convs
 (``models/mobileone.py`` has MobileOne's fuser, as in the JAX package).
 The deploy model's quantizer parameters are fresh: calibrate after
 fusing, as the JAX package does.  :func:`merge_bn` folds every conv→BN
@@ -106,6 +108,10 @@ RESNET_BN_PARTNERS = {"conv1": "bn1", "conv2": "bn2", "conv3": "bn3",
 MOBILENET_BN_PARTNERS = {"expand": "expand_bn", "depthwise": "depthwise_bn",
                          "project": "project_bn", "conv_stem": "bn_stem",
                          "conv_head": "bn_head"}
+GHOSTNET_BN_PARTNERS = {"primary": "primary_bn", "cheap": "cheap_bn",
+                        "dw": "dw_bn", "shortcut_dw": "shortcut_dw_bn",
+                        "shortcut_pw": "shortcut_pw_bn",
+                        "conv_stem": "bn_stem", "conv_head": "bn_head"}
 
 
 @torch.no_grad()
@@ -114,7 +120,8 @@ def fold_bn_deploy(model, partners):
     (``type(model)(**model.twin_args(), deploy=True)``): every conv
     absorbs its BatchNorm partner, named by ``partners`` (conv leaf name →
     BN leaf name beside it), exactly as :func:`fold_conv_bn` does; the
-    dense head is copied; the twin's block-output quantizers are fresh.
+    dense layers (the head, GhostNet's ``fc1``, the SE blocks') are
+    copied; the twin's block-output quantizers are fresh.
     Calibrate (and ``prepare_deploy``) after conversion."""
     device = model.linear.weight.device
     deploy = type(model)(**model.twin_args(), deploy=True,
@@ -148,6 +155,22 @@ def mobilenet_deploy(model):
     ``expand``/``depthwise``/``project``↔``*_bn``, ``conv_stem↔bn_stem`` and
     ``conv_head↔bn_head`` folded; each linear-bottleneck block gains its
     ``out_q`` (``QBlockOutput(relu=False)``)."""
+    return fold_bn_deploy(model, MOBILENET_BN_PARTNERS)
+
+
+def ghostnet_deploy(model):
+    """Train-form GhostNet → its BN-free deploy form on the same device:
+    ``primary``/``cheap``/``dw``/``shortcut_dw``/``shortcut_pw``↔``*_bn``,
+    ``conv_stem↔bn_stem`` and ``conv_head↔bn_head`` folded; ``fc1``, the
+    head and the SE blocks' dense layers copied; each bottleneck gains its
+    ``out_q`` (``QBlockOutput(relu=False)``)."""
+    return fold_bn_deploy(model, GHOSTNET_BN_PARTNERS)
+
+
+def efficientnet_deploy(model):
+    """Train-form EfficientNet (any factory) → its BN-free deploy form on
+    the same device, with MobileNetV2's naming; each BatchNorm folds at
+    its own ε (1e-3)."""
     return fold_bn_deploy(model, MOBILENET_BN_PARTNERS)
 
 

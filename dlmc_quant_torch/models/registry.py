@@ -27,7 +27,8 @@ def get_model(name: str, device: DeviceLike = None, **kwargs):
     card), in eval mode like the JAX models' ``train=False`` default."""
     device = resolve_device(device)
     from dlmc_quant_torch.models import (  # noqa: F401  (they register)
-        mobilenetv2, mobileone, repvgg, resnet_cifar)
+        efficientnet, ghostnet, mobilenetv2, mobileone, repvgg,
+        resnet_cifar)
     folded = {k.lower(): k for k in _REGISTRY}
     if name.lower() not in folded:
         raise ValueError(

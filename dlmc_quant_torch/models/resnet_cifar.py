@@ -49,6 +49,7 @@ class BatchNorm(nn.BatchNorm2d):
     batch's (σ² as E[x²] − E[x]², clipped at 0, as flax computes it) and the
     running statistics move as ``r = 0.9·r + 0.1·batch`` with the *biased*
     batch variance, where ``nn.BatchNorm2d`` would use the unbiased one.
+    ε is 1e-5, as the zoo's, or the caller's (EfficientNet's 1e-3).
     The parameter and buffer names are ``nn.BatchNorm2d``'s.
     Its batch statistics are the global batch's under
     ``parallel.mesh.data_parallel`` (``reduces_over_data``).
@@ -56,8 +57,8 @@ class BatchNorm(nn.BatchNorm2d):
 
     reduces_over_data = True
 
-    def __init__(self, features: int):
-        super().__init__(features, eps=1e-5, momentum=0.1)
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(features, eps=eps, momentum=0.1)
 
     def forward(self, x):
         if self.training:

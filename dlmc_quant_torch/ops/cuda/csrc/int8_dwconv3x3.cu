@@ -1,30 +1,37 @@
-// int8 depthwise 3x3 convolution with the folded requantize epilogue, for
-// Hopper (sm_90a): MobileNetV2's and MobileOne's depthwise convs on the
-// chained int8 path.
+// int8 depthwise 3x3 and 5x5 convolutions with the folded requantize
+// epilogue, for Hopper (sm_90a): the depthwise convs of MobileNetV2,
+// MobileOne, GhostNet and EfficientNet on the integer paths.
+//
+// Built twice.  As itself (int8_dwconv3x3.cu) it holds the 3x3 window at
+// C % 8 == 0 on 16-byte aligned codes: the instantiations MobileNetV2 and
+// MobileOne run.  int8_dwconv5x5.cu includes it with DLMCQ_DW_WIDE set and
+// holds the rest: the 5x5 window (int8_dwconv5x5_kernel) at any C, and the
+// 3x3 window's ragged path (RAGGED, any C >= 1 or codes not 16-byte
+// aligned).  The C entry point is the same in both libraries.
 //
 // Replaces the XLA int8 conv of the JAX package's integer path at
 // feature_group_count = C (dlmc_quant_tpu/quant/layers.py:722-728:
 // jnp.pad of the codes with the pad code, then conv_general_dilated with
 // preferred_element_type=int32); no Pallas kernel did this on the TPU, XLA
 // lowered the grouped conv.  For input codes x (N, H, W, C) int8 and a
-// weight w (3, 3, 1, C), packed as (9, C) int8 (tap dy*3 + dx, channels
-// contiguous):
+// weight w (K, K, 1, C), K = 3 or 5, packed as (K*K, C) int8 (tap
+// dy*K + dx, channels contiguous):
 //
 //   acc[n,p,q,c] = sum_{dy,dx} xpad[n, p*s - pad_lo + dy, q*s - pad_lo + dx, c]
-//                              * w[dy*3 + dx, c]                      (int32)
+//                              * w[dy*K + dx, c]                      (int32)
 //   xpad = x, or the int8 code `pad` (real 0 on the input's grid, not 0)
-//          outside the map; pad_lo = 1, or 0 for SAME at stride 2 on an
-//          even map; Ho = ceil(H / s), Wo = ceil(W / s)
+//          outside the map; pad_lo = K/2, or K/2 - 1 for SAME at stride 2
+//          on an even map; Ho = ceil(H / s), Wo = ceil(W / s)
 //   codes: out = clamp(rint(f32(acc)*a[c] + b[c]), lo, hi)    -> int8
 //   f32:   out = f32(acc)*a[c] + b[c], then max(., 0) if relu -> f32
 //   with a weight offset's term (an offset o_w on the weight grid, c the
 //   per-channel oc[c] = s_x*o_w[c]) the product f32(acc)*a[c] becomes
 //   f32(acc)*a[c] + f32(S)*oc[c], each rounded, before the rest, with
-//   S[n,p,q,c] = sum_{dy,dx} xpad[...] - 9*pad: the window's codes of the
+//   S[n,p,q,c] = sum_{dy,dx} xpad[...] - K*K*pad: the window's codes of the
 //   channel less the pad code (a pad adds 0).  The kernel sums them next
-//   to the products: one more signed __dp4a a tap row, against a word of
-//   ones where the weight word has its three taps (TERM, an instantiation
-//   of its own).
+//   to the products: one more signed __dp4a a tap row (two at 5x5),
+//   against a word of ones where the weight word has its taps (TERM, an
+//   instantiation of its own).
 //
 // written with __fmul_rn, __fadd_rn (no fma contraction) and rounding half
 // to even, as the int8 conv's and GEMM's epilogues (ops/cuda/epilogue.py is
@@ -73,6 +80,30 @@
 // channels a tap, sign-extends the nibbles bytewise and interleaves them
 // into the same tap words as an int8 weight gives, so nothing after it
 // changes.
+//
+// The 5x5 window (int8_dwconv5x5_kernel, built into int8_dwconv5x5.cu).
+// Five taps a row do not fit one dp4a word, so a tap row's weights are two
+// words: lo = (w0,w1,w2,w3) and hi = (w4,0,0,0), the 64-bit (hi:lo) of the
+// five taps.  From each halo row a thread reads (R-1)s+5 words (8 at
+// stride 1, 7 at stride 2) and transposes them into two channel words of 4
+// pixels, A = pixels h..h+3 and B = h+4..h+7, h its first column.  Output
+// k starts d = k*s pixels in, and its five taps of the row are
+// dp4a(A, lo << 8d) + dp4a(B, funnelshift_l(lo, hi, 8d)): (hi:lo) << 8d
+// puts tap i at byte i + d of the pair (A, B).  Two dp4a an output a row,
+// 10 an output (25 multiply-adds); the window sum of TERM is the same
+// against words of ones, less 25 * pad.  Each output row reads its five
+// halo rows anew (no rows kept across output rows: a simple first form).
+//
+// The ragged path (RAGGED, any C >= 1, or codes that are not 16-byte
+// aligned), of either window: the slice CB is a multiple of 4 (the whole
+// pixel rounded up to a quad where it fits) and the halo keeps its 4-byte
+// words at the pitch CB + 16, so the products are the aligned path's.
+// What changes is at the edges: the halo is staged in 4-byte cp.async
+// granules where C % 4 == 0 on 4-byte aligned codes, else byte by byte
+// (stage_ragged; the pad code past the map and past C), the weights,
+// a, b and oc are read channel by channel (0 past C; W4 rows of
+// (C + 1) / 2 bytes), and the outputs are stored channel by channel.
+//
 // The tile plan (CB, column groups, row groups, rows a thread) comes from
 // the wrapper (ops/cuda/int8_dwconv.py: plan, a model of the work and of
 // the last tile's latency), which the CPU tests emulate word for word
@@ -101,7 +132,7 @@ struct DwArgs {
   void* out;             // (N, Ho, Wo, C): int8 codes or f32
   int H, W, C, Ho, Wo, pad_lo, relu, w4;
   float flo, fhi;        // the codes' clamp, lo and hi
-  int pad9;              // 9 * the pad code: a window's pads, if TERM
+  int pad_sum;           // K*K * the pad code: a window's pads, if TERM
   uint32_t pad4;         // the pad code in every byte
   // the plan: channel slice and its quads, column groups, rows a thread;
   // tile, halo and smem pitch; tiles of the walk
@@ -119,6 +150,25 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
                  "l"(src));
+}
+
+// the ragged path's staging of one cell: a 4-byte cp.async (C % 4 == 0 on
+// 4-byte aligned codes) or a byte, the pad code where src is null
+__device__ __forceinline__ void stage_ragged(unsigned char* dst,
+                                             const int8_t* src,
+                                             const DwArgs& g) {
+  if (g.granule == 4) {
+    if (src != nullptr) {
+      const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                   "l"(src));
+    } else {
+      *reinterpret_cast<uint32_t*>(dst) = g.pad4;
+    }
+  } else {
+    *dst = src != nullptr ? static_cast<unsigned char>(*src)
+                          : static_cast<unsigned char>(g.pad4);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -144,8 +194,9 @@ __device__ __forceinline__ Tile tile_of(const DwArgs& g, int t) {
 
 // Stage tile t's halo in buf: a thread takes a column of granules and
 // every `ways`-th row of it (ways = the threads a column gets); cp.async
-// inside the map, the pad code outside it and past C.
-template <int S>
+// inside the map, the pad code outside it and past C.  RAGGED stages
+// granules of 4 bytes or 1 (stage_ragged).
+template <int S, bool RAGGED = false>
 __device__ void stage_halo(const DwArgs& g, int t, unsigned char* buf) {
   const Tile tl = tile_of(g, t);
   const int c0 = (t % g.slices) * g.cb;
@@ -174,7 +225,14 @@ __device__ void stage_halo(const DwArgs& g, int t, unsigned char* buf) {
     unsigned char* dst = buf + (hr0 * g.hw + hc) * g.pitch + (c - c0);
     for (int hr = hr0; hr < g.hh; hr += ways, dst += step) {
       const int iy = iy0 + hr;
-      if (col_in && iy >= 0 && iy < g.H) {
+      if constexpr (RAGGED) {
+        stage_ragged(dst,
+                     col_in && iy >= 0 && iy < g.H
+                         ? image + iy * row_bytes +
+                               static_cast<long long>(ix) * g.C + c
+                         : nullptr,
+                     g);
+      } else if (col_in && iy >= 0 && iy < g.H) {
         cp_async(dst, image + iy * row_bytes + static_cast<long long>(ix) *
                                   g.C + c, g.granule);
       } else if (g.granule == 16) {
@@ -209,11 +267,56 @@ __device__ __forceinline__ uint32_t unpack_pair(uint32_t u) {
   return __byte_perm(lo, hi, 0x5140);
 }
 
+// The word of channels c..c+3 at one tap (byte j: channel c + j).  The one
+// place the kernel reads the weight: a 32-bit word, or at W4 a 16-bit word
+// of nibbles (C % 8 == 0 keeps it aligned), unpacked.  RAGGED reads byte
+// by byte, 0 past C; at W4 a tap's row is (C + 1) / 2 bytes.
+template <bool RAGGED>
+__device__ __forceinline__ uint32_t tap_word(const DwArgs& g, int tap,
+                                             int c) {
+  if constexpr (RAGGED) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ch = c + j;
+      if (ch < g.C) {
+        int v;
+        if (g.w4) {
+          const int u = __ldg(reinterpret_cast<const uint8_t*>(g.w) +
+                              tap * ((g.C + 1) / 2) + ch / 2);
+          v = (((u >> (4 * (ch & 1))) & 0xF) ^ 8) - 8;
+        } else {
+          v = __ldg(g.w + tap * g.C + ch);
+        }
+        word |= static_cast<uint32_t>(v & 0xFF) << (8 * j);
+      }
+    }
+    return word;
+  } else {
+    const int at = tap * g.C + c;
+    return g.w4 ? unpack_pair(__ldg(
+                      reinterpret_cast<const uint16_t*>(g.w) + at / 4))
+                : __ldg(reinterpret_cast<const uint32_t*>(g.w + at));
+  }
+}
+
+// a, b (and the offset term's oc) of channels c..c+3, 0 past C
+template <bool TERM, bool RAGGED>
+__device__ __forceinline__ void load_affine(const DwArgs& g, int c,
+                                            bool c_in, float (&ea)[4],
+                                            float (&eb)[4], float (&ec)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool in = RAGGED ? c + j < g.C : c_in;
+    ea[j] = in ? __ldg(g.a + c + j) : 0.0f;
+    eb[j] = in ? __ldg(g.b + c + j) : 0.0f;
+    ec[j] = TERM && in ? __ldg(g.oc + c + j) : 0.0f;
+  }
+}
+
 // The weight words of channels c..c+3 for each tap row dy: byte i of
-// wa[dy][j] is w[3 dy + i, c + j] for i < 3, byte 3 is 0; and a, b.  The
-// one place the kernel reads the weight: a 32-bit word a tap, or at W4 a
-// 16-bit word of nibbles (C % 8 == 0 keeps it aligned), unpacked.
-template <bool TERM>
+// wa[dy][j] is w[3 dy + i, c + j] for i < 3, byte 3 is 0; and a, b.
+template <bool TERM, bool RAGGED>
 __device__ __forceinline__ void load_weights(const DwArgs& g, int c,
                                              bool c_in,
                                              uint32_t (&wa)[3][4],
@@ -224,21 +327,12 @@ __device__ __forceinline__ void load_weights(const DwArgs& g, int c,
     uint32_t tap[3] = {0, 0, 0};
     if (c_in) {
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const int at = (3 * dy + dx) * g.C + c;
-        tap[dx] = g.w4 ? unpack_pair(__ldg(
-                             reinterpret_cast<const uint16_t*>(g.w) + at / 4))
-                       : __ldg(reinterpret_cast<const uint32_t*>(g.w + at));
-      }
+      for (int dx = 0; dx < 3; ++dx)
+        tap[dx] = tap_word<RAGGED>(g, 3 * dy + dx, c);
     }
     transpose4(tap[0], tap[1], tap[2], 0u, wa[dy]);
   }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    ea[j] = c_in ? __ldg(g.a + c + j) : 0.0f;
-    eb[j] = c_in ? __ldg(g.b + c + j) : 0.0f;
-    ec[j] = TERM && c_in ? __ldg(g.oc + c + j) : 0.0f;
-  }
+  load_affine<TERM, RAGGED>(g, c, c_in, ea, eb, ec);
 }
 
 // The channel words of one halo row for a thread's R outputs.  Stride 1
@@ -329,15 +423,16 @@ __device__ __forceinline__ float acc_to_float(int acc) {
 }
 
 // the epilogue of one output row's R x 4 values, stored where inside the
-// map (and the thread's channels inside C)
-template <bool CODES, bool TERM, int R>
+// map (and the thread's channels inside C: RAGGED stores channel by
+// channel, the first nc of the 4)
+template <bool CODES, bool TERM, int R, bool RAGGED = false>
 __device__ __forceinline__ void store_row(const DwArgs& g,
                                           const int (&acc)[4][R],
                                           const int (&sums)[4][R],
                                           const float (&ea)[4],
                                           const float (&eb)[4],
                                           const float (&ec)[4],
-                                          long long at, int ox) {
+                                          long long at, int ox, int nc = 4) {
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     if (ox + k >= g.Wo) break;
@@ -346,12 +441,24 @@ __device__ __forceinline__ void store_row(const DwArgs& g,
     for (int j = 0; j < 4; ++j) {
       float prod = __fmul_rn(acc_to_float(acc[j][k]), ea[j]);
       if constexpr (TERM)
-        prod = __fadd_rn(prod,
-                         __fmul_rn(acc_to_float(sums[j][k] - g.pad9), ec[j]));
+        prod = __fadd_rn(
+            prod, __fmul_rn(acc_to_float(sums[j][k] - g.pad_sum), ec[j]));
       y[j] = __fadd_rn(prod, eb[j]);
     }
     const long long o = at + static_cast<long long>(k) * g.C;
-    if constexpr (CODES) {
+    if constexpr (RAGGED) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j >= nc) break;
+        if constexpr (CODES)
+          static_cast<int8_t*>(g.out)[o + j] = static_cast<int8_t>(
+              __float_as_uint(__fadd_rn(fminf(fmaxf(y[j], g.flo), g.fhi),
+                                        MAGIC)) & 0xFF);
+        else
+          static_cast<float*>(g.out)[o + j] =
+              g.relu ? fmaxf(y[j], 0.0f) : y[j];
+      }
+    } else if constexpr (CODES) {
       // clamp(rint(y), lo, hi) as __float2int_rn and a clamp give it: the
       // clamp to the integers lo, hi commutes with rint, and adding MAGIC
       // rounds half to even to an integer whose low byte is the code
@@ -374,7 +481,7 @@ __device__ __forceinline__ void store_row(const DwArgs& g,
   }
 }
 
-template <int S, bool CODES, bool TERM>
+template <int S, bool CODES, bool TERM, bool RAGGED>
 __global__ void __launch_bounds__(MAX_THREADS)
 int8_dwconv3x3_kernel(const DwArgs g) {
   constexpr int R = S == 1 ? 4 : 2;      // output columns of a thread
@@ -388,16 +495,16 @@ int8_dwconv3x3_kernel(const DwArgs g) {
   const bool c_in = c < g.C;
   uint32_t wa[3][4];
   float ea[4], eb[4], ec[4];
-  load_weights<TERM>(g, c, c_in, wa, ea, eb, ec);
+  load_weights<TERM, RAGGED>(g, c, c_in, wa, ea, eb, ec);
 
   const int row_step = g.hw * g.pitch;        // a halo row in smem
   const int col0 = R * S * j;                 // the thread's first column
   int buf = 0;
-  stage_halo<S>(g, blockIdx.x, smem);
+  stage_halo<S, RAGGED>(g, blockIdx.x, smem);
   cp_async_commit();
   for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
     if (t + gridDim.x < g.tiles)
-      stage_halo<S>(g, t + gridDim.x, smem + (buf ^ 1) * g.buf_bytes);
+      stage_halo<S, RAGGED>(g, t + gridDim.x, smem + (buf ^ 1) * g.buf_bytes);
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
@@ -448,17 +555,151 @@ int8_dwconv3x3_kernel(const DwArgs g) {
         if constexpr (TERM) sum_row<S, R>(sums, cw[0]);
       }
       if (col_in && oy < g.Ho)
-        store_row<CODES, TERM, R>(g, acc, sums, ea, eb, ec, at, ox);
+        store_row<CODES, TERM, R, RAGGED>(g, acc, sums, ea, eb, ec, at,
+                                          ox, g.C - c);
     }
     __syncthreads();
     buf ^= 1;
   }
 }
 
-template <int S, bool CODES, bool TERM>
+// The 5x5 window's tap-row weights of channels c..c+3: byte i of
+// wlo[dy][j] is w[5 dy + i, c + j] (i < 4), byte 0 of whi[dy][j] is
+// w[5 dy + 4, c + j], the rest 0; and a, b (the header's 5x5 paragraph).
+template <bool TERM, bool RAGGED>
+__device__ __forceinline__ void load_weights5(const DwArgs& g, int c,
+                                              bool c_in,
+                                              uint32_t (&wlo)[5][4],
+                                              uint32_t (&whi)[5][4],
+                                              float (&ea)[4], float (&eb)[4],
+                                              float (&ec)[4]) {
+#pragma unroll
+  for (int dy = 0; dy < 5; ++dy) {
+    uint32_t tap[5] = {0, 0, 0, 0, 0};
+    if (c_in) {
+#pragma unroll
+      for (int dx = 0; dx < 5; ++dx)
+        tap[dx] = tap_word<RAGGED>(g, 5 * dy + dx, c);
+    }
+    transpose4(tap[0], tap[1], tap[2], tap[3], wlo[dy]);
+    transpose4(tap[4], 0u, 0u, 0u, whi[dy]);
+  }
+  load_affine<TERM, RAGGED>(g, c, c_in, ea, eb, ec);
+}
+
+// The channel words of one halo row for the 5x5 window: cw[j] = pixels
+// h..h+3 of channel j, cw[4 + j] = h+4..h+7 (at stride 2 the last byte
+// repeats h+6: it meets a zero weight byte).
+template <int S>
+__device__ __forceinline__ void row_words5(const unsigned char* q, int pitch,
+                                           uint32_t (&cw)[8]) {
+  constexpr int WORDS = S == 1 ? 8 : 7;
+  uint32_t p[8];
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k)
+    p[k] = *reinterpret_cast<const uint32_t*>(q + k * pitch);
+  if constexpr (S == 2) p[7] = p[6];
+  uint32_t lo[4], hi[4];
+  transpose4(p[0], p[1], p[2], p[3], lo);
+  transpose4(p[4], p[5], p[6], p[7], hi);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    cw[j] = lo[j];
+    cw[4 + j] = hi[j];
+  }
+}
+
+// acc[j][k] += the tap row's five products for output k of channel j,
+// whose window starts d = k*S pixels into the row's words; with ONES the
+// five codes (the window sum)
+template <int S, int R, bool ONES = false>
+__device__ __forceinline__ void mac_row5(int (&acc)[4][R],
+                                         const uint32_t (&cw)[8],
+                                         const uint32_t (&wlo)[4],
+                                         const uint32_t (&whi)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t lo = ONES ? 0x01010101u : wlo[j];
+    const uint32_t hi = ONES ? 0x00000001u : whi[j];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int d = 8 * S * k;
+      acc[j][k] = __dp4a(static_cast<int>(cw[j]), static_cast<int>(lo << d),
+                         acc[j][k]);
+      acc[j][k] = __dp4a(static_cast<int>(cw[4 + j]),
+                         static_cast<int>(__funnelshift_l(lo, hi, d)),
+                         acc[j][k]);
+    }
+  }
+}
+
+template <int S, bool CODES, bool TERM, bool RAGGED>
+__global__ void __launch_bounds__(MAX_THREADS)
+int8_dwconv5x5_kernel(const DwArgs g) {
+  constexpr int R = S == 1 ? 4 : 2;      // output columns of a thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cq = threadIdx.x % g.cq;
+  const int j = threadIdx.x / g.cq % g.cg;
+  const int r0 = threadIdx.x / (g.cq * g.cg) * g.rpt;
+  const int c = blockIdx.x % g.slices * g.cb + 4 * cq;
+  const bool c_in = c < g.C;
+  uint32_t wlo[5][4], whi[5][4];
+  float ea[4], eb[4], ec[4];
+  load_weights5<TERM, RAGGED>(g, c, c_in, wlo, whi, ea, eb, ec);
+
+  const int row_step = g.hw * g.pitch;
+  const int col0 = R * S * j;
+  int buf = 0;
+  stage_halo<S, RAGGED>(g, blockIdx.x, smem);
+  cp_async_commit();
+  for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+    if (t + gridDim.x < g.tiles)
+      stage_halo<S, RAGGED>(g, t + gridDim.x,
+                            smem + (buf ^ 1) * g.buf_bytes);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+
+    const Tile tl = tile_of(g, t);
+    const unsigned char* q =
+        smem + buf * g.buf_bytes + col0 * g.pitch + 4 * cq;
+    const int ox = tl.ox0 + R * j;
+    const bool col_in = c_in && ox < g.Wo;
+    long long at = ((static_cast<long long>(tl.n) * g.Ho + tl.oy0 + r0) *
+                        g.Wo + ox) * g.C + c;
+    const long long out_row = static_cast<long long>(g.Wo) * g.C;
+    int oy = tl.oy0 + r0;
+    for (int i = 0; i < g.rpt; ++i, ++oy, at += out_row) {
+      const unsigned char* hr = q + (r0 + i) * S * row_step;
+      int acc[4][R], sums[4][R];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int k = 0; k < R; ++k) acc[u][k] = sums[u][k] = 0;
+#pragma unroll
+      for (int dy = 0; dy < 5; ++dy) {
+        uint32_t cw[8];
+        row_words5<S>(hr + dy * row_step, g.pitch, cw);
+        mac_row5<S, R>(acc, cw, wlo[dy], whi[dy]);
+        if constexpr (TERM) mac_row5<S, R, true>(sums, cw, wlo[dy], whi[dy]);
+      }
+      if (col_in && oy < g.Ho)
+        store_row<CODES, TERM, R, RAGGED>(g, acc, sums, ea, eb, ec, at, ox,
+                                          g.C - c);
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+}
+
+template <int K, int S, bool CODES, bool TERM, bool RAGGED>
 cudaError_t launch(const DwArgs& g, int threads, int smem,
                    cudaStream_t stream) {
-  const auto kernel = int8_dwconv3x3_kernel<S, CODES, TERM>;
+  void (*kernel)(const DwArgs);
+  if constexpr (K == 3)
+    kernel = int8_dwconv3x3_kernel<S, CODES, TERM, RAGGED>;
+  else
+    kernel = int8_dwconv5x5_kernel<S, CODES, TERM, RAGGED>;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -485,31 +726,76 @@ cudaError_t launch(const DwArgs& g, int threads, int smem,
   return cudaGetLastError();
 }
 
+// the instantiation of one window and path for the stride, mode and term
+template <int K, bool RAGGED>
+cudaError_t launch_window(const DwArgs& g, int stride, bool codes,
+                          bool term, int threads, int smem,
+                          cudaStream_t s) {
+  if (!term) {
+    if (stride == 1)
+      return codes ? launch<K, 1, true, false, RAGGED>(g, threads, smem, s)
+                   : launch<K, 1, false, false, RAGGED>(g, threads, smem, s);
+    return codes ? launch<K, 2, true, false, RAGGED>(g, threads, smem, s)
+                 : launch<K, 2, false, false, RAGGED>(g, threads, smem, s);
+  }
+  if (stride == 1)
+    return codes ? launch<K, 1, true, true, RAGGED>(g, threads, smem, s)
+                 : launch<K, 1, false, true, RAGGED>(g, threads, smem, s);
+  return codes ? launch<K, 2, true, true, RAGGED>(g, threads, smem, s)
+               : launch<K, 2, false, true, RAGGED>(g, threads, smem, s);
+}
+
+// what this library was built with: the aligned 3x3 path alone, or (in
+// int8_dwconv5x5.cu) the 5x5 window and the ragged path of either window
+cudaError_t dispatch(const DwArgs& g, int k, int stride, bool codes,
+                     bool term, bool ragged, int threads, int smem,
+                     cudaStream_t s) {
+#ifdef DLMCQ_DW_WIDE
+  if (k == 5)
+    return ragged ? launch_window<5, true>(g, stride, codes, term, threads,
+                                           smem, s)
+                  : launch_window<5, false>(g, stride, codes, term, threads,
+                                            smem, s);
+  if (ragged)
+    return launch_window<3, true>(g, stride, codes, term, threads, smem, s);
+#else
+  if (k == 3 && !ragged)
+    return launch_window<3, false>(g, stride, codes, term, threads, smem, s);
+#endif
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // out (n, ceil(h/stride), ceil(w/stride), c) from x (n, h, w, c) int8 and
-// w (9, c) int8 (w4 = 0) or (9, c / 2) nibble pairs (w4 = 1): the
-// depthwise 3x3 conv with top/left pad pad_lo, `pad`
+// w (k*k, c) int8 (w4 = 0) or (k*k, (c + 1) / 2) nibble pairs (w4 = 1):
+// the depthwise k x k conv (k = 3 or 5) with top/left pad pad_lo, `pad`
 // outside the map, then the epilogue (codes: clamp to [lo, hi] -> int8;
-// else f32, ReLU'd if relu).  The plan (ops/cuda/int8_dwconv.py: plan):
-// cb channels a block, cg column groups, rg row groups, rpt rows a thread
-// (cb % 8 == 0, cb/4 * cg * rg <= 256 threads).  oc (c,) float32 adds
-// the weight offset's term, or is null.  c % 8 == 0, stride 1 or
-// 2, pad_lo 0 or 1, 16-byte aligned x, w and out (the wrapper checks
-// them).  Launches on `stream`; returns cudaGetLastError().
-int dlmcq_int8_dwconv3x3(const void* x, const void* w, const void* a,
-                         const void* b, const void* oc, void* out, int n,
-                         int h, int wd,
-                         int c, int stride, int pad_lo, int pad, int lo,
-                         int hi, int codes, int relu, int w4, int cb, int cg,
-                         int rg, int rpt, void* stream) {
+// else f32, ReLU'd if relu).  ragged = 0: the aligned path (c % 8 == 0,
+// 16-byte aligned x and w); 4 or 1: the ragged path, staging the halo in
+// granules of that many bytes (4: c % 4 == 0 and 4-byte aligned x).  The
+// plan (ops/cuda/int8_dwconv.py: plan): cb channels a block, cg column
+// groups, rg row groups, rpt rows a thread (cb % 8 == 0, or % 4 on the
+// ragged path; cb/4 * cg * rg <= 256 threads).  oc (c,) float32 adds the
+// weight offset's term, or is null.  Stride 1 or 2, 0 <= pad_lo < k,
+// 16-byte aligned out (the wrapper checks them).  A library takes what it
+// was built for (dispatch) and returns cudaErrorInvalidValue for the rest.
+// Launches on `stream`; returns cudaGetLastError().
+int dlmcq_int8_dwconv(const void* x, const void* w, const void* a,
+                      const void* b, const void* oc, void* out, int n, int h,
+                      int wd, int c, int k, int stride, int pad_lo, int pad,
+                      int lo, int hi, int codes, int relu, int w4, int ragged,
+                      int cb, int cg, int rg, int rpt, void* stream) {
   const int r = stride == 1 ? 4 : 2;
   const long long threads = static_cast<long long>(cb / 4) * cg * rg;
-  if (c % 8 || c <= 0 || (stride != 1 && stride != 2) ||
-      (pad_lo != 0 && pad_lo != 1) || n <= 0 || h <= 0 || wd <= 0 ||
-      cb % 8 || cb < 8 || cg < 1 || rg < 1 || rpt < 1 ||
+  const int quantum = ragged ? 4 : 8;
+  if (c <= 0 || (k != 3 && k != 5) || (stride != 1 && stride != 2) ||
+      pad_lo < 0 || pad_lo >= k || n <= 0 || h <= 0 || wd <= 0 ||
+      (ragged != 0 && ragged != 1 && ragged != 4) ||
+      (ragged == 0 && c % 8) || (ragged == 4 && c % 4) ||
+      cb % quantum || cb < quantum || cg < 1 || rg < 1 || rpt < 1 ||
       threads > MAX_THREADS || rpt > 1024 || cg > 64)
     return static_cast<int>(cudaErrorInvalidValue);
   DwArgs g;
@@ -530,17 +816,17 @@ int dlmcq_int8_dwconv3x3(const void* x, const void* w, const void* a,
   g.relu = relu;
   g.w4 = w4 != 0;
   g.pad4 = 0x01010101u * static_cast<uint32_t>(pad & 0xFF);
-  g.pad9 = 9 * pad;
+  g.pad_sum = k * k * pad;
   g.cb = cb;
   g.cq = cb / 4;
   g.cg = cg;
   g.rpt = rpt;
   g.th = rg * rpt;
   g.tw = r * cg;
-  g.hh = (g.th - 1) * stride + 3;
-  g.hw = (g.tw - 1) * stride + 3;
+  g.hh = (g.th - 1) * stride + k;
+  g.hw = (g.tw - 1) * stride + k;
   g.pitch = cb + PITCH_PAD;
-  g.granule = c % 16 == 0 && cb % 16 == 0 ? 16 : 8;
+  g.granule = ragged ? ragged : c % 16 == 0 && cb % 16 == 0 ? 16 : 8;
   const long long buf = static_cast<long long>(g.hh) * g.hw * g.pitch;
   g.slices = (c + cb - 1) / cb;
   g.tiles_x = (g.Wo + g.tw - 1) / g.tw;
@@ -551,25 +837,10 @@ int dlmcq_int8_dwconv3x3(const void* x, const void* w, const void* a,
     return static_cast<int>(cudaErrorInvalidValue);
   g.buf_bytes = static_cast<int>(buf);
   g.tiles = static_cast<int>(tiles);
-  const int smem = static_cast<int>(2 * buf);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (oc == nullptr) {
-    if (stride == 1)
-      err = codes ? launch<1, true, false>(g, threads, smem, s)
-                  : launch<1, false, false>(g, threads, smem, s);
-    else
-      err = codes ? launch<2, true, false>(g, threads, smem, s)
-                  : launch<2, false, false>(g, threads, smem, s);
-  } else {
-    if (stride == 1)
-      err = codes ? launch<1, true, true>(g, threads, smem, s)
-                  : launch<1, false, true>(g, threads, smem, s);
-    else
-      err = codes ? launch<2, true, true>(g, threads, smem, s)
-                  : launch<2, false, true>(g, threads, smem, s);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(g, k, stride, codes != 0, oc != nullptr,
+                                   ragged != 0, static_cast<int>(threads),
+                                   static_cast<int>(2 * buf),
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 const char* dlmcq_cuda_error_string(int err) {

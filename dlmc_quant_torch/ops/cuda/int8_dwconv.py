@@ -1,18 +1,21 @@
-"""int8 depthwise 3×3 convolution with the folded requantize epilogue.
+"""int8 depthwise 3×3 and 5×5 convolutions with the folded requantize
+epilogue.
 
-MobileNetV2's and MobileOne's depthwise convs on the chained int8 path.
-The JAX package runs them as an XLA int8 conv at ``feature_group_count =
-C`` on the pad-code-padded codes (``dlmc_quant_tpu/quant/layers.py:722-728``);
-no Pallas kernel did.  The CUDA source is ``csrc/int8_dwconv3x3.cu``; its
-header says what bounds it on an H100 and how its tiles work.  For input
-codes ``x`` (N, H, W, C) int8 and a weight ``w`` (3, 3, 1, C) int8 (packed
-once by :func:`pack_weight` as (9, C), the tap ``dy·3 + dx`` a row)::
+The depthwise convs of MobileNetV2, MobileOne, GhostNet and EfficientNet
+on the integer paths.  The JAX package runs them as an XLA int8 conv at
+``feature_group_count = C`` on the pad-code-padded codes
+(``dlmc_quant_tpu/quant/layers.py:722-728``); no Pallas kernel did.  The
+CUDA source is ``csrc/int8_dwconv3x3.cu``; its header says what bounds it
+on an H100 and how its tiles work.  For input codes ``x`` (N, H, W, C) int8
+and a weight ``w`` (k, k, 1, C) int8, k = 3 or 5 (packed once by
+:func:`pack_weight` as (k², C), the tap ``dy·k + dx`` a row)::
 
     acc[n,p,q,c] = Σ_{dy,dx} xpad[n, p·s + dy, q·s + dx, c] · w[dy, dx, 0, c]   (int32)
     xpad         = x padded with the int8 code ``pad``: ``pad_lo`` rows and
-                   columns at the top and left (1, or 0 for the SAME
-                   geometry of a stride-2 conv on an even map), as many at
-                   the bottom and right as the window needs; Ho = ⌈H/s⌉
+                   columns at the top and left (k // 2, or k // 2 − 1 for
+                   the SAME geometry of a stride-2 conv on an even map), as
+                   many at the bottom and right as the window needs;
+                   Ho = ⌈H/s⌉
     "codes": out = clamp(rint(f32(acc)·a[c] + b[c]), lo, hi) → int8 (N, Ho, Wo, C)
     "f32":   out = f32(acc)·a[c] + b[c], then max(·, 0) if relu → f32
 
@@ -21,22 +24,26 @@ With an ``offset`` (C,) float32, a weight offset's term (a weight grid
 becomes ``f32(acc)·a[c] + f32(S)·offset[c]`` before the rest, ``S`` the
 window's codes of channel ``c`` less the pad code::
 
-    S[n,p,q,c] = Σ_{dy,dx} xpad[n, p·s + dy, q·s + dx, c] − 9·pad
+    S[n,p,q,c] = Σ_{dy,dx} xpad[n, p·s + dy, q·s + dx, c] − k²·pad
 
 which the kernel sums next to its products (no separate launch).
 
 A weight of 4 bits or fewer comes nibble-packed (:func:`pack_weight_int4`:
-(9, C/2) uint8, two channels a byte along C), and the kernel unpacks it
+(k², ⌈C/2⌉) uint8, two channels a byte along C), and the kernel unpacks it
 where it reads the weight, once a block.
 
-The epilogue is :mod:`.epilogue`'s (no residual).  The plain version takes
-any C; the kernel takes C % 8 == 0 (:func:`check_kernel`), which every
-width of the zoo gives (``_make_divisible(·, 8)``).  :func:`plan` picks the
-kernel's tiles per shape.
+The epilogue is :mod:`.epilogue`'s (no residual).  Two libraries hold the
+kernel's instantiations: ``int8_dwconv3x3`` the 3×3 window on the aligned
+path (C % 8 == 0, 16-byte aligned codes and weight: MobileNetV2's and
+MobileOne's widths, ``_make_divisible(·, 8)``), and ``int8_dwconv5x5``
+(``csrc/int8_dwconv5x5.cu``) the 5×5 window and the ragged path of either
+window, which takes any C ≥ 1: GhostNet's cheap convs have C = 12, 20, 36,
+60, 92, 100 at width 1.0, and C = 18 at width 0.5.  :func:`route` picks
+one per launch, :func:`plan` the tiles.
 
 :func:`int8_dwconv3x3` launches the kernel for CUDA tensors and runs
-:func:`int8_dwconv3x3_plain` for CPU tensors; there is no fallback from one
-to the other.
+:func:`int8_dwconv3x3_plain` for CPU tensors, at the window its weight
+gives; there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +61,8 @@ from dlmc_quant_torch.ops.cuda.epilogue import check_epilogue, epilogue_plain
 from dlmc_quant_torch.ops.cuda.int8_conv import out_hw
 from dlmc_quant_torch.ops.cuda.nibbles import W4, pack_nibbles, unpack_nibbles
 
-GRANULE = 8           # the kernel's channel granule: C % 8 == 0
+WINDOWS = (3, 5)      # the kernel's windows, k × k
+GRANULE = 8           # the aligned path's channel granule: C % 8 == 0
 PITCH_PAD = 16        # bytes after a pixel's slice in shared memory
 MAX_THREADS = 256
 MAX_COLUMN_GROUPS = 8
@@ -62,9 +71,10 @@ HALF_SMEM = 232448 // 2   # two blocks an SM at least
 SMS = 132             # an H100 SXM's SMs, as the plan models the card
 INT_LIMIT = 2 ** 31 - 1
 # the plan's cost model, in instructions of a lane: an output value's
-# multiply-adds and epilogue; a halo row's loads and byte permutes; a
-# tile's decode and barriers; a staged 16- or 8-byte granule
-COST_VALUE, COST_ROW, COST_TILE, COST_GRANULE = 10, 20, 50, 6
+# multiply-adds and epilogue (3×3, 5×5); a halo row's loads and byte
+# permutes; a tile's decode and barriers; a staged granule
+COST_VALUE = {3: 10, 5: 24}
+COST_ROW, COST_TILE, COST_GRANULE = 20, 50, 6
 LANES = 128           # lanes an SM runs a clock
 
 DwPlan = collections.namedtuple(
@@ -81,41 +91,61 @@ def columns(stride: int) -> int:
     return 4 if stride == 1 else 2
 
 
+def window(w: torch.Tensor) -> int:
+    """The window k of a packed weight, from its k² rows."""
+    k = math.isqrt(w.shape[0]) if w.dim() == 2 else 0
+    if k not in WINDOWS or k * k != w.shape[0]:
+        raise ValueError(f"w must be packed (k*k, C) for k in {WINDOWS}, "
+                         f"got {tuple(w.shape)}")
+    return k
+
+
+def pad_los(k: int, stride: int) -> tuple:
+    """The top/left pads the kernel takes: ``k // 2`` (explicit ``k // 2``
+    padding, and SAME at stride 1 or on an odd map), and ``k // 2 − 1``
+    at stride 2 (SAME on an even map)."""
+    return (k // 2,) if stride == 1 else (k // 2 - 1, k // 2)
+
+
 def make_plan(n: int, h: int, w: int, c: int, stride: int, cb: int, cg: int,
-              rg: int, rpt: int) -> DwPlan:
+              rg: int, rpt: int, k: int = 3, ragged: int = 0) -> DwPlan:
     """The kernel's geometry for ``cb`` channels a block, ``cg`` column
-    groups, ``rg`` row groups and ``rpt`` rows a thread (the C entry point
-    derives the same)."""
+    groups, ``rg`` row groups and ``rpt`` rows a thread, at window ``k``,
+    on the aligned path (``ragged`` 0) or the ragged one (its staging
+    granule, 4 or 1); the C entry point derives the same."""
     ho, wo = out_hw(h, w, stride)
     th, tw = rg * rpt, columns(stride) * cg
-    hh, hw = (th - 1) * stride + 3, (tw - 1) * stride + 3
+    hh, hw = (th - 1) * stride + k, (tw - 1) * stride + k
     pitch = cb + PITCH_PAD
     slices, tiles_y, tiles_x = _cdiv(c, cb), _cdiv(ho, th), _cdiv(wo, tw)
+    granule = ragged or (16 if c % 16 == 0 and cb % 16 == 0 else 8)
     return DwPlan(cb, cg, rg, rpt, cb // 4 * cg * rg, th, tw, hh, hw, pitch,
-                  16 if c % 16 == 0 and cb % 16 == 0 else 8, slices,
-                  tiles_y, tiles_x,
+                  granule, slices, tiles_y, tiles_x,
                   n * tiles_y * tiles_x * slices, 2 * hh * hw * pitch)
 
 
-def _best(n: int, h: int, w: int, c: int, stride: int, cb: int) -> DwPlan:
+def _best(n: int, h: int, w: int, c: int, stride: int, cb: int, k: int = 3,
+          ragged: int = 0) -> DwPlan:
     """The row groups and rows a thread of least modelled time at ``cb``
     (ties to the more threads): a thread's instructions for a tile (its
     values' multiply-adds and epilogue, its halo rows, the tile's overhead,
     its share of the staged granules) times the lanes of all tiles over
     the card's lanes, plus one thread's for the last tile.  At batch 256
     the first term decides (long walks down a tile reuse the halo rows), at
-    batch 8 the second (more, shorter tiles fill the card)."""
+    batch 8 the second (more, shorter tiles fill the card).  The 5×5
+    window reads each output row's five halo rows anew."""
     cg = column_groups(w, stride)
     best = None
     for rg in range(1, MAX_THREADS // (cb // 4 * cg) + 1):
         for rpt in range(1, MAX_ROWS + 1):
-            p = make_plan(n, h, w, c, stride, cb, cg, rg, rpt)
+            p = make_plan(n, h, w, c, stride, cb, cg, rg, rpt, k, ragged)
             if p.smem > HALF_SMEM:
                 continue
             lanes = _cdiv(p.threads, 32) * 32
             granules = _cdiv(p.hh * p.hw * cb // p.granule, p.threads)
-            thread = (rpt * columns(stride) * 4 * COST_VALUE
-                      + (rpt * stride + 3 - stride) * COST_ROW + COST_TILE
+            rows = rpt * stride + 3 - stride if k == 3 else rpt * k
+            thread = (rpt * columns(stride) * 4 * COST_VALUE[k]
+                      + rows * COST_ROW + COST_TILE
                       + granules * COST_GRANULE)
             # the card's share of all tiles' lane work, and the last tile
             cost = p.tiles * lanes * thread / (SMS * LANES) + thread
@@ -131,85 +161,96 @@ def column_groups(w: int, stride: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(n: int, h: int, w: int, c: int, stride: int) -> DwPlan:
-    """Tiles for one launch.
+def plan(n: int, h: int, w: int, c: int, stride: int, k: int = 3,
+         ragged: int = 0) -> DwPlan:
+    """Tiles for one launch at window ``k``, on the aligned path
+    (``ragged`` 0) or the ragged one (4 or 1, :func:`route`).
 
-    The channel slice CB: the whole pixel where its quads fit in 256
-    threads and either C % 32 != 0 (slices of 32 would straddle 32-byte
-    sectors; whole pixels let each warp's stores run on through the pixel)
-    or the stride is 2 (a tall tile buys little there: each output row
-    needs two new halo rows anyway); else, where C % 32 != 0, the widest
-    of 64, 48, 32, 16 and 8 that divides C; where C % 32 == 0, 64 if it
-    divides C and still gives two tiles an SM, else 32 (at stride 1 the
-    taller tile of a narrow slice wins).  Tile columns: at
-    most 8 groups of :func:`columns`, balanced over the tiles of a row.
-    Row groups and rows a thread: the pair of least modelled time
-    (:func:`_best`), within 256 threads and half the shared memory.
+    The channel slice CB of the aligned path: the whole pixel where its
+    quads fit in 256 threads and either C % 32 != 0 (slices of 32 would
+    straddle 32-byte sectors; whole pixels let each warp's stores run on
+    through the pixel) or the stride is 2 (a tall tile buys little there:
+    each output row needs new halo rows anyway); else, where C % 32 != 0,
+    the widest of 64, 48, 32, 16 and 8 that divides C; where C % 32 == 0,
+    64 if it divides C and still gives two tiles an SM, else 32 (at stride
+    1 the taller tile of a narrow slice wins).  On the ragged path: the
+    whole pixel rounded up to a quad where it fits, else 32 (a masked tail
+    slice).  Tile columns: at most 8 groups of :func:`columns`, balanced
+    over the tiles of a row.  Row groups and rows a thread: the pair of
+    least modelled time (:func:`_best`), within 256 threads and half the
+    shared memory.
     """
-    if (c % 32 or stride == 2) \
-            and c // 4 * column_groups(w, stride) <= MAX_THREADS:
-        return _best(n, h, w, c, stride, c)
+    cg = column_groups(w, stride)
+    if ragged:
+        quads = _cdiv(c, 4)
+        cb = 4 * quads if quads * cg <= MAX_THREADS else 32
+        return _best(n, h, w, c, stride, cb, k, ragged)
+    if (c % 32 or stride == 2) and c // 4 * cg <= MAX_THREADS:
+        return _best(n, h, w, c, stride, c, k)
     if c % 32:
         cb = next(cb for cb in (64, 48, 32, 16, 8) if c % cb == 0)
-        return _best(n, h, w, c, stride, cb)
+        return _best(n, h, w, c, stride, cb, k)
     if c % 64 == 0:
-        wide = _best(n, h, w, c, stride, 64)
+        wide = _best(n, h, w, c, stride, 64, k)
         if wide.tiles >= 2 * SMS:
             return wide
-    return _best(n, h, w, c, stride, 32)
+    return _best(n, h, w, c, stride, 32, k)
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, 1, C) int8 HWIO → (9, C) int8, a tap a row."""
-    if w.dtype != torch.int8 or w.dim() != 4 \
-            or tuple(w.shape[:3]) != (3, 3, 1):
-        raise ValueError(f"expected (3, 3, 1, C) int8 weights, got "
-                         f"{tuple(w.shape)} {w.dtype}")
-    return w.reshape(9, w.shape[3]).contiguous()
+    """(k, k, 1, C) int8 HWIO, k = 3 or 5 → (k², C) int8, a tap a row."""
+    if w.dtype != torch.int8 or w.dim() != 4 or w.shape[0] not in WINDOWS \
+            or tuple(w.shape[1:3]) != (w.shape[0], 1):
+        raise ValueError(f"expected (k, k, 1, C) int8 weights, k in "
+                         f"{WINDOWS}, got {tuple(w.shape)} {w.dtype}")
+    return w.reshape(w.shape[0] ** 2, w.shape[3]).contiguous()
 
 
 def pack_weight_int4(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, 1, C) int8 HWIO in [-8, 7] → (9, ⌈C/2⌉) uint8: the layout of
+    """(k, k, 1, C) int8 HWIO in [-8, 7] → (k², ⌈C/2⌉) uint8: the layout of
     :func:`pack_weight`, two channels a byte (channel 2j in the low nibble
-    of byte j)."""
+    of byte j; an odd C's last byte has a zero high nibble)."""
     return pack_nibbles(pack_weight(w))
 
 
 def int8_weight(wp: torch.Tensor, c: int) -> torch.Tensor:
-    """The (9, C) int8 layout of a packed weight of either width."""
+    """The (k², C) int8 layout of a packed weight of either width."""
     return unpack_nibbles(wp, c) if wp.dtype == W4 else wp
 
 
 def unpack_weight(wp: torch.Tensor, c: int = None) -> torch.Tensor:
     """Inverse of :func:`pack_weight` (or, given C, of
-    :func:`pack_weight_int4`) → (3, 3, 1, C) int8."""
+    :func:`pack_weight_int4`) → (k, k, 1, C) int8."""
     w = int8_weight(wp, c)
-    return w.reshape(3, 3, 1, w.shape[1])
+    k = window(w)
+    return w.reshape(k, k, 1, w.shape[1])
 
 
 def _check(x, w, a, b, stride, pad, pad_lo, lo, hi, mode, relu,
            offset=None):
     """The arguments of either route: shapes, types, the geometry and the
-    epilogue."""
+    epilogue; returns the window and the shapes."""
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
-    if pad_lo not in (0, 1) or (pad_lo == 0 and stride != 2):
-        raise ValueError(f"pad_lo must be 1, or 0 at stride 2 (the SAME "
-                         f"geometry of an even map), got {pad_lo!r} at "
-                         f"stride {stride}")
     if not isinstance(pad, int) or not -128 <= pad <= 127:
         raise ValueError(f"pad must be an int8 code, got {pad!r}")
     if x.dtype != torch.int8 or x.dim() != 4 or x.numel() == 0:
         raise ValueError(f"x must be non-empty (N, H, W, C) int8, got "
                          f"{tuple(x.shape)} {x.dtype}")
     n, h, wd, c = x.shape
+    k = window(w)
+    if pad_lo not in pad_los(k, stride):
+        raise ValueError(f"pad_lo must be one of {pad_los(k, stride)} (k // "
+                         f"2, or k // 2 - 1 for SAME at stride 2 on an even "
+                         f"map), got {pad_lo!r} at {k}x{k}, stride "
+                         f"{stride}")
     ho, wo = out_hw(h, wd, stride)
-    if (w.dtype, tuple(w.shape)) not in ((torch.int8, (9, c)),
-                                         (W4, (9, -(-c // 2)))):
-        raise ValueError(f"w must be pack_weight() output of shape (9, {c}) "
-                         f"int8 or pack_weight_int4() output of shape (9, "
-                         f"{-(-c // 2)}) uint8, got {tuple(w.shape)} "
-                         f"{w.dtype}")
+    if (w.dtype, tuple(w.shape)) not in ((torch.int8, (k * k, c)),
+                                         (W4, (k * k, -(-c // 2)))):
+        raise ValueError(f"w must be pack_weight() output of shape ({k * k}, "
+                         f"{c}) int8 or pack_weight_int4() output of shape "
+                         f"({k * k}, {-(-c // 2)}) uint8, got "
+                         f"{tuple(w.shape)} {w.dtype}")
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -222,36 +263,47 @@ def _check(x, w, a, b, stride, pad, pad_lo, lo, hi, mode, relu,
             or not offset.is_contiguous() or offset.device != x.device):
         raise ValueError(f"offset must be contiguous ({c},) float32 on "
                          f"{x.device}")
-    return n, h, wd, c, ho, wo
+    return k, n, h, wd, c, ho, wo
 
 
-def check_kernel(x, w, stride: int) -> None:
-    """The kernel's own limits, checked on the CUDA route only: C % 8 == 0
-    (a pixel of the staged halo in 8- or 16-byte granules), 16-byte aligned
-    x and w, and a tile count in 32 bits."""
+def route(x, w) -> int:
+    """The kernel's path for ``x`` and its packed weight: 0, the aligned
+    path (C % 8 == 0 and 16-byte aligned x and w: the halo in 16- or
+    8-byte granules), else the ragged path's staging granule, 4 (C % 4 ==
+    0 on 4-byte aligned x) or 1."""
+    c = x.shape[-1]
+    if c % GRANULE == 0 and x.data_ptr() % 16 == 0 \
+            and w.data_ptr() % 16 == 0:
+        return 0
+    return 4 if c % 4 == 0 and x.data_ptr() % 4 == 0 else 1
+
+
+def check_kernel(x, w, stride: int) -> DwPlan:
+    """The kernel's own limits, checked on the CUDA route only: a window
+    of :data:`WINDOWS` and a tile count in 32 bits.  Returns
+    :func:`plan`'s tiles on the path :func:`route` picks."""
     n, h, wd, c = x.shape
-    if c % GRANULE:
-        raise ValueError(f"the int8_dwconv3x3 kernel takes C % {GRANULE} == "
-                         f"0, got C = {c}")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("x and w must be 16-byte aligned")
-    if plan(n, h, wd, c, stride).tiles >= INT_LIMIT:
+    p = plan(n, h, wd, c, stride, window(w), route(x, w))
+    if p.tiles >= INT_LIMIT:
         raise ValueError(f"x has too many tiles: {tuple(x.shape)}")
+    return p
 
 
 def int8_dwconv3x3_plain(x, w, a, b, *, stride: int, pad: int,
-                         pad_lo: int = 1, lo: int = -128, hi: int = 127,
+                         pad_lo: int = None, lo: int = -128, hi: int = 127,
                          mode: str = "codes", relu: bool = False,
                          offset=None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same arguments, same result):
-    a float64 ``F.conv2d(groups=C)`` over the pad-code-padded input, exact
-    because |acc| ≤ 9·128² ≪ 2⁵³, and with an ``offset`` the window sums
-    as a float64 ``F.conv2d(groups=C)`` of ones over it less ``pad``, then
-    :func:`.epilogue.epilogue_plain`."""
-    n, h, wd, c, ho, wo = _check(x, w, a, b, stride, pad, pad_lo, lo, hi,
-                                 mode, relu, offset)
-    pad_h = (ho - 1) * stride + 3 - h - pad_lo
-    pad_w = (wo - 1) * stride + 3 - wd - pad_lo
+    """Plain PyTorch version of the kernel at either window (same
+    arguments, same result): a float64 ``F.conv2d(groups=C)`` over the
+    pad-code-padded input, exact because |acc| ≤ 25·128² ≪ 2⁵³, and with
+    an ``offset`` the window sums as a float64 ``F.conv2d(groups=C)`` of
+    ones over it less ``pad``, then :func:`.epilogue.epilogue_plain`."""
+    k = window(w)
+    pad_lo = k // 2 if pad_lo is None else pad_lo
+    k, n, h, wd, c, ho, wo = _check(x, w, a, b, stride, pad, pad_lo, lo, hi,
+                                    mode, relu, offset)
+    pad_h = (ho - 1) * stride + k - h - pad_lo
+    pad_w = (wo - 1) * stride + k - wd - pad_lo
     xp = F.pad(x.permute(0, 3, 1, 2).to(torch.float64),
                (pad_lo, max(pad_w, 0), pad_lo, max(pad_h, 0)),
                value=float(pad))
@@ -267,30 +319,41 @@ def int8_dwconv3x3_plain(x, w, a, b, *, stride: int, pad: int,
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = build.load("int8_dwconv3x3")
-    lib.dlmcq_int8_dwconv3x3.restype = ctypes.c_int
-    lib.dlmcq_int8_dwconv3x3.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+def _library(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    lib.dlmcq_int8_dwconv.restype = ctypes.c_int
+    lib.dlmcq_int8_dwconv.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 18 + [ctypes.c_void_p])
     return lib
 
 
-def int8_dwconv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
+def library_name(k: int, ragged: int) -> str:
+    """The library that holds a launch's instantiation: ``int8_dwconv3x3``
+    for the aligned 3×3 path, ``int8_dwconv5x5`` for the rest."""
+    return "int8_dwconv3x3" if k == 3 and not ragged else "int8_dwconv5x5"
+
+
+def int8_dwconv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = None,
                    lo: int = -128, hi: int = 127, mode: str = "codes",
                    relu: bool = False, offset=None,
                    _plan=None) -> torch.Tensor:
-    """Run the int8 depthwise 3×3 conv (see the module docstring).
+    """Run the int8 depthwise conv at the window of ``w`` (see the module
+    docstring; ``pad_lo`` defaults to k // 2).
 
     ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight` (or
     :func:`pack_weight_int4`: the kernel unpacks the nibbles), ``a``/``b``
     (and ``offset``, or None) (C,) float32, all contiguous and on one
-    device.  CUDA tensors launch
-    the kernel on the current stream, on :func:`plan`'s tiles (``_plan =
-    (cb, cg, rg, rpt)`` overrides them), and count the launch in
-    ``int8_dwconv3x3.launches``; CPU tensors run the plain version.
+    device.  CUDA tensors launch the kernel on the current stream, on the
+    path :func:`route` picks and :func:`plan`'s tiles (``_plan = (cb, cg,
+    rg, rpt)`` overrides them), and count the launch in
+    ``int8_dwconv3x3.launches`` (a 5×5 one in ``.launches_5x5`` as well, a
+    ragged one in ``.launches_ragged``); CPU tensors run the plain
+    version.
     """
-    n, h, wd, c, ho, wo = _check(x, w, a, b, stride, pad, pad_lo, lo, hi,
-                                 mode, relu, offset)
+    k = window(w)
+    pad_lo = k // 2 if pad_lo is None else pad_lo
+    k, n, h, wd, c, ho, wo = _check(x, w, a, b, stride, pad, pad_lo, lo, hi,
+                                    mode, relu, offset)
     if x.device.type == "cpu":
         return int8_dwconv3x3_plain(x, w, a, b, stride=stride, pad=pad,
                                     pad_lo=pad_lo, lo=lo, hi=hi, mode=mode,
@@ -298,23 +361,28 @@ def int8_dwconv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
     if x.device.type != "cuda":
         raise ValueError(f"int8_dwconv3x3 runs on cuda or cpu, not "
                          f"{x.device}")
-    check_kernel(x, w, stride)
-    p = plan(n, h, wd, c, stride) if _plan is None \
-        else make_plan(n, h, wd, c, stride, *_plan)
-    lib = _library()
+    p = check_kernel(x, w, stride)
+    ragged = route(x, w)
+    if _plan is not None:
+        p = make_plan(n, h, wd, c, stride, *_plan, k, ragged)
+    lib = _library(library_name(k, ragged))
     out = torch.empty((n, ho, wo, c), device=x.device,
                       dtype=torch.int8 if mode == "codes" else torch.float32)
     with torch.cuda.device(x.device):
-        err = lib.dlmcq_int8_dwconv3x3(
+        err = lib.dlmcq_int8_dwconv(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             offset.data_ptr() if offset is not None else None,
-            out.data_ptr(), n, h, wd, c, stride, pad_lo, pad, lo, hi,
-            int(mode == "codes"), int(relu), int(w.dtype == W4), p.cb,
-            p.cg, p.rg, p.rpt,
+            out.data_ptr(), n, h, wd, c, k, stride, pad_lo, pad, lo, hi,
+            int(mode == "codes"), int(relu), int(w.dtype == W4), ragged,
+            p.cb, p.cg, p.rg, p.rpt,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(lib, err, "int8_dwconv3x3")
     int8_dwconv3x3.launches += 1
+    int8_dwconv3x3.launches_5x5 += k == 5
+    int8_dwconv3x3.launches_ragged += ragged != 0
     return out
 
 
 int8_dwconv3x3.launches = 0
+int8_dwconv3x3.launches_5x5 = 0
+int8_dwconv3x3.launches_ragged = 0

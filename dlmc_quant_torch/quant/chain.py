@@ -31,10 +31,11 @@ Unlike the JAX package, a conv's accumulator is not written to memory
 where a consumer can take its epilogue: a 3×3 conv's (grouped or not)
 :class:`DeferredEpilogue` holds a :class:`PendingConv`, a 1×1 conv's a
 :class:`PendingGemm`, a wider window's (the ImageNet 7×7/s2 stem) a
-:class:`PendingWideConv`, a depthwise 3×3 conv's (MobileNetV2, MobileOne)
-a :class:`PendingDwConv`, and the consumer runs that conv with the folded
-epilogue fused into it (``"codes"`` mode, with the residual term where it
-closes a block), or, for :func:`materialize`, in ``"f32"`` mode.  A
+:class:`PendingWideConv`, a depthwise 3×3 or 5×5 conv's (MobileNetV2,
+MobileOne, GhostNet, EfficientNet) a :class:`PendingDwConv`, and the
+consumer runs that conv with the folded epilogue fused into it
+(``"codes"`` mode, with the residual term where it closes a block), or,
+for :func:`materialize`, in ``"f32"`` mode.  A
 pending GEMM used as a shortcut term runs in ``"int32"`` mode: the JAX
 package's int32 accumulator.  The stem that :func:`qmaxpool` pools stays
 pending too, as a :class:`PendingStemPool`: each consumer runs conv, pool
@@ -42,7 +43,10 @@ and its own epilogue in one kernel (``ops.cuda.int8_stem_pool``), so the
 pooled int32 accumulator does not reach device memory either (unless a
 ReLU-free shortcut term asks for it).  A linear-bottleneck block
 (MobileNetV2) closes its sum without a ReLU: the lower clamp is then the
-grid's minimum.
+grid's minimum.  GhostNet's blocks close a sum whose trunk is a float32
+tensor (the ghost module's concat): :func:`fold_sum_quantize` then takes
+the JAX package's order in torch ops, the shortcut's GEMM in ``"int32"``
+mode.
 
 A layer whose weight grid has an offset (``q·s_w + o_w``: RootQ's, an
 offset LSQ weight's) adds a row term to its real value,
@@ -78,7 +82,8 @@ import torch
 import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda.int8_conv import int8_conv3x3
-from dlmc_quant_torch.ops.cuda.int8_dwconv import int8_dwconv3x3
+from dlmc_quant_torch.ops.cuda.int8_dwconv import (int8_dwconv3x3,
+                                                  window as dw_window)
 from dlmc_quant_torch.ops.cuda.int8_gemm import int8_gemm
 from dlmc_quant_torch.ops.cuda.int8_im2col import int8_im2col, out_hw
 from dlmc_quant_torch.ops.cuda.int8_stem_pool import int8_stem_pool
@@ -194,16 +199,22 @@ class PendingStemPool:
 
 @dataclasses.dataclass(frozen=True)
 class PendingDwConv:
-    """A padded int8 depthwise 3×3 conv that has not run yet (no residual
-    and no int32 mode: the kernel ends in the epilogue)."""
+    """A padded int8 depthwise 3×3 or 5×5 conv that has not run yet (no
+    residual and no int32 mode: the kernel ends in the epilogue)."""
     x: torch.Tensor          # (N, H, W, C) int8 codes
-    weight: torch.Tensor     # packed (9, C) int8 (ops.cuda.int8_dwconv)
-    #                          or (9, C/2) uint8 nibbles (pack_weight_int4)
+    weight: torch.Tensor     # packed (k², C) int8 (ops.cuda.int8_dwconv)
+    #                          or (k², ⌈C/2⌉) uint8 nibbles (pack_weight_int4)
     stride: int
     pad: int                 # int8 code of real 0 on the input grid
-    pad_lo: int = 1          # top/left pad: 0 for SAME at stride 2, even map
+    pad_lo: int = 1          # top/left pad: k // 2, or k // 2 - 1 for SAME
+    #                          at stride 2 on an even map
 
     int4 = PendingConv.int4
+
+    @property
+    def kernel(self) -> int:
+        """The window k, from the packed weight's k² rows."""
+        return dw_window(self.weight)
 
     def run(self, a, b, *, lo: int = -128, hi: int = 127,
             mode: str = "codes", relu: bool = False,
@@ -438,13 +449,30 @@ def _residual_operand(r, inv_s: float, o: int, device):
     return materialize(r).contiguous(), full(inv_s), full(0.0)
 
 
+def _float_trunk_sum(y: torch.Tensor, r, inv_s: float, qbias: float,
+                     lo: int, qmax_s: int) -> torch.Tensor:
+    """:func:`fold_sum_quantize` for a float32 trunk ``y``, in the JAX
+    package's order, each step a rounded float32 torch op:
+
+        q = clip(round(((qbias + y·inv) + r·Ar) + Br), lo, qmax_s)
+
+    ``(r, Ar, Br)`` by :func:`_residual_operand` (a pending shortcut GEMM
+    runs in ``"int32"`` mode, and a relu-flagged term is materialized,
+    ``Ar = inv`` and ``Br = 0``)."""
+    r, ar, br = _residual_operand(r, inv_s, y.shape[-1], y.device)
+    total = y * inv_s + qbias
+    total = (total + r.to(torch.float32) * ar) + br
+    return torch.round(total).clamp_(lo, qmax_s).to(torch.int8)
+
+
 def fold_sum_quantize(terms, inv_s: float, qbias: float, lo: int,
                       qmax_s: int) -> torch.Tensor:
     """Residual boundary: int8 codes of ``relu(y + r)`` on a grid.
 
     ``terms`` is ``[y, r]``: ``y`` the trunk, a conv's pending
     :class:`DeferredEpilogue` (a BasicBlock's 3×3 ``conv2``, a Bottleneck's
-    1×1 ``conv3``); ``r`` the shortcut, a
+    1×1 ``conv3``) or a float32 tensor (a GhostBottleneck's ghost module
+    concat: :func:`_float_trunk_sum`); ``r`` the shortcut, a
     :class:`QuantizedTensor`, a :class:`DeferredEpilogue` or an f32 tensor.
     ``inv_s``/``qbias`` are the block-output plan's ``1/s`` and
     ``-o/s - shift``.  As in the JAX package the sum is taken term by
@@ -458,16 +486,19 @@ def fold_sum_quantize(terms, inv_s: float, qbias: float, lo: int,
     trunk's own row term is added to its product, ``(qbias + (acc·A +
     S·C)) + B``).  The block's ReLU lives in
     ``lo``; a linear bottleneck (no ReLU) passes the grid's minimum.
-    The whole sum runs in the epilogue of ``y``'s conv.
+    For a pending ``y`` the whole sum runs in the epilogue of its conv.
     """
     y, r = terms
+    if isinstance(y, torch.Tensor):
+        return _float_trunk_sum(y, r, inv_s, qbias, lo, qmax_s)
     if not (isinstance(y, DeferredEpilogue) and isinstance(y.acc, PENDING)
             and not isinstance(y.acc, (PendingDwConv, PendingStemPool))
             and not y.relu
             and y.clamp_hi is None):
         raise ValueError("the residual sum is folded into the epilogue of "
                          "the trunk's last conv: y must be its pending, "
-                         "ReLU-free output (a 3x3, 1x1 or wide conv)")
+                         "ReLU-free output (a 3x3, 1x1 or wide conv), or a "
+                         "float32 tensor")
     o = y.acc.weight.shape[0]
     residual = _residual_operand(r, inv_s, o, y.scale.device)
     return y.acc.run(y.scale * inv_s, y.bias * inv_s, lo=lo, hi=qmax_s,

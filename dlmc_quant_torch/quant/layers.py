@@ -67,9 +67,9 @@ per-channel weight axis is 0.
 * Integer convs: 3×3 (``ops.cuda.int8_conv``, SAME or pad-1 geometry,
   grouped too: RepVGG's g2/g4 variants), 1×1 (``ops.cuda.int8_gemm`` on
   the subsampled codes, K padded to a multiple of 16; grouped, one int32
-  GEMM a group on its channels, the epilogue in torch), depthwise 3×3
-  (``groups`` = C in = C out;
-  ``ops.cuda.int8_dwconv``, the 3×3 geometry) and any other ungrouped
+  GEMM a group on its channels, the epilogue in torch), depthwise 3×3 and
+  5×5 (``groups`` = C in = C out, any C; ``ops.cuda.int8_dwconv``, pads
+  of ``k // 2`` or SAME) and any other ungrouped
   square window, such as the ImageNet 7×7/s2 stem
   (``ops.cuda.int8_stem_pool`` with the max pool after it, else
   ``ops.cuda.int8_im2col`` rows into ``int8_gemm``, any pads); all take
@@ -685,9 +685,10 @@ class QConv(QLayer):
 
     @property
     def depthwise(self) -> bool:
-        """A depthwise 3×3 conv: one input channel a group, as many
-        groups as channels in and out (MobileNetV2, MobileOne)."""
-        return (self.groups > 1 and self.kernel_size == 3
+        """A depthwise 3×3 or 5×5 conv: one input channel a group, as many
+        groups as channels in and out (MobileNetV2, MobileOne, GhostNet,
+        EfficientNet)."""
+        return (self.groups > 1 and self.kernel_size in dwconv.WINDOWS
                 and self.weight.shape[0] == self.groups
                 and self.weight.shape[1] == 1)
 
@@ -742,7 +743,7 @@ class QConv(QLayer):
         """This layer's output on input codes ``x_i8`` (on this layer's
         grid unless an epilogue and pad code are given), with the conv and
         its epilogue left to the consumer (see quant/chain.py): a 3×3 conv
-        pending for the conv kernel, a depthwise 3×3 for the depthwise
+        pending for the conv kernel, a depthwise 3×3 or 5×5 for the depthwise
         kernel, a 1×1 conv for the int8 GEMM on the subsampled codes (zero
         columns pad K to a multiple of 16: the packed weight is zero
         there), any other window as a :class:`PendingWideConv` (the stem
@@ -765,10 +766,11 @@ class QConv(QLayer):
         if grouped and (self.kernel_size not in (1, 3)
                         or self.weight.shape[1] == 1):
             raise NotImplementedError(
-                f"{self.path}: grouped convs other than a depthwise 3x3 have "
-                "an integer path at 3x3 and at 1x1 with more than one input "
-                "channel a group; not a depthwise 1x1 such as MobileOne's "
-                "scale branch (ROADMAP Queue A, rest of the zoo (item 7))")
+                f"{self.path}: grouped convs other than a depthwise 3x3 or "
+                "5x5 have an integer path at 3x3 and at 1x1 with more than "
+                "one input channel a group; not a depthwise 1x1 such as "
+                "MobileOne's scale branch (ROADMAP Queue A, rest of the zoo "
+                "(item 7))")
         if grouped and (off_scale is not None or hasattr(self, "w_offset")):
             raise NotImplementedError(
                 f"{self.path}: a grouped conv's weight offset needs window "
@@ -795,15 +797,16 @@ class QConv(QLayer):
             pending = PendingGemm(pad_k(codes.reshape(-1, codes.shape[-1])),
                                   self.w_gemm, tuple(codes.shape[:3]))
             return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
-        if k != 3:
+        if k != 3 and not self.depthwise:
             pending = PendingWideConv(x_i8.contiguous(), self.w_gemm,
                                       self.w_stem, k, s, pads, pad)
             return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
-        # the kernel pads `top` rows above (0 or 1) and what the window
-        # needs below, and gives ceil(h / s) rows: that must be this conv
-        if not (top == left and top in (0, 1) and (s == 2 or top == 1)
-                and (h + top + bottom - 3) // s + 1 == -(-h // s)
-                and (w + left + right - 3) // s + 1 == -(-w // s)):
+        # the kernel pads `top` rows above (k // 2, or k // 2 - 1 at stride
+        # 2) and what the window needs below, and gives ceil(h / s) rows:
+        # that must be this conv
+        if not (top == left and top in dwconv.pad_los(k, s)
+                and (h + top + bottom - k) // s + 1 == -(-h // s)
+                and (w + left + right - k) // s + 1 == -(-w // s)):
             raise NotImplementedError(
                 f"{self.path}: pads {pads} at stride {s} have no integer "
                 "path")

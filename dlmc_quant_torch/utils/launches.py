@@ -3,8 +3,8 @@ against its plain version.
 
 :class:`LaunchRecorder` wraps the kernel wrappers where the chain calls
 them (the 3×3 conv, the GEMM, the im2col, the stem conv + pool and the
-depthwise 3×3 conv in ``quant/chain.py``, the window sums of a weight
-offset's row term in ``quant/layers.py``), so one forward gives every
+depthwise conv, 3×3 or 5×5, in ``quant/chain.py``, the window sums of a
+weight offset's row term in ``quant/layers.py``), so one forward gives every
 launch with its arguments and output; :func:`max_diff_to_plain` runs a
 recorded launch's plain version on the same arguments.  ``chip_smoke.py`` and
 ``bench_torch.py`` check and time the launches of a request with these.

@@ -1,5 +1,5 @@
-"""The int8 depthwise 3×3 conv (``ops/cuda/int8_dwconv.py``) and its place
-on the chain, against the JAX package.
+"""The int8 depthwise 3×3 and 5×5 conv (``ops/cuda/int8_dwconv.py``) and
+its place on the chain, against the JAX package.
 
 * The plain version, run through the port's chain (``PendingDwConv`` in a
   ``DeferredEpilogue``; ``fold_quantize`` for codes, ``materialize`` for
@@ -9,17 +9,27 @@ on the chain, against the JAX package.
   ``chain.materialize`` on the same scales and grid.  Strides 1 and 2,
   pad 1 and flax's SAME, odd and even maps, C ∈ {16, 48, 144}, no clamp,
   a ReLU and a ReLU6 (``clamp_hi``).  Exact: the int8 inputs and the
-  float32 epilogue inputs are equal (ROADMAP hazard C2).
-* The packing round-trips; the wrapper raises on what neither route
-  takes, and the kernel's own check on a C off its granule (C % 8) while
-  the plain version runs it; a depthwise ``QConv`` fed codes on a producer's grid (a
+  float32 epilogue inputs are equal (ROADMAP hazard C2).  The same for
+  the 5×5 window and for any C (GhostNet's and EfficientNet's): k ∈ {3,
+  5}, every pad form the kernel takes (k // 2 at strides 1 and 2, SAME
+  on even and odd maps), C ∈ {1, 3, 6, 12, 18, 20, 36, 92, 100, 672}; at
+  W4 the plain version equals itself at W8 on the same values.
+* The packing round-trips (at 5×5 too); the wrapper raises on what
+  neither route takes (a stride, a pad form or a window the kernel has
+  not, a weight of another shape); a C off the aligned granule (C % 8)
+  takes the ragged path, whose plan and staging granule :func:`route`
+  and :func:`check_kernel` give, and the kernel refuses a tile count past
+  32 bits; a depthwise ``QConv`` fed codes on a producer's grid (a
   ``QuantizedTensor``) re-derives its epilogue from per-channel column
   sums over the nine taps and equals an f32 conv of the dequantized codes.
 * ``cuda``-marked tests hold the kernel against its plain version on the
   card (tolerance 0) at MobileNetV2's and MobileOne-S1's depthwise shapes
   at batch 8 and 256, at ragged sizes (C = 8, 24 and 40 among them) and
-  on plans other than ``plan()``'s; a C off the kernel's granule raises;
-  they skip here:
+  on plans other than ``plan()``'s; the 5×5 window and the ragged path
+  at every case of the CPU tests (W8 and W4, with and without a weight
+  offset's term), at GhostNet-1.0's and EfficientNet-B0's depthwise
+  shapes at batch 8 and on forced small tiles; they count their launches
+  by window and path; they skip here:
   ``python -m pytest --noconftest tests/test_torch_dwconv.py -m cuda``.
 """
 
@@ -114,16 +124,78 @@ def test_plain_on_the_chain_equals_jax(case, mode, clamp):
     assert np.array_equal(got.numpy(), want)
 
 
+# any window and C: GhostNet's cheap convs (C = 12, 20, 36, 60, 92, 100 at
+# width 1.0, 18 at 0.5), EfficientNet's 5x5 convs, odd and tiny C
+WIDE_C = [1, 3, 6, 12, 18, 20, 36, 92, 100, 672]
+# (stride, padding, h, w): k // 2 explicit at both strides, and flax's SAME
+# at stride 1 and at stride 2 on an even and an odd map
+WIDE_GEOMETRIES = [(1, "half", 7, 9), (2, "half", 8, 8), (1, "SAME", 6, 5),
+                   (2, "SAME", 8, 6), (2, "SAME", 7, 9)]
+
+
+def _wide_pads(k, h, w, stride, padding):
+    return QConv(4, 4, k, stride, k // 2 if padding == "half" else padding,
+                 groups=4).spatial_pads(h, w)
+
+
+@pytest.mark.parametrize("c", WIDE_C)
+@pytest.mark.parametrize("k", D.WINDOWS)
+def test_plain_on_the_chain_equals_jax_any_window_and_c(k, c):
+    """The plain version through ``PendingDwConv`` at window k and any C
+    equals JAX's grouped int32 conv + fold_quantize / materialize at every
+    pad form the kernel takes; at W4 it equals itself at W8."""
+    import jax.numpy as jnp
+    from dlmc_quant_tpu.quant import chain as jchain
+    for stride, padding, h, w in WIDE_GEOMETRIES:
+        rng = np.random.default_rng(k * 1000 + c * 10 + stride)
+        x = rng.integers(-128, 128, (2, h, w, c), dtype=np.int8)
+        wk = rng.integers(-128, 128, (k, k, 1, c), dtype=np.int8)
+        scale = (rng.random(c, dtype=np.float32) * 2e-3 + 1e-4)
+        bias = rng.standard_normal(c).astype(np.float32) * 3
+        pads = _wide_pads(k, h, w, stride, padding)
+        assert pads[0][0] in D.pad_los(k, stride)
+        acc = _jax_acc(x, wk, stride, pads)
+        jde = jchain.DeferredEpilogue(acc, jnp.asarray(scale),
+                                      jnp.asarray(bias), relu=True)
+        wp = D.pack_weight(torch.from_numpy(wk))
+        pending = PendingDwConv(torch.from_numpy(x), wp, stride, PAD,
+                                pads[0][0])
+        assert pending.kernel == k and wp.shape == (k * k, c)
+        de = DeferredEpilogue(pending, torch.from_numpy(scale),
+                              torch.from_numpy(bias), relu=True)
+        want = np.asarray(jchain.fold_quantize(
+            jde, jnp.float32(INV_S), jnp.float32(QBIAS), QMIN_S, QMAX_S))
+        got = chain.fold_quantize(de, float(np.float32(INV_S)),
+                                  float(np.float32(QBIAS)), QMIN_S, QMAX_S)
+        assert got.shape == (2, -(-h // stride), -(-w // stride), c)
+        assert np.array_equal(got.numpy(), want), (stride, padding)
+        assert np.array_equal(chain.materialize(de).numpy(),
+                              np.asarray(jchain.materialize(jde)))
+        w4 = torch.from_numpy(wk // 16)          # in [-8, 7]
+        kw = dict(stride=stride, pad=PAD, pad_lo=pads[0][0], mode="f32")
+        a, b = torch.from_numpy(scale), torch.from_numpy(bias)
+        assert torch.equal(
+            D.int8_dwconv3x3(torch.from_numpy(x), D.pack_weight_int4(w4), a,
+                             b, **kw),
+            D.int8_dwconv3x3(torch.from_numpy(x), D.pack_weight(w4), a, b,
+                             **kw))
+
+
 def test_pack_weight_round_trip():
     wk = torch.randint(-128, 128, (3, 3, 1, 48), dtype=torch.int8)
     wp = D.pack_weight(wk)
     assert wp.shape == (9, 48) and wp.is_contiguous()
     assert torch.equal(wp[3 * 2 + 1], wk[2, 1, 0])
     assert torch.equal(D.unpack_weight(wp), wk)
+    wk5 = torch.randint(-8, 8, (5, 5, 1, 19), dtype=torch.int8)
+    wp5 = D.pack_weight_int4(wk5)
+    assert wp5.shape == (25, 10) and D.window(wp5) == 5
+    assert torch.equal(D.unpack_weight(wp5, 19), wk5)
+    assert torch.equal(D.pack_weight(wk5)[5 * 3 + 4], wk5[3, 4, 0])
 
 
 @pytest.mark.parametrize("bad", ["channels", "stride", "pad_lo", "weight",
-                                 "pad", "epilogue"])
+                                 "pad", "epilogue", "window", "pad_lo_5x5"])
 def test_raises(bad):
     c = 20 if bad == "channels" else 32
     x = torch.zeros((1, 6, 6, c), dtype=torch.int8)
@@ -131,13 +203,19 @@ def test_raises(bad):
     a, b = torch.ones(c), torch.zeros(c)
     kw = dict(stride=3 if bad == "stride" else 1, pad=300 if bad == "pad"
               else 0, pad_lo=0 if bad == "pad_lo" else 1)
+    if bad == "window":           # a 7x7 window: no kernel, no plain path
+        w = torch.zeros((49, c), dtype=torch.int8)
+    if bad == "pad_lo_5x5":       # 5x5 at stride 1 pads 2 at the top
+        w = torch.zeros((25, c), dtype=torch.int8)
     if bad == "epilogue":
         kw["relu"] = True          # codes fold the ReLU into lo
     if bad == "channels":
-        # the kernel's granule is checked on the CUDA route only: the plain
-        # version takes C = 20
-        with pytest.raises(ValueError, match=r"C % 8 == 0"):
-            D.check_kernel(x, w, 1)
+        # a C off the aligned path's granule takes the ragged path on the
+        # CUDA route (4-byte granules at C % 4 == 0, whole quads a slice);
+        # the plain version takes C = 20 as it is
+        assert D.route(x, w) == 4
+        p = D.check_kernel(x, w, 1)
+        assert (p.cb, p.granule, p.slices) == (20, 4, 1)
         assert D.int8_dwconv3x3(x, w, a, b, **kw).shape == (1, 6, 6, c)
         return
     with pytest.raises(ValueError):
@@ -282,12 +360,119 @@ def test_kernel_matches_plain_on_other_plans(case):
             x, wp, a, b, stride=stride, pad=7, pad_lo=pad_lo, **kw)), kw
 
 
-@pytest.mark.cuda
-def test_kernel_refuses_channels_off_its_granule():
+def test_kernel_refuses_what_it_cannot_take():
+    """No fallback: past 32 bits of tiles the CUDA route's check raises
+    (shapes on the meta device: nothing is allocated), and the library of
+    the aligned 3x3 path holds no 5x5 or ragged instantiation."""
+    for k, c in ((3, 16), (5, 16), (3, 20)):
+        x = torch.empty((2 ** 24, 1024, 1024, c), dtype=torch.int8,
+                        device="meta")
+        w = torch.empty((k * k, c), dtype=torch.int8, device="meta")
+        with pytest.raises(ValueError, match=r"too many tiles"):
+            D.check_kernel(x, w, 1)
+    assert D.library_name(3, 0) == "int8_dwconv3x3"
+    assert {D.library_name(3, 4), D.library_name(3, 1),
+            D.library_name(5, 0), D.library_name(5, 1)} == {"int8_dwconv5x5"}
+
+
+def _wide_operands(n, h, w, c, k, w4, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-128, 128, (n, h, w, c), generator=g,
+                      dtype=torch.int8)
+    lo, hi = (-8, 8) if w4 else (-128, 128)
+    wk = torch.randint(lo, hi, (k, k, 1, c), generator=g, dtype=torch.int8)
+    wp = (D.pack_weight_int4 if w4 else D.pack_weight)(wk)
+    a = torch.rand(c, generator=g) * 1e-3 + 1e-5
+    b = torch.randn(c, generator=g) * 4
+    oc = torch.randn(c, generator=g) * 1e-3
+    return [t.to(dev) for t in (x, wp, a, b, oc)]
+
+
+def _wide_vs_plain(n, h, w, c, k, stride, pad_lo, w4, term, seed,
+                   modes=None, **over):
     dev = _card()
-    x, wp, a, b = _card_operands(2, 5, 5, 20, dev, 3)
-    with pytest.raises(ValueError, match=r"C % 8 == 0"):
-        D.int8_dwconv3x3(x, wp, a, b, stride=1, pad=0)
+    x, wp, a, b, oc = _wide_operands(n, h, w, c, k, w4, dev, seed)
+    offset = oc if term else None
+    for kw in modes or (dict(mode="codes", lo=-3, hi=90),
+                        dict(mode="f32", relu=True)):
+        got = D.int8_dwconv3x3(x, wp, a, b, stride=stride, pad=-11,
+                               pad_lo=pad_lo, offset=offset, **kw, **over)
+        torch.cuda.synchronize()
+        want = D.int8_dwconv3x3_plain(x, wp, a, b, stride=stride, pad=-11,
+                                      pad_lo=pad_lo, offset=offset, **kw)
+        assert torch.equal(got, want), (kw, k, c, stride, pad_lo, w4, term)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", WIDE_C)
+@pytest.mark.parametrize("k", D.WINDOWS)
+def test_kernel_matches_plain_any_window_and_c(k, c):
+    """Every geometry of the CPU tests, at W8 and W4, with and without a
+    weight offset's term: the 5x5 window on either path, the 3x3 window on
+    the ragged one where C % 8 != 0."""
+    for i, (stride, padding, h, w) in enumerate(WIDE_GEOMETRIES):
+        pad_lo = _wide_pads(k, h, w, stride, padding)[0][0]
+        for w4 in (False, True):
+            for term in (False, True):
+                _wide_vs_plain(3, h, w, c, k, stride, pad_lo, w4, term,
+                               seed=100 * k + c + i)
+
+
+# the depthwise convs of GhostNet-1.0 and EfficientNet-B0 at 224² that the
+# 3x3 aligned path does not take: (h, w, c, k, stride, pad_lo)
+GHOST_EFFNET = [(56, 56, 12, 3, 1, 1), (56, 56, 36, 3, 1, 1),
+                (28, 28, 20, 3, 1, 1), (28, 28, 60, 3, 1, 1),
+                (14, 14, 92, 3, 1, 1), (14, 14, 100, 3, 1, 1),
+                (56, 56, 72, 5, 2, 2), (56, 56, 24, 5, 2, 2),
+                (14, 14, 672, 5, 2, 2), (14, 14, 112, 5, 2, 2),
+                (56, 56, 144, 5, 2, 2), (28, 28, 240, 5, 1, 2),
+                (14, 14, 480, 5, 1, 2), (14, 14, 672, 5, 1, 2),
+                (7, 7, 1152, 5, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GHOST_EFFNET,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain_ghost_effnet_shapes(shape):
+    h, w, c, k, stride, pad_lo = shape
+    _wide_vs_plain(8, h, w, c, k, stride, pad_lo, False, False, seed=c + h,
+                   modes=(dict(mode="codes", lo=-3, hi=90), dict(mode="codes"),
+                          dict(mode="f32", relu=True), dict(mode="f32")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(3, 13, 11, 24, 5, 1, 2, (32, 2, 2, 3)),
+                                  (2, 12, 9, 96, 5, 2, 1, (64, 2, 1, 2)),
+                                  (2, 13, 11, 20, 3, 1, 1, (8, 2, 2, 3)),
+                                  (2, 12, 9, 18, 5, 2, 2, (8, 2, 1, 2)),
+                                  (3, 9, 16, 100, 3, 2, 0, (32, 3, 3, 1))],
+                         ids=["5x5_s1_c24", "5x5_s2_c96_cb64_tail",
+                              "ragged_s1_c20", "ragged_5x5_s2_c18",
+                              "ragged_s2_c100_cb32_tail"])
+def test_kernel_matches_plain_wide_on_other_plans(case):
+    """Plans other than plan()'s: small tiles, so that a block walks many
+    (both halo buffers), masked tail slices on either path."""
+    n, h, w, c, k, stride, pad_lo, override = case
+    _wide_vs_plain(n, h, w, c, k, stride, pad_lo, False, True, seed=c,
+                   _plan=override)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_codes_off_the_aligned_path():
+    """C % 8 == 0 codes that are not 16-byte aligned (a view one pixel in)
+    take the ragged path, byte-staged."""
+    dev = _card()
+    x, wp, a, b, _ = _wide_operands(2, 9, 10, 16, 3, False, dev, 5)
+    view = torch.empty(2 * 9 * 10 * 16 + 1, dtype=torch.int8,
+                       device=dev)[1:].view(2, 9, 10, 16)
+    view.copy_(x)
+    assert D.route(view, wp) == 1 and D.route(x, wp) == 0
+    before = D.int8_dwconv3x3.launches_ragged
+    for kw in (dict(mode="codes"), dict(mode="f32")):
+        got = D.int8_dwconv3x3(view, wp, a, b, stride=1, pad=3, **kw)
+        assert torch.equal(got, D.int8_dwconv3x3_plain(x, wp, a, b, stride=1,
+                                                       pad=3, **kw))
+    assert D.int8_dwconv3x3.launches_ragged == before + 2
 
 
 @pytest.mark.cuda
@@ -298,3 +483,12 @@ def test_kernel_counts_its_launches():
     D.int8_dwconv3x3(x, wp, a, b, stride=1, pad=0)
     D.int8_dwconv3x3_plain(x, wp, a, b, stride=1, pad=0)
     assert D.int8_dwconv3x3.launches == before + 1
+    counts = (D.int8_dwconv3x3.launches, D.int8_dwconv3x3.launches_5x5,
+              D.int8_dwconv3x3.launches_ragged)
+    x5, wp5, a5, b5, _ = _wide_operands(2, 9, 9, 20, 5, False, dev, 2)
+    D.int8_dwconv3x3(x5, wp5, a5, b5, stride=2, pad=0)
+    D.int8_dwconv3x3(x5, wp5[:9].contiguous(), a5, b5, stride=1, pad=0)
+    assert (D.int8_dwconv3x3.launches, D.int8_dwconv3x3.launches_5x5,
+            D.int8_dwconv3x3.launches_ragged) == (counts[0] + 2,
+                                                  counts[1] + 1,
+                                                  counts[2] + 2)

@@ -1,5 +1,6 @@
-"""A tile-faithful CPU emulation of the int8 depthwise 3×3 kernel
-(``ops/cuda/csrc/int8_dwconv3x3.cu``), held equal to its plain version.
+"""A tile-faithful CPU emulation of the int8 depthwise kernel
+(``ops/cuda/csrc/int8_dwconv3x3.cu``, and its 5×5 and ragged build
+``int8_dwconv5x5.cu``), held equal to its plain version.
 
 The emulation does the kernel's work word by word: :func:`.plan`'s tiles,
 the grid of whole slice multiples and each block's walk over its tiles
@@ -16,6 +17,17 @@ Tolerance 0, at strides 1 and 2, both ``pad_lo``, C ∈ {8, 24, 40, 96,
 layer shape, on the plan's grid (usually one tile a block here) and on a
 grid of one slice's blocks (each walks many tiles).  The plan itself:
 within the kernel's limits at every depthwise shape of the two models.
+
+The 5×5 window and the ragged path the same way: the tap rows' (lo, hi)
+weight words and ``__funnelshift_l``, the two channel words of a halo
+row, the window sums of a weight offset's term against words of ones,
+the ragged path's 4-byte and 1-byte staging, its weights, a, b and the
+term's coefficient read channel by channel (W4 nibbles from rows of
+⌈C/2⌉ bytes) and its stores channel by channel.  k ∈ {3, 5}, every pad
+form (k // 2 at strides 1 and 2, k // 2 − 1 at stride 2), C ∈ {1, 3, 6,
+12, 18, 20, 36, 92, 100, 672}, W8 and W4, with and without the term, on
+the plan's tiles and on forced small ones; and the plan at every
+depthwise shape of GhostNet-1.0 and EfficientNet-B0.
 """
 
 import numpy as np
@@ -101,6 +113,31 @@ def mac_row(acc, cw, wa, stride):
             acc[j][1] = dp4a(cw[4 + j], w0, acc[j][1])
 
 
+def funnelshift_l(lo, hi, shift: int):
+    """CUDA's ``__funnelshift_l(lo, hi, shift)``: the high word of
+    (hi:lo) << shift."""
+    v = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return ((v << np.uint64(shift)) >> np.uint64(32)).astype(np.uint32)
+
+
+def row_words5(buf, q, pitch, stride):
+    """The 5×5 window's two channel words of a halo row."""
+    p = [words(buf, q + k * pitch) for k in range(8 if stride == 1 else 7)]
+    if stride == 2:
+        p.append(p[6])
+    return transpose4(*p[:4]) + transpose4(*p[4:])
+
+
+def mac_row5(acc, cw, wlo, whi, stride):
+    for j in range(4):
+        for k in range(len(acc[j])):
+            d = 8 * stride * k
+            lo = (wlo[j].astype(np.uint64) << np.uint64(d)).astype(np.uint32)
+            acc[j][k] = dp4a(cw[j], lo, acc[j][k])
+            acc[j][k] = dp4a(cw[4 + j], funnelshift_l(wlo[j], whi[j], d),
+                             acc[j][k])
+
+
 def stage_halo(p, x, t, buf, stride, pad_lo, pad):
     """The kernel's stage_halo: each thread's (column, rows) share, every
     granule of the halo staged exactly once."""
@@ -138,15 +175,46 @@ def stage_halo(p, x, t, buf, stride, pad_lo, pad):
     assert (staged == 1).all()
 
 
-def emulate(x, wp, a, b, *, stride, pad, pad_lo=1, lo=-128, hi=127,
-            mode="codes", relu=False, plan=None, grid=None):
-    """The kernel on numpy arrays: x (N, H, W, C) int8, wp (9, C) int8,
-    a, b (C,) float32."""
+def tap_words(wp, c, ch, c_in, tap, ragged):
+    """The kernel's tap_word for every thread: the word of channels
+    ch..ch+3 at ``tap`` (W4 ``wp`` is uint8 nibbles).  The aligned path's
+    W4 word is its W8 word (tests/test_torch_int4_kernels.py holds
+    unpack_pair to it); the ragged path reads channel by channel."""
+    w4 = wp.dtype == np.uint8
+    if not ragged:
+        chs = np.where(c_in, ch, 0)
+        w8 = (D.int8_weight(torch.from_numpy(wp), c).numpy() if w4 else wp)
+        return np.where(c_in, words(w8.reshape(-1).view(np.uint8),
+                                    tap * c + chs), 0).astype(np.uint32)
+    word = np.zeros(ch.shape, np.uint32)
+    for j in range(4):
+        valid = ch + j < c
+        cj = np.where(valid, ch + j, 0)
+        if w4:
+            u = wp.reshape(-1)[tap * ((c + 1) // 2) + cj // 2].astype(np.int32)
+            v = (((u >> (4 * (cj & 1))) & 0xF) ^ 8) - 8
+        else:
+            v = wp.reshape(-1)[tap * c + cj].astype(np.int32)
+        word |= np.where(valid, v & 0xFF, 0).astype(np.uint32) << (8 * j)
+    return word
+
+
+def emulate(x, wp, a, b, *, stride, pad, pad_lo=None, lo=-128, hi=127,
+            mode="codes", relu=False, plan=None, grid=None, offset=None,
+            ragged=0):
+    """The kernel on numpy arrays: x (N, H, W, C) int8, wp (k², C) int8
+    or (k², ⌈C/2⌉) uint8 nibbles, a, b (and the term's offset, or None)
+    (C,) float32; ``ragged`` the path (:func:`.route`)."""
     n_img, h, w, c = x.shape
+    k = D.window(torch.from_numpy(wp))
+    pad_lo = k // 2 if pad_lo is None else pad_lo
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    p = plan or D.plan(n_img, h, w, c, stride)
-    assert c % D.GRANULE == 0 and p.threads <= D.MAX_THREADS
+    p = plan or D.plan(n_img, h, w, c, stride, k, ragged)
+    assert (c % D.GRANULE == 0) or ragged
+    assert p.threads <= D.MAX_THREADS and p.cb % 4 == 0
     assert p.smem <= 232448 and p.pitch % p.granule == 0
+    assert p.granule == (ragged or (16 if c % 16 == 0 and p.cb % 16 == 0
+                                    else 8))
     r = D.columns(stride)
     grid = grid or p.tiles          # a multiple of the slice count
     assert grid % p.slices == 0 and p.slices <= grid <= p.tiles
@@ -157,22 +225,33 @@ def emulate(x, wp, a, b, *, stride, pad, pad_lo=1, lo=-128, hi=127,
     cq = tid % (p.cb // 4)
     j = tid // (p.cb // 4) % p.cg
     r0 = tid // (p.cb // 4 * p.cg) * p.rpt
-    wbytes = wp.reshape(-1).view(np.uint8)
     row_step = p.hw * p.pitch
+    zero = np.zeros(p.threads, np.uint32)
+    ones = [np.full(p.threads, 0x00010101, np.uint32)] * 4
+    ones_lo = [np.full(p.threads, 0x01010101, np.uint32)] * 4
+    ones_hi = [np.full(p.threads, 0x00000001, np.uint32)] * 4
+    pad_sum = np.int32(k * k * pad)
     for blk in range(grid):
         ch = blk % p.slices * p.cb + 4 * cq
         c_in = ch < c
         # load_weights: the tap words of the thread's 4 channels
-        chs = np.where(c_in, ch, 0)
-        wa = []
-        for dy in range(3):
-            tap = [np.where(c_in, words(wbytes, (3 * dy + dx) * c + chs), 0)
-                   .astype(np.uint32) for dx in range(3)]
-            wa.append(transpose4(*tap, np.zeros(p.threads, np.uint32)))
-        ea = [np.where(c_in, a[np.minimum(chs + k, c - 1)], 0)
-              .astype(np.float32) for k in range(4)]
-        eb = [np.where(c_in, b[np.minimum(chs + k, c - 1)], 0)
-              .astype(np.float32) for k in range(4)]
+        taps = [tap_words(wp, c, ch, c_in, t, ragged) for t in range(k * k)]
+        if k == 3:
+            wa = [transpose4(*taps[3 * dy:3 * dy + 3], zero)
+                  for dy in range(3)]
+        else:
+            wlo = [transpose4(*taps[5 * dy:5 * dy + 4]) for dy in range(5)]
+            whi = [transpose4(taps[5 * dy + 4], zero, zero, zero)
+                   for dy in range(5)]
+        # load_affine: per quad, or per channel on the ragged path
+        inside = [(ch + u < c) if ragged else c_in for u in range(4)]
+        at = [np.minimum(ch + u, c - 1) for u in range(4)]
+        ea = [np.where(inside[u], a[at[u]], 0).astype(np.float32)
+              for u in range(4)]
+        eb = [np.where(inside[u], b[at[u]], 0).astype(np.float32)
+              for u in range(4)]
+        ec = [np.where(inside[u], offset[at[u]], 0).astype(np.float32)
+              if offset is not None else None for u in range(4)]
         bufs = [np.full(p.smem // 2, JUNK, np.uint8) for _ in range(2)]
         cur = 0
         stage_halo(p, x, blk, bufs[0], stride, pad_lo, pad)
@@ -186,38 +265,55 @@ def emulate(x, wp, a, b, *, stride, pad, pad_lo=1, lo=-128, hi=127,
             buf = bufs[cur]
             q = (r * stride * j) * p.pitch + 4 * cq
             ox = tx * p.tw + r * j
-            cw = [row_words(buf, q + r0 * stride * row_step, p.pitch,
-                            stride)]
-            if stride == 1:
-                cw.append(row_words(buf, q + (r0 + 1) * row_step, p.pitch,
-                                    stride))
+            if k == 3:
+                cw = [row_words(buf, q + r0 * stride * row_step, p.pitch,
+                                stride)]
+                if stride == 1:
+                    cw.append(row_words(buf, q + (r0 + 1) * row_step,
+                                        p.pitch, stride))
             for i in range(p.rpt):
                 oy = ty * p.th + r0 + i
                 hr = q + ((r0 + i) * stride + 2) * row_step
                 acc = [[np.zeros(p.threads, np.int32) for _ in range(r)]
                        for _ in range(4)]
-                if stride == 1:
+                sums = [[np.zeros(p.threads, np.int32) for _ in range(r)]
+                        for _ in range(4)]
+                if k == 5:
+                    for dy in range(5):
+                        row = row_words5(
+                            buf, q + ((r0 + i) * stride + dy) * row_step,
+                            p.pitch, stride)
+                        mac_row5(acc, row, wlo[dy], whi[dy], stride)
+                        mac_row5(sums, row, ones_lo, ones_hi, stride)
+                elif stride == 1:
                     cw.append(row_words(buf, hr, p.pitch, stride))
                     for dy in range(3):
                         mac_row(acc, cw[dy], wa[dy], stride)
+                        mac_row(sums, cw[dy], ones, stride)
                     cw = cw[1:]
                 else:
-                    mac_row(acc, cw[0], wa[0], stride)
-                    mac_row(acc, row_words(buf, hr - row_step, p.pitch,
-                                           stride), wa[1], stride)
+                    rows = [cw[0], row_words(buf, hr - row_step, p.pitch,
+                                             stride)]
                     cw = [row_words(buf, hr, p.pitch, stride)]
-                    mac_row(acc, cw[0], wa[2], stride)
-                for k in range(r):
-                    ok = c_in & (ox + k < wo) & (oy < ho)
+                    for dy, row in enumerate(rows + cw):
+                        mac_row(acc, row, wa[dy], stride)
+                        mac_row(sums, row, ones, stride)
+                for kk in range(r):
+                    ok = c_in & (ox + kk < wo) & (oy < ho)
                     for u in range(4):
-                        y = (acc_to_float(acc[u][k]) * ea[u]) + eb[u]
+                        y = acc_to_float(acc[u][kk]) * ea[u]
+                        if offset is not None:
+                            y = y + acc_to_float(sums[u][kk] - pad_sum) \
+                                * ec[u]
+                        y = y + eb[u]
                         if mode == "codes":
                             v = code_of(y, lo, hi)
                         else:
                             v = np.maximum(y, np.float32(0)) if relu else y
-                        for th in np.flatnonzero(ok):
-                            out[n, oy[th], ox[th] + k, ch[th] + u] = v[th]
-                            written[n, oy[th], ox[th] + k, ch[th] + u] += 1
+                        st = ok & (ch + u < c) if ragged else ok
+                        idx = (n, oy[st], ox[st] + kk, ch[st] + u)
+                        out[idx] = v[st]
+                        np.add.at(written, idx, 1)
             cur ^= 1
     assert (written == 1).all()
     return out
@@ -313,3 +409,113 @@ def test_plan_within_the_kernels_limits(n):
         assert (p.tiles_y - 1) * p.th < ho and (p.tiles_x - 1) * p.tw < wo
         assert p.tiles_y * p.th * p.tiles_x * p.tw < 2 * ho * wo
         assert p == D.make_plan(n, h, w, c, stride, p.cb, p.cg, p.rg, p.rpt)
+
+
+WIDE_C = [1, 3, 6, 12, 18, 20, 36, 92, 100, 672]
+# (w4, term) pairs, two a geometry: every pair at every (k, C)
+WEIGHTS_TERMS = [((False, False), (True, True)), ((False, True),
+                                                  (True, False)),
+                 ((True, True), (False, False))]
+
+
+def _ragged(c: int) -> int:
+    """:func:`.route` for codes and weights at the allocator's alignment."""
+    return 0 if c % 8 == 0 else 4 if c % 4 == 0 else 1
+
+
+def _wide_check(n, h, w, c, k, stride, pad_lo, w4, term, seed, plan=None,
+                grid=None, ragged=None):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, (n, h, w, c), dtype=np.int8)
+    span = 8 if w4 else 128
+    wk = torch.from_numpy(rng.integers(-span, span, (k, k, 1, c),
+                                       dtype=np.int8))
+    wp = (D.pack_weight_int4 if w4 else D.pack_weight)(wk).numpy()
+    a = (rng.random(c, dtype=np.float32) * 1e-3 + 1e-5).astype(np.float32)
+    b = (rng.standard_normal(c).astype(np.float32) * 4).astype(np.float32)
+    oc = (rng.standard_normal(c).astype(np.float32) * 1e-3).astype(
+        np.float32) if term else None
+    ragged = _ragged(c) if ragged is None else ragged
+    for kw in (dict(mode="codes", lo=-3, hi=90), dict(mode="f32",
+                                                      relu=True)):
+        got = emulate(x, wp, a, b, stride=stride, pad=-11, pad_lo=pad_lo,
+                      plan=plan, grid=grid, offset=oc, ragged=ragged, **kw)
+        want = D.int8_dwconv3x3_plain(
+            torch.from_numpy(x), torch.from_numpy(wp), torch.from_numpy(a),
+            torch.from_numpy(b), stride=stride, pad=-11, pad_lo=pad_lo,
+            offset=None if oc is None else torch.from_numpy(oc),
+            **kw).numpy()
+        assert np.array_equal(got, want), (kw, k, c, stride, pad_lo, w4,
+                                           term, ragged)
+
+
+@pytest.mark.parametrize("c", WIDE_C)
+@pytest.mark.parametrize("k", D.WINDOWS)
+def test_emulation_equals_plain_any_window_and_c(k, c):
+    """Every pad form at both strides, W8 and W4, with and without a
+    weight offset's term, on the plan's tiles: the 5×5 window on either
+    path, the ragged path of either window where C % 8 != 0."""
+    geometries = [(1, k // 2), (2, k // 2), (2, k // 2 - 1)]
+    for i, (stride, pad_lo) in enumerate(geometries):
+        for w4, term in WEIGHTS_TERMS[i]:
+            _wide_check(2, 7, 9 if stride == 1 else 8, c, k, stride, pad_lo,
+                        w4, term, seed=k * 1000 + c + i)
+
+
+@pytest.mark.parametrize("case", [(2, 13, 11, 24, 5, 1, 2, 0, (32, 2, 2, 3)),
+                                  (2, 12, 9, 96, 5, 2, 1, 0, (64, 2, 1, 2)),
+                                  (2, 13, 11, 20, 3, 1, 1, 4, (8, 2, 2, 3)),
+                                  (2, 12, 9, 18, 5, 2, 2, 1, (8, 2, 1, 2)),
+                                  (1, 9, 16, 100, 3, 2, 0, 4, (32, 3, 3, 1)),
+                                  (2, 9, 10, 16, 3, 1, 1, 1, (8, 2, 1, 2))],
+                         ids=["5x5_s1_c24", "5x5_s2_c96_cb64_tail",
+                              "ragged_s1_c20", "ragged_5x5_s2_c18",
+                              "ragged_s2_c100_cb32_tail",
+                              "ragged_bytes_c16_unaligned"])
+def test_emulation_walks_many_tiles_wide(case):
+    """A grid of one slice's blocks on small tiles, so that each block
+    walks its slice's tiles with the two buffers; the 5×5 window and the
+    ragged path with masked tail slices, and a C % 8 == 0 map staged byte
+    by byte (codes off 16-byte alignment)."""
+    n, h, w, c, k, stride, pad_lo, ragged, override = case
+    p = D.make_plan(n, h, w, c, stride, *override, k, ragged)
+    assert p.tiles // p.slices >= 4
+    _wide_check(n, h, w, c, k, stride, pad_lo, c % 3 == 0, True, seed=c,
+                plan=p, grid=p.slices, ragged=ragged)
+
+
+# GhostNet-1.0's and EfficientNet-B0's depthwise convs at 224², (h, w, c,
+# k, stride): those the aligned 3×3 path takes too
+GHOST_EFFNET = [(112, 112, 8, 3, 1), (112, 112, 24, 3, 1),
+                (112, 112, 48, 3, 2), (56, 56, 12, 3, 1),
+                (112, 112, 16, 3, 2), (56, 56, 36, 3, 1),
+                (56, 56, 72, 5, 2), (28, 28, 20, 3, 1), (56, 56, 24, 5, 2),
+                (28, 28, 60, 3, 1), (28, 28, 120, 3, 1), (28, 28, 240, 3, 2),
+                (14, 14, 40, 3, 1), (28, 28, 40, 3, 2), (14, 14, 100, 3, 1),
+                (14, 14, 92, 3, 1), (14, 14, 240, 3, 1), (14, 14, 56, 3, 1),
+                (14, 14, 80, 3, 1), (14, 14, 336, 3, 1), (14, 14, 672, 5, 2),
+                (7, 7, 80, 3, 1), (14, 14, 112, 5, 2), (7, 7, 480, 3, 1),
+                (112, 112, 32, 3, 1), (112, 112, 96, 3, 2),
+                (56, 56, 144, 3, 1), (56, 56, 144, 5, 2),
+                (28, 28, 240, 5, 1), (14, 14, 480, 3, 1),
+                (14, 14, 480, 5, 1), (14, 14, 672, 5, 1), (7, 7, 1152, 5, 1),
+                (7, 7, 1152, 3, 1)]
+
+
+@pytest.mark.parametrize("n", [1, 8, 256])
+def test_plan_within_the_kernels_limits_ghost_effnet(n):
+    for h, w, c, k, stride in GHOST_EFFNET:
+        ragged = _ragged(c)
+        p = D.plan(n, h, w, c, stride, k, ragged)
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        assert p.cb % (4 if ragged else 8) == 0 and p.cb >= 4
+        assert p.threads <= D.MAX_THREADS
+        assert p.smem <= D.HALF_SMEM and p.tiles < D.INT_LIMIT
+        assert p.hh == (p.th - 1) * stride + k
+        assert p.tiles_y * p.th >= ho and p.tiles_x * p.tw >= wo
+        assert (p.tiles_y - 1) * p.th < ho and (p.tiles_x - 1) * p.tw < wo
+        assert p == D.make_plan(n, h, w, c, stride, p.cb, p.cg, p.rg, p.rpt,
+                                k, ragged)
+        if ragged:
+            # the whole pixel rounded up to a quad: one slice
+            assert p.cb == -(-c // 4) * 4 and p.slices == 1

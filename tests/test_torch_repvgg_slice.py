@@ -241,7 +241,8 @@ TRAINING_MODULES = (
     "dlmc_quant_torch.utils.count_ops", "dlmc_quant_torch.utils.bidict",
     "dlmc_quant_torch.utils.torch_import",
     "dlmc_quant_torch.tools.d2se_enqueue",
-    "dlmc_quant_torch.examples.FSPTQuant")
+    "dlmc_quant_torch.examples.FSPTQuant",
+    "dlmc_quant_torch.models.ghostnet", "dlmc_quant_torch.models.efficientnet")
 
 
 def test_import_leaves_out_jax():
@@ -263,6 +264,9 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_model("RepVGG_A0", num_classes=CLASSES, deploy=True)
+    for name in ("ghostnet", "efficientnetb0"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_model(name)
     model = _port_model(False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_serving_fn(model)
