@@ -165,8 +165,11 @@ Phases, each fatal on failure:
            bound us, kernel / bound, and for each depthwise launch its tile
            plan, its plain ms, as context a bf16 F.conv2d(groups=C) of the
            same shape, and with --parent DIR the us of DIR's depthwise
-           kernel at that launch (tools/dw_launches.py on DIR, seeded
-           operands of the same shape, in a process of its own).  Then
+           kernel at that launch at batch 256 (tools/dw_launches.py on DIR,
+           seeded operands of the same shape, in a process of its own;
+           the tool on DIR, this tree, this tree and DIR in turns, every
+           depthwise launch of the five models' requests, the sums by
+           model and path printed with this tree's over DIR's).  Then
            make_serving_fn(qmode="intc") answers 6 requests of 256
            images: logits finite, (256, 1000), within relative L2 2e-2 of
            the CPU plain path on 8 images, MobileNetV2 1 conv + 39 GEMM +
@@ -223,7 +226,8 @@ Phases, each fatal on failure:
            (GhostNet 41: 4 of them 5x5/s2 and 10 at C % 8 != 0 on the
            ragged path; EfficientNet 16: 9 of them 5x5) with its window, C,
            stride, plan, us, bound us (bytes), plain us and a bf16
-           F.conv2d(groups=C) of the same shape as context.  Then 6 served
+           F.conv2d(groups=C) of the same shape as context, the sums by
+           path (aligned 3x3, ragged, 5x5).  Then 6 served
            batch-256 requests each (logits finite, (256, 1000), within
            relative L2 2e-2 of the CPU plain path on 8 images, or, where a
            tie flips, every module of the 'int' forward fed the card's
@@ -350,9 +354,10 @@ Phases, each fatal on failure:
              concatenated operands.
 The last lines: one JSON line of kernel figures (the grouped launches,
 int8_conv3x3.cu's grouped build int8_conv3x3_grouped.cu, under an entry of
-their own: B2g4's 13 at batch 64, their served launches; the 5x5
-depthwise launches, int8_dwconv5x5.cu, under theirs, the ragged 3x3 ones
-under int8_dwconv3x3's), the card's name and power limit,
+their own: B2g4's 13 at batch 64, their served launches; the depthwise
+launches of int8_dwconv5x5.cu under two entries, int8_dwconv5x5 for the
+5x5 window and int8_dwconv_ragged for the 3x3 window's ragged path, apart
+from int8_dwconv3x3's aligned ones), the card's name and power limit,
 and {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -1530,23 +1535,47 @@ def mobile_serve_phase(name, model, device, pooled, expect=None):
     return launches
 
 
-def parent_dw_ms(root: str):
-    """The depthwise kernel of the tree at ``root`` timed at every
-    depthwise launch of the MOBILE requests (tools/dw_launches.py in a
-    process of its own, on that tree's package): {(model, batch, i): ms}."""
+def parent_dw_turns(root: str):
+    """The depthwise kernel of the tree at ``root`` and of this one, in
+    turns (parent, this, this, parent), each timed by tools/dw_launches.py
+    in a process of its own at every depthwise launch of the five models'
+    requests at batch SERVE_BATCH; prints the sums by model and path (the
+    aligned 3x3 build, the ragged path, the 5x5 window) and this tree's
+    over the parent's.  Returns the first parent run's ms by (model,
+    batch, launch index)."""
+    runs = []
     with tempfile.TemporaryDirectory() as tmp:
-        out = pathlib.Path(tmp) / "rows.json"
-        run = subprocess.run(
-            [sys.executable, str(DW_TOOL), "--root", root, "--json",
-             str(out), "8", str(SERVE_BATCH)], capture_output=True, text=True)
-        if run.returncode != 0:
-            print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
-            raise RuntimeError(f"timing the depthwise kernel of {root} "
-                               "failed")
-        rows = json.loads(out.read_text())
-    print(f"# parent tree {root}: its depthwise kernel timed at "
-          f"{len(rows)} launches (tools/dw_launches.py)")
-    return {(r["model"], r["batch"], r["index"]): r["ms"] for r in rows}
+        for who, tree in (("parent", root), ("this", str(REPO)),
+                          ("this", str(REPO)), ("parent", root)):
+            out = pathlib.Path(tmp) / "rows.json"
+            run = subprocess.run(
+                [sys.executable, str(DW_TOOL), "--root", tree, "--json",
+                 str(out), str(SERVE_BATCH)], capture_output=True, text=True)
+            if run.returncode != 0:
+                print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
+                raise RuntimeError(f"timing the depthwise kernel of {tree} "
+                                   "failed")
+            runs.append((who, json.loads(out.read_text())))
+    sums = {}
+    for turn, (who, rows) in enumerate(runs):
+        for r in rows:
+            key = (r["model"], r["group"])
+            sums.setdefault(key, [[0.0] * 4, 0.0, 0])
+            sums[key][0][turn] += r["ms"]
+            if turn == 0:
+                sums[key][1] += r["bound_ms"]
+                sums[key][2] += 1
+    print(f"# depthwise kernel of the parent tree {root} and this one at "
+          f"batch {SERVE_BATCH}, in turns (tools/dw_launches.py, seeded "
+          "codes, each run a process of its own): model path launches | "
+          "parent this this parent ms | bound ms | this / parent")
+    for (model, grp), (ms, bound, n) in sorted(sums.items()):
+        ratio = (ms[1] + ms[2]) / (ms[0] + ms[3])
+        print(f"  {model:18s} {grp:7s} {n:2d} | "
+              + " ".join(f"{t:.4f}" for t in ms)
+              + f" | {bound:.4f} | {ratio:.4f}")
+    return {(r["model"], r["batch"], r["index"]): r["ms"]
+            for r in runs[0][1]}
 
 
 def parent_window_ms(root: str):
@@ -3126,12 +3155,24 @@ def zoo_phase(device):
     return grouped_tot, other, max(b2["conv"]["err"], d2["conv"]["err"])
 
 
+# the depthwise launches' paths: the aligned 3x3 build (int8_dwconv3x3.cu),
+# the 3x3 window's ragged path and the 5x5 window (both int8_dwconv5x5.cu)
+DW_PATHS = ("aligned", "ragged", "5x5")
+
+
+def dw_path(args) -> str:
+    """A depthwise launch's path (DW_PATHS) from its codes and weight."""
+    if DW.window(args[1]) == 5:
+        return "5x5"
+    return "ragged" if DW.route(args[0], args[1]) else "aligned"
+
+
 def dw_launch_phase(what, model, x, expect):
     """Every launch of one request of ``x`` against its plain version
     (tolerance 0); each depthwise launch timed (CUDA graph of 16) beside
     its window, C, stride, plan, bound (bytes: x and the weight read once,
     the output written once), plain ms and a bf16 F.conv2d(groups=C) of the
-    same shape.  Returns the depthwise totals by window (3, 5)."""
+    same shape.  Returns the depthwise totals by path (DW_PATHS)."""
     with torch.inference_mode():
         with LaunchRecorder() as rec:
             model(x, qmode="intc")
@@ -3139,9 +3180,9 @@ def dw_launch_phase(what, model, x, expect):
         if rec.counts() != expect:
             raise RuntimeError(f"{what}: a request made {rec.counts()} "
                                f"launches, expected {expect}")
-        tots = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+        tots = {g: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                         bytes_ms=0.0, context_ms=0.0, err=0.0, n=0, ragged=0)
-                for k in DW.WINDOWS}
+                for g in DW_PATHS}
         print(f"# {what} kernel vs plain, batch {x.shape[0]}: every launch "
               "== plain; each depthwise launch: window, (N, H, W, C), "
               "stride, plan | kernel_us bound_us (by) kernel/bound "
@@ -3153,7 +3194,7 @@ def dw_launch_phase(what, model, x, expect):
                                    f"plain differ by {err}")
             if kind != "dwconv":
                 continue
-            t = tots[DW.window(args[1])]
+            t = tots[dw_path(args)]
             ms = graph_ms(lambda _: DW.int8_dwconv3x3(*args, **kw),
                           GRAPH_LAUNCHES)
             b_ms, t_ops, t_bytes = launch_bound(kind, args, kw, out)
@@ -3171,9 +3212,9 @@ def dw_launch_phase(what, model, x, expect):
                   f"{ms * 1e3:8.2f} {b_ms * 1e3:8.2f} "
                   f"({bound_by(t_ops, t_bytes)}) {ms / b_ms:.2f} "
                   f"{{{plain_ms * 1e3:.1f} {context_ms * 1e3:.2f}}}")
-    for k, t in tots.items():
+    for g, t in tots.items():
         if t["n"]:
-            print(f"# {what} batch {x.shape[0]} depthwise {k}x{k} launches "
+            print(f"# {what} batch {x.shape[0]} depthwise {g} launches "
                   f"({t['n']}, {t['ragged']} on the ragged path): kernel "
                   f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
                   f"({bound_by(t['ops_ms'], t['bytes_ms'])}), plain "
@@ -3232,11 +3273,12 @@ def ghost_effnet_phase(device):
     efficientnet_deploy -> the bench's W8A8 scheme -> calibrate -> deploy;
     every launch of a request == plain at batch 8 and 256, each depthwise
     launch timed; 6 served batch-256 requests each.  Returns the depthwise
-    totals by window at batch 256 (both models), the served launches by
-    kind (``dwconv_5x5`` and ``dwconv_ragged`` among them) and the largest
-    difference."""
-    dw = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
-                  bytes_ms=0.0, context_ms=0.0, err=0.0) for k in DW.WINDOWS}
+    totals by path (DW_PATHS) at batch 256 (both models) and the served
+    launches by kind (``dwconv_5x5`` and ``dwconv_ragged`` among them: no
+    5x5 launch is ragged, so these are the two entries of
+    int8_dwconv5x5.cu)."""
+    dw = {g: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                  bytes_ms=0.0, context_ms=0.0, err=0.0) for g in DW_PATHS}
     served = {}
     for label, (name, fuser, expect, wide, ragged) in GHOST_EFFNET.items():
         t0 = time.perf_counter()
@@ -3247,11 +3289,14 @@ def ghost_effnet_phase(device):
         for batch in (8, SERVE_BATCH):
             tots = dw_launch_phase(label, model,
                                    images(batch, SEED + 1, device), expect)
-            if (tots[5]["n"], tots[3]["ragged"] + tots[5]["ragged"]) \
-                    != (wide, ragged):
-                raise RuntimeError(f"{label}: {tots[5]['n']} 5x5 and "
-                                   f"{tots[3]['ragged']} ragged depthwise "
-                                   f"launches, expected {wide}, {ragged}")
+            if (tots["5x5"]["n"], tots["ragged"]["n"],
+                    tots["5x5"]["ragged"]) != (wide, ragged, 0):
+                raise RuntimeError(f"{label}: {tots['5x5']['n']} 5x5 and "
+                                   f"{tots['ragged']['n']} ragged 3x3 "
+                                   f"depthwise launches, "
+                                   f"{tots['5x5']['ragged']} 5x5 ones on "
+                                   f"the ragged path, expected {wide}, "
+                                   f"{ragged}, 0")
             if batch == SERVE_BATCH:
                 for k, t in tots.items():
                     for key in dw[k]:
@@ -3264,9 +3309,10 @@ def ghost_effnet_phase(device):
                      request_ms, expect)
         print(f"# {label} serve: launches a request by kernel: "
               f"int8_conv3x3 {expect['conv']}, int8_gemm {expect['gemm']}, "
-              f"int8_dwconv3x3 {expect['dwconv'] - wide} ({ragged} of them "
-              f"on the ragged path, int8_dwconv5x5.cu), int8_dwconv5x5 "
-              f"{wide}; request {request_ms:.3f} ms at batch {SERVE_BATCH}")
+              f"int8_dwconv3x3 {expect['dwconv'] - wide - ragged}, "
+              f"int8_dwconv_ragged {ragged} and int8_dwconv5x5 {wide} "
+              f"(int8_dwconv5x5.cu); request {request_ms:.3f} ms at batch "
+              f"{SERVE_BATCH}")
         for kind, n in launches.items():
             served[kind] = served.get(kind, 0) + n
         del model
@@ -3361,7 +3407,7 @@ def main(argv=None) -> int:
     engine = serving_phase(device, card, r50)
     print(f"# serving phase: {time.perf_counter() - t0:.2f} s")
     del r50
-    parent = parent_dw_ms(args.parent) if args.parent else None
+    parent = parent_dw_turns(args.parent) if args.parent else None
     mobile_err, dw, mobile_served, w8 = mobile_phase(device, parent)
     t0 = time.perf_counter()
     w4_err, w4_served = w4_phase(device, w8)
@@ -3439,8 +3485,9 @@ def main(argv=None) -> int:
                      "int8 conv, feature_group_count=C; no Pallas kernel)",
                      mobile_served["dwconv"] + w4_served["dwconv"]
                      + c4_launches["dwconv"] + c2_launches["dwconv"]
-                     + ghost_served["dwconv"] - ghost_served["dwconv_5x5"],
-                     dict({key: dw[key] + ghost_dw[3][key]
+                     + ghost_served["dwconv"] - ghost_served["dwconv_5x5"]
+                     - ghost_served["dwconv_ragged"],
+                     dict({key: dw[key] + ghost_dw["aligned"][key]
                            for key in ("ms", "plain_ms", "bound_ms",
                                        "ops_ms", "bytes_ms")},
                           err=max(dw["err"], w4_err, c4_err, c2_err,
@@ -3450,7 +3497,14 @@ def main(argv=None) -> int:
                      "dlmc_quant_tpu/quant/layers.py:722-728 (XLA grouped "
                      "int8 conv, feature_group_count=C, 5x5 window; no "
                      "Pallas kernel)",
-                     ghost_served["dwconv_5x5"], ghost_dw[5], None),
+                     ghost_served["dwconv_5x5"], ghost_dw["5x5"], None),
+        kernel_entry("int8_dwconv_ragged",
+                     "dlmc_quant_tpu/quant/layers.py:722-728 (XLA grouped "
+                     "int8 conv, feature_group_count=C, 3x3 at C % 8 != 0; "
+                     "no Pallas kernel)",
+                     ghost_served["dwconv_ragged"], ghost_dw["ragged"], None,
+                     source="dlmc_quant_torch/ops/cuda/csrc/"
+                            "int8_dwconv5x5.cu"),
         kernel_entry("int8_window_sum",
                      "dlmc_quant_tpu/quant/layers.py:459 (the integer plan "
                      "drops o_w, hazard C1; no Pallas kernel)",

@@ -1,850 +1,21 @@
-// int8 depthwise 3x3 and 5x5 convolutions with the folded requantize
-// epilogue, for Hopper (sm_90a): the depthwise convs of MobileNetV2,
-// MobileOne, GhostNet and EfficientNet on the integer paths.
-//
-// Built twice.  As itself (int8_dwconv3x3.cu) it holds the 3x3 window at
-// C % 8 == 0 on 16-byte aligned codes: the instantiations MobileNetV2 and
-// MobileOne run.  int8_dwconv5x5.cu includes it with DLMCQ_DW_WIDE set and
-// holds the rest: the 5x5 window (int8_dwconv5x5_kernel) at any C, and the
-// 3x3 window's ragged path (RAGGED, any C >= 1 or codes not 16-byte
-// aligned).  The C entry point is the same in both libraries.
-//
-// Replaces the XLA int8 conv of the JAX package's integer path at
-// feature_group_count = C (dlmc_quant_tpu/quant/layers.py:722-728:
-// jnp.pad of the codes with the pad code, then conv_general_dilated with
-// preferred_element_type=int32); no Pallas kernel did this on the TPU, XLA
-// lowered the grouped conv.  For input codes x (N, H, W, C) int8 and a
-// weight w (K, K, 1, C), K = 3 or 5, packed as (K*K, C) int8 (tap
-// dy*K + dx, channels contiguous):
-//
-//   acc[n,p,q,c] = sum_{dy,dx} xpad[n, p*s - pad_lo + dy, q*s - pad_lo + dx, c]
-//                              * w[dy*K + dx, c]                      (int32)
-//   xpad = x, or the int8 code `pad` (real 0 on the input's grid, not 0)
-//          outside the map; pad_lo = K/2, or K/2 - 1 for SAME at stride 2
-//          on an even map; Ho = ceil(H / s), Wo = ceil(W / s)
-//   codes: out = clamp(rint(f32(acc)*a[c] + b[c]), lo, hi)    -> int8
-//   f32:   out = f32(acc)*a[c] + b[c], then max(., 0) if relu -> f32
-//   with a weight offset's term (an offset o_w on the weight grid, c the
-//   per-channel oc[c] = s_x*o_w[c]) the product f32(acc)*a[c] becomes
-//   f32(acc)*a[c] + f32(S)*oc[c], each rounded, before the rest, with
-//   S[n,p,q,c] = sum_{dy,dx} xpad[...] - K*K*pad: the window's codes of the
-//   channel less the pad code (a pad adds 0).  The kernel sums them next
-//   to the products: one more signed __dp4a a tap row (two at 5x5),
-//   against a word of ones where the weight word has its taps (TERM, an
-//   instantiation of its own).
-//
-// written with __fmul_rn, __fadd_rn (no fma contraction) and rounding half
-// to even, as the int8 conv's and GEMM's epilogues (ops/cuda/epilogue.py is
-// the plain version), so the kernel equals int8_dwconv3x3_plain bit for
-// bit; the two conversions (acc to float, float to code) are exact float
-// additions here (acc_to_float, store_row).  The ReLU of a boundary lives
-// in lo and a ReLU6 in hi (quant/chain.py: fold_params).
-//
-// Bound on an H100: bytes.  A depthwise conv does 9 multiply-adds an
-// output value and has no reduction over channels, so wgmma does not
-// apply: a block-diagonal product would do C times the work.  At batch 256
-// MobileNetV2's 17 launches move 1.547 GB (x read once, codes written
-// once), 0.46 ms at 3.35 TB/s, for 5.3 G multiply-adds; what serves here
-// is shared memory, asynchronous copies and the CUDA cores' 4-way int8 dot
-// product (dp4a), so that instructions stay under the bytes.
-//
-// Design.  A block owns one image, a tile of TH x TW outputs and a slice
-// of CB channels: the whole pixel where it fits (a warp's stores then run
-// on through the pixel: with C = 144, slices of 32 that straddle 32-byte
-// sectors took twice as long), else 64, 48 or 32 (a tail slice masked in
-// quads; C % 8 == 0).  It stages the tile's input halo, ((TH-1)s+3) x
-// ((TW-1)s+3) pixels of CB bytes at a pitch of CB + 16 (a warp's words
-// spread over the banks), in shared memory with cp.async in 16-byte
-// granules (8 where C or CB % 16 != 0: a pixel may start on an 8-byte
-// boundary); every cell outside the map, the bottom/right overhang
-// included, gets the pad code.  The grid is what fits on the card at once,
-// a multiple of the slice count, so a block keeps one slice and walks
-// tiles (slice fastest, then column, row, image), staging the next tile's
-// halo into the second buffer while it computes this one.  A thread owns
-// 4 channels x R output columns of a row (R = 4 at stride 1, 2 at stride
-// 2) and walks rpt rows down the tile.  From each halo row it reads
-// (R-1)s+3 words (a word: the 4 channels of one pixel) and transposes them
-// with __byte_perm into channel words (4 consecutive pixels of one
-// channel); one signed __dp4a against the tap row's weight word
-// (w0,w1,w2,0) or (0,w0,w1,w2) gives an output's three taps of that row.
-// At stride 1 a channel word of pixels q-1..q+2 serves output q and q+1,
-// and a halo row's words are kept for the three output rows that use it:
-// ~6 LDS, 14 PRMT and 48 dp4a an output row of 16 values (144
-// multiply-adds) against ~5 instructions a multiply-add for a byte
-// extract and an IMAD.  The epilogue's two conversions are exact float
-// additions on the full-rate pipes.  The weight words and a, b are loaded
-// into registers once a block (load_weights), the index math once a tile.
-// A weight of 4 bits or fewer comes nibble-packed, (9, C/2) bytes with
-// channel 2j in the low nibble of byte j (ops/cuda/nibbles.py), and stays
-// so in device memory; load_weights reads a 16-bit word for a thread's 4
-// channels a tap, sign-extends the nibbles bytewise and interleaves them
-// into the same tap words as an int8 weight gives, so nothing after it
-// changes.
-//
-// The 5x5 window (int8_dwconv5x5_kernel, built into int8_dwconv5x5.cu).
-// Five taps a row do not fit one dp4a word, so a tap row's weights are two
-// words: lo = (w0,w1,w2,w3) and hi = (w4,0,0,0), the 64-bit (hi:lo) of the
-// five taps.  From each halo row a thread reads (R-1)s+5 words (8 at
-// stride 1, 7 at stride 2) and transposes them into two channel words of 4
-// pixels, A = pixels h..h+3 and B = h+4..h+7, h its first column.  Output
-// k starts d = k*s pixels in, and its five taps of the row are
-// dp4a(A, lo << 8d) + dp4a(B, funnelshift_l(lo, hi, 8d)): (hi:lo) << 8d
-// puts tap i at byte i + d of the pair (A, B).  Two dp4a an output a row,
-// 10 an output (25 multiply-adds); the window sum of TERM is the same
-// against words of ones, less 25 * pad.  Each output row reads its five
-// halo rows anew (no rows kept across output rows: a simple first form).
-//
-// The ragged path (RAGGED, any C >= 1, or codes that are not 16-byte
-// aligned), of either window: the slice CB is a multiple of 4 (the whole
-// pixel rounded up to a quad where it fits) and the halo keeps its 4-byte
-// words at the pitch CB + 16, so the products are the aligned path's.
-// What changes is at the edges: the halo is staged in 4-byte cp.async
-// granules where C % 4 == 0 on 4-byte aligned codes, else byte by byte
-// (stage_ragged; the pad code past the map and past C), the weights,
-// a, b and oc are read channel by channel (0 past C; W4 rows of
-// (C + 1) / 2 bytes), and the outputs are stored channel by channel.
-//
-// The tile plan (CB, column groups, row groups, rows a thread) comes from
-// the wrapper (ops/cuda/int8_dwconv.py: plan, a model of the work and of
-// the last tile's latency), which the CPU tests emulate word for word
-// (tests/test_torch_dwconv_tiles.py).  On an H100 at batch 256 the 17 and
-// 21 launches of MobileNetV2 and MobileOne-S1 run at 1.8-2.0x their bound:
-// the stride-1 layers near 2x, the stride-2 ones 1.35-2.0x, 7x7 maps 2.4x.
+// The int8 depthwise conv's aligned 3x3 build, for Hopper (sm_90a): the 3x3
+// window at C % 8 == 0 on 16-byte aligned codes and weight, the launches of
+// MobileNetV2 and MobileOne and the 3x3 convs of GhostNet and EfficientNet
+// at C % 8 == 0.  int8_dwconv.cuh holds the kernel, its design and bound
+// and the C entry point; int8_dwconv5x5.cu is the wide build (the 5x5
+// window, the ragged path), a library of its own, so that this one keeps
+// only the aligned 3x3 instantiations.
 
-#include <cstdint>
-#include <cuda_runtime.h>
-
-#include "wgmma_s8.cuh"   // sext_nibbles: the W4 weights' sign extension
+#include "int8_dwconv.cuh"
 
 namespace {
 
-constexpr int MAX_THREADS = 256;
-constexpr int PITCH_PAD = 16;        // bytes after a pixel's slice in smem
-constexpr int MAX_SMEM = 232448;     // dynamic shared memory a block may use
-constexpr int MAX_DEVICES = 64;
-
-struct DwArgs {
-  const int8_t* x;
-  const int8_t* w;       // (9, C) int8, or (9, C/2) nibble pairs if w4
-  const float* a;
-  const float* b;
-  const float* oc;       // the offset term's (C,) coefficient, if TERM
-  void* out;             // (N, Ho, Wo, C): int8 codes or f32
-  int H, W, C, Ho, Wo, pad_lo, relu, w4;
-  float flo, fhi;        // the codes' clamp, lo and hi
-  int pad_sum;           // K*K * the pad code: a window's pads, if TERM
-  uint32_t pad4;         // the pad code in every byte
-  // the plan: channel slice and its quads, column groups, rows a thread;
-  // tile, halo and smem pitch; tiles of the walk
-  int cb, cq, cg, rpt;
-  int th, tw, hh, hw, pitch, granule, buf_bytes;
-  int slices, tiles_x, tiles_y, tiles;
-};
-
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int granule) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (granule == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(src));
-}
-
-// the ragged path's staging of one cell: a 4-byte cp.async (C % 4 == 0 on
-// 4-byte aligned codes) or a byte, the pad code where src is null
-__device__ __forceinline__ void stage_ragged(unsigned char* dst,
-                                             const int8_t* src,
-                                             const DwArgs& g) {
-  if (g.granule == 4) {
-    if (src != nullptr) {
-      const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                   "l"(src));
-    } else {
-      *reinterpret_cast<uint32_t*>(dst) = g.pad4;
-    }
-  } else {
-    *dst = src != nullptr ? static_cast<unsigned char>(*src)
-                          : static_cast<unsigned char>(g.pad4);
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// tile t -> (image, tile row, tile column); the slice is t % slices
-struct Tile {
-  int n, oy0, ox0;
-};
-
-__device__ __forceinline__ Tile tile_of(const DwArgs& g, int t) {
-  int rest = t / g.slices;
-  const int tx = rest % g.tiles_x;
-  rest /= g.tiles_x;
-  const int ty = rest % g.tiles_y;
-  return Tile{rest / g.tiles_y, ty * g.th, tx * g.tw};
-}
-
-// Stage tile t's halo in buf: a thread takes a column of granules and
-// every `ways`-th row of it (ways = the threads a column gets); cp.async
-// inside the map, the pad code outside it and past C.  RAGGED stages
-// granules of 4 bytes or 1 (stage_ragged).
-template <int S, bool RAGGED = false>
-__device__ void stage_halo(const DwArgs& g, int t, unsigned char* buf) {
-  const Tile tl = tile_of(g, t);
-  const int c0 = (t % g.slices) * g.cb;
-  const int iy0 = tl.oy0 * S - g.pad_lo;
-  const int ix0 = tl.ox0 * S - g.pad_lo;
-  const int gpp = g.cb / g.granule;      // granules a pixel
-  const int cols = g.hw * gpp;
-  const long long row_bytes = static_cast<long long>(g.W) * g.C;
-  const int8_t* image = g.x + static_cast<long long>(tl.n) * g.H * row_bytes;
-  int ways = blockDim.x / cols, col = threadIdx.x, col_step = blockDim.x;
-  int hr0 = 0;
-  if (ways > 1) {
-    hr0 = threadIdx.x / cols;
-    col = hr0 < ways ? threadIdx.x - hr0 * cols : cols;
-    col_step = cols;
-  } else {
-    ways = 1;
-  }
-  const int step = ways * g.hw * g.pitch;
-  for (; col < cols; col += col_step) {
-    const int hc = col / gpp;
-    const int c = c0 + (col - hc * gpp) * g.granule;
-    const int ix = ix0 + hc;
-    // C % granule == 0, so a granule lies wholly inside or past C
-    const bool col_in = ix >= 0 && ix < g.W && c < g.C;
-    unsigned char* dst = buf + (hr0 * g.hw + hc) * g.pitch + (c - c0);
-    for (int hr = hr0; hr < g.hh; hr += ways, dst += step) {
-      const int iy = iy0 + hr;
-      if constexpr (RAGGED) {
-        stage_ragged(dst,
-                     col_in && iy >= 0 && iy < g.H
-                         ? image + iy * row_bytes +
-                               static_cast<long long>(ix) * g.C + c
-                         : nullptr,
-                     g);
-      } else if (col_in && iy >= 0 && iy < g.H) {
-        cp_async(dst, image + iy * row_bytes + static_cast<long long>(ix) *
-                                  g.C + c, g.granule);
-      } else if (g.granule == 16) {
-        *reinterpret_cast<uint4*>(dst) =
-            make_uint4(g.pad4, g.pad4, g.pad4, g.pad4);
-      } else {
-        *reinterpret_cast<uint2*>(dst) = make_uint2(g.pad4, g.pad4);
-      }
-    }
-  }
-}
-
-// 4 words of 4 bytes (p[i] byte j) -> t[j] byte i = p[i] byte j
-__device__ __forceinline__ void transpose4(uint32_t p0, uint32_t p1,
-                                           uint32_t p2, uint32_t p3,
-                                           uint32_t (&t)[4]) {
-  const uint32_t x0 = __byte_perm(p0, p1, 0x5140);   // p0.0 p1.0 p0.1 p1.1
-  const uint32_t x1 = __byte_perm(p0, p1, 0x7362);   // p0.2 p1.2 p0.3 p1.3
-  const uint32_t y0 = __byte_perm(p2, p3, 0x5140);
-  const uint32_t y1 = __byte_perm(p2, p3, 0x7362);
-  t[0] = __byte_perm(x0, y0, 0x5410);
-  t[1] = __byte_perm(x0, y0, 0x7632);
-  t[2] = __byte_perm(x1, y1, 0x5410);
-  t[3] = __byte_perm(x1, y1, 0x7632);
-}
-
-// 4 channels' int8 weights from their 2 nibble-packed bytes (channel 2j
-// in the low nibble of byte j): the word an int8 weight gives.
-__device__ __forceinline__ uint32_t unpack_pair(uint32_t u) {
-  const uint32_t lo = dlmcq::sext_nibbles(u & 0x0F0Fu);   // channels 0, 2
-  const uint32_t hi = dlmcq::sext_nibbles((u >> 4) & 0x0F0Fu);  // 1, 3
-  return __byte_perm(lo, hi, 0x5140);
-}
-
-// The word of channels c..c+3 at one tap (byte j: channel c + j).  The one
-// place the kernel reads the weight: a 32-bit word, or at W4 a 16-bit word
-// of nibbles (C % 8 == 0 keeps it aligned), unpacked.  RAGGED reads byte
-// by byte, 0 past C; at W4 a tap's row is (C + 1) / 2 bytes.
-template <bool RAGGED>
-__device__ __forceinline__ uint32_t tap_word(const DwArgs& g, int tap,
-                                             int c) {
-  if constexpr (RAGGED) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ch = c + j;
-      if (ch < g.C) {
-        int v;
-        if (g.w4) {
-          const int u = __ldg(reinterpret_cast<const uint8_t*>(g.w) +
-                              tap * ((g.C + 1) / 2) + ch / 2);
-          v = (((u >> (4 * (ch & 1))) & 0xF) ^ 8) - 8;
-        } else {
-          v = __ldg(g.w + tap * g.C + ch);
-        }
-        word |= static_cast<uint32_t>(v & 0xFF) << (8 * j);
-      }
-    }
-    return word;
-  } else {
-    const int at = tap * g.C + c;
-    return g.w4 ? unpack_pair(__ldg(
-                      reinterpret_cast<const uint16_t*>(g.w) + at / 4))
-                : __ldg(reinterpret_cast<const uint32_t*>(g.w + at));
-  }
-}
-
-// a, b (and the offset term's oc) of channels c..c+3, 0 past C
-template <bool TERM, bool RAGGED>
-__device__ __forceinline__ void load_affine(const DwArgs& g, int c,
-                                            bool c_in, float (&ea)[4],
-                                            float (&eb)[4], float (&ec)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const bool in = RAGGED ? c + j < g.C : c_in;
-    ea[j] = in ? __ldg(g.a + c + j) : 0.0f;
-    eb[j] = in ? __ldg(g.b + c + j) : 0.0f;
-    ec[j] = TERM && in ? __ldg(g.oc + c + j) : 0.0f;
-  }
-}
-
-// The weight words of channels c..c+3 for each tap row dy: byte i of
-// wa[dy][j] is w[3 dy + i, c + j] for i < 3, byte 3 is 0; and a, b.
-template <bool TERM, bool RAGGED>
-__device__ __forceinline__ void load_weights(const DwArgs& g, int c,
-                                             bool c_in,
-                                             uint32_t (&wa)[3][4],
-                                             float (&ea)[4], float (&eb)[4],
-                                             float (&ec)[4]) {
-#pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    uint32_t tap[3] = {0, 0, 0};
-    if (c_in) {
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-        tap[dx] = tap_word<RAGGED>(g, 3 * dy + dx, c);
-    }
-    transpose4(tap[0], tap[1], tap[2], 0u, wa[dy]);
-  }
-  load_affine<TERM, RAGGED>(g, c, c_in, ea, eb, ec);
-}
-
-// The channel words of one halo row for a thread's R outputs.  Stride 1
-// (words p0..p5 = halo columns h..h+5): cw[j] = pixels h..h+3 of channel
-// j, cw[4 + j] = pixels h+2..h+5.  Stride 2 (p0..p4 = columns h..h+4):
-// cw[j] = pixels h..h+3, cw[4 + j] = pixels h+2, h+3, h+4 and a byte that
-// meets a zero weight byte.
-template <int S>
-__device__ __forceinline__ void row_words(const unsigned char* q, int pitch,
-                                          uint32_t (&cw)[8]) {
-  constexpr int WORDS = S == 1 ? 6 : 5;
-  uint32_t p[WORDS];
-#pragma unroll
-  for (int k = 0; k < WORDS; ++k)
-    p[k] = *reinterpret_cast<const uint32_t*>(q + k * pitch);
-  uint32_t lo[4];
-  transpose4(p[0], p[1], p[2], p[3], lo);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) cw[j] = lo[j];
-  if constexpr (S == 1) {
-    const uint32_t y0 = __byte_perm(p[2], p[3], 0x5140);
-    const uint32_t y1 = __byte_perm(p[2], p[3], 0x7362);
-    const uint32_t z0 = __byte_perm(p[4], p[5], 0x5140);
-    const uint32_t z1 = __byte_perm(p[4], p[5], 0x7362);
-    cw[4] = __byte_perm(y0, z0, 0x5410);
-    cw[5] = __byte_perm(y0, z0, 0x7632);
-    cw[6] = __byte_perm(y1, z1, 0x5410);
-    cw[7] = __byte_perm(y1, z1, 0x7632);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      cw[4 + j] = __byte_perm(lo[j], p[4], 0x32 | (4 + j) << 8 |
-                                               (4 + j) << 12);
-  }
-}
-
-// acc[j][k] += the tap row's three products for output k of channel j
-template <int S, int R>
-__device__ __forceinline__ void mac_row(int (&acc)[4][R],
-                                        const uint32_t (&cw)[8],
-                                        const uint32_t (&wa)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int w0 = static_cast<int>(wa[j]);
-    if constexpr (S == 1) {
-      const int w1 = static_cast<int>(wa[j] << 8);
-      acc[j][0] = __dp4a(static_cast<int>(cw[j]), w0, acc[j][0]);
-      acc[j][1] = __dp4a(static_cast<int>(cw[j]), w1, acc[j][1]);
-      acc[j][2] = __dp4a(static_cast<int>(cw[4 + j]), w0, acc[j][2]);
-      acc[j][3] = __dp4a(static_cast<int>(cw[4 + j]), w1, acc[j][3]);
-    } else {
-      acc[j][0] = __dp4a(static_cast<int>(cw[j]), w0, acc[j][0]);
-      acc[j][1] = __dp4a(static_cast<int>(cw[4 + j]), w0, acc[j][1]);
-    }
-  }
-}
-
-// sums[j][k] += the tap row's three codes for output k of channel j: the
-// products of mac_row against a weight word of ones where its three taps
-// are (bytes 0-2, or 1-3 for the second output at stride 1)
-template <int S, int R>
-__device__ __forceinline__ void sum_row(int (&sums)[4][R],
-                                        const uint32_t (&cw)[8]) {
-  constexpr int ONES0 = 0x00010101, ONES1 = 0x01010100;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if constexpr (S == 1) {
-      sums[j][0] = __dp4a(static_cast<int>(cw[j]), ONES0, sums[j][0]);
-      sums[j][1] = __dp4a(static_cast<int>(cw[j]), ONES1, sums[j][1]);
-      sums[j][2] = __dp4a(static_cast<int>(cw[4 + j]), ONES0, sums[j][2]);
-      sums[j][3] = __dp4a(static_cast<int>(cw[4 + j]), ONES1, sums[j][3]);
-    } else {
-      sums[j][0] = __dp4a(static_cast<int>(cw[j]), ONES0, sums[j][0]);
-      sums[j][1] = __dp4a(static_cast<int>(cw[4 + j]), ONES0, sums[j][1]);
-    }
-  }
-}
-
-// 1.5 * 2^23: in [2^23, 2^24) a float's last bit is worth 1, so an int
-// below 2^22 in magnitude added to these bits is that float plus the int
-constexpr float MAGIC = 12582912.0f;
-constexpr int MAGIC_BITS = 0x4B400000;
-
-// f32(acc), exact (|acc| <= 9 * 128 * 128 < 2^22) as __int2float_rn, on the
-// integer and float pipes instead of the conversion pipe (16 a clock an SM)
-__device__ __forceinline__ float acc_to_float(int acc) {
-  return __fsub_rn(__int_as_float(MAGIC_BITS + acc), MAGIC);
-}
-
-// the epilogue of one output row's R x 4 values, stored where inside the
-// map (and the thread's channels inside C: RAGGED stores channel by
-// channel, the first nc of the 4)
-template <bool CODES, bool TERM, int R, bool RAGGED = false>
-__device__ __forceinline__ void store_row(const DwArgs& g,
-                                          const int (&acc)[4][R],
-                                          const int (&sums)[4][R],
-                                          const float (&ea)[4],
-                                          const float (&eb)[4],
-                                          const float (&ec)[4],
-                                          long long at, int ox, int nc = 4) {
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    if (ox + k >= g.Wo) break;
-    float y[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float prod = __fmul_rn(acc_to_float(acc[j][k]), ea[j]);
-      if constexpr (TERM)
-        prod = __fadd_rn(
-            prod, __fmul_rn(acc_to_float(sums[j][k] - g.pad_sum), ec[j]));
-      y[j] = __fadd_rn(prod, eb[j]);
-    }
-    const long long o = at + static_cast<long long>(k) * g.C;
-    if constexpr (RAGGED) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j >= nc) break;
-        if constexpr (CODES)
-          static_cast<int8_t*>(g.out)[o + j] = static_cast<int8_t>(
-              __float_as_uint(__fadd_rn(fminf(fmaxf(y[j], g.flo), g.fhi),
-                                        MAGIC)) & 0xFF);
-        else
-          static_cast<float*>(g.out)[o + j] =
-              g.relu ? fmaxf(y[j], 0.0f) : y[j];
-      }
-    } else if constexpr (CODES) {
-      // clamp(rint(y), lo, hi) as __float2int_rn and a clamp give it: the
-      // clamp to the integers lo, hi commutes with rint, and adding MAGIC
-      // rounds half to even to an integer whose low byte is the code
-      uint32_t code[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        code[j] = __float_as_uint(
-            __fadd_rn(fminf(fmaxf(y[j], g.flo), g.fhi), MAGIC));
-      const uint32_t lo = __byte_perm(code[0], code[1], 0x0040);
-      const uint32_t hi = __byte_perm(code[2], code[3], 0x0040);
-      *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(g.out) + o) =
-          __byte_perm(lo, hi, 0x5410);
-    } else {
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = g.relu ? fmaxf(y[j], 0.0f) : y[j];
-      *reinterpret_cast<float4*>(static_cast<float*>(g.out) + o) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
-template <int S, bool CODES, bool TERM, bool RAGGED>
-__global__ void __launch_bounds__(MAX_THREADS)
-int8_dwconv3x3_kernel(const DwArgs g) {
-  constexpr int R = S == 1 ? 4 : 2;      // output columns of a thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  // the thread: channel quad (fastest), column group, row group
-  const int cq = threadIdx.x % g.cq;
-  const int j = threadIdx.x / g.cq % g.cg;
-  const int r0 = threadIdx.x / (g.cq * g.cg) * g.rpt;
-  // gridDim.x is a multiple of the slice count: one slice a block
-  const int c = blockIdx.x % g.slices * g.cb + 4 * cq;
-  const bool c_in = c < g.C;
-  uint32_t wa[3][4];
-  float ea[4], eb[4], ec[4];
-  load_weights<TERM, RAGGED>(g, c, c_in, wa, ea, eb, ec);
-
-  const int row_step = g.hw * g.pitch;        // a halo row in smem
-  const int col0 = R * S * j;                 // the thread's first column
-  int buf = 0;
-  stage_halo<S, RAGGED>(g, blockIdx.x, smem);
-  cp_async_commit();
-  for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
-    if (t + gridDim.x < g.tiles)
-      stage_halo<S, RAGGED>(g, t + gridDim.x, smem + (buf ^ 1) * g.buf_bytes);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-
-    const Tile tl = tile_of(g, t);
-    const unsigned char* q =
-        smem + buf * g.buf_bytes + col0 * g.pitch + 4 * cq;
-    const int ox = tl.ox0 + R * j;
-    const bool col_in = c_in && ox < g.Wo;
-    long long at = ((static_cast<long long>(tl.n) * g.Ho + tl.oy0 + r0) *
-                        g.Wo + ox) * g.C + c;
-    const long long out_row = static_cast<long long>(g.Wo) * g.C;
-    int oy = tl.oy0 + r0;
-    uint32_t cw[3][8];
-    row_words<S>(q + r0 * S * row_step, g.pitch, cw[0]);
-    if constexpr (S == 1)
-      row_words<S>(q + (r0 + 1) * row_step, g.pitch, cw[1]);
-    for (int i = 0; i < g.rpt; ++i, ++oy, at += out_row) {
-      const unsigned char* hr = q + ((r0 + i) * S + 2) * row_step;
-      int acc[4][R], sums[4][R];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int k = 0; k < R; ++k) acc[u][k] = sums[u][k] = 0;
-      if constexpr (S == 1) {
-        row_words<S>(hr, g.pitch, cw[2]);
-        mac_row<S, R>(acc, cw[0], wa[0]);
-        mac_row<S, R>(acc, cw[1], wa[1]);
-        mac_row<S, R>(acc, cw[2], wa[2]);
-        if constexpr (TERM) {
-          sum_row<S, R>(sums, cw[0]);
-          sum_row<S, R>(sums, cw[1]);
-          sum_row<S, R>(sums, cw[2]);
-        }
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          cw[0][u] = cw[1][u];
-          cw[1][u] = cw[2][u];
-        }
-      } else {
-        mac_row<S, R>(acc, cw[0], wa[0]);
-        if constexpr (TERM) sum_row<S, R>(sums, cw[0]);
-        row_words<S>(hr - row_step, g.pitch, cw[1]);
-        mac_row<S, R>(acc, cw[1], wa[1]);
-        if constexpr (TERM) sum_row<S, R>(sums, cw[1]);
-        row_words<S>(hr, g.pitch, cw[0]);
-        mac_row<S, R>(acc, cw[0], wa[2]);
-        if constexpr (TERM) sum_row<S, R>(sums, cw[0]);
-      }
-      if (col_in && oy < g.Ho)
-        store_row<CODES, TERM, R, RAGGED>(g, acc, sums, ea, eb, ec, at,
-                                          ox, g.C - c);
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-}
-
-// The 5x5 window's tap-row weights of channels c..c+3: byte i of
-// wlo[dy][j] is w[5 dy + i, c + j] (i < 4), byte 0 of whi[dy][j] is
-// w[5 dy + 4, c + j], the rest 0; and a, b (the header's 5x5 paragraph).
-template <bool TERM, bool RAGGED>
-__device__ __forceinline__ void load_weights5(const DwArgs& g, int c,
-                                              bool c_in,
-                                              uint32_t (&wlo)[5][4],
-                                              uint32_t (&whi)[5][4],
-                                              float (&ea)[4], float (&eb)[4],
-                                              float (&ec)[4]) {
-#pragma unroll
-  for (int dy = 0; dy < 5; ++dy) {
-    uint32_t tap[5] = {0, 0, 0, 0, 0};
-    if (c_in) {
-#pragma unroll
-      for (int dx = 0; dx < 5; ++dx)
-        tap[dx] = tap_word<RAGGED>(g, 5 * dy + dx, c);
-    }
-    transpose4(tap[0], tap[1], tap[2], tap[3], wlo[dy]);
-    transpose4(tap[4], 0u, 0u, 0u, whi[dy]);
-  }
-  load_affine<TERM, RAGGED>(g, c, c_in, ea, eb, ec);
-}
-
-// The channel words of one halo row for the 5x5 window: cw[j] = pixels
-// h..h+3 of channel j, cw[4 + j] = h+4..h+7 (at stride 2 the last byte
-// repeats h+6: it meets a zero weight byte).
-template <int S>
-__device__ __forceinline__ void row_words5(const unsigned char* q, int pitch,
-                                           uint32_t (&cw)[8]) {
-  constexpr int WORDS = S == 1 ? 8 : 7;
-  uint32_t p[8];
-#pragma unroll
-  for (int k = 0; k < WORDS; ++k)
-    p[k] = *reinterpret_cast<const uint32_t*>(q + k * pitch);
-  if constexpr (S == 2) p[7] = p[6];
-  uint32_t lo[4], hi[4];
-  transpose4(p[0], p[1], p[2], p[3], lo);
-  transpose4(p[4], p[5], p[6], p[7], hi);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    cw[j] = lo[j];
-    cw[4 + j] = hi[j];
-  }
-}
-
-// acc[j][k] += the tap row's five products for output k of channel j,
-// whose window starts d = k*S pixels into the row's words; with ONES the
-// five codes (the window sum)
-template <int S, int R, bool ONES = false>
-__device__ __forceinline__ void mac_row5(int (&acc)[4][R],
-                                         const uint32_t (&cw)[8],
-                                         const uint32_t (&wlo)[4],
-                                         const uint32_t (&whi)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t lo = ONES ? 0x01010101u : wlo[j];
-    const uint32_t hi = ONES ? 0x00000001u : whi[j];
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const int d = 8 * S * k;
-      acc[j][k] = __dp4a(static_cast<int>(cw[j]), static_cast<int>(lo << d),
-                         acc[j][k]);
-      acc[j][k] = __dp4a(static_cast<int>(cw[4 + j]),
-                         static_cast<int>(__funnelshift_l(lo, hi, d)),
-                         acc[j][k]);
-    }
-  }
-}
-
-template <int S, bool CODES, bool TERM, bool RAGGED>
-__global__ void __launch_bounds__(MAX_THREADS)
-int8_dwconv5x5_kernel(const DwArgs g) {
-  constexpr int R = S == 1 ? 4 : 2;      // output columns of a thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int cq = threadIdx.x % g.cq;
-  const int j = threadIdx.x / g.cq % g.cg;
-  const int r0 = threadIdx.x / (g.cq * g.cg) * g.rpt;
-  const int c = blockIdx.x % g.slices * g.cb + 4 * cq;
-  const bool c_in = c < g.C;
-  uint32_t wlo[5][4], whi[5][4];
-  float ea[4], eb[4], ec[4];
-  load_weights5<TERM, RAGGED>(g, c, c_in, wlo, whi, ea, eb, ec);
-
-  const int row_step = g.hw * g.pitch;
-  const int col0 = R * S * j;
-  int buf = 0;
-  stage_halo<S, RAGGED>(g, blockIdx.x, smem);
-  cp_async_commit();
-  for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
-    if (t + gridDim.x < g.tiles)
-      stage_halo<S, RAGGED>(g, t + gridDim.x,
-                            smem + (buf ^ 1) * g.buf_bytes);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-
-    const Tile tl = tile_of(g, t);
-    const unsigned char* q =
-        smem + buf * g.buf_bytes + col0 * g.pitch + 4 * cq;
-    const int ox = tl.ox0 + R * j;
-    const bool col_in = c_in && ox < g.Wo;
-    long long at = ((static_cast<long long>(tl.n) * g.Ho + tl.oy0 + r0) *
-                        g.Wo + ox) * g.C + c;
-    const long long out_row = static_cast<long long>(g.Wo) * g.C;
-    int oy = tl.oy0 + r0;
-    for (int i = 0; i < g.rpt; ++i, ++oy, at += out_row) {
-      const unsigned char* hr = q + (r0 + i) * S * row_step;
-      int acc[4][R], sums[4][R];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int k = 0; k < R; ++k) acc[u][k] = sums[u][k] = 0;
-#pragma unroll
-      for (int dy = 0; dy < 5; ++dy) {
-        uint32_t cw[8];
-        row_words5<S>(hr + dy * row_step, g.pitch, cw);
-        mac_row5<S, R>(acc, cw, wlo[dy], whi[dy]);
-        if constexpr (TERM) mac_row5<S, R, true>(sums, cw, wlo[dy], whi[dy]);
-      }
-      if (col_in && oy < g.Ho)
-        store_row<CODES, TERM, R, RAGGED>(g, acc, sums, ea, eb, ec, at, ox,
-                                          g.C - c);
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-}
-
-template <int K, int S, bool CODES, bool TERM, bool RAGGED>
-cudaError_t launch(const DwArgs& g, int threads, int smem,
-                   cudaStream_t stream) {
-  void (*kernel)(const DwArgs);
-  if constexpr (K == 3)
-    kernel = int8_dwconv3x3_kernel<S, CODES, TERM, RAGGED>;
-  else
-    kernel = int8_dwconv5x5_kernel<S, CODES, TERM, RAGGED>;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  // above 48 KB a kernel needs the attribute, once per device
-  static bool raised[MAX_DEVICES];
-  if (smem > 48 * 1024 && device < MAX_DEVICES && !raised[device]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (err != cudaSuccess) return err;
-    raised[device] = true;
-  }
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // what fits at once, whole multiples of the slice count
-  long long grid = static_cast<long long>(per_sm) * sms;
-  if (grid > g.tiles) grid = g.tiles;
-  grid = grid / g.slices * g.slices;
-  if (grid < g.slices) grid = g.slices;
-  kernel<<<static_cast<unsigned>(grid), threads, smem, stream>>>(g);
-  return cudaGetLastError();
-}
-
-// the instantiation of one window and path for the stride, mode and term
-template <int K, bool RAGGED>
-cudaError_t launch_window(const DwArgs& g, int stride, bool codes,
-                          bool term, int threads, int smem,
-                          cudaStream_t s) {
-  if (!term) {
-    if (stride == 1)
-      return codes ? launch<K, 1, true, false, RAGGED>(g, threads, smem, s)
-                   : launch<K, 1, false, false, RAGGED>(g, threads, smem, s);
-    return codes ? launch<K, 2, true, false, RAGGED>(g, threads, smem, s)
-                 : launch<K, 2, false, false, RAGGED>(g, threads, smem, s);
-  }
-  if (stride == 1)
-    return codes ? launch<K, 1, true, true, RAGGED>(g, threads, smem, s)
-                 : launch<K, 1, false, true, RAGGED>(g, threads, smem, s);
-  return codes ? launch<K, 2, true, true, RAGGED>(g, threads, smem, s)
-               : launch<K, 2, false, true, RAGGED>(g, threads, smem, s);
-}
-
-// what this library was built with: the aligned 3x3 path alone, or (in
-// int8_dwconv5x5.cu) the 5x5 window and the ragged path of either window
 cudaError_t dispatch(const DwArgs& g, int k, int stride, bool codes,
                      bool term, bool ragged, int threads, int smem,
                      cudaStream_t s) {
-#ifdef DLMCQ_DW_WIDE
-  if (k == 5)
-    return ragged ? launch_window<5, true>(g, stride, codes, term, threads,
-                                           smem, s)
-                  : launch_window<5, false>(g, stride, codes, term, threads,
-                                            smem, s);
-  if (ragged)
-    return launch_window<3, true>(g, stride, codes, term, threads, smem, s);
-#else
   if (k == 3 && !ragged)
     return launch_window<3, false>(g, stride, codes, term, threads, smem, s);
-#endif
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
-
-extern "C" {
-
-// out (n, ceil(h/stride), ceil(w/stride), c) from x (n, h, w, c) int8 and
-// w (k*k, c) int8 (w4 = 0) or (k*k, (c + 1) / 2) nibble pairs (w4 = 1):
-// the depthwise k x k conv (k = 3 or 5) with top/left pad pad_lo, `pad`
-// outside the map, then the epilogue (codes: clamp to [lo, hi] -> int8;
-// else f32, ReLU'd if relu).  ragged = 0: the aligned path (c % 8 == 0,
-// 16-byte aligned x and w); 4 or 1: the ragged path, staging the halo in
-// granules of that many bytes (4: c % 4 == 0 and 4-byte aligned x).  The
-// plan (ops/cuda/int8_dwconv.py: plan): cb channels a block, cg column
-// groups, rg row groups, rpt rows a thread (cb % 8 == 0, or % 4 on the
-// ragged path; cb/4 * cg * rg <= 256 threads).  oc (c,) float32 adds the
-// weight offset's term, or is null.  Stride 1 or 2, 0 <= pad_lo < k,
-// 16-byte aligned out (the wrapper checks them).  A library takes what it
-// was built for (dispatch) and returns cudaErrorInvalidValue for the rest.
-// Launches on `stream`; returns cudaGetLastError().
-int dlmcq_int8_dwconv(const void* x, const void* w, const void* a,
-                      const void* b, const void* oc, void* out, int n, int h,
-                      int wd, int c, int k, int stride, int pad_lo, int pad,
-                      int lo, int hi, int codes, int relu, int w4, int ragged,
-                      int cb, int cg, int rg, int rpt, void* stream) {
-  const int r = stride == 1 ? 4 : 2;
-  const long long threads = static_cast<long long>(cb / 4) * cg * rg;
-  const int quantum = ragged ? 4 : 8;
-  if (c <= 0 || (k != 3 && k != 5) || (stride != 1 && stride != 2) ||
-      pad_lo < 0 || pad_lo >= k || n <= 0 || h <= 0 || wd <= 0 ||
-      (ragged != 0 && ragged != 1 && ragged != 4) ||
-      (ragged == 0 && c % 8) || (ragged == 4 && c % 4) ||
-      cb % quantum || cb < quantum || cg < 1 || rg < 1 || rpt < 1 ||
-      threads > MAX_THREADS || rpt > 1024 || cg > 64)
-    return static_cast<int>(cudaErrorInvalidValue);
-  DwArgs g;
-  g.x = static_cast<const int8_t*>(x);
-  g.w = static_cast<const int8_t*>(w);
-  g.a = static_cast<const float*>(a);
-  g.b = static_cast<const float*>(b);
-  g.oc = static_cast<const float*>(oc);
-  g.out = out;
-  g.H = h;
-  g.W = wd;
-  g.C = c;
-  g.Ho = (h - 1) / stride + 1;
-  g.Wo = (wd - 1) / stride + 1;
-  g.pad_lo = pad_lo;
-  g.flo = static_cast<float>(lo);
-  g.fhi = static_cast<float>(hi);
-  g.relu = relu;
-  g.w4 = w4 != 0;
-  g.pad4 = 0x01010101u * static_cast<uint32_t>(pad & 0xFF);
-  g.pad_sum = k * k * pad;
-  g.cb = cb;
-  g.cq = cb / 4;
-  g.cg = cg;
-  g.rpt = rpt;
-  g.th = rg * rpt;
-  g.tw = r * cg;
-  g.hh = (g.th - 1) * stride + k;
-  g.hw = (g.tw - 1) * stride + k;
-  g.pitch = cb + PITCH_PAD;
-  g.granule = ragged ? ragged : c % 16 == 0 && cb % 16 == 0 ? 16 : 8;
-  const long long buf = static_cast<long long>(g.hh) * g.hw * g.pitch;
-  g.slices = (c + cb - 1) / cb;
-  g.tiles_x = (g.Wo + g.tw - 1) / g.tw;
-  g.tiles_y = (g.Ho + g.th - 1) / g.th;
-  const long long tiles =
-      static_cast<long long>(n) * g.tiles_y * g.tiles_x * g.slices;
-  if (2 * buf > MAX_SMEM || tiles >= 0x7FFFFFFF)
-    return static_cast<int>(cudaErrorInvalidValue);
-  g.buf_bytes = static_cast<int>(buf);
-  g.tiles = static_cast<int>(tiles);
-  return static_cast<int>(dispatch(g, k, stride, codes != 0, oc != nullptr,
-                                   ragged != 0, static_cast<int>(threads),
-                                   static_cast<int>(2 * buf),
-                                   static_cast<cudaStream_t>(stream)));
-}
-
-const char* dlmcq_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-}  // extern "C"

@@ -5,8 +5,9 @@ The depthwise convs of MobileNetV2, MobileOne, GhostNet and EfficientNet
 on the integer paths.  The JAX package runs them as an XLA int8 conv at
 ``feature_group_count = C`` on the pad-code-padded codes
 (``dlmc_quant_tpu/quant/layers.py:722-728``); no Pallas kernel did.  The
-CUDA source is ``csrc/int8_dwconv3x3.cu``; its header says what bounds it
-on an H100 and how its tiles work.  For input codes ``x`` (N, H, W, C) int8
+CUDA kernel is ``csrc/int8_dwconv.cuh`` (with the wide build's in
+``csrc/int8_dwconv5x5.cu``); their headers say what bounds it on an H100
+and how its tiles work.  For input codes ``x`` (N, H, W, C) int8
 and a weight ``w`` (k, k, 1, C) int8, k = 3 or 5 (packed once by
 :func:`pack_weight` as (k², C), the tap ``dy·k + dx`` a row)::
 
@@ -33,13 +34,16 @@ A weight of 4 bits or fewer comes nibble-packed (:func:`pack_weight_int4`:
 where it reads the weight, once a block.
 
 The epilogue is :mod:`.epilogue`'s (no residual).  Two libraries hold the
-kernel's instantiations: ``int8_dwconv3x3`` the 3×3 window on the aligned
-path (C % 8 == 0, 16-byte aligned codes and weight: MobileNetV2's and
-MobileOne's widths, ``_make_divisible(·, 8)``), and ``int8_dwconv5x5``
-(``csrc/int8_dwconv5x5.cu``) the 5×5 window and the ragged path of either
-window, which takes any C ≥ 1: GhostNet's cheap convs have C = 12, 20, 36,
-60, 92, 100 at width 1.0, and C = 18 at width 0.5.  :func:`route` picks
-one per launch, :func:`plan` the tiles.
+kernel's instantiations: ``int8_dwconv3x3`` (``csrc/int8_dwconv3x3.cu``)
+the 3×3 window on the aligned path (C % 8 == 0, 16-byte aligned codes and
+weight: MobileNetV2's and MobileOne's widths, ``_make_divisible(·, 8)``),
+and ``int8_dwconv5x5`` (``csrc/int8_dwconv5x5.cu``, the wide build) the
+5×5 window and the ragged path of either window, which takes any C ≥ 1:
+GhostNet's cheap convs have C = 12, 20, 36, 60, 92, 100 at width 1.0, and
+C = 18 at width 0.5; there, where the whole pixel is a slice, the halo
+comes in row runs and, below :data:`STAGED_C`, the outputs go out through
+shared memory.  :func:`route` picks one per launch, :func:`plan` the
+tiles.
 
 :func:`int8_dwconv3x3` launches the kernel for CUDA tensors and runs
 :func:`int8_dwconv3x3_plain` for CPU tensors, at the window its weight
@@ -64,6 +68,8 @@ from dlmc_quant_torch.ops.cuda.nibbles import W4, pack_nibbles, unpack_nibbles
 WINDOWS = (3, 5)      # the kernel's windows, k × k
 GRANULE = 8           # the aligned path's channel granule: C % 8 == 0
 PITCH_PAD = 16        # bytes after a pixel's slice in shared memory
+MAX_SHIFT = 12        # a row run's offset in its 16 bytes (runs layout)
+STAGED_C = 64         # the runs layout stages its outputs below this C
 MAX_THREADS = 256
 MAX_COLUMN_GROUPS = 8
 MAX_ROWS = 8          # output rows a thread walks down a tile
@@ -72,14 +78,15 @@ SMS = 132             # an H100 SXM's SMs, as the plan models the card
 INT_LIMIT = 2 ** 31 - 1
 # the plan's cost model, in instructions of a lane: an output value's
 # multiply-adds and epilogue (3×3, 5×5); a halo row's loads and byte
-# permutes; a tile's decode and barriers; a staged granule
+# permutes; a tile's decode and barriers; a staged granule (or a 16-byte
+# chunk of a row run)
 COST_VALUE = {3: 10, 5: 24}
 COST_ROW, COST_TILE, COST_GRANULE = 20, 50, 6
 LANES = 128           # lanes an SM runs a clock
 
 DwPlan = collections.namedtuple(
     "DwPlan", "cb cg rg rpt threads th tw hh hw pitch granule slices "
-              "tiles_y tiles_x tiles smem")
+              "tiles_y tiles_x tiles smem runs row_pitch chunks stage_row")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -112,16 +119,41 @@ def make_plan(n: int, h: int, w: int, c: int, stride: int, cb: int, cg: int,
     """The kernel's geometry for ``cb`` channels a block, ``cg`` column
     groups, ``rg`` row groups and ``rpt`` rows a thread, at window ``k``,
     on the aligned path (``ragged`` 0) or the ragged one (its staging
-    granule, 4 or 1); the C entry point derives the same."""
+    granule, 4 or 1); the C entry point derives the same.
+
+    The halo's layout: cells of ``cb`` channels at a pitch of ``cb`` + 16
+    bytes, ``hw`` cells a row; or, on the ragged path at granule 4 with the
+    whole pixel a slice (``cb == c``), row runs (``runs``): pixels packed
+    at a pitch of C, rows ``row_pitch`` apart (the least from hw·C up with
+    row_pitch ≡ W·C mod 16, 16 more where the next row group's words would
+    fall on this one's banks), each run shifted by its source address mod
+    16 (at most :data:`MAX_SHIFT`), staged in ``chunks`` 16-byte chunks a
+    row at most; and below :data:`STAGED_C` the outputs staged too, two
+    buffers of ``rg`` rows of ``stage_row`` bytes (the tile's columns of
+    f32, in either mode)."""
     ho, wo = out_hw(h, w, stride)
     th, tw = rg * rpt, columns(stride) * cg
     hh, hw = (th - 1) * stride + k, (tw - 1) * stride + k
-    pitch = cb + PITCH_PAD
     slices, tiles_y, tiles_x = _cdiv(c, cb), _cdiv(ho, th), _cdiv(wo, tw)
     granule = ragged or (16 if c % 16 == 0 and cb % 16 == 0 else 8)
+    runs = ragged == 4 and cb == c
+    if runs:
+        span = hw * c
+        pitch, row_pitch = c, span + (w * c - span) % 16
+        if rg > 1 and rpt * stride * (row_pitch // 4) % 32 == 0:
+            row_pitch += 16
+        chunks = (span + MAX_SHIFT + 15) // 16
+        buf = _cdiv(MAX_SHIFT + (hh - 1) * row_pitch + span, 16) * 16
+        stage_row = _cdiv(tw * c * 4, 16) * 16 if c < STAGED_C else 0
+    else:
+        pitch = cb + PITCH_PAD
+        row_pitch, chunks, stage_row = hw * pitch, 0, 0
+        buf = hh * row_pitch
     return DwPlan(cb, cg, rg, rpt, cb // 4 * cg * rg, th, tw, hh, hw, pitch,
                   granule, slices, tiles_y, tiles_x,
-                  n * tiles_y * tiles_x * slices, 2 * hh * hw * pitch)
+                  n * tiles_y * tiles_x * slices,
+                  2 * buf + 2 * rg * stage_row, runs, row_pitch, chunks,
+                  stage_row)
 
 
 def _best(n: int, h: int, w: int, c: int, stride: int, cb: int, k: int = 3,
@@ -132,8 +164,9 @@ def _best(n: int, h: int, w: int, c: int, stride: int, cb: int, k: int = 3,
     its share of the staged granules) times the lanes of all tiles over
     the card's lanes, plus one thread's for the last tile.  At batch 256
     the first term decides (long walks down a tile reuse the halo rows), at
-    batch 8 the second (more, shorter tiles fill the card).  The 5×5
-    window reads each output row's five halo rows anew."""
+    batch 8 the second (more, shorter tiles fill the card).  Either window
+    keeps its rows: a thread reads rpt·s + k − s halo rows; the runs
+    layout stages 16-byte chunks."""
     cg = column_groups(w, stride)
     best = None
     for rg in range(1, MAX_THREADS // (cb // 4 * cg) + 1):
@@ -142,8 +175,10 @@ def _best(n: int, h: int, w: int, c: int, stride: int, cb: int, k: int = 3,
             if p.smem > HALF_SMEM:
                 continue
             lanes = _cdiv(p.threads, 32) * 32
-            granules = _cdiv(p.hh * p.hw * cb // p.granule, p.threads)
-            rows = rpt * stride + 3 - stride if k == 3 else rpt * k
+            staged = p.hh * (p.chunks if p.runs
+                             else p.hw * cb // p.granule)
+            granules = _cdiv(staged, p.threads)
+            rows = rpt * stride + k - stride
             thread = (rpt * columns(stride) * 4 * COST_VALUE[k]
                       + rows * COST_ROW + COST_TILE
                       + granules * COST_GRANULE)
@@ -175,7 +210,9 @@ def plan(n: int, h: int, w: int, c: int, stride: int, k: int = 3,
     64 if it divides C and still gives two tiles an SM, else 32 (at stride
     1 the taller tile of a narrow slice wins).  On the ragged path: the
     whole pixel rounded up to a quad where it fits, else 32 (a masked tail
-    slice).  Tile columns: at most 8 groups of :func:`columns`, balanced
+    slice); at C = 12 that is 3 lanes a pixel and 21 a row group, so that
+    warps straddle row groups, which costs nothing the plans timed against
+    one another show (``tools/dw_launches.py --sweep``).  Tile columns: at most 8 groups of :func:`columns`, balanced
     over the tiles of a row.  Row groups and rows a thread: the pair of
     least modelled time (:func:`_best`), within 256 threads and half the
     shared memory.

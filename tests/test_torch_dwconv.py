@@ -28,8 +28,12 @@ its place on the chain, against the JAX package.
   on plans other than ``plan()``'s; the 5×5 window and the ragged path
   at every case of the CPU tests (W8 and W4, with and without a weight
   offset's term), at GhostNet-1.0's and EfficientNet-B0's depthwise
-  shapes at batch 8 and on forced small tiles; they count their launches
-  by window and path; they skip here:
+  shapes at batch 8 and on forced small tiles; every instantiation of the
+  wide build (both windows and strides, codes with and without a clamp,
+  f32 with and without the ReLU, the term, W8 and W4, row runs and byte
+  staging) and the row runs from codes 4, 8 and 12 bytes past a 16-byte
+  boundary; they count their launches by window and path; they skip
+  here:
   ``python -m pytest --noconftest tests/test_torch_dwconv.py -m cuda``.
 """
 
@@ -455,6 +459,53 @@ def test_kernel_matches_plain_wide_on_other_plans(case):
     n, h, w, c, k, stride, pad_lo, override = case
     _wide_vs_plain(n, h, w, c, k, stride, pad_lo, False, True, seed=c,
                    _plan=override)
+
+
+# every instantiation of the wide build: (k, C, granule) with the path each
+# takes: the 5x5 window aligned (C = 24), row runs (C = 20), byte staging (C
+# = 18); the 3x3 window's ragged path by runs and by bytes
+WIDE_BUILD = [(5, 24, 0), (5, 20, 4), (5, 18, 1), (3, 20, 4), (3, 18, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("term", [False, True], ids=["bare", "term"])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("build", WIDE_BUILD,
+                         ids=lambda b: f"k{b[0]}_c{b[1]}_g{b[2]}")
+def test_kernel_every_wide_instantiation(build, stride, term):
+    """Each stride, mode (codes clamped and not, f32 with and without the
+    ReLU) and term of the wide build on each of its paths, W8 and W4."""
+    k, c, granule = build
+    dev = _card()
+    for w4 in (False, True):
+        x, wp = _wide_operands(2, 11, 13, c, k, w4, dev, 0)[:2]
+        assert D.route(x, wp) == granule
+        _wide_vs_plain(2, 11, 13, c, k, stride, k // 2 - (stride - 1),
+                       w4, term, seed=c + 7 * k + stride,
+                       modes=(dict(mode="codes", lo=-3, hi=90),
+                              dict(mode="codes"), dict(mode="f32"),
+                              dict(mode="f32", relu=True)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", D.WINDOWS)
+def test_kernel_row_runs_at_every_offset(k):
+    """Codes 4, 8 and 12 bytes past a 16-byte boundary (views into a
+    larger buffer) at C = 12 and 36: the row runs' shift in every tile."""
+    dev = _card()
+    for c, off in ((12, 4), (12, 8), (36, 12), (36, 4)):
+        x, wp, a, b, oc = _wide_operands(3, 15, 17, c, k, False, dev, off)
+        view = torch.empty(x.numel() + off, dtype=torch.int8,
+                           device=dev)[off:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 == off and D.route(view, wp) == 4
+        for stride in (1, 2):
+            for kw in (dict(mode="codes"), dict(mode="f32", relu=True)):
+                want = D.int8_dwconv3x3_plain(x, wp, a, b, stride=stride,
+                                              pad=5, offset=oc, **kw)
+                got = D.int8_dwconv3x3(view, wp, a, b, stride=stride, pad=5,
+                                       offset=oc, **kw)
+                assert torch.equal(got, want), (c, off, stride, kw)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """A tile-faithful CPU emulation of the int8 depthwise kernel
-(``ops/cuda/csrc/int8_dwconv3x3.cu``, and its 5×5 and ragged build
-``int8_dwconv5x5.cu``), held equal to its plain version.
+(``ops/cuda/csrc/int8_dwconv.cuh``: the aligned 3×3 build
+``int8_dwconv3x3.cu`` and the wide build ``int8_dwconv5x5.cu``), held
+equal to its plain version.
 
 The emulation does the kernel's work word by word: :func:`.plan`'s tiles,
 the grid of whole slice multiples and each block's walk over its tiles
@@ -18,16 +19,24 @@ layer shape, on the plan's grid (usually one tile a block here) and on a
 grid of one slice's blocks (each walks many tiles).  The plan itself:
 within the kernel's limits at every depthwise shape of the two models.
 
-The 5×5 window and the ragged path the same way: the tap rows' (lo, hi)
-weight words and ``__funnelshift_l``, the two channel words of a halo
-row, the window sums of a weight offset's term against words of ones,
-the ragged path's 4-byte and 1-byte staging, its weights, a, b and the
-term's coefficient read channel by channel (W4 nibbles from rows of
-⌈C/2⌉ bytes) and its stores channel by channel.  k ∈ {3, 5}, every pad
-form (k // 2 at strides 1 and 2, k // 2 − 1 at stride 2), C ∈ {1, 3, 6,
-12, 18, 20, 36, 92, 100, 672}, W8 and W4, with and without the term, on
-the plan's tiles and on forced small ones; and the plan at every
-depthwise shape of GhostNet-1.0 and EfficientNet-B0.
+The wide build the same way: the 5×5 window's tap rows' (lo, hi) weight
+words and ``__funnelshift_l``, its two channel words of a halo row and
+the five rows a thread keeps as it walks down the tile, the window sums
+of a weight offset's term against words of ones; the ragged path's row
+runs (each halo row one run at the pitch C, placed at its source address
+mod 16 for codes at every offset from a 16-byte boundary, its 16-byte
+chunks and head and tail words as each thread takes them, aligned on
+both sides, every byte of a row staged once), its cells at granule 4 or
+1 elsewhere, its weights, a, b and the term's coefficient read channel by
+channel (W4 nibbles from rows of ⌈C/2⌉ bytes), its whole-quad stores at
+their alignment and, below ``STAGED_C``, its output rows staged in shared
+memory and copied out in 16- or 4-byte units (each unit once, from bytes
+that output row wrote).  k ∈ {3, 5}, every pad form (k // 2 at strides 1
+and 2, k // 2 − 1 at stride 2), C ∈ {1, 3, 6, 12, 18, 20, 36, 92, 100,
+672}, W8 and W4, with and without the term, on the plan's tiles and on
+forced small ones, each of GhostNet-1.0's ragged shapes and the 5×5
+shapes of GhostNet-1.0 and EfficientNet-B0 at batch 1 in their requests'
+modes; and the plan at every depthwise shape of the two models.
 """
 
 import numpy as np
@@ -138,14 +147,19 @@ def mac_row5(acc, cw, wlo, whi, stride):
                              acc[j][k])
 
 
+def tile_of(p, t):
+    """Tile t → (image, tile row, tile column)."""
+    rest = t // p.slices
+    tx, rest = rest % p.tiles_x, rest // p.tiles_x
+    return rest // p.tiles_y, rest % p.tiles_y, tx
+
+
 def stage_halo(p, x, t, buf, stride, pad_lo, pad):
     """The kernel's stage_halo: each thread's (column, rows) share, every
     granule of the halo staged exactly once."""
     n_img, h, w, c = x.shape
-    sl, rest = t % p.slices, t // p.slices
-    tx, rest = rest % p.tiles_x, rest // p.tiles_x
-    ty, n = rest % p.tiles_y, rest // p.tiles_y
-    c0 = sl * p.cb
+    n, ty, tx = tile_of(p, t)
+    c0 = t % p.slices * p.cb
     iy0, ix0 = ty * p.th * stride - pad_lo, tx * p.tw * stride - pad_lo
     gpp = p.cb // p.granule
     cols = p.hw * gpp
@@ -175,6 +189,73 @@ def stage_halo(p, x, t, buf, stride, pad_lo, pad):
     assert (staged == 1).all()
 
 
+def run_shift(p, x, t, stride, pad_lo, x_addr):
+    """The kernel's run_shift: the address of the tile's halo pixel (iy0,
+    ix0) mod 16 on the runs layout (``x_addr`` the address of x), else 0."""
+    if not p.runs:
+        return 0
+    _, h, w, c = x.shape
+    n, ty, tx = tile_of(p, t)
+    pixel = (n * h + ty * p.th * stride - pad_lo) * w + tx * p.tw * stride \
+        - pad_lo
+    return (x_addr + pixel * c) % 16
+
+
+def stage_runs(p, x, t, buf, stride, pad_lo, pad, x_addr):
+    """The kernel's stage_runs: each thread's (16-byte chunk, rows) share,
+    a chunk wholly inside the row's run one 16-byte copy (aligned in shared
+    memory and in device memory), else word by word: a 4-byte copy in the
+    run, the pad code outside it; every byte of each halo row staged once
+    and no byte besides."""
+    _, h, w, c = x.shape
+    n, ty, tx = tile_of(p, t)
+    iy0, ix0 = ty * p.th * stride - pad_lo, tx * p.tw * stride - pad_lo
+    flat = x.reshape(-1).view(np.uint8)
+    span = p.hw * c
+    run0, run1 = max(0, -ix0) * c, min(p.hw, w - ix0) * c
+    shift = run_shift(p, x, t, stride, pad_lo, x_addr)
+    staged = np.zeros(buf.size, np.int32)
+    for tid in range(p.threads):
+        ways, col, col_step, hr0 = p.threads // p.chunks, tid, p.threads, 0
+        if ways > 1:
+            hr0 = tid // p.chunks
+            col = tid - hr0 * p.chunks if hr0 < ways else p.chunks
+            col_step = p.chunks
+        else:
+            ways = 1
+        while col < p.chunks:
+            for hr in range(hr0, p.hh, ways):
+                row0 = shift + hr * p.row_pitch
+                lo = ((row0 >> 4) + col) * 16 - row0
+                if lo >= span:
+                    continue
+                iy = iy0 + hr
+                row_in = 0 <= iy < h
+                frm = ((n * h + iy) * w + ix0) * c
+                dst = row0 + lo
+                if row_in and lo >= run0 and lo + 16 <= run1:
+                    assert dst % 16 == 0 and (x_addr + frm + lo) % 16 == 0
+                    buf[dst:dst + 16] = flat[frm + lo:frm + lo + 16]
+                    staged[dst:dst + 16] += 1
+                    continue
+                for i in range(4):
+                    o, d = lo + 4 * i, dst + 4 * i
+                    if o < 0 or o >= span:
+                        continue
+                    assert d % 4 == 0
+                    if row_in and run0 <= o < run1:
+                        assert (x_addr + frm + o) % 4 == 0
+                        buf[d:d + 4] = flat[frm + o:frm + o + 4]
+                    else:
+                        buf[d:d + 4] = np.uint8(pad & 0xFF)
+                    staged[d:d + 4] += 1
+            col += col_step
+    want = np.zeros(buf.size, np.int32)
+    for hr in range(p.hh):
+        want[shift + hr * p.row_pitch:shift + hr * p.row_pitch + span] = 1
+    assert (staged == want).all()
+
+
 def tap_words(wp, c, ch, c_in, tap, ragged):
     """The kernel's tap_word for every thread: the word of channels
     ch..ch+3 at ``tap`` (W4 ``wp`` is uint8 nibbles).  The aligned path's
@@ -201,10 +282,12 @@ def tap_words(wp, c, ch, c_in, tap, ragged):
 
 def emulate(x, wp, a, b, *, stride, pad, pad_lo=None, lo=-128, hi=127,
             mode="codes", relu=False, plan=None, grid=None, offset=None,
-            ragged=0):
+            ragged=0, x_addr=0):
     """The kernel on numpy arrays: x (N, H, W, C) int8, wp (k², C) int8
     or (k², ⌈C/2⌉) uint8 nibbles, a, b (and the term's offset, or None)
-    (C,) float32; ``ragged`` the path (:func:`.route`)."""
+    (C,) float32; ``ragged`` the path (:func:`.route`), ``x_addr`` the
+    address of x mod 16 (4-byte aligned at granule 4, 16 on the aligned
+    path)."""
     n_img, h, w, c = x.shape
     k = D.window(torch.from_numpy(wp))
     pad_lo = k // 2 if pad_lo is None else pad_lo
@@ -213,6 +296,14 @@ def emulate(x, wp, a, b, *, stride, pad, pad_lo=None, lo=-128, hi=127,
     assert (c % D.GRANULE == 0) or ragged
     assert p.threads <= D.MAX_THREADS and p.cb % 4 == 0
     assert p.smem <= 232448 and p.pitch % p.granule == 0
+    assert x_addr % (p.granule if ragged else 16) == 0
+    assert p.runs == (ragged == 4 and p.cb == c)
+    assert bool(p.stage_row) == (p.runs and c < D.STAGED_C)
+    assert p.row_pitch >= p.hw * p.pitch
+    if p.runs:     # rows at W·C mod 16, so a run keeps its alignment; the
+        # second buffer at a 16-byte boundary
+        assert p.pitch == c and (p.row_pitch - w * c) % 16 == 0
+        assert p.smem % 32 == 0
     assert p.granule == (ragged or (16 if c % 16 == 0 and p.cb % 16 == 0
                                     else 8))
     r = D.columns(stride)
@@ -225,7 +316,8 @@ def emulate(x, wp, a, b, *, stride, pad, pad_lo=None, lo=-128, hi=127,
     cq = tid % (p.cb // 4)
     j = tid // (p.cb // 4) % p.cg
     r0 = tid // (p.cb // 4 * p.cg) * p.rpt
-    row_step = p.hw * p.pitch
+    row_step = p.row_pitch
+    kept = 5 - stride                 # 5×5: halo rows an output row passes on
     zero = np.zeros(p.threads, np.uint32)
     ones = [np.full(p.threads, 0x00010101, np.uint32)] * 4
     ones_lo = [np.full(p.threads, 0x01010101, np.uint32)] * 4
@@ -252,20 +344,32 @@ def emulate(x, wp, a, b, *, stride, pad, pad_lo=None, lo=-128, hi=127,
               for u in range(4)]
         ec = [np.where(inside[u], offset[at[u]], 0).astype(np.float32)
               if offset is not None else None for u in range(4)]
-        bufs = [np.full(p.smem // 2, JUNK, np.uint8) for _ in range(2)]
+        half = (p.smem - 2 * p.rg * p.stage_row) // 2
+        bufs = [np.full(half, JUNK, np.uint8) for _ in range(2)]
+        stages = [np.full(p.rg * p.stage_row, JUNK, np.uint8)
+                  for _ in range(2)]
         cur = 0
-        stage_halo(p, x, blk, bufs[0], stride, pad_lo, pad)
+
+        def stage(t, buf):
+            if p.runs:
+                stage_runs(p, x, t, buf, stride, pad_lo, pad, x_addr)
+            else:
+                stage_halo(p, x, t, buf, stride, pad_lo, pad)
+
+        stage(blk, bufs[0])
         for t in range(blk, p.tiles, grid):
             if t + grid < p.tiles:
-                stage_halo(p, x, t + grid, bufs[cur ^ 1], stride, pad_lo,
-                           pad)
-            rest = t // p.slices
-            tx, rest = rest % p.tiles_x, rest // p.tiles_x
-            ty, n = rest % p.tiles_y, rest // p.tiles_y
+                stage(t + grid, bufs[cur ^ 1])
+            n, ty, tx = tile_of(p, t)
             buf = bufs[cur]
-            q = (r * stride * j) * p.pitch + 4 * cq
+            q = run_shift(p, x, t, stride, pad_lo, x_addr) \
+                + (r * stride * j) * p.pitch + 4 * cq
             ox = tx * p.tw + r * j
-            if k == 3:
+            if k == 5:
+                hq = q + r0 * stride * row_step
+                cw = [row_words5(buf, hq + u * row_step, p.pitch, stride)
+                      for u in range(kept)]
+            else:
                 cw = [row_words(buf, q + r0 * stride * row_step, p.pitch,
                                 stride)]
                 if stride == 1:
@@ -279,12 +383,13 @@ def emulate(x, wp, a, b, *, stride, pad, pad_lo=None, lo=-128, hi=127,
                 sums = [[np.zeros(p.threads, np.int32) for _ in range(r)]
                         for _ in range(4)]
                 if k == 5:
+                    cw += [row_words5(buf, hq + (i * stride + u) * row_step,
+                                      p.pitch, stride)
+                           for u in range(kept, 5)]
                     for dy in range(5):
-                        row = row_words5(
-                            buf, q + ((r0 + i) * stride + dy) * row_step,
-                            p.pitch, stride)
-                        mac_row5(acc, row, wlo[dy], whi[dy], stride)
-                        mac_row5(sums, row, ones_lo, ones_hi, stride)
+                        mac_row5(acc, cw[dy], wlo[dy], whi[dy], stride)
+                        mac_row5(sums, cw[dy], ones_lo, ones_hi, stride)
+                    cw = cw[stride:]
                 elif stride == 1:
                     cw.append(row_words(buf, hr, p.pitch, stride))
                     for dy in range(3):
@@ -298,8 +403,8 @@ def emulate(x, wp, a, b, *, stride, pad, pad_lo=None, lo=-128, hi=127,
                     for dy, row in enumerate(rows + cw):
                         mac_row(acc, row, wa[dy], stride)
                         mac_row(sums, row, ones, stride)
+                vals = [[None] * 4 for _ in range(r)]
                 for kk in range(r):
-                    ok = c_in & (ox + kk < wo) & (oy < ho)
                     for u in range(4):
                         y = acc_to_float(acc[u][kk]) * ea[u]
                         if offset is not None:
@@ -307,16 +412,62 @@ def emulate(x, wp, a, b, *, stride, pad, pad_lo=None, lo=-128, hi=127,
                                 * ec[u]
                         y = y + eb[u]
                         if mode == "codes":
-                            v = code_of(y, lo, hi)
+                            vals[kk][u] = code_of(y, lo, hi)
                         else:
-                            v = np.maximum(y, np.float32(0)) if relu else y
+                            vals[kk][u] = np.maximum(y, np.float32(0)) \
+                                if relu else y
+                if p.stage_row:
+                    store_staged(p, stages[i & 1], vals, out, written, n,
+                                 ty, tx, i, r0, j, ch, r, wo, ho)
+                    continue
+                for kk in range(r):
+                    ok = c_in & (ox + kk < wo) & (oy < ho)
+                    for u in range(4):
+                        v = vals[kk][u]
                         st = ok & (ch + u < c) if ragged else ok
+                        if c % 4 == 0:
+                            # a whole quad a store, inside C: one word of
+                            # codes (4-byte aligned) or one float4 (16)
+                            o = ((n * ho + oy) * wo + ox + kk) * c + ch
+                            assert (o[ok] % 4 == 0).all()
+                            assert (ch[ok] + 4 <= c).all()
                         idx = (n, oy[st], ox[st] + kk, ch[st] + u)
                         out[idx] = v[st]
                         np.add.at(written, idx, 1)
             cur ^= 1
     assert (written == 1).all()
     return out
+
+
+def store_staged(p, stage, vals, out, written, n, ty, tx, i, r0, j, ch, r,
+                 wo, ho):
+    """The kernel's store_row_staged on the runs layout: each thread's R
+    quads into its row group's row of the staging buffer (a float4 or a
+    word at its alignment), then the block's rows inside the map copied out
+    in units of 16 bytes (f32) or 4 (codes), each unit once and only from
+    bytes this output row wrote."""
+    c = out.shape[-1]
+    size = out.itemsize
+    unit = 4 * size
+    fresh = np.zeros(stage.size, bool)
+    for kk in range(r):
+        at = (r0 // p.rpt) * p.stage_row + ((r * j + kk) * c + ch) * size
+        assert (at % unit == 0).all()
+        quad = np.stack([vals[kk][u].astype(out.dtype) for u in range(4)], 1)
+        idx = at[:, None] + np.arange(unit)
+        stage[idx] = quad.view(np.uint8).reshape(len(at), unit)
+        fresh[idx] = True
+    units = min(p.tw, wo - tx * p.tw) * c * size // unit
+    flat, done = out.reshape(-1).view(np.uint8), written.reshape(-1)
+    for rr in range(p.rg):
+        oy = ty * p.th + rr * p.rpt + i
+        if oy >= ho:
+            continue
+        src = rr * p.stage_row + np.arange(units * unit)
+        assert fresh[src].all()
+        dst = ((n * ho + oy) * wo + tx * p.tw) * c * size
+        flat[dst:dst + units * unit] = stage[src]
+        done[dst // size:dst // size + units * unit // size] += 1
 
 
 def _operands(seed, n, h, w, c):
@@ -424,7 +575,7 @@ def _ragged(c: int) -> int:
 
 
 def _wide_check(n, h, w, c, k, stride, pad_lo, w4, term, seed, plan=None,
-                grid=None, ragged=None):
+                grid=None, ragged=None, x_addr=0, modes=None):
     rng = np.random.default_rng(seed)
     x = rng.integers(-128, 128, (n, h, w, c), dtype=np.int8)
     span = 8 if w4 else 128
@@ -436,10 +587,11 @@ def _wide_check(n, h, w, c, k, stride, pad_lo, w4, term, seed, plan=None,
     oc = (rng.standard_normal(c).astype(np.float32) * 1e-3).astype(
         np.float32) if term else None
     ragged = _ragged(c) if ragged is None else ragged
-    for kw in (dict(mode="codes", lo=-3, hi=90), dict(mode="f32",
-                                                      relu=True)):
+    for kw in modes or (dict(mode="codes", lo=-3, hi=90),
+                        dict(mode="f32", relu=True)):
         got = emulate(x, wp, a, b, stride=stride, pad=-11, pad_lo=pad_lo,
-                      plan=plan, grid=grid, offset=oc, ragged=ragged, **kw)
+                      plan=plan, grid=grid, offset=oc, ragged=ragged,
+                      x_addr=x_addr, **kw)
         want = D.int8_dwconv3x3_plain(
             torch.from_numpy(x), torch.from_numpy(wp), torch.from_numpy(a),
             torch.from_numpy(b), stride=stride, pad=-11, pad_lo=pad_lo,
@@ -454,12 +606,14 @@ def _wide_check(n, h, w, c, k, stride, pad_lo, w4, term, seed, plan=None,
 def test_emulation_equals_plain_any_window_and_c(k, c):
     """Every pad form at both strides, W8 and W4, with and without a
     weight offset's term, on the plan's tiles: the 5×5 window on either
-    path, the ragged path of either window where C % 8 != 0."""
+    path, the ragged path of either window where C % 8 != 0 (row runs at C
+    % 4 == 0, from codes at 0, 4 and 8 bytes past a 16-byte boundary)."""
     geometries = [(1, k // 2), (2, k // 2), (2, k // 2 - 1)]
     for i, (stride, pad_lo) in enumerate(geometries):
         for w4, term in WEIGHTS_TERMS[i]:
             _wide_check(2, 7, 9 if stride == 1 else 8, c, k, stride, pad_lo,
-                        w4, term, seed=k * 1000 + c + i)
+                        w4, term, seed=k * 1000 + c + i,
+                        x_addr=4 * i if _ragged(c) == 4 else 0)
 
 
 @pytest.mark.parametrize("case", [(2, 13, 11, 24, 5, 1, 2, 0, (32, 2, 2, 3)),
@@ -482,6 +636,25 @@ def test_emulation_walks_many_tiles_wide(case):
     assert p.tiles // p.slices >= 4
     _wide_check(n, h, w, c, k, stride, pad_lo, c % 3 == 0, True, seed=c,
                 plan=p, grid=p.slices, ragged=ragged)
+
+
+@pytest.mark.parametrize("case", [(2, 13, 11, 20, 3, 1, 1, 0, (20, 2, 2, 3)),
+                                  (2, 11, 13, 12, 3, 1, 1, 4, (12, 2, 1, 3)),
+                                  (2, 12, 9, 12, 5, 2, 2, 8, (12, 2, 1, 2)),
+                                  (1, 9, 15, 36, 3, 2, 0, 12, (36, 3, 3, 1)),
+                                  (2, 10, 10, 28, 5, 1, 2, 4, (28, 1, 3, 2))],
+                         ids=["runs_s1_c20", "runs_s1_c12_addr4",
+                              "runs_5x5_s2_c12_addr8",
+                              "runs_s2_c36_addr12", "runs_5x5_s1_c28_addr4"])
+def test_emulation_walks_many_tiles_runs(case):
+    """The row runs on small tiles, so that each block walks its tiles with
+    the two buffers and every tile has its own alignment shift: codes at
+    each offset from a 16-byte boundary, rows of W·C ≠ 0 mod 16 bytes."""
+    n, h, w, c, k, stride, pad_lo, x_addr, override = case
+    p = D.make_plan(n, h, w, c, stride, *override, k, 4)
+    assert p.runs and p.tiles // p.slices >= 4 and (w * c) % 16
+    _wide_check(n, h, w, c, k, stride, pad_lo, c % 3 == 0, True, seed=c,
+                plan=p, grid=p.slices, ragged=4, x_addr=x_addr)
 
 
 # GhostNet-1.0's and EfficientNet-B0's depthwise convs at 224², (h, w, c,
@@ -519,3 +692,28 @@ def test_plan_within_the_kernels_limits_ghost_effnet(n):
         if ragged:
             # the whole pixel rounded up to a quad: one slice
             assert p.cb == -(-c // 4) * 4 and p.slices == 1
+
+
+# GhostNet-1.0's ragged launches and the 5×5 ones of GhostNet-1.0 and
+# EfficientNet-B0 (each shape once), (h, w, c, k, stride, pad_lo, mode):
+# the mode their requests run them in
+LAUNCHES = [(56, 56, 12, 3, 1, 1, "f32"), (56, 56, 36, 3, 1, 1, "f32relu"),
+            (28, 28, 20, 3, 1, 1, "f32"), (28, 28, 60, 3, 1, 1, "f32relu"),
+            (14, 14, 100, 3, 1, 1, "f32relu"),
+            (14, 14, 92, 3, 1, 1, "f32relu"),
+            (56, 56, 72, 5, 2, 2, "f32"), (56, 56, 24, 5, 2, 2, "codes"),
+            (14, 14, 672, 5, 2, 2, "f32"), (14, 14, 112, 5, 2, 2, "codes"),
+            (56, 56, 144, 5, 2, 2, "f32"), (28, 28, 240, 5, 1, 2, "f32"),
+            (14, 14, 480, 5, 1, 2, "f32"), (14, 14, 672, 5, 1, 2, "f32"),
+            (7, 7, 1152, 5, 1, 2, "f32")]
+MODES = {"codes": dict(mode="codes", lo=-3, hi=90), "f32": dict(mode="f32"),
+         "f32relu": dict(mode="f32", relu=True)}
+
+
+@pytest.mark.parametrize("launch", LAUNCHES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_emulation_equals_plain_ghost_effnet_launch(launch):
+    """Each shape at batch 1 on the plan's tiles, in its request's mode."""
+    h, w, c, k, stride, pad_lo, mode = launch
+    _wide_check(1, h, w, c, k, stride, pad_lo, False, False, seed=c + h,
+                modes=[MODES[mode]])

@@ -91,7 +91,7 @@ def unpack_nibbles16(p0, p1):
 
 
 def unpack_pair(u):
-    """``unpack_pair`` of csrc/int8_dwconv3x3.cu: 2 packed bytes → 1 word."""
+    """``unpack_pair`` of csrc/int8_dwconv.cuh: 2 packed bytes → 1 word."""
     u = np.asarray(u, np.uint32)
     lo = sext(u & np.uint32(0x0F0F))
     hi = sext((u >> np.uint32(4)) & np.uint32(0x0F0F))
