@@ -13,7 +13,8 @@ int8 (BASELINE config #5's ResNet-50 through the engine, cifar_resnet20;
 the window sums of a weight offset), the rest of the RepVGG family
 (RepVGG-B2g4's grouped convs, RepVGG-D2se's SE blocks) and merge_bn,
 GhostNet-1.0 and EfficientNet-B0 (the 5x5 depthwise window and any channel
-count), then the two int8 GEMM tools.
+count), the data layer (CIFAR-10 pickles feeding the QAT entry, a JPEG
+folder feeding RepVGG-A0), then the two int8 GEMM tools.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -233,6 +234,24 @@ Phases, each fatal on failure:
            tie flips, every module of the 'int' forward fed the card's
            inputs within 1e-4 and the logits printed), the launches a
            request by kernel and the request's ms;
+  data     the data layer (dlmc_quant_torch/data) on the card's host: the
+           probe (CPU count, g++, libjpeg's jpeglib.h, PIL), the native
+           batch assembly built (data/native/augment.cpp, g++) and in use;
+           full-size CIFAR-10 pickles written (50,000 + 10,000 seeded
+           images), LSQ W4A4 cifar_resnet20 through the QAT entry's
+           build_trainer reading them (its first batch bit for bit the
+           CPU numpy path's), 4 steps on the card with finite losses; a
+           JPEG tree (256 train, 768 val images, random RGB at 500x375,
+           375x500, 256^2, 640x480), the loader's images/s (train and eval
+           transforms, batch 256, os.cpu_count() decode threads, PIL and,
+           where jpeglib.h is found and the decoder builds, libjpeg), then
+           RepVGG-A0 at full width calibrated on a folder batch, prepared
+           and served 'intc' at batch 256 from ImageNet(data_dir,
+           training=False): logits finite, within relative L2 2e-2 of the
+           CPU plain path on 8 images, 22 conv launches a request (counts
+           zeroed before, read after), images/s alone (6 requests on one
+           device batch, after 20 that lift the clocks) and fed by the
+           loader (2 epochs of val);
   observers every observer of ops/observers.py (the 9 tensor observers,
            the 2 output observers, the percentile stream per tensor and
            per channel, the min/max stream per channel) on config #2's
@@ -369,7 +388,9 @@ import copy
 import io
 import json
 import math
+import os
 import pathlib
+import pickle
 import socket
 import statistics
 import subprocess
@@ -386,6 +407,10 @@ import torch.nn.functional as F
 from dlmc_quant_torch import (FSPTQTrainer, attach_scheme, calibrate,
                               get_dataloader, get_model, make_serving_fn,
                               prepare_deploy, scheme_from_dict)
+from dlmc_quant_torch.data import native
+from dlmc_quant_torch.data.loaders import (IMAGENET_MEAN, IMAGENET_STD,
+                                           ImageFolderDataset,
+                                           scan_image_folder)
 from dlmc_quant_torch.examples import FSPTQuant as fsptq_entry
 from dlmc_quant_torch.examples import classification as fp_entry
 from dlmc_quant_torch.examples import distributed_training as dist_entry
@@ -415,7 +440,7 @@ from dlmc_quant_torch.quant.chain import (fold_params, materialize, qmaxpool,
 from dlmc_quant_torch.quant.deploy import midpoint_count
 from dlmc_quant_torch.quant.layers import QConv, QDense, full_f32
 from dlmc_quant_torch.tools import accuracy_protocol as protocol
-from dlmc_quant_torch.tools import gemm_sweep, mma_probe
+from dlmc_quant_torch.tools import gemm_sweep, loaderbench, mma_probe
 from dlmc_quant_torch.tools import window_launches as window_tool
 from dlmc_quant_torch.training import ptq as ptq_lib
 from dlmc_quant_torch.training.trainer import Trainer
@@ -546,6 +571,13 @@ GHOST_EFFNET = {
     "EfficientNet_B0": ("efficientnetb0", efficientnet_deploy,
                         {"conv": 1, "gemm": 32, "im2col": 0, "stem_pool": 0,
                          "dwconv": 16, "window_sum": 0}, 9, 0)}
+
+
+# the data phase: QAT steps from the written CIFAR-10 pickles; the JPEG
+# tree's train and val images; seconds a loader rate is measured over; the
+# val epochs the loader feeds A0 for
+DATA_STEPS, DATA_TRAIN_JPEGS, DATA_VAL_JPEGS = 4, 256, 768
+DATA_SECONDS, DATA_FED_EPOCHS = 2.0, 2
 
 
 def images(n: int, seed: int, device) -> torch.Tensor:
@@ -3319,6 +3351,217 @@ def ghost_effnet_phase(device):
     return dw, served
 
 
+def data_probe() -> dict:
+    """What the host offers the data layer: CPU count, g++, libjpeg's
+    header, PIL; printed."""
+    try:
+        gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[0]
+        header = subprocess.run(
+            ["g++", "-E", "-x", "c++", "-"], input="#include <jpeglib.h>\n",
+            capture_output=True, text=True).returncode == 0
+    except (OSError, IndexError):
+        gxx, header = None, False
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    print(f"# data probe: os.cpu_count() {os.cpu_count()}; g++ {gxx}; "
+          f"jpeglib.h {'found' if header else 'missing'}; PIL {pil}")
+    return {"gxx": gxx, "jpeglib": header, "pil": pil}
+
+
+def write_cifar10(root: pathlib.Path, seed: int):
+    """CIFAR-10's python pickles at full size, seeded random images:
+    data_batch_1..5 (10,000 images each) and test_batch (10,000)."""
+    rng = np.random.default_rng(seed)
+    folder = root / "cifar-10-batches-py"
+    folder.mkdir(parents=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        batch = {b"batch_label": name.encode(),
+                 b"data": rng.integers(0, 256, (10000, 3072), np.uint8),
+                 b"labels": rng.integers(0, 10, 10000).tolist(),
+                 b"filenames": [b"%d.png" % i for i in range(10000)]}
+        with open(folder / name, "wb") as f:
+            pickle.dump(batch, f, protocol=2)
+
+
+def data_cifar_leg(device, root: pathlib.Path, card: str):
+    """LSQ W4A4 cifar_resnet20 through the QAT entry on written pickles."""
+    t0 = time.perf_counter()
+    write_cifar10(root, SEED)
+    t1 = time.perf_counter()
+    trainer = qat_entry.build_trainer(
+        training_config(QAT_CONFIGS["lsq"], data_dir=str(root)), device,
+        get_logger("qat"))
+    loader = trainer.train_loader
+    ds = loader.dataset
+    print(f"# data: CIFAR-10 pickles (50,000 + 10,000 images) written in "
+          f"{t1 - t0:.2f} s; the QAT entry's build_trainer read them and "
+          f"calibrated in {time.perf_counter() - t1:.2f} s: {len(ds)} "
+          f"images {ds.images.dtype}, {loader.n_samples} after the "
+          f"validation split; batch assembly "
+          f"{'native' if ds.use_native else 'numpy'}")
+    if not (ds.use_native and ds.images.dtype == np.uint8
+            and len(ds) == 50000):
+        raise RuntimeError("the QAT entry's loader did not read the pickles "
+                           "through the native batch assembly")
+    # the first batch of the epoch the trainer starts with, against the
+    # CPU numpy path on the same draws
+    loader.set_epoch(int(trainer.epoch_seeds[0]))
+    numpy_path = copy.copy(loader)
+    numpy_path.dataset = copy.copy(ds)
+    numpy_path.dataset.use_native = False
+    (x, y), (xr, yr) = next(iter(loader)), next(iter(numpy_path))
+    if not (np.array_equal(x.view(np.uint32), xr.view(np.uint32))
+            and np.array_equal(y, yr)):
+        raise RuntimeError("the native batch differs from the numpy path's")
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (x, y) in enumerate(loader):
+        if i == DATA_STEPS:
+            break
+        loss, _ = trainer.train_step(*trainer._to_device(x, y))
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    print(f"# data: {DATA_STEPS} QAT steps on the card from the pickles "
+          f"(batch {loader.batch_size}, first batch == the numpy path's bit "
+          f"for bit): losses {[round(v, 4) for v in losses]} in "
+          f"{time.perf_counter() - t0:.3f} s (the first steps include "
+          f"cuDNN's warm-up) on {card}")
+    if len(losses) != DATA_STEPS or not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"QAT from the pickles: losses {losses}")
+
+
+def data_jpeg_leg(device, root: pathlib.Path, probe: dict, card: str):
+    """The JPEG tree: loader images/s, then RepVGG-A0 calibrated on a
+    folder batch and served from ImageNet(data_dir, training=False)."""
+    if probe["jpeglib"] and not native.jpeg_available():
+        raise RuntimeError("jpeglib.h is there but the native decoder does "
+                           f"not build: {native.JPEG.error}")
+    t0 = time.perf_counter()
+    loaderbench.make_tree(root / "train", DATA_TRAIN_JPEGS, seed=SEED)
+    loaderbench.make_tree(root / "val", DATA_VAL_JPEGS, seed=SEED + 1)
+    size = sum(p.stat().st_size for p in root.rglob("*.jpg"))
+    print(f"# data: JPEG tree of {DATA_TRAIN_JPEGS} + {DATA_VAL_JPEGS} "
+          f"random RGB images (quality 85, {size / 2 ** 20:.1f} MiB) "
+          f"written in {time.perf_counter() - t0:.2f} s")
+    decoders = [False] + ([True] if native.jpeg_available() else [])
+    if not native.jpeg_available():
+        print("# data: native JPEG decode left out: jpeglib.h missing on "
+              "this host; PIL decodes")
+    workers = os.cpu_count() or 8
+    rates = {}
+    for split, train in (("train", True), ("val", False)):
+        paths, labels, _ = scan_image_folder(root / split)
+        for decode in decoders:
+            ds = ImageFolderDataset(paths, labels, SIZE, IMAGENET_MEAN,
+                                    IMAGENET_STD, train_augment=train,
+                                    num_workers=workers,
+                                    native_decode=decode)
+            key = (f"{'train' if train else 'eval'} "
+                   f"{'libjpeg' if decode else 'PIL'}")
+            rates[key] = loaderbench.measure(ds, SERVE_BATCH, train,
+                                             DATA_SECONDS)
+    print(f"# data: loader images/s at batch {SERVE_BATCH}, {workers} "
+          f"decode threads, prefetch 3 (the batch assembly native): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+
+    t0 = time.perf_counter()
+    calib = get_dataloader("ImageNet", data_dir=str(root), training=True,
+                           batch_size=CAL_BATCH, seed=SEED)
+    xcal, _ = next(iter(calib))
+    model = get_model("RepVGG_A0", device=device, num_classes=CLASSES,
+                      deploy=True, scheme=scheme_from_dict(SCHEME),
+                      generator=torch.Generator().manual_seed(SEED))
+    calibrate(model, [torch.from_numpy(xcal).to(device)])
+    prepare_deploy(model)
+    serve = make_serving_fn(model, qmode="intc", device=device)
+    val = get_dataloader("ImageNet", data_dir=str(root), training=False,
+                         batch_size=SERVE_BATCH)
+    batches = iter(val)
+    x, _ = next(batches)
+    batches.close()     # its prefetch thread stops decoding: A0 alone
+    print(f"# data: RepVGG-A0 calibrated on a folder batch of {CAL_BATCH} "
+          f"(train transform) + prepare_deploy, first val batch in "
+          f"{time.perf_counter() - t0:.2f} s")
+    xd = torch.from_numpy(x).to(device)
+    for _ in range(REPS):       # the card's clocks up after the host's work
+        serve(xd)
+    zero_counts()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REQUESTS):
+        t0 = time.perf_counter()
+        y = serve(xd)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    alone = K.int8_conv3x3.launches
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = copy.deepcopy(model).cpu()(torch.from_numpy(x[:8]),
+                                         qmode="intc")
+    rel = rel_l2(y[:8], ref)
+    ref_s = time.perf_counter() - t0
+    steady = statistics.median(times[1:])
+    zero_counts()
+    n, batches = 0, 0
+    t0 = time.perf_counter()
+    for epoch in range(DATA_FED_EPOCHS):
+        val.set_epoch(epoch)
+        for xb, _ in val:
+            out = serve(torch.from_numpy(xb).to(device))
+            n, batches = n + len(xb), batches + 1
+    torch.cuda.synchronize()
+    fed = n / (time.perf_counter() - t0)
+    counts = engine_counts()
+    print(f"# data: A0 'intc' from the folder: logits {tuple(y.shape)}, vs "
+          f"the CPU plain path on 8 images ({ref_s:.2f} s) rel L2 "
+          f"{rel:.3e}; conv launches "
+          f"{alone} for {REQUESTS} requests, {counts['conv']} for "
+          f"{batches} fed batches (other kernels "
+          f"{sum(counts.values()) - counts['conv']})")
+    print(f"# data: A0 'intc' at batch {SERVE_BATCH}: alone "
+          f"{steady * 1e3:.3f} ms a request, {SERVE_BATCH / steady:.1f} "
+          f"images/s ({REPS} requests before, to lift the clocks); fed "
+          f"by the folder loader (PIL eval decode"
+          f"{' or libjpeg' if len(decoders) > 1 else ''}, {DATA_FED_EPOCHS} "
+          f"epochs of {len(val.dataset)} images) {fed:.1f} images/s; "
+          f"the loader alone: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in rates.items()) + f"; {card}")
+    if (alone != 22 * REQUESTS or counts["conv"] != 22 * batches
+            or y.shape != (SERVE_BATCH, CLASSES)
+            or not bool(torch.isfinite(y).all())
+            or not bool(torch.isfinite(out).all()) or not rel < 2e-2):
+        raise RuntimeError("A0 served from the folder is off")
+
+
+def data_phase(device, card: str):
+    """The data layer on the card's host; see the docstring's ``data``."""
+    t0 = time.perf_counter()
+    probe = data_probe()
+    if not native.available():
+        raise RuntimeError(f"the native batch assembly does not build: "
+                           f"{native.AUGMENT.error}")
+    decoder = (native.library_path("jpegdec.cpp", "-ljpeg")
+               if native.jpeg_available()
+               else f"not built ({native.JPEG.error.splitlines()[0]})")
+    print(f"# data: batch assembly "
+          f"{native.library_path('augment.cpp', '-lpthread')}; JPEG decoder "
+          f"{decoder}")
+    with tempfile.TemporaryDirectory() as tmp:
+        data_cifar_leg(device, pathlib.Path(tmp) / "cifar", card)
+        if probe["pil"] is None:
+            print("# data: the JPEG leg is left out: PIL is missing (it "
+                  "writes the tree)")
+        else:
+            data_jpeg_leg(device, pathlib.Path(tmp) / "imagenet", probe,
+                          card)
+    print(f"# data: phase {time.perf_counter() - t0:.2f} s")
+
+
 def kernel_entry(name, replaces, launches, tot, library_ms,
                  source=None):
     return {"name": name, "route": "cuda",
@@ -3419,6 +3662,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ghost_dw, ghost_served = ghost_effnet_phase(device)
     print(f"# ghost_effnet phase: {time.perf_counter() - t0:.2f} s")
+    data_phase(device, card)
     t0 = time.perf_counter()
     observers_phase(device)
     print(f"# observers phase: {time.perf_counter() - t0:.2f} s")

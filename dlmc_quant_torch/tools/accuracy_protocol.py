@@ -26,10 +26,9 @@ functions on the port's modules (``w_scheme``, ``qat_scheme``, ``qat``,
   stem weight-only).
 
 The data is the JAX package's seeded synthetic 100-class "hard" CIFAR
-(10,000 training and 2,000 held-out images, array for array the same):
-the port reads no CIFAR pickles yet (ROADMAP item 10).  Training runs at
-PyTorch's default precision (cuDNN convs in TF32 on the card) with
-cuDNN's deterministic algorithms, so that a seed gives one model;
+(10,000 training and 2,000 held-out images, array for array the same).
+Training runs at PyTorch's default precision (cuDNN convs in TF32 on the
+card) with cuDNN's deterministic algorithms, so that a seed gives one model;
 calibration, reconstruction and every evaluation in full f32
 (``quant.layers.full_f32``).  ``--seed`` draws the models' initial
 weights (default 0, as the JAX tool's ``PRNGKey(0)``; the two RNGs give

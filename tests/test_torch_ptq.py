@@ -147,9 +147,18 @@ def test_cifar_loader_matches_jax(profile, training, tmp_path):
 
 
 def test_cifar_folder_is_not_read(tmp_path):
+    """A pickle folder without its batch files holds nothing to read: the
+    synthetic fallback runs, the JAX package's batch for batch, and
+    without ``synthetic_fallback`` the loader raises (the pickles
+    themselves: tests/test_torch_data_loaders.py)."""
     (tmp_path / "cifar-10-batches-py").mkdir()
-    with pytest.raises(NotImplementedError, match=r"data left \(item 10\)"):
-        get_dataloader("CIFAR10", data_dir=str(tmp_path))
+    kw = dict(data_dir=str(tmp_path), batch_size=8, n_samples=16)
+    (x, y), = list(get_dataloader("CIFAR10", **kw))[:1]
+    (xr, yr), = list(jax_get_dataloader("CIFAR10", **kw))[:1]
+    np.testing.assert_array_max_ulp(x, xr, maxulp=1)
+    np.testing.assert_array_equal(y, yr)
+    with pytest.raises(FileNotFoundError):
+        get_dataloader("CIFAR10", synthetic_fallback=False, **kw)
 
 
 def test_port_leaves_out_jax():

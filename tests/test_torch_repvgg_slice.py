@@ -242,7 +242,9 @@ TRAINING_MODULES = (
     "dlmc_quant_torch.utils.torch_import",
     "dlmc_quant_torch.tools.d2se_enqueue",
     "dlmc_quant_torch.examples.FSPTQuant",
-    "dlmc_quant_torch.models.ghostnet", "dlmc_quant_torch.models.efficientnet")
+    "dlmc_quant_torch.models.ghostnet", "dlmc_quant_torch.models.efficientnet",
+    "dlmc_quant_torch.data.loaders", "dlmc_quant_torch.data.native",
+    "dlmc_quant_torch.tools.loaderbench")
 
 
 def test_import_leaves_out_jax():
