@@ -13,7 +13,9 @@ int8 (BASELINE config #5's ResNet-50 through the engine, cifar_resnet20;
 the window sums of a weight offset), the rest of the RepVGG family
 (RepVGG-B2g4's grouped convs, RepVGG-D2se's SE blocks) and merge_bn,
 GhostNet-1.0 and EfficientNet-B0 (the 5x5 depthwise window and any channel
-count), the data layer (CIFAR-10 pickles feeding the QAT entry, a JPEG
+count), the zoo's last integer routes (MobileOne-S1's train form through
+the depthwise kernel's 1x1 window, RepVGG-B2g4 with RootQ's row term per
+group), the data layer (CIFAR-10 pickles feeding the QAT entry, a JPEG
 folder feeding RepVGG-A0), then the two int8 GEMM tools.
 
     python3 chip_smoke.py [--parent DIR]
@@ -47,6 +49,10 @@ Phases, each fatal on failure:
              W4, tests/test_torch_int4_kernels.py, and the window sums and
              the weight offset's term in the conv's, GEMM's and depthwise
              conv's epilogues at W8 and W4, tests/test_torch_rootq_int.py;
+             the depthwise kernel's 1x1 window on each path, its pads
+             passed in, the window sums in 2 and 4 groups and the grouped
+             conv's row term at RepVGG-B2g4's shapes,
+             tests/test_torch_zoo_routes.py;
              the window-sum and im2col kernels at the tiles their CPU
              emulations run, tests/test_torch_{window_sum,im2col}_tiles.py;
              -m cuda), before any timing;
@@ -234,6 +240,33 @@ Phases, each fatal on failure:
            tie flips, every module of the 'int' forward fed the card's
            inputs within 1e-4 and the logits printed), the launches a
            request by kernel and the request's ms;
+  zoo_routes the zoo's last integer routes: (a) MobileOne-S1's train form
+           at full width, 224x224, batch 256 (seeded weights, BN statistics
+           from a train-mode forward, then perturbed), config #4's W4A8
+           FSPTQ scheme (stage0 and the head at W8), calibrated on 32
+           images, in 'int': every branch apart, the depthwise blocks' 1x1
+           scale branches on the depthwise kernel's 1x1 window; every
+           launch of a request == plain (1 conv, 22 GEMMs, 42 depthwise:
+           21 of them 1x1), each 1x1 launch timed beside its bound (bytes:
+           the pixels it reads, f32 written), its plain us and a bf16
+           F.conv2d(groups=C) 1x1 as context; 6 served requests (logits
+           within 2e-2 of the CPU plain path on 8 images, or every module
+           within 1e-4) and the request's ms beside the 21 launches' sum
+           and bound; (b) RepVGG-B2g4 at batch 64 under config #5's RootQ
+           W4A4 scheme with its bounds spread (spread_bounds: a row term
+           on every layer), the train form in 'int' (13 grouped 3x3s, 13
+           grouped 1x1s as a GEMM a group, grouped window sums) and the
+           deploy form in 'intc' (13 grouped 3x3 convs with the row term
+           read per group): every launch == plain, each grouped window sum
+           and grouped row-term conv timed beside its bound, plain us and
+           a context call (a torch.sum of each pixel's groups; a bf16
+           grouped conv); every module of each form fed the card's inputs
+           within 1e-4 of its CPU copy on 2 images, the logits printed; 6
+           served deploy-form requests.  With --parent DIR the window-sum
+           kernel at config #5's launches (groups = 1) and the conv kernel
+           at RepVGG-A0's and B2g4's launches, of DIR and of this tree in
+           turns (tools/window_launches.py, tools/conv_launches.py: DIR,
+           this, this, DIR), the sums by group and this tree's over DIR's;
   data     the data layer (dlmc_quant_torch/data) on the card's host: the
            probe (CPU count, g++, libjpeg's jpeglib.h, PIL), the native
            batch assembly built (data/native/augment.cpp, g++) and in use;
@@ -376,7 +409,11 @@ int8_conv3x3.cu's grouped build int8_conv3x3_grouped.cu, under an entry of
 their own: B2g4's 13 at batch 64, their served launches; the depthwise
 launches of int8_dwconv5x5.cu under two entries, int8_dwconv5x5 for the
 5x5 window and int8_dwconv_ragged for the 3x3 window's ragged path, apart
-from int8_dwconv3x3's aligned ones), the card's name and power limit,
+from int8_dwconv3x3's aligned ones; the zoo_routes phase's under three:
+int8_dwconv1x1, the 1x1 window's launches of MobileOne-S1's train form,
+int8_window_sum_grouped and int8_conv3x3_grouped_term, RepVGG-B2g4's
+grouped window sums and grouped convs with the row term, each with its
+served launches), the card's name and power limit,
 and {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -573,6 +610,17 @@ GHOST_EFFNET = {
                          "dwconv": 16, "window_sum": 0}, 9, 0)}
 
 
+# the zoo_routes phase: MobileOne-S1's train form in 'int' at SERVE_BATCH
+# (config #4's scheme): the stem's 3x3 conv, 22 GEMMs (the stem's 1x1
+# scale branch and 21 pointwise convs) and 42 depthwise launches, 21 of
+# them the depthwise blocks' 1x1 scale branches; RepVGG-B2g4 under config
+# #5's RootQ W4A4 at ZOO_BATCH, its launches counted from its layers
+MOBILEONE_TRAIN_LAUNCHES = {"conv": 1, "gemm": 22, "im2col": 0,
+                            "stem_pool": 0, "dwconv": 42, "window_sum": 0}
+MOBILEONE_SCALE_BRANCHES = 21
+CONV_TOOL = REPO / "dlmc_quant_torch" / "tools" / "conv_launches.py"
+
+
 # the data phase: QAT steps from the written CIFAR-10 pickles; the JPEG
 # tree's train and val images; seconds a loader rate is measured over; the
 # val epochs the loader feeds A0 for
@@ -594,7 +642,9 @@ def card_tests():
     weight offset's term in the conv, GEMM and depthwise epilogues, the
     window-sum and im2col kernels at their emulated tiles, the grouped
     conv at every (Cg, Og) of RepVGG's g2/g4 variants and the SE blocks'
-    int8 products), in a process of their own; fatal unless all pass."""
+    int8 products, the depthwise kernel's 1x1 window and pads passed in,
+    the grouped window sums and the grouped conv's row term), in a process
+    of their own; fatal unless all pass."""
     tests = REPO / "tests"
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
@@ -608,7 +658,8 @@ def card_tests():
          str(tests / "test_torch_rootq_int.py"),
          str(tests / "test_torch_window_sum_tiles.py"),
          str(tests / "test_torch_im2col_tiles.py"),
-         str(tests / "test_torch_grouped_conv.py")],
+         str(tests / "test_torch_grouped_conv.py"),
+         str(tests / "test_torch_zoo_routes.py")],
         capture_output=True, text=True)
     tail = run.stdout.strip().splitlines()[-1:] or [run.stderr.strip()[-300:]]
     print(f"# card tests of int8_conv3x3 (grouped too), the ResNet path, "
@@ -944,10 +995,11 @@ def launch_bound(kind, args, kw, out):
         touched = x.numel() if k >= st else out.numel() * k * k * x.shape[-1]
         return bound_of(0, touched + nbytes)
     if kind == "dwconv":
-        # k² multiply-adds an output value; x, the (k², C) weight (half the
-        # bytes at W4), a and b
+        # k² multiply-adds an output value; x (a 1x1 window's: the pixels
+        # it reads), the (k², C) weight (half the bytes at W4), a and b
         x, w = args[:2]
-        return bound_of(2 * w.shape[0] * out.numel(), x.numel() + w.numel()
+        read = x.numel() if w.shape[0] > 1 else out.numel()
+        return bound_of(2 * w.shape[0] * out.numel(), read + w.numel()
                         + 8 * x.shape[-1] + nbytes)
     if kind == "stem_pool":
         # the conv's int8 operations (the pool's compares are not counted);
@@ -999,9 +1051,10 @@ def launch_label(kind, args, kw) -> str:
         return (f"im2col {tuple(x.shape)} {kw['kernel']}x{kw['kernel']} "
                 f"s{kw['stride']} pads {kw['pads'][0]}")
     if kind == "dwconv":
-        k = DW.window(args[1])
-        p = DW.check_kernel(x, args[1], kw["stride"])
-        ragged = f" ragged g{p.granule}" if DW.route(x, args[1]) else ""
+        k, mode = DW.window(args[1]), kw.get("mode", "codes")
+        p = DW.check_kernel(x, args[1], kw["stride"], mode=mode)
+        ragged = f" ragged g{p.granule}" if DW.route(x, args[1], mode) \
+            else ""
         return (f"dwconv {k}x{k} {tuple(x.shape)} s{kw['stride']} pad_lo "
                 f"{kw.get('pad_lo', k // 2)} {kw['mode']}"
                 f"{' relu' if kw.get('relu') else ''}{extra} [cb{p.cb} "
@@ -1230,9 +1283,10 @@ def serve_requests(what, model, x, expect, classes, ref: int = 8,
                    on_flip=None):
     """make_serving_fn(qmode="intc") on ``x``, REQUESTS times: checks the
     launches a request (``expect`` by kind; ``conv_grouped``,
-    ``dwconv_5x5`` and ``dwconv_ragged``, where given, the grouped ones
-    among the conv's and the 5x5 and ragged ones among the depthwise
-    conv's), the logits' shape and
+    ``dwconv_5x5``, ``dwconv_ragged``, ``dwconv_1x1`` and
+    ``window_sum_grouped``, where given, the grouped ones among the conv's,
+    the 5x5, ragged and 1x1 ones among the depthwise conv's and the
+    grouped window sums), the logits' shape and
     finiteness and the CPU plain path on ``ref`` images (relative L2 2e-2;
     past it ``on_flip(rel, images)``, where given, must hold the model
     module by module, C14, or raise); returns (median request ms,
@@ -1244,6 +1298,7 @@ def serve_requests(what, model, x, expect, classes, ref: int = 8,
         fn.launches = 0
     K.int8_conv3x3.grouped_launches = 0
     DW.int8_dwconv3x3.launches_5x5 = DW.int8_dwconv3x3.launches_ragged = 0
+    DW.int8_dwconv3x3.launches_1x1 = WS.int8_window_sum.launches_grouped = 0
     torch.cuda.synchronize()
     times, enqueue = [], []
     for _ in range(REQUESTS):
@@ -1255,7 +1310,10 @@ def serve_requests(what, model, x, expect, classes, ref: int = 8,
     launches = {kind: fn.launches for kind, fn in counters.items()}
     for key, n in (("conv_grouped", K.int8_conv3x3.grouped_launches),
                    ("dwconv_5x5", DW.int8_dwconv3x3.launches_5x5),
-                   ("dwconv_ragged", DW.int8_dwconv3x3.launches_ragged)):
+                   ("dwconv_ragged", DW.int8_dwconv3x3.launches_ragged),
+                   ("dwconv_1x1", DW.int8_dwconv3x3.launches_1x1),
+                   ("window_sum_grouped",
+                    WS.int8_window_sum.launches_grouped)):
         if key in expect:
             launches[key] = n
     # one more request with PyTorch's sync debugging on: every call that
@@ -1452,12 +1510,21 @@ def stem_modes_phase(model, x):
 
 
 def mobile_deployed(name, kwargs, fuser, device, scheme=BENCH_SCHEME):
+    """``name``'s train form (:func:`mobile_train_form`) -> ``fuser`` ->
+    ``scheme`` (the bench's W8A8) -> calibrate on the calibration batch of
+    CAL_BATCH -> prepare_deploy."""
+    model, x = mobile_train_form(name, kwargs, device)
+    deploy = attach_scheme(fuser(model), scheme_from_dict(scheme))
+    calibrate(deploy, [x])
+    return prepare_deploy(deploy)
+
+
+def mobile_train_form(name, kwargs, device):
     """``name`` in train form with the factory's ``kwargs`` (seeded
     weights; BN statistics from one train-mode forward of the calibration
     batch, so that every branch's output is normalized as in a trained
-    model, then perturbed with the BN affine) -> ``fuser`` -> ``scheme``
-    (the bench's W8A8) -> calibrate on that batch of CAL_BATCH ->
-    prepare_deploy."""
+    model, then perturbed with the BN affine), and that batch of
+    CAL_BATCH."""
     gen = torch.Generator().manual_seed(SEED)
     model = get_model(name, device=device, num_classes=CLASSES,
                       generator=gen, **kwargs)
@@ -1481,9 +1548,7 @@ def mobile_deployed(name, kwargs, fuser, device, scheme=BENCH_SCHEME):
         for bn in bns:
             for t in (bn.running_mean, bn.running_var, bn.weight, bn.bias):
                 t += 0.1 * torch.rand(t.shape, generator=gen).to(device)
-    deploy = attach_scheme(fuser(model), scheme_from_dict(scheme))
-    calibrate(deploy, [x])
-    return prepare_deploy(deploy)
+    return model, x
 
 
 def served_weight_bytes(model) -> int:
@@ -1591,10 +1656,12 @@ def parent_dw_turns(root: str):
     sums = {}
     for turn, (who, rows) in enumerate(runs):
         for r in rows:
+            if r["ms"] is None:         # a launch that tree refuses
+                continue
             key = (r["model"], r["group"])
             sums.setdefault(key, [[0.0] * 4, 0.0, 0])
             sums[key][0][turn] += r["ms"]
-            if turn == 0:
+            if turn == 1:
                 sums[key][1] += r["bound_ms"]
                 sums[key][2] += 1
     print(f"# depthwise kernel of the parent tree {root} and this one at "
@@ -1602,7 +1669,7 @@ def parent_dw_turns(root: str):
           "codes, each run a process of its own): model path launches | "
           "parent this this parent ms | bound ms | this / parent")
     for (model, grp), (ms, bound, n) in sorted(sums.items()):
-        ratio = (ms[1] + ms[2]) / (ms[0] + ms[3])
+        ratio = (ms[1] + ms[2]) / (ms[0] + ms[3]) if ms[0] else float("nan")
         print(f"  {model:18s} {grp:7s} {n:2d} | "
               + " ".join(f"{t:.4f}" for t in ms)
               + f" | {bound:.4f} | {ratio:.4f}")
@@ -3033,31 +3100,38 @@ def zoo_deployed(name, device, train_form: bool):
     deploy form built directly (bench.py's D2se); the bench's W8A8 scheme,
     calibrated on ZOO_CAL images, prepared.  Returns it and ZOO_BATCH
     seeded images."""
-    gen = torch.Generator().manual_seed(SEED)
-    x = images(ZOO_BATCH, SEED + 4, device)
     if not train_form:
         model = get_model(name, device=device, num_classes=CLASSES,
                           deploy=True, scheme=scheme_from_dict(BENCH_SCHEME),
-                          generator=gen)
+                          generator=torch.Generator().manual_seed(SEED))
+        x = images(ZOO_BATCH, SEED + 4, device)
     else:
-        model = get_model(name, device=device, num_classes=CLASSES,
-                          generator=gen)
-        bns = [m for m in model.modules()
-               if isinstance(m, torch.nn.BatchNorm2d)]
-        with torch.no_grad():
-            for bn in bns:
-                bn.momentum = 1.0
-            model.train()(x[:ZOO_CAL], qmode="fp")
-            model.eval()
-            for bn in bns:
-                bn.momentum = 0.1
-                for t in (bn.running_mean, bn.running_var, bn.weight,
-                          bn.bias):
-                    t += 0.1 * torch.rand(t.shape, generator=gen).to(device)
+        model, x = zoo_train_form(name, device)
         model = attach_scheme(repvgg_fuse(model),
                               scheme_from_dict(BENCH_SCHEME))
     calibrate(model, [x[:ZOO_CAL]])
     return prepare_deploy(model), x
+
+
+def zoo_train_form(name, device):
+    """RepVGG ``name``'s train form at full width, seeded weights, BN
+    statistics from a train-mode forward of ZOO_CAL images, then
+    perturbed; and ZOO_BATCH seeded images."""
+    gen = torch.Generator().manual_seed(SEED)
+    x = images(ZOO_BATCH, SEED + 4, device)
+    model = get_model(name, device=device, num_classes=CLASSES,
+                      generator=gen)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    with torch.no_grad():
+        for bn in bns:
+            bn.momentum = 1.0
+        model.train()(x[:ZOO_CAL], qmode="fp")
+        model.eval()
+        for bn in bns:
+            bn.momentum = 0.1
+            for t in (bn.running_mean, bn.running_var, bn.weight, bn.bias):
+                t += 0.1 * torch.rand(t.shape, generator=gen).to(device)
+    return model, x
 
 
 def zoo_launch_phase(what, model, x, expect):
@@ -3188,14 +3262,15 @@ def zoo_phase(device):
 
 
 # the depthwise launches' paths: the aligned 3x3 build (int8_dwconv3x3.cu),
-# the 3x3 window's ragged path and the 5x5 window (both int8_dwconv5x5.cu)
-DW_PATHS = ("aligned", "ragged", "5x5")
+# the 3x3 window's ragged path and the 5x5 window (both int8_dwconv5x5.cu),
+# the 1x1 window (either build)
+DW_PATHS = ("aligned", "ragged", "5x5", "1x1")
 
 
 def dw_path(args) -> str:
     """A depthwise launch's path (DW_PATHS) from its codes and weight."""
-    if DW.window(args[1]) == 5:
-        return "5x5"
+    if DW.window(args[1]) in (1, 5):
+        return f"{DW.window(args[1])}x{DW.window(args[1])}"
     return "ragged" if DW.route(args[0], args[1]) else "aligned"
 
 
@@ -3349,6 +3424,252 @@ def ghost_effnet_phase(device):
             served[kind] = served.get(kind, 0) + n
         del model
     return dw, served
+
+
+# the zoo_routes phase's routes: the depthwise kernel's 1x1 window, the
+# grouped window sums and the grouped conv with a row term
+ROUTE_KINDS = ("dwconv_1x1", "window_sum_grouped", "conv_grouped_term")
+
+
+def route_kind(kind, args, kw):
+    """A launch's route among ROUTE_KINDS, or None."""
+    if kind == "dwconv" and DW.window(args[1]) == 1:
+        return "dwconv_1x1"
+    if kind == "window_sum" and kw.get("groups", 1) > 1:
+        return "window_sum_grouped"
+    if kind == "conv" and kw.get("groups", 1) > 1 \
+            and kw.get("row") is not None:
+        return "conv_grouped_term"
+    return None
+
+
+def route_context_ms(route, args, kw) -> float:
+    """A PyTorch call beside a route's launch (context: none computes the
+    same function): a bf16 F.conv2d(groups=C) 1x1, a torch.sum of each
+    pixel's groups (the sums' reduction without the windows), a bf16
+    grouped 3x3 conv."""
+    if route == "dwconv_1x1":
+        return dw_context_ms(args, kw)
+    if route == "conv_grouped_term":
+        return grouped_context_ms(args, kw)
+    x, g = args[0], kw["groups"]
+    xg = x.view(*x.shape[:3], g, x.shape[3] // g)
+    return event_ms(lambda: torch.sum(xg, dim=-1, dtype=torch.int32), REPS)
+
+
+def route_launch_phase(what, model, x, qmode, expect):
+    """One request of ``x`` in ``qmode``: the launches by kind as
+    ``expect``, each == plain (tolerance 0); each launch of this slice's
+    routes (ROUTE_KINDS) timed (CUDA graph of 16) beside its bound, its
+    plain ms and a context call.  Returns the totals by route."""
+    tots = {r: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                    bytes_ms=0.0, context_ms=0.0, err=0.0, n=0)
+            for r in ROUTE_KINDS}
+    with torch.inference_mode():
+        with LaunchRecorder() as rec:
+            model(x, qmode=qmode)
+        torch.cuda.synchronize()
+        if rec.counts() != expect:
+            raise RuntimeError(f"{what}: a request made {rec.counts()} "
+                               f"launches, expected {expect}")
+        print(f"# {what} {qmode} kernel vs plain, batch {x.shape[0]}: "
+              f"every one of {len(rec.calls)} launches == plain; each launch "
+              "of this slice's routes: launch | kernel_us bound_us (by) "
+              "kernel/bound {plain_us context_us}")
+        for i, (kind, args, kw, out) in enumerate(rec.calls):
+            err = max_diff_to_plain(kind, args, kw, out)
+            if err != 0:
+                raise RuntimeError(f"{what} launch {i} ({kind}): kernel and "
+                                   f"plain differ by {err}")
+            route = route_kind(kind, args, kw)
+            if route is None:
+                continue
+            run, plain = KERNELS[kind]
+            ms = graph_ms(lambda _: run(*args, **kw), GRAPH_LAUNCHES)
+            b_ms, t_ops, t_bytes = launch_bound(kind, args, kw, out)
+            plain_ms = event_ms(lambda: plain(*args, **kw), PLAIN_REPS)
+            context_ms = route_context_ms(route, args, kw)
+            t = tots[route]
+            for key, val in (("ms", ms), ("bound_ms", b_ms),
+                             ("ops_ms", t_ops), ("bytes_ms", t_bytes),
+                             ("plain_ms", plain_ms),
+                             ("context_ms", context_ms)):
+                t[key] += val
+            t["n"] += 1
+            print(f"{i:3d} {launch_label(kind, args, kw):78s} | "
+                  f"{ms * 1e3:8.2f} {b_ms * 1e3:8.2f} "
+                  f"({bound_by(t_ops, t_bytes)}) {ms / b_ms:.2f} "
+                  f"{{{plain_ms * 1e3:.1f} {context_ms * 1e3:.2f}}}")
+    for route, t in tots.items():
+        if t["n"]:
+            print(f"# {what} {qmode} batch {x.shape[0]} {route} launches "
+                  f"({t['n']}): kernel {t['ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms "
+                  f"({bound_by(t['ops_ms'], t['bytes_ms'])}), plain "
+                  f"{t['plain_ms']:.4f} ms; context calls "
+                  f"{t['context_ms']:.4f} ms")
+    return tots
+
+
+def expected_launches(model, qmode):
+    """The launches by kind of one request of a RepVGG whose every layer
+    has a weight offset (RootQ), counted from its layers: a 3x3 conv one
+    conv launch, a 1x1 one GEMM launch a group, each offset layer one
+    window sum (grouped ones apart), the dense head none where it is not
+    quantized; 'intc' on the deploy form, 'int' on the train form."""
+    out = dict.fromkeys(KERNELS, 0)
+    out.update(conv_grouped=0, window_sum_grouped=0)
+    for m in model.modules():
+        if isinstance(m, QConv) and m.cfg is not None:
+            if m.kernel_size == 3:
+                out["conv"] += 1
+                out["conv_grouped"] += m.groups > 1
+            else:
+                out["gemm"] += m.groups
+            if hasattr(m, "w_offset"):
+                out["window_sum"] += 1
+                out["window_sum_grouped"] += m.groups > 1
+        elif isinstance(m, QDense) and m.cfg is not None \
+                and hasattr(m, "w_offset"):
+            out["window_sum"] += 1
+    return out
+
+
+def mobileone_train_int(device):
+    """MobileOne-S1's train form (:func:`mobile_train_form`) under config
+    #4's W4A8 FSPTQ scheme, calibrated on CAL_BATCH images, prepared: its
+    'int' path runs every branch apart."""
+    model, x = mobile_train_form(W4_MODEL, {}, device)
+    attach_scheme(model, scheme_from_dict(read_yaml(CONFIG_4)["quantization"]))
+    calibrate(model, [x])
+    return prepare_deploy(model)
+
+
+def b2g4_rootq(device, train_form: bool):
+    """RepVGG-B2g4's train form (:func:`zoo_train_form`), as it is or
+    through repvgg_fuse; config #5's RootQ W4A4 scheme; calibrated on
+    ZOO_CAL images; every weight's bounds spread apart (spread_bounds:
+    o_w != 0, the row term on every layer); prepared.  Returns it and
+    ZOO_BATCH images."""
+    model, x = zoo_train_form("RepVGG_B2g4", device)
+    if not train_form:
+        model = repvgg_fuse(model)
+    attach_scheme(model, scheme_from_dict(
+        read_yaml(CONFIGS / f"{R50_CONFIG}.yaml")["quantization"]))
+    calibrate(model, [x[:ZOO_CAL]])
+    spread_bounds(model, SEED + 5)
+    return prepare_deploy(model), x
+
+
+def zoo_routes_phase(device, parent=None):
+    """MobileOne-S1's train form in 'int' and RepVGG-B2g4 under RootQ
+    W4A4 (train form 'int', deploy form 'intc'): every launch == plain,
+    the launches of this slice's routes timed, every module of B2g4's
+    forms fed the card's inputs within 1e-4 of its CPU copy, served
+    requests; with ``parent`` the window-sum and conv kernels of that tree
+    and this one in turns.  Returns {route: totals with the served
+    launches}."""
+    start = t0 = time.perf_counter()
+    model = mobileone_train_int(device)
+    print(f"# {W4_MODEL} train form: config #4's W4A8 FSPTQ scheme "
+          f"(stage0 and the head W8) -> calibrate (batch {CAL_BATCH}) + "
+          f"prepare_deploy in {time.perf_counter() - t0:.2f} s; 'int' runs "
+          f"every branch: {MOBILEONE_SCALE_BRANCHES} depthwise 1x1 scale "
+          "branches")
+    x = images(SERVE_BATCH, SEED + 1, device)
+    mo = route_launch_phase(f"{W4_MODEL} train", model, x, "int",
+                            MOBILEONE_TRAIN_LAUNCHES)
+    if mo["dwconv_1x1"]["n"] != MOBILEONE_SCALE_BRANCHES:
+        raise RuntimeError(f"{mo['dwconv_1x1']['n']} 1x1 launches, expected "
+                           f"{MOBILEONE_SCALE_BRANCHES}")
+    request_ms, served = serve_requests(
+        f"{W4_MODEL} train", model, x,
+        dict(MOBILEONE_TRAIN_LAUNCHES, dwconv_1x1=MOBILEONE_SCALE_BRANCHES),
+        CLASSES, on_flip=held_by_modules(f"{W4_MODEL} train", model))
+    t = mo["dwconv_1x1"]
+    print(f"# {W4_MODEL} train form 'int' request at batch {SERVE_BATCH}: "
+          f"{request_ms:.3f} ms; its {t['n']} scale-branch launches "
+          f"{t['ms']:.4f} ms against a bound of {t['bound_ms']:.4f} ms "
+          f"(bytes: {t['bytes_ms']:.4f}; x{t['ms'] / t['bound_ms']:.2f})")
+    del model, x
+    routes = {"dwconv_1x1": dict(mo["dwconv_1x1"],
+                                 launches=served["dwconv_1x1"])}
+    grouped = {}
+    for train_form, qmode in ((True, "int"), (False, "intc")):
+        t0 = time.perf_counter()
+        model, x = b2g4_rootq(device, train_form)
+        form = "train" if train_form else "deploy"
+        expect = expected_launches(model, qmode)
+        print(f"# RepVGG_B2g4 {form} form: config #5's RootQ W4A4 scheme "
+              f"-> calibrate ({ZOO_CAL} images) -> spread_bounds -> "
+              f"prepare_deploy in {time.perf_counter() - t0:.2f} s; "
+              f"{qmode} launches a request {expect}")
+        kinds = {k: n for k, n in expect.items() if k in KERNELS}
+        tots = route_launch_phase(f"RepVGG_B2g4 {form}", model, x, qmode,
+                                  kinds)
+        for route in ("window_sum_grouped", "conv_grouped_term"):
+            g = grouped.setdefault(route, dict.fromkeys(tots[route], 0.0))
+            for key, val in tots[route].items():
+                g[key] = max(g[key], val) if key == "err" else g[key] + val
+        card_vs_cpu(f"RepVGG_B2g4 {form}", model, x[:ZOO_REF], "int")
+        if not train_form:
+            _, served = serve_requests(
+                "RepVGG_B2g4 deploy RootQ", model, x,
+                dict(kinds, conv_grouped=expect["conv_grouped"],
+                     window_sum_grouped=expect["window_sum_grouped"]),
+                CLASSES, ZOO_REF,
+                on_flip=held_by_modules("RepVGG_B2g4 deploy RootQ", model))
+            for route, key in (("window_sum_grouped", "window_sum_grouped"),
+                               ("conv_grouped_term", "conv_grouped")):
+                routes[route] = dict(grouped[route], launches=served[key])
+        del model, x
+    print(f"# zoo_routes: the two models' legs "
+          f"{time.perf_counter() - start:.2f} s")
+    if parent:
+        parent_route_turns(parent)
+    return routes
+
+
+def parent_route_turns(root: str):
+    """The window-sum kernel at config #5's launches (groups = 1) and the
+    conv kernel at RepVGG-A0's (ungrouped) and B2g4's launches, of the tree
+    at ``root`` and of this one, in turns (parent, this, this, parent),
+    each run a process of its own (tools/window_launches.py,
+    tools/conv_launches.py); prints the sums by group and this tree's over
+    the parent's."""
+    for tool, extra in ((WINDOW_TOOL, ["--batch", str(ENGINE_BATCH),
+                                       "--grouped-batch", "0"]),
+                        (CONV_TOOL, ["--batch", str(SERVE_BATCH),
+                                     "--grouped-batch", str(ZOO_BATCH)])):
+        runs = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for tree in (root, str(REPO), str(REPO), root):
+                out = pathlib.Path(tmp) / "rows.json"
+                run = subprocess.run(
+                    [sys.executable, str(tool), "--root", tree, "--json",
+                     str(out)] + extra, capture_output=True, text=True)
+                if run.returncode != 0:
+                    print(run.stdout[-3000:], run.stderr[-3000:],
+                          file=sys.stderr)
+                    raise RuntimeError(f"{tool.name} on {tree} failed")
+                runs.append(json.loads(out.read_text()))
+        sums = {}
+        for turn, rows in enumerate(runs):
+            for r in rows:
+                if r.get("ms") is None:
+                    continue
+                s = sums.setdefault(r["group"], [[0.0] * 4, [0] * 4])
+                s[0][turn] += r["ms"]
+                s[1][turn] += 1
+        print(f"# {tool.name} on the parent tree {root} and this one in "
+              "turns: group launches | parent this this parent ms | this / "
+              "parent (launches that a tree refuses are left out of its "
+              "sums)")
+        for grp, (ms, n) in sorted(sums.items()):
+            ratio = (ms[1] + ms[2]) / (ms[0] + ms[3]) if ms[0] else float(
+                "nan")
+            print(f"  {grp:18s} {n} | " + " ".join(f"{t:.4f}" for t in ms)
+                  + f" | {ratio:.4f}")
 
 
 def data_probe() -> dict:
@@ -3579,8 +3900,10 @@ def main(argv=None) -> int:
                      help="another tree (e.g. an archive of the parent "
                           "commit) whose depthwise, window-sum and im2col "
                           "kernels are timed beside this one's at every "
-                          "launch of theirs, and whose stem + pool with the "
-                          "first block's two codes beside this one's")
+                          "launch of theirs, whose stem + pool with the "
+                          "first block's two codes beside this one's, and "
+                          "whose window-sum and conv kernels in turns with "
+                          "this one's")
     args = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3662,6 +3985,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ghost_dw, ghost_served = ghost_effnet_phase(device)
     print(f"# ghost_effnet phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    routes = zoo_routes_phase(device, args.parent)
+    print(f"# zoo_routes phase: {time.perf_counter() - t0:.2f} s")
     data_phase(device, card)
     t0 = time.perf_counter()
     observers_phase(device)
@@ -3757,6 +4083,29 @@ def main(argv=None) -> int:
                      "dlmc_quant_tpu/quant/layers.py:721-728 (XLA grouped "
                      "int8 conv, feature_group_count=G; no Pallas kernel)",
                      zoo_grouped["launches"], zoo_grouped, None,
+                     source="dlmc_quant_torch/ops/cuda/csrc/"
+                            "int8_conv3x3_grouped.cu"),
+        kernel_entry("int8_dwconv1x1",
+                     "dlmc_quant_tpu/quant/layers.py:722-728 (XLA grouped "
+                     "int8 conv, feature_group_count=C, 1x1 window: "
+                     "MobileOne's scale branch; no Pallas kernel)",
+                     routes["dwconv_1x1"]["launches"], routes["dwconv_1x1"],
+                     None, source="dlmc_quant_torch/ops/cuda/csrc/"
+                                  "int8_dwconv.cuh"),
+        kernel_entry("int8_window_sum_grouped",
+                     "dlmc_quant_tpu/quant/layers.py:459 (the integer plan "
+                     "drops o_w, hazard C1; no Pallas kernel)",
+                     routes["window_sum_grouped"]["launches"],
+                     routes["window_sum_grouped"], None,
+                     source="dlmc_quant_torch/ops/cuda/csrc/"
+                            "int8_window_sum.cu"),
+        kernel_entry("int8_conv3x3_grouped_term",
+                     "dlmc_quant_tpu/quant/layers.py:721-728 (XLA grouped "
+                     "int8 conv, feature_group_count=G; the term: "
+                     "dlmc_quant_tpu/quant/layers.py:459, hazard C1; no "
+                     "Pallas kernel)",
+                     routes["conv_grouped_term"]["launches"],
+                     routes["conv_grouped_term"], None,
                      source="dlmc_quant_torch/ops/cuda/csrc/"
                             "int8_conv3x3_grouped.cu")]}))
     print(card)

@@ -15,9 +15,10 @@ over.
   (:func:`mobileone_fuse`), whose ReLU stays lazy on the chain.
 * BatchNorm is flax's (``models.resnet_cifar.BatchNorm``); convs pad
   ``k // 2`` on every side.
-* The integer qmodes run the deploy form: the train form runs ``'intc'``
-  as ``'int'``, where a depthwise block's grouped 1×1 scale branch has no
-  integer path (ROADMAP Queue A, rest of the zoo (item 7)).
+* The integer qmodes: the deploy form chains ``'intc'``; the train form
+  runs ``'int'``, and ``'intc'`` as ``'int'`` (as the JAX package does:
+  chaining needs the fused single-conv form), a depthwise block's 1×1
+  scale branch on the depthwise kernel's 1×1 window.
 """
 
 from __future__ import annotations

@@ -21,7 +21,9 @@
 //   with a row term (S (N, Ho, Wo) int32, c (O,) f32: a weight offset's
 //   term, S the window sums of int8_window_sum.cu), in every mode the
 //   product f32(acc)*a[o] becomes f32(acc)*a[o] + f32(S[n,p,q])*c[o]
-//   (the product and the sum each rounded) before the rest.
+//   (the product and the sum each rounded) before the rest; in G groups
+//   S is (N, Ho, Wo, G), one sum a group, and column o reads S[n,p,q,g],
+//   g = o / Og (a tile's columns lie in one group).
 //
 // The epilogue is written with __int2float_rn, __fmul_rn and __fadd_rn so
 // nvcc cannot contract it into an fma, and rounds half to even as rintf,
@@ -131,10 +133,10 @@
 // their operations' bound: producers that gather a 48- or 96-wide tile's
 // group are what bounds them, untuned.  This source is built twice:
 // as itself, for groups = 1, and through int8_conv3x3_grouped.cu with
-// DLMCQ_CONV_GROUPED set, for groups > 1 (and no row term: a grouped
-// conv's weight offset raises in quant/layers.py).  The group code is a
-// compile-time branch, so the ungrouped build has none of it, and the
-// two builds compile side by side.
+// DLMCQ_CONV_GROUPED set, for groups > 1 (the row term too, its S read
+// at the tile's group).  The group code is a compile-time branch, so the
+// ungrouped build has none of it, and the two builds compile side by
+// side.
 // The tile plan (width, stages, weight resident or not, halo buffers) is
 // made in int8_conv.py; this file checks that it fits.
 
@@ -198,14 +200,15 @@ struct ConvArgs {
   const void* r;      // residual, r_kind: 0 none, 1 int8, 2 int32, 3 f32
   const float* ar;
   const float* br;
-  const int* srow;    // the row term (or null): S per output pixel
+  const int* srow;    // the row term (or null): S per output pixel (and
+                      // group: G a pixel, grouped)
   const float* crow;  // and c per output channel
   float qb;
   long long x_bytes;
   int H, W, C, Rp, O, Ho, Wo, M, stride, Kp;
   // groups: Cg and Og channels a group in and out, Tp bytes of K a tap
   // (grouped; C where C % 16 == 0 ungrouped), ntg N tiles a group
-  int Cg, Og, Tp, ntg;
+  int Cg, Og, Tp, ntg, G;
   int pad, pad_lo, lo, hi, relu, r_kind;
   int m_tiles, n_tiles, tiles, k_chunks, stages, resident;
   int halo_bufs, halo_bytes, pixels;  // halo_bufs 0: gather from x
@@ -213,6 +216,16 @@ struct ConvArgs {
   FastDiv by_hw, by_wo, by_m_tiles;   // / (Ho Wo), / Wo, / m_tiles
   FastDiv by_ntg, by_og;              // / ntg, / Og
 };
+
+// where the row term's S of output pixel `row` lies: one a pixel, or in G
+// groups one a (pixel, group), the tile's group `grp`
+__device__ __forceinline__ long long srow_at(const ConvArgs& g, int row,
+                                             int grp) {
+  if constexpr (GROUPED)
+    return static_cast<long long>(row) * g.G + grp;
+  else
+    return row;
+}
 
 template <int BN, bool CODES>
 struct Cfg {
@@ -886,7 +899,8 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
         const int orow = m0 + row_in + 8 * h;
         // the row term's S of this row (0 past M: not stored)
         const float sv = TERM && orow < g.M
-                             ? __int2float_rn(__ldg(g.srow + orow))
+                             ? __int2float_rn(__ldg(g.srow + srow_at(g, orow,
+                                                                     grp)))
                              : 0.0f;
 #pragma unroll
         for (int i = 0; i < BN / 8; ++i) {
@@ -956,7 +970,9 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
         const int row = m0 + row_in + 8 * h;
         if (row >= g.M) continue;
         float* orow = out + static_cast<long long>(row) * g.O;
-        const float sv = TERM ? __int2float_rn(__ldg(g.srow + row)) : 0.0f;
+        const float sv =
+            TERM ? __int2float_rn(__ldg(g.srow + srow_at(g, row, grp)))
+                 : 0.0f;
 #pragma unroll
         for (int i = 0; i < BN / 8; ++i) {
           const int col = c0 + 8 * i + col_in;
@@ -1026,15 +1042,6 @@ int launch_mode(const CUtensorMap& map_w, const ConvArgs& g, int codes,
                     : launch<BN, true, false, TERM>(map_w, g, s);
 }
 
-// The row term's instantiations: none in the grouped build.
-template <int BN>
-int launch_term(const CUtensorMap& map_w, const ConvArgs& g, int codes,
-                cudaStream_t s) {
-  if constexpr (GROUPED)
-    return static_cast<int>(cudaErrorInvalidValue);
-  else
-    return launch_mode<BN, true>(map_w, g, codes, s);
-}
 
 // The compiled tile widths (a tile has 128 rows); listed in int8_conv.py too.
 #define DLMCQ_CONV_TILES(X) X(48) X(96) X(192) X(256)
@@ -1068,7 +1075,8 @@ int dlmcq_int8_conv3x3_smem(int bn, int codes, int stages,
 // or float32; pad_lo 1, or 0 at stride 2.  With r_kind 1, 2 or 3 (codes
 // only) r is (n, ho, wo, o) int8, int32 or float32, ar and br (o,) float32
 // and qb the grid's bias; with r_kind 0 they are not read.  srow (n, ho,
-// wo) int32 and crow (o,) float32 are the row term, or both null.  The
+// wo) int32 (in groups > 1 groups (n, ho, wo, groups)) and crow (o,)
+// float32 are the row term, or both null.  The
 // plan (bn, stages, resident, halo_bufs) comes from int8_conv.py.  Launches on
 // `stream`; returns cudaGetLastError() (0 on success), or the error that
 // refused the tensor map or the plan.
@@ -1101,7 +1109,7 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
       r_kind < 0 || r_kind > 3 || (r_kind && !codes) || (!srow != !crow))
     return static_cast<int>(cudaErrorInvalidValue);
   if (groups < 1 || c % groups != 0 || o % groups != 0 ||
-      (groups > 1) != GROUPED || (GROUPED && srow))
+      (groups > 1) != GROUPED)
     return static_cast<int>(cudaErrorInvalidValue);
   g.H = h;
   g.W = wd;
@@ -1109,6 +1117,7 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
   g.Rp = (3 * c + 15) / 16 * 16;
   g.Cg = c / groups;
   g.Og = o / groups;
+  g.G = groups;
   g.Tp = groups > 1 ? (g.Cg + 15) / 16 * 16 : c;
   g.x_bytes = static_cast<long long>(n) * h * wd * c;
   g.O = o;
@@ -1158,7 +1167,7 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DLMCQ_LAUNCH(BN)                                        \
   if (bn == BN)                                                 \
-    return srow ? launch_term<BN>(map_w, g, codes, s)           \
+    return srow ? launch_mode<BN, true>(map_w, g, codes, s)     \
                 : launch_mode<BN, false>(map_w, g, codes, s);
   DLMCQ_CONV_TILES(DLMCQ_LAUNCH)
 #undef DLMCQ_LAUNCH

@@ -1,28 +1,31 @@
 // The int8 depthwise conv's shared pieces, for Hopper (sm_90a): the
 // arguments, the halo staging, the byte transposes and __dp4a tap rows, the
-// epilogue, the 3x3 kernel and the C entry point.  Two sources include it,
-// each a library of its own with the same C interface:
+// epilogue, the 3x3 kernel, the 1x1 kernel and the C entry point.  Two
+// sources include it, each a library of its own with the same C interface:
 //
 //   int8_dwconv3x3.cu  the 3x3 window at C % 8 == 0 on 16-byte aligned
 //                      codes (the aligned path: MobileNetV2, MobileOne, and
 //                      GhostNet's and EfficientNet's 3x3 convs at C % 8 == 0)
+//                      and the 1x1 window on that path
 //   int8_dwconv5x5.cu  the wide build: the 5x5 window on either path and
-//                      the 3x3 window's ragged path (any C >= 1, or codes
-//                      off 16-byte alignment)
+//                      the 3x3 and 1x1 windows' ragged path (any C >= 1, or
+//                      codes off 16-byte alignment)
 //
 // Replaces the XLA int8 conv of the JAX package's integer path at
 // feature_group_count = C (dlmc_quant_tpu/quant/layers.py:722-728:
 // jnp.pad of the codes with the pad code, then conv_general_dilated with
 // preferred_element_type=int32); no Pallas kernel did this on the TPU, XLA
 // lowered the grouped conv.  For input codes x (N, H, W, C) int8 and a
-// weight w (K, K, 1, C), K = 3 or 5, packed as (K*K, C) int8 (tap
+// weight w (K, K, 1, C), K = 1, 3 or 5, packed as (K*K, C) int8 (tap
 // dy*K + dx, channels contiguous):
 //
-//   acc[n,p,q,c] = sum_{dy,dx} xpad[n, p*s - pad_lo + dy, q*s - pad_lo + dx, c]
+//   acc[n,p,q,c] = sum_{dy,dx} xpad[n, p*s - top + dy, q*s - left + dx, c]
 //                              * w[dy*K + dx, c]                      (int32)
 //   xpad = x, or the int8 code `pad` (real 0 on the input's grid, not 0)
-//          outside the map; pad_lo = K/2, or K/2 - 1 for SAME at stride 2
-//          on an even map; Ho = ceil(H / s), Wo = ceil(W / s)
+//          outside the map; top = left = K/2, or K/2 - 1 for SAME at
+//          stride 2 on an even map, and Ho = ceil(H / s), Wo = ceil(W / s)
+//          (the wrapper's default), or any pads and output size the caller
+//          gives (a conv whose padding is neither)
 //   codes: out = clamp(rint(f32(acc)*a[c] + b[c]), lo, hi)    -> int8
 //   f32:   out = f32(acc)*a[c] + b[c], then max(., 0) if relu -> f32
 //   with a weight offset's term (an offset o_w on the weight grid, c the
@@ -32,7 +35,7 @@
 //   channel less the pad code (a pad adds 0).  The kernel sums them next
 //   to the products: one more signed __dp4a a tap row (two at 5x5),
 //   against a word of ones where the weight word has its taps (TERM, an
-//   instantiation of its own).
+//   instantiation of its own); at 1x1, S = x - pad.
 //
 // written with __fmul_rn, __fadd_rn (no fma contraction) and rounding half
 // to even, as the int8 conv's and GEMM's epilogues (ops/cuda/epilogue.py is
@@ -91,6 +94,28 @@
 // 17 and 21 launches of MobileNetV2 and MobileOne-S1 run at 1.8-2.0x their
 // bound: the stride-1 layers near 2x, the stride-2 ones 1.35-2.0x, 7x7
 // maps 2.4x.
+//
+// The 1x1 window (int8_dwconv1x1_kernel: MobileOne's scale branch, a
+// depthwise 1x1 at the block's stride, VALID) is a strided per-channel
+// product, acc = x[n, p*s - top, q*s - left, c] * w[c], then the same
+// epilogue.  It does one multiply-add an output value, so it is bound by
+// its bytes far below the tensor cores' or dp4a's rate: no halo, no tiles
+// and no transposes.  A thread owns a granule of G channels, loads their
+// weights, a, b and oc into registers once, and walks output pixels: one
+// G-byte load of the subsampled pixel's channels (only the pixels an
+// output reads), G products and epilogues, and one store of G codes or of
+// G/4 float4s (channel by channel at G = 1).  Codes take G = 16 where C %
+// 16 == 0 on the aligned path, 8 elsewhere on it, and 4 or 1 on the
+// ragged path; f32 takes G = 4 wherever C % 4 == 0 (the wrapper routes it
+// so), so that a warp's float4 stores run on through memory, where at G =
+// 16 each of a thread's four float4 stores would meet every other 16
+// bytes of a warp's span.  The pixel's (image, row, column) by multiplies
+// and shifts, not divisions.  On an H100 80GB HBM3 at 700 W MobileOne-S1's
+// 21 scale branches at batch 256 (f32) take 1.37 ms against a 0.99 ms
+// bound, 2.33 ms at granules of 16 with divisions.  A block
+// is a slice of cb/G granules (the whole pixel up to 256 threads) times
+// `lanes` pixels (cg in the plan), so that a warp's loads and stores run
+// over whole pixels; the grid is what fits on the card, walking pixels.
 
 #pragma once
 
@@ -115,8 +140,9 @@ struct DwArgs {
   const float* b;
   const float* oc;       // the offset term's (C,) coefficient, if TERM
   void* out;             // (N, Ho, Wo, C): int8 codes or f32
-  int H, W, C, Ho, Wo, pad_lo, relu, w4;
+  int N, H, W, C, Ho, Wo, stride, pad_top, pad_left, relu, w4;
   float flo, fhi;        // the codes' clamp, lo and hi
+  int pad;               // the pad code
   int pad_sum;           // K*K * the pad code: a window's pads, if TERM
   uint32_t pad4;         // the pad code in every byte
   // the plan: channel slice and its quads, column groups, rows a thread;
@@ -131,7 +157,25 @@ struct DwArgs {
   // the staging starts in shared memory
   int runs, row_pitch, chunks;
   int rg, stage_row, stage_at;
+  // the 1x1 window's divisions by Wo and Ho: n / d = (n * mul) >> shift
+  uint32_t wo_mul, ho_mul;
+  int wo_shift, ho_shift;
 };
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (mul and shift from
+// set_div): the 1x1 window's pixel index to (image, row, column)
+__device__ __forceinline__ int div_by(int n, uint32_t mul, int shift) {
+  return static_cast<int>(
+      (static_cast<uint64_t>(static_cast<uint32_t>(n)) * mul) >> shift);
+}
+
+inline void set_div(int d, uint32_t& mul, int& shift) {
+  int l = 0;
+  while ((1LL << l) < d) ++l;
+  shift = 31 + l;
+  mul = static_cast<uint32_t>((1ULL << shift) / static_cast<uint64_t>(d) +
+                              1);
+}
 
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          int granule) {
@@ -195,8 +239,8 @@ template <int S, bool RAGGED = false>
 __device__ void stage_halo(const DwArgs& g, int t, unsigned char* buf) {
   const Tile tl = tile_of(g, t);
   const int c0 = (t % g.slices) * g.cb;
-  const int iy0 = tl.oy0 * S - g.pad_lo;
-  const int ix0 = tl.ox0 * S - g.pad_lo;
+  const int iy0 = tl.oy0 * S - g.pad_top;
+  const int ix0 = tl.ox0 * S - g.pad_left;
   const int gpp = g.cb / g.granule;      // granules a pixel
   const int cols = g.hw * gpp;
   const long long row_bytes = static_cast<long long>(g.W) * g.C;
@@ -251,8 +295,8 @@ __device__ __forceinline__ int run_shift(const DwArgs& g, const Tile& tl) {
   if (!g.runs) return 0;
   // mod 2^32 throughout: only the low 4 bits count
   const unsigned pixel =
-      (static_cast<unsigned>(tl.n) * g.H + tl.oy0 * S - g.pad_lo) * g.W +
-      tl.ox0 * S - g.pad_lo;
+      (static_cast<unsigned>(tl.n) * g.H + tl.oy0 * S - g.pad_top) * g.W +
+      tl.ox0 * S - g.pad_left;
   return static_cast<int>(
       (static_cast<unsigned>(reinterpret_cast<uintptr_t>(g.x)) +
        pixel * static_cast<unsigned>(g.C)) & 15u);
@@ -268,8 +312,8 @@ __device__ __forceinline__ int run_shift(const DwArgs& g, const Tile& tl) {
 template <int S>
 __device__ void stage_runs(const DwArgs& g, int t, unsigned char* buf) {
   const Tile tl = tile_of(g, t);
-  const int iy0 = tl.oy0 * S - g.pad_lo;
-  const int ix0 = tl.ox0 * S - g.pad_lo;
+  const int iy0 = tl.oy0 * S - g.pad_top;
+  const int ix0 = tl.ox0 * S - g.pad_left;
   const long long row_bytes = static_cast<long long>(g.W) * g.C;
   const int8_t* image = g.x + static_cast<long long>(tl.n) * g.H * row_bytes;
   const int span = g.hw * g.C;                       // a halo row's bytes
@@ -748,6 +792,112 @@ int8_dwconv3x3_kernel(const DwArgs g) {
   }
 }
 
+// The 1x1 window's weight of channel ch: int8, or its nibble at W4
+__device__ __forceinline__ int weight_1x1(const DwArgs& g, int ch) {
+  if (g.w4) {
+    const int u = __ldg(reinterpret_cast<const uint8_t*>(g.w) + ch / 2);
+    return (((u >> (4 * (ch & 1))) & 0xF) ^ 8) - 8;
+  }
+  return __ldg(g.w + ch);
+}
+
+// The 1x1 window (see the header): a thread owns the G channels from c
+// and walks output pixels m = lane, lane + lanes * grid, ...; a block is
+// cq granules (fastest) times cg pixel lanes, gridDim.y the slices of C.
+template <int G, bool CODES, bool TERM>
+__global__ void __launch_bounds__(MAX_THREADS)
+int8_dwconv1x1_kernel(const DwArgs g) {
+  constexpr int WORDS = (G + 3) / 4;
+  const int lane = threadIdx.x / g.cq;
+  const int c = (blockIdx.y * g.cq + threadIdx.x % g.cq) * G;
+  if (lane >= g.cg || c >= g.C) return;   // no barrier below
+  int wv[G];
+  float ea[G], eb[G], ec[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    wv[j] = weight_1x1(g, c + j);
+    ea[j] = __ldg(g.a + c + j);
+    eb[j] = __ldg(g.b + c + j);
+    ec[j] = TERM ? __ldg(g.oc + c + j) : 0.0f;
+  }
+  const int pixels = g.N * g.Ho * g.Wo;   // below 2^31 (the wrapper checks)
+  for (int m = blockIdx.x * g.cg + lane; m < pixels;
+       m += gridDim.x * g.cg) {
+    const int rest = div_by(m, g.wo_mul, g.wo_shift);
+    const int q = m - rest * g.Wo;
+    const int n = div_by(rest, g.ho_mul, g.ho_shift);
+    const int p = rest - n * g.Ho;
+    const int iy = p * g.stride - g.pad_top;
+    const int ix = q * g.stride - g.pad_left;
+    uint32_t v[WORDS];
+    if (iy >= 0 && iy < g.H && ix >= 0 && ix < g.W) {
+      const int8_t* src =
+          g.x + (static_cast<long long>(n * g.H + iy) * g.W + ix) * g.C + c;
+      if constexpr (G == 16) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(src));
+        v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+      } else if constexpr (G == 8) {
+        const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+        v[0] = u.x; v[1] = u.y;
+      } else if constexpr (G == 4) {
+        v[0] = __ldg(reinterpret_cast<const uint32_t*>(src));
+      } else {
+        v[0] = static_cast<uint8_t>(__ldg(src));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < WORDS; ++i) v[i] = g.pad4;
+    }
+    float y[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int xv = static_cast<int>(
+          static_cast<int8_t>((v[j / 4] >> (8 * (j % 4))) & 0xFFu));
+      float prod = __fmul_rn(acc_to_float(xv * wv[j]), ea[j]);
+      if constexpr (TERM)
+        prod = __fadd_rn(prod, __fmul_rn(acc_to_float(xv - g.pad), ec[j]));
+      y[j] = __fadd_rn(prod, eb[j]);
+    }
+    const long long at = static_cast<long long>(m) * g.C + c;
+    if constexpr (CODES) {
+      uint32_t w[WORDS];
+#pragma unroll
+      for (int i = 0; i < WORDS; ++i) {
+        if constexpr (G == 1) {
+          w[i] = code_bits(g, y[0]) & 0xFFu;
+        } else {
+          const uint32_t lo = __byte_perm(code_bits(g, y[4 * i]),
+                                          code_bits(g, y[4 * i + 1]), 0x0040);
+          const uint32_t hi = __byte_perm(code_bits(g, y[4 * i + 2]),
+                                          code_bits(g, y[4 * i + 3]), 0x0040);
+          w[i] = __byte_perm(lo, hi, 0x5410);
+        }
+      }
+      int8_t* dst = static_cast<int8_t*>(g.out) + at;
+      if constexpr (G == 16)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      else if constexpr (G == 8)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+      else if constexpr (G == 4)
+        *reinterpret_cast<uint32_t*>(dst) = w[0];
+      else
+        *dst = static_cast<int8_t>(w[0]);
+    } else {
+      float* dst = static_cast<float*>(g.out) + at;
+#pragma unroll
+      for (int j = 0; j < G; ++j) y[j] = g.relu ? fmaxf(y[j], 0.0f) : y[j];
+      if constexpr (G == 1) {
+        *dst = y[0];
+      } else {
+#pragma unroll
+        for (int i = 0; i < G / 4; ++i)
+          reinterpret_cast<float4*>(dst)[i] =
+              make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
+      }
+    }
+  }
+}
+
 // The 5x5 window's kernel (int8_dwconv5x5.cu defines it; the aligned
 // build instantiates none)
 template <int S, bool CODES, bool TERM, bool RAGGED>
@@ -808,9 +958,51 @@ cudaError_t launch_window(const DwArgs& g, int stride, bool codes,
                : launch<K, 2, false, true, RAGGED>(g, threads, smem, s);
 }
 
-// what a library was built with (int8_dwconv3x3.cu: the aligned 3x3 path;
-// int8_dwconv5x5.cu: the 5x5 window and the ragged path of either window);
-// cudaErrorInvalidValue for the rest
+// launch the 1x1 window's instantiation at granule G: the grid is what
+// fits on the card at once along the pixels, times the slices of C
+template <int G, bool CODES, bool TERM>
+cudaError_t launch_1x1(const DwArgs& g, int threads, cudaStream_t stream) {
+  const auto kernel = int8_dwconv1x1_kernel<G, CODES, TERM>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long pixels = static_cast<long long>(g.N) * g.Ho * g.Wo;
+  long long grid = (pixels + g.cg - 1) / g.cg;
+  const long long fits = static_cast<long long>(per_sm) * sms /
+                         (g.slices > 0 ? g.slices : 1);
+  if (grid > fits) grid = fits > 0 ? fits : 1;
+  kernel<<<dim3(static_cast<unsigned>(grid), g.slices), threads, 0,
+           stream>>>(g);
+  return cudaGetLastError();
+}
+
+// the 1x1 window's instantiation for the mode and term at granule G (16
+// and 8: codes only, since f32 takes G = 4)
+template <int G>
+cudaError_t launch_window_1x1(const DwArgs& g, bool codes, bool term,
+                              int threads, cudaStream_t s) {
+  if constexpr (G >= 8) {
+    if (!codes) return cudaErrorInvalidValue;
+    return term ? launch_1x1<G, true, true>(g, threads, s)
+                : launch_1x1<G, true, false>(g, threads, s);
+  } else {
+    if (!term)
+      return codes ? launch_1x1<G, true, false>(g, threads, s)
+                   : launch_1x1<G, false, false>(g, threads, s);
+    return codes ? launch_1x1<G, true, true>(g, threads, s)
+                 : launch_1x1<G, false, true>(g, threads, s);
+  }
+}
+
+// what a library was built with (int8_dwconv3x3.cu: the aligned 3x3 and
+// 1x1 paths; int8_dwconv5x5.cu: the 5x5 window and the ragged path of the
+// 3x3 and 1x1 windows); cudaErrorInvalidValue for the rest
 cudaError_t dispatch(const DwArgs& g, int k, int stride, bool codes,
                      bool term, bool ragged, int threads, int smem,
                      cudaStream_t s);
@@ -819,35 +1011,45 @@ cudaError_t dispatch(const DwArgs& g, int k, int stride, bool codes,
 
 extern "C" {
 
-// out (n, ceil(h/stride), ceil(w/stride), c) from x (n, h, w, c) int8 and
-// w (k*k, c) int8 (w4 = 0) or (k*k, (c + 1) / 2) nibble pairs (w4 = 1):
-// the depthwise k x k conv (k = 3 or 5) with top/left pad pad_lo, `pad`
-// outside the map, then the epilogue (codes: clamp to [lo, hi] -> int8;
-// else f32, ReLU'd if relu).  ragged = 0: the aligned path (c % 8 == 0,
-// 16-byte aligned x and w); 4 or 1: the ragged path, staging the halo in
-// granules of that many bytes (4: c % 4 == 0 and 4-byte aligned x; with cb
-// == c the halo rows as runs, ops/cuda/int8_dwconv.py: make_plan).  The
-// plan (ops/cuda/int8_dwconv.py: plan): cb channels a block, cg column
-// groups, rg row groups, rpt rows a thread (cb % 8 == 0, or % 4 on the
-// ragged path; cb/4 * cg * rg <= 256 threads).  oc (c,) float32 adds the
-// weight offset's term, or is null.  Stride 1 or 2, 0 <= pad_lo < k,
-// 16-byte aligned out (the wrapper checks them).  A library takes what it
-// was built for (dispatch) and returns cudaErrorInvalidValue for the rest.
-// Launches on `stream`; returns cudaGetLastError().
+// out (n, ho, wo, c) from x (n, h, w, c) int8 and w (k*k, c) int8 (w4 = 0)
+// or (k*k, (c + 1) / 2) nibble pairs (w4 = 1): the depthwise k x k conv
+// (k = 1, 3 or 5) at `stride` with top and left pads pad_top and pad_left,
+// `pad` outside the map, then the epilogue (codes: clamp to [lo, hi] ->
+// int8; else f32, ReLU'd if relu).  ragged = 0: the aligned path (c % 8 ==
+// 0, 16-byte aligned x and w); 4 or 1: the ragged path, staging the halo
+// (or, at 1x1, loading a pixel's channels) in granules of that many bytes
+// (4: c % 4 == 0 and 4-byte aligned x; with cb == c the halo rows as runs,
+// ops/cuda/int8_dwconv.py: make_plan).  The plan (ops/cuda/int8_dwconv.py:
+// plan): cb channels a block, cg column groups, rg row groups, rpt rows a
+// thread (cb % 8 == 0, or % 4 on the ragged path; cb/4 * cg * rg <= 256
+// threads); at 1x1 cb channels a block and cg pixel lanes (cb a multiple
+// of the granule, cb/granule * cg <= 256 threads, rg = rpt = 1).  oc (c,)
+// float32 adds the weight offset's term, or is null.  Stride 1 or 2, pads
+// >= 0, 16-byte aligned out (the wrapper checks them).  A library takes
+// what it was built for (dispatch) and returns cudaErrorInvalidValue for
+// the rest.  Launches on `stream`; returns cudaGetLastError().
 int dlmcq_int8_dwconv(const void* x, const void* w, const void* a,
                       const void* b, const void* oc, void* out, int n, int h,
-                      int wd, int c, int k, int stride, int pad_lo, int pad,
-                      int lo, int hi, int codes, int relu, int w4, int ragged,
-                      int cb, int cg, int rg, int rpt, void* stream) {
+                      int wd, int c, int k, int stride, int pad_top,
+                      int pad_left, int ho, int wo, int pad, int lo, int hi,
+                      int codes, int relu, int w4, int ragged, int cb, int cg,
+                      int rg, int rpt, void* stream) {
   const int r = stride == 1 ? 4 : 2;
-  const long long threads = static_cast<long long>(cb / 4) * cg * rg;
-  const int quantum = ragged ? 4 : 8;
-  if (c <= 0 || (k != 3 && k != 5) || (stride != 1 && stride != 2) ||
-      pad_lo < 0 || pad_lo >= k || n <= 0 || h <= 0 || wd <= 0 ||
+  const int granule =
+      ragged ? ragged : c % 16 == 0 && cb % 16 == 0 ? 16 : 8;
+  const long long threads =
+      k == 1 ? static_cast<long long>(cb / granule) * cg
+             : static_cast<long long>(cb / 4) * cg * rg;
+  const int quantum = k == 1 ? granule : ragged ? 4 : 8;
+  if (c <= 0 || (k != 1 && k != 3 && k != 5) ||
+      (stride != 1 && stride != 2) || pad_top < 0 || pad_left < 0 ||
+      n <= 0 || h <= 0 || wd <= 0 || ho <= 0 || wo <= 0 ||
       (ragged != 0 && ragged != 1 && ragged != 4) ||
       (ragged == 0 && c % 8) || (ragged == 4 && c % 4) ||
       cb % quantum || cb < quantum || cg < 1 || rg < 1 || rpt < 1 ||
-      threads > MAX_THREADS || rpt > 1024 || cg > 64)
+      threads > MAX_THREADS || rpt > 1024 || (k != 1 && cg > 64) ||
+      (k == 1 && (rg != 1 || rpt != 1)) ||
+      static_cast<long long>(n) * ho * wo >= 0x7FF00000LL)
     return static_cast<int>(cudaErrorInvalidValue);
   DwArgs g;
   g.x = static_cast<const int8_t*>(x);
@@ -856,34 +1058,50 @@ int dlmcq_int8_dwconv(const void* x, const void* w, const void* a,
   g.b = static_cast<const float*>(b);
   g.oc = static_cast<const float*>(oc);
   g.out = out;
+  g.N = n;
   g.H = h;
   g.W = wd;
   g.C = c;
-  g.Ho = (h - 1) / stride + 1;
-  g.Wo = (wd - 1) / stride + 1;
-  g.pad_lo = pad_lo;
+  g.Ho = ho;
+  g.Wo = wo;
+  g.stride = stride;
+  g.pad_top = pad_top;
+  g.pad_left = pad_left;
   g.flo = static_cast<float>(lo);
   g.fhi = static_cast<float>(hi);
   g.relu = relu;
   g.w4 = w4 != 0;
+  g.pad = pad;
   g.pad4 = 0x01010101u * static_cast<uint32_t>(pad & 0xFF);
   g.pad_sum = k * k * pad;
   g.cb = cb;
-  g.cq = cb / 4;
   g.cg = cg;
   g.rpt = rpt;
+  g.rg = rg;
+  g.granule = granule;
+  g.slices = (c + cb - 1) / cb;
+  if (k == 1) {
+    // no halo and no tiles: granules a slice, pixel lanes
+    g.cq = cb / granule;
+    g.tiles = g.slices;
+    set_div(wo, g.wo_mul, g.wo_shift);
+    set_div(ho, g.ho_mul, g.ho_shift);
+    return static_cast<int>(dispatch(g, k, stride, codes != 0,
+                                     oc != nullptr, ragged != 0,
+                                     static_cast<int>(threads), 0,
+                                     static_cast<cudaStream_t>(stream)));
+  }
+  g.cq = cb / 4;
   g.th = rg * rpt;
   g.tw = r * cg;
   g.hh = (g.th - 1) * stride + k;
   g.hw = (g.tw - 1) * stride + k;
-  g.granule = ragged ? ragged : c % 16 == 0 && cb % 16 == 0 ? 16 : 8;
   // the ragged path's row runs (granule 4, the slice the whole pixel):
   // pixels packed at a pitch of C, rows
   // row_pitch apart, the least from hw*C up with row_pitch = W*C (mod 16),
   // and 16 bytes more where the row groups' words would fall on the same
   // banks (rpt * stride * row_pitch / 4 = 0 mod 32)
   g.runs = ragged == 4 && cb == c;
-  g.rg = rg;
   long long buf, stage = 0;
   if (g.runs) {
     const int span = g.hw * c;
@@ -906,7 +1124,6 @@ int dlmcq_int8_dwconv(const void* x, const void* w, const void* a,
     g.stage_row = 0;
     buf = static_cast<long long>(g.hh) * g.row_pitch;
   }
-  g.slices = (c + cb - 1) / cb;
   g.tiles_x = (g.Wo + g.tw - 1) / g.tw;
   g.tiles_y = (g.Ho + g.th - 1) / g.th;
   const long long tiles =

@@ -3,7 +3,9 @@
 // are not 16-byte aligned): GhostNet's and EfficientNet's 5x5 convs and
 // GhostNet's cheap 3x3 convs at C = 12, 20, 36, 60, 92, 100.  A library of
 // its own beside int8_dwconv3x3.cu (the aligned 3x3 build), with the same C
-// interface; it takes k = 5, and k = 3 on the ragged path only.
+// interface; it takes k = 5, and k = 3 and 1 on the ragged path only
+// (the 1x1 window in granules of 4 channels or 1: a ragged C, and f32 at
+// any C, MobileOne's scale branches).
 // int8_dwconv.cuh holds what the two share: the depthwise conv's
 // definition, the arguments, the cells' staging, the byte transposes, the
 // epilogue, the 3x3 kernel and the C entry point.
@@ -279,7 +281,10 @@ cudaError_t dispatch(const DwArgs& g, int k, int stride, bool codes,
                                            smem, s)
                   : launch_window<5, false>(g, stride, codes, term, threads,
                                             smem, s);
-  if (ragged)
+  if (k == 1 && ragged)
+    return g.granule == 4 ? launch_window_1x1<4>(g, codes, term, threads, s)
+                          : launch_window_1x1<1>(g, codes, term, threads, s);
+  if (k == 3 && ragged)
     return launch_window<3, true>(g, stride, codes, term, threads, smem, s);
   return cudaErrorInvalidValue;
 }

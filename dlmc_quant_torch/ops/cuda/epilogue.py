@@ -20,8 +20,10 @@ and then by mode::
                              lo, hi)                                    → int8
 
 ``r`` is int8 codes, int32 accumulators or float32 values of the output's
-shape; ``ar``, ``br`` and ``c`` are per column, ``S`` int32 per row (the
-depthwise conv's kernel sums its own window per row and channel).  The
+shape; ``ar``, ``br`` and ``c`` are per column, ``S`` int32 per row, or
+per row and group for a conv in G groups (column ``o`` reads group ``o //
+Og``, ``Og = O/G``; the depthwise conv's kernel sums its own window per
+row and channel).  The
 kernels write each step as one rounded float32 op (no fused multiply-add:
 the row term is a product rounded, then a sum rounded) and round half to
 even, so :func:`epilogue_plain`, their plain version, equals them bit for
@@ -38,10 +40,11 @@ RESIDUAL_KINDS = {torch.int8: 1, torch.int32: 2, torch.float32: 3}
 
 
 def check_epilogue(what: str, mode: str, a, b, lo, hi, relu, residual, qb,
-                   out_shape, device, row=None) -> None:
+                   out_shape, device, row=None, groups: int = 1) -> None:
     """Raise unless the epilogue's arguments fit an output of
     ``out_shape`` (last axis: the columns) on ``device``; ``row`` is
-    ``(S, c)`` with ``S`` int32 of ``out_shape[:-1]`` or None."""
+    ``(S, c)`` with ``S`` int32 of ``out_shape[:-1]`` (in ``groups`` > 1
+    groups ``out_shape[:-1] + (groups,)``) or None."""
     if mode not in MODES:
         raise ValueError(f"{what}: mode must be one of {MODES}, got {mode!r}")
     if mode == "codes" and relu:
@@ -76,10 +79,11 @@ def check_epilogue(what: str, mode: str, a, b, lo, hi, relu, residual, qb,
         tensors = (("a", a), ("b", b), ("r", r), ("ar", ar), ("br", br))
     if row is not None:
         sums, c = row
+        want = tuple(out_shape[:-1]) + ((groups,) if groups > 1 else ())
         if not isinstance(sums, torch.Tensor) or sums.dtype != torch.int32 \
-                or tuple(sums.shape) != tuple(out_shape[:-1]):
-            raise ValueError(f"{what}: the row term's S must be "
-                             f"{tuple(out_shape[:-1])} int32")
+                or tuple(sums.shape) != want:
+            raise ValueError(f"{what}: the row term's S must be {want} "
+                             "int32")
         if not isinstance(c, torch.Tensor) or c.dtype != torch.float32 \
                 or tuple(c.shape) != (o,):
             raise ValueError(f"{what}: the row term's c must be ({o},) "
@@ -93,6 +97,13 @@ def check_epilogue(what: str, mode: str, a, b, lo, hi, relu, residual, qb,
                              f"{device}")
 
 
+def expand_groups(s: torch.Tensor, o: int) -> torch.Tensor:
+    """Row sums ``s`` (…, G) as (…, O): column ``o`` reads group ``o //
+    (O/G)``; (…, 1) and (…, O) as they are."""
+    g = s.shape[-1]
+    return s if g in (1, o) else s.repeat_interleave(o // g, dim=-1)
+
+
 def epilogue_plain(acc: torch.Tensor, a, b, *, mode: str, lo: int = -128,
                    hi: int = 127, relu: bool = False, residual=None,
                    qb: float = 0.0, row=None) -> torch.Tensor:
@@ -101,9 +112,10 @@ def epilogue_plain(acc: torch.Tensor, a, b, *, mode: str, lo: int = -128,
     ``acc`` holds exact integers (int32, or float64 from an exact float64
     sum); its float32 value rounds to nearest even as ``__int2float_rn``
     does.  ``row`` is ``(S, c)``: ``S`` exact integers of ``acc``'s shape
-    less the last axis (one a row), or of ``acc``'s shape (the depthwise
-    conv's, one a value).  Every step is a separate float32 op, so nothing
-    fuses them into an fma.
+    less the last axis (one a row), with a last axis of G (one a row and
+    group, column ``o`` reading group ``o // (O/G)``), or of ``acc``'s
+    shape (the depthwise conv's, one a value).  Every step is a separate
+    float32 op, so nothing fuses them into an fma.
     """
     y = acc.to(torch.float32) * a
     if row is not None:
@@ -111,7 +123,7 @@ def epilogue_plain(acc: torch.Tensor, a, b, *, mode: str, lo: int = -128,
         s = sums.to(torch.float32)
         if s.dim() < y.dim():
             s = s.unsqueeze(-1)
-        y = y + s * c
+        y = y + expand_groups(s, y.shape[-1]) * c
     if residual is not None:
         r, ar, br = residual
         y = y + qb

@@ -33,7 +33,8 @@ shortcut to the sum before it is rounded, term by term in the order of
 ``ar`` and ``br`` are (O,) float32.  A ``row`` term ``(S, c)``, ``S`` (N,
 Ho, Wo) int32 and ``c`` (O,) float32, adds ``f32(S)·c[o]`` to the product
 ``f32(acc)·a[o]`` before the rest (a weight offset's term, ``S`` from
-``int8_window_sum``), in every mode.  The epilogue is
+``int8_window_sum``), in every mode; in G groups ``S`` is (N, Ho, Wo, G)
+and column ``o`` reads its group's, ``S[…, o // Og]``.  The epilogue is
 :mod:`.epilogue`'s, which the int8 GEMM shares.
 
 As a GEMM the conv has M = N·Ho·Wo rows, O columns and K = 3·Rp bytes,
@@ -332,7 +333,7 @@ def _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo=1,
         raise ValueError("w, and x when C % 16 == 0, must be 16-byte aligned")
     ho, wo = out_hw(h, wd, stride)
     check_epilogue("int8_conv3x3", mode, a, b, lo, hi, relu, residual, qb,
-                   (n, ho, wo, o), x.device, row)
+                   (n, ho, wo, o), x.device, row, groups)
 
 
 def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int,
@@ -395,7 +396,8 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
     ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight` (or
     :func:`pack_weight_int4`: the kernel unpacks it) at the same
     ``groups``, ``a``/``b`` (O,) float32, ``residual`` ``(r, ar, br)`` or
-    None, ``row`` ``(S, c)`` or None, all contiguous and on one device.
+    None, ``row`` ``(S, c)`` or None (``S`` (N, Ho, Wo) int32, in G > 1
+    groups (N, Ho, Wo, G)), all contiguous and on one device.
     CUDA tensors launch the kernel on the current stream at
     :func:`tile_plan`'s plan (``_plan``: a dict of its overrides, for the
     card tests and for timing plans against each other) and count the

@@ -31,8 +31,11 @@ Unlike the JAX package, a conv's accumulator is not written to memory
 where a consumer can take its epilogue: a 3×3 conv's (grouped or not)
 :class:`DeferredEpilogue` holds a :class:`PendingConv`, a 1×1 conv's a
 :class:`PendingGemm`, a wider window's (the ImageNet 7×7/s2 stem) a
-:class:`PendingWideConv`, a depthwise 3×3 or 5×5 conv's (MobileNetV2,
-MobileOne, GhostNet, EfficientNet) a :class:`PendingDwConv`, and the
+:class:`PendingWideConv` (so is every conv that the 3×3 and GEMM routes
+do not take: a padded 1×1, a 3×3 at other pads, a grouped wide window), a
+depthwise 1×1, 3×3 or 5×5 conv's (MobileNetV2, MobileOne and its train
+form's scale branches, GhostNet, EfficientNet) a :class:`PendingDwConv`,
+and the
 consumer runs that conv with the folded epilogue fused into it
 (``"codes"`` mode, with the residual term where it closes a block), or,
 for :func:`materialize`, in ``"f32"`` mode.  A
@@ -52,8 +55,9 @@ A layer whose weight grid has an offset (``q·s_w + o_w``: RootQ's, an
 offset LSQ weight's) adds a row term to its real value,
 ``off_scale[o]·S[m]`` with ``off_scale = s_x·o_w`` and ``S`` the sum of
 the input codes less the zero code over the window of output ``m``
-(``ops.cuda.int8_window_sum``, one launch a layer; a depthwise conv's
-kernel sums its own window).  :class:`DeferredEpilogue` carries it
+(``ops.cuda.int8_window_sum``, one launch a layer; a grouped conv's ``S``
+has one sum a group, ``c[o]`` meeting group ``o // Og``'s; a depthwise
+conv's kernel sums its own window).  :class:`DeferredEpilogue` carries it
 as ``row = (S, off_scale)``, and every boundary folds it like the scale:
 ``C = off_scale·inv`` beside ``A`` and ``B``, added to the product in the
 kernels' epilogue (``ops/cuda/epilogue.py``).  The ReLU's ``L`` and the
@@ -81,6 +85,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dlmc_quant_torch.ops.cuda.epilogue import (epilogue_plain,
+                                                expand_groups)
 from dlmc_quant_torch.ops.cuda.int8_conv import int8_conv3x3
 from dlmc_quant_torch.ops.cuda.int8_dwconv import (int8_dwconv3x3,
                                                   window as dw_window)
@@ -137,13 +143,19 @@ class PendingGemm:
 
 @dataclasses.dataclass(frozen=True)
 class PendingWideConv:
-    """A padded int8 conv with a window other than 1×1 and 3×3 (the
-    ImageNet 7×7/s2 stem) that has not run yet.  :func:`qmaxpool` runs it
+    """A padded int8 conv that the 3×3 kernel and the 1×1 GEMM do not take
+    (the ImageNet 7×7/s2 stem; a padded 1×1, a 3×3 at other pads, any
+    grouped window past 3×3), not run yet.  :func:`qmaxpool` runs the stem
     with the 3×3/s2 pool after it in ``int8_stem_pool``; every other
-    consumer runs it as ``int8_im2col`` rows through the int8 GEMM."""
+    consumer runs it as ``int8_im2col`` rows through the int8 GEMM.  In G
+    groups: an ``int8_im2col`` launch on each group's channels and an
+    ``"int32"`` GEMM launch on its rows, the accumulators side by side,
+    then the epilogue in torch (:func:`.epilogue.epilogue_plain`'s steps,
+    as the GEMM's epilogue rounds them)."""
     x: torch.Tensor          # (N, H, W, C) int8 codes
     weight: torch.Tensor     # packed (O, Kp) int8 (ops.cuda.int8_im2col)
-    #                          or (O, Kp/2) uint8 nibbles
+    #                          or (O, Kp/2) uint8 nibbles; in G groups
+    #                          (G, O/G, Kp), one B a group
     pool_weight: Optional[torch.Tensor]  # ops.cuda.int8_stem_pool's layout
     #                          (nibble-packed with weight), None where that
     #                          kernel does not take the conv
@@ -151,15 +163,30 @@ class PendingWideConv:
     stride: int
     pads: tuple              # ((top, bottom), (left, right))
     pad: int                 # int8 code of real 0 on the input grid
+    groups: int = 1
 
     int4 = PendingConv.int4
 
-    def run(self, a=None, b=None, **epilogue) -> torch.Tensor:
-        rows = int8_im2col(self.x, kernel=self.kernel, stride=self.stride,
+    def _gemm(self, x: torch.Tensor, weight: torch.Tensor) -> PendingGemm:
+        rows = int8_im2col(x, kernel=self.kernel, stride=self.stride,
                            pads=self.pads, pad=self.pad)
-        n, h, w, _ = self.x.shape
+        n, h, w, _ = x.shape
         shape = (n,) + out_hw(h, w, self.kernel, self.stride, self.pads)
-        return PendingGemm(rows, self.weight, shape).run(a, b, **epilogue)
+        return PendingGemm(rows, weight, shape)
+
+    def run(self, a=None, b=None, *, mode: str = "codes",
+            **epilogue) -> torch.Tensor:
+        if self.groups == 1:
+            return self._gemm(self.x, self.weight).run(a, b, mode=mode,
+                                                       **epilogue)
+        cg = self.x.shape[-1] // self.groups
+        acc = torch.cat([
+            self._gemm(self.x[..., g * cg:(g + 1) * cg].contiguous(),
+                       self.weight[g]).run(mode="int32")
+            for g in range(self.groups)], dim=-1)
+        if mode == "int32":
+            return acc
+        return epilogue_plain(acc, a, b, mode=mode, **epilogue)
 
     def pool(self) -> "PendingStemPool":
         """The conv with the 3×3/s2 max pool (pads 1) after it, pending."""
@@ -199,8 +226,8 @@ class PendingStemPool:
 
 @dataclasses.dataclass(frozen=True)
 class PendingDwConv:
-    """A padded int8 depthwise 3×3 or 5×5 conv that has not run yet (no
-    residual and no int32 mode: the kernel ends in the epilogue)."""
+    """A padded int8 depthwise 1×1, 3×3 or 5×5 conv that has not run yet
+    (no residual and no int32 mode: the kernel ends in the epilogue)."""
     x: torch.Tensor          # (N, H, W, C) int8 codes
     weight: torch.Tensor     # packed (k², C) int8 (ops.cuda.int8_dwconv)
     #                          or (k², ⌈C/2⌉) uint8 nibbles (pack_weight_int4)
@@ -208,6 +235,8 @@ class PendingDwConv:
     pad: int                 # int8 code of real 0 on the input grid
     pad_lo: int = 1          # top/left pad: k // 2, or k // 2 - 1 for SAME
     #                          at stride 2 on an even map
+    pads: Optional[tuple] = None   # ((top, bottom), (left, right)) where
+    #                          the conv's padding is neither (VALID, ...)
 
     int4 = PendingConv.int4
 
@@ -230,7 +259,8 @@ class PendingDwConv:
             offset = row[1]
         return int8_dwconv3x3(self.x, self.weight, a, b, stride=self.stride,
                               pad=self.pad, pad_lo=self.pad_lo, lo=lo, hi=hi,
-                              mode=mode, relu=relu, offset=offset)
+                              mode=mode, relu=relu, offset=offset,
+                              pads=self.pads)
 
 
 PENDING = (PendingConv, PendingGemm, PendingWideConv, PendingStemPool,
@@ -248,8 +278,9 @@ class DeferredEpilogue:
     (:data:`PENDING`, the pooled stem too) whose accumulator the consumer
     computes with its epilogue fused.  ``row`` is a weight offset's row
     term ``(S, c)`` or None: ``S`` int32 over the output's rows ((N, Ho,
-    Wo), or (M,) for an (M, O) ``acc``; None for a depthwise conv, whose
-    kernel sums its own windows), ``c`` (O,) f32.
+    Wo), or (M,) for an (M, O) ``acc``; (N, Ho, Wo, G) for a conv in G
+    groups, one sum a group; None for a depthwise conv, whose kernel sums
+    its own windows), ``c`` (O,) f32.
     """
     acc: Union[torch.Tensor, PendingConv, PendingGemm, PendingWideConv,
                PendingStemPool, PendingDwConv]
@@ -376,11 +407,14 @@ def materialize(x):
 
 def _row_product(acc: torch.Tensor, scale, row) -> torch.Tensor:
     """``f32(acc)·scale``, and with a row term ``(S, c)`` ``+ f32(S)·c``,
-    each step rounded: the kernels' epilogue on an int32 ``acc`` (M, O)."""
+    each step rounded: the kernels' epilogue on an int32 ``acc`` (M, O) or
+    (N, Ho, Wo, O), ``S`` one sum a row or, in G groups, one a group (the
+    grouped 1×1's accumulator: column o meets group ``o // (O/G)``)."""
     y = acc.to(torch.float32) * scale
     if row is not None:
         sums, c = row
-        y = y + sums.reshape(-1, 1).to(torch.float32) * c
+        s = sums.reshape(acc.shape[:-1] + (-1,)).to(torch.float32)
+        y = y + expand_groups(s, acc.shape[-1]) * c
     return y
 
 
@@ -499,8 +533,7 @@ def fold_sum_quantize(terms, inv_s: float, qbias: float, lo: int,
                          "the trunk's last conv: y must be its pending, "
                          "ReLU-free output (a 3x3, 1x1 or wide conv), or a "
                          "float32 tensor")
-    o = y.acc.weight.shape[0]
-    residual = _residual_operand(r, inv_s, o, y.scale.device)
+    residual = _residual_operand(r, inv_s, y.scale.shape[0], y.scale.device)
     return y.acc.run(y.scale * inv_s, y.bias * inv_s, lo=lo, hi=qmax_s,
                      mode="codes", residual=residual, qb=qbias,
                      row=_folded_row(y, inv_s))

@@ -64,22 +64,21 @@ per-channel weight axis is 0.
   ``'intc'``: its int8 weights dequantized to bf16, a conv or matmul of
   bf16 operands with an f32 accumulator (a library call), f32 out; the next
   layer quantizes that output.
-* Integer convs: 3×3 (``ops.cuda.int8_conv``, SAME or pad-1 geometry,
-  grouped too: RepVGG's g2/g4 variants), 1×1 (``ops.cuda.int8_gemm`` on
-  the subsampled codes, K padded to a multiple of 16; grouped, one int32
-  GEMM a group on its channels, the epilogue in torch), depthwise 3×3 and
-  5×5 (``groups`` = C in = C out, any C; ``ops.cuda.int8_dwconv``, pads
-  of ``k // 2`` or SAME) and any other ungrouped
-  square window, such as the ImageNet 7×7/s2 stem
-  (``ops.cuda.int8_stem_pool`` with the max pool after it, else
-  ``ops.cuda.int8_im2col`` rows into ``int8_gemm``, any pads); all take
-  int8 codes on the layer's own grid or a :class:`QuantizedTensor` on a
-  producer's, whose epilogue is re-derived from the stored column sums.
-  Each leaves its conv pending for the consumer (``quant/chain.py``),
-  but for the grouped 1×1.  Other groupings (a depthwise 1×1: MobileOne's
-  scale branch) have no integer path, and a grouped conv has none for a
-  weight offset's row term (ROADMAP item 7b: its window sums are per
-  group).
+* Integer convs, every geometry the JAX package's ``_int_conv`` takes:
+  3×3 (``ops.cuda.int8_conv``, SAME or pad-1 geometry at stride 1 or 2,
+  grouped too: RepVGG's g2/g4 variants), unpadded 1×1
+  (``ops.cuda.int8_gemm`` on the subsampled codes, K padded to a multiple
+  of 16; grouped, one int32 GEMM a group on its channels, the epilogue in
+  torch), depthwise 1×1, 3×3 and 5×5 (``groups`` = C in = C out, any C,
+  stride 1 or 2, any pads; ``ops.cuda.int8_dwconv``: MobileOne's 1×1
+  scale branches too), and every other conv as :attr:`QConv.wide` says,
+  such as the ImageNet 7×7/s2 stem (``ops.cuda.int8_stem_pool`` with the
+  max pool after it, else ``ops.cuda.int8_im2col`` rows into
+  ``int8_gemm``, any pads; grouped, one im2col and one int32 GEMM a group,
+  the epilogue in torch); all take int8 codes on the layer's own grid or
+  a :class:`QuantizedTensor` on a producer's, whose epilogue is
+  re-derived from the stored column sums.  Each leaves its conv pending
+  for the consumer (``quant/chain.py``), but for the grouped 1×1.
 * A weight grid with an offset, ``q·s_w + o_w`` (RootQ's: ``o_w = l −
   qmin·s_w``; an LSQ ``wt_offset``, per channel), runs every integer
   route: the plan takes the codes from the quantizer's own ``'eval'``
@@ -87,8 +86,9 @@ per-channel weight axis is 0.
   offset zero or not), and keeps ``off_scale = s_x·o_w``
   (O,), and each integer forward adds the row term ``off_scale[o]·S[m]``,
   ``S`` the input codes less the zero code summed over the window of
-  output ``m`` (one ``ops.cuda.int8_window_sum`` launch a layer; the
-  depthwise kernel sums its own), in its kernel's
+  output ``m`` (one ``ops.cuda.int8_window_sum`` launch a layer, one sum
+  a group for a grouped conv; the depthwise kernel sums its own), in its
+  kernel's
   epilogue (the dense head's in torch, after ``torch._int_mm``).  Where
   the zero code's real value is not exactly 0 (an LSQ input offset) its
   share over the whole window, ``o_w·K·real(z)``, goes into ``bias_eff``.
@@ -118,7 +118,6 @@ import torch.nn.functional as F
 
 from dlmc_quant_torch.ops.cuda import int8_conv as conv3x3
 from dlmc_quant_torch.ops.cuda import int8_dwconv as dwconv
-from dlmc_quant_torch.ops.cuda import int8_gemm as gemm
 from dlmc_quant_torch.ops.cuda import int8_im2col as im2col
 from dlmc_quant_torch.ops.cuda import int8_stem_pool as stem_pool
 from dlmc_quant_torch.ops.cuda.int8_gemm import pad_k
@@ -685,12 +684,34 @@ class QConv(QLayer):
 
     @property
     def depthwise(self) -> bool:
-        """A depthwise 3×3 or 5×5 conv: one input channel a group, as many
-        groups as channels in and out (MobileNetV2, MobileOne, GhostNet,
-        EfficientNet)."""
+        """A depthwise 1×1, 3×3 or 5×5 conv: one input channel a group, as
+        many groups as channels in and out (MobileNetV2, MobileOne and its
+        train form's scale branches, GhostNet, EfficientNet)."""
         return (self.groups > 1 and self.kernel_size in dwconv.WINDOWS
                 and self.weight.shape[0] == self.groups
                 and self.weight.shape[1] == 1)
+
+    @property
+    def wide(self) -> bool:
+        """Whether the integer path runs this conv as ``int8_im2col`` rows
+        into the GEMM (:class:`PendingWideConv`, a launch pair a group):
+        a window other than 1×1 and 3×3 that is not depthwise, a padded
+        1×1, a 3×3 whose padding is neither 1 nor SAME (the conv kernel's
+        row plan) or whose stride is past 2, a grouped 3×3 of one input
+        channel a group, and a depthwise conv at a stride past 2.  The
+        padding decides it for every input size (SAME pads a 1×1 by 0),
+        but for SAME at stride 2 on a map whose height and width differ in
+        parity: :meth:`deferred` sends that 3×3 wide too, its GEMM weight
+        repacked from ``w_packed`` (:meth:`_gemm_weight`)."""
+        k, pad, s = self.kernel_size, self.padding, self.stride
+        if self.depthwise:
+            return s not in (1, 2)
+        if k == 1:
+            return pad not in (0, "SAME")
+        if k == 3:
+            return (pad not in (1, "SAME") or s not in (1, 2)
+                    or (self.groups > 1 and self.weight.shape[1] == 1))
+        return True
 
     def spatial_pads(self, h: int, w: int):
         """``((top, bottom), (left, right))`` pads of an ``h``×``w`` input
@@ -742,18 +763,21 @@ class QConv(QLayer):
                  pad=None, off_scale=None) -> DeferredEpilogue:
         """This layer's output on input codes ``x_i8`` (on this layer's
         grid unless an epilogue and pad code are given), with the conv and
-        its epilogue left to the consumer (see quant/chain.py): a 3×3 conv
-        pending for the conv kernel, a depthwise 3×3 or 5×5 for the depthwise
-        kernel, a 1×1 conv for the int8 GEMM on the subsampled codes (zero
-        columns pad K to a multiple of 16: the packed weight is zero
-        there), any other window as a :class:`PendingWideConv` (the stem
-        kernel where a max pool follows, else im2col rows with the pad
-        code at the borders into the GEMM).  With a weight offset the
-        output carries the row term ``(S, off_scale)``, ``S`` the window
-        sums of ``x_i8`` (``int8_window_sum`` at this conv's window, stride
-        and pads; ``None`` for a depthwise conv, whose kernel sums its
-        own); ``off_scale`` must come with a given epilogue
-        (:meth:`_int_offset`)."""
+        its epilogue left to the consumer (see quant/chain.py): a
+        depthwise 1×1, 3×3 or 5×5 conv pending for the depthwise kernel
+        (its pads and output size passed in where they are not the
+        kernel's default), a 3×3 conv for the conv kernel, an unpadded 1×1
+        conv for the int8 GEMM on the subsampled codes (zero columns pad K
+        to a multiple of 16: the packed weight is zero there; grouped, one
+        int32 GEMM a group, run here), and every other conv (:attr:`wide`)
+        as a :class:`PendingWideConv` (the stem kernel where a max pool
+        follows, else im2col rows with the pad code at the borders into
+        the GEMM, a launch pair a group).  With a weight offset the output
+        carries the row term ``(S, off_scale)``, ``S`` the window sums of
+        ``x_i8`` (``int8_window_sum`` at this conv's window, stride, pads
+        and groups, (N, Ho, Wo) or (N, Ho, Wo, G); ``None`` for a
+        depthwise conv, whose kernel sums its own); ``off_scale`` must
+        come with a given epilogue (:meth:`_int_offset`)."""
         if epi_scale is None:
             epi_scale, bias_eff = self.epi_scale, self.bias_eff
             pad = self.plan_scalars["pad_val"]
@@ -762,65 +786,85 @@ class QConv(QLayer):
             raise ValueError(f"{self.path}: a weight offset's row term needs "
                              "off_scale on the input's grid (_int_offset; "
                              "ROADMAP item 13)")
-        grouped = self.groups != 1 and not self.depthwise
-        if grouped and (self.kernel_size not in (1, 3)
-                        or self.weight.shape[1] == 1):
-            raise NotImplementedError(
-                f"{self.path}: grouped convs other than a depthwise 3x3 or "
-                "5x5 have an integer path at 3x3 and at 1x1 with more than "
-                "one input channel a group; not a depthwise 1x1 such as "
-                "MobileOne's scale branch (ROADMAP Queue A, rest of the zoo "
-                "(item 7))")
-        if grouped and (off_scale is not None or hasattr(self, "w_offset")):
-            raise NotImplementedError(
-                f"{self.path}: a grouped conv's weight offset needs window "
-                "sums per group (ROADMAP item 7b)")
         _, h, w, _ = x_i8.shape
         pads = self.spatial_pads(h, w)
-        (top, bottom), (left, right) = pads
+        top, left = pads[0][0], pads[1][0]
         s, k = self.stride, self.kernel_size
+        dw = self.depthwise and not self.wide
         row = None
         if off_scale is not None:
             # from the NHWC codes, never from the GEMM's rows: pad_k fills
             # their K tail with code 0, not the zero code
-            sums = None if self.depthwise else int8_window_sum(
-                x_i8.contiguous(), zero=pad, kernel=k, stride=s, pads=pads)
+            sums = None if dw else int8_window_sum(
+                x_i8.contiguous(), zero=pad, kernel=k, stride=s, pads=pads,
+                groups=self.groups)
             row = (sums, off_scale)
-        if k == 1:
-            if top or bottom or left or right:
+        if dw:
+            # the kernel's own geometry where the pads give it, else the
+            # pads passed in (VALID, or any other padding)
+            own = (top == left and top in dwconv.pad_los(k, s)
+                   and dwconv.geometry(h, w, k, s, top)
+                   == dwconv.geometry(h, w, k, s, pads=pads))
+            pending = PendingDwConv(x_i8.contiguous(), self.w_dw, s, pad,
+                                    top if own else k // 2,
+                                    None if own else pads)
+            return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
+        if self.wide or not self._conv_takes(h, w, pads):
+            kk = k * k * self.weight.shape[1]
+            if kk > im2col.MAX_KP:
                 raise NotImplementedError(
-                    f"{self.path}: a padded 1x1 conv has no integer path")
+                    f"{self.path}: a {k}x{k} conv of {kk} bytes a row and "
+                    "group runs as int8_im2col rows, which take at most "
+                    f"{im2col.MAX_KP} (ROADMAP item 7c)")
+            pending = PendingWideConv(x_i8.contiguous(), self._gemm_weight(),
+                                      getattr(self, "w_stem", None), k, s,
+                                      pads, pad, self.groups)
+            return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
+        if k == 1:
             codes = x_i8[:, ::s, ::s, :].contiguous()
-            if grouped:
+            if self.groups > 1:
                 return DeferredEpilogue(self._grouped_gemm(codes), epi_scale,
-                                        bias_eff)
+                                        bias_eff, row=row)
             pending = PendingGemm(pad_k(codes.reshape(-1, codes.shape[-1])),
                                   self.w_gemm, tuple(codes.shape[:3]))
             return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
-        if k != 3 and not self.depthwise:
-            pending = PendingWideConv(x_i8.contiguous(), self.w_gemm,
-                                      self.w_stem, k, s, pads, pad)
-            return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
-        # the kernel pads `top` rows above (k // 2, or k // 2 - 1 at stride
-        # 2) and what the window needs below, and gives ceil(h / s) rows:
-        # that must be this conv
-        if not (top == left and top in dwconv.pad_los(k, s)
-                and (h + top + bottom - k) // s + 1 == -(-h // s)
-                and (w + left + right - k) // s + 1 == -(-w // s)):
-            raise NotImplementedError(
-                f"{self.path}: pads {pads} at stride {s} have no integer "
-                "path")
-        if self.depthwise:
-            pending = PendingDwConv(x_i8.contiguous(), self.w_dw, s, pad, top)
-        else:
-            pending = PendingConv(x_i8.contiguous(), self.w_packed, s, pad,
-                                  top, self.groups)
+        # the conv kernel pads `top` rows and columns above and left (1, or
+        # 0 for SAME at stride 2 on an even map) and gives ceil(h / s) rows
+        pending = PendingConv(x_i8.contiguous(), self.w_packed, s, pad, top,
+                              self.groups)
         return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
+
+    def _conv_takes(self, h: int, w: int, pads) -> bool:
+        """Whether the 3×3 conv kernel's geometry is this conv's on an
+        ``h``×``w`` map (a 1×1 and a depthwise conv: always)."""
+        if self.kernel_size != 3 or self.depthwise:
+            return True
+        (top, _), (left, _) = pads
+        k, s = self.kernel_size, self.stride
+        return (top == left and top in dwconv.pad_los(k, s)
+                and dwconv.geometry(h, w, k, s, top)
+                == dwconv.geometry(h, w, k, s, pads=pads))
+
+    def _gemm_weight(self) -> torch.Tensor:
+        """``w_gemm``, or for a 3×3 that runs wide on one map only (SAME at
+        stride 2, height and width of different parity) the same layout
+        repacked from ``w_packed`` at each such forward."""
+        if hasattr(self, "w_gemm"):
+            return self.w_gemm
+        o, g = self.weight.shape[0], self.groups
+        c = self.weight.shape[1] * g
+        w_hwio = conv3x3.unpack_weight(self.w_packed, c, o, g)
+        pack = im2col.pack_weight_int4 if self.int4 else im2col.pack_weight
+        og = o // g
+        return pack(w_hwio) if g == 1 else torch.stack(
+            [pack(w_hwio[..., i * og:(i + 1) * og]) for i in range(g)])
 
     def _grouped_gemm(self, codes: torch.Tensor) -> torch.Tensor:
         """A grouped 1×1 conv's int32 accumulator (N, Ho, Wo, O) from its
         subsampled codes: one int8 GEMM launch a group, on that group's
-        channels (the train form of RepVGG's g2/g4 blocks runs it)."""
+        channels (the train form of RepVGG's g2/g4 blocks runs it); a
+        weight offset's row term, one sum a group, is added in the torch
+        epilogue that folds it (``quant.chain``)."""
         cg = codes.shape[-1] // self.groups
         accs = [PendingGemm(pad_k(codes[..., g * cg:(g + 1) * cg]
                                   .reshape(-1, cg).contiguous()),
@@ -833,39 +877,38 @@ class QConv(QLayer):
         at W4 ``w_int4``, ``pack_int4`` of the JAX package's HWIO); any
         other conv's kernel layouts, packed once (at W8 beside ``w_int``,
         at W4 nibble-packed and alone): ``w_dw`` (depthwise), ``w_packed``
-        (3×3, grouped too), ``w_gemm`` (1×1 and wider windows; a grouped
-        1×1's is (G, O/G, Kp), one packed B a group) and ``w_stem`` (the
-        stem kernel's, where it takes the conv, else None).  Other
-        groupings have none: :meth:`deferred` raises for them."""
+        (3×3 on the conv kernel, grouped too), ``w_gemm`` (1×1 and
+        :attr:`wide` convs: the GEMM's B, K ordered (dy, dx, c) as
+        ``int8_im2col`` writes a row, which at 1×1 is ``pack_b`` of the
+        (C, O) weight; a grouped conv's is (G, O/G, Kp), one packed B a
+        group) and, for an ungrouped wide conv, ``w_stem`` (the stem
+        kernel's, where it takes the conv, else None)."""
         w_hwio = w_int.permute(2, 3, 1, 0)
         if self.weight_only:
             return ({"w_int4": dp.pack_int4(w_hwio)} if self.int4
                     else {"w_int": w_int})
         out = {} if self.int4 else {"w_int": w_int}
-        if self.depthwise:
+        if self.depthwise and not self.wide:
             out["w_dw"] = (dwconv.pack_weight_int4 if self.int4
                            else dwconv.pack_weight)(w_hwio)
-        elif self.kernel_size == 3:
+        elif self.kernel_size == 3 and not self.wide:
             out["w_packed"] = (conv3x3.pack_weight_int4 if self.int4
                                else conv3x3.pack_weight)(w_hwio, self.groups)
-        elif self.kernel_size == 1 and self.groups == 1:
-            out["w_gemm"] = (gemm.pack_b_int4 if self.int4
-                             else gemm.pack_b)(w_hwio[0, 0])
-        elif self.kernel_size == 1 and w_hwio.shape[2] > 1:
+        else:
+            pack = (im2col.pack_weight_int4 if self.int4
+                    else im2col.pack_weight)
             og = w_hwio.shape[3] // self.groups
-            pack = gemm.pack_b_int4 if self.int4 else gemm.pack_b
-            out["w_gemm"] = torch.stack([
-                pack(w_hwio[0, 0, :, g * og:(g + 1) * og])
-                for g in range(self.groups)])
-        elif self.groups == 1:
-            out["w_gemm"] = (im2col.pack_weight_int4 if self.int4
-                             else im2col.pack_weight)(w_hwio)
-            c, o = w_hwio.shape[2:]
-            stem = (self.kernel_size, self.stride) == \
-                (stem_pool.KERNEL, stem_pool.STRIDE) and stem_pool.takes(c, o)
-            out["w_stem"] = ((stem_pool.pack_weight_int4 if self.int4
-                              else stem_pool.pack_weight)(w_hwio)
-                             if stem else None)
+            out["w_gemm"] = pack(w_hwio) if self.groups == 1 else \
+                torch.stack([pack(w_hwio[..., g * og:(g + 1) * og])
+                             for g in range(self.groups)])
+            if self.groups == 1 and self.kernel_size != 1:
+                c, o = w_hwio.shape[2:]
+                stem = (self.kernel_size, self.stride) == \
+                    (stem_pool.KERNEL, stem_pool.STRIDE) \
+                    and stem_pool.takes(c, o)
+                out["w_stem"] = ((stem_pool.pack_weight_int4 if self.int4
+                                  else stem_pool.pack_weight)(w_hwio)
+                                 if stem else None)
         return out
 
     def _int_weight(self) -> torch.Tensor:

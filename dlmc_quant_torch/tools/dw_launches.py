@@ -6,31 +6,36 @@ on this tree or on another.
         [--sweep] [batch ...]
 
 The launches are those of one chained request of MobileNetV2 at widths 1.0
-and 0.75, of MobileOne-S1, of GhostNet-1.0 and of EfficientNet-B0, at
-224×224 and in request order: the window, shape, stride and top/left pad of
-every depthwise conv of the deploy forms, read by a float forward of one
-image on the CPU, and the mode its request runs it in: codes out (clamped
-to [-20, 100]) where the request chains codes, f32 where it does not
-(GhostNet's cheap convs, whose outputs meet in a concat, with the ghost
-module's ReLU, and its stride-2 convs that an SE block follows; every conv
-of EfficientNet-B0's ``int`` request).  At each
-batch (8 and 256 by default) every launch runs on seeded random codes, is
+and 0.75, of MobileOne-S1, of GhostNet-1.0 and of EfficientNet-B0, and of
+one ``int`` request of MobileOne-S1's train form (its depthwise 3×3s and
+their 1×1 scale branches), at 224×224 and in request order: the window,
+shape, stride and top/left pad of every depthwise conv (groups = C in = C
+out) of the deploy forms (the train form's), read by a float forward of
+one image on the CPU, and the mode its request runs it in: codes out
+(clamped to [-20, 100]) where the request chains codes, f32 where it does
+not (GhostNet's cheap convs, whose outputs meet in a concat, with the
+ghost module's ReLU, and its stride-2 convs that an SE block follows;
+every conv of EfficientNet-B0's ``int`` request and of the train
+form's).  At each batch (8 and 256 by default) every launch runs on
+seeded random codes, is
 checked against the plain version bit for bit, and is timed: per launch,
 the median of 5 replays of a CUDA graph of 16 back-to-back launches on the
 same operands.  Beside it: the bound (the larger of the int8 operations
 over 1979 TOP/s and the bytes over 3.35 TB/s, H100 SXM data sheet; x, w, a
-and b read once, the output written once) and the kernel's tile plan.  The sums by group: each model's aligned
-3×3 launches, its ragged ones (C % 8 != 0: the wide build's ragged path)
-and its 5×5 ones.
+and b read once, the output written once; a 1×1 window's x only at the
+pixels it reads) and the kernel's tile plan.  The sums by group: each
+model's aligned 3×3 launches, its ragged ones (C % 8 != 0: the wide
+build's ragged path), its 5×5 ones and its 1×1 ones.
 
 ``--root DIR`` imports ``dlmc_quant_torch`` from DIR instead of this tree,
 so that two trees' kernels can be timed on one card in one call, turn
 about (run the file as a script for that, not with ``-m``).  A launch
-that the tree's kernel refuses (a channel count off its granule) is
-printed as refused.  ``--sweep`` times this tree's kernel at other plans
-too at each launch of the wide build (``int8_dwconv5x5.cu``: the 5×5
-window and the ragged path; row groups and rows a thread), one line a
-plan, ``*`` on the plan the wrapper picks.  ``--json PATH`` writes the
+that the tree's kernel refuses (a channel count off its granule, a window
+it does not have) is printed as refused.  ``--sweep`` times this tree's
+kernel at other plans too at each launch of the wide build
+(``int8_dwconv5x5.cu``: the 5×5 window and the ragged path; row groups
+and rows a thread), one line a plan, ``*`` on the plan the wrapper
+picks.  ``--json PATH`` writes the
 rows.
 """
 
@@ -42,13 +47,15 @@ import pathlib
 import sys
 
 # (label, registry name, factory keywords, the mode of a launch from its
-# module's name: codes where the request chains codes)
+# module's name: codes where the request chains codes; "train": the train
+# form's 'int' request, f32)
 MODELS = (("mobilenet_v2", "mobilenet_v2", {}, "codes"),
           ("mobilenet_v2_w075", "mobilenet_v2", {"width_mult": 0.75},
            "codes"),
           ("MobileOne_S1", "MobileOne_S1", {}, "codes"),
           ("GhostNet_1.0", "ghostnet", {}, "ghost"),
-          ("EfficientNet_B0", "efficientnetb0", {}, "f32"))
+          ("EfficientNet_B0", "efficientnetb0", {}, "f32"),
+          ("MobileOne_S1_train", "MobileOne_S1", {}, "train"))
 SIZE, LO, HI, PAD = 224, -20, 100, -7
 LAUNCHES, REPS, SEED = 16, 5, 0
 # the sweep's rows a thread (with every row-group count that fits)
@@ -57,14 +64,14 @@ SWEEP_RPT = (1, 2, 3, 4, 5, 7, 8)
 
 def depthwise_shapes(name: str, kwargs: dict, rule: str):
     """(h, w, c, k, stride, pad_lo, mode, relu) of each depthwise conv of
-    ``name``'s deploy form, in forward order; ``rule`` gives the mode:
-    "codes", "f32", or "ghost" (f32 for a ghost module's cheap conv, with
-    the module's ReLU, and for a bottleneck's ``dw`` that its SE block
-    follows; codes for the rest)."""
+    ``name``'s deploy form (train form for "train"), in forward order;
+    ``rule`` gives the mode: "codes", "f32" or "train" (f32), or "ghost"
+    (f32 for a ghost module's cheap conv, with the module's ReLU, and for a
+    bottleneck's ``dw`` that its SE block follows; codes for the rest)."""
     import torch
     from dlmc_quant_torch.models import get_model
     from dlmc_quant_torch.quant.layers import QConv
-    model = get_model(name, device="cpu", deploy=True, **kwargs)
+    model = get_model(name, device="cpu", deploy=rule != "train", **kwargs)
     shapes, hooks = [], []
     relu = {f"{n}.cheap": m.relu for n, m in model.named_modules()
             if isinstance(getattr(m, "relu", None), bool)}
@@ -75,14 +82,16 @@ def depthwise_shapes(name: str, kwargs: dict, rule: str):
         def hook(mod, args, out):
             _, h, w, c = args[0].shape
             ghost = rule == "ghost" and (name in relu or name in se_after)
-            mode = "f32" if rule == "f32" or ghost else "codes"
+            mode = "f32" if rule in ("f32", "train") or ghost else "codes"
             shapes.append((h, w, c, mod.kernel_size, mod.stride,
                            mod.spatial_pads(h, w)[0][0], mode,
                            relu.get(name, False) if ghost else False))
         return hook
 
     for n, m in model.named_modules():
-        if isinstance(m, QConv) and m.depthwise:
+        # by geometry: another tree's QConv.depthwise may leave a 1x1 out
+        if isinstance(m, QConv) and m.groups > 1 \
+                and m.weight.shape[:2] == (m.groups, 1):
             hooks.append(m.register_forward_hook(grab(n)))
     with torch.no_grad():
         model(torch.zeros((1, SIZE, SIZE, 3)), qmode="fp")
@@ -113,10 +122,12 @@ def keywords(shape):
 
 
 def group(shape) -> str:
-    """A launch's group: 5x5, ragged (the wide build's 3x3: C % 8 != 0 on
-    fresh, aligned tensors) or aligned."""
+    """A launch's group: 5x5, 1x1, ragged (the wide build's 3x3: C % 8 !=
+    0 on fresh, aligned tensors) or aligned."""
     c, k = shape[2:4]
-    return "5x5" if k == 5 else "ragged" if c % 8 else "aligned"
+    if k in (1, 5):
+        return f"{k}x{k}"
+    return "ragged" if c % 8 else "aligned"
 
 
 def launch_row(D, label, index, n, shape, gen, sweep=False):
@@ -128,20 +139,22 @@ def launch_row(D, label, index, n, shape, gen, sweep=False):
     kw = keywords(shape)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     out_bytes = n * ho * wo * c * (1 if mode == "codes" else 4)
+    read = x.numel() if k > 1 else n * ho * wo * c   # a 1x1: its pixels
     ops_ms, bytes_ms = roof_ms(2 * k * k * n * ho * wo * c,
-                               x.numel() + (k * k + 8) * c + out_bytes)
+                               read + (k * k + 8) * c + out_bytes)
     row = dict(model=label, batch=n, index=index, h=h, w=w, c=c, k=k,
                stride=stride, pad_lo=pad_lo, mode=mode,
                group=group(shape), bound_ms=max(ops_ms, bytes_ms),
                bound_by=bound_by(ops_ms, bytes_ms), ms=None, plan=None)
-    p = D.plan(n, h, w, c, stride, k, D.route(x, wp))
-    row["plan"] = (f"cb{p.cb} tile {p.th}x{p.tw} {p.threads}t rpt "
-                   f"{p.rpt} tiles {p.tiles} smem {p.smem}")
-    row["rg_rpt"] = [p.rg, p.rpt]
     try:
+        path = D.route(x, wp, mode) if k == 1 else D.route(x, wp)
+        p = D.plan(n, h, w, c, stride, k, path)
+        row["plan"] = (f"cb{p.cb} tile {p.th}x{p.tw} {p.threads}t rpt "
+                       f"{p.rpt} tiles {p.tiles} smem {p.smem}")
+        row["rg_rpt"] = [p.rg, p.rpt]
         got = D.int8_dwconv3x3(x, wp, a, b, **kw)
-    except ValueError as err:           # the kernel refuses this C
-        row["refused"] = str(err)
+    except (ValueError, KeyError, TypeError) as err:   # C or window refused
+        row["refused"] = repr(err)
         return row
     if not torch.equal(got, D.int8_dwconv3x3_plain(x, wp, a, b, **kw)):
         raise RuntimeError(f"{label} launch {index} at batch {n}: kernel "
@@ -207,8 +220,9 @@ def main(argv=None):
         for n in opts.batch:
             sums = {}
             for i, shape in enumerate(shapes):
-                row = launch_row(D, label, i, n, shape, gen,
-                                 opts.sweep and group(shape) != "aligned")
+                row = launch_row(
+                    D, label, i, n, shape, gen,
+                    opts.sweep and group(shape) not in ("aligned", "1x1"))
                 rows.append(row)
                 what = (f"{label} b{n} {i:2d} {shape[3]}x{shape[3]} "
                         f"{shape[:3]} s{shape[4]} pad_lo {shape[5]} "

@@ -102,7 +102,7 @@ def compile_all(paths):
             raise RuntimeError(f"nvcc failed on the {name!r} variant:\n{err}")
         fn = ctypes.CDLL(str(paths[name].with_suffix(".so"))).dlmcq_int8_dwconv
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 18
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 21
                        + [ctypes.c_void_p])
         fns[name] = fn
     return fns
@@ -113,11 +113,12 @@ def launcher(fn, name, x, wp, a, b, out, kw, p):
     n, h, w, c = x.shape
     k = D.window(wp)
     codes = kw["mode"] == "codes"
+    top, left, ho, wo = D.geometry(h, w, k, kw["stride"], kw["pad_lo"])
 
     def launch(_):
         err = fn(x.data_ptr(), wp.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 None, out.data_ptr(), n, h, w, c, k, kw["stride"],
-                 kw["pad_lo"], kw["pad"], kw.get("lo", -128),
+                 None, out.data_ptr(), n, h, w, c, k, kw["stride"], top,
+                 left, ho, wo, kw["pad"], kw.get("lo", -128),
                  kw.get("hi", 127), int(codes), int(kw.get("relu", False)),
                  0, D.route(x, wp), p.cb, p.cg, p.rg, p.rpt,
                  torch.cuda.current_stream().cuda_stream)

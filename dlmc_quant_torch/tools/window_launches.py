@@ -3,7 +3,7 @@ ResNet-50 step, and the im2col kernel at ResNet-50's stem, each timed
 beside its bound; on this tree or on another.
 
     python dlmc_quant_torch/tools/window_launches.py [--root DIR] [--json PATH]
-        [--batch 128] [--stem-batch 256] [--sweep]
+        [--batch 128] [--stem-batch 256] [--grouped-batch 64] [--sweep]
 
 The window sums are the 52 of one config #5 step (RootQ W4A4 ResNet-50 at
 224², one a quantized layer, the stem and the head excluded), in request
@@ -11,6 +11,10 @@ order: per bottleneck the 1×1 conv1's input, the 3×3 conv2's (stride 2 and
 SAME pads (0, 1) in the first block of stages 2–4), the 1×1 conv3's, then
 the downsample's (1×1, stride 1 in stage 1, else 2).  The im2col is the
 7×7/s2 stem with pads (2, 3) at (N, 224, 224, 3), 147 → 160 bytes a row.
+The grouped sums are those of a RepVGG-B2g4 with a weight offset (RootQ)
+at 224², one a grouped conv, four groups: its deploy form's 13 grouped
+3×3s and its train form's 13 grouped 1×1s, (N, Ho, Wo, 4) each; a tree
+whose kernel has no groups prints them as refused.
 Every launch runs on seeded random codes, is checked against the plain
 version bit for bit, and is timed: the median of 5 replays of a CUDA graph
 of 16 back-to-back launches on the same operands (x stays in L2 where it
@@ -18,7 +22,8 @@ fits, as after the producer that wrote it).  Beside it: the bound (bytes
 over 3.35 TB/s, H100 SXM data sheet: the pixels the windows touch read
 once and S written; x read and the rows written) and, where the tree's
 wrapper has one, the kernel's tile plan.  The sums by group: the 3×3
-windows at stride 1, the 1×1 ones at stride 1, the strided ones.
+windows at stride 1, the 1×1 ones at stride 1, the strided ones, and the
+grouped ones by window.
 
 ``--root DIR`` imports ``dlmc_quant_torch`` from DIR instead of this tree,
 so that two trees' kernels can be timed on one card in one call, turn
@@ -61,16 +66,45 @@ def config5_windows(batch: int):
     return out
 
 
-def group(kernel: int, stride: int) -> str:
+def b2g4_windows(batch: int):
+    """(shape, kernel, stride, pads, groups) of each grouped conv of
+    RepVGG-B2g4 (train form: its rbr_dense 3×3s and rbr_1x1s), read by a
+    float forward of one image on the CPU, in forward order."""
+    import torch
+    from dlmc_quant_torch.models import get_model
+    from dlmc_quant_torch.quant.layers import QConv
+    model = get_model("RepVGG_B2g4", device="cpu")
+    out, hooks = [], []
+
+    def grab(mod, args, _):
+        _, h, w, c = args[0].shape
+        out.append(((batch, h, w, c), mod.kernel_size, mod.stride,
+                    mod.spatial_pads(h, w), mod.groups))
+
+    for m in model.modules():
+        if isinstance(m, QConv) and m.groups > 1:
+            hooks.append(m.register_forward_hook(grab))
+    with torch.no_grad():
+        model.eval()(torch.zeros((1, SIZE, SIZE, 3)), qmode="fp")
+    for h in hooks:
+        h.remove()
+    return out
+
+
+def group(kernel: int, stride: int, groups: int = 1) -> str:
+    if groups > 1:
+        return f"grouped {kernel}x{kernel}"
     if stride > 1:
         return "strided"
     return f"{kernel}x{kernel}/s1"
 
 
-def key(kind: str, shape, kernel: int, stride: int, pads) -> str:
+def key(kind: str, shape, kernel: int, stride: int, pads,
+        groups: int = 1) -> str:
     """The label a launch is matched by across trees and in chip_smoke."""
     return (f"{kind} {tuple(shape)} {kernel}x{kernel} s{stride} pads "
-            f"{tuple(map(tuple, pads))}")
+            f"{tuple(map(tuple, pads))}"
+            + (f" g{groups}" if groups > 1 else ""))
 
 
 def _time(fn):
@@ -78,26 +112,33 @@ def _time(fn):
     return graph_ms(lambda i: fn(), LAUNCHES, REPS)
 
 
-def window_row(WS, shape, kernel, stride, pads, gen, sweep=False):
+def window_row(WS, shape, kernel, stride, pads, gen, sweep=False,
+               groups: int = 1):
     import torch
     from dlmc_quant_torch.utils.profiling import roof_ms
     x = torch.randint(-128, 128, shape, dtype=torch.int8, device=gen.device,
                       generator=gen)
     kw = dict(zero=ZERO, kernel=kernel, stride=stride, pads=pads)
-    got = WS.int8_window_sum(x, **kw)
+    if groups > 1:
+        kw["groups"] = groups
+    label = key("window_sum", shape, kernel, stride, pads, groups)
+    try:
+        got = WS.int8_window_sum(x, **kw)
+    except TypeError as err:            # a tree without grouped sums
+        return dict(kind="window_sum", key=label, ms=None,
+                    group=group(kernel, stride, groups), refused=repr(err))
     if not torch.equal(got, WS.int8_window_sum_plain(x, **kw)):
-        raise RuntimeError(f"{key('window_sum', shape, kernel, stride, pads)}"
-                           ": kernel differs from its plain version")
+        raise RuntimeError(f"{label}: kernel differs from its plain version")
     touched = x.numel() if kernel >= stride else \
-        got.numel() * kernel * kernel * shape[-1]
+        got.numel() // groups * kernel * kernel * shape[-1]
     _, bytes_ms = roof_ms(0, touched + 4 * got.numel())
-    row = dict(kind="window_sum", key=key("window_sum", shape, kernel, stride,
-                                          pads),
-               group=group(kernel, stride), bound_ms=bytes_ms, plan=None,
-               ms=_time(lambda: WS.int8_window_sum(x, **kw)))
+    row = dict(kind="window_sum", key=label,
+               group=group(kernel, stride, groups), bound_ms=bytes_ms,
+               plan=None, ms=_time(lambda: WS.int8_window_sum(x, **kw)))
     plan = getattr(WS, "plan", None)
     if plan is not None:
-        p = plan(*shape, kernel, stride, pads)
+        p = plan(*shape, kernel, stride, pads, *([groups] if groups > 1
+                                                  else []))
         row["plan"] = (f"{p.th}x{p.tw} lanes {p.lanes} tiles {p.tiles} "
                        f"smem {p.smem}")
         if sweep:
@@ -178,6 +219,8 @@ def main(argv=None):
     args.add_argument("--batch", type=int, default=128,
                       help="config #5's step batch (the serving engine's)")
     args.add_argument("--stem-batch", type=int, default=256)
+    args.add_argument("--grouped-batch", type=int, default=64,
+                      help="RepVGG-B2g4's grouped sums' batch (0: none)")
     args.add_argument("--sweep", action="store_true",
                       help="time other tile plans too (this tree)")
     opts = args.parse_args(argv)
@@ -194,9 +237,17 @@ def main(argv=None):
           f"graph of {LAUNCHES} back-to-back launches", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows, groups = [], {}
-    for i, (shape, k, s, pads) in enumerate(config5_windows(opts.batch)):
-        row = window_row(WS, shape, k, s, pads, gen, opts.sweep)
+    launches = [w + (1,) for w in config5_windows(opts.batch)]
+    if opts.grouped_batch:
+        launches += b2g4_windows(opts.grouped_batch)
+    for i, (shape, k, s, pads, g) in enumerate(launches):
+        row = window_row(WS, shape, k, s, pads, gen, opts.sweep and g == 1,
+                         g)
         rows.append(row)
+        if row["ms"] is None:
+            print(f"{i:2d} {row['key']:60s} | refused ({row['refused']})",
+                  flush=True)
+            continue
         g = groups.setdefault(row["group"], [0, 0.0, 0.0])
         g[0] += 1
         g[1] += row["ms"]
@@ -210,8 +261,10 @@ def main(argv=None):
                   f"{q['ms'] * 1e3:8.2f} us", flush=True)
     total = sum(g[1] for g in groups.values())
     bound = sum(g[2] for g in groups.values())
-    print(f"# window sums at batch {opts.batch}: {len(rows)} launches, kernel "
-          f"{total:.4f} ms, bound {bound:.4f} ms; by group (launches, ms, "
+    print(f"# window sums at batch {opts.batch} (grouped at "
+          f"{opts.grouped_batch}): {sum(g[0] for g in groups.values())} "
+          f"launches, kernel {total:.4f} ms, bound {bound:.4f} ms; by group "
+          "(launches, ms, "
           "bound ms): " + "; ".join(f"{name} {n}, {ms:.4f}, {b:.4f}"
                                     for name, (n, ms, b) in groups.items()),
           flush=True)

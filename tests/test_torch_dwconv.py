@@ -254,10 +254,14 @@ def test_codes_on_a_producer_grid():
 
 
 def test_other_groupings_raise():
-    """Groupings other than the depthwise 3×3 take no depthwise route: a
-    grouped 3×3 (1 < groups < C, RepVGG's g2/g4) runs the conv kernel's
-    grouped tiles; a depthwise 1×1 (MobileOne's scale branch) and a
-    grouped 5×5 have no integer path and raise."""
+    """Groupings other than the depthwise 3×3 take their own routes, each
+    equal to its plain version: a grouped 3×3 (1 < groups < C, RepVGG's
+    g2/g4) runs the conv kernel's grouped tiles; a depthwise 1×1
+    (MobileOne's scale branch) the depthwise kernel's 1×1 window, and a
+    grouped 5×5 an im2col and an int32 GEMM a group, each against a
+    float64 grouped conv of the layer's input codes with its epilogue."""
+    from dlmc_quant_torch.ops.cuda.epilogue import epilogue_plain
+    from dlmc_quant_torch.quant.chain import PendingWideConv
     conv = QConv(32, 32, 3, 1, 1, groups=2)
     attach_scheme(conv, scheme_from_dict(SCHEME))
     x = torch.rand((1, 6, 6, 32))
@@ -270,9 +274,21 @@ def test_other_groupings_raise():
         attach_scheme(conv, scheme_from_dict(SCHEME))
         calibrate(conv, [x])
         prepare_deploy(conv)
-        assert not hasattr(conv, "w_dw")
-        with pytest.raises(NotImplementedError, match=r"item 7"):
-            conv(x, qmode="intc")
+        assert hasattr(conv, "w_dw") == (k == 1)
+        with torch.no_grad():
+            de = conv(x, qmode="intc")
+            assert isinstance(de.acc, PendingDwConv if k == 1
+                              else PendingWideConv)
+            got = chain.materialize(de)
+            assert torch.equal(conv(x, qmode="int"), got)
+            xp = torch.nn.functional.pad(
+                conv._input_codes(x).permute(0, 3, 1, 2).double(),
+                (k // 2,) * 4, value=float(conv.plan_scalars["pad_val"]))
+            acc = torch.nn.functional.conv2d(xp, conv.w_int.double(),
+                                             groups=groups)
+            want = epilogue_plain(acc.permute(0, 2, 3, 1), conv.epi_scale,
+                                  conv.bias_eff, mode="f32")
+        assert torch.equal(got, want), (k, groups)
 
 
 # ------------------------------------------------------------ on the card

@@ -37,6 +37,16 @@ and 2, k // 2 − 1 at stride 2), C ∈ {1, 3, 6, 12, 18, 20, 36, 92, 100,
 forced small ones, each of GhostNet-1.0's ragged shapes and the 5×5
 shapes of GhostNet-1.0 and EfficientNet-B0 at batch 1 in their requests'
 modes; and the plan at every depthwise shape of the two models.
+
+The 1×1 window's kernel (MobileOne's scale branches) the same way at
+every C above and both strides, W8 and W4, with and without the term:
+the grid of pixel blocks by channel slices, each thread's granule of
+channels (16 or 8 bytes on the aligned path, 4 or 1 on the ragged one)
+and pixel lane, its walk over the pixels, its one load of a pixel's
+granule (the pad code outside the map), the products and epilogue in
+float32 steps, and its whole-granule stores, each output once; on the
+plan's grid, on one block a slice (each thread walks many pixels) and
+with pads passed in.
 """
 
 import numpy as np
@@ -280,6 +290,61 @@ def tap_words(wp, c, ch, c_in, tap, ragged):
     return word
 
 
+def emulate_1x1(x, wp, a, b, *, stride, pad, lo=-128, hi=127, mode="codes",
+                relu=False, plan=None, grid=None, offset=None, ragged=0,
+                x_addr=0, pads=None):
+    """The 1×1 window's kernel on numpy arrays (the module docstring's
+    last paragraph); ``pads`` ((top, bottom), (left, right)) or None (no
+    pad, ⌈H/s⌉ rows)."""
+    n_img, h, w, c = x.shape
+    if mode != "codes":      # f32 takes granules of 4 (D.route)
+        ragged = 4 if c % 4 == 0 else 1
+    top, left, ho, wo = D.geometry(h, w, 1, stride, 0, pads)
+    p = plan or D.plan(n_img, h, w, c, stride, 1, ragged,
+                       None if pads is None else (ho, wo))
+    g = p.granule
+    assert g == (ragged or (16 if c % 16 == 0 and p.cb % 16 == 0 else 8))
+    assert c % g == 0 and p.cb % g == 0 and x_addr % g == 0
+    cq = p.cb // g
+    assert p.threads == cq * p.cg <= D.MAX_THREADS and p.rg == p.rpt == 1
+    assert p.slices == -(-c // p.cb)
+    pixels = n_img * ho * wo
+    grid = grid or p.tiles_x
+    wv = D.int8_weight(torch.from_numpy(wp), c).numpy()[0].astype(np.int32)
+    out = np.zeros((n_img, ho, wo, c),
+                   np.int8 if mode == "codes" else np.float32)
+    written = np.zeros(out.shape, np.int32)
+    t = np.arange(p.threads)
+    lane = t // cq
+    for by in range(p.slices):
+        ch0 = (by * cq + t % cq) * g
+        live = (lane < p.cg) & (ch0 < c)
+        for bx in range(grid):
+            for m0 in range(bx * p.cg, pixels, grid * p.cg):
+                m = m0 + lane
+                ok = live & (m < pixels)
+                q, rest = m % wo, m // wo
+                pp, nn = rest % ho, rest // ho
+                iy, ix = pp * stride - top, q * stride - left
+                inmap = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+                for j in range(g):
+                    ch = np.minimum(ch0 + j, c - 1)
+                    src = x[np.minimum(nn, n_img - 1), np.clip(iy, 0, h - 1),
+                            np.clip(ix, 0, w - 1), ch].astype(np.int32)
+                    xv = np.where(inmap, src, np.int32(pad))
+                    y = acc_to_float(xv * wv[ch]) * a[ch]
+                    if offset is not None:
+                        y = y + acc_to_float(xv - np.int32(pad)) * offset[ch]
+                    y = y + b[ch]
+                    v = code_of(y, lo, hi) if mode == "codes" else (
+                        np.maximum(y, np.float32(0)) if relu else y)
+                    idx = (nn[ok], pp[ok], q[ok], (ch0 + j)[ok])
+                    out[idx] = v[ok]
+                    np.add.at(written, idx, 1)
+    assert (written == 1).all()
+    return out
+
+
 def emulate(x, wp, a, b, *, stride, pad, pad_lo=None, lo=-128, hi=127,
             mode="codes", relu=False, plan=None, grid=None, offset=None,
             ragged=0, x_addr=0):
@@ -287,9 +352,13 @@ def emulate(x, wp, a, b, *, stride, pad, pad_lo=None, lo=-128, hi=127,
     or (k², ⌈C/2⌉) uint8 nibbles, a, b (and the term's offset, or None)
     (C,) float32; ``ragged`` the path (:func:`.route`), ``x_addr`` the
     address of x mod 16 (4-byte aligned at granule 4, 16 on the aligned
-    path)."""
+    path).  The 1×1 window: :func:`emulate_1x1`."""
     n_img, h, w, c = x.shape
     k = D.window(torch.from_numpy(wp))
+    if k == 1:
+        return emulate_1x1(x, wp, a, b, stride=stride, pad=pad, lo=lo,
+                           hi=hi, mode=mode, relu=relu, plan=plan, grid=grid,
+                           offset=offset, ragged=ragged, x_addr=x_addr)
     pad_lo = k // 2 if pad_lo is None else pad_lo
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     p = plan or D.plan(n_img, h, w, c, stride, k, ragged)
@@ -608,7 +677,7 @@ def test_emulation_equals_plain_any_window_and_c(k, c):
     weight offset's term, on the plan's tiles: the 5×5 window on either
     path, the ragged path of either window where C % 8 != 0 (row runs at C
     % 4 == 0, from codes at 0, 4 and 8 bytes past a 16-byte boundary)."""
-    geometries = [(1, k // 2), (2, k // 2), (2, k // 2 - 1)]
+    geometries = [(1, k // 2), (2, k // 2), (2, max(k // 2 - 1, 0))]
     for i, (stride, pad_lo) in enumerate(geometries):
         for w4, term in WEIGHTS_TERMS[i]:
             _wide_check(2, 7, 9 if stride == 1 else 8, c, k, stride, pad_lo,

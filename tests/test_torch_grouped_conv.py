@@ -516,12 +516,27 @@ def test_grouped_layer_int_matches_its_plan(w_bits):
 
 
 def test_grouped_layer_with_weight_offset_raises():
-    """A weight offset's row term needs window sums per group (ROADMAP item
-    7b): a grouped conv with one raises rather than dropping it."""
+    """A grouped conv with a weight offset (ROADMAP item 7b) adds its row
+    term from window sums per group: RepVGG-g4's grouped 3×3 with an LSQ
+    ``wt_offset`` equal to the port's plain path, and with RootQ's bounds
+    spread, built by the JAX package, in ``int`` and ``intc`` equal to the
+    plain path and within 1e-5 of JAX's ``eval``
+    (``tests/test_torch_zoo_routes.py`` holds the 1×1 cases)."""
+    from dlmc_quant_torch.quant.chain import materialize
+    from test_torch_rootq_int import _jax_eval, _rel
+    from test_torch_zoo_routes import grouped_pair, plain_path
     conv, x = _grouped_layer(8)
     with torch.no_grad():
         conv.wt_offset.fill_(1e-3)
     conv.prepare_deploy()
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    with torch.no_grad():
+        assert torch.equal(conv(x, qmode="int"), plain_path(conv, x))
+    for family, bits in (("rootq", 4), ("rootq", 8)):
+        J, jl, v, pl, xj = grouped_pair("grouped3x3_g4_s2", family, bits,
+                                        seed=bits)
+        xt = torch.from_numpy(xj)
         with torch.no_grad():
-            conv(x, qmode="int")
+            got = pl(xt, qmode="int")
+            assert torch.equal(materialize(pl(xt, qmode="intc")), got)
+        assert torch.equal(got, plain_path(pl, xt))
+        assert _rel(got, _jax_eval(J, jl, v, xj, False)) <= 1e-5

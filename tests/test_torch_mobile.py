@@ -34,8 +34,9 @@ BN statistics and affine are perturbed and the deploy biases are nonzero
   epilogue's inputs are identical.
 * The launches of one ``intc`` request, the bridge of a depthwise kernel
   (HWIO (3, 3, 1, C) → OIHW (C, 1, 3, 3)), the registry's case folding,
-  the FSPTQ entry's fusers, and the train form's integer modes raising
-  at MobileOne's grouped 1×1 scale branch (ROADMAP item 7).
+  the FSPTQ entry's fusers, and the train forms' integer modes against
+  JAX's ``int`` (MobileOne's depthwise 1×1 scale branches on the
+  depthwise kernel's 1×1 window).
 * ``cuda``-marked tests hold the other kernels of the two models' paths
   against their plain versions on the card (tolerance 0): the stems
   (3→32 and, at width 0.75, 3→24 3×3/s2 SAME; 3→64 3×3/s2 pad 1) and
@@ -279,18 +280,13 @@ def test_fuser_matches_train_and_jax(case):
 
 
 def test_train_form_int_matches_jax_or_raises(case):
-    """MobileNetV2's train form runs 'int' (and 'intc' as 'int'); a
-    MobileOne depthwise block's grouped 1x1 scale branch has no integer
-    path (ROADMAP item 7)."""
+    """Both train forms run 'int' (and 'intc' as 'int') against JAX's
+    'int': MobileOne's depthwise blocks with their 1x1 scale branches on
+    the depthwise kernel's 1x1 window."""
     j = _jax()
     x = _images(3, case["size"])
     port = prepare_deploy(load_jax_variables(_port_model(case["arch"]),
                                              _np(case["v_cal"])))
-    if case["arch"] == "mobileone":
-        with pytest.raises(NotImplementedError, match=r"item 7"):
-            with torch.no_grad():
-                port(torch.from_numpy(x), qmode="intc")
-        return
     jv = j.jdp.prepare_deploy(case["jm"], case["v_cal"],
                               sample_input=j.jnp.asarray(x))
     want = case["jm"].apply(jv, j.jnp.asarray(x), qmode="int")
@@ -535,18 +531,21 @@ def test_block_output_without_relu():
 
 
 def test_bridge_carries_the_depthwise_kernel(case):
-    """HWIO (3, 3, 1, C) → OIHW (C, 1, 3, 3) for every depthwise conv."""
+    """HWIO (k, k, 1, C) → OIHW (C, 1, k, k) for every depthwise conv: the
+    3×3s, and MobileOne's 1×1 scale branches."""
     params = _np(case["v"])["params"]
     n = 0
     for path, m in case["train"].named_modules():
         if isinstance(m, QConv) and m.depthwise:
+            k = m.kernel_size
             want = _leaf(params, path, "kernel")
-            assert want.shape == (3, 3, 1, m.weight.shape[0])
-            assert tuple(m.weight.shape) == (want.shape[3], 1, 3, 3)
+            assert want.shape == (k, k, 1, m.weight.shape[0])
+            assert tuple(m.weight.shape) == (want.shape[3], 1, k, k)
             assert np.array_equal(m.weight.detach().numpy(),
                                   np.transpose(want, (3, 2, 0, 1)))
             n += 1
-    assert n == (17 if case["arch"] == "mobilenet" else 4 * 2)
+    # MobileOne: two 3x3 branches and a 1x1 scale branch a depthwise block
+    assert n == (17 if case["arch"] == "mobilenet" else 4 * 3)
 
 
 @pytest.mark.parametrize("name,cls,classes", [

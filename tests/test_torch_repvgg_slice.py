@@ -244,7 +244,10 @@ TRAINING_MODULES = (
     "dlmc_quant_torch.examples.FSPTQuant",
     "dlmc_quant_torch.models.ghostnet", "dlmc_quant_torch.models.efficientnet",
     "dlmc_quant_torch.data.loaders", "dlmc_quant_torch.data.native",
-    "dlmc_quant_torch.tools.loaderbench")
+    "dlmc_quant_torch.tools.loaderbench",
+    "dlmc_quant_torch.tools.conv_launches",
+    "dlmc_quant_torch.tools.dw_launches",
+    "dlmc_quant_torch.tools.window_launches")
 
 
 def test_import_leaves_out_jax():

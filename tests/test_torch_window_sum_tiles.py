@@ -15,7 +15,11 @@ at ragged H and W, k ∈ {1, 3, 5, 7}, strides 1 and 2, asymmetric pads,
 C ∈ {3, 5, 16, 24, 40, 64} and zero codes −128, −3 and 0.  The plans
 themselves: taken, within shared memory and covering every output once
 at every window-sum shape of config #5's ResNet-50 (batch 128) and the
-ResNet-50 stem and head.
+ResNet-50 stem and head.  In G = 2 and 4 groups (a grouped conv's sums,
+one a group): a lane group a (pixel, group), group fastest, its lanes
+over that group's chunks, G sums a pixel in the region and the box sums
+per group, at every case whose C the groups divide, on the plan's tiles
+and on forced small ones; and the plan at RepVGG-B2g4's grouped shapes.
 """
 
 import numpy as np
@@ -50,8 +54,11 @@ def lane_sums(pixel: np.ndarray, lanes: int) -> int:
 
 
 def emulate(x: np.ndarray, zero: int, kernel: int, stride: int, pads,
-            p=None) -> np.ndarray:
-    """The kernel's result on ``x`` (N, H, W, C) int8 with plan ``p``."""
+            p=None, groups: int = 1) -> np.ndarray:
+    """The kernel's result on ``x`` (N, H, W, C) int8 with plan ``p`` (in
+    ``groups`` > 1 groups: :func:`emulate_grouped`)."""
+    if groups > 1:
+        return emulate_grouped(x, zero, kernel, stride, pads, p, groups)
     n0, h0, w0, c = x.shape
     pads = tuple(map(tuple, pads))
     p = p or WS.plan(n0, h0, w0, c, kernel, stride, pads)
@@ -102,6 +109,65 @@ def emulate(x: np.ndarray, zero: int, kernel: int, stride: int, pads,
     assert (written == 1).all(), "an output not written exactly once"
     ho, wo = WS.out_hw(h0, w0, kernel, stride, pads)
     return out.reshape(n0, ho, wo)
+
+
+def emulate_grouped(x, zero, kernel, stride, pads, p, groups):
+    """The grouped kernel (``grouped_sums``): items (pixel, group), group
+    fastest, a lane group an item; G sums a pixel in the region; the box
+    sums and the writes per group, (N, Ho, Wo, G)."""
+    n0, h0, w0, c = x.shape
+    cg = c // groups
+    pads = tuple(map(tuple, pads))
+    p = p or WS.plan(n0, h0, w0, c, kernel, stride, pads, groups)
+    assert p.groups == groups
+    xs = x.reshape(p.n, p.h, p.w, c)
+    (top, _), (left, _) = pads
+    if WS.flat(kernel, stride, pads):
+        top = left = 0
+    out = np.zeros((p.n * p.ho * p.wo, groups), np.int64)
+    written = np.zeros(out.shape, np.int64)
+    lane_groups = WS.THREADS // p.lanes
+    for block in range(p.tiles):
+        tx = block % p.tiles_x
+        ty = block // p.tiles_x % p.tiles_y
+        n = block // (p.tiles_x * p.tiles_y)
+        p0, q0 = ty * p.th, tx * p.tw
+        th, tw = min(p.th, p.ho - p0), min(p.tw, p.wo - q0)
+        rh, rw = (th - 1) * p.se + kernel, (tw - 1) * p.se + kernel
+        iy0, ix0 = p0 * stride - top, q0 * stride - left
+        items = rh * rw * groups
+        smem_cells = groups * (rh * rw + (rh * tw if kernel > 1 else 0))
+        assert 4 * smem_cells <= p.smem <= WS.MAX_SMEM
+        pix = np.full(items, JUNK, np.int64)
+        for base in range(0, items, lane_groups):
+            for group in range(lane_groups):
+                i = base + group
+                if i >= items:
+                    continue
+                pixel, gg = divmod(i, groups)
+                iy = iy0 + region(pixel // rw, kernel, stride)
+                ix = ix0 + region(pixel % rw, kernel, stride)
+                if 0 <= iy < p.h and 0 <= ix < p.w:
+                    pix[i] = lane_sums(xs[n, iy, ix, gg * cg:(gg + 1) * cg],
+                                       p.lanes) - cg * zero
+                else:
+                    pix[i] = 0
+        grid = pix.reshape(rh, rw, groups)
+        if kernel == 1:
+            got = grid[:th, :tw]
+        else:
+            rows = np.stack([grid[:, q * p.se:q * p.se + kernel].sum(1)
+                             for q in range(tw)], 1)    # (rh, tw, G)
+            got = np.stack([rows[r * p.se:r * p.se + kernel].sum(0)
+                            for r in range(th)], 0)     # (th, tw, G)
+        assert not (got <= JUNK // 2).any(), "a cell read before written"
+        rows_out = (n * p.ho + p0 + np.arange(th))[:, None] * p.wo \
+            + q0 + np.arange(tw)[None, :]
+        out[rows_out.reshape(-1)] = got.reshape(-1, groups)
+        written[rows_out.reshape(-1)] += 1
+    assert (written == 1).all(), "an output not written exactly once"
+    ho, wo = WS.out_hw(h0, w0, kernel, stride, pads)
+    return out.reshape(n0, ho, wo, groups)
 
 
 # (n, h, w, c, kernel, stride, pads): ragged maps, asymmetric pads
@@ -240,3 +306,41 @@ def test_card_kernel_on_the_emulated_tiles(case, tile):
         got = WS.launch(x.to(dev), zero, k, s, pads, p)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), zero
+
+
+GROUPED = [(case, g) for case in CASES for g in (2, 4) if case[3] % g == 0]
+
+
+@pytest.mark.parametrize("tile", [None, (2, 3)])
+@pytest.mark.parametrize("case,groups", GROUPED,
+                         ids=[f"{'x'.join(map(str, c[:6]))}g{g}"
+                              for c, g in GROUPED])
+def test_emulation_grouped_equals_plain(case, groups, tile):
+    """G sums a pixel, on the plan's tiles and on forced small ones."""
+    n, h, w, c, k, s, pads = case
+    x = _codes((n, h, w, c), h * w + c + groups)
+    p = tile and WS.make_plan(n, h, w, c, k, s, pads, *tile,
+                              groups=groups)
+    want = WS.int8_window_sum_plain(torch.from_numpy(x), zero=-3, kernel=k,
+                                    stride=s, pads=pads, groups=groups)
+    assert want.shape == (n,) + WS.out_hw(h, w, k, s, pads) + (groups,)
+    got = emulate(x, -3, k, s, pads, p, groups)
+    assert np.array_equal(got, want.numpy())
+
+
+# RepVGG-B2g4's grouped convs at batch 64 (3×3 pad 1, the train form's 1×1)
+B2G4 = [((64, hw, hw, c), k, 1, ((k // 2,) * 2,) * 2)
+        for hw, c in ((56, 160), (28, 320), (14, 640)) for k in (3, 1)]
+
+
+@pytest.mark.parametrize("shape,k,s,pads", B2G4,
+                         ids=[f"{'x'.join(map(str, a[0]))}k{a[1]}"
+                              for a in B2G4])
+def test_plan_at_b2g4_grouped_shapes(shape, k, s, pads):
+    n, h, w, c = shape
+    p = WS.plan(n, h, w, c, k, s, pads, 4)
+    assert p.groups == 4 and p.smem <= WS.MAX_SMEM
+    assert p.rh * p.rw * 4 <= WS.MAX_REGION and p.tiles < 2 ** 31 - 1
+    assert p.tiles_y * p.th >= p.ho and p.tiles_x * p.tw >= p.wo
+    assert p == WS.make_plan(n, h, w, c, k, s, pads, p.th, p.tw,
+                             groups=4)
