@@ -8,12 +8,13 @@ the PTQ observers and BASELINE config #2's PTQ entry, the training path
 (LSQ and RootQ QAT, fp32, QAT -> deploy at W4A4, ResNet-50 RootQ), the
 accuracy protocol cut short (trained cifar_resnet20 and RepVGG-A0), the
 serving engine (RepVGG-A0 and ResNet-50 through continuous batching, the
-two-process lockstep) and data-parallel training on NCCL, RootQ served in
-int8 (BASELINE config #5's ResNet-50 through the engine, cifar_resnet20;
-the window sums of a weight offset), the rest of the RepVGG family
-(RepVGG-B2g4's grouped convs, RepVGG-D2se's SE blocks) and merge_bn,
-GhostNet-1.0 and EfficientNet-B0 (the 5x5 depthwise window and any channel
-count), the zoo's last integer routes (MobileOne-S1's train form through
+two-process lockstep), the model axis (RepVGG-A0 and ResNet-50 sharded
+over two ranks of one card) and data-parallel training on NCCL, RootQ
+served in int8 (BASELINE config #5's ResNet-50 through the engine,
+cifar_resnet20; the window sums of a weight offset), the rest of the
+RepVGG family (RepVGG-B2g4's grouped convs, RepVGG-D2se's SE blocks) and
+merge_bn, GhostNet-1.0 and EfficientNet-B0 (the 5x5 depthwise window and
+any channel count), the zoo's last integer routes (MobileOne-S1's train form through
 the depthwise kernel's 1x1 window, RepVGG-B2g4 with RootQ's row term per
 group), the data layer (CIFAR-10 pickles feeding the QAT entry, a JPEG
 folder feeding RepVGG-A0), then the two int8 GEMM tools.
@@ -160,6 +161,19 @@ Phases, each fatal on failure:
            forward of its images (relative 1e-6); a step's forward ms on
            device-resident images and the host-to-device copy ms of its
            128 float32 images (CUDA events);
+  model_axis the model axis (parallel/sharding_rules.py) on two ranks of
+           card 0 (two processes, a gloo group, the codes gathered through
+           host memory): python -m dlmc_quant_torch.examples.serve_benchmark
+           RepVGG_A0 64 at --num-hosts 2 (mesh (1, 2), the whole A0 W8A8 at
+           224x224 in 'int', its JSON line with model_axis "2 (...)"), then
+           python -m dlmc_quant_torch.tools.model_axis_2proc: each rank
+           builds RepVGG-A0 (batch 64) and ResNet-50's deploy form (batch
+           16) at full width from the same seeds and runs one batch
+           replicated and sharded; rc 0 only where the logits and every
+           layer boundary's codes are equal and every sharded conv, GEMM
+           and stem + pool launch == plain (tolerance 0); printed per
+           rank: request ms, the gathers' count, MB and ms, each kernel's
+           sharded launches' ms beside the whole layers', with bounds;
   mobile   MobileNetV2 and MobileOne-S1 at full published width, and
            MobileNetV2 at width 0.75 (24-channel stem and first depthwise
            conv), 224x224, 1000 classes: train form with seeded weights and
@@ -267,6 +281,9 @@ Phases, each fatal on failure:
            at RepVGG-A0's and B2g4's launches, of DIR and of this tree in
            turns (tools/window_launches.py, tools/conv_launches.py: DIR,
            this, this, DIR), the sums by group and this tree's over DIR's;
+           (c) a 5x5 conv at C = 96 (2,400 bytes of K, past the im2col
+           rows' 2,048) at batch 64, 28x28: two runs of 48 channels, an
+           im2col and an int32 GEMM each, every launch == plain, timed;
   data     the data layer (dlmc_quant_torch/data) on the card's host: the
            probe (CPU count, g++, libjpeg's jpeglib.h, PIL), the native
            batch assembly built (data/native/augment.cpp, g++) and in use;
@@ -486,7 +503,7 @@ from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
                                               graph_ms, step_split)
 from dlmc_quant_torch.utils.checkpoint import load_checkpoint
 from dlmc_quant_torch.utils.launches import (KERNELS, LaunchRecorder,
-                                             max_diff_to_plain)
+                                             launch_bound, max_diff_to_plain)
 from dlmc_quant_torch.utils.config import ConfigParser, read_yaml, write_yaml
 from dlmc_quant_torch.utils.logging import get_logger
 
@@ -571,6 +588,10 @@ C2_BATCH, C2_COMPARE = 64, 8
 # intc evaluation (the stem weight-only)
 ACCURACY_CUT = ["--epochs", "2", "--qat-epochs", "1", "--recon-iters", "40"]
 ACCURACY_CONVS = 21
+# the model axis: serve_benchmark's A0 batch on two ranks of one card
+MODEL_AXIS_BATCH = 64
+# zoo_routes' wide conv past the im2col rows' 2,048 bytes of K
+CHUNKED = dict(c=96, o=96, size=28, batch=64)
 # the serving engine: serve_benchmark's batch, the requests of the checked
 # and the full-queue streams, the requests of A0's timed stream (enough
 # for a p99) and of ResNet-50's (p50 and max only), the timed stream's
@@ -643,7 +664,8 @@ def card_tests():
     window-sum and im2col kernels at their emulated tiles, the grouped
     conv at every (Cg, Og) of RepVGG's g2/g4 variants and the SE blocks'
     int8 products, the depthwise kernel's 1x1 window and pads passed in,
-    the grouped window sums and the grouped conv's row term), in a process
+    the grouped window sums and the grouped conv's row term, the conv, GEMM
+    and stem + pool at the widths of two model-axis ranks), in a process
     of their own; fatal unless all pass."""
     tests = REPO / "tests"
     run = subprocess.run(
@@ -658,6 +680,7 @@ def card_tests():
          str(tests / "test_torch_rootq_int.py"),
          str(tests / "test_torch_window_sum_tiles.py"),
          str(tests / "test_torch_im2col_tiles.py"),
+         str(tests / "test_torch_sharding.py"),
          str(tests / "test_torch_grouped_conv.py"),
          str(tests / "test_torch_zoo_routes.py")],
         capture_output=True, text=True)
@@ -971,70 +994,6 @@ def resnet18_deployed(device):
     deploy = attach_scheme(resnet_deploy(model), scheme)
     calibrate(deploy, [cifar_images(SERVE_BATCH, SEED, device)])
     return prepare_deploy(deploy)
-
-
-def launch_bound(kind, args, kw, out):
-    """(bound ms, ops ms, bytes ms) of one recorded launch: inputs read and
-    the output written once (a residual, a row term's S and c and the
-    epilogue's per-column affines read once too)."""
-    nbytes = out.numel() * out.element_size()
-    r = kw.get("residual")
-    if r is not None:
-        nbytes += r[0].numel() * r[0].element_size() + 8 * out.shape[-1]
-    if kw.get("row") is not None:
-        nbytes += 4 * (kw["row"][0].numel() + out.shape[-1])
-    if kw.get("offset") is not None:
-        nbytes += 4 * out.shape[-1]
-    if kind == "im2col":
-        return bound_of(0, args[0].numel() + nbytes)
-    if kind == "window_sum":
-        # adds, no int8 multiply-adds: bytes bound; the pixels the windows
-        # touch read once (all of x, but a strided 1x1's subsample)
-        x = args[0]
-        k, st = kw.get("kernel", 1), kw.get("stride", 1)
-        touched = x.numel() if k >= st else out.numel() * k * k * x.shape[-1]
-        return bound_of(0, touched + nbytes)
-    if kind == "dwconv":
-        # k² multiply-adds an output value; x (a 1x1 window's: the pixels
-        # it reads), the (k², C) weight (half the bytes at W4), a and b
-        x, w = args[:2]
-        read = x.numel() if w.shape[0] > 1 else out.numel()
-        return bound_of(2 * w.shape[0] * out.numel(), read + w.numel()
-                        + 8 * x.shape[-1] + nbytes)
-    if kind == "stem_pool":
-        # the conv's int8 operations (the pool's compares are not counted);
-        # x, the packed weight, a and b of an epilogue mode, the output
-        x, wp = args[:2]
-        n, h, wd, c = x.shape
-        hc, wc, _, _ = SP.geometry(h, wd, kw["pads"])
-        ops = 2 * n * hc * wc * wp.shape[1] * SP.KERNEL ** 2 * c
-        epi = 8 * wp.shape[1] if kw.get("mode", "int32") != "int32" else 0
-        return bound_of(ops, x.numel() + wp.numel() + epi + nbytes)
-    if kind == "gemm":
-        x, w = args[:2]
-        m, k = x.shape
-        n = w.shape[0]
-        epi = 8 * n if kw.get("mode", "int32") != "int32" else 0
-        return bound_of(2 * m * n * k, m * k + weight_bytes(n * k, w) + epi
-                        + nbytes)
-    x, w, a, _ = args
-    n, h, wd, c = x.shape
-    o = a.shape[0]
-    m = out.numel() // o
-    cg = c // kw.get("groups", 1)      # the inputs of one output channel
-    return bound_of(2 * m * o * 9 * cg, x.numel()
-                    + weight_bytes(9 * cg * o, w) + 8 * o + nbytes)
-
-
-def weight_bytes(values: int, w) -> int:
-    """Bytes of a weight of ``values`` values: one a byte, two at W4."""
-    return -(-values // 2) if w.dtype == W4 else values
-
-
-def bound_of(ops: int, nbytes: int):
-    t_ops = ops / PEAK_INT8_OPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), t_ops, t_bytes
 
 
 def launch_label(kind, args, kw) -> str:
@@ -3019,6 +2978,73 @@ def lockstep_leg():
         raise RuntimeError("the two-process lockstep failed")
 
 
+def two_ranks(argv, timeout: int):
+    """``argv`` started as ranks 0 and 1 of a world of two on localhost
+    (a free port), each with OMP_NUM_THREADS=1; their stdouts, or a
+    RuntimeError with their tails where either fails."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [*argv, "--coordinator", f"localhost:{port}", "--num-hosts", "2",
+         "--host-id", str(i)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        for i, out in enumerate(outs):
+            print(f"--- rank {i}:\n{out[-3000:]}", file=sys.stderr)
+        raise RuntimeError(f"{argv[2]} on two ranks failed")
+    return outs
+
+
+def model_axis_phase(card: str):
+    """The model axis on two ranks of card 0 (docstring); returns the
+    launches by kind of the tool's sharded batches, both ranks'."""
+    t0 = time.perf_counter()
+    outs = two_ranks([sys.executable, "-m",
+                      "dlmc_quant_torch.examples.serve_benchmark",
+                      "RepVGG_A0", str(MODEL_AXIS_BATCH)], 300)
+    line = json.loads(outs[0].strip().splitlines()[-1])
+    print(f"# model_axis: serve_benchmark RepVGG_A0 W8A8 batch "
+          f"{MODEL_AXIS_BATCH} on two ranks of card 0 ({card}): "
+          f"{json.dumps(line)} ({time.perf_counter() - t0:.1f} s)")
+    if not line["model_axis"].startswith("2 (") \
+            or not line["2_devices"] > 0:
+        raise RuntimeError("serve_benchmark ran no model axis")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "dlmc_quant_torch.tools.model_axis_2proc"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    lines = run.stdout.strip().splitlines()
+    for ln in lines:
+        if ln.startswith(("# ", "---", "MODEL AXIS")):
+            print(ln)
+    results = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+               if ln.startswith("MODEL_AXIS ")]
+    if run.returncode != 0 or "MODEL AXIS 2-PROC: PASS" not in run.stdout \
+            or len(results) != 2:
+        print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError("the two-rank model axis failed")
+    launches = dict.fromkeys(KERNELS, 0)
+    for rank in results:
+        for res in rank["models"]:
+            for kind, n in res["launches"].items():
+                launches[kind] += n
+    if not all(launches[k] for k in ("conv", "gemm", "stem_pool")):
+        raise RuntimeError(f"the sharded batches launched {launches}")
+    print(f"# model_axis: the tool {time.perf_counter() - t0:.1f} s; "
+          f"sharded launches of both ranks {launches}")
+    return launches
+
+
 @contextlib.contextmanager
 def recorded_losses(losses):
     """Every trainer's step losses into ``losses``."""
@@ -3625,9 +3651,43 @@ def zoo_routes_phase(device, parent=None):
         del model, x
     print(f"# zoo_routes: the two models' legs "
           f"{time.perf_counter() - start:.2f} s")
+    routes["chunked"] = chunked_wide_leg(device)
     if parent:
         parent_route_turns(parent)
     return routes
+
+
+def chunked_wide_leg(device):
+    """The zoo_routes phase's (c): a 5x5 conv past the im2col
+    rows' 2,048 bytes of K a group in runs of channels; every launch ==
+    plain, the launch set timed as a CUDA graph beside its bound.  Returns
+    its launches by kind (counts zeroed before, read after)."""
+    c = CHUNKED
+    gen = torch.Generator().manual_seed(SEED + 7)
+    layer = attach_scheme(QConv(c["c"], c["o"], 5, 1, 2, generator=gen),
+                          scheme_from_dict(BENCH_SCHEME)).to(device)
+    x = torch.rand((c["batch"], c["size"], c["size"], c["c"]),
+                   generator=gen).to(device)
+    calibrate(layer, [x])
+    layer.prepare_deploy()
+    zero_counts()
+    with torch.inference_mode(), LaunchRecorder() as rec:
+        y = layer(x, qmode="int")
+    counts = {kind: n for kind, n in engine_counts().items() if n}
+    errs = [max_diff_to_plain(kind, a, kw, o) for kind, a, kw, o in rec.calls]
+    bound = sum(launch_bound(kind, a, kw, o)[0] for kind, a, kw, o in rec.calls)
+    ms = graph_ms(lambda _: run_calls([(KERNELS[kind][0], a, kw)
+                                       for kind, a, kw, _ in rec.calls]), 4)
+    print(f"# zoo_routes: a 5x5 conv at C = {c['c']} -> {c['o']} "
+          f"({25 * c['c']} bytes of K) on ({c['batch']}, {c['size']}, "
+          f"{c['size']}): launches {counts}, each == plain (worst "
+          f"{max(errs)}); the launch set {ms:.4f} ms against a bound of "
+          f"{bound:.4f} ms; output {tuple(y.shape)} finite "
+          f"{bool(torch.isfinite(y).all())}")
+    if counts != {"im2col": 2, "gemm": 2} or any(errs) \
+            or not torch.isfinite(y).all():
+        raise RuntimeError("the chunked wide conv failed")
+    return counts
 
 
 def parent_route_turns(root: str):
@@ -3972,6 +4032,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     engine = serving_phase(device, card, r50)
     print(f"# serving phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    axis = model_axis_phase(card)
+    print(f"# model_axis phase: {time.perf_counter() - t0:.2f} s")
     del r50
     parent = parent_dw_turns(args.parent) if args.parent else None
     mobile_err, dw, mobile_served, w8 = mobile_phase(device, parent)
@@ -4010,7 +4073,8 @@ def main(argv=None) -> int:
     launches += (served["conv"] + ptq_convs + served50["conv"] + qat_launches
                  + mobile_served["conv"] + w4_served["conv"]
                  + c2_launches["conv"] + acc_launches + engine["conv"]
-                 + rootq["conv"] + zoo_launches + ghost_served["conv"])
+                 + rootq["conv"] + zoo_launches + ghost_served["conv"]
+                 + axis["conv"])
     tot["err"] = max(err8, tot["err"], recon_err, res_err, r50_err,
                      r50_tot["err"], qat_err, mobile_err, w4_err, c2_err,
                      acc_err, rootq_err, zoo_err)
@@ -4022,7 +4086,8 @@ def main(argv=None) -> int:
     gemm_launches += (served["gemm"] + ptq_gemms + served50["gemm"]
                       + mobile_served["gemm"] + w4_served["gemm"]
                       + c4_launches["gemm"] + c2_launches["gemm"]
-                      + engine["gemm"] + rootq["gemm"] + ghost_served["gemm"])
+                      + engine["gemm"] + rootq["gemm"] + ghost_served["gemm"]
+                      + axis["gemm"] + routes["chunked"]["gemm"])
     gemm_err = max(w4_err, c4_err, c2_err, rootq_err)
     probe_rows, probe_launches = tool_path(lambda: mma_probe.main([]),
                                            P.int8_mma_probe, "mma_probe")
@@ -4043,12 +4108,13 @@ def main(argv=None) -> int:
         kernel_entry("int8_mma_probe", "tools/vmem_gemm_probe.py:33",
                      probe_launches, probe_tot, probe_tot["library_ms"]),
         kernel_entry("int8_im2col", "dlmc_quant_tpu/quant/layers.py:721-728",
-                     im2col_launches + engine["im2col"], im2col, None),
+                     im2col_launches + engine["im2col"] + axis["im2col"]
+                     + routes["chunked"]["im2col"], im2col, None),
         kernel_entry("int8_stem_pool",
                      "dlmc_quant_tpu/quant/layers.py:721-728 + "
                      "dlmc_quant_tpu/quant/chain.py:135",
                      served50["stem_pool"] + w4_served["stem_pool"]
-                     + engine["stem_pool"], stem,
+                     + engine["stem_pool"] + axis["stem_pool"], stem,
                      None),
         kernel_entry("int8_dwconv3x3",
                      "dlmc_quant_tpu/quant/layers.py:722-728 (XLA grouped "

@@ -13,10 +13,16 @@ MobileOne in their deploy form; one seeded batch of 8 calibrates, then
 ``measure_throughput`` over 20 batches.
 
 Under a launched world of N ranks (one invocation a rank, as
-``distributed_training``) each rank serves its own replica on its own
-card: rank 0 measures alone while the others wait, then every rank
-measures at once and the rates are summed.  The model axis stays 1
-(ROADMAP item 11b) and the line says so.  Rank 0 prints one JSON line.
+``distributed_training``) the mesh is JAX's choice: ``('data', 'model')``
+of shape (N/2, 2) where N is even, else (N, 1).  Rank 0 first measures
+the replicated model alone while the others wait; then the engine shards
+the int8 plans over the model axis (``parallel.sharding_rules``), every
+rank measures at once, and the rates are summed over the rows of the
+data axis (a model group's ranks serve the same images).  The line's
+``model_axis`` gives the axis' size, the transport of its gathers
+(``parallel.mesh.model_transport``: NCCL between cards, gloo through host
+memory where ranks share a card) and the ranks a card.  Rank 0 prints
+one JSON line.
 """
 
 from __future__ import annotations
@@ -45,20 +51,26 @@ def image_shape(model_name: str):
     return (32, 32, 3) if "cifar" in model_name else (224, 224, 3)
 
 
-def build(model_name: str, w_bits: int, a_bits: int, device):
-    """The model at ``w_bits``/``a_bits``, calibrated on one seeded batch
-    of 8 and prepared for integer execution."""
-    scheme = scheme_from_dict({
+def scheme(w_bits: int, a_bits: int):
+    """FSPTQ with per-channel min/max weights and per-tensor min/max
+    inputs (``examples/serve_benchmark.py``'s)."""
+    return scheme_from_dict({
         "quantization_type": "FSPTQ",
         "weight": {"enable": True, "type": "minmax_channel",
                    "args": {"n_bits": w_bits, "signed": True}},
         "input": {"enable": True, "type": "minmax_tensor",
                   "args": {"n_bits": a_bits, "signed": False}},
     })
+
+
+def build(model_name: str, w_bits: int, a_bits: int, device):
+    """The model at ``w_bits``/``a_bits``, calibrated on one seeded batch
+    of 8 and prepared for integer execution."""
     kwargs = ({"deploy": True}
               if model_name.lower().startswith(("repvgg", "mobileone"))
               else {})
-    model = get_model(model_name, device=device, scheme=scheme,
+    model = get_model(model_name, device=device,
+                      scheme=scheme(w_bits, a_bits),
                       generator=torch.Generator().manual_seed(1), **kwargs)
     x = torch.rand((8,) + image_shape(model_name),
                    generator=torch.Generator().manual_seed(0)).to(device)
@@ -83,29 +95,40 @@ def main(argv=None) -> int:
     args = p.parse_args(rest)
     device = join(ns, resolve_device(args.device))
     try:
-        mesh = mesh_lib.make_mesh()
-        ranks, rank = mesh_lib.world_size(), mesh_lib.rank()
+        ranks = mesh_lib.world_size()
+        n_model = 2 if ranks % 2 == 0 else 1
+        mesh = mesh_lib.make_mesh(axes=("data", "model"),
+                                  shape=(ranks // n_model, n_model))
+        rank = mesh_lib.rank()
+        transport = mesh_lib.model_transport(mesh)
+        if rank == 0 and n_model > 1:
+            print(f"model axis: {n_model} ranks a group, gathers by "
+                  f"{transport}", flush=True)
         model = build(args.model, args.w_bits, args.a_bits, device)
-        eng = InferenceEngine(model, mesh, batch_size=args.batch,
-                              qmode="int", device=device)
         image = image_shape(args.model)
         what = f"{args.model} W{args.w_bits}A{args.a_bits}"
         results = {}
-        ips = measure_throughput(eng, image, N_BATCHES) if rank == 0 else 0.0
+        ips = measure_throughput(
+            InferenceEngine(model, None, batch_size=args.batch, qmode="int",
+                            device=device),
+            image, N_BATCHES) if rank == 0 else 0.0
         results["1_devices"] = round(ips, 1)
         if rank == 0:
             print(f"{what} on 1 device: {ips:.1f} img/s", flush=True)
         if ranks > 1:
+            eng = InferenceEngine(model, mesh, batch_size=args.batch,
+                                  qmode="int", device=device)
             dist.barrier(group=mesh_lib.vote_group())
             total = _sum_over_ranks(measure_throughput(eng, image,
-                                                       N_BATCHES))
+                                                       N_BATCHES)) / n_model
             results[f"{ranks}_devices"] = round(total, 1)
             results["scaling_efficiency"] = round(total / (ips * ranks), 3) \
                 if rank == 0 else None
             if rank == 0:
-                print(f"{what} on {ranks} devices (a replica each): "
-                      f"{total:.1f} img/s", flush=True)
-        results["model_axis"] = "1 (int8 weight sharding is ROADMAP 11b)"
+                print(f"{what} on {ranks} devices (mesh {ranks // n_model} "
+                      f"x {n_model}): {total:.1f} img/s", flush=True)
+        results["model_axis"] = f"{n_model} ({transport})" if n_model > 1 \
+            else "1"
         if rank == 0:
             print(json.dumps(results), flush=True)
     finally:

@@ -59,6 +59,15 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def channel_chunks(kernel: int, c: int):
+    """``(chunks, per)``: a conv of ``c`` input channels (a group's) at a
+    ``kernel`` × ``kernel`` window as ``chunks`` runs of ``per`` channels,
+    each at most :data:`MAX_KP` bytes of K, the last padded with channels
+    of zero weight; ``(1, c)`` where the whole row fits."""
+    chunks = _cdiv(c, MAX_KP // (kernel * kernel))
+    return chunks, _cdiv(c, chunks)
+
+
 def make_plan(n: int, h: int, w: int, c: int, kernel: int, stride: int,
               pads, th: int, tw: int) -> Im2colPlan:
     """The kernel's geometry for tiles of ``th`` × ``tw`` output pixels

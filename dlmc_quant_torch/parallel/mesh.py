@@ -21,8 +21,18 @@ collectives are explicit:
   batch's, so that N ranks compute what one process computes on the whole
   batch; :func:`all_reduce_grads` takes the mean of the gradients.
 
-The model axis (output channels of the int8 weights over ``'model'``) is
-not ported: a mesh whose ``'model'`` axis is larger than 1 raises.
+The model axis (``parallel.sharding_rules``: the int8 plans sharded over
+output channels on ``'model'``): :func:`gather_channels` puts the ranks'
+blocks of a layer's output side by side on the channel axis, and
+:func:`model_transport` says how.  The transport is the default group's,
+chosen once by :func:`init_distributed`: NCCL where each rank has a card
+of its own, gloo where ranks share a card (two processes on one card
+cannot form an NCCL group).  Gloo takes CUDA tensors in its all-gather
+on the card's torch (2.11) and stages them through host memory itself,
+as fast as an explicit copy to pinned memory and back (a 2 × 64 MiB
+gather 207.1 and 190.7 ms on an H100's host: gloo's TCP loopback, 0.36
+GB/s, bounds both).  Nothing switches from one to the other after a
+failure, and the kernels are the same either way.
 """
 
 from __future__ import annotations
@@ -51,23 +61,26 @@ def init_distributed(coordinator: str, num_hosts: int, host_id: int,
     (``host:port`` or ``tcp://host:port``) as rank ``host_id``; returns
     this rank's device.
 
-    A CUDA device takes NCCL (rank r drives card ``r % device_count``) and
-    raises where NCCL is missing; the CPU takes gloo.  There is no switch
-    from one to the other.  With NCCL a gloo group over the same ranks
-    carries the votes (:func:`vote_group`): two processes on one card
-    cannot form an NCCL group, and a vote is a host value.
+    A CUDA device: rank r drives card ``r % device_count`` (the ranks are
+    the processes of one machine).  Where each rank has a card of its own
+    the group is NCCL (raising where NCCL is missing); where ranks share a
+    card (more ranks than cards) it is gloo, since two processes on one
+    card cannot form an NCCL group.  The CPU takes gloo.  There is no
+    switch from one to the other.  With NCCL a gloo group over the same
+    ranks carries the votes (:func:`vote_group`): a vote is a host value.
     """
     global _VOTES
     device = resolve_device(device)
+    backend = "gloo"
     if device.type == "cuda":
-        if not dist.is_nccl_available():
-            raise RuntimeError("a CUDA device needs NCCL, and this torch "
-                               "has none")
-        device = torch.device("cuda", host_id % torch.cuda.device_count())
+        cards = torch.cuda.device_count()
+        device = torch.device("cuda", host_id % cards)
         torch.cuda.set_device(device)
-        backend = "nccl"
-    else:
-        backend = "gloo"
+        if num_hosts <= cards:
+            if not dist.is_nccl_available():
+                raise RuntimeError("a CUDA device needs NCCL, and this "
+                                   "torch has none")
+            backend = "nccl"
     init_method = coordinator if "://" in coordinator \
         else f"tcp://{coordinator}"
     dist.init_process_group(backend, init_method=init_method,
@@ -109,10 +122,10 @@ def make_mesh(n_devices: Optional[int] = None,
 
     The default is the 1-D ``data`` mesh over every rank; ``shape`` splits
     the ranks over several axes, e.g. ``axes=('data', 'model')``,
-    ``shape=(N, 1)``.  A mesh spans every rank (``n_devices`` may only
-    repeat the world size), and a ``'model'`` axis larger than 1 raises
-    (ROADMAP item 11b).  Without a process group this starts a one-rank
-    gloo group on an in-process store.
+    ``shape=(N, 2)``: a rank's model group is the ranks of its row.  A
+    mesh spans every rank (``n_devices`` may only repeat the world size).
+    Without a process group this starts a one-rank gloo group on an
+    in-process store.
     """
     if not dist.is_initialized():
         dist.init_process_group("gloo", store=dist.HashStore(),
@@ -126,10 +139,6 @@ def make_mesh(n_devices: Optional[int] = None,
     if int(np.prod(shape)) != world or len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} over axes {axes} does not "
                          f"hold {world} ranks")
-    if "model" in axes and shape[axes.index("model")] > 1:
-        raise NotImplementedError(
-            "model-axis sharding of the int8 plans is not ported "
-            "(ROADMAP item 11b)")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.arange(world).reshape(shape),
                       mesh_dim_names=tuple(axes))
@@ -193,6 +202,46 @@ def all_gather_rows(x: torch.Tensor, mesh: DeviceMesh,
     parts = [torch.empty_like(x) for _ in range(size)]
     dist.all_gather(parts, x.contiguous(), group=axis_group(mesh, axis))
     return torch.cat(parts)
+
+
+def model_transport(mesh: Optional[DeviceMesh],
+                    axis: str = "model") -> str:
+    """How :func:`gather_channels` moves the blocks over ``axis``: the
+    backend, and for gloo whether the codes pass through host memory,
+    with the ranks a card carries."""
+    if axis_size(mesh, axis) == 1:
+        return "none"
+    if dist.get_backend() == "nccl":
+        return "nccl, 1 rank per card"
+    if not torch.cuda.is_available():
+        return "gloo on the CPU"
+    per_card = -(-world_size() // torch.cuda.device_count())
+    return f"gloo through host memory, {per_card} ranks per card"
+
+
+def gather_channels(x: torch.Tensor, mesh: Optional[DeviceMesh],
+                    axis: str = "model") -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes, channels last) side by side on
+    the last axis, in rank order along ``axis``: a sharded layer's blocks
+    of output channels as the whole output, on ``x``'s device.
+
+    The all-gather stacks the blocks on a new leading axis, (n, …, c), so
+    an interleave copy follows, (…, n, c) → (…, n·c): one more read and
+    write of the gathered bytes, on ``x``'s device.  Under gloo a CUDA
+    ``x`` goes through host memory (module docstring)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    group = axis_group(mesh, axis)
+    x = x.contiguous()
+    stack = torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+                        device=x.device)
+    if dist.get_backend(group) == "nccl":
+        dist.all_gather_into_tensor(stack, x, group=group)
+    else:
+        dist.all_gather(list(stack.unbind(0)), x, group=group)
+    return stack.movedim(0, -2).reshape(tuple(x.shape[:-1])
+                                        + (n * x.shape[-1],))
 
 
 def all_reduce_mean(t: torch.Tensor, mesh: Optional[DeviceMesh],

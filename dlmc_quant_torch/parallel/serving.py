@@ -6,11 +6,18 @@ images or micro-batches, NHWC float32) are queued; a dispatcher thread
 packs them into batches of ``batch_size`` (zeros pad the tail), runs the
 deploy-form module on the card and resolves one future a request.
 
-Several ranks: each rank serves its own replica on its own request stream
-(the data axis).  The forward holds no collective, since the model axis,
-the int8 weights sharded over output channels, is ROADMAP item 11b.  The
-protocol is kept as JAX's: a collective forward needs every rank to run
-the same sequence of steps.
+Several ranks: each row of the mesh's data axis serves its own request
+stream.  With a ``'model'`` axis larger than 1 the ranks of a row form a
+model group: the engine shards the module's int8 plans over it
+(``parallel.sharding_rules.shard_params``), every forward gathers each
+layer's blocks of channels over the group, and so the group's ranks must
+run the same batches.  JAX's single controller gives them one array;
+here the group's first rank (its lead) takes the requests, and each
+lockstep step broadcasts its padded batch to the other ranks of the
+group before the forward; the lead resolves the futures with the
+gathered logits.  ``submit`` on any other rank raises.  A collective
+forward needs every rank to run the same sequence of steps: the protocol
+below, as JAX's.
 
 Lockstep (``lockstep=True``, the default when the process group has more
 than one rank): batching on the timing of the local queue would desync
@@ -40,6 +47,7 @@ import torch.distributed as dist
 
 from dlmc_quant_torch.device import DeviceLike, resolve_device
 from dlmc_quant_torch.parallel import mesh as mesh_lib
+from dlmc_quant_torch.parallel.sharding_rules import shard_params
 
 
 class InferenceEngine:
@@ -47,9 +55,12 @@ class InferenceEngine:
 
     ``model`` has had ``prepare_deploy``; it is moved to ``device`` (the
     card unless the caller passes ``'cpu'``) and run in eval mode under
-    ``torch.inference_mode`` with ``qmode``.  ``mesh`` is a data mesh
-    (``parallel.mesh.make_mesh``) or None; its ranks decide the lockstep
-    default and the votes, never the forward.
+    ``torch.inference_mode`` with ``qmode``.  ``mesh`` is a mesh
+    (``parallel.mesh.make_mesh``) or None.  Its ranks decide the lockstep
+    default and the votes; where it has a ``'model'`` axis, the module's
+    plans are sharded over that axis in place (module docstring), and
+    ``forward`` must be called with the same batch on every rank of a
+    model group.
 
     There is no ``weight_resident`` argument: the module's integer plans
     already live on the device, so nothing is marshalled per call, and a
@@ -69,9 +80,16 @@ class InferenceEngine:
         self.batch_size = batch_size
         self.qmode = qmode
         self.max_wait = max_wait_ms / 1e3
-        self.ranks = (mesh_lib.axis_size(mesh) if mesh is not None
-                      else mesh_lib.world_size())
+        self.ranks = mesh_lib.world_size()
         self.lockstep = self.ranks > 1 if lockstep is None else bool(lockstep)
+        self.mesh = mesh
+        self.model_ranks = mesh_lib.axis_size(mesh, "model")
+        self.lead = mesh_lib.axis_rank(mesh, "model") == 0
+        if self.model_ranks > 1:
+            if not self.lockstep:
+                raise ValueError("a model group steps in lockstep: its "
+                                 "ranks must run the same batches")
+            shard_params(self.model, mesh, "model")
         self.tick = tick_ms / 1e3
         self.consensus_every = max(int(consensus_every), 1)
         self.steps = 0                  # lockstep: local dispatch count
@@ -138,7 +156,12 @@ class InferenceEngine:
         (K, classes) array.
 
         A request larger than the device batch is split into chunks and
-        put back together before the future resolves."""
+        put back together before the future resolves.  Under a model axis
+        only the group's first rank takes requests: on the others this
+        raises (they run the lead's batches)."""
+        if not self.lead:
+            raise RuntimeError("submit to the model group's first rank: "
+                               "the other ranks run its batches")
         images = np.asarray(images)
         if images.shape[0] <= self.batch_size:
             fut: Future = Future()
@@ -160,11 +183,26 @@ class InferenceEngine:
         threading.Thread(target=_gather, daemon=True).start()
         return out
 
+    def _shared_batch(self, batch, n: int) -> np.ndarray:
+        """The model group lead's padded float32 batch on every rank of the
+        group (a broadcast over the group; on the host for gloo)."""
+        x = np.zeros((self.batch_size,) + self._image_shape, np.float32)
+        if n:
+            x[:n] = np.concatenate(batch)
+        group = mesh_lib.axis_group(self.mesh, "model")
+        t = torch.from_numpy(x)
+        if dist.get_backend(group) == "nccl":
+            t = t.to(self.device)
+        dist.broadcast(t, dist.get_global_rank(group, 0), group=group)
+        return t.cpu().numpy()
+
     def _run(self, batch, n: int):
         """One step: (numpy logits of the ``n`` real rows, None) or (None,
         the error)."""
         try:
-            if n:
+            if self.model_ranks > 1:
+                x = self._shared_batch(batch, n)
+            elif n:
                 x = np.concatenate(batch)
             else:   # an empty lockstep step: the forward must still run
                 x = np.zeros((self.batch_size,) + self._image_shape,

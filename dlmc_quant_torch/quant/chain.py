@@ -68,6 +68,21 @@ carry the term), and :func:`qmaxpool` on a stem with a row term pools the
 float32 values of its ``int8_im2col`` rows through the GEMM (the term
 varies by position, so pooling the accumulator is no longer monotone).
 
+A layer whose plan is sharded over the mesh's ``'model'`` axis
+(``parallel.sharding_rules``) computes its rank's block of output
+channels, and its :class:`DeferredEpilogue` carries the :class:`Shard`.
+The consumer computes the block's share of its boundary (the folded
+constants are the block's already: ``scale``, ``bias`` and the row
+term's ``c`` come from the producer's sliced plan) and gathers the
+blocks over the model group (``parallel.mesh.gather_channels``):
+:func:`fold_quantize` the int8 codes, :func:`materialize` the float32
+values, :func:`fold_sum_quantize` the block's codes after the residual
+sum, whose shortcut term it reads at the trunk's block: codes and float32
+values sliced, and a shortcut GEMM sharded as the trunk is (a
+Bottleneck's downsample beside its ``conv3``) given as its own int32
+block, with no gather.  The logits are gathered last, by the head's
+:func:`materialize`.
+
 Each pending conv carries its kernel's weight layout as the layer's plan
 packed it: int8, or at W4 (4-bit weights) the same layout nibble-packed,
 two values a byte (``ops/cuda/nibbles.py``), whose ``uint8`` dtype says so
@@ -94,6 +109,7 @@ from dlmc_quant_torch.ops.cuda.int8_gemm import int8_gemm
 from dlmc_quant_torch.ops.cuda.int8_im2col import int8_im2col, out_hw
 from dlmc_quant_torch.ops.cuda.int8_stem_pool import int8_stem_pool
 from dlmc_quant_torch.ops.cuda.nibbles import W4
+from dlmc_quant_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,11 +167,16 @@ class PendingWideConv:
     groups: an ``int8_im2col`` launch on each group's channels and an
     ``"int32"`` GEMM launch on its rows, the accumulators side by side,
     then the epilogue in torch (:func:`.epilogue.epilogue_plain`'s steps,
-    as the GEMM's epilogue rounds them)."""
+    as the GEMM's epilogue rounds them).  A group past ``MAX_KP`` bytes
+    of K (k²·C/G) runs in runs of channels
+    (``int8_im2col.channel_chunks``): a launch pair a run, the int32
+    accumulators summed (exact), then the same torch epilogue."""
     x: torch.Tensor          # (N, H, W, C) int8 codes
     weight: torch.Tensor     # packed (O, Kp) int8 (ops.cuda.int8_im2col)
     #                          or (O, Kp/2) uint8 nibbles; in G groups
-    #                          (G, O/G, Kp), one B a group
+    #                          (G, O/G, Kp), one B a group; past MAX_KP
+    #                          bytes of K a group (G, chunks, O/G, Kp), one
+    #                          B a run of channels (channel_chunks)
     pool_weight: Optional[torch.Tensor]  # ops.cuda.int8_stem_pool's layout
     #                          (nibble-packed with weight), None where that
     #                          kernel does not take the conv
@@ -174,16 +195,36 @@ class PendingWideConv:
         shape = (n,) + out_hw(h, w, self.kernel, self.stride, self.pads)
         return PendingGemm(rows, weight, shape)
 
+    def _group_acc(self, x: torch.Tensor,
+                   weight: torch.Tensor) -> torch.Tensor:
+        """The int32 accumulator of one group's channels ``x``: one im2col
+        and one GEMM, or for a weight in channel chunks ((chunks, Og, Kp),
+        past ``int8_im2col.MAX_KP`` bytes of K) a launch pair a chunk,
+        summed; the last chunk's channels past C (zero weights) read
+        code 0."""
+        if weight.dim() == 2:
+            return self._gemm(x.contiguous(), weight).run(mode="int32")
+        chunks, c = weight.shape[0], x.shape[-1]
+        per = -(-c // chunks)
+        if per * chunks != c:
+            x = F.pad(x, (0, per * chunks - c))
+        acc = self._gemm(x[..., :per].contiguous(), weight[0]).run(
+            mode="int32")
+        for j in range(1, chunks):
+            # not in place: each launch's output stays as it came
+            acc = acc + self._gemm(x[..., j * per:(j + 1) * per]
+                                   .contiguous(), weight[j]).run(mode="int32")
+        return acc
+
     def run(self, a=None, b=None, *, mode: str = "codes",
             **epilogue) -> torch.Tensor:
-        if self.groups == 1:
+        if self.groups == 1 and self.weight.dim() == 2:
             return self._gemm(self.x, self.weight).run(a, b, mode=mode,
                                                        **epilogue)
         cg = self.x.shape[-1] // self.groups
-        acc = torch.cat([
-            self._gemm(self.x[..., g * cg:(g + 1) * cg].contiguous(),
-                       self.weight[g]).run(mode="int32")
-            for g in range(self.groups)], dim=-1)
+        acc = torch.cat([self._group_acc(self.x[..., g * cg:(g + 1) * cg],
+                                         self.weight[g])
+                         for g in range(self.groups)], dim=-1)
         if mode == "int32":
             return acc
         return epilogue_plain(acc, a, b, mode=mode, **epilogue)
@@ -270,6 +311,43 @@ STEM_POOL = ((3, 3), (2, 2), ((1, 1), (1, 1)))
 
 
 @dataclasses.dataclass(frozen=True)
+class Shard:
+    """This rank's block ``[lo, hi)`` of a layer's ``full`` output
+    channels on the mesh's model axis (``parallel.sharding_rules``)."""
+    lo: int
+    hi: int
+    full: int
+    mesh: object = dataclasses.field(compare=False)    # a DeviceMesh
+    axis: str = "model"
+
+    @property
+    def ranks(self) -> int:
+        return self.full // (self.hi - self.lo)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of ``t`` (channels last) side by side."""
+        return mesh_lib.gather_channels(t, self.mesh, self.axis)
+
+
+def _block(t: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    """``t``'s channels (the last axis) of ``shard``'s block."""
+    return t if shard is None else t[..., shard.lo:shard.hi]
+
+
+def _gathered(t: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    return t if shard is None else shard.gather(t)
+
+
+def _to_block(t: torch.Tensor, have: Optional[Shard],
+              want: Optional[Shard]) -> torch.Tensor:
+    """``t``, whose channels are ``have``'s block (all of them for None),
+    as ``want``'s block: as it is, sliced, or gathered first."""
+    if have == want:
+        return t
+    return _block(_gathered(t, have), want)
+
+
+@dataclasses.dataclass(frozen=True)
 class DeferredEpilogue:
     """Lazy layer output: real value = ``relu?(acc·scale + S·c + bias)``,
     then ``min(·, clamp_hi)`` where set (ReLU6).
@@ -280,7 +358,12 @@ class DeferredEpilogue:
     term ``(S, c)`` or None: ``S`` int32 over the output's rows ((N, Ho,
     Wo), or (M,) for an (M, O) ``acc``; (N, Ho, Wo, G) for a conv in G
     groups, one sum a group; None for a depthwise conv, whose kernel sums
-    its own windows), ``c`` (O,) f32.
+    its own windows), ``c`` (O,) f32.  ``shard`` is the block of output
+    channels that ``acc``, ``scale``, ``bias`` and ``c`` hold where the
+    layer is sharded over the model axis: every consumer gathers the
+    blocks once it has computed its part (:func:`materialize` the f32
+    values, :func:`fold_quantize` and :func:`fold_sum_quantize` the
+    codes).
     """
     acc: Union[torch.Tensor, PendingConv, PendingGemm, PendingWideConv,
                PendingStemPool, PendingDwConv]
@@ -289,6 +372,7 @@ class DeferredEpilogue:
     relu: bool = False
     clamp_hi: Optional[float] = None
     row: Optional[tuple] = None
+    shard: Optional[Shard] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -402,7 +486,9 @@ def materialize(x):
         if x.relu:
             y = torch.clamp_min(y, 0.0)
     # min(., 6) is exact: it runs after the f32 epilogue
-    return y if x.clamp_hi is None else torch.clamp_max(y, x.clamp_hi)
+    if x.clamp_hi is not None:
+        y = torch.clamp_max(y, x.clamp_hi)
+    return _gathered(y, x.shard)
 
 
 def _row_product(acc: torch.Tensor, scale, row) -> torch.Tensor:
@@ -455,20 +541,28 @@ def fold_quantize(x: DeferredEpilogue, inv_s: float, qbias: float,
     a, b, lo, hi = fold_params(x, inv_s, qbias, qmin_s, qmax_s)
     row = _folded_row(x, inv_s)
     if isinstance(x.acc, PENDING):
-        return x.acc.run(a, b, lo=lo, hi=hi, mode="codes", row=row)
-    y = _row_product(x.acc, a, row)
-    y = y + b
-    return torch.round(y).clamp_(lo, hi).to(torch.int8)
+        q = x.acc.run(a, b, lo=lo, hi=hi, mode="codes", row=row)
+    else:
+        y = _row_product(x.acc, a, row)
+        y = y + b
+        q = torch.round(y).clamp_(lo, hi).to(torch.int8)
+    return _gathered(q, x.shard)
 
 
-def _residual_operand(r, inv_s: float, o: int, device):
+def _residual_operand(r, inv_s: float, o: int, device,
+                      shard: Optional[Shard] = None):
     """``(r, ar, br)`` of the residual epilogue for the shortcut term ``r``
-    (fold_sum_quantize's rules per term kind)."""
+    (fold_sum_quantize's rules per term kind), at the ``o`` channels of the
+    trunk's block ``shard`` (all of them for None): codes and float32
+    values sliced to it; a shortcut GEMM's int32 accumulator as it is
+    where the GEMM is sharded as the trunk is (no gather), else sliced or
+    gathered."""
     def full(v):
         return torch.full((o,), v, dtype=torch.float32, device=device)
     if isinstance(r, QuantizedTensor):
         inv = np.float32(inv_s)       # the products in float32, as JAX's
-        return (r.q.contiguous(), full(float(np.float32(r.scale) * inv)),
+        return (_block(r.q, shard).contiguous(),
+                full(float(np.float32(r.scale) * inv)),
                 full(float(np.float32(r.bias) * inv)))
     if isinstance(r, DeferredEpilogue) and not r.relu \
             and r.clamp_hi is None and r.row is None \
@@ -476,11 +570,12 @@ def _residual_operand(r, inv_s: float, o: int, device):
         # the int32 accumulator (a pending shortcut GEMM runs for it)
         acc = r.acc.run(mode="int32") if isinstance(r.acc, PENDING) \
             else r.acc
-        return (acc.contiguous(), (r.scale * inv_s).contiguous(),
-                (r.bias * inv_s).contiguous())
+        return tuple(_to_block(t, r.shard, shard).contiguous()
+                     for t in (acc, r.scale * inv_s, r.bias * inv_s))
     # a relu- or ReLU6-flagged term is nonlinear inside the sum, and a row
     # term has no int32 form: materialized first
-    return materialize(r).contiguous(), full(inv_s), full(0.0)
+    return _block(materialize(r), shard).contiguous(), full(inv_s), \
+        full(0.0)
 
 
 def _float_trunk_sum(y: torch.Tensor, r, inv_s: float, qbias: float,
@@ -520,7 +615,9 @@ def fold_sum_quantize(terms, inv_s: float, qbias: float, lo: int,
     trunk's own row term is added to its product, ``(qbias + (acc·A +
     S·C)) + B``).  The block's ReLU lives in
     ``lo``; a linear bottleneck (no ReLU) passes the grid's minimum.
-    For a pending ``y`` the whole sum runs in the epilogue of its conv.
+    For a pending ``y`` the whole sum runs in the epilogue of its conv;
+    a ``y`` sharded over the model axis sums its own block of channels
+    (:func:`_residual_operand`) and the codes are gathered after.
     """
     y, r = terms
     if isinstance(y, torch.Tensor):
@@ -533,7 +630,8 @@ def fold_sum_quantize(terms, inv_s: float, qbias: float, lo: int,
                          "the trunk's last conv: y must be its pending, "
                          "ReLU-free output (a 3x3, 1x1 or wide conv), or a "
                          "float32 tensor")
-    residual = _residual_operand(r, inv_s, y.scale.shape[0], y.scale.device)
-    return y.acc.run(y.scale * inv_s, y.bias * inv_s, lo=lo, hi=qmax_s,
-                     mode="codes", residual=residual, qb=qbias,
-                     row=_folded_row(y, inv_s))
+    residual = _residual_operand(r, inv_s, y.scale.shape[0], y.scale.device,
+                                 y.shard)
+    return _gathered(y.acc.run(y.scale * inv_s, y.bias * inv_s, lo=lo,
+                               hi=qmax_s, mode="codes", residual=residual,
+                               qb=qbias, row=_folded_row(y, inv_s)), y.shard)

@@ -75,7 +75,9 @@ per-channel weight axis is 0.
   such as the ImageNet 7×7/s2 stem (``ops.cuda.int8_stem_pool`` with the
   max pool after it, else ``ops.cuda.int8_im2col`` rows into
   ``int8_gemm``, any pads; grouped, one im2col and one int32 GEMM a group,
-  the epilogue in torch); all take int8 codes on the layer's own grid or
+  the epilogue in torch; past 2,048 bytes of K a group, an im2col and an
+  int32 GEMM a run of channels, summed); all take int8 codes on the
+  layer's own grid or
   a :class:`QuantizedTensor` on a producer's, whose epilogue is
   re-derived from the stored column sums.  Each leaves its conv pending
   for the consumer (``quant/chain.py``), but for the grouped 1×1.
@@ -99,6 +101,14 @@ per-channel weight axis is 0.
   the plan gives it the even one of the two neighbouring codes (round
   half to even) and ``prepare_deploy`` counts such weights
   (``midpoints``).  A weight-only layer dequantizes ``w_int·s_w + o_w``.
+* The model axis (``parallel.sharding_rules.shard_params``): a layer's
+  plan sharded over output channels (:meth:`QLayer.shard_plan`) holds
+  one rank's block of them, its per-channel vectors cut from the whole
+  layer's and its kernel layouts packed from the cut int8 weight; a
+  grouped conv keeps whole groups a rank and reads its groups' input
+  channels (a depthwise conv its own block), a weight-only layer gathers
+  its float32 block itself, and every other output carries its block
+  to the consumers, which gather (``quant/chain.py``).
 * :class:`QBlockOutput` closes a residual block: ``relu(y + r)`` (or
   ``y + r`` for a linear bottleneck) in every qmode but ``'intc'``, where
   the sum, the ReLU and the quantize run in the epilogue of the block's
@@ -188,6 +198,7 @@ class QLayer(nn.Module):
         self.cfg = None
         self.plan_scalars = None     # host floats of the integer plan
         self.midpoints = 0           # C20 weights (_fake_quant_codes)
+        self.shard = None            # the plan's block of output channels
 
     def configure(self, path: str, scheme) -> None:
         """Resolve this layer's config and create its quantizer state."""
@@ -492,7 +503,10 @@ class QLayer(nn.Module):
         no host scalars; the weights are :meth:`_weight_buffers`, and the
         int8 weight itself is only a local here at W4.  A weight offset
         adds ``w_offset`` (O,) and, with an input quantizer,
-        ``off_scale`` (module docstring)."""
+        ``off_scale`` (module docstring).  With :attr:`shard` set, every
+        tensor of the plan holds that block of the output channels: the
+        int8 weight and the per-channel vectors are cut from the whole
+        layer's, and the packed layouts packed from the cut weight."""
         cfg = self.cfg
         wq, aq = cfg.weight, cfg.input
         if not wq.enable:
@@ -527,12 +541,17 @@ class QLayer(nn.Module):
         else:
             w_int = dp.quantize_weight_int(kernel, s_w, wq.qmin, wq.qmax)
         # one scale per output channel, per-tensor scales too: the kernels'
-        # epilogues take (O,) vectors
-        w_scale = s_w.to(torch.float32).expand(kernel.shape[0]).contiguous()
+        # epilogues take (O,) vectors; this rank's block of them where the
+        # plan is sharded
+        o = kernel.shape[0]
+        block = slice(None) if self.shard is None \
+            else slice(self.shard.lo, self.shard.hi)
+        w_int = w_int[block]
+        w_scale = s_w.to(torch.float32).expand(o)[block].contiguous()
         weights = self._weight_buffers(w_int)
         if offset:
             weights["w_offset"] = o_w.to(torch.float32).expand(
-                kernel.shape[0]).contiguous()
+                o)[block].contiguous()
         if not aq.enable:
             return {**weights, "w_scale": w_scale}, {}
 
@@ -543,10 +562,11 @@ class QLayer(nn.Module):
         colsum = w_int.to(torch.int32).sum(
             dim=tuple(range(1, w_int.dim()))).to(torch.float32)
         bias_eff = (shift * s_x + o_x) * w_scale * colsum
-        bias0 = (self.bias.detach().to(torch.float32) if self.bias is not None
+        bias = None if self.bias is None else self.bias.detach()[block]
+        bias0 = (bias.to(torch.float32) if bias is not None
                  else torch.zeros_like(colsum))
-        if self.bias is not None:
-            bias_eff = bias_eff + self.bias.detach()
+        if bias is not None:
+            bias_eff = bias_eff + bias
         pad_val = int(dp.int8_pad_value(s_x, o_x, aqmin, aqmax))
         if offset:
             bias_eff = bias_eff + self._zero_residue(
@@ -575,12 +595,52 @@ class QLayer(nn.Module):
         return w_offset * (self.weight[0].numel() * zero_value)
 
     def prepare_deploy(self) -> None:
-        """Build and store the integer plan (buffers + host scalars)."""
+        """Build and store the integer plan (buffers + host scalars), at
+        the whole layer's output channels."""
+        self.shard = None
+        self._store_plan()
+
+    def shard_plan(self, shard) -> None:
+        """The integer plan at ``shard``'s block of output channels
+        (``quant.chain.Shard``; ``parallel.sharding_rules.shard_params``):
+        a forward in ``'int'``/``'intc'`` then computes those channels and
+        its output carries the block, which its consumers gather."""
+        self.shard = shard
+        self._store_plan()
+
+    def _store_plan(self) -> None:
         tensors, self.plan_scalars = self._build_int_plan()
         for name in ("w_offset", "off_scale", "w_mm"):
             self._buffers.pop(name, None)     # a plan before may have had one
         for name, t in tensors.items():
             self.register_buffer(name, t)
+
+    @property
+    def local_groups(self) -> int:
+        """The groups of this rank's block: all of them, or a grouped
+        layer's share where its plan is sharded (whole groups a rank)."""
+        if self.shard is None or self.groups == 1:
+            return self.groups
+        return self.groups // self.shard.ranks
+
+    def _own_channels(self, x: torch.Tensor) -> torch.Tensor:
+        """The input channels that this rank's block reads: all of them,
+        or a sharded grouped layer's groups' (a depthwise conv's own
+        block)."""
+        if self.shard is None or self.groups == 1:
+            return x
+        cg = x.shape[-1] // self.groups
+        g0 = self.shard.lo // (self.shard.full // self.groups)
+        return x[..., g0 * cg:(g0 + self.local_groups) * cg]
+
+    def _bias_block(self) -> Optional[torch.Tensor]:
+        if self.bias is None or self.shard is None:
+            return self.bias
+        return self.bias[self.shard.lo:self.shard.hi]
+
+    def _gathered(self, y: torch.Tensor) -> torch.Tensor:
+        """A weight-only layer's f32 block, gathered where sharded."""
+        return y if self.shard is None else self.shard.gather(y)
 
     def _require_plan(self) -> None:
         if self.plan_scalars is None:
@@ -725,7 +785,7 @@ class QConv(QLayer):
             pads.append((total // 2, total - total // 2))
         return tuple(pads)
 
-    def _conv(self, x, w, bias=True):
+    def _conv(self, x, w, bias=True, groups=None):
         (top, bottom), (left, right) = self.spatial_pads(x.shape[1],
                                                          x.shape[2])
         xc = x.permute(0, 3, 1, 2)
@@ -733,7 +793,7 @@ class QConv(QLayer):
         if not top == bottom == left == right:
             xc, pad = F.pad(xc, (left, right, top, bottom)), 0
         y = F.conv2d(xc, w, self.bias if bias else None, self.stride, pad,
-                     groups=self.groups)
+                     groups=self.groups if groups is None else groups)
         return y.permute(0, 2, 3, 1)
 
     def forward_oi(self, x, w):
@@ -750,9 +810,12 @@ class QConv(QLayer):
             if self.weight_only:
                 # dlmc_quant_tpu/quant/layers.py:666-672: bf16 operands, an
                 # f32 accumulator and output (bf16 products are exact in f32)
-                y = self._conv(_bf16_values(materialize(x)),
-                               self._dequantized_weight().float(), bias=False)
-                return y if self.bias is None else y + self.bias
+                y = self._conv(
+                    self._own_channels(_bf16_values(materialize(x))),
+                    self._dequantized_weight().float(), bias=False,
+                    groups=self.local_groups)
+                bias = self._bias_block()
+                return self._gathered(y if bias is None else y + bias)
             de = self.deferred(*self._int_input(x),
                                off_scale=self._int_offset(x))
             return de if qmode == "intc" else materialize(de)
@@ -777,7 +840,10 @@ class QConv(QLayer):
         ``x_i8`` (``int8_window_sum`` at this conv's window, stride, pads
         and groups, (N, Ho, Wo) or (N, Ho, Wo, G); ``None`` for a
         depthwise conv, whose kernel sums its own); ``off_scale`` must
-        come with a given epilogue (:meth:`_int_offset`)."""
+        come with a given epilogue (:meth:`_int_offset`).  Where the plan
+        is sharded (:attr:`shard`) the output holds this rank's block of
+        channels and carries the shard; a grouped conv reads its own
+        groups' input channels (:meth:`_own_channels`)."""
         if epi_scale is None:
             epi_scale, bias_eff = self.epi_scale, self.bias_eff
             pad = self.plan_scalars["pad_val"]
@@ -786,6 +852,7 @@ class QConv(QLayer):
             raise ValueError(f"{self.path}: a weight offset's row term needs "
                              "off_scale on the input's grid (_int_offset; "
                              "ROADMAP item 13)")
+        x_i8, groups = self._own_channels(x_i8), self.local_groups
         _, h, w, _ = x_i8.shape
         pads = self.spatial_pads(h, w)
         top, left = pads[0][0], pads[1][0]
@@ -797,42 +864,38 @@ class QConv(QLayer):
             # their K tail with code 0, not the zero code
             sums = None if dw else int8_window_sum(
                 x_i8.contiguous(), zero=pad, kernel=k, stride=s, pads=pads,
-                groups=self.groups)
+                groups=groups)
             row = (sums, off_scale)
+
+        def out(pending):
+            return DeferredEpilogue(pending, epi_scale, bias_eff, row=row,
+                                    shard=self.shard)
+
         if dw:
             # the kernel's own geometry where the pads give it, else the
             # pads passed in (VALID, or any other padding)
             own = (top == left and top in dwconv.pad_los(k, s)
                    and dwconv.geometry(h, w, k, s, top)
                    == dwconv.geometry(h, w, k, s, pads=pads))
-            pending = PendingDwConv(x_i8.contiguous(), self.w_dw, s, pad,
-                                    top if own else k // 2,
-                                    None if own else pads)
-            return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
+            return out(PendingDwConv(x_i8.contiguous(), self.w_dw, s, pad,
+                                     top if own else k // 2,
+                                     None if own else pads))
         if self.wide or not self._conv_takes(h, w, pads):
-            kk = k * k * self.weight.shape[1]
-            if kk > im2col.MAX_KP:
-                raise NotImplementedError(
-                    f"{self.path}: a {k}x{k} conv of {kk} bytes a row and "
-                    "group runs as int8_im2col rows, which take at most "
-                    f"{im2col.MAX_KP} (ROADMAP item 7c)")
-            pending = PendingWideConv(x_i8.contiguous(), self._gemm_weight(),
-                                      getattr(self, "w_stem", None), k, s,
-                                      pads, pad, self.groups)
-            return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
+            # past im2col.MAX_KP bytes of K a group in runs of channels
+            # (_gemm_weight's chunks)
+            return out(PendingWideConv(x_i8.contiguous(), self._gemm_weight(),
+                                       getattr(self, "w_stem", None), k, s,
+                                       pads, pad, groups))
         if k == 1:
             codes = x_i8[:, ::s, ::s, :].contiguous()
-            if self.groups > 1:
-                return DeferredEpilogue(self._grouped_gemm(codes), epi_scale,
-                                        bias_eff, row=row)
-            pending = PendingGemm(pad_k(codes.reshape(-1, codes.shape[-1])),
-                                  self.w_gemm, tuple(codes.shape[:3]))
-            return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
+            if groups > 1:
+                return out(self._grouped_gemm(codes))
+            return out(PendingGemm(pad_k(codes.reshape(-1, codes.shape[-1])),
+                                   self.w_gemm, tuple(codes.shape[:3])))
         # the conv kernel pads `top` rows and columns above and left (1, or
         # 0 for SAME at stride 2 on an even map) and gives ceil(h / s) rows
-        pending = PendingConv(x_i8.contiguous(), self.w_packed, s, pad, top,
-                              self.groups)
-        return DeferredEpilogue(pending, epi_scale, bias_eff, row=row)
+        return out(PendingConv(x_i8.contiguous(), self.w_packed, s, pad, top,
+                               groups))
 
     def _conv_takes(self, h: int, w: int, pads) -> bool:
         """Whether the 3×3 conv kernel's geometry is this conv's on an
@@ -851,13 +914,31 @@ class QConv(QLayer):
         repacked from ``w_packed`` at each such forward."""
         if hasattr(self, "w_gemm"):
             return self.w_gemm
-        o, g = self.weight.shape[0], self.groups
+        g = self.local_groups
+        o = self.w_packed.shape[0]
         c = self.weight.shape[1] * g
-        w_hwio = conv3x3.unpack_weight(self.w_packed, c, o, g)
+        return self._pack_gemm(conv3x3.unpack_weight(self.w_packed, c, o, g))
+
+    def _pack_gemm(self, w_hwio: torch.Tensor) -> torch.Tensor:
+        """The GEMM's B of an (k, k, C/G, O) HWIO weight in this rank's
+        groups: (O, Kp), or (G, O/G, Kp) one a group; where a group's
+        k²·C/G bytes of K pass ``int8_im2col.MAX_KP``, a B a run of
+        channels (``channel_chunks``; the last run's channels past C/G
+        zero), (G, chunks, O/G, Kp).  Nibble-packed at W4."""
         pack = im2col.pack_weight_int4 if self.int4 else im2col.pack_weight
+        k, _, cg, o = w_hwio.shape
+        g = self.local_groups
         og = o // g
-        return pack(w_hwio) if g == 1 else torch.stack(
-            [pack(w_hwio[..., i * og:(i + 1) * og]) for i in range(g)])
+        # an unpadded 1x1 runs the GEMM on its codes, with no im2col rows
+        chunks, per = (im2col.channel_chunks(k, cg) if k > 1 or self.wide
+                       else (1, cg))
+        if chunks == 1:
+            return pack(w_hwio) if g == 1 else torch.stack(
+                [pack(w_hwio[..., i * og:(i + 1) * og]) for i in range(g)])
+        w_hwio = F.pad(w_hwio, (0, 0, 0, chunks * per - cg))
+        return torch.stack([torch.stack(
+            [pack(w_hwio[:, :, j * per:(j + 1) * per, i * og:(i + 1) * og])
+             for j in range(chunks)]) for i in range(g)])
 
     def _grouped_gemm(self, codes: torch.Tensor) -> torch.Tensor:
         """A grouped 1×1 conv's int32 accumulator (N, Ho, Wo, O) from its
@@ -865,11 +946,12 @@ class QConv(QLayer):
         channels (the train form of RepVGG's g2/g4 blocks runs it); a
         weight offset's row term, one sum a group, is added in the torch
         epilogue that folds it (``quant.chain``)."""
-        cg = codes.shape[-1] // self.groups
+        groups = self.local_groups
+        cg = codes.shape[-1] // groups
         accs = [PendingGemm(pad_k(codes[..., g * cg:(g + 1) * cg]
                                   .reshape(-1, cg).contiguous()),
                             self.w_gemm[g], tuple(codes.shape[:3]))
-                .run(mode="int32") for g in range(self.groups)]
+                .run(mode="int32") for g in range(groups)]
         return torch.cat(accs, dim=-1)
 
     def _weight_buffers(self, w_int) -> dict:
@@ -881,8 +963,10 @@ class QConv(QLayer):
         :attr:`wide` convs: the GEMM's B, K ordered (dy, dx, c) as
         ``int8_im2col`` writes a row, which at 1×1 is ``pack_b`` of the
         (C, O) weight; a grouped conv's is (G, O/G, Kp), one packed B a
-        group) and, for an ungrouped wide conv, ``w_stem`` (the stem
-        kernel's, where it takes the conv, else None)."""
+        group; past ``int8_im2col.MAX_KP`` bytes of K a group one a run of
+        channels, :meth:`_pack_gemm`) and, for an ungrouped wide conv,
+        ``w_stem`` (the stem kernel's, where it takes the conv, else
+        None).  A sharded plan packs this rank's block (its groups)."""
         w_hwio = w_int.permute(2, 3, 1, 0)
         if self.weight_only:
             return ({"w_int4": dp.pack_int4(w_hwio)} if self.int4
@@ -893,15 +977,11 @@ class QConv(QLayer):
                            else dwconv.pack_weight)(w_hwio)
         elif self.kernel_size == 3 and not self.wide:
             out["w_packed"] = (conv3x3.pack_weight_int4 if self.int4
-                               else conv3x3.pack_weight)(w_hwio, self.groups)
+                               else conv3x3.pack_weight)(w_hwio,
+                                                         self.local_groups)
         else:
-            pack = (im2col.pack_weight_int4 if self.int4
-                    else im2col.pack_weight)
-            og = w_hwio.shape[3] // self.groups
-            out["w_gemm"] = pack(w_hwio) if self.groups == 1 else \
-                torch.stack([pack(w_hwio[..., g * og:(g + 1) * og])
-                             for g in range(self.groups)])
-            if self.groups == 1 and self.kernel_size != 1:
+            out["w_gemm"] = self._pack_gemm(w_hwio)
+            if self.local_groups == 1 and self.kernel_size != 1:
                 c, o = w_hwio.shape[2:]
                 stem = (self.kernel_size, self.stride) == \
                     (stem_pool.KERNEL, stem_pool.STRIDE) \
@@ -990,18 +1070,20 @@ class QDense(QLayer):
                 # dlmc_quant_tpu/quant/layers.py:787-791, as the conv's
                 y = F.linear(_bf16_values(materialize(x)),
                              self._dequantized_weight().float())
-                return y if self.bias is None else y + self.bias
+                bias = self._bias_block()
+                return self._gathered(y if bias is None else y + bias)
             x_i8, epi_scale, bias_eff, pad = self._int_input(x)
             w_mm = (self._int_weight().contiguous() if self.int4
                     else self.w_mm)
-            acc = _int8_matmul(x_i8, w_mm, self.weight.shape[0])
+            acc = _int8_matmul(x_i8, w_mm, self.w_scale.shape[0])
             off_scale, row = self._int_offset(x), None
             if off_scale is not None:
                 # a (M, K) row as a 1x1 window: S at the head's K inputs
                 sums = int8_window_sum(x_i8.reshape(
                     -1, 1, 1, x_i8.shape[-1]).contiguous(), zero=pad)
                 row = (sums.reshape(-1), off_scale)
-            de = DeferredEpilogue(acc, epi_scale, bias_eff, row=row)
+            de = DeferredEpilogue(acc, epi_scale, bias_eff, row=row,
+                                  shard=self.shard)
             return de if qmode == "intc" else materialize(de)
         x_q, w_q = self._quantize(x, qmode)
         return F.linear(x_q, w_q, self.bias)

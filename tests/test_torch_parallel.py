@@ -425,7 +425,7 @@ def test_serve_benchmark_two_ranks():
     line = json.loads(out0.strip().splitlines()[-1])
     assert line["1_devices"] > 0 and line["2_devices"] > 0
     assert line["scaling_efficiency"] > 0
-    assert line["model_axis"].startswith("1")
+    assert line["model_axis"].startswith("2")
 
 
 def test_benchmark_trains_on_the_sharded_batch(tmp_path):

@@ -247,7 +247,9 @@ TRAINING_MODULES = (
     "dlmc_quant_torch.tools.loaderbench",
     "dlmc_quant_torch.tools.conv_launches",
     "dlmc_quant_torch.tools.dw_launches",
-    "dlmc_quant_torch.tools.window_launches")
+    "dlmc_quant_torch.tools.window_launches",
+    "dlmc_quant_torch.parallel.sharding_rules",
+    "dlmc_quant_torch.tools.model_axis_2proc")
 
 
 def test_import_leaves_out_jax():

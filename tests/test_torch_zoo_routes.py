@@ -26,9 +26,13 @@ that JAX's ``QConv._int_conv`` computes (one grouped
   height and width differ in parity (pads (0, 1) and (1, 1): not the conv
   kernel's one top/left pad), a grouped 3×3 of one input channel a group, a
   depthwise 3×3 at VALID, a depthwise 5×5 at pad 1, a padded depthwise
-  1×1 and a depthwise 3×3 at stride 3: ``int`` equal to JAX's ``int``
-  exactly (the epilogue's inputs are the same float32 values), ``intc``
-  to ``int``, and the launches each makes.
+  1×1 and a depthwise 3×3 at stride 3, and past ``int8_im2col.MAX_KP`` =
+  2,048 bytes of K a group (a 5×5 at C = 96, a VALID 3×3 at C = 240, a
+  grouped 7×7 at Cg = 48, a 5×5 at C = 97 whose last run of channels is
+  padded): ``int`` equal to JAX's ``int`` exactly (the epilogue's inputs
+  are the same float32 values), ``intc`` to ``int``, and the launches
+  each makes (a past-2,048 group: an im2col and a GEMM a run of
+  channels).
 * The window sums per group against a float64 numpy reference.
 * ``cuda``-marked tests (skipped here) hold the three kernels this slice
   changed against their plain versions at tolerance 0: the depthwise
@@ -342,6 +346,28 @@ GEOMETRIES = {
         (2, 7, 6, 12), dict(dwconv=1)),
     "depthwise3x3_s3": _dw(8, 3, 3, 1, ((1, 1), (1, 1))) + (
         (2, 10, 11, 8), dict(im2col=8, gemm=8)),
+    # past int8_im2col.MAX_KP = 2,048 bytes of K a group: runs of channels,
+    # a launch pair a run, the int32 accumulators summed
+    "conv5x5_c96_chunked": (
+        lambda J, s: J["QConv"](16, (5, 5), (1, 1),
+                                padding=((2, 2), (2, 2)), scheme=s),
+        lambda: QConv(96, 16, 5, 1, 2), (2, 6, 5, 96),
+        dict(im2col=2, gemm=2)),
+    "conv3x3_valid_c240_chunked": (
+        lambda J, s: J["QConv"](24, (3, 3), (1, 1), padding="VALID",
+                                scheme=s),
+        lambda: QConv(240, 24, 3, 1, 0), (2, 5, 6, 240),
+        dict(im2col=2, gemm=2)),
+    "grouped7x7_cg48_chunked": (
+        lambda J, s: J["QConv"](32, (7, 7), (2, 2), feature_group_count=2,
+                                padding=((3, 3), (3, 3)), scheme=s),
+        lambda: QConv(96, 32, 7, 2, 3, groups=2), (2, 9, 8, 96),
+        dict(im2col=4, gemm=4)),
+    "conv5x5_c97_chunked_uneven": (
+        lambda J, s: J["QConv"](8, (5, 5), (2, 2), padding="VALID",
+                                scheme=s),
+        lambda: QConv(97, 8, 5, 2, 0), (2, 7, 8, 97),
+        dict(im2col=2, gemm=2)),
 }
 
 
