@@ -23,7 +23,8 @@ folder feeding RepVGG-A0), then the two int8 GEMM tools.
 
 Phases, each fatal on failure:
   1. build   the kernels from dlmc_quant_torch/ops/cuda/csrc (int8
-             3x3 conv and its grouped build, int8 GEMM, int8 im2col, int8
+             3x3 conv and its grouped build, int8 GEMM and its staged
+             route's build, int8 im2col, int8
              stem conv + pool, int8 depthwise conv: the aligned 3x3 build
              and the build of the 5x5 window and the ragged path, int8
              window sum, int8 MMA probe), one nvcc
@@ -45,6 +46,7 @@ Phases, each fatal on failure:
              at 24 channels (tests/test_torch_int8_conv.py,
              tests/test_torch_resnet_conv.py,
              tests/test_torch_gemm_epilogue.py,
+             tests/test_torch_gemm_staged.py,
              tests/test_torch_stem_pool.py, tests/test_torch_dwconv.py,
              tests/test_torch_mobile.py, the four weight-taking kernels at
              W4, tests/test_torch_int4_kernels.py, and the window sums and
@@ -122,7 +124,16 @@ Phases, each fatal on failure:
            launch group; the stem's plain ms and, as context, a bf16
            F.conv2d 7x7/s2 + F.max_pool2d of the same shape; torch._int_mm
            beside every int32-mode GEMM (the four downsamples), equal and
-           timed.  Then the stem's other route at batch 256: its pending
+           timed; at batch 256 each GEMM's route and tile in its label,
+           its plain ms and torch._int_mm's product alone at its (M, K,
+           N), and per GEMM group (16 residual, 16 codes, 4 int32) the
+           kernel ms, bound, _int_mm's ms and the routes taken, with the
+           phase's seconds; with --parent DIR then DIR's GEMM and this
+           tree's in turns (tools/gemm_launches.py, parent, this, this,
+           parent, each in a process of its own) at those 36 launches and
+           at MobileNetV2's, MobileOne-S1's (W8A8, all-W4) and config
+           #5's GEMM launches, sums by model and group.  Then the stem's
+           other route at batch 256: its pending
            output materialized (int8_im2col rows into the GEMM), the
            im2col == plain and timed (with --parent DIR, DIR's im2col
            kernel beside it, as for the window sums in rootq_serve), the
@@ -430,7 +441,9 @@ from int8_dwconv3x3's aligned ones; the zoo_routes phase's under three:
 int8_dwconv1x1, the 1x1 window's launches of MobileOne-S1's train form,
 int8_window_sum_grouped and int8_conv3x3_grouped_term, RepVGG-B2g4's
 grouped window sums and grouped convs with the row term, each with its
-served launches), the card's name and power limit,
+served launches; int8_gemm over the sweep's shapes and ResNet-50's 36
+launches at batch 256, on both builds of int8_gemm.cu, the register route
+and int8_gemm_staged.cu's), the card's name and power limit,
 and {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -494,7 +507,8 @@ from dlmc_quant_torch.quant.chain import (fold_params, materialize, qmaxpool,
 from dlmc_quant_torch.quant.deploy import midpoint_count
 from dlmc_quant_torch.quant.layers import QConv, QDense, full_f32
 from dlmc_quant_torch.tools import accuracy_protocol as protocol
-from dlmc_quant_torch.tools import gemm_sweep, loaderbench, mma_probe
+from dlmc_quant_torch.tools import (gemm_launches, gemm_sweep, loaderbench,
+                                    mma_probe)
 from dlmc_quant_torch.tools import window_launches as window_tool
 from dlmc_quant_torch.training import ptq as ptq_lib
 from dlmc_quant_torch.training.trainer import Trainer
@@ -503,7 +517,8 @@ from dlmc_quant_torch.utils.profiling import (PEAK_BYTES, PEAK_INT8_OPS,
                                               graph_ms, step_split)
 from dlmc_quant_torch.utils.checkpoint import load_checkpoint
 from dlmc_quant_torch.utils.launches import (KERNELS, LaunchRecorder,
-                                             launch_bound, max_diff_to_plain)
+                                             launch_bound, launch_route,
+                                             max_diff_to_plain)
 from dlmc_quant_torch.utils.config import ConfigParser, read_yaml, write_yaml
 from dlmc_quant_torch.utils.logging import get_logger
 
@@ -539,6 +554,7 @@ MOBILE = {
                      {"conv": 1, "gemm": 21, "im2col": 0, "stem_pool": 0,
                       "dwconv": 21, "window_sum": 0}, "stage4_0_pw")}
 DW_TOOL = REPO / "dlmc_quant_torch" / "tools" / "dw_launches.py"
+GEMM_TOOL = REPO / "dlmc_quant_torch" / "tools" / "gemm_launches.py"
 WINDOW_TOOL = REPO / "dlmc_quant_torch" / "tools" / "window_launches.py"
 STEM_TOOL = REPO / "dlmc_quant_torch" / "tools" / "stem_bands.py"
 # the training path: configs, cuts and what must move
@@ -665,14 +681,18 @@ def card_tests():
     conv at every (Cg, Og) of RepVGG's g2/g4 variants and the SE blocks'
     int8 products, the depthwise kernel's 1x1 window and pads passed in,
     the grouped window sums and the grouped conv's row term, the conv, GEMM
-    and stem + pool at the widths of two model-axis ranks), in a process
-    of their own; fatal unless all pass."""
+    and stem + pool at the widths of two model-axis ranks, the GEMM's
+    staged route in every mode at ResNet-50's residual and downsample
+    shapes, at W4, with the row term and at every staged tile, and its
+    register route at N = 24), in a process of their own; fatal unless
+    all pass."""
     tests = REPO / "tests"
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
          "-p", "no:cacheprovider", str(tests / "test_torch_int8_conv.py"),
          str(tests / "test_torch_resnet_conv.py"),
          str(tests / "test_torch_gemm_epilogue.py"),
+         str(tests / "test_torch_gemm_staged.py"),
          str(tests / "test_torch_stem_pool.py"),
          str(tests / "test_torch_dwconv.py"),
          str(tests / "test_torch_mobile.py"),
@@ -1028,7 +1048,8 @@ def launch_label(kind, args, kw) -> str:
     if kind == "gemm":
         m, k = x.shape
         return (f"gemm ({m},{k})x({k},{args[1].shape[0]}) "
-                f"{kw.get('mode', 'int32')}{extra}")
+                f"{kw.get('mode', 'int32')}{extra} "
+                f"[{launch_route(kind, args, kw)}]")
     groups = f" g{kw['groups']}" if kw.get("groups", 1) > 1 else ""
     return (f"conv {tuple(x.shape)}->{args[2].shape[0]}{groups} "
             f"s{kw['stride']} pad_lo {kw.get('pad_lo', 1)} {kw['mode']}"
@@ -1095,7 +1116,17 @@ def int_mm_beside(label, args, out):
     return graph_ms(lambda _: torch._int_mm(x, wc), GRAPH_LAUNCHES)
 
 
-def resnet_kernel_phase(what, model, x, expect, parent=None, beside=None):
+def int_mm_product_ms(args):
+    """torch._int_mm's product alone (int32 out) at a GEMM launch's (M, K,
+    N), the yardstick of an epilogue-mode launch (tools/row_bounds.py's):
+    its ms (CUDA graph of 16)."""
+    x, wp = args[:2]
+    wc = G.unpack_b(wp, x.shape[1]).t().contiguous().t()
+    return graph_ms(lambda _: torch._int_mm(x, wc), GRAPH_LAUNCHES)
+
+
+def resnet_kernel_phase(what, model, x, expect, parent=None, beside=None,
+                        gemm_groups=False):
     """Every kernel launch of one chained request of ``x``, kernel vs plain
     (tolerance 0), timed per launch, torch._int_mm beside each int32-mode
     GEMM, a plain ms and a bf16 context beside each launch of a CONTEXT
@@ -1104,7 +1135,12 @@ def resnet_kernel_phase(what, model, x, expect, parent=None, beside=None):
     ms of launch i (the same launch of another model) <in angle
     brackets>; returns the totals, the launches' ms in order
     (``launch_ms``) and, under each CONTEXT kind, its launches' ms, plain
-    ms, bound ms, ops and bytes ms (its entry in the kernels line)."""
+    ms, bound ms, ops and bytes ms (its entry in the kernels line).  With
+    ``gemm_groups`` also every GEMM launch's plain ms and torch._int_mm's
+    product alone at its (M, K, N) [in brackets], summed by GEMM group
+    (printed with the routes taken) and over the GEMMs (``gemm``: the
+    GEMMs' share of the kernels line; its library ms is _int_mm's at the
+    int32 launches, whose function it computes)."""
     with torch.inference_mode():
         with LaunchRecorder() as rec:
             model(x, qmode="intc")
@@ -1121,6 +1157,9 @@ def resnet_kernel_phase(what, model, x, expect, parent=None, beside=None):
                  else ""))
         tot = dict(ms=0.0, bound_ms=0.0, err=0.0, launch_ms=[])
         groups = {}
+        gemm = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                    bytes_ms=0.0, library_ms=0.0, err=0.0, launches=0)
+        gemm_groups_ms = {}
         extra = {kind: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                             bytes_ms=0.0, context_ms=0.0, err=0.0)
                  for kind in CONTEXT}
@@ -1134,6 +1173,24 @@ def resnet_kernel_phase(what, model, x, expect, parent=None, beside=None):
             lib = ""
             if kind == "gemm" and kw.get("mode", "int32") == "int32":
                 lib = f" [{int_mm_beside(label, args, out) * 1e3:8.2f}]"
+            if kind == "gemm" and gemm_groups:
+                int_mm = int_mm_product_ms(args)
+                plain_ms = event_ms(lambda: plain_fn(*args, **kw),
+                                    PLAIN_REPS)
+                lib = f" [{int_mm * 1e3:8.2f}] {{{plain_ms * 1e3:.1f}}}"
+                for key, val in (("ms", ms), ("bound_ms", b_ms),
+                                 ("ops_ms", t_ops), ("bytes_ms", t_bytes),
+                                 ("plain_ms", plain_ms)):
+                    gemm[key] += val
+                if kw.get("mode", "int32") == "int32":
+                    gemm["library_ms"] += int_mm
+                gemm["err"] = max(gemm["err"], err)
+                gemm["launches"] += 1
+                g = gemm_groups_ms.setdefault(
+                    launch_group(kind, args, kw), dict(int_mm=0.0, routes={}))
+                g["int_mm"] += int_mm
+                way = launch_route(kind, args, kw).split()[0]
+                g["routes"][way] = g["routes"].get(way, 0) + 1
             if kind in CONTEXT:
                 e = extra[kind]
                 plain_ms = event_ms(lambda: plain_fn(*args, **kw),
@@ -1172,6 +1229,13 @@ def resnet_kernel_phase(what, model, x, expect, parent=None, beside=None):
           "by group (launches, ms, bound ms): " + "; ".join(
               f"{name} {n}, {ms:.4f}, {b:.4f}"
               for name, (n, ms, b) in groups.items()))
+    for name, g in gemm_groups_ms.items():
+        n, ms, b = groups[name]
+        print(f"# {what} batch {x.shape[0]} {name} ({n}): kernel {ms:.4f} "
+              f"ms, bound {b:.4f} ms ({ms / b:.2f}x), torch._int_mm's "
+              f"product alone at the same (M, K, N) {g['int_mm']:.4f} ms; "
+              "routes " + ", ".join(f"{k} {v}" for k, v in
+                                    sorted(g["routes"].items())))
     for kind, name in (("stem_pool", "stem conv + pool"),
                        ("dwconv", "depthwise 3x3 convs")):
         e = extra[kind]
@@ -1185,6 +1249,7 @@ def resnet_kernel_phase(what, model, x, expect, parent=None, beside=None):
                   f"shapes take {e['context_ms']:.4f} ms (context only, not "
                   "the same function)")
     tot.update(extra)
+    tot["gemm"] = gemm
     return tot
 
 
@@ -1634,6 +1699,51 @@ def parent_dw_turns(root: str):
               + f" | {bound:.4f} | {ratio:.4f}")
     return {(r["model"], r["batch"], r["index"]): r["ms"]
             for r in runs[0][1]}
+
+
+def parent_gemm_turns(root: str):
+    """The int8 GEMM of the tree at ``root`` and of this one, in turns
+    (parent, this, this, parent), each timed by tools/gemm_launches.py in
+    a process of its own at ResNet-50's 36 GEMM launches at batch
+    SERVE_BATCH and at the GEMM launches of MobileNetV2's, MobileOne-S1's
+    (W8A8, all-W4) and config #5's requests (SERVE_BATCH, ENGINE_BATCH),
+    on seeded operands, each launch checked against its plain version;
+    prints the sums by model and group and this tree's over the
+    parent's."""
+    specs = (gemm_launches.resnet50_specs(SERVE_BATCH)
+             + gemm_launches.model_specs(SERVE_BATCH, ENGINE_BATCH))
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = pathlib.Path(tmp) / "specs.json"
+        spec_path.write_text(json.dumps(specs))
+        for who, tree in (("parent", root), ("this", str(REPO)),
+                          ("this", str(REPO)), ("parent", root)):
+            out = pathlib.Path(tmp) / "rows.json"
+            run = subprocess.run(
+                [sys.executable, str(GEMM_TOOL), "--root", tree, "--specs",
+                 str(spec_path), "--json", str(out)], capture_output=True,
+                text=True)
+            if run.returncode != 0:
+                print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
+                raise RuntimeError(f"timing the GEMM of {tree} failed")
+            runs.append((who, json.loads(out.read_text())))
+    sums = {}
+    for turn, (who, rows) in enumerate(runs):
+        for r in rows:
+            key = (r["model"], r["group"])
+            sums.setdefault(key, [[0.0] * 4, 0.0, 0])
+            sums[key][0][turn] += r["ms"]
+            if turn == 1:
+                sums[key][1] += r["bound_ms"]
+                sums[key][2] += 1
+    print(f"# int8_gemm of the parent tree {root} and this one, in turns "
+          "(tools/gemm_launches.py, seeded operands, each launch == plain, "
+          "each run a process of its own): model group launches | parent "
+          "this this parent ms | bound ms | this / parent")
+    for (model, grp), (ms, bound, n) in sums.items():
+        print(f"  {model:16s} {grp:8s} {n:2d} | "
+              + " ".join(f"{t:.4f}" for t in ms)
+              + f" | {bound:.4f} | {(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}")
 
 
 def parent_window_ms(root: str):
@@ -3962,8 +4072,8 @@ def main(argv=None) -> int:
                           "kernels are timed beside this one's at every "
                           "launch of theirs, whose stem + pool with the "
                           "first block's two codes beside this one's, and "
-                          "whose window-sum and conv kernels in turns with "
-                          "this one's")
+                          "whose window-sum, conv and GEMM kernels in turns "
+                          "with this one's")
     args = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4020,9 +4130,17 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.2f} s")
     r50_err = resnet_kernel_phase("resnet50", r50, images(8, SEED + 1, device),
                                   RESNET50_LAUNCHES)["err"]
+    t0 = time.perf_counter()
     r50_tot = resnet_kernel_phase("resnet50", r50,
                                   images(SERVE_BATCH, SEED + 1, device),
-                                  RESNET50_LAUNCHES)
+                                  RESNET50_LAUNCHES, gemm_groups=True)
+    print(f"# resnet50 kernel phase at batch {SERVE_BATCH}: "
+          f"{time.perf_counter() - t0:.2f} s")
+    if args.parent:
+        t0 = time.perf_counter()
+        parent_gemm_turns(args.parent)
+        print(f"# int8_gemm in turns with the parent: "
+              f"{time.perf_counter() - t0:.2f} s")
     windows = parent_window_ms(args.parent) if args.parent else None
     im2col_launches, im2col = stem_im2col_phase(
         r50, images(SERVE_BATCH, SEED + 1, device), windows)
@@ -4097,7 +4215,13 @@ def main(argv=None) -> int:
         lambda row: gemm_calls(row, gen))
     probe_tot = exact_phase("int8_mma_probe", probe_rows,
                             lambda row: probe_calls(row, gen))
-    gemm_tot["err"] = max(gemm_tot["err"], gemm_err)
+    gemm_tot["err"] = max(gemm_tot["err"], gemm_err, r50_tot["gemm"]["err"])
+    # the kernels line's int8_gemm: the sweep's shapes and ResNet-50's 36
+    # launches at batch SERVE_BATCH (library ms: torch._int_mm where it
+    # computes the same function, the sweep's and the 4 int32 launches)
+    for key in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
+                "library_ms"):
+        gemm_tot[key] += r50_tot["gemm"][key]
 
     print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

@@ -27,13 +27,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 # every kernel source of csrc/: the 3x3 conv (ungrouped, and its grouped
-# build), the GEMM, the im2col, the ImageNet stem conv + pool, the
+# build), the GEMM (its register route, and its staged route's build), the
+# im2col, the ImageNet stem conv + pool, the
 # depthwise conv (the aligned 3x3 build, and the build of the 5x5 window
 # and the ragged path), the window sums of a weight offset's row term and
 # the MMA probe
 SOURCES = ("int8_conv3x3", "int8_conv3x3_grouped", "int8_gemm",
-           "int8_im2col", "int8_stem_pool", "int8_dwconv3x3",
-           "int8_dwconv5x5", "int8_window_sum", "int8_mma_probe")
+           "int8_gemm_staged", "int8_im2col", "int8_stem_pool",
+           "int8_dwconv3x3", "int8_dwconv5x5", "int8_window_sum",
+           "int8_mma_probe")
 
 
 def library_path(name: str) -> Path:

@@ -384,10 +384,86 @@ __device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src,
       : "memory");
 }
 
+// Copies the box whose first element is (x = byte along a row, y = row)
+// from shared memory at `src` to the tensor of `map`: the TMA store.
+// Executed by one thread, after every thread that wrote the box executed
+// fence_proxy_async() and a barrier.  Whatever of the box lies outside the
+// tensor is not written.  The copy joins this thread's bulk group: commit
+// it with bulk_commit(), and rewrite `src` only after bulk_wait_read().
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(x), "r"(y)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most PENDING of this thread's committed bulk groups have
+// yet to read their shared memory.
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING)
+               : "memory");
+}
+
+// Waits until at most PENDING of them are still writing global memory.
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Byte `offset` of a box of rows `row_bytes` long (32, 64 or 128) as TMA
+// lays it out with the swizzle of that width (box_map below), from a
+// 1024-byte aligned base: within each 16-byte chunk's address, bits [4, 4
+// + b) are XORed with bits [7, 7 + b), b = 1, 2, 3.  At 128 that is
+// swizzle128(); at every width the 8 rows of a column of the lane map fall
+// in distinct banks.
+__host__ __device__ constexpr uint32_t swizzle_box(uint32_t offset,
+                                                   uint32_t row_bytes) {
+  return offset ^ (((offset >> 7) & (row_bytes / 16 - 1)) << 4);
+}
+
+// A named barrier of `threads` threads (a multiple of 32); id 0 is
+// __syncthreads().
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime (so nothing
+// links against libcuda), or null where libcuda has none.
+using TensorMapEncode = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline TensorMapEncode tensor_map_encoder() {
+  static const TensorMapEncode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<TensorMapEncode>(fn);
+  }();
+  return encode;
 }
 
 // Host side: the tensor map of a row-major int8 matrix of `rows` rows,
@@ -409,25 +485,7 @@ inline int encode_tile_map(CUtensorMap* map, const void* base, uint64_t rows,
                            uint64_t row_bytes, uint64_t pitch,
                            uint32_t box_rows, uint32_t box_bytes = TILE_K,
                            bool swizzle = true) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-      CUtensorMapFloatOOBfill);
-  static const Encode encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<Encode>(fn);
-  }();
+  const TensorMapEncode encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {row_bytes, rows};
   const cuuint64_t strides[1] = {pitch};
@@ -439,6 +497,36 @@ inline int encode_tile_map(CUtensorMap* map, const void* base, uint64_t rows,
       swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Host side: the tensor map of a row-major matrix of `rows` rows of
+// `row_bytes` bytes (the pitch; a multiple of 16, the base 16-byte
+// aligned), cut into boxes of box_rows x box_bytes bytes (32, 64 or 128)
+// laid out with the swizzle of that width (swizzle_box): the map of an
+// epilogue operand that threads read or write in the accumulator's lane
+// map, loaded or stored by TMA.  Returns a cudaError_t value (0 = ok).
+inline int encode_box_map(CUtensorMap* map, const void* base, uint64_t rows,
+                          uint64_t row_bytes, uint32_t box_rows,
+                          uint32_t box_bytes) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const CUtensorMapSwizzle swizzle =
+      box_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : box_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE || row_bytes % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(base) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t dims[2] = {row_bytes, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_bytes, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,7 +8,8 @@ weight offset's row term in ``quant/layers.py``), so one forward gives every
 launch with its arguments and output; :func:`max_diff_to_plain` runs a
 recorded launch's plain version on the same arguments.  ``chip_smoke.py`` and
 ``bench_torch.py`` check and time the launches of a request with these,
-and :func:`launch_bound` gives a recorded launch's bound.
+:func:`launch_bound` gives a recorded launch's bound and
+:func:`launch_route` the route and tile a GEMM took.
 """
 
 from __future__ import annotations
@@ -105,6 +106,21 @@ def check_request(model, x, expect=None):
                 raise RuntimeError(f"launch {i} ({kind}) differs from its "
                                    f"plain version by {err}")
     return rec.calls
+
+
+def launch_route(kind, args, kw) -> str:
+    """The route and tile a recorded GEMM call took (``int8_gemm.route``,
+    chosen on the host from the shapes and dtypes): "staged 128x128",
+    "register 64x64"; "" for the other kinds."""
+    if kind != "gemm":
+        return ""
+    x, w = args[:2]
+    n, mode = w.shape[0], kw.get("mode", "int32")
+    r = kw["residual"][0] if kw.get("residual") is not None else None
+    tile = kw.get("tile") or _gemm.launch_tile(
+        x.shape[0], n, mode, w.dtype == W4, r, _gemm.sm_count(x.device))
+    way = _gemm.route(n, mode, tile, r)
+    return f"{way} {tile[0]}x{tile[1]}"
 
 
 def launch_bound(kind, args, kw, out):
