@@ -19,7 +19,13 @@ the depthwise kernel's 1x1 window, RepVGG-B2g4 with RootQ's row term per
 group), the data layer (CIFAR-10 pickles feeding the QAT entry, a JPEG
 folder feeding RepVGG-A0), then the two int8 GEMM tools.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR [--turns gemm,window,stem,dw,conv]]
+
+With --parent DIR the kernels of another tree (e.g. an archive of the
+parent commit) are timed beside this tree's, those that --turns names (all
+by default): gemm, window (the window sums in turns, the window-sum and
+im2col kernels beside each launch), stem (the stem's part of a request in
+turns), dw (the depthwise kernel in turns), conv (the 3x3 conv in turns).
 
 Phases, each fatal on failure:
   1. build   the kernels from dlmc_quant_torch/ops/cuda/csrc (int8
@@ -288,10 +294,12 @@ Phases, each fatal on failure:
            grouped conv); every module of each form fed the card's inputs
            within 1e-4 of its CPU copy on 2 images, the logits printed; 6
            served deploy-form requests.  With --parent DIR the window-sum
-           kernel at config #5's launches (groups = 1) and the conv kernel
-           at RepVGG-A0's and B2g4's launches, of DIR and of this tree in
-           turns (tools/window_launches.py, tools/conv_launches.py: DIR,
-           this, this, DIR), the sums by group and this tree's over DIR's;
+           kernel at config #5's launches (groups = 1; --turns window) and
+           the conv kernel at RepVGG-A0's, B2g4's, ResNet-50's,
+           cifar_resnet18's and config #5's launches (--turns conv), of DIR
+           and of this tree in turns (tools/window_launches.py,
+           tools/conv_launches.py: DIR, this, this, DIR), the sums by model
+           and group and this tree's over DIR's;
            (c) a 5x5 conv at C = 96 (2,400 bytes of K, past the im2col
            rows' 2,048) at batch 64, 28x28: two runs of 48 channels, an
            im2col and an int32 GEMM each, every launch == plain, timed;
@@ -656,6 +664,10 @@ MOBILEONE_TRAIN_LAUNCHES = {"conv": 1, "gemm": 22, "im2col": 0,
                             "stem_pool": 0, "dwconv": 42, "window_sum": 0}
 MOBILEONE_SCALE_BRANCHES = 21
 CONV_TOOL = REPO / "dlmc_quant_torch" / "tools" / "conv_launches.py"
+# --parent DIR: the kernels timed in turns with DIR's (--turns): the GEMM,
+# the window sums (and the stem im2col beside), the stem + pool, the
+# depthwise conv, the 3x3 conv
+TURN_KINDS = ("gemm", "window", "stem", "dw", "conv")
 
 
 # the data phase: QAT steps from the written CIFAR-10 pickles; the JPEG
@@ -3697,14 +3709,14 @@ def b2g4_rootq(device, train_form: bool):
     return prepare_deploy(model), x
 
 
-def zoo_routes_phase(device, parent=None):
+def zoo_routes_phase(device, parent=None, turns=("window", "conv")):
     """MobileOne-S1's train form in 'int' and RepVGG-B2g4 under RootQ
     W4A4 (train form 'int', deploy form 'intc'): every launch == plain,
     the launches of this slice's routes timed, every module of B2g4's
     forms fed the card's inputs within 1e-4 of its CPU copy, served
     requests; with ``parent`` the window-sum and conv kernels of that tree
-    and this one in turns.  Returns {route: totals with the served
-    launches}."""
+    and this one in turns (those of ``turns``).  Returns {route: totals
+    with the served launches}."""
     start = t0 = time.perf_counter()
     model = mobileone_train_int(device)
     print(f"# {W4_MODEL} train form: config #4's W4A8 FSPTQ scheme "
@@ -3762,8 +3774,8 @@ def zoo_routes_phase(device, parent=None):
     print(f"# zoo_routes: the two models' legs "
           f"{time.perf_counter() - start:.2f} s")
     routes["chunked"] = chunked_wide_leg(device)
-    if parent:
-        parent_route_turns(parent)
+    if parent and {"window", "conv"} & set(turns):
+        parent_route_turns(parent, turns)
     return routes
 
 
@@ -3800,17 +3812,22 @@ def chunked_wide_leg(device):
     return counts
 
 
-def parent_route_turns(root: str):
+def parent_route_turns(root: str, kinds=("window", "conv")):
     """The window-sum kernel at config #5's launches (groups = 1) and the
-    conv kernel at RepVGG-A0's (ungrouped) and B2g4's launches, of the tree
-    at ``root`` and of this one, in turns (parent, this, this, parent),
-    each run a process of its own (tools/window_launches.py,
-    tools/conv_launches.py); prints the sums by group and this tree's over
-    the parent's."""
-    for tool, extra in ((WINDOW_TOOL, ["--batch", str(ENGINE_BATCH),
-                                       "--grouped-batch", "0"]),
-                        (CONV_TOOL, ["--batch", str(SERVE_BATCH),
-                                     "--grouped-batch", str(ZOO_BATCH)])):
+    conv kernel at RepVGG-A0's (ungrouped), B2g4's, ResNet-50's,
+    cifar_resnet18's and config #5's launches, of the tree at ``root`` and
+    of this one, in turns (parent, this, this, parent), each run a process
+    of its own (tools/window_launches.py, tools/conv_launches.py; ``kinds``
+    says which of the two); prints the sums by model and group and this
+    tree's over the parent's."""
+    tools = {"window": (WINDOW_TOOL, ["--batch", str(ENGINE_BATCH),
+                                      "--grouped-batch", "0"]),
+             "conv": (CONV_TOOL, ["--batch", str(SERVE_BATCH),
+                                  "--grouped-batch", str(ZOO_BATCH),
+                                  "--resnet-batch", str(SERVE_BATCH),
+                                  "--config5-batch", str(ENGINE_BATCH)])}
+    for tool, extra in (tools[k] for k in ("window", "conv") if k in kinds):
+        t0 = time.perf_counter()
         runs = []
         with tempfile.TemporaryDirectory() as tmp:
             for tree in (root, str(REPO), str(REPO), root):
@@ -3828,18 +3845,22 @@ def parent_route_turns(root: str):
             for r in rows:
                 if r.get("ms") is None:
                     continue
-                s = sums.setdefault(r["group"], [[0.0] * 4, [0] * 4])
-                s[0][turn] += r["ms"]
-                s[1][turn] += 1
+                for key in ((r.get("model", ""), r["group"]),
+                            (r.get("model", ""), "all")):
+                    s = sums.setdefault(key, [[0.0] * 4, [0] * 4, 0.0])
+                    s[0][turn] += r["ms"]
+                    s[1][turn] += 1
+                    s[2] += r.get("bound_ms", 0.0) / 4
         print(f"# {tool.name} on the parent tree {root} and this one in "
-              "turns: group launches | parent this this parent ms | this / "
-              "parent (launches that a tree refuses are left out of its "
-              "sums)")
-        for grp, (ms, n) in sorted(sums.items()):
+              "turns: model group launches | parent this this parent ms | "
+              "bound ms | this / parent (launches that a tree refuses are "
+              f"left out of its sums); {time.perf_counter() - t0:.1f} s")
+        for (model, grp), (ms, n, bound) in sorted(sums.items()):
             ratio = (ms[1] + ms[2]) / (ms[0] + ms[3]) if ms[0] else float(
                 "nan")
-            print(f"  {grp:18s} {n} | " + " ".join(f"{t:.4f}" for t in ms)
-                  + f" | {ratio:.4f}")
+            print(f"  {model:15s} {grp:18s} {n} | "
+                  + " ".join(f"{t:.4f}" for t in ms)
+                  + f" | {bound:.4f} | {ratio:.4f}")
 
 
 def data_probe() -> dict:
@@ -4074,7 +4095,14 @@ def main(argv=None) -> int:
                           "first block's two codes beside this one's, and "
                           "whose window-sum, conv and GEMM kernels in turns "
                           "with this one's")
+    cli.add_argument("--turns", default=",".join(TURN_KINDS),
+                     help="with --parent, the kernels timed beside the "
+                          "parent's, comma-separated: "
+                          + ", ".join(TURN_KINDS) + " (default: all)")
     args = cli.parse_args(argv)
+    turns = set(args.turns.split(",")) if args.parent else set()
+    if turns - set(TURN_KINDS):
+        cli.error(f"--turns takes {', '.join(TURN_KINDS)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4136,17 +4164,17 @@ def main(argv=None) -> int:
                                   RESNET50_LAUNCHES, gemm_groups=True)
     print(f"# resnet50 kernel phase at batch {SERVE_BATCH}: "
           f"{time.perf_counter() - t0:.2f} s")
-    if args.parent:
+    if "gemm" in turns:
         t0 = time.perf_counter()
         parent_gemm_turns(args.parent)
         print(f"# int8_gemm in turns with the parent: "
               f"{time.perf_counter() - t0:.2f} s")
-    windows = parent_window_ms(args.parent) if args.parent else None
+    windows = parent_window_ms(args.parent) if "window" in turns else None
     im2col_launches, im2col = stem_im2col_phase(
         r50, images(SERVE_BATCH, SEED + 1, device), windows)
     modes_err = stem_modes_phase(r50, images(SERVE_BATCH, SEED + 1, device))
     served50 = resnet50_serve_phase(
-        r50, device, parent_stem_ms(args.parent) if args.parent else None)
+        r50, device, parent_stem_ms(args.parent) if "stem" in turns else None)
     t0 = time.perf_counter()
     engine = serving_phase(device, card, r50)
     print(f"# serving phase: {time.perf_counter() - t0:.2f} s")
@@ -4154,7 +4182,7 @@ def main(argv=None) -> int:
     axis = model_axis_phase(card)
     print(f"# model_axis phase: {time.perf_counter() - t0:.2f} s")
     del r50
-    parent = parent_dw_turns(args.parent) if args.parent else None
+    parent = parent_dw_turns(args.parent) if "dw" in turns else None
     mobile_err, dw, mobile_served, w8 = mobile_phase(device, parent)
     t0 = time.perf_counter()
     w4_err, w4_served = w4_phase(device, w8)
@@ -4167,7 +4195,7 @@ def main(argv=None) -> int:
     ghost_dw, ghost_served = ghost_effnet_phase(device)
     print(f"# ghost_effnet phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    routes = zoo_routes_phase(device, args.parent)
+    routes = zoo_routes_phase(device, args.parent, turns)
     print(f"# zoo_routes phase: {time.perf_counter() - t0:.2f} s")
     data_phase(device, card)
     t0 = time.perf_counter()

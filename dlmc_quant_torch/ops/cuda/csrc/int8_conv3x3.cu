@@ -27,9 +27,11 @@
 //
 // The epilogue is written with __int2float_rn, __fmul_rn and __fadd_rn so
 // nvcc cannot contract it into an fma, and rounds half to even as rintf,
-// jnp.round and torch.round do (__float2int_rn: rintf and the conversion
-// in one cvt).  The kernel then equals its plain PyTorch version
-// bit for bit.
+// jnp.round and torch.round do: a code is y clamped to [lo, hi] plus 1.5 *
+// 2^23, whose low byte is the integer (code_of; the code that
+// __float2int_rn and the clamp gave, in full-rate float ops where the cvt
+// ran at a quarter of the rate).  The kernel equals its plain PyTorch
+// version bit for bit.
 //
 // As a GEMM: M = N*Ho*Wo output pixels, N = O, K = 3*Rp bytes ordered (dy,
 // dx, channel): the 3*C bytes that one row dy of the 3x3 window covers are
@@ -38,30 +40,46 @@
 // (tap, channel), and every 16-byte chunk of K lies inside one tap.
 //
 // Bound on an H100: max(2*MACs / 1979e12, bytes / 3.35e12) with the input
-// and the output counted once.  RepVGG-A0's 112x112 and 56x56 layers and
-// its stem are bound by bytes, the 28x28 and 14x14 layers by operations.
-// What a block really pays for is neither.  Measured on an H100 80GB HBM3
-// at 700 W (tools/conv_plans.py, and cycle counters put into the kernel
-// while it was tuned), in the order in which they held a layer back:
-//  - issue slots.  A 16-byte chunk of an im2col tile costs its producer
-//    lane an address and a bounds test, an output code costs its consumer
-//    lane several issue slots, and a block has 12 warps on 4 schedulers.
-//    So a pixel's place in the image is worked out once per tile (two
-//    divisions by multiply and shift) into a table of flags, a chunk then
-//    takes one table read, one mask test, one 16-byte load and one store
-//    with addresses that only advance, and the epilogue rounds and converts
-//    in one cvt and packs two codes with one byte permute.
-//  - L2 traffic.  The im2col tile has 9 bytes of K for every input byte.
-//    Stride-1 layers with C % 16 == 0 fetch the run of input pixels a tile
-//    needs (its 128 pixels and a row and a pixel to either side) once, by
-//    one bulk copy, into a halo buffer, and build their tiles from shared
-//    memory: stage3_k 53 -> 41 us, stage2_k 90 -> 60 us.  The weight stays
-//    resident in shared memory where it fits (C = 3, 48, 96), what the TPU
-//    kernel's VMEM-resident weight is on this card; for C = 192 a stage
-//    holds a 128-byte K chunk of both operands, the weight's by TMA.
-//  - the epilogue, during which a block's tensor cores idle: both consumer
-//    warpgroups hold accumulators of the same tile.  This is what is left:
-//    a 14x14 layer takes 39 us where its wgmmas need 17.
+// and the output counted once.  What a block really pays for is neither;
+// by group of shapes, measured on an H100 80GB HBM3 at 700 W
+// (tools/conv_plans.py, tools/conv_launches.py with --parts, which leaves
+// one part of this file out; batch 256):
+//  - RepVGG-A0's widths (48, 96, 192; the design below as PR 4 tuned it):
+//    issue slots first.  An im2col chunk costs its producer lane an address
+//    and a bounds test, an output code its consumer lane several slots, and
+//    a block has 12 warps on 4 schedulers.  So a pixel's place in the image
+//    is worked out once per tile into a table of flags, and a chunk takes
+//    one table read, one mask test, one 16-byte load and one store.  Then
+//    L2 traffic: the im2col tile has 9 bytes of K for every input byte, so
+//    stride-1 layers fetch each tile's run of input pixels (its 128 pixels
+//    and a row and a pixel to either side) once, by one bulk copy, into a
+//    halo buffer and build their tiles from shared memory (stage3_k 53 ->
+//    41 us, stage2_k 90 -> 60 us).  Then the epilogue, during which both
+//    warpgroups, holding the same tile, leave the tensor cores idle: a
+//    14x14 layer takes 39 us where its wgmmas need 17.
+//  - The ResNets' 64 and 128 (ResNet-50 at 56^2 and 28^2, cifar_resnet18
+//    at 32^2 and 16^2): 96- and 192-wide tiles wasted a third of their
+//    columns, and at C = 64 the producers' im2col build from the halo (9
+//    bytes written and read in shared memory for each input byte) bound the
+//    layer: ResNet-50's stage 1 took 178 us, 128 without the tile build.
+//    These widths take turns (each consumer warpgroup owns every other
+//    tile, all 128 rows), and at C = 64 the consumers gather their A
+//    fragments straight from a 64-byte-swizzled halo by ldmatrix (halo_a,
+//    wgmma with A from registers): 100 us.  What is left there is the
+//    epilogue's arithmetic (I2F at a quarter of the float rate).
+//  - C % 128 == 0 at stride 1 (28^2 to 4^2): the chunk is 128 channels of
+//    one tap and a tile's rows are 128 consecutive pixels of x, one TMA
+//    box; the consumers pad the rows outside the image (tma_a).  ResNet-50
+//    at 14^2: 128 us at 2 x 192 (no halo fitted, every A tile gathered by
+//    cp.async, twice), 57 us at 256 with TMA rows; the products bound it.
+//  - stride 2 (the first conv of a stage): the cp.async gather, 9 bytes of
+//    L2 reads an input byte, which a row-aligned TMA box with an element
+//    stride could replace: without it stage 2's 56^2 -> 28^2 takes 60 us
+//    of its 104.
+//  - the block closes (residual): r from registers, two columns a lane a
+//    dependent load, took cifar_resnet18's 8 launches 2-2.9x their codes
+//    twins; r staged by TMA takes them to 1.0-1.3x (1.55x at 8^2, where
+//    r is staged at 128 wide and the codes twin runs 256 wide).
 //
 // Design.  A block is two consumer warpgroups and four producer warps:
 //  - The producers fill a ring of >= 4 stages.  The A tile of a stage is
@@ -81,17 +99,34 @@
 //    bytes of a window row's run, five aligned 32-bit loads funnel-shifted
 //    into place, with the pad code patched in where the window hangs over
 //    the left or right border.  A lane then waits for its copies, executes
-//    the proxy fence, and lane 0 arrives on the stage's full barrier.
-//  - The consumers each take 64 rows of the tile: per stage four wgmma
-//    m64nBNk32, one commit group per stage, a stage handed back after
-//    wait_group<1>.  All four 32-byte slices of a chunk are multiplied also
-//    where K ends inside it.
+//    the proxy fence, and lane 0 arrives on the stage's full barrier.  With
+//    tma_a lane 0 loads the A tile by TMA instead (the B tile with it).
+//  - At 48, 96, 192 and 256 the consumers each take 64 rows of every tile:
+//    per stage four wgmma m64nBNk32, one commit group per stage, a stage
+//    handed back after wait_group<1>.  At 64 and 128 they take turns: each
+//    owns every other tile and multiplies both 64-row halves, so that one
+//    warpgroup's epilogue runs beside the other's products.  Each then
+//    waits on full barriers of its own (a warpgroup never waits for the
+//    other's stages, so one barrier a slot could be two phases behind,
+//    which a parity wait cannot tell), and the ring has 4 or 8 stages, so
+//    that each producer warp owns whole slots: the two warpgroups' releases
+//    do not come in the ring's order.  All four 32-byte slices of a chunk
+//    are multiplied also where K ends inside it (not with halo_a).
 //  - Epilogue from the accumulator's lane map, a[o] and b[o] staged in
 //    shared memory once per block.  Codes go to a staging tile in shared
-//    memory (row pitch padded against bank conflicts) and leave as 16-byte
+//    memory (row pitch padded against bank conflicts; 128 columns a pass,
+//    so that a 256-wide tile fits beside four stages) and leave as 16-byte
 //    stores: a tile as wide as the layer is one contiguous run of NHWC
-//    bytes.  Each warp stages and stores its own 16 rows, so no barrier
-//    joins the warpgroup.  f32 leaves as float2 per lane, 32 bytes a quad.
+//    bytes.  Each warp stages and stores its own rows, so no barrier joins
+//    the warpgroup.  f32 leaves as float2 per lane, 32 bytes a quad.  A
+//    residual whose rows are whole 16 bytes (the host's choice, at the
+//    turns widths) is staged by TMA: a warpgroup ends its tile in chunks of
+//    128 bytes of a row of r, each in one of two slots (r's box in TMA's
+//    swizzle of its row width, and the box of codes, over an int8 r); its
+//    thread 0 loads the first two chunks' r at the tile's start, so they
+//    land during the products, stores each box of codes by TMA and loads
+//    the r two chunks on once the slot is free (int8_gemm.cu's staged
+//    route, the warpgroup its own loader).
 //  - A persistent grid: as many blocks as fit the card walk the tiles, M
 //    fastest, so that blocks running together share a weight tile in L2;
 //    the producers run ahead into the next tile during the epilogue.  The
@@ -142,6 +177,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -165,6 +201,7 @@ constexpr int THREADS = CONSUMERS + 32 * PRODUCER_WARPS;
 
 constexpr int MIN_STAGES = PRODUCER_WARPS;  // see the producer
 constexpr int MAX_STAGES = 8;
+constexpr int MAX_HALOS = 4;   // halo buffers
 constexpr int CHUNKS_16 = TILE_K / 16;  // 16-byte chunks in a tile row
 constexpr int ROW_LIVE = 1 << 6;        // table flag: an output pixel before M
 
@@ -213,9 +250,56 @@ struct ConvArgs {
   int m_tiles, n_tiles, tiles, k_chunks, stages, resident;
   int halo_bufs, halo_bytes, pixels;  // halo_bufs 0: gather from x
   int w4;
+  // stride 1 with C % 128 == 0 (ungrouped, no halo): each A tile is one
+  // TMA box of x, its rows outside the image padded by the consumers
+  int tma_a, chunks_per_tap;
+  // the widths that take turns with a resident weight and a halo: the
+  // consumers gather their A fragments from the halo by ldmatrix (no
+  // im2col tile); the producers only fetch the halos
+  int halo_a, halo_rows, halo_boxes;   // halo_a: TMA boxes of a halo
   FastDiv by_hw, by_wo, by_m_tiles;   // / (Ho Wo), / Wo, / m_tiles
   FastDiv by_ntg, by_og;              // / ntg, / Og
+  FastDiv by_c;                       // / C
 };
+
+// Where output pixel m reads, an entry of a tile's table: .x the pixel
+// index of tap (0, 0); .y bit dy set where window row dy lies inside the
+// image, bit 3 + dx likewise for window column dx, bit 6 for a row before
+// M (0: nothing to fill).
+__device__ __forceinline__ int2 row_entry(const ConvArgs& g, int m) {
+  int2 e = make_int2(0, 0);
+  if (m < g.M) {
+    const int n = g.by_hw.div(m);
+    const int rem = m - n * (g.Ho * g.Wo);
+    const int oh = g.by_wo.div(rem);
+    const int ow = rem - oh * g.Wo;
+    const int ih0 = oh * g.stride - g.pad_lo;
+    const int iw0 = ow * g.stride - g.pad_lo;
+    e.x = (n * g.H + ih0) * g.W + iw0;
+    e.y = ROW_LIVE;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      if (static_cast<unsigned>(ih0 + d) < static_cast<unsigned>(g.H))
+        e.y |= 1 << d;
+      if (static_cast<unsigned>(iw0 + d) < static_cast<unsigned>(g.W))
+        e.y |= 8 << d;
+    }
+  }
+  return e;
+}
+
+// Calls f(std::integral_constant<int, I>()) for I = 0 .. N - 1: a loop
+// whose index is a compile-time constant, so that an accumulator indexed
+// by it stays in registers (whether a #pragma unroll loop is unrolled is
+// the compiler's choice, and where it is not the accumulator goes to
+// local memory and every wgmma is serialized: ptxas' C7514).
+template <int I, int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>());
+    static_for<I + 1, N>(f);
+  }
+}
 
 // where the row term's S of output pixel `row` lies: one a pixel, or in G
 // groups one a (pixel, group), the tile's group `grp`
@@ -227,15 +311,51 @@ __device__ __forceinline__ long long srow_at(const ConvArgs& g, int row,
     return row;
 }
 
-template <int BN, bool CODES>
+// What a consumer does with its finished accumulator: f32, codes, codes
+// with a residual read from registers (the register route), or with a
+// residual staged by TMA, int8 r or 4-byte r (int32 or f32).
+enum Epi { EPI_F32 = 0, EPI_CODES = 1, EPI_RES = 2, EPI_RES8 = 3,
+           EPI_RES32 = 4 };
+
+template <int BN, int EPI>
 struct Cfg {
   static constexpr int BM = CONSUMER_WGS * WGMMA_M;  // rows of a tile
   static constexpr int A_BYTES = BM * TILE_K;
   static constexpr int B_BYTES = BN * TILE_K;
-  // staging row pitch: 16-byte aligned, and 8 rows 2 words wide on 8
-  // different bank pairs (BN = 48 is so as it is)
-  static constexpr int PITCH = BN == 48 ? 48 : BN + 16;
-  static constexpr int STAGING = CODES ? BM * PITCH : 0;
+  static constexpr bool CODES = EPI != EPI_F32;
+  // The ResNets' widths take turns: each consumer warpgroup owns every
+  // other tile of the block, all BM rows of it in two 64-row halves, so
+  // that one warpgroup's epilogue runs beside the other's products.  The
+  // other widths split every tile between the two warpgroups.
+  static constexpr bool TURNS = BN == 64 || BN == 128;
+  static constexpr int HALVES = TURNS ? 2 : 1;
+  static constexpr int ROWS_WG = HALVES * WGMMA_M;   // a warpgroup's rows
+  // staging of codes (without a staged residual): SW columns a pass (a
+  // 256-wide tile in two passes, so that it fits beside four stages), row
+  // pitch 16-byte aligned and 8 rows 2 words wide on 8 different bank
+  // pairs (48 is so as it is)
+  static constexpr bool STAGED_R = EPI == EPI_RES8 || EPI == EPI_RES32;
+  static constexpr int SW = BN == 256 ? 128 : BN;
+  static constexpr int PITCH = SW == 48 ? 48 : SW + 16;
+  static constexpr int STAGING =
+      CODES && !STAGED_R ? CONSUMER_WGS * ROWS_WG * PITCH : 0;
+  // The staged residual: a warpgroup ends its tile chunk by chunk, CW
+  // columns a chunk (128 bytes of a row of r, or the tile's width), in
+  // SLOTS slots: r's box (ROWS_WG rows, TMA's swizzle of its row width),
+  // and the box of codes (in place of an int8 r's)
+  static constexpr int RB = EPI == EPI_RES8 ? 1 : 4;
+  static constexpr int CW = BN < TILE_K / RB ? BN : TILE_K / RB;
+  static constexpr int CHUNKS = BN / CW;
+  static constexpr int R_ROW = CW * RB;
+  static constexpr int O_ROW = CW;
+  static constexpr bool IN_PLACE = RB == 1;
+  static constexpr int R_AREA = ROWS_WG * R_ROW;
+  static constexpr int SLOT = IN_PLACE ? R_AREA : R_AREA + ROWS_WG * O_ROW;
+  static constexpr int SLOTS = 2;
+  static constexpr int R_SLOTS = STAGED_R ? CONSUMER_WGS * SLOTS * SLOT : 0;
+  // per-column parameters in shared memory: a and b, and ar and br
+  static constexpr int PARAMS = STAGED_R ? 4 : 2;
+  static constexpr int R_BARS = STAGED_R ? CONSUMER_WGS * SLOTS : 0;
   // two blocks an SM where the accumulator is small enough for 80 registers
   static constexpr int MIN_BLOCKS = BN == 48 ? 2 : 1;
   // rows a producer lane addresses and reads before it stores any: as many
@@ -243,12 +363,13 @@ struct Cfg {
   static constexpr int BATCH = MIN_BLOCKS == 2 ? 4 : 16;
   // chunks a lane gathers from x (any C) before it stores any
   static constexpr int GATHER = MIN_BLOCKS == 2 ? 2 : 4;
+  static_assert(!STAGED_R || (TURNS && SLOT % ATOM_BYTES == 0), "r slots");
 };
 
 // Byte offsets of a block's dynamic shared memory, from its 1024-byte
 // aligned base; int8_conv.py computes `total` the same way.
 struct Layout {
-  int stage_bytes, bres, staging, halo, ab, rows, bars, total;
+  int stage_bytes, bres, slots, staging, halo, ab, rows, bars, total;
 };
 
 template <class C>
@@ -257,12 +378,14 @@ __host__ __device__ Layout make_layout(int stages, int resident, int k_chunks,
   Layout l;
   l.stage_bytes = C::A_BYTES + (resident ? 0 : C::B_BYTES);
   l.bres = stages * l.stage_bytes;
-  l.staging = l.bres + (resident ? k_chunks * C::B_BYTES : 0);
-  l.halo = l.staging + C::STAGING;
+  l.slots = l.bres + (resident ? k_chunks * C::B_BYTES : 0);
+  l.staging = l.slots + C::R_SLOTS;
+  // the halo buffers 1024-byte aligned: halo_a's are swizzled
+  l.halo = (l.staging + C::STAGING + ATOM_BYTES - 1) / ATOM_BYTES * ATOM_BYTES;
   l.ab = l.halo + halo_total;
-  l.rows = l.ab + 2 * n_tiles * (C::B_BYTES / TILE_K) * 4;
+  l.rows = l.ab + C::PARAMS * n_tiles * (C::B_BYTES / TILE_K) * 4;
   l.bars = l.rows + PRODUCER_WARPS * C::BM * 8;
-  l.total = l.bars + (2 * MAX_STAGES + 1 + 4) * 8;
+  l.total = l.bars + (3 * MAX_STAGES + 1 + 2 * MAX_HALOS + C::R_BARS) * 8;
   return l;
 }
 
@@ -366,28 +489,181 @@ __device__ __forceinline__ void unpack_b_tile(const ConvArgs& g, int kc,
   }
 }
 
-// RESIDUAL (codes only) adds the residual term and TERM a weight offset's
-// row term: instantiations of their own, so that the epilogue without
-// them keeps its registers
-template <int BN, bool CODES, bool RESIDUAL, bool TERM>
-__global__ void __launch_bounds__(THREADS, Cfg<BN, CODES>::MIN_BLOCKS)
+// 1.5 * 2^23: a float32 sum with it lands on the integers, rounded half to
+// even, and its low mantissa bits are the integer's two's complement
+constexpr float MAGIC = 12582912.0f;
+constexpr int MAGIC_BITS = 0x4B400000;
+
+// A code: y clamped to [lo, hi] (integers, so the clamp and the rounding
+// commute), then rounded half to even by the magic sum; the code is the low
+// byte of the result.  The same code as clamp(rintf(y), lo, hi) in full-
+// rate float ops, where a conversion (cvt.rni) runs at a quarter of the
+// rate (int8_gemm.cu's staged_code).
+__device__ __forceinline__ int code_of(float y, float lo, float hi) {
+  return __float_as_int(__fadd_rn(fminf(fmaxf(y, lo), hi), MAGIC));
+}
+
+// A column pair of a staged r box (RB bytes a value; 4: int32 or f32 by
+// r_kind) as float32; an int8 r exactly, as the magic number's float less
+// the magic number (no conversion instruction).
+template <int RB>
+__device__ __forceinline__ float2 staged_r(const uint8_t* p, int r_kind) {
+  if constexpr (RB == 1) {
+    const char2 v = *reinterpret_cast<const char2*>(p);
+    return make_float2(__fsub_rn(__int_as_float(MAGIC_BITS + v.x), MAGIC),
+                       __fsub_rn(__int_as_float(MAGIC_BITS + v.y), MAGIC));
+  } else {
+    if (r_kind == 2) {
+      const int2 v = *reinterpret_cast<const int2*>(p);
+      return make_float2(__int2float_rn(v.x), __int2float_rn(v.y));
+    }
+    return *reinterpret_cast<const float2*>(p);
+  }
+}
+
+// The staged residual: the r box of a warpgroup's chunk u (columns from
+// col, rows from row) by TMA into its slot, reported to the slot's r full
+// barrier.  Executed by thread 0 of the warpgroup, once the slot's last
+// contents have been read.
+template <class C>
+__device__ __forceinline__ void load_r(const CUtensorMap* map, uint32_t slots,
+                                       uint32_t bars, uint32_t u, int col,
+                                       int row) {
+  const uint32_t s = u % C::SLOTS;
+  mbar_arrive_expect_tx(bars + 8 * s, C::R_AREA);
+  tma_load_2d(slots + s * C::SLOT, map, bars + 8 * s, col * C::RB, row);
+}
+
+// halo_a's halo rows: one pixel of C = 64 channels, in TMA's 64-byte
+// swizzle, so that the 8 rows of an ldmatrix phase meet no bank twice
+constexpr int HALO_ROW = 64;
+
+// halo_a, the widths that take turns with a resident weight and a halo:
+// the products of a warpgroup's tile (all BM rows, two 64-row halves) with
+// A gathered from the tile's halo buffer by ldmatrix, into registers (64-
+// wide tiles at C = 64: K is 576 bytes, 18 steps of 32 in 5 chunks, every
+// step's tap known at compile time).  At a step lane l of warp w gathers
+// row 16 w + l % 16 of each half at byte 16 (l / 16): 16 bytes of the
+// step's tap, pixel (row + dy W + dx) of the halo run at its swizzled
+// place, or the 16-byte pad block where the tap lies outside the image or
+// the row past M.  A chunk's gather goes into one of two register buffers
+// while the wgmmas of the chunk before read the other (wgmma with A from
+// registers, B the resident weight); the steps past K are skipped.  The
+// warpgroup then hands the halo buffer back.  No producer builds an
+// im2col tile: each A byte is read once from the halo, by the warp that
+// multiplies it.
+template <int BN>
+__device__ __forceinline__ void halo_products(
+    const ConvArgs& g, int (&acc)[2][BN / 2], uint32_t halos, uint32_t pad,
+    uint32_t hfull, uint32_t hempty, int walked, int m0, uint32_t bres) {
+  constexpr int STEPS = 9 * HALO_ROW / WGMMA_K;   // 18
+  constexpr int KSTEPS = TILE_K / WGMMA_K;        // 4 a chunk
+  constexpr int KC = (STEPS + KSTEPS - 1) / KSTEPS;   // 5 chunks
+  const int lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int nb = g.halo_bufs;
+  const int b = walked % nb;
+  const uint32_t halo = halos + b * g.halo_bytes;
+  int flags[2];
+  int row[2];   // the halo row of the lane's row's tap (0, 0)
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    row[j] = 64 * j + 16 * warp + lane % 16;
+    flags[j] = row_entry(g, m0 + row[j]).y;
+  }
+  const int half = 16 * (lane / 16);   // the lane's bytes of a K step
+  uint32_t a[2][2][KSTEPS][4];         // [buffer][half of the rows][step]
+  const auto gather = [&](auto chunk, uint32_t (&buf)[2][KSTEPS][4]) {
+    constexpr int kc = decltype(chunk)::value;
+    static_for<0, KSTEPS>([&](auto kstep) {
+      constexpr int kk = decltype(kstep)::value;
+      if constexpr (kc * KSTEPS + kk < STEPS) {
+        constexpr int tap = (kc * TILE_K + kk * WGMMA_K) / HALO_ROW;
+        constexpr int dy = tap / 3, dx = tap % 3;
+        constexpr int need = (1 << dy) | (8 << dx);
+        const int coff = (kk * WGMMA_K) % HALO_ROW + half;
+        const int step = dy * g.W + dx;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          ldmatrix_x4(buf[j][kk],
+                      (flags[j] & need) == need
+                          ? halo + swizzle_box((row[j] + step) * HALO_ROW +
+                                                   coff,
+                                               HALO_ROW)
+                          : pad);
+      }
+    });
+  };
+  mbar_wait(hfull + 8 * b, (walked / nb) & 1);
+  gather(std::integral_constant<int, 0>(), a[0]);
+  static_for<0, KC>([&](auto chunk) {
+    constexpr int kc = decltype(chunk)::value;
+    const uint64_t db = smem_desc(bres + kc * BN * TILE_K);
+    wgmma_fence();
+    static_for<0, KSTEPS>([&](auto kstep) {
+      constexpr int kk = decltype(kstep)::value;
+      if constexpr (kc * KSTEPS + kk < STEPS) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          WgmmaRS<BN>::mma(acc[j], a[kc & 1][j][kk], db + kk * DESC_K_STEP,
+                           kc + kk != 0);
+      }
+    });
+    wgmma_commit();
+    // the chunk before has read its buffer, which the next chunk's gather
+    // fills while this one's wgmmas run
+    wgmma_wait<1>();
+    if constexpr (kc + 1 < KC)
+      gather(std::integral_constant<int, kc + 1>(), a[(kc + 1) & 1]);
+  });
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < 2; ++j) acc_fence(acc[j]);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(hempty + 8 * b);
+}
+
+// EPI is the epilogue (Epi), TERM a weight offset's row term: an
+// instantiation of its own, so that the epilogue without it keeps its
+// registers and instructions.  map_x describes x as (pixels, C) in the A tile's
+// boxes (read where tma_a is set); map_r and map_out describe r and the
+// output in the boxes of a staged residual's chunk (Cfg); no other mode
+// reads them.
+template <int BN, int EPI, bool TERM>
+__global__ void __launch_bounds__(THREADS, Cfg<BN, EPI>::MIN_BLOCKS)
 int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
+                    const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_r,
+                    const __grid_constant__ CUtensorMap map_out,
                     const ConvArgs g) {
-  using C = Cfg<BN, CODES>;
+  using C = Cfg<BN, EPI>;
+  constexpr bool CODES = C::CODES;
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t base = smem_u32(smem);
   if (base % ATOM_BYTES != 0) __trap();  // the swizzle needs the alignment
   const Layout L = make_layout<C>(g.stages, g.resident, g.k_chunks, g.n_tiles,
                                   g.halo_bufs * g.halo_bytes);
+  // full: a stage has landed, [warpgroup][slot] at the widths that take
+  // turns (each warpgroup's barriers count only its own stages, so that a
+  // parity wait never meets a phase two behind, which it could not tell
+  // from the one it waits for), else [0][slot]; empty: its readers are done
   const uint32_t full = base + L.bars;
-  const uint32_t empty = full + 8 * MAX_STAGES;
+  const uint32_t empty = full + 8 * 2 * MAX_STAGES;
   const uint32_t bfull = empty + 8 * MAX_STAGES;
-  const uint32_t hfull = bfull + 8;    // 2: a halo buffer has landed
-  const uint32_t hempty = hfull + 16;  // 2: every producer warp has left it
+  // a halo buffer has landed; every warp that reads it has left it (the 4
+  // producer warps, or with halo_a the 4 warps of the tile's warpgroup)
+  const uint32_t hfull = bfull + 8;
+  const uint32_t hempty = hfull + 8 * MAX_HALOS;
+  // staged residual: a slot's r box has landed, (warpgroup, slot)
+  const uint32_t r_full = hempty + 8 * MAX_HALOS;
   float* sa = reinterpret_cast<float*>(smem + L.ab);
   float* sb = sa + g.n_tiles * BN;
+  float* sar = sb + g.n_tiles * BN;   // staged residual: ar and br
+  float* sbr = sar + g.n_tiles * BN;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const uint32_t pad4 =     // 4 pad codes in a word
+      static_cast<uint32_t>(static_cast<uint8_t>(g.pad)) * 0x01010101u;
 
   if constexpr (GROUPED) {
     // a and b tile by tile: entry BN t + j is output channel (group,
@@ -404,22 +680,35 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
     for (int i = threadIdx.x; i < g.n_tiles * BN; i += THREADS) {
       sa[i] = i < g.O ? g.a[i] : 0.0f;
       sb[i] = i < g.O ? g.b[i] : 0.0f;
+      if constexpr (C::STAGED_R) {
+        sar[i] = i < g.O ? g.ar[i] : 0.0f;
+        sbr[i] = i < g.O ? g.br[i] : 0.0f;
+      }
     }
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < g.stages; ++s) {
-      // lane 0 of the warp that fills it, and its expect_tx if B streams
-      // by TMA
-      mbar_init(full + 8 * s, g.resident || g.w4 ? 1 : 2);
-      mbar_init(empty + 8 * s, 4 * CONSUMER_WGS);  // lane 0 of each warp
+      // lane 0 of the warp that fills it, and its expect_tx if B or (tma_a)
+      // A streams by TMA
+      for (int w = 0; w < (C::TURNS ? CONSUMER_WGS : 1); ++w)
+        mbar_init(full + 8 * (w * MAX_STAGES + s),
+                  g.tma_a || !(g.resident || g.w4) ? 2 : 1);
+      // lane 0 of each warp that reads it: of both warpgroups, or at the
+      // widths that take turns of the tile's own
+      mbar_init(empty + 8 * s, 4 * (C::TURNS ? 1 : CONSUMER_WGS));
     }
     // the resident weight: TMA's expect_tx, or at W4 lane 0 of every
     // producer warp once its share is unpacked
     mbar_init(bfull, g.w4 ? PRODUCER_WARPS : 1);
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < MAX_HALOS; ++h) {
       mbar_init(hfull + 8 * h, 1);
-      mbar_init(hempty + 8 * h, PRODUCER_WARPS);
+      mbar_init(hempty + 8 * h, 4);
     }
+    // halo_a: 16 bytes of the pad code where an A row outside the image
+    // points (the rows' table, which halo_a does not build)
+    if (g.halo_a)
+      st_shared16(base + L.rows, pad4, pad4, pad4, pad4);
+    for (int b = 0; b < C::R_BARS; ++b) mbar_init(r_full + 8 * b, 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -444,12 +733,37 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
     }
     if (!g.w4 && pw == 0 && lane == 0) {
       tma_prefetch_map(&map_w);
+      if (g.tma_a || g.halo_a) tma_prefetch_map(&map_x);
       if (g.resident) {
         mbar_arrive_expect_tx(bfull, g.k_chunks * C::B_BYTES);
         for (int kc = 0; kc < g.k_chunks; ++kc)
           tma_load_2d(base + L.bres + kc * C::B_BYTES, &map_w, bfull,
                       kc * TILE_K, 0);
       }
+    }
+    if (g.halo_a) {
+      // only the halos: tile u's run of pixels into buffer u % nb by one
+      // bulk copy, once its warpgroup has left the buffer's tile before
+      if (pw == 0 && lane == 0) {
+        const int nb = g.halo_bufs;
+        int u = 0;
+        for (int tile = blockIdx.x; tile < g.tiles;
+             tile += gridDim.x, ++u) {
+          const int b = u % nb;
+          if (u >= nb) mbar_wait(hempty + 8 * b, (u / nb - 1) & 1);
+          const int m_tile = tile - g.by_m_tiles.div(tile) * g.m_tiles;
+          const int first = m_tile * C::BM - g.W - 1;
+          // boxes of halo_rows pixels from pixel `first` (zeros before and
+          // past x), in the 64-byte swizzle
+          mbar_arrive_expect_tx(hfull + 8 * b,
+                                g.halo_boxes * g.halo_rows * HALO_ROW);
+          for (int k = 0; k < g.halo_boxes; ++k)
+            tma_load_2d(base + L.halo + b * g.halo_bytes +
+                            k * g.halo_rows * HALO_ROW,
+                        &map_x, hfull + 8 * b, 0, first + k * g.halo_rows);
+        }
+      }
+      return;
     }
     int2* rows = reinterpret_cast<int2*>(smem + L.rows) + pw * C::BM;
     const int q = lane % CHUNKS_16;   // this lane's chunk of every row
@@ -458,12 +772,9 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
     // row % 8 = r0 for even j and r0 + 4 for odd j
     const uint32_t chunk_at[2] = {static_cast<uint32_t>(q ^ r0) << 4,
                                   static_cast<uint32_t>(q ^ (r0 + 4)) << 4};
-    const uint32_t pad4 =
-        static_cast<uint32_t>(static_cast<uint8_t>(g.pad)) * 0x01010101u;
     // a chunk is 16 aligned bytes of one tap (grouped: where Cg % 16 == 0)
     const bool vec = (GROUPED ? g.Cg : g.C) % 16 == 0;
     const bool words = reinterpret_cast<uintptr_t>(g.x) % 4 == 0;
-    const int hw = g.Ho * g.Wo;
     int stage = 0, turn = 0, my_tile = -1, walked = 0;
     uint32_t parity = 1;
     for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x, ++walked) {
@@ -521,50 +832,46 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
           parity ^= 1;
         }
         if (!mine) continue;
-        if (tile != my_tile) {
+        if (tile != my_tile && !g.tma_a) {
           // where each output pixel of the tile reads: once per tile and warp
           my_tile = tile;
           __syncwarp();   // every lane has read the table of the tile before
-          for (int r = lane; r < C::BM; r += 32) {
-            const int m = m0 + r;
-            // .x: pixel index of tap (0, 0); .y: bit dy set where window
-            // row dy lies inside the image, bit 3 + dx likewise for window
-            // column dx, bit 6 for a row before M (0: nothing to fill)
-            int2 e = make_int2(0, 0);
-            if (m < g.M) {
-              const int n = g.by_hw.div(m);
-              const int rem = m - n * hw;
-              const int oh = g.by_wo.div(rem);
-              const int ow = rem - oh * g.Wo;
-              const int ih0 = oh * g.stride - g.pad_lo;
-              const int iw0 = ow * g.stride - g.pad_lo;
-              e.x = (n * g.H + ih0) * g.W + iw0;
-              e.y = ROW_LIVE;
-#pragma unroll
-              for (int d = 0; d < 3; ++d) {
-                if (static_cast<unsigned>(ih0 + d) <
-                    static_cast<unsigned>(g.H))
-                  e.y |= 1 << d;
-                if (static_cast<unsigned>(iw0 + d) <
-                    static_cast<unsigned>(g.W))
-                  e.y |= 8 << d;
-              }
-            }
-            rows[r] = e;
-          }
+          for (int r = lane; r < C::BM; r += 32) rows[r] = row_entry(g, m0 + r);
           __syncwarp();
         }
         mbar_wait(empty + 8 * slot, slot_parity);
         const uint32_t a_tile = base + slot * L.stage_bytes;
+        // the stage's full barrier: its tile's warpgroup's, in turns
+        const uint32_t fbar =
+            full + 8 * ((C::TURNS ? (walked & 1) * MAX_STAGES : 0) + slot);
         const uint32_t a_row0 = a_tile + r0 * TILE_K;  // its rows: + 512 j
+        if (g.tma_a && lane == 0) {
+          // the A tile by TMA: chunk kc is 128 channels of one tap, and the
+          // tile's rows are 128 consecutive pixels of x from pixel m0 + (dy
+          // - 1) W + (dx - 1) (zeros before and past x); the consumers pad
+          // the rows whose tap lies outside the image.  A streamed W8 B
+          // tile comes with it, reported to the same barrier.
+          const int tap = kc / g.chunks_per_tap;
+          const int dy = tap / 3;
+          const int dx = tap - 3 * dy;
+          const bool b_tma = !g.resident && !g.w4;
+          mbar_arrive_expect_tx(fbar, C::A_BYTES + (b_tma ? C::B_BYTES : 0));
+          tma_load_2d(a_tile, &map_x, fbar,
+                      (kc - tap * g.chunks_per_tap) * TILE_K,
+                      m0 + (dy - 1) * g.W + dx - 1);
+          if (b_tma)
+            tma_load_2d(a_tile + C::A_BYTES, &map_w, fbar, kc * TILE_K, n0);
+        }
         if (!g.resident && g.w4) {
           unpack_b_tile<BN>(g, kc, n0, a_tile + C::A_BYTES, lane, 32);
-        } else if (!g.resident && lane == 0) {
-          mbar_arrive_expect_tx(full + 8 * slot, C::B_BYTES);
-          tma_load_2d(a_tile + C::A_BYTES, &map_w, full + 8 * slot,
+        } else if (!g.resident && !g.tma_a && lane == 0) {
+          mbar_arrive_expect_tx(fbar, C::B_BYTES);
+          tma_load_2d(a_tile + C::A_BYTES, &map_w, fbar,
                       kc * TILE_K, n0);
         }
-        if (g.halo_bufs) {
+        if (g.tma_a) {
+          // nothing more: the box is in flight
+        } else if (g.halo_bufs) {
           // from the halo: pixel (row + dy W + dx) of the run, 16 bytes
           const int kbyte = kc * TILE_K + 16 * q;
           if (kbyte < g.Kp) {
@@ -829,7 +1136,7 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
         // wgmma and hand the stage over
         fence_proxy_async();
         __syncwarp();
-        if (lane == 0) mbar_arrive(full + 8 * slot);
+        if (lane == 0) mbar_arrive(fbar);
       }
     }
     return;
@@ -838,19 +1145,92 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
   // --------------------------------------------------- consumer warpgroups
   const int wg = warp / 4;
   const int t = threadIdx.x % WG_THREADS;
-  int acc[BN / 2];
+  // The accumulator's lane map, in each 64-row half: d[4 i + 2 h + e] is
+  // row 16 (warp % 4) + lane / 4 + 8 h, column 8 i + 2 (lane % 4) + e.
+  const int row_in = 16 * (t / 32) + (t % 32) / 4;
+  const int col_in = 2 * (t % 4);
+  constexpr bool term = TERM;
+  const float flo = static_cast<float>(g.lo), fhi = static_cast<float>(g.hi);
+  // staged residual: this warpgroup's slots and their r full barriers
+  const uint32_t r_slots = base + L.slots + wg * C::SLOTS * C::SLOT;
+  const uint32_t r_bars = r_full + 8 * wg * C::SLOTS;
+  if (C::STAGED_R && t == 0) {
+    tma_prefetch_map(&map_r);
+    tma_prefetch_map(&map_out);
+  }
+  // tma_a: the warpgroup pads its rows of each A tile whose tap lies
+  // outside the image; thread t takes row pad_row of the tile, chunks
+  // pad_q0 .. pad_q0 + PAD_QS - 1 of it
+  constexpr int TPR = WG_THREADS / C::ROWS_WG;   // threads a row
+  constexpr int PAD_QS = CHUNKS_16 / TPR;
+  const int pad_row = (C::TURNS ? 0 : wg * WGMMA_M) + t / TPR;
+  const int pad_q0 = (t % TPR) * PAD_QS;
+  int acc[C::HALVES][BN / 2];
   int stage = 0;
   uint32_t parity = 0;
+  uint32_t own = 0;   // turns: bit s flips at each of its own uses of slot s
+  uint32_t ch = 0;   // staged residual: the chunks this warpgroup began
   if (g.resident) mbar_wait(bfull, 0);
-  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
+  int walked = 0;
+  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x, ++walked) {
+    if (C::TURNS && (walked & 1) != wg) {
+      // the other warpgroup's tile: its stages go by
+      const int seq = stage + g.k_chunks;
+      parity ^= static_cast<uint32_t>(seq / g.stages) & 1u;
+      stage = seq % g.stages;
+      continue;
+    }
     const int n_tile = g.by_m_tiles.div(tile);
-    const int m0 = (tile - n_tile * g.m_tiles) * C::BM + wg * WGMMA_M;
-    const int n0 = n_tile * BN;   // the tile's a and b in sa and sb
+    // the warpgroup's first output row; the tile's a and b in sa and sb
+    const int m0 = (tile - n_tile * g.m_tiles) * C::BM +
+                   (C::TURNS ? 0 : wg * WGMMA_M);
+    const int n0 = n_tile * BN;
+    // staged residual: the tile's chunks inside O, and the r boxes of the
+    // first ones, in flight during the products
+    const int n_chunks =
+        C::STAGED_R ? min(C::CHUNKS, (g.O - n0 + C::CW - 1) / C::CW) : 0;
+    if (C::STAGED_R && t == 0)
+      for (int c = 0; c < C::SLOTS && c < n_chunks; ++c)
+        load_r<C>(&map_r, r_slots, r_bars, ch + c, n0 + c * C::CW, m0);
+    const int pad_flags =
+        g.tma_a ? row_entry(g, (tile - n_tile * g.m_tiles) * C::BM + pad_row).y
+                : 0;
+    bool gathered = false;   // halo_a: the products are done
+    if constexpr (C::TURNS) {
+      if (g.halo_a) {
+        if constexpr (BN == 64) {
+          halo_products<BN>(g, acc, base + L.halo, base + L.rows, hfull,
+                            hempty, walked, m0, base + L.bres);
+          gathered = true;
+        }
+      }
+    }
+    if (!gathered) {
     int prev = -1;
     for (int kc = 0; kc < g.k_chunks; ++kc) {
-      mbar_wait(full + 8 * stage, parity);
+      if constexpr (C::TURNS) {
+        mbar_wait(full + 8 * (wg * MAX_STAGES + stage), (own >> stage) & 1u);
+        own ^= 1u << stage;
+      } else {
+        mbar_wait(full + 8 * stage, parity);
+      }
       const uint32_t a_tile = base + stage * L.stage_bytes;
-      const uint64_t da = smem_desc(a_tile + wg * WGMMA_M * TILE_K);
+      if (g.tma_a) {
+        // the box holds x's neighbouring pixels (or zeros) where the tap
+        // lies outside the image: the pad code there, made visible to
+        // wgmma before any warp of the warpgroup reads the tile
+        const int tap = kc / g.chunks_per_tap;
+        const int dy = tap / 3;
+        const int need = (1 << dy) | (8 << (tap - 3 * dy));
+        if ((pad_flags & ROW_LIVE) && (pad_flags & need) != need) {
+#pragma unroll
+          for (int q = 0; q < PAD_QS; ++q)
+            st_shared16(a_tile + pad_row * TILE_K + 16 * (pad_q0 + q), pad4,
+                        pad4, pad4, pad4);
+        }
+        fence_proxy_async();
+        named_bar_sync(4 + wg, WG_THREADS);
+      }
       const uint64_t db = smem_desc(
           g.resident ? base + L.bres + kc * C::B_BYTES : a_tile + C::A_BYTES);
       // all four 32-byte slices, also of a last chunk that K fills only
@@ -858,8 +1238,13 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < TILE_K / WGMMA_K; ++kk) {
-        Wgmma<BN>::mma(acc, da + kk * DESC_K_STEP, db + kk * DESC_K_STEP,
-                       (kc | kk) != 0);
+#pragma unroll
+        for (int j = 0; j < C::HALVES; ++j)
+          Wgmma<BN>::mma(acc[j],
+                         smem_desc(a_tile + (C::TURNS ? j : wg) * WGMMA_M *
+                                                TILE_K) +
+                             kk * DESC_K_STEP,
+                         db + kk * DESC_K_STEP, (kc | kk) != 0);
       }
       wgmma_commit();
       if (prev >= 0) {
@@ -873,8 +1258,10 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
       }
     }
     wgmma_wait<0>();
-    acc_fence(acc);
+#pragma unroll
+    for (int j = 0; j < C::HALVES; ++j) acc_fence(acc[j]);
     if (lane == 0) mbar_arrive(empty + 8 * prev);
+    }
 
     // the tile's first output channel c0 and the end of its columns
     // (grouped: its group's, past which nothing is stored); worked out
@@ -884,130 +1271,235 @@ int8_conv3x3_kernel(const __grid_constant__ CUtensorMap map_w,
     const int c0 = GROUPED ? grp * g.Og + (n_tile - grp * g.ntg) * BN : n0;
     const int c_end = GROUPED ? min(c0 + BN, (grp + 1) * g.Og) : g.O;
 
-    // Epilogue.  Lane map: d[4 i + 2 h + e] is row 16 (warp % 4) + lane / 4
-    // + 8 h, column 8 i + 2 (lane % 4) + e of a 64-row tile.
-    const int row_in = 16 * (t / 32) + (t % 32) / 4;
-    const int col_in = 2 * (t % 4);
-    if (CODES) {
-      uint8_t* stg = smem + L.staging + wg * WGMMA_M * C::PITCH;
-      // A warp holds 16 rows of each 64-row tile, stages them and reads
-      // them out itself: only its own lanes have to meet.
-      __syncwarp();   // its read-out of the tile before is over
+    if constexpr (C::STAGED_R) {
+      // Chunk by chunk: wait for its r box, write the codes in the lane
+      // map into the slot (over an int8 r), fence, meet at the
+      // warpgroup's barrier; thread 0 stores the box by TMA (rows past M
+      // and columns past O clipped) and loads the r box SLOTS chunks on
+      // into the slot once it is free: an int8 r's once the store has
+      // read the codes over it, a wider r's at once.  The box of codes of
+      // a wider r is written again SLOTS chunks on, after the store that
+      // read it is awaited (one chunk late).
+      float sv[C::HALVES][2] = {};
+      if (term) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint8_t* srow = stg + (row_in + 8 * h) * C::PITCH;
-        const int orow = m0 + row_in + 8 * h;
-        // the row term's S of this row (0 past M: not stored)
-        const float sv = TERM && orow < g.M
-                             ? __int2float_rn(__ldg(g.srow + srow_at(g, orow,
-                                                                     grp)))
-                             : 0.0f;
+        for (int j = 0; j < C::HALVES; ++j)
 #pragma unroll
-        for (int i = 0; i < BN / 8; ++i) {
-          const int col = 8 * i + col_in;
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0 + 64 * j + row_in + 8 * h;
+            if (row < g.M) sv[j][h] = __int2float_rn(__ldg(g.srow + row));
+          }
+      }
+      static_for<0, C::CHUNKS>([&](auto chunk) {
+        constexpr int c = decltype(chunk)::value;
+        if (c >= n_chunks) return;
+        const uint32_t s = ch % C::SLOTS;
+        uint8_t* slot = smem + L.slots + (wg * C::SLOTS + s) * C::SLOT;
+        uint8_t* o_box = slot + (C::IN_PLACE ? 0 : C::R_AREA);
+        mbar_wait(r_bars + 8 * s, (ch / C::SLOTS) & 1);
+#pragma unroll
+        for (int jj = 0; jj < C::CW / 8; ++jj) {
+          const int i = c * (C::CW / 8) + jj;
+          const int cw = 8 * jj + col_in;   // the pair's column in the chunk
+          const int col = c * C::CW + cw;   // and in the tile
           const float2 av = *reinterpret_cast<const float2*>(sa + n0 + col);
           const float2 bv = *reinterpret_cast<const float2*>(sb + n0 + col);
+          const float2 arv = *reinterpret_cast<const float2*>(sar + n0 + col);
+          const float2 brv = *reinterpret_cast<const float2*>(sbr + n0 + col);
           float cv[2] = {0.0f, 0.0f};
-          if constexpr (TERM) load_pair(g.crow, c0 + col, g.O, cv);
-          // the residual term of both columns: r, ar and br, zero outside
-          // the output (those codes are not stored)
-          float rv[2] = {0.0f, 0.0f}, arv[2] = {0.0f, 0.0f},
-                brv[2] = {0.0f, 0.0f};
-          if constexpr (RESIDUAL)
-            load_residual(g, m0 + row_in + 8 * h, c0 + col, rv, arv, brv);
-          int c[2];
+          if (term) load_pair(g.crow, n0 + col, g.O, cv);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float prod = __fmul_rn(__int2float_rn(acc[4 * i + 2 * h + e]),
-                                   e ? av.y : av.x);
-            if constexpr (TERM)
-              prod = __fadd_rn(prod, __fmul_rn(sv, cv[e]));
-            float y;
-            if constexpr (!RESIDUAL) {
-              y = __fadd_rn(prod, e ? bv.y : bv.x);
-            } else {
-              // the residual sum, term by term: ((qb + acc a) + b) + r ar + br
-              y = __fadd_rn(__fadd_rn(g.qb, prod), e ? bv.y : bv.x);
-              y = __fadd_rn(__fadd_rn(y, __fmul_rn(rv[e], arv[e])), brv[e]);
+          for (int j = 0; j < C::HALVES; ++j) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = 64 * j + row_in + 8 * h;   // in the box
+              const float2 rv = staged_r<C::RB>(
+                  slot + swizzle_box(r * C::R_ROW + C::RB * cw, C::R_ROW),
+                  g.r_kind);
+              int code[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float prod = __fmul_rn(
+                    __int2float_rn(acc[j][4 * i + 2 * h + e]),
+                    e ? av.y : av.x);
+                if (term) prod = __fadd_rn(prod, __fmul_rn(sv[j][h], cv[e]));
+                // the residual sum, term by term: ((qb + acc a) + b) + r ar
+                // + br
+                float y = __fadd_rn(__fadd_rn(g.qb, prod), e ? bv.y : bv.x);
+                y = __fadd_rn(__fadd_rn(y, __fmul_rn(e ? rv.y : rv.x,
+                                                     e ? arv.y : arv.x)),
+                              e ? brv.y : brv.x);
+                code[e] = code_of(y, flo, fhi);
+              }
+              *reinterpret_cast<uint16_t*>(
+                  o_box + swizzle_box(r * C::O_ROW + cw, C::O_ROW)) =
+                  static_cast<uint16_t>(__byte_perm(code[0], code[1], 0x0040));
             }
-            // rintf and the conversion in one cvt (cvt.rni rounds
-            // half to even as rintf does, and saturates), then the clamp
-            // on integers: the same code as clamp(rintf(y), lo, hi)
-            c[e] = min(max(__float2int_rn(y), g.lo), g.hi);
           }
-          // the low bytes of both codes, side by side
-          *reinterpret_cast<uint16_t*>(srow + col) =
-              static_cast<uint16_t>(__byte_perm(c[0], c[1], 0x0040));
         }
-      }
-      __syncwarp();
+        fence_proxy_async();   // the box of codes is read by the TMA store
+        if (t == 0 && !C::IN_PLACE && ch > 0) bulk_wait_read<C::SLOTS - 2>();
+        named_bar_sync(2 + wg, WG_THREADS);
+        if (t == 0) {
+          tma_store_2d(&map_out, smem_u32(o_box), n0 + c * C::CW, m0);
+          bulk_commit();
+          if (C::IN_PLACE) bulk_wait_read<0>();
+          if (c + C::SLOTS < n_chunks)
+            load_r<C>(&map_r, r_slots, r_bars, ch + C::SLOTS,
+                      n0 + (c + C::SLOTS) * C::CW, m0);
+        }
+        ++ch;
+      });
+    } else if constexpr (CODES) {
+      uint8_t* stg = smem + L.staging + wg * C::ROWS_WG * C::PITCH;
       int8_t* out = static_cast<int8_t*>(g.out);
-      const int row0 = 16 * (t / 32);  // this warp's 16 rows
-      if (g.O % 16 == 0 && (!GROUPED || g.Og % 16 == 0)) {
-        constexpr int PER_ROW = BN / 16;
-        for (int j = lane; j < 16 * PER_ROW; j += 32) {
-          const int row = row0 + j / PER_ROW;
-          const int col = c0 + 16 * (j % PER_ROW);
-          if (m0 + row < g.M && col < c_end)
-            *reinterpret_cast<uint4*>(
-                out + static_cast<long long>(m0 + row) * g.O + col) =
-                *reinterpret_cast<const uint4*>(stg + row * C::PITCH +
-                                                16 * (j % PER_ROW));
+      const int row0 = 16 * (t / 32);  // this warp's 16 rows of each half
+      // A warp holds 16 rows of each 64-row half, stages them and reads
+      // them out itself, SW columns a pass: only its own lanes have to
+      // meet.
+      static_for<0, BN / C::SW>([&](auto pass) {
+        constexpr int p = decltype(pass)::value;
+        __syncwarp();   // its read-out of the pass before is over
+#pragma unroll
+        for (int j = 0; j < C::HALVES; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint8_t* srow = stg + (64 * j + row_in + 8 * h) * C::PITCH;
+            const int orow = m0 + 64 * j + row_in + 8 * h;
+            // the row term's S of this row (0 past M: not stored)
+            const float sv =
+                term && orow < g.M
+                    ? __int2float_rn(__ldg(g.srow + srow_at(g, orow, grp)))
+                    : 0.0f;
+#pragma unroll
+            for (int i = p * C::SW / 8; i < (p + 1) * C::SW / 8; ++i) {
+              const int col = 8 * i + col_in;
+              const float2 av =
+                  *reinterpret_cast<const float2*>(sa + n0 + col);
+              const float2 bv =
+                  *reinterpret_cast<const float2*>(sb + n0 + col);
+              float cv[2] = {0.0f, 0.0f};
+              if (term) load_pair(g.crow, c0 + col, g.O, cv);
+              // the residual term of both columns: r, ar and br, zero
+              // outside the output (those codes are not stored)
+              float rv[2] = {0.0f, 0.0f}, arv[2] = {0.0f, 0.0f},
+                    brv[2] = {0.0f, 0.0f};
+              if constexpr (EPI == EPI_RES)
+                load_residual(g, orow, c0 + col, rv, arv, brv);
+              int c[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float prod = __fmul_rn(
+                    __int2float_rn(acc[j][4 * i + 2 * h + e]),
+                    e ? av.y : av.x);
+                if (term) prod = __fadd_rn(prod, __fmul_rn(sv, cv[e]));
+                float y;
+                if constexpr (EPI != EPI_RES) {
+                  y = __fadd_rn(prod, e ? bv.y : bv.x);
+                } else {
+                  // the residual sum, term by term: ((qb + acc a) + b) +
+                  // r ar + br
+                  y = __fadd_rn(__fadd_rn(g.qb, prod), e ? bv.y : bv.x);
+                  y = __fadd_rn(__fadd_rn(y, __fmul_rn(rv[e], arv[e])),
+                                brv[e]);
+                }
+                c[e] = code_of(y, flo, fhi);
+              }
+              // the low bytes of both codes, side by side
+              *reinterpret_cast<uint16_t*>(srow + col - p * C::SW) =
+                  static_cast<uint16_t>(__byte_perm(c[0], c[1], 0x0040));
+            }
+          }
         }
-      } else {
-        for (int j = lane; j < 16 * BN; j += 32) {
-          const int row = row0 + j / BN;
-          const int col = c0 + j % BN;
-          if (m0 + row < g.M && col < c_end)
-            out[static_cast<long long>(m0 + row) * g.O + col] =
-                static_cast<int8_t>(stg[row * C::PITCH + j % BN]);
+        __syncwarp();
+        // staged row rr of the warp's: row 64 (rr / 16) + row0 + rr % 16
+        if (g.O % 16 == 0 && (!GROUPED || g.Og % 16 == 0)) {
+          constexpr int PER_ROW = C::SW / 16;
+          for (int q = lane; q < 16 * C::HALVES * PER_ROW; q += 32) {
+            const int rr = q / PER_ROW;
+            const int row = 64 * (rr / 16) + row0 + rr % 16;
+            const int col = c0 + p * C::SW + 16 * (q % PER_ROW);
+            if (m0 + row < g.M && col < c_end)
+              *reinterpret_cast<uint4*>(
+                  out + static_cast<long long>(m0 + row) * g.O + col) =
+                  *reinterpret_cast<const uint4*>(stg + row * C::PITCH +
+                                                  16 * (q % PER_ROW));
+          }
+        } else {
+          for (int q = lane; q < 16 * C::HALVES * C::SW; q += 32) {
+            const int rr = q / C::SW;
+            const int row = 64 * (rr / 16) + row0 + rr % 16;
+            const int col = c0 + p * C::SW + q % C::SW;
+            if (m0 + row < g.M && col < c_end)
+              out[static_cast<long long>(m0 + row) * g.O + col] =
+                  static_cast<int8_t>(stg[row * C::PITCH + q % C::SW]);
+          }
         }
-      }
+      });
     } else {
       float* out = static_cast<float*>(g.out);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + row_in + 8 * h;
-        if (row >= g.M) continue;
-        float* orow = out + static_cast<long long>(row) * g.O;
-        const float sv =
-            TERM ? __int2float_rn(__ldg(g.srow + srow_at(g, row, grp)))
-                 : 0.0f;
+      for (int j = 0; j < C::HALVES; ++j) {
 #pragma unroll
-        for (int i = 0; i < BN / 8; ++i) {
-          const int col = c0 + 8 * i + col_in;
-          const float2 av =
-              *reinterpret_cast<const float2*>(sa + n0 + 8 * i + col_in);
-          const float2 bv =
-              *reinterpret_cast<const float2*>(sb + n0 + 8 * i + col_in);
-          float cv[2] = {0.0f, 0.0f};
-          if constexpr (TERM) load_pair(g.crow, col, g.O, cv);
-          float y[2];
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + 64 * j + row_in + 8 * h;
+          if (row >= g.M) continue;
+          float* orow = out + static_cast<long long>(row) * g.O;
+          const float sv =
+              term ? __int2float_rn(__ldg(g.srow + srow_at(g, row, grp)))
+                   : 0.0f;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float prod = __fmul_rn(__int2float_rn(acc[4 * i + 2 * h + e]),
-                                   e ? av.y : av.x);
-            if constexpr (TERM)
-              prod = __fadd_rn(prod, __fmul_rn(sv, cv[e]));
-            y[e] = __fadd_rn(prod, e ? bv.y : bv.x);
-            if (g.relu) y[e] = fmaxf(y[e], 0.0f);
-          }
-          if (g.O % 2 == 0 && (!GROUPED || c0 % 2 == 0) && col + 1 < c_end) {
-            *reinterpret_cast<float2*>(orow + col) = make_float2(y[0], y[1]);
-          } else {
-            if (col < c_end) orow[col] = y[0];
-            if (col + 1 < c_end) orow[col + 1] = y[1];
+          for (int i = 0; i < BN / 8; ++i) {
+            const int col = c0 + 8 * i + col_in;
+            const float2 av =
+                *reinterpret_cast<const float2*>(sa + n0 + 8 * i + col_in);
+            const float2 bv =
+                *reinterpret_cast<const float2*>(sb + n0 + 8 * i + col_in);
+            float cv[2] = {0.0f, 0.0f};
+            if (term) load_pair(g.crow, col, g.O, cv);
+            float y[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float prod = __fmul_rn(
+                  __int2float_rn(acc[j][4 * i + 2 * h + e]), e ? av.y : av.x);
+              if (term) prod = __fadd_rn(prod, __fmul_rn(sv, cv[e]));
+              y[e] = __fadd_rn(prod, e ? bv.y : bv.x);
+              if (g.relu) y[e] = fmaxf(y[e], 0.0f);
+            }
+            if (g.O % 2 == 0 && (!GROUPED || c0 % 2 == 0) &&
+                col + 1 < c_end) {
+              *reinterpret_cast<float2*>(orow + col) = make_float2(y[0], y[1]);
+            } else {
+              if (col < c_end) orow[col] = y[0];
+              if (col + 1 < c_end) orow[col + 1] = y[1];
+            }
           }
         }
       }
     }
   }
+  // the staged residual's last stores have written the output
+  if (C::STAGED_R && t == 0) bulk_wait<0>();
 }
 
-template <int BN, bool CODES, bool RESIDUAL, bool TERM>
-int launch(const CUtensorMap& map_w, const ConvArgs& g, cudaStream_t s) {
-  using C = Cfg<BN, CODES>;
-  const auto kernel = int8_conv3x3_kernel<BN, CODES, RESIDUAL, TERM>;
+template <int BN, int EPI, bool TERM>
+int launch(const CUtensorMap& map_w, const CUtensorMap& map_x,
+           const ConvArgs& g, cudaStream_t s) {
+  using C = Cfg<BN, EPI>;
+  const auto kernel = int8_conv3x3_kernel<BN, EPI, TERM>;
+  CUtensorMap map_r = {}, map_out = {};   // read by a staged residual only
+  if constexpr (C::STAGED_R) {
+    // r and the output in the boxes of a chunk: rows of whole 16 bytes
+    // (the host sends the rest to the register route)
+    if (g.O % 16 != 0 || reinterpret_cast<uintptr_t>(g.r) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    int err = encode_box_map(&map_r, g.r, g.M,
+                             static_cast<uint64_t>(g.O) * C::RB, C::ROWS_WG,
+                             C::R_ROW);
+    if (err == 0)
+      err = encode_box_map(&map_out, g.out, g.M, g.O, C::ROWS_WG, C::O_ROW);
+    if (err != 0) return err;
+  }
   const int smem =
       make_layout<C>(g.stages, g.resident, g.k_chunks, g.n_tiles,
                      g.halo_bufs * g.halo_bytes).total;
@@ -1028,41 +1520,81 @@ int launch(const CUtensorMap& map_w, const ConvArgs& g, cudaStream_t s) {
   const int resident_blocks = per_sm * sms;
   const unsigned grid = static_cast<unsigned>(
       g.tiles < resident_blocks ? g.tiles : resident_blocks);
-  kernel<<<grid, THREADS, smem, s>>>(map_w, g);
+  kernel<<<grid, THREADS, smem, s>>>(map_w, map_x, map_r, map_out, g);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The epilogue's instantiation at a tile width: f32, codes, or codes with a
-// residual.
+// residual (the register route at the widths that split a tile, staged by
+// TMA at those that take turns; a 256-wide tile takes none: the plan never
+// sends a residual there).
 template <int BN, bool TERM>
-int launch_mode(const CUtensorMap& map_w, const ConvArgs& g, int codes,
-                cudaStream_t s) {
-  return !codes    ? launch<BN, false, false, TERM>(map_w, g, s)
-         : g.r_kind ? launch<BN, true, true, TERM>(map_w, g, s)
-                    : launch<BN, true, false, TERM>(map_w, g, s);
+int launch_mode(const CUtensorMap& map_w, const CUtensorMap& map_x,
+                const ConvArgs& g, int codes, cudaStream_t s) {
+  if (!codes) return launch<BN, EPI_F32, TERM>(map_w, map_x, g, s);
+  if (!g.r_kind) return launch<BN, EPI_CODES, TERM>(map_w, map_x, g, s);
+  if constexpr (Cfg<BN, EPI_F32>::TURNS)
+    return g.r_kind == 1 ? launch<BN, EPI_RES8, TERM>(map_w, map_x, g, s)
+                         : launch<BN, EPI_RES32, TERM>(map_w, map_x, g, s);
+  else if constexpr (BN == 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  else
+    return launch<BN, EPI_RES, TERM>(map_w, map_x, g, s);
 }
 
-
-// The compiled tile widths (a tile has 128 rows); listed in int8_conv.py too.
+// The compiled tile widths (a tile has 128 rows); listed in int8_conv.py
+// too.  The grouped build has no ResNet widths (64, 128: turns).
+#if DLMCQ_CONV_GROUPED
 #define DLMCQ_CONV_TILES(X) X(48) X(96) X(192) X(256)
+#else
+#define DLMCQ_CONV_TILES(X) X(48) X(64) X(96) X(128) X(192) X(256)
+#endif
+
+// Dynamic shared memory at a width and epilogue (EPI; a register-route
+// residual lays it out as codes), or -1 where the width has no such
+// epilogue.
+template <int BN>
+int smem_of(int epi, int stages, int resident, int k_chunks, int n_tiles,
+            int halo_total) {
+  constexpr bool TURNS = Cfg<BN, EPI_F32>::TURNS;
+  switch (epi) {
+    case EPI_F32:
+      return make_layout<Cfg<BN, EPI_F32>>(stages, resident, k_chunks,
+                                            n_tiles, halo_total).total;
+    case EPI_CODES:
+    case EPI_RES:
+      return make_layout<Cfg<BN, EPI_CODES>>(stages, resident, k_chunks,
+                                              n_tiles, halo_total).total;
+    case EPI_RES8:
+    case EPI_RES32:
+      if constexpr (TURNS)
+        return epi == EPI_RES8
+                   ? make_layout<Cfg<BN, EPI_RES8>>(stages, resident,
+                                                    k_chunks, n_tiles,
+                                                    halo_total).total
+                   : make_layout<Cfg<BN, EPI_RES32>>(stages, resident,
+                                                     k_chunks, n_tiles,
+                                                     halo_total).total;
+      return -1;
+    default:
+      return -1;
+  }
+}
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of a block at a plan, or -1 for a tile that is not
-// compiled; int8_conv.py holds its own sum against it.
-int dlmcq_int8_conv3x3_smem(int bn, int codes, int stages,
+// Dynamic shared memory of a block at a plan, or -1 for a tile or an
+// epilogue that is not compiled (epi: 0 f32, 1 codes, 2 codes with a
+// register-route residual, 3 and 4 with a staged int8 or 4-byte r);
+// int8_conv.py holds its own sum against it.
+int dlmcq_int8_conv3x3_smem(int bn, int epi, int stages,
                             int resident, int k_chunks, int n_tiles,
                             int halo_total) {
 #define DLMCQ_SMEM(BN)                                                      \
   if (bn == BN)                                                             \
-    return codes ? make_layout<Cfg<BN, true>>(stages, resident,             \
-                                                  k_chunks, n_tiles,         \
-                                                  halo_total).total        \
-                 : make_layout<Cfg<BN, false>>(stages, resident,            \
-                                                   k_chunks, n_tiles,       \
-                                                   halo_total).total;
+    return smem_of<BN>(epi, stages, resident, k_chunks, n_tiles, halo_total);
   DLMCQ_CONV_TILES(DLMCQ_SMEM)
 #undef DLMCQ_SMEM
   return -1;
@@ -1155,20 +1687,47 @@ int dlmcq_int8_conv3x3(const void* x, const void* w, const void* a,
   g.by_ntg = make_fastdiv(g.ntg);
   g.by_og = make_fastdiv(g.Og);
   g.halo_bytes = (bm + 2 * wd + 2) * c;
+  // halo_a: 64-wide tiles at C = 64 with a resident weight and a halo: the
+  // halo by TMA in boxes of at most 256 pixels, each buffer 1024-byte
+  // aligned (int8_conv.py: halo_buffer)
+  g.halo_a = bn == 64 && c == 64 && resident && halo_bufs > 0;
+  g.halo_rows = bm + 2 * wd + 2 < 256 ? bm + 2 * wd + 2 : 256;
+  g.halo_boxes = (bm + 2 * wd + 2 + g.halo_rows - 1) / g.halo_rows;
+  if (g.halo_a)
+    g.halo_bytes = (g.halo_boxes * g.halo_rows * c + ATOM_BYTES - 1) /
+                   ATOM_BYTES * ATOM_BYTES;
   g.pixels = static_cast<int>(pixels);
-  if (halo_bufs < 0 || halo_bufs > 2 ||
+  if (halo_bufs < 0 || halo_bufs > MAX_HALOS ||
       (halo_bufs && (stride != 1 || c % 16 != 0 || g.Cg % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.by_c = make_fastdiv(c);
+  // halo_a: a warpgroup waits on the halos of its own tiles only, which
+  // are unambiguous phases of their buffers where tiles of one buffer all
+  // fall to one warpgroup: 2 or 4 buffers
+  if (g.halo_a && halo_bufs != 2 && halo_bufs != 4)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_w = {};   // not read at W4
   if (!w4) {
     const int err = encode_tile_map(&map_w, w, o, kp, kp, bn);
     if (err != 0) return err;
   }
+  // stride 1 with C % 128 == 0 and no halo: the A tiles by TMA, x as
+  // (pixels, C) in boxes of 128 pixels x 128 bytes
+  g.tma_a = !GROUPED && stride == 1 && c % TILE_K == 0 && halo_bufs == 0;
+  g.chunks_per_tap = c / TILE_K;
+  CUtensorMap map_x = {};
+  if (g.tma_a || g.halo_a) {
+    const int err =
+        g.tma_a ? encode_tile_map(&map_x, x, g.pixels, c, c, bm)
+                : encode_box_map(&map_x, x, g.pixels, c, g.halo_rows,
+                                 HALO_ROW);
+    if (err != 0) return err;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DLMCQ_LAUNCH(BN)                                        \
-  if (bn == BN)                                                 \
-    return srow ? launch_mode<BN, true>(map_w, g, codes, s)     \
-                : launch_mode<BN, false>(map_w, g, codes, s);
+#define DLMCQ_LAUNCH(BN)                                                \
+  if (bn == BN)                                                         \
+    return srow ? launch_mode<BN, true>(map_w, map_x, g, codes, s)      \
+                : launch_mode<BN, false>(map_w, map_x, g, codes, s);
   DLMCQ_CONV_TILES(DLMCQ_LAUNCH)
 #undef DLMCQ_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

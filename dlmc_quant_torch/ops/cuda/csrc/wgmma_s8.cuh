@@ -223,6 +223,77 @@ struct Wgmma<256> {
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };
+// The same product with A (64 x 32 s8) from registers: each warp of the
+// warpgroup holds rows 16 (warp % 4) .. + 15 in the fragment of
+// mma.m16n8k32: a[0] row lane / 4, bytes 4 (lane % 4) .. + 3; a[1] the row
+// 8 below; a[2], a[3] the same rows at bytes 16 on (ldmatrix_x4 loads it).
+// The registers must not change until the wgmma that reads them is done.
+template <int N>
+struct WgmmaRS;
+
+#define DLMCQ_RS_ACC(d, i)                                            \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),         \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+template <>
+struct WgmmaRS<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p;\n}\n"
+        : DLMCQ_RS_ACC(d, 0), DLMCQ_RS_ACC(d, 8), DLMCQ_RS_ACC(d, 16),
+          DLMCQ_RS_ACC(d, 24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  static __device__ __forceinline__ void mma(int (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p;\n}\n"
+        : DLMCQ_RS_ACC(d, 0), DLMCQ_RS_ACC(d, 8), DLMCQ_RS_ACC(d, 16),
+          DLMCQ_RS_ACC(d, 24), DLMCQ_RS_ACC(d, 32), DLMCQ_RS_ACC(d, 40),
+          DLMCQ_RS_ACC(d, 48), DLMCQ_RS_ACC(d, 56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+#undef DLMCQ_RS_ACC
+
+// Four 8 x 16-byte matrices from shared memory into the A fragment of a
+// 16 x 32-byte slice (WgmmaRS): lane l gives the address of row l % 8 of
+// matrix l / 8, and matrix i is rows 8 (i % 2) .. + 7 at bytes 16 (i / 2)
+// .. + 15 of the slice, so lane l addresses row l % 16 at byte 16 (l / 16).
+// Each row is 16 bytes at any 16-byte aligned address: a gather.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
+
 #undef DLMCQ_ACC8
 
 // Orders this thread's earlier register and shared-memory accesses before

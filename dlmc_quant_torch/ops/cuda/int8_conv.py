@@ -54,7 +54,11 @@ of the group code.
 :func:`tile_plan` chooses the block's plan for a layer (output width of
 the tile, ring stages, weight resident in shared memory or streamed, halo
 buffers for stride 1); the kernel runs whatever plan it is given, so the
-plan is checked on the CPU.
+plan is checked on the CPU.  At the ResNets' widths (64 and 128, in turns;
+256) the A tiles of a stride-1 layer at C % 128 == 0 come by TMA
+(:func:`tma_rows`), a layer at C = 64 gathers them from the halo
+(:func:`halo_gathered`), and a residual whose rows are whole 16 bytes is
+staged by TMA (:func:`launch_plan` decides from ``r``).
 
 A weight of 4 bits or fewer comes nibble-packed (:func:`pack_weight_int4`:
 the packed weight, two bytes of K a byte) and stays so in device memory;
@@ -84,11 +88,34 @@ PRODUCER_WARPS = 4    # each fills every fourth stage of a block's sequence
 CHUNK = 16            # bytes of K that always lie inside one tap
 TILE_K = 128          # bytes of K in a shared-memory tile row
 # output widths of a tile as compiled into csrc/int8_conv3x3.cu: RepVGG-A0's
-# 48, 96 and 192 exactly, 256 for wide outputs; a tile has BM rows
+# 48, 96 and 192 exactly, 256 for wide outputs; a tile has BM rows.  Both
+# builds split a tile between the two consumer warpgroups at these widths.
 WIDTHS = (48, 96, 192, 256)
+# the ResNets' 64 and 128, in the ungrouped build only: each consumer
+# warpgroup owns every other tile of its block (turns), and a residual r
+# whose rows are whole 16 bytes is staged by TMA
+TURN_WIDTHS = (64, 128)
 BM = 128
+WGMMA_M = 64          # rows of one wgmma: a consumer warpgroup's share
+SMS = 132             # the H100's SMs: tile_plan counts waves of tiles
+# a tile's im2col build, in columns of products: at W4 tile_plan's cost
+# of a tile is (2 bn + A_COLS) a wave (the producers unpack its B tile);
+# from tools/conv_launches.py --widths on an H100
+A_COLS = 128
+R_SLOTS = 2           # a warpgroup's slots of a staged residual
 MIN_STAGES = PRODUCER_WARPS   # fewer and a warp could miss a slot's phase
 MAX_STAGES = 8
+# the ring depths of the widths that take turns: each producer warp then
+# owns whole slots (stage j to warp j % 4 is slot j % stages to warp slot %
+# 4), since releases of the two warpgroups' stages do not come in the
+# ring's order (tests/test_torch_conv_plan.py: producers_run)
+TURN_STAGES = (PRODUCER_WARPS, 2 * PRODUCER_WARPS)
+MAX_HALOS = 4
+# the halo buffers of the widths that take turns: where the weight is
+# resident the consumers gather A from the halo themselves (the kernel's
+# halo_a), each warpgroup waiting on its own tiles' buffers, which the
+# warpgroups share out evenly with 2 or 4 of them
+TURN_HALOS = (4, 2, 0)
 MAX_SMEM = 232448     # dynamic shared memory a block may use
 HALF_SMEM = (MAX_SMEM + 1024) // 2 - 1024   # two blocks share an SM
 INT_LIMIT = 2 ** 31 - 1024   # output and input pixels are 32-bit in the kernel
@@ -191,47 +218,123 @@ def unpack_weight(wp: torch.Tensor, c: int, o: int,
     return runs.permute(1, 2, 0).reshape(3, 3, c, o).contiguous()
 
 
-def halo_bytes(width: int, c: int) -> int:
+def tma_rows(c: int, stride: int, groups: int = 1) -> bool:
+    """Whether a conv's A tiles come by TMA (the kernel's ``tma_a``, where
+    the plan has no halo): stride 1, C % 128 == 0, ungrouped.  A 128-byte
+    chunk of K is then 128 channels of one tap, and a tile's rows are 128
+    consecutive pixels of x, one box; the consumers pad the rows whose tap
+    lies outside the image."""
+    return groups == 1 and stride == 1 and c % TILE_K == 0
+
+
+def halo_gathered(bn: int, c: int, resident: bool) -> bool:
+    """Whether the consumers gather their A fragments from the halo by
+    ``ldmatrix`` (the kernel's ``halo_a``): 64-wide tiles in turns at C =
+    64 with the weight resident.  The halo then comes by TMA in the 64-byte
+    swizzle, in boxes of at most 256 pixels."""
+    return bn == 64 and c == 64 and resident
+
+
+def halo_bytes(width: int, c: int, gathered: bool = False) -> int:
     """Bytes of the run of input pixels a tile of a stride-1 conv reads:
-    its own BM pixels and a row and a pixel to either side."""
-    return (BM + 2 * width + 2) * c
+    its own BM pixels and a row and a pixel to either side; gathered
+    (:func:`halo_gathered`), in whole TMA boxes of at most 256 pixels, the
+    buffer 1024-byte aligned."""
+    rows = BM + 2 * width + 2
+    if not gathered:
+        return rows * c
+    box = min(rows, 256)
+    return _cdiv(_cdiv(rows, box) * box * c, 1024) * 1024
 
 
 def plan_smem(bn: int, codes: bool, stages: int, resident: bool,
-              k_chunks: int, n_tiles: int, halo_total: int = 0) -> int:
+              k_chunks: int, n_tiles: int, halo_total: int = 0,
+              r_bytes: int = 0) -> int:
     """Dynamic shared memory of a block (``make_layout`` in the source):
     the ring (a BM-row A tile and, unless the weight is resident, a
-    BN-row B tile a stage), the resident weight, the codes' staging tile
-    (row pitch padded against bank conflicts), the halo buffers, a and b,
-    a table per
-    producer warp of where its tile's pixels read, and the barriers."""
+    BN-row B tile a stage), the resident weight, a staged residual's slots
+    (``r_bytes`` > 0 at a turns width: r of 1 or 4 bytes), the codes'
+    staging tile (128 columns a pass, row pitch padded against bank
+    conflicts), the halo buffers (from a 1024-byte boundary), the
+    per-column parameters, a table per producer warp of where its tile's
+    pixels read, and the barriers."""
+    turns = bn in TURN_WIDTHS
+    rows_wg = 2 * WGMMA_M if turns else WGMMA_M     # a warpgroup's rows
+    staged = bool(r_bytes) and turns
     stage = (BM + (0 if resident else bn)) * TILE_K
-    pitch = bn if bn == 48 else bn + 16
-    return (stages * stage + (k_chunks * bn * TILE_K if resident else 0)
-            + (BM * pitch if codes else 0) + halo_total
-            + 2 * n_tiles * bn * 4 + PRODUCER_WARPS * BM * 8
-            + (2 * MAX_STAGES + 1 + 4) * 8)
+    sw = 128 if bn == 256 else bn
+    pitch = sw if sw == 48 else sw + 16
+    slots = 0
+    if staged:
+        cw = min(bn, TILE_K // r_bytes)
+        slot = rows_wg * cw * r_bytes + (rows_wg * cw if r_bytes > 1 else 0)
+        slots = 2 * R_SLOTS * slot
+    before_halo = (stages * stage
+                   + (k_chunks * bn * TILE_K if resident else 0) + slots
+                   + (2 * rows_wg * pitch if codes and not staged else 0))
+    return (_cdiv(before_halo, 1024) * 1024    # the halos 1024-aligned
+            + halo_total + (4 if staged else 2) * n_tiles * bn * 4
+            + PRODUCER_WARPS * BM * 8
+            + (3 * MAX_STAGES + 1 + 2 * MAX_HALOS
+               + (2 * R_SLOTS if staged else 0)) * 8)
+
+
+def _epi(codes: bool, r_bytes: int, bn: int) -> int:
+    """The source's epilogue code of a plan (``smem_of``)."""
+    if r_bytes and bn in TURN_WIDTHS:
+        return 3 if r_bytes == 1 else 4
+    return int(codes)
+
+
+def _w4_cost(m_tiles: int, o: int, bn: int) -> int:
+    """Waves of W4 tiles on the card's SMs times a tile's work, in columns
+    of products: its products, its unpack and its im2col build."""
+    return _cdiv(m_tiles * _cdiv(o, bn), SMS) * (2 * bn + A_COLS)
+
+
+def widths_for(o: int, mode: str = "codes", r_bytes: int = 0,
+               staged: bool = True, groups: int = 1):
+    """The tile widths compiled for a conv's epilogue: every width for f32
+    and codes; for a residual the register route's (48, 96, 192) and,
+    where r can be staged, the turns widths; the grouped build's own."""
+    widths = WIDTHS if groups > 1 else tuple(sorted(WIDTHS + TURN_WIDTHS))
+    if not r_bytes:
+        return widths
+    return tuple(w for w in widths if w != 256
+                 and (w not in TURN_WIDTHS or staged))
 
 
 @functools.lru_cache(maxsize=None)
 def tile_plan(m: int, c: int, o: int, mode: str = "codes", *, stride: int = 2,
               width: int = 0, groups: int = 1, stages=None, resident=None,
-              halo_bufs=None) -> ConvPlan:
+              halo_bufs=None, r_bytes: int = 0, staged: bool = True,
+              w4: bool = False, bn=None) -> ConvPlan:
     """The block plan of a conv with M output pixels, C → O channels in
-    ``groups`` groups.
+    ``groups`` groups; a residual of ``r_bytes`` bytes a value (0: none)
+    that TMA can stage where ``staged`` (rows of whole 16 bytes).
 
-    The tile is as wide as the layer where that is a compiled width (48,
-    96, 192), else the smallest compiled width that covers O, else 256-wide
-    tiles side by side.  The weight stays resident in shared memory where
+    The ResNets' widths (ungrouped, C % 16 == 0, O = 64, 128 or a multiple
+    of 64 from 256 on, unless a residual cannot be staged): tiles of 64 or
+    128 that take turns; where O ≥ 256, 256-wide tiles side by side, 128
+    with a residual (staged at the turns widths only), and at W4 whichever
+    of 256 and 128 gives fewer waves of tiles on the card times a tile's
+    work (``_w4_cost``); where no plan of that width fits (a and b of
+    thousands of columns beside a 256-wide ring), A0's rule.  Every other
+    conv keeps the rule of RepVGG-A0's widths: the tile is as wide as the layer where that is a compiled width
+    (48, 96, 192), else the smallest compiled width that covers O, else
+    256-wide tiles side by side (codes: 192-wide).  ``bn`` overrides the
+    width.  At the turns widths the ring has 4 stages (8 where asked:
+    ``TURN_STAGES``).  The weight stays resident in shared memory where
     one tile covers O and it fits beside a ring of at least ``MIN_STAGES``
     stages; the ring then holds only im2col tiles, up to 6 stages, or 4
     where that lets two blocks of 48-wide tiles share an SM (the 48-wide
     kernel is compiled for two).  A streamed weight gets up to 4 stages.
     A stride-1 conv of ``width`` input columns with C % 16 == 0 fetches each
     tile's input pixels once, into one or two halo buffers (two where they
-    fit beside the ring), and builds its im2col tiles from those; every
-    other conv gathers them from ``x``.  Codes 256 wide would leave no room
-    for their staging tile: they get 192-wide tiles.  ``stages``,
+    fit beside the ring; 2 or 4 at the turns widths, ``TURN_HALOS``), and
+    builds its im2col tiles from those (or, ``halo_gathered``, the
+    consumers gather from them), except where its A tiles come by TMA
+    (``tma_rows``); every other conv gathers them from ``x``.  ``stages``,
     ``resident`` and ``halo_bufs`` override the choice (the kernel is right
     at every plan that fits).  Raises where nothing fits.  The rules come
     from ``tools/conv_plans.py``'s timings on an H100.  A grouped conv
@@ -239,22 +342,56 @@ def tile_plan(m: int, c: int, o: int, mode: str = "codes", *, stride: int = 2,
     the tiles of a group, never keeps its weight resident (each group has
     its own), and uses halo buffers only where C/G % 16 == 0 too.
     """
+    allowed = widths_for(o, mode, r_bytes, staged, groups)
+    if bn is not None and bn not in allowed:
+        raise ValueError(f"no {bn}-wide tile for this conv (compiled: "
+                         f"{allowed})")
+    if bn is None and groups == 1 and c % CHUNK == 0 and (
+            not r_bytes or staged) and (o in TURN_WIDTHS
+                                        or (o >= 256 and o % 64 == 0)):
+        if o in TURN_WIDTHS:
+            bn = o
+        elif r_bytes:
+            bn = 128         # a residual is staged at the turns widths
+        elif w4:
+            # the producers unpack a W4 B tile: 128 where that gives fewer
+            # waves of less work
+            bn = min((256, 128), key=lambda w: _w4_cost(_cdiv(m, BM), o, w))
+        else:
+            bn = 256
+        try:
+            return _plan_at(m, c, o, mode, stride, width, groups, stages,
+                            resident, halo_bufs, r_bytes, bn)
+        except ValueError:
+            if (stages, resident, halo_bufs) != (None,) * 3:
+                raise
+            bn = None    # nothing fits (a and b of thousands of columns
+            # beside a 256-wide ring): A0's rule
+    if bn is None:
+        bn = next((w for w in WIDTHS if w >= o // groups), WIDTHS[-1])
+        if bn == 256 and mode == "codes":
+            bn = 192   # A0's rule: codes past 192 in 192-wide tiles
+    return _plan_at(m, c, o, mode, stride, width, groups, stages, resident,
+                    halo_bufs, r_bytes, bn)
+
+
+def _plan_at(m, c, o, mode, stride, width, groups, stages, resident,
+             halo_bufs, r_bytes, bn) -> ConvPlan:
+    """:func:`tile_plan`'s plan at the tile width ``bn``."""
     codes = mode == "codes"
     k_chunks = _cdiv(packed_shape(c, o, groups)[1], TILE_K)
     og = o // groups
-    bn = next((w for w in WIDTHS if w >= og), WIDTHS[-1])
-    # 256-wide tiles of codes leave no room for their staging tile beside a
-    # ring of MIN_STAGES stages: such outputs get 192-wide tiles
-    if plan_smem(bn, codes, MIN_STAGES, False, k_chunks,
-                 groups * _cdiv(og, bn)) > MAX_SMEM:
-        bn = WIDTHS[-2]
     n_tiles = groups * _cdiv(og, bn)
+    r_bytes = r_bytes if bn in TURN_WIDTHS else 0
 
     can_halo = (stride == 1 and c % CHUNK == 0
                 and (c // groups) % CHUNK == 0 and width > 0)
+    all_halos = TURN_HALOS if bn in TURN_WIDTHS else (2, 1, 0)
     if halo_bufs is None:
-        halos = (2, 1, 0) if can_halo else (0,)
-    elif halo_bufs in (0, 1, 2) and (can_halo or not halo_bufs):
+        # the A tiles by TMA where they can be (tma_rows), else a halo
+        halos = all_halos if can_halo and not tma_rows(c, stride, groups) \
+            else (0,)
+    elif halo_bufs in all_halos and (can_halo or not halo_bufs):
         halos = (halo_bufs,)
     else:
         raise ValueError(f"halo_bufs = {halo_bufs} does not fit this conv")
@@ -268,8 +405,11 @@ def tile_plan(m: int, c: int, o: int, mode: str = "codes", *, stride: int = 2,
     def plan(stages, resident, halo_bufs, limit=MAX_SMEM):
         """The plan, or None if it does not fit ``limit`` bytes."""
         smem = plan_smem(bn, codes, stages, resident, k_chunks, n_tiles,
-                         halo_bufs * halo_bytes(width, c))
-        if smem > limit or not MIN_STAGES <= stages <= MAX_STAGES:
+                         halo_bufs * halo_bytes(width, c,
+                                                halo_gathered(bn, c, resident)),
+                         r_bytes)
+        if smem > limit or not MIN_STAGES <= stages <= MAX_STAGES or (
+                bn in TURN_WIDTHS and stages not in TURN_STAGES):
             return None
         return ConvPlan(bn, stages, resident, halo_bufs, _cdiv(m, BM),
                         n_tiles, k_chunks, smem)
@@ -283,6 +423,7 @@ def tile_plan(m: int, c: int, o: int, mode: str = "codes", *, stride: int = 2,
                                    for h, r in options if r)), None)
     for h, r in options:
         depths = (stages,) if stages is not None else \
+            (MIN_STAGES,) if bn in TURN_WIDTHS else \
             range(6 if r else 4, MIN_STAGES - 1, -1)
         found = found or next(filter(None, (plan(s, r, h) for s in depths)),
                               None)
@@ -370,27 +511,62 @@ def int8_conv3x3_plain(x, w, a, b, *, stride: int, pad: int,
 def _library(grouped: bool = False) -> ctypes.CDLL:
     """The ungrouped build of the kernel, or its grouped build (groups > 1:
     ``csrc/int8_conv3x3_grouped.cu``)."""
-    lib = build.load("int8_conv3x3_grouped" if grouped else "int8_conv3x3")
+    return bind(build.load("int8_conv3x3_grouped" if grouped
+                           else "int8_conv3x3"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``'s C interface typed, its shared memory held against
+    :func:`plan_smem` (a build of the source, or a variant of it)."""
     lib.dlmcq_int8_conv3x3.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 20
         + [ctypes.c_float, ctypes.c_void_p])
     lib.dlmcq_int8_conv3x3_smem.restype = ctypes.c_int
     lib.dlmcq_int8_conv3x3_smem.argtypes = [ctypes.c_int] * 7
-    # the source lays shared memory out as plan_smem() counts it
-    for bn in WIDTHS:
-        for args in ((bn, 1, 5, 0, 7, 2, 0), (bn, 0, 4, 1, 4, 1, 4800)):
-            got, want = lib.dlmcq_int8_conv3x3_smem(*args), plan_smem(*args)
-            if got != want:
-                raise RuntimeError(f"kernel shared memory {got} at {args} "
-                                   f"does not match the plan's {want}")
+    # the source lays shared memory out as plan_smem() counts it, at every
+    # width and epilogue it compiles
+    grouped = lib.dlmcq_int8_conv3x3_smem(TURN_WIDTHS[0], 0, 4, 0, 1, 1,
+                                          0) < 0
+    for bn in widths_for(64, groups=2 if grouped else 1):
+        for r_bytes in (0, 1, 4) if bn in TURN_WIDTHS else (0,):
+            for args in ((bn, 1, 5, 0, 7, 2, 0), (bn, 0, 4, 1, 4, 1, 4800)):
+                codes = bool(args[1] or r_bytes)
+                want = plan_smem(bn, codes, *args[2:], r_bytes)
+                got = lib.dlmcq_int8_conv3x3_smem(
+                    bn, _epi(codes, r_bytes, bn), *args[2:])
+                if got != want:
+                    raise RuntimeError(
+                        f"kernel shared memory {got} at {args}, r of "
+                        f"{r_bytes} bytes, does not match the plan's {want}")
     return lib
+
+
+def launch_plan(x, o: int, mode: str, stride: int, groups: int = 1,
+                residual=None, _plan=None, w=None) -> ConvPlan:
+    """:func:`tile_plan`'s plan of a launch on ``x`` (N, H, W, C) with the
+    packed weight ``w`` (W4 or not; None: W8): a residual is staged where
+    its rows are whole 16 bytes, contiguous and aligned (``residual`` ``(r,
+    ar, br)`` or None)."""
+    n, h, wd, c = x.shape
+    ho, wo = out_hw(h, wd, stride)
+    r_bytes, staged = 0, True
+    w4 = w is not None and w.dtype == W4
+    if residual is not None:
+        r = residual[0]
+        r_bytes = r.element_size()
+        staged = (groups == 1 and o % CHUNK == 0 and r.is_contiguous()
+                  and r.data_ptr() % 16 == 0)
+    return tile_plan(n * ho * wo, c, o, mode, stride=stride, width=wd,
+                     groups=groups, r_bytes=r_bytes, staged=staged, w4=w4,
+                     **(_plan or {}))   # cached: a conv costs about a launch
 
 
 def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
                  lo: int = -128, hi: int = 127, mode: str = "codes",
                  relu: bool = False, residual=None, qb: float = 0.0,
-                 row=None, groups: int = 1, _plan=None) -> torch.Tensor:
+                 row=None, groups: int = 1, _plan=None,
+                 _lib=None) -> torch.Tensor:
     """Run the fused int8 3×3 conv (see the module docstring).
 
     ``x`` (N, H, W, C) int8, ``w`` from :func:`pack_weight` (or
@@ -402,9 +578,10 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
     :func:`tile_plan`'s plan (``_plan``: a dict of its overrides, for the
     card tests and for timing plans against each other) and count the
     launch in ``int8_conv3x3.launches`` (a grouped one in
-    ``int8_conv3x3.grouped_launches`` as well); CPU tensors run the plain
-    version.  On the card O is bounded by shared memory (a and b of every
-    output channel sit beside the ring: a few thousand channels);
+    ``int8_conv3x3.grouped_launches`` as well; ``_lib``, a variant build
+    bound by :func:`bind` for timing, launches uncounted); CPU tensors run
+    the plain version.  On the card O is bounded by shared memory (a and b
+    of every output channel sit beside the ring: a few thousand channels);
     ``tile_plan`` raises where nothing fits.
     """
     _check(x, w, a, b, stride, pad, lo, hi, mode, relu, pad_lo, residual, qb,
@@ -419,10 +596,8 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
     n, h, wd, c = x.shape
     o = a.shape[0]
     ho, wo = out_hw(h, wd, stride)
-    plan = tile_plan(n * ho * wo, c, o, mode, stride=stride, width=wd,
-                     groups=groups,
-                     **(_plan or {}))   # cached: a conv costs about a launch
-    lib = _library(groups > 1)
+    plan = launch_plan(x, o, mode, stride, groups, residual, _plan, w)
+    lib = _lib or _library(groups > 1)
     out = torch.empty((n, ho, wo, o), device=x.device,
                       dtype=torch.int8 if mode == "codes" else torch.float32)
     r, ar, br = residual if residual is not None else (None, None, None)
@@ -440,6 +615,8 @@ def int8_conv3x3(x, w, a, b, *, stride: int, pad: int, pad_lo: int = 1,
             plan.stages, int(plan.resident), plan.halo_bufs, qb,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(lib, err, "int8_conv3x3")
+    if _lib is not None:
+        return out
     int8_conv3x3.launches += 1
     if groups > 1:
         int8_conv3x3.grouped_launches += 1

@@ -12,7 +12,10 @@ ResNet-18 shortcut shapes.
   the same f32 ops in the same order; C2's one code is not needed) and
   with power-of-two ones (where no op rounds).
 * ``cuda``-marked tests hold the kernel against its plain version on the
-  card at the ResNet-18 shapes (tolerance 0) and skip here:
+  card at the ResNet-18 shapes, at ResNet-50's and cifar_resnet18's layer
+  geometries with the batch cut (every compiled tile width, the A tiles
+  by TMA or from a halo, codes, f32, the row term, W4, each residual
+  dtype on the staged and the register route; tolerance 0) and skip here:
   ``python -m pytest --noconftest tests/test_torch_resnet_conv.py -m cuda``.
 """
 
@@ -21,9 +24,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from dlmc_quant_torch.ops.cuda.int8_conv import (int8_conv3x3,
+from dlmc_quant_torch.ops.cuda.int8_conv import (TURN_WIDTHS, int8_conv3x3,
                                                  int8_conv3x3_plain,
-                                                 pack_weight)
+                                                 launch_plan, pack_weight,
+                                                 pack_weight_int4, widths_for)
 from dlmc_quant_torch.ops.cuda.int8_gemm import (int8_gemm, int8_gemm_plain,
                                                  pack_b)
 from dlmc_quant_torch.quant.chain import (DeferredEpilogue, PendingConv,
@@ -165,6 +169,30 @@ def test_residual_epilogue_matches_jax_fold_sum(kind, pow2):
     assert len(np.unique(got)) > 50
 
 
+@pytest.mark.parametrize("kind", ["int8", "int32", "f32"])
+def test_emulated_staged_close_matches_jax_fold_sum(kind, monkeypatch):
+    """A BasicBlock's close at 64 channels through the kernel's staged
+    route, emulated on the CPU (``test_torch_conv_plan.emulate_conv``: r
+    in TMA boxes, codes written over it in the lane map, the boxes
+    stored), equals JAX's ``fold_sum_quantize`` on the same accumulator."""
+    from test_torch_conv_plan import emulate_conv
+    from dlmc_quant_torch.quant import chain
+    plans = []
+
+    def emulated(x, w, a, b, **kw):
+        got, plan = emulate_conv(x, w, a, b, **kw)
+        plans.append(plan)
+        return got
+
+    monkeypatch.setattr(chain, "int8_conv3x3", emulated)
+    case = _residual_case(kind, False, n=2, h=6, w=7, c=64, o=64)
+    got = _port_fold_sum(*case, kind, -40, 127)
+    want = _jax_fold_sum(*case, kind, -40, 127)
+    assert [p.bn for p in plans] == [64]     # the turns width: r staged
+    assert got.dtype == np.int8 and np.array_equal(got, want)
+    assert len(np.unique(got)) > 50
+
+
 @pytest.mark.parametrize("bad", ["pad_lo_s1", "pad_lo_2", "f32_mode",
                                  "r_shape", "r_dtype", "ar_shape",
                                  "qb_type"])
@@ -267,3 +295,96 @@ def test_gemm_at_shortcut_shapes(m, k, n):
     got = int8_gemm(x, w)
     torch.cuda.synchronize()
     assert torch.equal(got, int8_gemm_plain(x, w))
+
+
+# The ResNets' layer geometries at a cut batch, every compiled width and
+# the A tile's two stride-1 routes (TMA rows or a halo): (n, h, w, c, o,
+# stride, pad_lo); M ragged where n * ho * wo % 128 != 0
+RESNET_LAYERS = [(2, 56, 56, 64, 64, 1, 1), (2, 56, 56, 128, 128, 2, 0),
+                 (2, 28, 28, 128, 128, 1, 1), (2, 28, 28, 256, 256, 2, 0),
+                 (2, 14, 14, 256, 256, 1, 1), (2, 14, 14, 512, 512, 2, 0),
+                 (3, 7, 7, 512, 512, 1, 1), (3, 9, 7, 128, 320, 1, 1),
+                 (1, 4, 4, 512, 512, 1, 1), (2, 14, 14, 64, 320, 1, 1)]
+
+
+def _resnet_operands(case, dev, w4=False):
+    n, h, w, c, o, stride, pad_lo = case
+    x, wk, a, b = _t(*_inputs(10, n, h, w, c, o))
+    if w4:
+        wk = wk // 16            # [-8, 7]
+    wp = pack_weight_int4(wk) if w4 else pack_weight(wk)
+    return [t.to(dev) for t in (x, wp, a, b)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["codes", "f32_relu", "term", "w4"])
+@pytest.mark.parametrize("case", RESNET_LAYERS,
+                         ids=["x".join(map(str, c)) for c in RESNET_LAYERS])
+def test_resnet_layer_at_every_width(case, variant):
+    """Every width the plan may take (``_plan=dict(bn=...)``) and, at
+    stride 1, the halo in place of the A tiles by TMA: == plain."""
+    dev = _card()
+    n, h, w, c, o, stride, pad_lo = case
+    x, wp, a, b = _resnet_operands(case, dev, w4=variant == "w4")
+    kw = dict(stride=stride, pad=-6, pad_lo=pad_lo)
+    if variant == "f32_relu":
+        kw.update(mode="f32", relu=True)
+    else:
+        kw.update(mode="codes", lo=-100, hi=110)
+    if variant == "term":
+        ho, wo = -(-h // stride), -(-w // stride)
+        g = torch.Generator().manual_seed(11)
+        kw["row"] = (torch.randint(-3000, 3000, (n, ho, wo), generator=g,
+                                   dtype=torch.int32).to(dev),
+                     (torch.randn(o, generator=g) * 1e-3).to(dev))
+    want = int8_conv3x3_plain(x, wp, a, b, **kw)
+    overrides = [None] + [dict(bn=bn) for bn in widths_for(o, kw["mode"])]
+    if stride == 1:     # the A tiles from 2 halo buffers, or gathered
+        overrides += [dict(halo_bufs=2), dict(halo_bufs=0)]
+    for over in overrides:
+        try:
+            launch_plan(x, o, kw["mode"], stride, 1, None, over)
+        except ValueError:       # that width's plan does not fit
+            continue
+        got = int8_conv3x3(x, wp, a, b, _plan=over, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), over
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [torch.int8, torch.int32, torch.float32],
+                         ids=["int8", "int32", "f32"])
+@pytest.mark.parametrize("case", [(4, 32, 32, 64, 64, 1, 1),
+                                  (3, 16, 16, 128, 128, 1, 1),
+                                  (5, 8, 8, 256, 256, 1, 1),
+                                  (7, 4, 4, 512, 512, 1, 1)],
+                         ids=["32x64", "16x128", "8x256", "4x512"])
+@pytest.mark.parametrize("route", ["staged", "register", "term"])
+def test_resnet18_residual_routes(case, kind, route):
+    """cifar_resnet18's block closes: r staged by TMA (rows of whole 16
+    bytes, aligned) at the turns widths, an r one element off alignment on
+    the register route, and the staged route with a row term: == plain."""
+    dev = _card()
+    n, h, w, c, o, stride, pad_lo = case
+    x, wp, a, b = _resnet_operands(case, dev)
+    g = torch.Generator().manual_seed(12)
+    shape = (n, h, w, o)
+    r = (torch.randn(shape, generator=g) * 30 if kind == torch.float32 else
+         torch.randint(-128, 128, shape, generator=g).to(kind)).to(dev)
+    if route == "register":     # the same values one element on: unaligned
+        flat = torch.empty(r.numel() + 1, dtype=kind, device=dev)
+        flat[1:] = r.reshape(-1)
+        r = flat[1:].view(shape)
+    ar = (torch.rand(o, generator=g) * 0.05).to(dev)
+    br = torch.randn(o, generator=g).to(dev)
+    kw = dict(stride=stride, pad=4, pad_lo=pad_lo, lo=-90, hi=127,
+              residual=(r, ar, br), qb=-3.5)
+    if route == "term":
+        kw["row"] = (torch.randint(-3000, 3000, (n, h, w), generator=g,
+                                   dtype=torch.int32).to(dev),
+                     (torch.randn(o, generator=g) * 1e-3).to(dev))
+    plan = launch_plan(x, o, "codes", stride, 1, kw["residual"])
+    assert (plan.bn in TURN_WIDTHS) == (route != "register")
+    got = int8_conv3x3(x, wp, a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_conv3x3_plain(x, wp, a, b, **kw))
