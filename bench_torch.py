@@ -13,7 +13,10 @@ keys).  Prints ONE JSON line:
 ``value`` is the chained int8 path (the faster of ``make_serving_fn``'s
 ``"intc"`` and ``"int"``) at batch 512; ``vs_baseline`` divides it by the
 same deploy-form model's ``"fp"`` forward at PyTorch's defaults (cuDNN
-convs in TF32).  ``extra`` sets it beside strict float32 (``full_f32``:
+convs in TF32).  Every form is served as ``bench.py`` jits it: through
+``make_serving_fn``'s graphed function, one CUDA graph a form captured at
+its first request and replayed after (the float forms' settings, strict
+float32 or bf16 autocast, in force at their capture).  ``extra`` sets it beside strict float32 (``full_f32``:
 TF32 off, deterministic cuDNN) and bf16 autocast, carries ResNet-50 at
 batch 256 (``resnet50_int8_*``, bench.py's second headline), bench.py's
 extras MobileOne-S1 and MobileNetV2 at batch 256 (``mobileone_s1_int8_*``,
@@ -41,6 +44,7 @@ of 3 rounds per form.  There is no fence to subtract.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -123,21 +127,32 @@ def best_of_rounds(fns, x):
     return best
 
 
-def float_forms(model, device):
-    """The fp forwards of ``model``: PyTorch's defaults, strict float32 and
-    bf16 autocast, on a copy whose weights are channels_last."""
+class Under(torch.nn.Module):
+    """``model``'s forward under ``settings()`` (a context manager): a
+    graph captures the settings in force while it is captured."""
+
+    def __init__(self, model, settings):
+        super().__init__()
+        self.model, self.settings = model, settings
+
+    def forward(self, x, qmode: str = "fp"):
+        with self.settings():
+            return self.model(x, qmode=qmode)
+
+
+def float_forms(model, device, graph=None):
+    """The fp forwards of ``model``, each graphed unless ``graph=False``:
+    PyTorch's defaults, strict float32 and bf16 autocast, on a copy whose
+    weights are channels_last."""
     fp_model = copy.deepcopy(model).to(memory_format=torch.channels_last)
-    fp32 = make_serving_fn(fp_model, qmode="fp", device=device)
-
-    def strict(x):
-        with full_f32():
-            return fp32(x)
-
-    def bf16(x):
-        with torch.autocast("cuda", dtype=torch.bfloat16):
-            return fp32(x)
-
-    return {"fp32": fp32, "fp32_strict": strict, "bf16": bf16}
+    # autocast's cache of cast weights is off: a graph keeps no tensor
+    # that the end of its capture frees
+    settings = {"fp32": contextlib.nullcontext, "fp32_strict": full_f32,
+                "bf16": lambda: torch.autocast("cuda", dtype=torch.bfloat16,
+                                               cache_enabled=False)}
+    return {name: make_serving_fn(Under(fp_model, ctx), qmode="fp",
+                                  device=device, graph=graph)
+            for name, ctx in settings.items()}
 
 
 def layout_kernels(fn, x):
@@ -180,11 +195,19 @@ def bench_model(name: str, batch: int, device, expect, w_bits: int = 8):
           f"{kernels_ms:.4f} ms back to back", file=sys.stderr)
     int_fns = {qm: make_serving_fn(model, qmode=qm, device=device)
                for qm in ("intc", "int")}
+    # graphed == eager, bit for bit, before any timing
+    for qm, fn in int_fns.items():
+        eager = make_serving_fn(model, qmode=qm, device=device, graph=False)
+        if not torch.equal(fn(x), eager(x)):
+            raise RuntimeError(f"{name}: the graphed {qm} request differs "
+                               "from the eager one")
     for fn in int_fns.values():
         fn(x)
     qmode = max(int_fns, key=lambda qm: one_round(int_fns[qm], x, 16))
     fns = {"int8": int_fns[qmode], **float_forms(model, device)}
-    layout = layout_kernels(fns["fp32"], x)
+    # the kernels one fp request runs, as the host enqueues them eagerly
+    layout = layout_kernels(float_forms(model, device, graph=False)["fp32"],
+                            x)
     ips = best_of_rounds(fns, x)
     print(f"# {name} batch {batch}: images/s {ips} (int8 = {qmode})",
           file=sys.stderr)

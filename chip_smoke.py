@@ -76,13 +76,21 @@ Phases, each fatal on failure:
              kernel ms (per launch of a CUDA graph of 16, median of 5
              replays: a conv takes about as long as its launch from Python),
              bound ms, kernel / bound, plain ms;
-  3. serve   make_serving_fn(model, qmode="intc") answers 6 requests of
-             256 random images; the logits must be finite, (256, 1000),
-             agree with the same model run on the CPU (plain path) on 8
-             images, and the kernel must have launched 22 times a request;
-             then the device time of the request's three parts (input
-             quantize, the 22 convs, pool + head; CUDA graphs) and what is
-             left of the request: host and gaps;
+  3. serve   make_serving_fn(model, qmode="intc", graph=False) answers 6
+             requests of 256 random images; the logits must be finite,
+             (256, 1000), agree with the same model run on the CPU (plain
+             path) on 8 images, and the kernel must have launched 22 times
+             a request; then the graphed function, the card's default
+             (graphed_requests, as every serving phase that goes through
+             serve_requests: the request captured in a CUDA graph at its
+             first call and replayed), on the same images: the launches
+             recorded at the capture == one request's, the logits
+             bit-equal to the eager request's, no host sync in a replay;
+             the capture s and the graphed request's ms, host enqueue ms
+             and images/s beside the eager ones; then the device time of
+             the request's three parts (input quantize, the 22 convs, pool
+             + head; CUDA graphs) and what is left of the eager request:
+             host and gaps;
   recon    the flagship's main path: RepVGG-A0 in train form at full width
            (seeded weights, BN statistics from a train-mode forward of the
            first batch, then perturbed), repvgg_fuse, the
@@ -165,17 +173,22 @@ Phases, each fatal on failure:
            batch 128 (A0 through the entry itself, its JSON line: images/s
            at 1 device), then
            the resnet50 phase's deploy-form ResNet-50 in 'intc' (the stem
-           conv + pool kernel).  Each: measure_throughput images/s; a
+           conv + pool kernel).  Each: the graphed engine (the card's
+           default: its step captured in a CUDA graph at warmup) beside
+           an eager one (graph=False): measure_throughput images/s and a
+           step's forward ms of both, the graphed steps at a full and a
+           padded batch bit-equal to the eager ones; on the eager engine a
            stream of 6 requests of 1..384 seeded images from a submitter
            thread under LaunchRecorder(check=True): the launches of the
            steps as expected (A0 22 convs, ResNet-50 16 convs + 37 GEMMs +
            1 im2col in 'int', 16 + 36 + 2 stem conv + pool in 'intc'),
-           each == plain (tolerance 0); then 32 requests of 1..384 images
-           submitted at once (the engine's images/s under a full queue),
-           and a stream at Poisson arrivals at 0.6 of that rate (A0 300
-           requests: latency p50, p99 and max; ResNet-50 32: p50 and
-           max), images/s, pad waste; every future's rows == the direct
-           forward of its images (relative 1e-6); a step's forward ms on
+           each == plain (tolerance 0); then on the graphed engine 32
+           requests of 1..384 images submitted at once (the engine's
+           images/s under a full queue), and a stream at Poisson
+           arrivals at 0.6 of that rate (A0 300 requests: latency p50,
+           p99 and max; ResNet-50 32: p50 and max), images/s, pad waste;
+           every future's rows == the direct forward of its images
+           (relative 1e-6); a graphed step's forward ms on
            device-resident images and the host-to-device copy ms of its
            128 float32 images (CUDA events);
   model_axis the model axis (parallel/sharding_rules.py) on two ranks of
@@ -696,8 +709,9 @@ def card_tests():
     and stem + pool at the widths of two model-axis ranks, the GEMM's
     staged route in every mode at ResNet-50's residual and downsample
     shapes, at W4, with the row term and at every staged tile, and its
-    register route at N = 24), in a process of their own; fatal unless
-    all pass."""
+    register route at N = 24, the graphed serving function and engine
+    against the eager ones), in a process of their own; fatal unless all
+    pass."""
     tests = REPO / "tests"
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
@@ -714,7 +728,8 @@ def card_tests():
          str(tests / "test_torch_im2col_tiles.py"),
          str(tests / "test_torch_sharding.py"),
          str(tests / "test_torch_grouped_conv.py"),
-         str(tests / "test_torch_zoo_routes.py")],
+         str(tests / "test_torch_zoo_routes.py"),
+         str(tests / "test_torch_graphed_serving.py")],
         capture_output=True, text=True)
     tail = run.stdout.strip().splitlines()[-1:] or [run.stderr.strip()[-300:]]
     print(f"# card tests of int8_conv3x3 (grouped too), the ResNet path, "
@@ -840,17 +855,10 @@ def kernel_phase(model, batch: int, device, x=None):
 def serve_phase(model, device, card: str):
     """The main path: chained int8 serving through make_serving_fn."""
     cpu_model = copy.deepcopy(model).cpu()
-    serve = make_serving_fn(model, qmode="intc", device=device)
+    serve = make_serving_fn(model, qmode="intc", device=device, graph=False)
     x = images(SERVE_BATCH, SEED + 2, device)
     K.int8_conv3x3.launches = 0
-    torch.cuda.synchronize()
-    times, enqueue = [], []
-    for _ in range(REQUESTS):
-        t0 = time.perf_counter()
-        y = serve(x)
-        enqueue.append(time.perf_counter() - t0)   # the host's part
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    times, enqueue, y = timed_requests(serve, x)
     launches = K.int8_conv3x3.launches
     if launches != 22 * REQUESTS:
         raise RuntimeError(f"{launches} kernel launches for {REQUESTS} "
@@ -870,6 +878,8 @@ def serve_phase(model, device, card: str):
           f"{SERVE_BATCH / steady:.1f} images/s on {card}; the host has "
           f"enqueued a request after {statistics.median(enqueue[1:]) * 1e3:.3f}"
           f" ms")
+    graphed_requests("a0", model, x, y, dict(dict.fromkeys(KERNELS, 0),
+                                             conv=22), (times, enqueue))
     split_phase(model, x, steady * 1e3)
     return launches
 
@@ -982,7 +992,8 @@ def recon_phase(device, card: str):
         raise RuntimeError("the stem is not weight-only after "
                            "disable_first_act_quant")
     err = kernel_phase(student, 8, device)["err"]
-    serve = make_serving_fn(student, qmode="intc", device=device)
+    serve = make_serving_fn(student, qmode="intc", device=device,
+                            graph=False)
     x = images(SERVE_BATCH, SEED + 3, device)
     stem_calls = []
     hook = stem.register_forward_hook(
@@ -1317,32 +1328,27 @@ def stem_im2col_phase(model, x, parent=None):
 
 def serve_requests(what, model, x, expect, classes, ref: int = 8,
                    on_flip=None):
-    """make_serving_fn(qmode="intc") on ``x``, REQUESTS times: checks the
-    launches a request (``expect`` by kind; ``conv_grouped``,
+    """make_serving_fn(qmode="intc", graph=False) on ``x``, REQUESTS times,
+    then the graphed function on the same ``x`` (graphed_requests): checks
+    the launches a request (``expect`` by kind; ``conv_grouped``,
     ``dwconv_5x5``, ``dwconv_ragged``, ``dwconv_1x1`` and
     ``window_sum_grouped``, where given, the grouped ones among the conv's,
     the 5x5, ragged and 1x1 ones among the depthwise conv's and the
     grouped window sums), the logits' shape and
     finiteness and the CPU plain path on ``ref`` images (relative L2 2e-2;
     past it ``on_flip(rel, images)``, where given, must hold the model
-    module by module, C14, or raise); returns (median request ms,
-    launches by kind)."""
+    module by module, C14, or raise); returns (median eager request ms,
+    the eager requests' launches by kind)."""
     cpu_model = copy.deepcopy(model).cpu()
-    serve = make_serving_fn(model, qmode="intc", device=x.device)
+    serve = make_serving_fn(model, qmode="intc", device=x.device,
+                            graph=False)
     counters = {kind: KERNELS[kind][0] for kind in expect if kind in KERNELS}
     for fn in counters.values():
         fn.launches = 0
     K.int8_conv3x3.grouped_launches = 0
     DW.int8_dwconv3x3.launches_5x5 = DW.int8_dwconv3x3.launches_ragged = 0
     DW.int8_dwconv3x3.launches_1x1 = WS.int8_window_sum.launches_grouped = 0
-    torch.cuda.synchronize()
-    times, enqueue = [], []
-    for _ in range(REQUESTS):
-        t0 = time.perf_counter()
-        y = serve(x)
-        enqueue.append(time.perf_counter() - t0)   # the host's part
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    times, enqueue, y = timed_requests(serve, x)
     launches = {kind: fn.launches for kind, fn in counters.items()}
     for key, n in (("conv_grouped", K.int8_conv3x3.grouped_launches),
                    ("dwconv_5x5", DW.int8_dwconv3x3.launches_5x5),
@@ -1352,20 +1358,7 @@ def serve_requests(what, model, x, expect, classes, ref: int = 8,
                     WS.int8_window_sum.launches_grouped)):
         if key in expect:
             launches[key] = n
-    # one more request with PyTorch's sync debugging on: every call that
-    # makes the host wait for the card warns
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            serve(x)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    # (the first use also warns that the mode is a prototype)
-    syncs = [w for w in caught
-             if "called a synchronizing" in str(w.message)]
+    syncs = host_syncs(lambda: serve(x))
     if launches != {kind: n * REQUESTS for kind, n in expect.items()}:
         raise RuntimeError(f"{what}: {launches} launches for {REQUESTS} "
                            f"requests, expected {expect} a request")
@@ -1393,7 +1386,90 @@ def serve_requests(what, model, x, expect, classes, ref: int = 8,
           f"request: {len(syncs)}"
           + "".join(f"\n#   sync: {str(w.message)[:200]}"
                     for w in syncs[:3]))
+    graphed_requests(what, model, x, y, expect, (times, enqueue))
     return steady * 1e3, launches
+
+
+def timed_requests(serve, x):
+    """REQUESTS calls of ``serve(x)``, each to the card's end: (request s,
+    the host's enqueue s, the last logits)."""
+    torch.cuda.synchronize()
+    times, enqueue = [], []
+    for _ in range(REQUESTS):
+        t0 = time.perf_counter()
+        y = serve(x)
+        enqueue.append(time.perf_counter() - t0)   # the host's part
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, enqueue, y
+
+
+def host_syncs(run):
+    """The calls in ``run()`` that make the host wait for the card, as
+    PyTorch's sync debugging warns of them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # (the first use also warns that the mode is a prototype)
+    return [w for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def graphed_requests(what, model, x, eager_y, expect, eager):
+    """``x`` through make_serving_fn's graphed function (the card's
+    default: a CUDA graph captured at the first call, replayed after):
+    the launches recorded at the capture against ``expect`` (one request's,
+    by kind), the first and the last logits bit-equal to the eager
+    request's ``eager_y``, no host sync in a replay, one graph; then
+    REQUESTS replays timed as the eager requests were (``eager``: their
+    request and enqueue seconds).  Prints the capture's seconds and the
+    graphed request's median ms, enqueue ms and images/s beside the eager
+    ones; drops the graph (its memory pool freed); any mismatch raises.
+    Returns the graphed median ms."""
+    serve = make_serving_fn(model, qmode="intc", device=x.device)
+    t0 = time.perf_counter()
+    first = serve(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    key = (tuple(x.shape), x.dtype)
+    recorded = dict(serve.launches[key])
+    capture_s = serve.capture_s[key]
+    times, enqueue, y = timed_requests(serve, x)
+    syncs = host_syncs(lambda: serve(x))
+    graphs = len(serve.launches)
+    serve.reset()
+    del serve
+    got = {kind: recorded[kind] for kind in expect}
+    if got != expect or graphs != 1:
+        raise RuntimeError(f"{what} graphed: {graphs} graphs, the capture "
+                           f"recorded {got}, expected {expect} a request")
+    if not (torch.equal(first, eager_y) and torch.equal(y, eager_y)):
+        diff = max(float((t.float() - eager_y.float()).abs().max())
+                   for t in (first, y))
+        raise RuntimeError(f"{what} graphed: logits differ from the eager "
+                           f"request's by {diff}")
+    if syncs:
+        raise RuntimeError(f"{what} graphed: {len(syncs)} host syncs in a "
+                           f"replay: {str(syncs[0].message)[:200]}")
+    steady, enq = statistics.median(times), statistics.median(enqueue)
+    e_steady = statistics.median(eager[0][1:])
+    e_enq = statistics.median(eager[1][1:])
+    n = x.shape[0]
+    print(f"# {what} graphed: capture {capture_s:.3f} s (two forwards and "
+          f"the capture; the first call {first_s:.3f} s); batch {n} request "
+          f"{steady * 1e3:.3f} ms median of {REQUESTS} (eager "
+          f"{e_steady * 1e3:.3f}), host enqueue {enq * 1e3:.3f} ms (eager "
+          f"{e_enq * 1e3:.3f}), {n / steady:.1f} images/s (eager "
+          f"{n / e_steady:.1f}); launches recorded at the capture "
+          f"{ {k: v for k, v in recorded.items() if v} } == a request's; "
+          f"logits bit-equal to the eager request's; host syncs in a "
+          f"replay: 0; {card_line()}")
+    return steady * 1e3
 
 
 def recorded_calls(model, x, drop=()):
@@ -1650,8 +1726,9 @@ def mobile_serve_phase(name, model, device, pooled, expect=None):
         parts["pool + head"] = graph_ms(lambda _: materialize(model.linear(
             feat.mean(dim=(1, 2)), qmode="intc")), 4)
     split_line(name, request_ms, parts)
-    # what the host enqueues: the kernels of one request by the profiler
-    serve = make_serving_fn(model, qmode="intc", device=device)
+    # what the host enqueues: the kernels of one eager request by the
+    # profiler
+    serve = make_serving_fn(model, qmode="intc", device=device, graph=False)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1856,7 +1933,8 @@ def requests_in_turns(models, x, rounds: int = 4):
     one process: the median request ms and host enqueue ms of each, and
     the host's busiest ops of one request by the profiler's self CPU
     time."""
-    serves = {name: make_serving_fn(m, qmode="intc", device=x.device)
+    serves = {name: make_serving_fn(m, qmode="intc", device=x.device,
+                                    graph=False)
               for name, m in models.items()}
     times = {name: ([], []) for name in serves}
     for fn in serves.values():
@@ -2385,7 +2463,7 @@ def qat_deploy_leg(device):
     err = max(resnet_kernel_phase("qat lsq w4a4", model, xb,
                                   QAT_DEPLOY_LAUNCHES)["err"]
               for xb in (x256[:8], x256))
-    serve = make_serving_fn(model, qmode="intc", device=device)
+    serve = make_serving_fn(model, qmode="intc", device=device, graph=False)
     # the float stem conv and head in strict f32, as on the CPU (cuDNN's
     # TF32 default moves them by ~1e-3, and the codes after them with it)
     K.int8_conv3x3.launches = 0
@@ -2481,15 +2559,19 @@ def card_vs_cpu(what, model, x, qmode):
 
 
 def checked_engine(what, model, qmode, image, expect, device, card):
-    """``model`` through InferenceEngine at ENGINE_BATCH: measure_throughput
-    images/s, then engine_leg's checked stream (ENGINE_CHECKED requests of
-    1..3 batches under LaunchRecorder(check=True): the launches a step as
-    ``expect`` says, each == plain; every future's rows == the direct
-    forward) and a step's forward ms on device-resident images; returns
+    """``model`` through InferenceEngine at ENGINE_BATCH: the graphed
+    engine's (the card's default) measure_throughput images/s and a step's
+    forward ms on device-resident images, its step bit-equal to the eager
+    engine's (graphed_engine); then engine_leg's checked stream on the
+    eager engine (ENGINE_CHECKED requests of 1..3 batches under
+    LaunchRecorder(check=True): the launches a step as ``expect`` says,
+    each == plain; every future's rows == the direct forward); returns
     (the stream's launches by kind, images/s, forward ms)."""
     eng = InferenceEngine(model, batch_size=ENGINE_BATCH, qmode=qmode,
-                          device=device)
-    ips = measure_throughput(eng, image, n_batches=20)
+                          device=device, graph=False)
+    graphed, ips, fwd_ms = graphed_engine(what, model, qmode, image, eng,
+                                          device)
+    graphed.graphed.reset()
     b = ENGINE_BATCH
     pool = np.random.default_rng(SEED + 5).random(
         (3 * b + 64,) + tuple(image), np.float32)
@@ -2507,16 +2589,48 @@ def checked_engine(what, model, qmode, image, expect, device, card):
         raise RuntimeError(f"{what} engine: the wrappers counted {launches} "
                            f"launches in {steps} steps")
     worst = check_futures(what, eng, pool, reqs)
-    xd = torch.from_numpy(pool[:b]).to(device)
-    with torch.inference_mode():
-        fwd_ms = event_ms(lambda: model(xd, qmode=qmode), 5)
-    print(f"# {what} engine (qmode {qmode!r}, batch {b}): measure_throughput"
-          f" {ips:.1f} images/s; checked stream of {len(reqs)} requests "
-          f"({sum(sizes)} images, {steps} steps, {n_checked} launches "
-          f"== plain); every future == the direct forward (worst relative "
-          f"{worst:.1e}); a step's forward {fwd_ms:.3f} ms on "
-          f"device-resident images; launches {launches}; {card}")
+    print(f"# {what} engine (qmode {qmode!r}, batch {b}): graphed "
+          f"measure_throughput {ips:.1f} images/s; eager checked stream of "
+          f"{len(reqs)} requests ({sum(sizes)} images, {steps} steps, "
+          f"{n_checked} launches == plain); every future == the direct "
+          f"forward (worst relative {worst:.1e}); a graphed step's forward "
+          f"{fwd_ms:.3f} ms on device-resident images; launches {launches};"
+          f" {card}")
     return launches, ips, fwd_ms
+
+
+def graphed_engine(what, model, qmode, image, eager, device):
+    """The graphed InferenceEngine (the card's default) at ENGINE_BATCH:
+    measure_throughput (its warmup captures the step's graph) and a step's
+    forward ms (CUDA events, device-resident images copied into the
+    graph's input); its steps at a full and a padded batch bit-equal to
+    the ``eager`` engine's; one graph.  Prints the eager engine's
+    measure_throughput and forward beside them.  Returns (the graphed
+    engine, its images/s, its forward ms); the caller drops its graph
+    (``engine.graphed.reset()``)."""
+    eng = InferenceEngine(model, batch_size=ENGINE_BATCH, qmode=qmode,
+                          device=device)
+    ips = measure_throughput(eng, image, n_batches=20)
+    e_ips = measure_throughput(eager, image, n_batches=20)
+    xd = torch.from_numpy(np.random.default_rng(SEED + 9).random(
+        (ENGINE_BATCH,) + tuple(image), np.float32)).to(device)
+    fwd_ms = event_ms(lambda: eng.forward(xd), 5)
+    e_fwd_ms = event_ms(lambda: eager.forward(xd), 5)
+    for n in (ENGINE_BATCH, 5):
+        if not torch.equal(eng.forward(xd[:n]), eager.forward(xd[:n])):
+            raise RuntimeError(f"{what} engine: the graphed step of {n} "
+                               "rows differs from the eager one")
+    capture_s = eng.graphed.capture_s
+    graphs = len(capture_s)
+    capture_s = next(iter(capture_s.values()))
+    if graphs != 1:
+        raise RuntimeError(f"{what} engine: {graphs} graphs captured")
+    print(f"# {what} engine (qmode {qmode!r}, batch {ENGINE_BATCH}): graphed"
+          f" measure_throughput {ips:.1f} images/s (eager {e_ips:.1f}), a "
+          f"step's forward {fwd_ms:.3f} ms (eager {e_fwd_ms:.3f}) on "
+          f"device-resident images, capture {capture_s:.3f} s; graphed "
+          f"steps bit-equal to the eager engine's; {card_line()}")
+    return eng, ips, fwd_ms
 
 
 def offset_beside(calls):
@@ -2713,7 +2827,7 @@ def rootq_serve_phase(device, card, r20_trainer, r50_trainer,
                                   RESNET20_ROOTQ_LAUNCHES)["err"]
               for xb_ in (xs[:8], xs))
     zero_counts()
-    serve = make_serving_fn(r20, qmode="intc", device=device)
+    serve = make_serving_fn(r20, qmode="intc", device=device, graph=False)
     with full_f32():
         served = serve(xs)
         torch.cuda.synchronize()
@@ -2996,24 +3110,33 @@ def engine_leg(what, model, qmode, image, expect, device, card,
     once (the engine's images/s under a full queue); a timed stream of
     ``n_timed`` requests with Poisson arrivals at ENGINE_LOAD of that
     rate: request latency median (p50), max, and p99 where ``n_timed`` is
-    ENGINE_TAIL; images/s, pad waste; the step's device parts.  Returns
-    the engine's launches by kind (all three streams)."""
-    eng = InferenceEngine(model, batch_size=ENGINE_BATCH, qmode=qmode,
-                          device=device)
-    ips = measure_throughput(eng, image, n_batches=20)
+    ENGINE_TAIL; images/s, pad waste; the step's device parts.  The
+    checked stream runs on an eager engine (the recorder sees the
+    wrappers' calls, which a graph's replay does not make), the rest on
+    the graphed engine, the card's default, whose steps are first held
+    bit-equal to the eager engine's (graphed_engine).  Returns the
+    launches by kind from the checked stream on (a graph's replay
+    launches nothing on the host)."""
+    eager = InferenceEngine(model, batch_size=ENGINE_BATCH, qmode=qmode,
+                            device=device, graph=False)
+    eng, ips, _ = graphed_engine(what, model, qmode, image, eager, device)
     if ips_line is not None:
         print(f"# {what} engine: serve_benchmark {json.dumps(ips_line)}")
-    print(f"# {what} engine (qmode {qmode!r}, batch {ENGINE_BATCH}): "
-          f"measure_throughput {ips:.1f} images/s on {card}")
+    print(f"# {what} engine (qmode {qmode!r}, batch {ENGINE_BATCH}): graphed"
+          f" measure_throughput {ips:.1f} images/s on {card}")
     b = ENGINE_BATCH
     pool = np.random.default_rng(SEED + 5).random(
         (3 * b + 64,) + tuple(image), np.float32)
     rng = np.random.default_rng(SEED + 6)
-    eng.start()
+    eager.start()
     try:
         checked, checked_steps, n_checked = checked_stream(
-            what, eng, pool, rng.integers(1, 3 * b + 1,
-                                          ENGINE_CHECKED).tolist(), expect)
+            what, eager, pool, rng.integers(1, 3 * b + 1,
+                                            ENGINE_CHECKED).tolist(), expect)
+    finally:
+        eager.stop()
+    eng.start()
+    try:
         sizes = rng.integers(1, 3 * b + 1, ENGINE_FULL).tolist()
         t0 = time.perf_counter()
         full = submit_stream(eng, pool, sizes, seed=SEED + 7)
@@ -3029,17 +3152,18 @@ def engine_leg(what, model, qmode, image, expect, device, card,
     torch.cuda.synchronize()
     launches = engine_counts()
     steps = {k: eng.stats[k] - before[k] for k in eng.stats}
-    worst = check_futures(what, eng, pool, checked + full + timed)
+    worst = max(check_futures(what, eager, pool, checked),
+                check_futures(what, eng, pool, full + timed))
     lat = np.array([(d[0] - t) * 1e3 for *_, t, d in timed])
     tail = (f"p99 {np.percentile(lat, 99):.2f} ms, "
             if n_timed >= ENGINE_TAIL else "")
     images = sum(k for _, k, *_ in timed)
     x = torch.from_numpy(pool[:b])
     xd = x.to(device)
-    with torch.inference_mode():
-        fwd_ms = event_ms(lambda: model(xd, qmode=qmode), 5)
+    fwd_ms = event_ms(lambda: eng.forward(xd), 5)
+    eng.graphed.reset()
     h2d_ms = event_ms(lambda: x.to(device), 5)
-    print(f"# {what} engine: checked stream of {len(checked)} requests "
+    print(f"# {what} engine: eager checked stream of {len(checked)} requests "
           f"({sum(k for _, k, *_ in checked)} images, {checked_steps} steps, "
           f"{n_checked} launches == plain); every future == the direct "
           f"forward (worst relative {worst:.1e}, "
@@ -3051,7 +3175,7 @@ def engine_leg(what, model, qmode, image, expect, device, card,
           f"{lat.max():.2f} ms, mean {lat.mean():.2f} ms; "
           f"{images / wall:.1f} images/s over {wall:.2f} s; {steps['batches']}"
           f" steps, pad waste {steps['pad_waste'] / (steps['batches'] * b):.3f}"
-          f" of the rows; a step's device parts: forward "
+          f" of the rows (graphed); a step's device parts: graphed forward "
           f"{fwd_ms:.3f} ms on device-resident images, host-to-device copy of "
           f"{b} float32 images {h2d_ms:.3f} ms; launches {launches}; {card}")
     return launches
@@ -3508,7 +3632,8 @@ def kernel_split(what, model, x, request_ms, expect):
             lambda _, c=calls: run_calls(c), 4)
             for kind, calls in by_kind.items()}
     split_line(what, request_ms, parts)
-    serve = make_serving_fn(model, qmode="intc", device=x.device)
+    serve = make_serving_fn(model, qmode="intc", device=x.device,
+                            graph=False)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -3990,7 +4115,7 @@ def data_jpeg_leg(device, root: pathlib.Path, probe: dict, card: str):
                       generator=torch.Generator().manual_seed(SEED))
     calibrate(model, [torch.from_numpy(xcal).to(device)])
     prepare_deploy(model)
-    serve = make_serving_fn(model, qmode="intc", device=device)
+    serve = make_serving_fn(model, qmode="intc", device=device, graph=False)
     val = get_dataloader("ImageNet", data_dir=str(root), training=False,
                          batch_size=SERVE_BATCH)
     batches = iter(val)

@@ -18,7 +18,9 @@ of shape (N/2, 2) where N is even, else (N, 1).  Rank 0 first measures
 the replicated model alone while the others wait; then the engine shards
 the int8 plans over the model axis (``parallel.sharding_rules``), every
 rank measures at once, and the rates are summed over the rows of the
-data axis (a model group's ranks serve the same images).  The line's
+data axis (a model group's ranks serve the same images).  On a card the
+replicated engine replays a CUDA graph of its step
+(``parallel.serving.InferenceEngine``); a model group's runs eagerly.  The line's
 ``model_axis`` gives the axis' size, the transport of its gathers
 (``parallel.mesh.model_transport``: NCCL between cards, gloo through host
 memory where ranks share a card) and the ranks a card.  Rank 0 prints
@@ -116,8 +118,10 @@ def main(argv=None) -> int:
         if rank == 0:
             print(f"{what} on 1 device: {ips:.1f} img/s", flush=True)
         if ranks > 1:
+            # a model group's forward gathers over gloo or NCCL: eager
             eng = InferenceEngine(model, mesh, batch_size=args.batch,
-                                  qmode="int", device=device)
+                                  qmode="int", device=device,
+                                  graph=None if n_model == 1 else False)
             dist.barrier(group=mesh_lib.vote_group())
             total = _sum_over_ranks(measure_throughput(eng, image,
                                                        N_BATCHES)) / n_model

@@ -48,6 +48,7 @@ import torch.distributed as dist
 from dlmc_quant_torch.device import DeviceLike, resolve_device
 from dlmc_quant_torch.parallel import mesh as mesh_lib
 from dlmc_quant_torch.parallel.sharding_rules import shard_params
+from dlmc_quant_torch.quant.graphed import GraphedForward
 
 
 class InferenceEngine:
@@ -62,19 +63,30 @@ class InferenceEngine:
     ``forward`` must be called with the same batch on every rank of a
     model group.
 
+    On a CUDA device the steps are graphed by default (``graph=None``), as
+    JAX's engine calls its jitted forward: :meth:`warmup`, on the caller's
+    thread and before :meth:`start`, captures the padded ``batch_size``
+    forward in a CUDA graph (``quant.graphed.GraphedForward``, kept as
+    :attr:`graphed`), and every step copies its batch into the graph's
+    input and replays it; no capture runs once the dispatcher does.  The
+    weights are then constants of the graph, as JAX freezes the variables
+    into its program: a layer re-planned after the capture needs a new
+    engine.  A capture that fails raises; nothing serves eagerly instead.
+    ``graph=False`` and ``device="cpu"`` run the module eagerly each step
+    (``graph=True`` on the CPU raises), and so must a model group: a
+    sharded model refuses a graph (its gathers are collectives).
+
     There is no ``weight_resident`` argument: the module's integer plans
-    already live on the device, so nothing is marshalled per call, and a
-    later change to the module is seen by the next step (JAX freezes the
-    variables into the compiled program instead).  A kernel that fails
-    raises in the step; its error goes to that step's futures, never a
-    plain version in the kernel's place.
+    already live on the device, so nothing is marshalled per call.  A
+    kernel that fails raises in the step; its error goes to that step's
+    futures, never a plain version in the kernel's place.
     """
 
     def __init__(self, model: torch.nn.Module, mesh=None,
                  batch_size: int = 64, qmode: str = "int",
                  max_wait_ms: float = 2.0, lockstep: Optional[bool] = None,
                  tick_ms: float = 5.0, consensus_every: int = 8,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, graph: Optional[bool] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
@@ -90,6 +102,10 @@ class InferenceEngine:
                 raise ValueError("a model group steps in lockstep: its "
                                  "ranks must run the same batches")
             shard_params(self.model, mesh, "model")
+        if graph is None:
+            graph = self.device.type == "cuda"
+        self.graphed = (GraphedForward(self.model, qmode, self.device)
+                        if graph else None)
         self.tick = tick_ms / 1e3
         self.consensus_every = max(int(consensus_every), 1)
         self.steps = 0                  # lockstep: local dispatch count
@@ -112,10 +128,19 @@ class InferenceEngine:
     def forward(self, x) -> torch.Tensor:
         """Direct fixed-batch forward: ``x`` (n, H, W, C), numpy or a
         tensor, padded with zeros to ``batch_size`` rows; returns the first
-        ``n`` rows of the logits, on the device."""
+        ``n`` rows of the logits, on the device.  Graphed, the rows go
+        straight into the graph's static input and the graph is replayed;
+        a batch shape without a graph is captured first, unless the
+        dispatcher runs (then it raises)."""
         n = x.shape[0]
         x = torch.as_tensor(x)
         with self._on_device(), torch.inference_mode():
+            if self.graphed is not None:
+                g = self.graphed.captured(
+                    (max(n, self.batch_size),) + tuple(x.shape[1:]), x.dtype,
+                    capture=self._thread is None
+                    or not self._thread.is_alive())
+                return g.run(x)[:n]
             if n < self.batch_size:
                 xb = torch.zeros((self.batch_size,) + tuple(x.shape[1:]),
                                  dtype=x.dtype, device=self.device)
@@ -126,7 +151,8 @@ class InferenceEngine:
 
     def warmup(self, image_shape):
         """One padded step on the caller's thread: it builds the kernels
-        there, not on first use in the dispatcher."""
+        and, graphed, captures the step's CUDA graph there, not on first
+        use in the dispatcher."""
         self._image_shape = tuple(image_shape)
         x = np.zeros((self.batch_size,) + self._image_shape, np.float32)
         self.forward(x).cpu()
@@ -138,6 +164,10 @@ class InferenceEngine:
             raise RuntimeError(
                 "lockstep engines must warmup(image_shape) before start():"
                 " empty steps need the padded batch shape")
+        if self.graphed is not None and self._image_shape is None:
+            raise RuntimeError(
+                "graphed engines must warmup(image_shape) before start(): "
+                "the step's CUDA graph is captured there")
         self._stop.clear()
         target = self._lockstep_loop if self.lockstep else self._loop
         self._thread = threading.Thread(target=target, daemon=True)

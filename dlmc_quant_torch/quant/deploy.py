@@ -44,7 +44,7 @@ Not ported yet: the space-to-depth stem.
 from __future__ import annotations
 
 import logging
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -177,15 +177,30 @@ def midpoint_count(model: torch.nn.Module) -> int:
 
 
 def make_serving_fn(model: torch.nn.Module, qmode: str = "intc",
-                    device: DeviceLike = None):
+                    device: DeviceLike = None, graph: Optional[bool] = None):
     """Weight-resident forward ``fn(x) -> logits`` on ``device``.
 
-    The deploy-form module and its plans are moved to the device once;
-    each call moves only the activations (NHWC float32) and runs under
-    ``torch.inference_mode``.
+    The deploy-form module and its plans are moved to the device once.  On
+    a CUDA device the function is graphed by default (``graph=None``): a
+    :class:`~dlmc_quant_torch.quant.graphed.GraphedForward`, which captures
+    the forward once a (shape, dtype) of ``x`` in a CUDA graph, as
+    ``jax.jit`` compiles once a shape, and replays it; its ``launches``
+    hold each capture's launches by kind.  The weights are constants of
+    the graph, as JAX freezes the variables into its program: a layer
+    re-planned after a capture (new tensors) needs a new serving function.
+    A capture that fails raises; it never serves eagerly instead.
+
+    ``graph=False``, and ``device="cpu"`` (where ``graph=True`` raises),
+    give the eager forward: each call moves only the activations (NHWC
+    float32) and runs the module under ``torch.inference_mode``.
     """
     device = resolve_device(device)
     model = model.to(device).eval()
+    if graph is None:
+        graph = device.type == "cuda"
+    if graph:
+        from dlmc_quant_torch.quant.graphed import GraphedForward
+        return GraphedForward(model, qmode, device)
 
     def serve(x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():

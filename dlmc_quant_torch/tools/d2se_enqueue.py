@@ -5,7 +5,9 @@ this tree or on another.
 
 The model and images are ``bench_torch.py``'s ``prep`` of
 ``repvgg_d2se_int8`` (deploy form, seeded weights, the bench's W8A8
-scheme), served through ``make_serving_fn(qmode="intc")``.  A request is
+scheme), served eagerly through ``make_serving_fn(qmode="intc",
+graph=False)`` (a tree older than the graphed serving function takes no
+``graph``, and serves eagerly without it).  A request is
 timed on the host's clock from its call to its return (the enqueue: the
 card runs behind the host) and to the card's end (the wall).  Then the
 same requests again with forward hooks and a wrapper on the SE block's
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import inspect
 import pathlib
 import statistics
 import sys
@@ -60,7 +63,9 @@ def main(argv=None):
         raise SystemExit("d2se_enqueue: no CUDA device")
     model, x = bench_torch.prep("RepVGG_D2se", opts.batch,
                                 torch.device("cuda"))
-    serve = make_serving_fn(model, qmode="intc", device=x.device)
+    eager = ({"graph": False} if "graph" in inspect.signature(
+        make_serving_fn).parameters else {})
+    serve = make_serving_fn(model, qmode="intc", device=x.device, **eager)
 
     def requests():
         """(enqueue ms, wall ms) medians over the requests after the

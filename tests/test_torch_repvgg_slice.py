@@ -249,7 +249,8 @@ TRAINING_MODULES = (
     "dlmc_quant_torch.tools.dw_launches",
     "dlmc_quant_torch.tools.window_launches",
     "dlmc_quant_torch.parallel.sharding_rules",
-    "dlmc_quant_torch.tools.model_axis_2proc")
+    "dlmc_quant_torch.tools.model_axis_2proc",
+    "dlmc_quant_torch.quant.graphed")
 
 
 def test_import_leaves_out_jax():
